@@ -1,0 +1,197 @@
+"""The shuffling dataset: exact-size host batches of every epoch's shuffle.
+
+Rank 0 creates the batch queue and runs the multi-epoch shuffle on a
+daemon thread. Every rank iterates batches of exactly ``batch_size`` rows,
+re-cut from the reducer outputs with a carry buffer, and acks what it
+consumed so the epoch window can move on.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Iterator, List, Optional
+
+from ray_shuffling_data_loader_tpu_torch import runtime
+from ray_shuffling_data_loader_tpu_torch.batch_queue import (
+    DEFAULT_QUEUE_NAME,
+    connect_queue,
+    create_queue,
+)
+from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch
+from ray_shuffling_data_loader_tpu_torch.shuffle import shuffle
+
+# Default reducer share of the host's cores.
+REDUCER_CLUSTER_CORE_SHARE = 0.6
+
+
+def default_num_reducers(num_trainers: int) -> int:
+    return max(
+        1, int(num_trainers * (os.cpu_count() or 1) * REDUCER_CLUSTER_CORE_SHARE)
+    )
+
+
+class CarryRebatcher:
+    """The exact-``batch_size`` re-batching algebra.
+
+    Reducer outputs arrive in arbitrary sizes; training wants exact batches
+    with a carry buffer spanning output boundaries. ``skip_batches`` counts
+    suppressed batches in yield order (the final partial counts as one).
+    """
+
+    def __init__(self, batch_size: int, skip_batches: int = 0):
+        self.batch_size = batch_size
+        self.to_skip = skip_batches
+        self.buf: Optional[ColumnBatch] = None
+
+    def feed(self, cb: ColumnBatch) -> Iterator[ColumnBatch]:
+        """Yield every full batch completed by this reducer output."""
+        batch_size = self.batch_size
+        offset = batch_size - (self.buf.num_rows if self.buf else 0)
+        # Top up the carry buffer with a front slice.
+        self.buf = ColumnBatch.concat([self.buf, cb.slice(0, offset)])
+        if self.buf.num_rows == batch_size:
+            if self.to_skip > 0:
+                self.to_skip -= 1
+            else:
+                yield self.buf
+            self.buf = None
+        # Whole batches straight from this output, then the short tail
+        # into the carry buffer.
+        start = min(offset, cb.num_rows)
+        num_full = (cb.num_rows - start) // batch_size
+        num_skipped = min(self.to_skip, num_full)
+        self.to_skip -= num_skipped
+        for i in range(num_skipped, num_full):
+            lo = start + i * batch_size
+            yield cb.slice(lo, lo + batch_size)
+        tail = start + num_full * batch_size
+        if tail < cb.num_rows:
+            self.buf = cb.slice(tail, cb.num_rows)
+
+    def finish(self, drop_last: bool) -> Optional[ColumnBatch]:
+        """The final partial batch, unless dropped, skipped or empty."""
+        buf, self.buf = self.buf, None
+        if buf is not None and buf.num_rows > 0 and not drop_last:
+            if self.to_skip > 0:
+                self.to_skip -= 1
+                return None
+            return buf
+        return None
+
+
+class ShufflingDataset:
+    """Iterates exact-``batch_size`` :class:`ColumnBatch`\\ es of a
+    per-epoch shuffle. Call :meth:`set_epoch` before each epoch.
+
+    Args:
+        filenames: Parquet files.
+        num_epochs, num_trainers, batch_size, rank: the run's shape.
+        drop_last: drop the final partial batch of each epoch.
+        num_reducers: reducer count (default: a share of the host's cores).
+        max_concurrent_epochs: epochs shuffled ahead of training.
+        seed: root seed of every epoch's permutations.
+        queue_name: name of the in-process batch queue ranks share.
+        start_epoch: first epoch to shuffle (resume; epochs stay absolute).
+        narrow_to_32: cast 64-bit columns to 32 bits at decode.
+    """
+
+    def __init__(
+        self,
+        filenames: List[str],
+        num_epochs: int,
+        num_trainers: int,
+        batch_size: int,
+        rank: int,
+        drop_last: bool = False,
+        num_reducers: Optional[int] = None,
+        max_concurrent_epochs: int = 2,
+        seed: int = 0,
+        queue_name: str = DEFAULT_QUEUE_NAME,
+        start_epoch: int = 0,
+        narrow_to_32: bool = False,
+    ):
+        runtime.ensure_initialized()
+        if num_reducers is None:
+            num_reducers = default_num_reducers(num_trainers)
+        self._batch_size = batch_size
+        self._num_epochs = num_epochs
+        self._rank = rank
+        self._drop_last = drop_last
+        self._epoch: Optional[int] = None
+        self._last_epoch: Optional[int] = None
+        self._skip_batches = 0
+        self._error: Optional[BaseException] = None
+        self._thread: Optional[threading.Thread] = None
+        if rank != 0:
+            self._batch_queue = connect_queue(queue_name)
+            return
+        self._batch_queue = create_queue(
+            queue_name, num_epochs, num_trainers, max_concurrent_epochs
+        )
+
+        def _drive():
+            try:
+                shuffle(
+                    filenames, self._batch_queue, num_epochs, num_reducers,
+                    num_trainers, seed=seed, start_epoch=start_epoch,
+                    narrow_to_32=narrow_to_32,
+                )
+            except Exception as exc:  # raised on the consumer side
+                self._error = exc
+                # Unblock every rank still waiting on an epoch.
+                bq = self._batch_queue
+                for epoch in range(num_epochs):
+                    for r in range(num_trainers):
+                        if not bq.producer_done_events[epoch][r].is_set():
+                            bq.producer_done(r, epoch)
+
+        self._thread = threading.Thread(target=_drive, name="shuffle-driver", daemon=True)
+        self._thread.start()
+
+    @property
+    def batch_size(self) -> int:
+        return self._batch_size
+
+    def set_epoch(self, epoch: int, skip_batches: int = 0) -> None:
+        """Select the epoch to iterate next. ``skip_batches`` resumes
+        mid-epoch: the shuffle is deterministic per ``(seed, epoch)``, so
+        suppressing the first ``skip_batches`` batches gives the stream an
+        uninterrupted run would have produced from there."""
+        self._epoch = epoch
+        self._skip_batches = skip_batches
+
+    def __iter__(self) -> Iterator[ColumnBatch]:
+        if self._epoch is None or self._epoch == self._last_epoch:
+            raise ValueError(
+                "You must set the epoch on this dataset via set_epoch() at "
+                "the beginning of each epoch, before iterating over this "
+                "dataset."
+            )
+        epoch, rank = self._epoch, self._rank
+        rebatch = CarryRebatcher(self._batch_size, self._skip_batches)
+        is_done = False
+        while not is_done:
+            pending = self._batch_queue.get_batch(rank, epoch)
+            if pending[-1] is None:
+                is_done = True
+                pending.pop()
+            num_outstanding = len(pending)
+            for cb in pending:
+                yield from rebatch.feed(cb)
+            if num_outstanding:
+                self._batch_queue.task_done(rank, epoch, num_outstanding)
+        self._raise_if_failed()
+        final = rebatch.finish(self._drop_last)
+        if final is not None:
+            yield final
+        # Ack the end-of-epoch sentinel itself.
+        self._batch_queue.task_done(rank, epoch, 1)
+        self._last_epoch = epoch
+        if epoch == self._num_epochs - 1 and self._thread is not None:
+            self._thread.join()
+            self._raise_if_failed()
+
+    def _raise_if_failed(self) -> None:
+        if self._error is not None:
+            raise RuntimeError("the shuffle driver failed") from self._error

@@ -1,0 +1,94 @@
+"""The port stands alone: no JAX, flax, optax or JAX-package import, in
+its sources, in ``chip_smoke.py``, or at run time; and its default
+device is CUDA, never a silent CPU fallback."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+import ray_shuffling_data_loader_tpu_torch as port
+from ray_shuffling_data_loader_tpu_torch.utils.device import resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_DIR = os.path.join(REPO, "ray_shuffling_data_loader_tpu_torch")
+FORBIDDEN = {"jax", "flax", "optax", "ray_shuffling_data_loader_tpu"}
+
+
+def _sources():
+    for dirpath, _, filenames in os.walk(PORT_DIR):
+        for fn in filenames:
+            if fn.endswith(".py"):
+                yield os.path.join(dirpath, fn)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _imported_top_levels(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_forbidden_imports_in_sources():
+    paths = list(_sources())
+    assert len(paths) >= 15
+    bad = {
+        (os.path.relpath(p, REPO), name)
+        for p in paths
+        for name in _imported_top_levels(p)
+        if name in FORBIDDEN
+    }
+    assert not bad
+    # The check compares whole names: the port's own name is allowed.
+    assert "ray_shuffling_data_loader_tpu_torch" not in FORBIDDEN
+
+
+def test_running_the_port_loads_no_jax(tmp_path):
+    script = textwrap.dedent(
+        f"""
+        import sys
+        sys.path.insert(0, {REPO!r})
+        import torch
+        import ray_shuffling_data_loader_tpu_torch as port
+        port.runtime.init(num_workers=2)
+        files, _ = port.generate_data(600, 2, 1, 0.0, {str(tmp_path)!r})
+        cols = [c for c in port.DATA_SPEC if c != port.LABEL_COLUMN]
+        ds = port.DeviceShufflingDataset(files, 1, 1, 200, 0, feature_columns=cols,
+                                         label_column=port.LABEL_COLUMN, num_reducers=2,
+                                         device="cpu")
+        model = port.dlrm_for_data_spec(embed_dim=4, top_mlp=(8,), vocab_cap=64,
+                                        compute_dtype=torch.float32)
+        step = port.make_train_step(model, port.make_optimizer(model))
+        ds.set_epoch(0)
+        losses = [float(step(f, l)["loss"]) for f, l in ds]
+        port.runtime.shutdown()
+        assert len(losses) == 3, losses
+        loaded = sorted({{m.split(".")[0] for m in sys.modules}} & set({sorted(FORBIDDEN)!r}))
+        print("LOADED", loaded)
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
+    out = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True, timeout=120, env=env
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        port.DeviceShufflingDataset([], 1, 1, 8, 0, feature_columns=["a"], label_column="b")
+    assert resolve_device("cpu") == torch.device("cpu")
