@@ -32,8 +32,8 @@ class TabularDLRM(nn.Module):
         top_mlp: hidden widths of the top MLP (a width-1 logit layer
             follows).
         compute_dtype: dtype of the activations and matmuls.
-        use_kernel: interaction lowering (None: the kernel on CUDA tensors).
-        seed: seeds the initial weights.
+
+    The initial weights come from a generator seeded with 0.
     """
 
     def __init__(
@@ -42,16 +42,13 @@ class TabularDLRM(nn.Module):
         embed_dim: int = 32,
         top_mlp: Sequence[int] = (256, 128, 64),
         compute_dtype: torch.dtype = torch.bfloat16,
-        use_kernel: Optional[bool] = None,
-        seed: int = 0,
     ):
         super().__init__()
         self.vocab_sizes = dict(vocab_sizes)
         self.columns = sorted(self.vocab_sizes)
         self.embed_dim = embed_dim
         self.compute_dtype = compute_dtype
-        self.use_kernel = use_kernel
-        gen = torch.Generator().manual_seed(seed)
+        gen = torch.Generator().manual_seed(0)
         self.embeddings = nn.ModuleDict()
         for col in self.columns:
             table = nn.Embedding(self.vocab_sizes[col], embed_dim)
@@ -74,7 +71,7 @@ class TabularDLRM(nn.Module):
             idx = (features[col].reshape(-1) % self.vocab_sizes[col]).long()
             embeds.append(F.embedding(idx, self.embeddings[col].weight).to(self.compute_dtype))
         stacked = torch.stack(embeds, dim=1)  # [B, N, D]
-        inter = dot_interaction(stacked, use_kernel=self.use_kernel)
+        inter = dot_interaction(stacked)
         x = torch.cat([stacked.reshape(stacked.shape[0], -1), inter], dim=-1)
         cdt = self.compute_dtype
         for i, layer in enumerate(self.mlp):
@@ -89,8 +86,6 @@ def dlrm_for_data_spec(
     top_mlp: Sequence[int] = (256, 128, 64),
     vocab_cap: Optional[int] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
-    use_kernel: Optional[bool] = None,
-    seed: int = 0,
 ) -> TabularDLRM:
     """The flagship model for the ``DATA_SPEC`` cardinalities; ``vocab_cap``
     shrinks the tables for small runs."""
@@ -109,8 +104,6 @@ def dlrm_for_data_spec(
         embed_dim=embed_dim,
         top_mlp=tuple(top_mlp),
         compute_dtype=compute_dtype,
-        use_kernel=use_kernel,
-        seed=seed,
     )
 
 

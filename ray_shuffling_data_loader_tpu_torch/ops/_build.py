@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
-with a plain C interface, under ``build/kernels/`` at the root of the
-checkout. A library's file name carries a hash of its source, the shared
-headers and the flags, so a build happens only when one of them changes.
-Several kernels build in parallel: one ``nvcc`` each, all started
-together. A missing ``nvcc``, a failed build or a failed load raises.
+with a plain C interface. In a checkout the libraries go under
+``build/kernels/`` at its root; in an installed package, under
+``$XDG_CACHE_HOME`` (default ``~/.cache``)
+``/ray_shuffling_data_loader_tpu_torch/kernels``. A library's file name
+carries a hash of its source, the shared headers and the flags, so a build
+happens only when one of them changes. A missing ``nvcc``, a failed build
+or a failed load raises.
 """
 
 from __future__ import annotations
@@ -17,10 +19,20 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+
+def _build_dir() -> Path:
+    root = Path(__file__).resolve().parents[2]
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(Path.home(), ".cache")
+    return Path(cache) / "ray_shuffling_data_loader_tpu_torch" / "kernels"
+
+
+BUILD_DIR = _build_dir()
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -30,10 +42,6 @@ NVCC_FLAGS = [
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
-
-
-def kernel_names() -> List[str]:
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
 def nvcc_path() -> str:
@@ -63,37 +71,22 @@ def build_log(name: str) -> str:
     return log.read_text() if log.is_file() else ""
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
-    """Build the named kernels (default: all) that are not built yet, in
-    parallel. Returns each kernel's library path."""
-    names = list(names) if names is not None else kernel_names()
-    targets = {n: library_path(n) for n in names}
-    todo = {n: t for n, t in targets.items() if not t.is_file()}
-    if not todo:
-        return targets
+def build(name: str) -> Path:
+    """Build kernel ``name`` unless it is built already. Returns its
+    library path."""
+    target = library_path(name)
+    if target.is_file():
+        return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
-    procs = {}
-    for name, target in todo.items():
-        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (
-            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp,
-        )
-    failed = []
-    for name, (proc, tmp) in procs.items():
-        output, _ = proc.communicate()
-        target = todo[name]
-        target.with_suffix(".log").write_text(output)
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{output}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, target)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return targets
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    target.with_suffix(".log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exited {proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, target)
+    return target
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -101,7 +94,7 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
-            path = build([name])[name]
+            path = build(name)
             lib = ctypes.CDLL(str(path))
             _LOADED[name] = lib
         return lib

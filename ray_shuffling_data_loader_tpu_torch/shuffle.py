@@ -18,6 +18,7 @@ the draws and the group-by order are the same.
 
 from __future__ import annotations
 
+import os
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -79,22 +80,26 @@ def _reduce_seed(seed: int, epoch: int, reducer: int) -> np.random.Generator:
     )
 
 
+def check_shuffle_plan() -> None:
+    """Only the rowwise plan family is ported: ``RSDL_SHUFFLE_PLAN`` unset
+    or ``rowwise`` passes, ``block[:G]`` raises ``NotImplementedError``,
+    anything else ``ValueError``."""
+    env = os.environ.get("RSDL_SHUFFLE_PLAN", "").strip().lower()
+    if env in ("", "rowwise", "row", "off"):
+        return
+    if env == "block" or env.startswith("block:"):
+        raise NotImplementedError(
+            f"RSDL_SHUFFLE_PLAN={env!r}: the block plan family is not "
+            "ported yet; only 'rowwise' is"
+        )
+    raise ValueError(f"RSDL_SHUFFLE_PLAN={env!r}: expected 'rowwise' or 'block[:G]'")
+
+
 def _file_assignment(
-    seed: int,
-    epoch: int,
-    file_index: int,
-    n: int,
-    num_reducers: int,
-    plan: Tuple[str, int] = ("rowwise", 1),
+    seed: int, epoch: int, file_index: int, n: int, num_reducers: int
 ) -> np.ndarray:
     """Each row's reducer for one file: an independent seeded draw per row
     (the rowwise plan family)."""
-    family, _ = plan
-    if family != "rowwise":
-        raise NotImplementedError(
-            f"shuffle plan family {family!r} is not ported yet; only "
-            "'rowwise' is"
-        )
     return _map_seed(seed, epoch, file_index).integers(num_reducers, size=n)
 
 
@@ -200,6 +205,7 @@ def shuffle(
 ) -> None:
     """Shuffle every epoch from ``start_epoch``; each epoch first waits for
     the queue's epoch window to admit it."""
+    check_shuffle_plan()
     for epoch in range(start_epoch, num_epochs):
         batch_queue.new_epoch(epoch)
         shuffle_epoch(

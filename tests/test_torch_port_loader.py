@@ -20,7 +20,7 @@ from ray_shuffling_data_loader_tpu_torch import data_generation as port_gen
 from ray_shuffling_data_loader_tpu_torch.dataset import CarryRebatcher, ShufflingDataset
 from ray_shuffling_data_loader_tpu_torch.device_dataset import DeviceShufflingDataset
 from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch
-from ray_shuffling_data_loader_tpu_torch.shuffle import _file_assignment, _narrow_column
+from ray_shuffling_data_loader_tpu_torch.shuffle import _narrow_column, shuffle
 
 FEATURES = [c for c in port_gen.DATA_SPEC if c != port_gen.LABEL_COLUMN]
 
@@ -222,8 +222,18 @@ def test_per_column_staging_for_unpackable_specs(files):
     assert feats["one_hot0"].dtype == torch.int32 and label.dtype == torch.float32
 
 
-def test_unported_plan_and_narrowing_range_raise():
-    with pytest.raises(NotImplementedError):
-        _file_assignment(0, 0, 0, 10, 4, plan=("block", 2))
+def test_unported_plan_and_narrowing_range_raise(monkeypatch, files):
+    for plan in ("block", "block:2"):
+        monkeypatch.setenv("RSDL_SHUFFLE_PLAN", plan)
+        with pytest.raises(NotImplementedError):
+            shuffle(files, None, 1, 2, 1)
+        ds = ShufflingDataset(files, 1, 1, 1000, 0, num_reducers=2, queue_name=_qname())
+        ds.set_epoch(0)
+        with pytest.raises(RuntimeError) as info:
+            list(ds)
+        assert isinstance(info.value.__cause__, NotImplementedError)
+    monkeypatch.setenv("RSDL_SHUFFLE_PLAN", "bogus")
+    with pytest.raises(ValueError):
+        shuffle(files, None, 1, 2, 1)
     with pytest.raises(ValueError):
         _narrow_column("big", np.array([2**40], dtype=np.int64))
