@@ -193,7 +193,7 @@ def phase_slice(torch, data_dir: str) -> dict:
         log(f"[slice] generated {num_rows} rows ({nbytes} B) in {len(filenames)} files "
             f"in {time.perf_counter() - t0:.2f} s")
         feature_columns = [c for c in port.DATA_SPEC if c != port.LABEL_COLUMN]
-        model = port.dlrm_for_data_spec().to("cuda")
+        model = port.dlrm_for_data_spec()
         step = port.make_train_step(model, port.make_optimizer(model))
         ds = port.DeviceShufflingDataset(
             filenames, num_epochs=num_epochs, num_trainers=1, batch_size=batch_size,

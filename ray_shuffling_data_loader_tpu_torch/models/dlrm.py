@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ray_shuffling_data_loader_tpu_torch.ops import dot_interaction, num_pairs
+from ray_shuffling_data_loader_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
 class TabularDLRM(nn.Module):
@@ -86,9 +87,11 @@ def dlrm_for_data_spec(
     top_mlp: Sequence[int] = (256, 128, 64),
     vocab_cap: Optional[int] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
+    device: DeviceLike = None,
 ) -> TabularDLRM:
-    """The flagship model for the ``DATA_SPEC`` cardinalities; ``vocab_cap``
-    shrinks the tables for small runs."""
+    """The flagship model for the ``DATA_SPEC`` cardinalities, on
+    ``device`` (default ``cuda``); ``vocab_cap`` shrinks the tables for
+    small runs."""
     from ray_shuffling_data_loader_tpu_torch.data_generation import (
         DATA_SPEC,
         LABEL_COLUMN,
@@ -104,16 +107,17 @@ def dlrm_for_data_spec(
         embed_dim=embed_dim,
         top_mlp=tuple(top_mlp),
         compute_dtype=compute_dtype,
-    )
+    ).to(resolve_device(device))
 
 
 def example_features(
-    model: TabularDLRM, batch_size: int, seed: int = 0, device="cpu"
+    model: nn.Module, batch_size: int, seed: int = 0, device: DeviceLike = None
 ) -> Dict[str, torch.Tensor]:
     """A random batch of int32 ids matching the model's columns, built on
-    the host and moved to ``device``."""
+    the host and moved to ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     return {
-        col: torch.from_numpy(rng.integers(0, size, batch_size, dtype=np.int32)).to(device)
+        col: torch.from_numpy(rng.integers(0, size, batch_size, dtype=np.int32)).to(dev)
         for col, size in model.vocab_sizes.items()
     }

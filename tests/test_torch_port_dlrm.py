@@ -40,14 +40,15 @@ def _models(compute):
     feats, _ = _batch()
     params = jmodel.init(jax.random.key(0), {k: jnp.asarray(v) for k, v in feats.items()})
     tmodel = dlrm_for_data_spec(
-        embed_dim=EMBED_DIM, top_mlp=TOP_MLP, vocab_cap=VOCAB_CAP, compute_dtype=tdt
+        embed_dim=EMBED_DIM, top_mlp=TOP_MLP, vocab_cap=VOCAB_CAP, compute_dtype=tdt,
+        device="cpu",
     )
     tmodel.load_state_dict(dlrm_state_dict_from_jax(jax.tree.map(np.asarray, params)))
     return jmodel, params, tmodel
 
 
 def test_columns_in_sorted_string_order():
-    model = dlrm_for_data_spec(embed_dim=4, top_mlp=(8,), vocab_cap=16)
+    model = dlrm_for_data_spec(embed_dim=4, top_mlp=(8,), vocab_cap=16, device="cpu")
     assert model.columns == sorted(model.columns)
     i = model.columns.index("embeddings_name1")
     assert model.columns[i + 1] == "embeddings_name10"

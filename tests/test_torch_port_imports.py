@@ -65,7 +65,7 @@ def test_running_the_port_loads_no_jax(tmp_path):
                                          label_column=port.LABEL_COLUMN, num_reducers=2,
                                          device="cpu")
         model = port.dlrm_for_data_spec(embed_dim=4, top_mlp=(8,), vocab_cap=64,
-                                        compute_dtype=torch.float32)
+                                        compute_dtype=torch.float32, device="cpu")
         step = port.make_train_step(model, port.make_optimizer(model))
         ds.set_epoch(0)
         losses = [float(step(f, l)["loss"]) for f, l in ds]
@@ -84,6 +84,7 @@ def test_running_the_port_loads_no_jax(tmp_path):
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    model = port.dlrm_for_data_spec(embed_dim=4, top_mlp=(8,), vocab_cap=16, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         resolve_device()
@@ -91,4 +92,11 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         resolve_device("cuda")
     with pytest.raises(RuntimeError):
         port.DeviceShufflingDataset([], 1, 1, 8, 0, feature_columns=["a"], label_column="b")
+    # The model builders resolve their device the same way.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.dlrm_for_data_spec(embed_dim=4, top_mlp=(8,), vocab_cap=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.example_features(model, 4)
     assert resolve_device("cpu") == torch.device("cpu")
+    assert port.example_features(model, 4, device="cpu")[model.columns[0]].device.type == "cpu"
+

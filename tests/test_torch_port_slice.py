@@ -65,7 +65,8 @@ def test_three_train_steps_match_jax(tmp_path, local_runtime):
     state = TrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=opt.init(params))
     jstep = jax.jit(make_step_body(jmodel, opt))
 
-    tmodel = dlrm_for_data_spec(embed_dim=8, top_mlp=(32, 16), vocab_cap=1024, compute_dtype=torch.float32)
+    tmodel = dlrm_for_data_spec(embed_dim=8, top_mlp=(32, 16), vocab_cap=1024, compute_dtype=torch.float32,
+                                device="cpu")
     tmodel.load_state_dict(dlrm_state_dict_from_jax(jax.tree.map(np.asarray, params)))
     tstep = make_train_step(tmodel, make_optimizer(tmodel, lr=1e-3))
 

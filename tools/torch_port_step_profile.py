@@ -89,9 +89,9 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     cdt = {"bf16": torch.bfloat16, "fp32": torch.float32}[args.compute]
-    model = port.dlrm_for_data_spec(compute_dtype=cdt).to("cuda")
+    model = port.dlrm_for_data_spec(compute_dtype=cdt)
     opt = port.make_optimizer(model)
-    features = port.example_features(model, args.batch, seed=1, device="cuda")
+    features = port.example_features(model, args.batch, seed=1)
     labels = torch.rand(args.batch, generator=torch.Generator().manual_seed(2)).to("cuda")
 
     def step():
