@@ -1,38 +1,54 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out result.json]
 
 Phases, each of which fails the script (non-zero exit) on any error:
 
-1. build: compile the port's CUDA kernel from its source
-   (``ray_shuffling_data_loader_tpu_torch/ops/csrc/interaction.cu``) into
-   ``build/kernels/``;
-2. kernel: run the interaction kernel at the main path's shape
-   ``(65536, 19, 32)`` bf16 and at a ragged ``(500, 27, 16)`` fp32, hold it
-   against its plain PyTorch version, and time both beside the kernel's
-   bound;
-3. slice: write the README's Quick-start dataset (10^6 rows, 10 files,
-   5 row groups each), shuffle it for 2 epochs through
-   ``DeviceShufflingDataset`` on ``cuda`` (batch 65536, 8 reducers) and
-   train the full-width ``dlrm_for_data_spec()`` on every batch. Each
-   epoch must deliver every key at most once and exactly the full batches'
-   worth, every loss must be finite, and the kernel's launch count over
-   the phase must equal the number of steps;
-4. parity: one batch through the trained module on ``cuda`` and through
-   the same module with the same weights on the CPU, in fp32 with TF32
-   off.
+1. build: compile the port's CUDA kernels from their sources in
+   ``ray_shuffling_data_loader_tpu_torch/ops/csrc/`` (``interaction.cu``,
+   ``flash_fwd.cu``, ``flash_bwd.cu``; one ``nvcc`` each, all started
+   together) into ``build/kernels/`` and log each kernel's registers and
+   spills;
+2. kernel: hold each kernel against its plain PyTorch version on the card:
+   the interaction (K1) at the DLRM's ``(65536, 19, 32)`` bf16 and a ragged
+   ``(500, 27, 16)`` fp32; the flash forward (K2, output and the ``m``,
+   ``l`` statistics) and backward (K3: dK, dV; K4: dQ) at the
+   TabTransformer's ``[65536, 19, 4, 8]`` bf16 (q, k, v strided views of
+   one ``[b, t, 3, h, hd]`` tensor), the CausalLM's ``[4, 512, 4, 16]``
+   bf16 causal, ``[1, 300, 2, 8]`` fp32 causal and ``[2, 56, 2, 8]`` fp32.
+   Time every kernel beside its bound, its plain version and the PyTorch
+   library call that computes the same, at the main paths' shapes and at
+   ``[2, 4096, 8, 64]`` bf16, causal and not;
+3. slices: write the README's Quick-start dataset (10^6 rows, 10 files,
+   5 row groups each) and, for each of the full-width
+   ``dlrm_for_data_spec()`` and ``transformer_for_data_spec()``, shuffle it
+   for 2 epochs through ``DeviceShufflingDataset`` on ``cuda`` (batch
+   65536, 8 reducers) and train on every batch with Adam 1e-3. Each epoch
+   must deliver every key at most once and exactly the full batches'
+   worth, every loss must be finite, and over the path the interaction
+   kernel must launch once per DLRM step and each flash kernel twice per
+   TabTransformer step (two layers);
+4. lm: 20 Adam (3e-3) steps of ``CausalLM(vocab 64, seq 512, embed 64, 2
+   layers, 4 heads)`` on ``synthetic_tokens(4, 512, 64)``; the loss must
+   fall and each flash kernel launch twice per step;
+5. parity: one batch through each trained module on ``cuda`` (kernels)
+   and through the same module with the same weights on the CPU (plain
+   versions), in fp32 with TF32 off.
 
-Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
-as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, with
-no result, when no CUDA device is present.
+Every launch count is set to 0 just before a path is driven and read just
+after. Prints a ``{"kernels": [...]}`` line, the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``. Exits
+non-zero, with no result, when no CUDA device is present.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import copy
 import json
+import math
 import os
 import shutil
 import statistics
@@ -42,6 +58,8 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+KERNEL_SOURCES = ("interaction", "flash_fwd", "flash_bwd")
+JAX_FLASH = "ray_shuffling_data_loader_tpu/ops/flash_attention.py"
 
 MAIN_SHAPE = (65536, 19, 32)
 RAGGED_SHAPE = (500, 27, 16)
@@ -52,9 +70,40 @@ RAGGED_SHAPE = (500, 27, 16)
 BF16_TOL = dict(atol=1e-3, rtol=2**-7)
 # fp32: the same 16-term dot products summed in another order.
 FP32_TOL = dict(atol=1e-5, rtol=1e-5)
-# Parity: the same fp32 module on two devices, TF32 off; the interaction
-# and the matmuls sum in other orders (K up to 779).
+# Parity: the same fp32 module on two devices, TF32 off; the interaction,
+# the attention and the matmuls sum in other orders (K up to 779).
 PARITY_TOL = dict(atol=1e-4, rtol=1e-4)
+
+# Flash attention: (name, [b, t, h, hd], dtype, causal).
+TAB_SHAPE = (65536, 19, 4, 8)
+LM_SHAPE = (4, 512, 4, 16)
+LONG_SHAPE = (2, 4096, 8, 64)  # benchmarks/bench_attention.py's default
+FLASH_CASES = (
+    ("tabtransformer", TAB_SHAPE, "bfloat16", False),
+    ("causal_lm", LM_SHAPE, "bfloat16", True),
+    ("ragged", (1, 300, 2, 8), "float32", True),
+    ("short", (2, 56, 2, 8), "float32", False),
+    # The wider head-dim buckets (2 and 8 lanes per row) and a head dim
+    # that fills no 16-byte vector (element loads).
+    ("wide_heads", (2, 200, 2, 64), "bfloat16", True),
+    ("max_head_dim", (1, 70, 3, 120), "float32", False),
+    ("unaligned", (3, 5, 2, 20), "bfloat16", False),
+)
+# Flash tolerances. fp32: the order of tests/test_flash_attention.py (2e-5
+# forward, 1e-4 gradients): kernel and plain version take the same fp32
+# products and sum them in another order, and the kernel rescales its
+# running sums once per chunk of keys where the plain version normalises
+# once. m and l are fp32 in both dtypes: m is a max of the same scores
+# (one fp32 rounding apart), l a sum of at most t exponentials of them.
+# bf16: both compute in fp32 from the same bf16 inputs and round each
+# output once, so they may differ by one bf16 step (2**-7 of the value);
+# the atol covers values near 0, whose step is smaller than the fp32
+# summation error of their O(1) terms.
+FLASH_TOL = {
+    "float32": {"out": dict(atol=2e-5, rtol=2e-5), "grad": dict(atol=1e-4, rtol=1e-4)},
+    "bfloat16": {"out": dict(atol=1e-5, rtol=2**-7), "grad": dict(atol=1e-4, rtol=2**-7)},
+}
+STATS_TOL = dict(atol=1e-5, rtol=2e-5)
 
 # Device-memory rate of the H100 SXM (NVIDIA data sheet), bytes/s; another
 # card's bounds use the rate of a device-to-device copy measured here.
@@ -110,27 +159,50 @@ def time_ms(torch, fn, *args, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, ops: float, rate: float, peak: float):
+    """``(bound_ms, bound_by)``: the larger of bytes over the memory rate
+    and operations over the peak rate of their type."""
+    bytes_ms = nbytes / rate * 1e3
+    ops_ms = ops / peak * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def reset_launches(ops) -> None:
+    for fn in (ops.interaction_kernel, ops.flash_fwd_kernel, ops.flash_bwd_dkv_kernel,
+               ops.flash_bwd_dq_kernel):
+        fn.launches = 0
+
+
+def read_launches(ops) -> dict:
+    return {
+        "interaction": ops.interaction_kernel.launches,
+        "flash_fwd": ops.flash_fwd_kernel.launches,
+        "flash_bwd_dkv": ops.flash_bwd_dkv_kernel.launches,
+        "flash_bwd_dq": ops.flash_bwd_dq_kernel.launches,
+    }
+
+
 def phase_build():
     from ray_shuffling_data_loader_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    path = _build.build("interaction")
-    log(f"[build] interaction in {time.perf_counter() - t0:.2f} s: "
-        f"{os.path.relpath(path, ROOT)}")
-    for line in _build.build_log("interaction").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] interaction: {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        paths = dict(zip(KERNEL_SOURCES, pool.map(_build.build, KERNEL_SOURCES)))
+    log(f"[build] {len(paths)} kernel libraries in {time.perf_counter() - t0:.2f} s (in parallel)")
+    for name, path in paths.items():
+        log(f"[build] {name}: {os.path.relpath(path, ROOT)}")
+        for line in _build.build_log(name).splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
 
 
-def phase_kernel(torch, name: str) -> dict:
+def phase_interaction(torch, rate: float, rate_src: str) -> dict:
     from ray_shuffling_data_loader_tpu_torch.ops.interaction import (
         dot_interaction_reference,
         interaction_kernel,
         num_pairs,
     )
 
-    # The plain version's fp32 Gram must not round its inputs to TF32.
-    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
     for shape, dtype, tol in (
@@ -153,15 +225,12 @@ def phase_kernel(torch, name: str) -> dict:
     x = (torch.randn(MAIN_SHAPE, device="cuda", generator=gen) / d ** 0.5).to(torch.bfloat16)
     ms = time_ms(torch, interaction_kernel, x)
     plain_ms = time_ms(torch, dot_interaction_reference, x)
-    rate, rate_src, measured = memory_rate(torch, name)
     nbytes = b * n * d * 2 + b * num_pairs(n) * 2
     ops = 2 * b * num_pairs(n) * d
-    bytes_ms = nbytes / rate * 1e3
-    ops_ms = ops / BF16_PEAK * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    bound_ms, bound_by = bound(nbytes, ops, rate, BF16_PEAK)
     log(f"[kernel] interaction {MAIN_SHAPE} bf16: kernel {ms!r} ms, plain {plain_ms!r} ms, "
-        f"bound {bound_ms!r} ms ({nbytes} B at {rate:.4g} B/s from {rate_src}; "
-        f"{ops} ops at bf16 peak {ops_ms!r} ms); measured copy rate {measured:.4g} B/s")
+        f"bound {bound_ms!r} ms by {bound_by} ({nbytes} B at {rate:.4g} B/s from {rate_src}; "
+        f"{ops} ops at bf16 peak)")
     return {
         "name": "interaction",
         "route": "cuda",
@@ -172,91 +241,285 @@ def phase_kernel(torch, name: str) -> dict:
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_by": bound_by,
         # No single PyTorch call computes the strict upper triangle of a
         # batched Gram (bmm plus a gather is two).
         "library_ms": None,
     }
 
 
-def phase_slice(torch, data_dir: str) -> dict:
+def flash_inputs(torch, shape, dtype, gen):
+    """q, k, v as strided views of one ``[b, t, 3, h, hd]`` tensor (as the
+    encoder block makes them), and a cotangent dO."""
+    b, t, h, hd = shape
+    qkv = torch.randn((b, t, 3, h, hd), device="cuda", generator=gen).to(dtype)
+    dout = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], dout
+
+
+def flash_work(shape, elem: int, causal: bool):
+    """Bytes each flash kernel must move (inputs read once, outputs written
+    once) and the multiply-adds x 2 its products need, per kernel."""
+    b, t, h, hd = shape
+    tensor = b * t * h * hd * elem
+    row = b * h * t * 4
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    return {
+        "flash_fwd": (3 * tensor + tensor + 2 * row, 4 * pairs * hd),
+        "flash_bwd_dkv": (4 * tensor + 3 * row + 2 * tensor, 8 * pairs * hd),
+        "flash_bwd_dq": (4 * tensor + 3 * row + tensor, 6 * pairs * hd),
+    }
+
+
+def check_flash(torch, ops, case, gen) -> dict:
+    name, shape, dtype_name, causal = case
+    dtype = getattr(torch, dtype_name)
+    q, k, v, dout = flash_inputs(torch, shape, dtype, gen)
+    out, m, l = ops.flash_fwd_kernel(q, k, v, causal)
+    torch.cuda.synchronize()
+    out_r, m_r, l_r = ops.flash_forward_reference(q, k, v, causal)
+    big_d = ops.row_dot(dout, out)
+    dk, dv = ops.flash_bwd_dkv_kernel(q, k, v, dout, m, l, big_d, causal)
+    dq = ops.flash_bwd_dq_kernel(q, k, v, dout, m, l, big_d, causal)
+    torch.cuda.synchronize()
+    dq_r, dk_r, dv_r = ops.flash_backward_reference(q, k, v, out, m, l, dout, causal)
+    tol = FLASH_TOL[dtype_name]
+    errs = {}
+    for key, got, want, t in (
+        ("out", out, out_r, tol["out"]), ("m", m, m_r, STATS_TOL), ("l", l, l_r, STATS_TOL),
+        ("dq", dq, dq_r, tol["grad"]), ("dk", dk, dk_r, tol["grad"]), ("dv", dv, dv_r, tol["grad"]),
+    ):
+        assert got.dtype == want.dtype and got.shape == want.shape, (key, got.shape, want.shape)
+        errs[key] = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), **t, msg=lambda s: f"{name} {key}: {s}")
+    log(f"[kernel] flash {name} {list(shape)} {dtype_name} causal={causal}: max |kernel - plain| "
+        + ", ".join(f"{k_} {e!r}" for k_, e in errs.items())
+        + f" (out {tol['out']}, m/l {STATS_TOL}, grads {tol['grad']})")
+    return errs
+
+
+def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
+    """Each flash kernel, its plain version and the library call, in bf16
+    at ``shape``: ``{kernel: {ms, plain_ms, library_ms, bound_ms, ...}}``."""
+    import torch.nn.functional as F
+
+    q, k, v, dout = flash_inputs(torch, shape, torch.bfloat16, gen)
+    out, m, l = ops.flash_fwd_kernel(q, k, v, causal)
+    big_d = ops.row_dot(dout, out)
+    fwd_ms = time_ms(torch, ops.flash_fwd_kernel, q, k, v, causal)
+    dkv_ms = time_ms(torch, ops.flash_bwd_dkv_kernel, q, k, v, dout, m, l, big_d, causal)
+    dq_ms = time_ms(torch, ops.flash_bwd_dq_kernel, q, k, v, dout, m, l, big_d, causal)
+    reps = 10 if shape[1] > 1024 else 50
+    plain_fwd_ms = time_ms(torch, ops.flash_forward_reference, q, k, v, causal, reps=reps)
+    plain_bwd_ms = time_ms(torch, ops.flash_backward_reference, q, k, v, out, m, l, dout, causal,
+                           reps=reps)
+    # scaled_dot_product_attention takes [batch, heads, t, hd]; the
+    # transposes are made once, outside the timed call. Its kernels put
+    # batch and heads on grid axes of at most 65,535 blocks, so the b*h
+    # independent heads are regrouped as [b*h / n, n, t, hd], n = gcd(b*h,
+    # 4096). Its forward computes K2's output (not the statistics); its
+    # backward through autograd K3's and K4's together.
+    # cuDNN's backend fails at the TabTransformer's 262,144 heads, so the
+    # call is held to PyTorch's flash and memory-efficient backends.
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, t, h, hd = shape
+    heads = math.gcd(b * h, 4096)
+
+    def regroup(x):
+        return x.transpose(1, 2).reshape(b * h // heads, heads, t, hd)
+
+    qt, kt, vt = (regroup(x).detach().requires_grad_(True) for x in (q, k, v))
+    dot = regroup(dout)
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+        sdpa_fwd_ms = time_ms(
+            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        )
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        sdpa_bwd_ms = time_ms(
+            torch, lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True)
+        )
+    work = flash_work(shape, 2, causal)
+    times = {
+        "flash_fwd": (fwd_ms, plain_fwd_ms, sdpa_fwd_ms),
+        "flash_bwd_dkv": (dkv_ms, plain_bwd_ms, sdpa_bwd_ms),
+        "flash_bwd_dq": (dq_ms, plain_bwd_ms, sdpa_bwd_ms),
+    }
+    result = {}
+    for kname, (ms, plain_ms, lib_ms) in times.items():
+        nbytes, nops = work[kname]
+        bound_ms, bound_by = bound(nbytes, nops, rate, BF16_PEAK)
+        result[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, bytes=nbytes, ops=nops)
+        log(f"[kernel] {kname} {list(shape)} bf16 causal={causal}: kernel {ms!r} ms, "
+            f"plain {plain_ms!r} ms, sdpa {lib_ms!r} ms, bound {bound_ms!r} ms by {bound_by} "
+            f"({nbytes} B, {nops} ops)")
+    return result
+
+
+def phase_flash(torch, rate: float):
+    import ray_shuffling_data_loader_tpu_torch.ops as ops
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    errs = {case[0]: check_flash(torch, ops, case, gen) for case in FLASH_CASES}
+    timings = {
+        "tabtransformer": time_flash(torch, ops, TAB_SHAPE, False, rate, gen),
+        "causal_lm": time_flash(torch, ops, LM_SHAPE, True, rate, gen),
+        "long": time_flash(torch, ops, LONG_SHAPE, False, rate, gen),
+        "long_causal": time_flash(torch, ops, LONG_SHAPE, True, rate, gen),
+    }
+    tab_err = errs["tabtransformer"]
+    entries = []
+    for kname, line, err in (
+        ("flash_fwd", 50, max(tab_err["out"], tab_err["m"], tab_err["l"])),
+        ("flash_bwd_dkv", 252, max(tab_err["dk"], tab_err["dv"])),
+        ("flash_bwd_dq", 331, tab_err["dq"]),
+    ):
+        t = timings["tabtransformer"][kname]
+        entries.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "ray_shuffling_data_loader_tpu_torch/ops/csrc/"
+                      + ("flash_fwd.cu" if kname == "flash_fwd" else "flash_bwd.cu"),
+            "replaces": f"{JAX_FLASH}:{line}",
+            "launches": None,
+            "max_abs_err": err,
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    return entries, {"errors": errs, "timings": timings}
+
+
+def train_slice(torch, port, filenames, num_rows, model, label: str) -> dict:
+    """Two epochs of ``model`` on the shuffled dataset, with the launch
+    counts set to 0 just before and read just after."""
     import numpy as np
 
-    import ray_shuffling_data_loader_tpu_torch as port
-    from ray_shuffling_data_loader_tpu_torch.ops.interaction import interaction_kernel
+    import ray_shuffling_data_loader_tpu_torch.ops as ops
 
-    num_rows, batch_size, num_epochs = 10**6, 65536, 2
+    batch_size, num_epochs = 65536, 2
+    feature_columns = [c for c in port.DATA_SPEC if c != port.LABEL_COLUMN]
+    step = port.make_train_step(model, port.make_optimizer(model))
+    ds = port.DeviceShufflingDataset(
+        filenames, num_epochs=num_epochs, num_trainers=1, batch_size=batch_size,
+        rank=0,
+        # "key" rides along for the exactly-once check and is dropped
+        # before the step.
+        feature_columns=[*feature_columns, port.KEY_COLUMN],
+        label_column=port.LABEL_COLUMN, num_reducers=8, seed=0, device="cuda",
+    )
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(ops)
+    steps, step_s, losses, epoch_s = 0, [], [], []
+    last = None
+    for epoch in range(num_epochs):
+        ds.set_epoch(epoch)
+        keys = []
+        t_epoch = time.perf_counter()
+        for features, labels in ds:
+            keys.append(features.pop(port.KEY_COLUMN))
+            t0 = time.perf_counter()
+            loss = step(features, labels)["loss"].item()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(loss)
+            steps += 1
+            last = (features, labels)
+        epoch_s.append(time.perf_counter() - t_epoch)
+        got = torch.cat(keys).cpu().numpy()
+        want_rows = (num_rows // batch_size) * batch_size
+        if got.size != want_rows or np.unique(got).size != got.size:
+            raise AssertionError(f"{label} epoch {epoch}: {got.size} keys, "
+                                 f"{np.unique(got).size} distinct; want {want_rows}")
+        if got.min() < 0 or got.max() >= num_rows:
+            raise AssertionError(f"{label} epoch {epoch}: key out of range")
+        log(f"[slice {label}] epoch {epoch}: {got.size} distinct keys exactly once, "
+            f"{len(keys)} steps, {epoch_s[-1]!r} s")
+    launches = read_launches(ops)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: non-finite loss: {losses}")
+    stats = ds.stats.as_dict()
+    median_ms = statistics.median(step_s[1:]) * 1e3
+    log(f"[slice {label}] {steps} steps, losses {losses[0]!r} -> {losses[-1]!r}; "
+        f"step median {median_ms!r} ms (first {step_s[0] * 1e3!r} ms); "
+        f"stall {stats['stall_s']!r} s (upstream {stats['stall_upstream_s']!r}, "
+        f"staging {stats['stall_staging_s']!r}) over {stats['stalls']} stalls; "
+        f"first batch {stats['first_batch_s']!r} s; epochs {epoch_s!r} s; "
+        f"launches {launches}; peak device memory {torch.cuda.max_memory_allocated()} B")
+    return {
+        "model": model,
+        "batch": last,
+        "launches": launches,
+        "steps": steps,
+        "step_ms_median": median_ms,
+        "step_ms_first": step_s[0] * 1e3,
+        "epoch_s": epoch_s,
+        "losses": losses,
+        "staging": stats,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
+def phase_slices(torch, data_dir: str) -> dict:
+    import ray_shuffling_data_loader_tpu_torch as port
+
+    num_rows = 10**6
     port.runtime.init()
     try:
         t0 = time.perf_counter()
         filenames, nbytes = port.generate_data(num_rows, 10, 5, 0.0, data_dir, seed=0)
         log(f"[slice] generated {num_rows} rows ({nbytes} B) in {len(filenames)} files "
             f"in {time.perf_counter() - t0:.2f} s")
-        feature_columns = [c for c in port.DATA_SPEC if c != port.LABEL_COLUMN]
-        model = port.dlrm_for_data_spec()
-        step = port.make_train_step(model, port.make_optimizer(model))
-        ds = port.DeviceShufflingDataset(
-            filenames, num_epochs=num_epochs, num_trainers=1, batch_size=batch_size,
-            rank=0,
-            # "key" rides along for the exactly-once check and is dropped
-            # before the step.
-            feature_columns=[*feature_columns, port.KEY_COLUMN],
-            label_column=port.LABEL_COLUMN, num_reducers=8, seed=0, device="cuda",
-        )
-        interaction_kernel.launches = 0
-        steps, step_s, losses, epoch_s = 0, [], [], []
-        last = None
-        for epoch in range(num_epochs):
-            ds.set_epoch(epoch)
-            keys = []
-            t_epoch = time.perf_counter()
-            for features, labels in ds:
-                keys.append(features.pop(port.KEY_COLUMN))
-                t0 = time.perf_counter()
-                loss = step(features, labels)["loss"].item()
-                step_s.append(time.perf_counter() - t0)
-                losses.append(loss)
-                steps += 1
-                last = (features, labels)
-            epoch_s.append(time.perf_counter() - t_epoch)
-            got = torch.cat(keys).cpu().numpy()
-            want_rows = (num_rows // batch_size) * batch_size
-            if got.size != want_rows or np.unique(got).size != got.size:
-                raise AssertionError(f"epoch {epoch}: {got.size} keys, "
-                                     f"{np.unique(got).size} distinct; want {want_rows}")
-            if got.min() < 0 or got.max() >= num_rows:
-                raise AssertionError(f"epoch {epoch}: key out of range")
-            log(f"[slice] epoch {epoch}: {got.size} distinct keys exactly once, "
-                f"{len(keys)} steps, {epoch_s[-1]!r} s")
-        launches = interaction_kernel.launches
-        if not all(np.isfinite(losses)):
-            raise AssertionError(f"non-finite loss: {losses}")
-        if launches != steps:
-            raise AssertionError(f"interaction launches {launches} != steps {steps}")
-        stats = ds.stats.as_dict()
-        median_ms = statistics.median(step_s[1:]) * 1e3
-        log(f"[slice] {steps} steps, losses {losses[0]!r} -> {losses[-1]!r}; "
-            f"step median {median_ms!r} ms (first {step_s[0] * 1e3!r} ms); "
-            f"stall {stats['stall_s']!r} s (upstream {stats['stall_upstream_s']!r}, "
-            f"staging {stats['stall_staging_s']!r}) over {stats['stalls']} stalls; "
-            f"first batch {stats['first_batch_s']!r} s; epochs {epoch_s!r} s; "
-            f"peak device memory {torch.cuda.max_memory_allocated()} B")
-        return {
-            "model": model,
-            "batch": last,
-            "launches": launches,
-            "steps": steps,
-            "step_ms_median": median_ms,
-            "step_ms_first": step_s[0] * 1e3,
-            "epoch_s": epoch_s,
-            "losses": losses,
-            "staging": stats,
-        }
+        dlrm = train_slice(torch, port, filenames, num_rows, port.dlrm_for_data_spec(), "dlrm")
+        n = dlrm["launches"]
+        if n["interaction"] != dlrm["steps"] or n["flash_fwd"] or n["flash_bwd_dkv"] or n["flash_bwd_dq"]:
+            raise AssertionError(f"dlrm: launches {n} in {dlrm['steps']} steps")
+        tab_model = port.transformer_for_data_spec()
+        tab = train_slice(torch, port, filenames, num_rows, tab_model, "tabtransformer")
+        n = tab["launches"]
+        want = 2 * tab["steps"]  # two encoder layers
+        if n["interaction"] or any(n[k] != want for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")):
+            raise AssertionError(f"tabtransformer: launches {n}, want {want} of each flash kernel")
+        return {"dlrm": dlrm, "tabtransformer": tab}
     finally:
         port.runtime.shutdown()
 
 
-def phase_parity(torch, model, batch) -> float:
+def phase_lm(torch) -> dict:
+    import ray_shuffling_data_loader_tpu_torch as port
+    import ray_shuffling_data_loader_tpu_torch.ops as ops
+
+    steps = 20
+    model = port.CausalLM(vocab_size=64, max_seq_len=512, embed_dim=64, num_layers=2, num_heads=4)
+    opt = port.make_optimizer(model, lr=3e-3)
+    tokens = torch.from_numpy(port.synthetic_tokens(4, 512, 64, seed=0)).to("cuda")
+    reset_launches(ops)
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = port.next_token_loss(model(tokens), tokens)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t0)
+    launches = read_launches(ops)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"lm: loss did not fall: {losses}")
+    want = 2 * steps
+    if launches["interaction"] or any(
+        launches[k] != want for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+    ):
+        raise AssertionError(f"lm: launches {launches}, want {want} of each flash kernel")
+    median_ms = statistics.median(step_s[1:]) * 1e3
+    log(f"[lm] {steps} steps, loss {losses[0]!r} -> {losses[-1]!r}; step median {median_ms!r} ms "
+        f"(first {step_s[0] * 1e3!r} ms); launches {launches}")
+    return {"losses": losses, "step_ms_median": median_ms, "launches": launches}
+
+
+def phase_parity(torch, label: str, model, batch) -> float:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = 8192
@@ -268,7 +531,7 @@ def phase_parity(torch, model, batch) -> float:
         on_cpu = cpu_model({k: v.cpu() for k, v in features.items()})
     err = (on_gpu - on_cpu).abs().max().item()
     torch.testing.assert_close(on_gpu, on_cpu, **PARITY_TOL)
-    log(f"[parity] {rows} rows fp32, cuda vs cpu: max |diff| = {err!r} "
+    log(f"[parity] {label}: {rows} rows fp32, cuda vs cpu: max |diff| = {err!r} "
         f"(atol {PARITY_TOL['atol']}, rtol {PARITY_TOL['rtol']})")
     return err
 
@@ -291,14 +554,27 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         phase_build()
-        kernel = phase_kernel(torch, name)
+        # The plain versions' fp32 products must not round their inputs to TF32.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        rate, rate_src, measured = memory_rate(torch, name)
+        log(f"[kernel] bounds use {rate:.4g} B/s ({rate_src}); measured copy rate {measured:.4g} B/s")
+        kernels = [phase_interaction(torch, rate, rate_src)]
+        flash_entries, flash = phase_flash(torch, rate)
+        kernels += flash_entries
+        log(f"[kernel] done at {time.perf_counter() - t_start:.1f} s")
         shutil.rmtree(data_dir, ignore_errors=True)
         try:
-            sl = phase_slice(torch, data_dir)
+            slices = phase_slices(torch, data_dir)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
-        kernel["launches"] = sl["launches"]
-        parity_err = phase_parity(torch, sl["model"], sl["batch"])
+        lm = phase_lm(torch)
+        for entry in kernels:
+            path = slices["dlrm"] if entry["name"] == "interaction" else slices["tabtransformer"]
+            entry["launches"] = path["launches"][entry["name"]]
+        parity = {
+            label: phase_parity(torch, label, slices[label]["model"], slices[label]["batch"])
+            for label in ("dlrm", "tabtransformer")
+        }
     except Exception:
         traceback.print_exc()
         print("chip_smoke: a phase failed", file=sys.stderr)
@@ -309,13 +585,18 @@ def main() -> int:
             json.dump(
                 {
                     "device": smi,
-                    "kernels": [kernel],
-                    "slice": {k: v for k, v in sl.items() if k not in ("model", "batch")},
-                    "parity_max_abs_diff": parity_err,
+                    "kernels": kernels,
+                    "flash": flash,
+                    "slices": {
+                        label: {k: v for k, v in sl.items() if k not in ("model", "batch")}
+                        for label, sl in slices.items()
+                    },
+                    "lm": lm,
+                    "parity_max_abs_diff": parity,
                 },
                 f, indent=1,
             )
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({
         "ok": True,

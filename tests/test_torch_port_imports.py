@@ -68,9 +68,14 @@ def test_running_the_port_loads_no_jax(tmp_path):
                                         compute_dtype=torch.float32, device="cpu")
         step = port.make_train_step(model, port.make_optimizer(model))
         ds.set_epoch(0)
-        losses = [float(step(f, l)["loss"]) for f, l in ds]
-        port.runtime.shutdown()
+        batches = list(ds)
+        losses = [float(step(f, l)["loss"]) for f, l in batches]
         assert len(losses) == 3, losses
+        tt = port.transformer_for_data_spec(embed_dim=8, num_layers=1, num_heads=2, vocab_cap=64,
+                                            compute_dtype=torch.float32, device="cpu")
+        tt_loss = float(port.make_train_step(tt, port.make_optimizer(tt))(*batches[0])["loss"])
+        assert tt_loss == tt_loss, tt_loss
+        port.runtime.shutdown()
         loaded = sorted({{m.split(".")[0] for m in sys.modules}} & set({sorted(FORBIDDEN)!r}))
         print("LOADED", loaded)
         """
@@ -97,6 +102,10 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         port.dlrm_for_data_spec(embed_dim=4, top_mlp=(8,), vocab_cap=16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port.example_features(model, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.transformer_for_data_spec(embed_dim=4, num_layers=1, num_heads=2, vocab_cap=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.CausalLM(16, 8, embed_dim=4, num_layers=1, num_heads=2)
     assert resolve_device("cpu") == torch.device("cpu")
     assert port.example_features(model, 4, device="cpu")[model.columns[0]].device.type == "cpu"
 

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Where a train step of the PyTorch port's full-width DLRM spends its time
-on one NVIDIA GPU.
+"""Where a train step of the PyTorch port's full-width DLRM or
+TabTransformer spends its time on one NVIDIA GPU.
 
-    python3 tools/torch_port_step_profile.py [--batch 65536] [--steps 20]
-        [--compute bf16|fp32] [--trace build/step_trace.json]
+    python3 tools/torch_port_step_profile.py [--model dlrm|transformer]
+        [--batch 65536] [--steps 20] [--compute bf16|fp32]
+        [--trace build/step_trace.json]
 
 Random ids and labels at the main path's batch (no loader: this isolates
-the device step), the kernel path for the interaction. Prints:
+the device step), the kernel path for the interaction and the flash
+attention. Prints:
 
 * the step's phases timed with CUDA events (forward, backward, Adam),
   medians over ``--steps`` steps after warm-up;
@@ -33,6 +35,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Kernel-name fragments -> kind, first match wins.
 KINDS = [
     ("interaction", "interaction kernel"),
+    ("flash_fwd_kernel", "flash forward kernel"),
+    ("flash_bwd_dkv_kernel", "flash dK/dV kernel"),
+    ("flash_bwd_dq_kernel", "flash dQ kernel"),
     ("embedding_backward", "embedding backward"),
     ("embedding_dense", "embedding backward"),
     ("index_put", "embedding backward"),
@@ -69,6 +74,7 @@ def device_time_us(evt) -> float:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", choices=["dlrm", "transformer"], default="dlrm")
     parser.add_argument("--batch", type=int, default=65536)
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--warmup", type=int, default=5)
@@ -89,7 +95,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     cdt = {"bf16": torch.bfloat16, "fp32": torch.float32}[args.compute]
-    model = port.dlrm_for_data_spec(compute_dtype=cdt)
+    build = {"dlrm": port.dlrm_for_data_spec, "transformer": port.transformer_for_data_spec}
+    model = build[args.model](compute_dtype=cdt)
     opt = port.make_optimizer(model)
     features = port.example_features(model, args.batch, seed=1)
     labels = torch.rand(args.batch, generator=torch.Generator().manual_seed(2)).to("cuda")
@@ -168,6 +175,7 @@ def main() -> int:
         print(f"[profile] kind {kind}: {us / args.steps!r} us/step ({us / busy_us:.3f} of busy)")
     for us, count, key in rows[:25]:
         print(f"[profile] {us / args.steps:10.1f} us/step  x{count // args.steps:<4d} {key[:110]}")
+    print(f"[profile] model {args.model}, {args.compute} compute, batch {args.batch}")
     print(smi)
     return 0
 
