@@ -110,7 +110,6 @@ STATS_TOL = dict(atol=1e-5, rtol=2e-5)
 H100_SXM_NAME = "H100 80GB HBM3"
 H100_SXM_RATE = 3.35e12
 BF16_PEAK = 989e12  # dense tensor-core rate, H100 SXM at 700 W
-FP32_PEAK = 67e12
 
 
 def log(msg: str) -> None:
@@ -289,7 +288,9 @@ def check_flash(torch, ops, case, gen) -> dict:
         ("out", out, out_r, tol["out"]), ("m", m, m_r, STATS_TOL), ("l", l, l_r, STATS_TOL),
         ("dq", dq, dq_r, tol["grad"]), ("dk", dk, dk_r, tol["grad"]), ("dv", dv, dv_r, tol["grad"]),
     ):
-        assert got.dtype == want.dtype and got.shape == want.shape, (key, got.shape, want.shape)
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{name} {key}: {got.dtype} {tuple(got.shape)}, "
+                                 f"want {want.dtype} {tuple(want.shape)}")
         errs[key] = (got.float() - want.float()).abs().max().item()
         torch.testing.assert_close(got.float(), want.float(), **t, msg=lambda s: f"{name} {key}: {s}")
     log(f"[kernel] flash {name} {list(shape)} {dtype_name} causal={causal}: max |kernel - plain| "

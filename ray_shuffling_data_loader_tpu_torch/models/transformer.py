@@ -32,7 +32,7 @@ from ray_shuffling_data_loader_tpu_torch.utils.device import DeviceLike, resolve
 class LayerNorm(nn.Module):
     """LayerNorm over the last dim as flax computes it: statistics in
     float32, ``(x − mean) · rsqrt(var + eps) · weight + bias``, then a cast
-    to ``dtype`` (default: the input's)."""
+    back to the input's dtype."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
@@ -40,12 +40,12 @@ class LayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         mean = x32.mean(dim=-1, keepdim=True)
         var = ((x32 * x32).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
         y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
-        return y.to(dtype or x.dtype)
+        return y.to(x.dtype)
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -62,28 +62,28 @@ def init_linear(layer: nn.Linear, gen: torch.Generator) -> nn.Linear:
 
 class EncoderBlock(nn.Module):
     """Pre-norm transformer block over ``[batch, seq, dim]``, computing in
-    the dtype of its input. ``causal`` masks attention to earlier tokens."""
+    the dtype of its input. ``causal`` masks attention to earlier tokens;
+    ``generator`` draws the initial weights."""
 
     def __init__(
         self,
         embed_dim: int,
         num_heads: int,
-        mlp_ratio: int = 4,
-        causal: bool = False,
-        generator: Optional[torch.Generator] = None,
+        mlp_ratio: int,
+        causal: bool,
+        generator: torch.Generator,
     ):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} not divisible by num_heads {num_heads}")
-        gen = generator if generator is not None else torch.Generator().manual_seed(0)
         self.num_heads = num_heads
         self.causal = causal
         self.ln_attn = LayerNorm(embed_dim)
-        self.qkv = init_linear(nn.Linear(embed_dim, 3 * embed_dim), gen)
-        self.proj = init_linear(nn.Linear(embed_dim, embed_dim), gen)
+        self.qkv = init_linear(nn.Linear(embed_dim, 3 * embed_dim), generator)
+        self.proj = init_linear(nn.Linear(embed_dim, embed_dim), generator)
         self.ln_mlp = LayerNorm(embed_dim)
-        self.mlp_up = init_linear(nn.Linear(embed_dim, mlp_ratio * embed_dim), gen)
-        self.mlp_down = init_linear(nn.Linear(mlp_ratio * embed_dim, embed_dim), gen)
+        self.mlp_up = init_linear(nn.Linear(embed_dim, mlp_ratio * embed_dim), generator)
+        self.mlp_down = init_linear(nn.Linear(mlp_ratio * embed_dim, embed_dim), generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, d = x.shape
@@ -134,7 +134,8 @@ class TabTransformer(nn.Module):
             torch.empty(len(self.columns), embed_dim).normal_(std=0.02, generator=gen)
         )
         self.blocks = nn.ModuleList(
-            EncoderBlock(embed_dim, num_heads, mlp_ratio, generator=gen) for _ in range(num_layers)
+            EncoderBlock(embed_dim, num_heads, mlp_ratio, causal=False, generator=gen)
+            for _ in range(num_layers)
         )
         self.ln_out = LayerNorm(embed_dim)
         self.head = init_linear(nn.Linear(embed_dim, 1), gen)

@@ -100,9 +100,9 @@ flash_bwd_dkv_kernel(const BwdParams p) {
     __syncthreads();
     load_tile<T, HDP>(qs, p.q, bh0, p.hc, p.bh_total, p.h, s0, n, p.hd, p.vec);
     load_tile<T, HDP>(dos, p.dout, bh0, p.hc, p.bh_total, p.h, s0, n, p.hd, p.vec);
-    load_stats(ms, p.m, bh0, p.hc, p.bh_total, p.t, s0, n, kNegInf, -INFINITY);
-    load_stats(ls, p.l, bh0, p.hc, p.bh_total, p.t, s0, n, 0.f, 1e-30f);
-    load_stats(ds_, p.dsum, bh0, p.hc, p.bh_total, p.t, s0, n, 0.f, -INFINITY);
+    load_stats(ms, p.m, bh0, p.hc, p.bh_total, p.t, s0, n, -INFINITY);
+    load_stats(ls, p.l, bh0, p.hc, p.bh_total, p.t, s0, n, 1e-30f);
+    load_stats(ds_, p.dsum, bh0, p.hc, p.bh_total, p.t, s0, n, -INFINITY);
     __syncthreads();
     if (!active) continue;
     for (int ii = p.causal ? max(0, j - s0) : 0; ii < n; ++ii) {

@@ -243,18 +243,18 @@ __device__ void load_tile(float* dst, const View& x, long long bh0, int hc,
   }
 }
 
-// Row statistics [bh, t] at rows [s0, s0 + n) into dst[n][hc]; `floor`
-// clamps from below (l is read as max(l, 1e-30)).
+// Row statistics [bh, t] at rows [s0, s0 + n) into dst[n][hc], 0 for heads
+// past bh_total; `floor` clamps from below (l is read as max(l, 1e-30)).
 __device__ inline void load_stats(float* dst, const float* src, long long bh0,
                                   int hc, long long bh_total, int t, int s0,
-                                  int n, float fill, float floor) {
+                                  int n, float floor) {
   const int total = n * hc;
   for (int w = threadIdx.x; w < total; w += blockDim.x) {
     const int jj = w % n;  // neighbouring threads, neighbouring addresses
     const int hh = w / n;
     const long long bh = bh0 + hh;
     const float val =
-        bh < bh_total ? src[bh * t + s0 + jj] : fill;
+        bh < bh_total ? src[bh * t + s0 + jj] : 0.f;
     dst[jj * hc + hh] = fmaxf(val, floor);
   }
 }

@@ -37,13 +37,7 @@ def attention_reference(
 ) -> torch.Tensor:
     """Dense softmax attention, ``[batch, seq, heads, head_dim]``, scores in
     float32, causal positions masked with the finite ``NEG_INF``."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        tq, tk = s.shape[-2], s.shape[-1]
-        mask = torch.arange(tq, device=s.device)[:, None] >= torch.arange(tk, device=s.device)[None, :]
-        s = torch.where(mask, s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
+    w = torch.softmax(_scores(q, k, causal), dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(q.dtype)
 
 
