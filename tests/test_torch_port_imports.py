@@ -97,7 +97,7 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         resolve_device("cuda")
     with pytest.raises(RuntimeError):
         port.DeviceShufflingDataset([], 1, 1, 8, 0, feature_columns=["a"], label_column="b")
-    # The model builders resolve their device the same way.
+    # The model factories resolve their device the same way.
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port.dlrm_for_data_spec(embed_dim=4, top_mlp=(8,), vocab_cap=16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
