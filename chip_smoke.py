@@ -15,8 +15,11 @@ Phases, each of which fails the script (non-zero exit) on any error:
    ``(500, 27, 16)`` fp32; the flash forward (K2, output and the ``m``,
    ``l`` statistics) and backward (K3: dK, dV; K4: dQ) at the
    TabTransformer's ``[65536, 19, 4, 8]`` bf16 (q, k, v strided views of
-   one ``[b, t, 3, h, hd]`` tensor), the CausalLM's ``[4, 512, 4, 16]``
-   bf16 causal, ``[1, 300, 2, 8]`` fp32 causal and ``[2, 56, 2, 8]`` fp32.
+   one ``[b, t, 3, h, hd]`` tensor, dQ, dK, dV views of one packed
+   gradient), the CausalLM's ``[4, 512, 4, 16]`` bf16 causal, ``[1, 300, 2,
+   8]`` fp32 causal, ``[2, 56, 2, 8]`` fp32 and three shapes of the other
+   head-dim buckets; and the autograd Function over the packed tensor at
+   the same shapes.
    Time every kernel beside its bound, its plain version and the PyTorch
    library call that computes the same, at the main paths' shapes and at
    ``[2, 4096, 8, 64]`` bf16, causal and not;
@@ -248,12 +251,18 @@ def phase_interaction(torch, rate: float, rate_src: str) -> dict:
 
 
 def flash_inputs(torch, shape, dtype, gen):
-    """q, k, v as strided views of one ``[b, t, 3, h, hd]`` tensor (as the
-    encoder block makes them), and a cotangent dO."""
+    """``qkv`` ``[b, t, 3, h, hd]`` and a cotangent dO, as the encoder block
+    gives them to the Function; q, k and v are its strided views."""
     b, t, h, hd = shape
     qkv = torch.randn((b, t, 3, h, hd), device="cuda", generator=gen).to(dtype)
     dout = torch.randn(shape, device="cuda", generator=gen).to(dtype)
-    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], dout
+    return qkv, dout
+
+
+def packed_grads(torch, qkv):
+    """dq, dk, dv as views of one packed gradient, as the Function's
+    backward writes them; NaN until a kernel writes them."""
+    return torch.full_like(qkv, float("nan")).unbind(2)
 
 
 def flash_work(shape, elem: int, causal: bool):
@@ -273,20 +282,30 @@ def flash_work(shape, elem: int, causal: bool):
 def check_flash(torch, ops, case, gen) -> dict:
     name, shape, dtype_name, causal = case
     dtype = getattr(torch, dtype_name)
-    q, k, v, dout = flash_inputs(torch, shape, dtype, gen)
+    qkv, dout = flash_inputs(torch, shape, dtype, gen)
+    q, k, v = qkv.unbind(2)
+    dq, dk, dv = packed_grads(torch, qkv)
     out, m, l = ops.flash_fwd_kernel(q, k, v, causal)
     torch.cuda.synchronize()
     out_r, m_r, l_r = ops.flash_forward_reference(q, k, v, causal)
     big_d = ops.row_dot(dout, out)
-    dk, dv = ops.flash_bwd_dkv_kernel(q, k, v, dout, m, l, big_d, causal)
-    dq = ops.flash_bwd_dq_kernel(q, k, v, dout, m, l, big_d, causal)
+    ops.flash_bwd_dkv_kernel(q, k, v, dout, m, l, big_d, dk, dv, causal)
+    ops.flash_bwd_dq_kernel(q, k, v, dout, m, l, big_d, dq, causal)
     torch.cuda.synchronize()
     dq_r, dk_r, dv_r = ops.flash_backward_reference(q, k, v, out, m, l, dout, causal)
+    # The Function as the encoder block calls it: its packed gradient must
+    # hold the same dQ, dK, dV at the right places.
+    leaf = qkv.detach().requires_grad_(True)
+    fn_out = ops.flash_attention_qkv(leaf, causal)
+    fn_out.backward(dout)
+    torch.cuda.synchronize()
     tol = FLASH_TOL[dtype_name]
     errs = {}
     for key, got, want, t in (
         ("out", out, out_r, tol["out"]), ("m", m, m_r, STATS_TOL), ("l", l, l_r, STATS_TOL),
         ("dq", dq, dq_r, tol["grad"]), ("dk", dk, dk_r, tol["grad"]), ("dv", dv, dv_r, tol["grad"]),
+        ("function out", fn_out, out_r, tol["out"]),
+        ("function dqkv", leaf.grad, torch.stack((dq_r, dk_r, dv_r), dim=2), tol["grad"]),
     ):
         if got.dtype != want.dtype or got.shape != want.shape:
             raise AssertionError(f"{name} {key}: {got.dtype} {tuple(got.shape)}, "
@@ -304,12 +323,14 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
     at ``shape``: ``{kernel: {ms, plain_ms, library_ms, bound_ms, ...}}``."""
     import torch.nn.functional as F
 
-    q, k, v, dout = flash_inputs(torch, shape, torch.bfloat16, gen)
+    qkv, dout = flash_inputs(torch, shape, torch.bfloat16, gen)
+    q, k, v = qkv.unbind(2)
+    dq, dk, dv = packed_grads(torch, qkv)
     out, m, l = ops.flash_fwd_kernel(q, k, v, causal)
     big_d = ops.row_dot(dout, out)
     fwd_ms = time_ms(torch, ops.flash_fwd_kernel, q, k, v, causal)
-    dkv_ms = time_ms(torch, ops.flash_bwd_dkv_kernel, q, k, v, dout, m, l, big_d, causal)
-    dq_ms = time_ms(torch, ops.flash_bwd_dq_kernel, q, k, v, dout, m, l, big_d, causal)
+    dkv_ms = time_ms(torch, ops.flash_bwd_dkv_kernel, q, k, v, dout, m, l, big_d, dk, dv, causal)
+    dq_ms = time_ms(torch, ops.flash_bwd_dq_kernel, q, k, v, dout, m, l, big_d, dq, causal)
     reps = 10 if shape[1] > 1024 else 50
     plain_fwd_ms = time_ms(torch, ops.flash_forward_reference, q, k, v, causal, reps=reps)
     plain_bwd_ms = time_ms(torch, ops.flash_backward_reference, q, k, v, out, m, l, dout, causal,

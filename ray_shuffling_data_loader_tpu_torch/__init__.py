@@ -42,6 +42,7 @@ from ray_shuffling_data_loader_tpu_torch.ops import (
     dot_interaction,
     dot_interaction_reference,
     flash_attention,
+    flash_attention_qkv,
     interaction_kernel,
 )
 from ray_shuffling_data_loader_tpu_torch.parallel import (
@@ -73,6 +74,7 @@ __all__ = [
     "dot_interaction_reference",
     "example_features",
     "flash_attention",
+    "flash_attention_qkv",
     "generate_data",
     "interaction_kernel",
     "lm_state_dict_from_jax",

@@ -30,7 +30,6 @@ class CausalLM(nn.Module):
         embed_dim: int = 64,
         num_layers: int = 2,
         num_heads: int = 4,
-        mlp_ratio: int = 4,
         compute_dtype: torch.dtype = torch.bfloat16,
         device: DeviceLike = None,
     ):
@@ -43,7 +42,7 @@ class CausalLM(nn.Module):
         self.token_embed = nn.Parameter(torch.empty(vocab_size, embed_dim).normal_(std=0.02, generator=gen))
         self.pos_embed = nn.Parameter(torch.empty(max_seq_len, embed_dim).normal_(std=0.02, generator=gen))
         self.blocks = nn.ModuleList(
-            EncoderBlock(embed_dim, num_heads, mlp_ratio, causal=True, generator=gen)
+            EncoderBlock(embed_dim, num_heads, causal=True, generator=gen)
             for _ in range(num_layers)
         )
         self.ln_out = LayerNorm(embed_dim)

@@ -7,7 +7,7 @@ into :func:`~..parallel.make_train_step` and every loader unchanged.
   folded in with ``% vocab``; a learned per-column embedding is added in
   float32 before the cast to ``compute_dtype``;
 * ``num_layers`` pre-norm :class:`EncoderBlock` s whose attention is
-  :func:`~..ops.flash_attention` (the CUDA kernels on the GPU);
+  :func:`~..ops.flash_attention_qkv` (the CUDA kernels on the GPU);
 * a final LayerNorm, a mean over the tokens and a width-1 ``head``.
 
 The numerics follow flax's defaults, which the JAX package's model uses:
@@ -25,18 +25,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ray_shuffling_data_loader_tpu_torch.ops import flash_attention
+from ray_shuffling_data_loader_tpu_torch.ops import flash_attention_qkv
 from ray_shuffling_data_loader_tpu_torch.utils.device import DeviceLike, resolve_device
+
+LN_EPS = 1e-6  # flax's LayerNorm epsilon
+MLP_RATIO = 4  # the MLP's hidden width over the token width
 
 
 class LayerNorm(nn.Module):
     """LayerNorm over the last dim as flax computes it: statistics in
-    float32, ``(x − mean) · rsqrt(var + eps) · weight + bias``, then a cast
-    back to the input's dtype."""
+    float32, ``(x − mean) · rsqrt(var + LN_EPS) · weight + bias``, then a
+    cast back to the input's dtype."""
 
-    def __init__(self, dim: int, eps: float = 1e-6):
+    def __init__(self, dim: int):
         super().__init__()
-        self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
@@ -44,7 +46,7 @@ class LayerNorm(nn.Module):
         x32 = x.float()
         mean = x32.mean(dim=-1, keepdim=True)
         var = ((x32 * x32).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
-        y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        y = (x32 - mean) * (torch.rsqrt(var + LN_EPS) * self.weight) + self.bias
         return y.to(x.dtype)
 
 
@@ -69,7 +71,6 @@ class EncoderBlock(nn.Module):
         self,
         embed_dim: int,
         num_heads: int,
-        mlp_ratio: int,
         causal: bool,
         generator: torch.Generator,
     ):
@@ -82,16 +83,15 @@ class EncoderBlock(nn.Module):
         self.qkv = init_linear(nn.Linear(embed_dim, 3 * embed_dim), generator)
         self.proj = init_linear(nn.Linear(embed_dim, embed_dim), generator)
         self.ln_mlp = LayerNorm(embed_dim)
-        self.mlp_up = init_linear(nn.Linear(embed_dim, mlp_ratio * embed_dim), generator)
-        self.mlp_down = init_linear(nn.Linear(mlp_ratio * embed_dim, embed_dim), generator)
+        self.mlp_up = init_linear(nn.Linear(embed_dim, MLP_RATIO * embed_dim), generator)
+        self.mlp_down = init_linear(nn.Linear(MLP_RATIO * embed_dim, embed_dim), generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, d = x.shape
         cdt = x.dtype
         h = self.ln_attn(x)
         qkv = dense(self.qkv, h, cdt).reshape(b, t, 3, self.num_heads, d // self.num_heads)
-        # Strided views of one tensor: the kernels read them in place.
-        attn = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], self.causal)
+        attn = flash_attention_qkv(qkv, self.causal)
         x = x + dense(self.proj, attn.reshape(b, t, d), cdt)
         h = self.ln_mlp(x)
         h = F.gelu(dense(self.mlp_up, h, cdt), approximate="tanh")
@@ -104,7 +104,7 @@ class TabTransformer(nn.Module):
     Args:
         vocab_sizes: column name -> table rows.
         embed_dim: token width.
-        num_layers, num_heads, mlp_ratio: the encoder's shape.
+        num_layers, num_heads: the encoder's shape.
         compute_dtype: dtype of the activations and matmuls.
 
     The initial weights come from a generator seeded with 0.
@@ -116,7 +116,6 @@ class TabTransformer(nn.Module):
         embed_dim: int = 32,
         num_layers: int = 2,
         num_heads: int = 4,
-        mlp_ratio: int = 4,
         compute_dtype: torch.dtype = torch.bfloat16,
     ):
         super().__init__()
@@ -134,7 +133,7 @@ class TabTransformer(nn.Module):
             torch.empty(len(self.columns), embed_dim).normal_(std=0.02, generator=gen)
         )
         self.blocks = nn.ModuleList(
-            EncoderBlock(embed_dim, num_heads, mlp_ratio, causal=False, generator=gen)
+            EncoderBlock(embed_dim, num_heads, causal=False, generator=gen)
             for _ in range(num_layers)
         )
         self.ln_out = LayerNorm(embed_dim)

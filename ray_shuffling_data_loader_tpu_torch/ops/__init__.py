@@ -3,6 +3,7 @@ from ray_shuffling_data_loader_tpu_torch.ops.flash_attention import (
     FlashAttention,
     attention_reference,
     flash_attention,
+    flash_attention_qkv,
     flash_backward_reference,
     flash_bwd_dkv_kernel,
     flash_bwd_dq_kernel,
@@ -24,6 +25,7 @@ __all__ = [
     "dot_interaction",
     "dot_interaction_reference",
     "flash_attention",
+    "flash_attention_qkv",
     "flash_backward_reference",
     "flash_bwd_dkv_kernel",
     "flash_bwd_dq_kernel",

@@ -3,7 +3,8 @@
 //
 //   q, k, v, dO  [b, t, h, hd]  float32 or bfloat16, strided, last dim contiguous
 //   m, l, D      [b, h, t]      float32; D = rowsum(dO * out), taken outside
-//   dk, dv, dq   [b, t, h, hd]  the dtype of q, k, v
+//   dk, dv, dq   [b, t, h, hd]  the dtype of q, k, v, strided, last dim
+//                              contiguous (views of one packed gradient)
 //
 // Both kernels recompute the probabilities from (m, l) as the Pallas
 // kernels' `_bwd_probs` does: P = exp(s - m) / max(l, 1e-30), 0 where
@@ -215,10 +216,10 @@ flash_bwd_dq_kernel(const BwdParams p) {
 }
 
 template <typename T, int S, int G>
-int launch_dkv(BwdParams p, cudaStream_t stream) {
+int launch_dkv(BwdParams p, int sms, cudaStream_t stream) {
   constexpr int HDP = S * G;
   const int row_bytes = (2 * HDP + 3) * sizeof(float);
-  const Plan plan = make_plan(p.bh_total, p.t, G, row_bytes);
+  const Plan plan = make_plan(p.bh_total, p.t, G, row_bytes, sms);
   p.hc = plan.hc;
   p.own = plan.own;
   p.own_tiles = plan.own_tiles;
@@ -229,10 +230,10 @@ int launch_dkv(BwdParams p, cudaStream_t stream) {
 }
 
 template <typename T, int S, int G>
-int launch_dq(BwdParams p, cudaStream_t stream) {
+int launch_dq(BwdParams p, int sms, cudaStream_t stream) {
   constexpr int HDP = S * G;
   const int row_bytes = 2 * HDP * sizeof(float);
-  const Plan plan = make_plan(p.bh_total, p.t, G, row_bytes);
+  const Plan plan = make_plan(p.bh_total, p.t, G, row_bytes, sms);
   p.hc = plan.hc;
   p.own = plan.own;
   p.own_tiles = plan.own_tiles;
@@ -242,12 +243,15 @@ int launch_dq(BwdParams p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Fills the shared fields; returns 0 or an error code.
-int fill(BwdParams& p, const void* q, const void* k, const void* v,
+// Fills the shared fields and the device's SM count; returns 0 or an
+// error code.
+int fill(BwdParams& p, int* sms, const void* q, const void* k, const void* v,
          const void* dout, const float* m, const float* l, const float* dsum,
          const long long* strides, int b, int t, int h, int hd, int causal) {
   if (b < 0 || t < 0 || h < 0 || hd < 1 || hd > kMaxHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = sm_count(sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
   p.q = View{q, strides[0], strides[1], strides[2]};
   p.k = View{k, strides[3], strides[4], strides[5]};
   p.v = View{v, strides[6], strides[7], strides[8]};
@@ -275,7 +279,8 @@ extern "C" int rsdl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   int t, int h, int hd, int causal, int dtype,
                                   void* stream) {
   BwdParams p{};
-  const int err = fill(p, q, k, v, dout, m, l, dsum, strides, b, t, h, hd, causal);
+  int sms = 0;
+  const int err = fill(p, &sms, q, k, v, dout, m, l, dsum, strides, b, t, h, hd, causal);
   if (err != 0) return err;
   if (static_cast<long long>(b) * h * t == 0) return 0;
   p.dk = OutView{dk, strides[12], strides[13], strides[14]};
@@ -285,10 +290,10 @@ extern "C" int rsdl_flash_bwd_dkv(const void* q, const void* k, const void* v,
   switch (dtype) {
     case 0:
       p.vec = vectorizable(sizeof(float), hd, ptrs, 6, strides, 18);
-      return RSDL_FLASH_BUCKET(float, hd, launch_dkv, p, s);
+      return RSDL_FLASH_BUCKET(float, hd, launch_dkv, p, sms, s);
     case 1:
       p.vec = vectorizable(sizeof(__nv_bfloat16), hd, ptrs, 6, strides, 18);
-      return RSDL_FLASH_BUCKET(__nv_bfloat16, hd, launch_dkv, p, s);
+      return RSDL_FLASH_BUCKET(__nv_bfloat16, hd, launch_dkv, p, sms, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -301,7 +306,8 @@ extern "C" int rsdl_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const long long* strides, int b, int t, int h,
                                  int hd, int causal, int dtype, void* stream) {
   BwdParams p{};
-  const int err = fill(p, q, k, v, dout, m, l, dsum, strides, b, t, h, hd, causal);
+  int sms = 0;
+  const int err = fill(p, &sms, q, k, v, dout, m, l, dsum, strides, b, t, h, hd, causal);
   if (err != 0) return err;
   if (static_cast<long long>(b) * h * t == 0) return 0;
   p.dq = OutView{dq, strides[12], strides[13], strides[14]};
@@ -310,10 +316,10 @@ extern "C" int rsdl_flash_bwd_dq(const void* q, const void* k, const void* v,
   switch (dtype) {
     case 0:
       p.vec = vectorizable(sizeof(float), hd, ptrs, 5, strides, 15);
-      return RSDL_FLASH_BUCKET(float, hd, launch_dq, p, s);
+      return RSDL_FLASH_BUCKET(float, hd, launch_dq, p, sms, s);
     case 1:
       p.vec = vectorizable(sizeof(__nv_bfloat16), hd, ptrs, 5, strides, 15);
-      return RSDL_FLASH_BUCKET(__nv_bfloat16, hd, launch_dq, p, s);
+      return RSDL_FLASH_BUCKET(__nv_bfloat16, hd, launch_dq, p, sms, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

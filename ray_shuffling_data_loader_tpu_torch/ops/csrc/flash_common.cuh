@@ -60,22 +60,18 @@ struct Plan {
   long long blocks;
 };
 
-inline int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess) {
-      sms = 132;
-    }
-  }
-  return sms;
+// The current device's SM count; a failed query returns its error code.
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 // Rows owned by a block of kMaxThreads threads is kMaxThreads / g. A
-// streamed row takes `row_bytes` of shared memory per head.
-inline Plan make_plan(long long bh, int t, int g, int row_bytes) {
+// streamed row takes `row_bytes` of shared memory per head; `sms` is the
+// device's SM count.
+inline Plan make_plan(long long bh, int t, int g, int row_bytes, int sms) {
   Plan p;
   const int rows = kMaxThreads / g;
   if (t <= rows) {
@@ -86,7 +82,7 @@ inline Plan make_plan(long long bh, int t, int g, int row_bytes) {
     p.own = rows;
     // Few long heads: smaller blocks, so that the card has enough of them.
     while (p.own * g > 64 &&
-           bh * ((t + p.own - 1) / p.own) < 2LL * sm_count()) {
+           bh * ((t + p.own - 1) / p.own) < 2LL * sms) {
       p.own /= 2;
     }
   }

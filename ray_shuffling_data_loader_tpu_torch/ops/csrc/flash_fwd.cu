@@ -146,9 +146,9 @@ flash_fwd_kernel(const FwdParams p) {
 }
 
 template <typename T, int S, int G>
-int launch(FwdParams p, cudaStream_t stream) {
+int launch(FwdParams p, int sms, cudaStream_t stream) {
   constexpr int HDP = S * G;
-  const Plan plan = make_plan(p.bh_total, p.t, G, 2 * HDP * sizeof(float));
+  const Plan plan = make_plan(p.bh_total, p.t, G, 2 * HDP * sizeof(float), sms);
   p.hc = plan.hc;
   p.own = plan.own;
   p.own_tiles = plan.own_tiles;
@@ -159,8 +159,8 @@ int launch(FwdParams p, cudaStream_t stream) {
 }
 
 template <typename T>
-int dispatch(const FwdParams& p, cudaStream_t stream) {
-  return RSDL_FLASH_BUCKET(T, p.hd, launch, p, stream);
+int dispatch(const FwdParams& p, int sms, cudaStream_t stream) {
+  return RSDL_FLASH_BUCKET(T, p.hd, launch, p, sms, stream);
 }
 
 }  // namespace
@@ -174,6 +174,9 @@ extern "C" int rsdl_flash_fwd(const void* q, const void* k, const void* v,
   if (b < 0 || t < 0 || h < 0 || hd < 1 || hd > kMaxHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(b) * h * t == 0) return 0;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
   FwdParams p{};
   p.q = View{q, strides[0], strides[1], strides[2]};
   p.k = View{k, strides[3], strides[4], strides[5]};
@@ -192,10 +195,10 @@ extern "C" int rsdl_flash_fwd(const void* q, const void* k, const void* v,
   switch (dtype) {
     case 0:
       p.vec = vectorizable(sizeof(float), hd, ptrs, 4, strides, 12);
-      return dispatch<float>(p, s);
+      return dispatch<float>(p, sms, s);
     case 1:
       p.vec = vectorizable(sizeof(__nv_bfloat16), hd, ptrs, 4, strides, 12);
-      return dispatch<__nv_bfloat16>(p, s);
+      return dispatch<__nv_bfloat16>(p, sms, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

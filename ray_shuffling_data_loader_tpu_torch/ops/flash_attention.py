@@ -12,9 +12,11 @@ compute the same quantities densely and hand over the same statistics.
 There is no fallback from one to the other: a kernel that fails to build
 or launch raises.
 
-The kernels take strided inputs with a contiguous last dim, so ``q``,
-``k`` and ``v`` may be views of one ``[b, t, 3, h, hd]`` projection with no
-copies.
+The kernels take strided tensors with a contiguous last dim. The
+Function works on one packed ``[b, t, 3, h, hd]`` projection: the kernels
+read ``q``, ``k`` and ``v`` as views of it, and the backward writes dQ, dK
+and dV into views of one packed gradient, so autograd neither copies the
+inputs nor zero-fills and adds a full-size gradient per view.
 """
 
 from __future__ import annotations
@@ -181,16 +183,17 @@ def flash_bwd_dkv_kernel(
     m: torch.Tensor,
     l: torch.Tensor,
     big_d: torch.Tensor,
+    dk: torch.Tensor,
+    dv: torch.Tensor,
     causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K3 on the current stream: ``(dk, dv)``. ``big_d`` is
-    ``rowsum(dout * out)``, float32 ``[b, h, t]``. Counts its launches in
-    ``flash_bwd_dkv_kernel.launches``."""
-    b, t, h, hd = _check_inputs("flash_bwd_dkv_kernel", (q, k, v, dout))
+    """Launch K3 on the current stream, writing into ``dk`` and ``dv``
+    (``[b, t, h, hd]`` in q's dtype, any strides but a contiguous last dim),
+    and return them. ``big_d`` is ``rowsum(dout * out)``, float32
+    ``[b, h, t]``. Counts its launches in ``flash_bwd_dkv_kernel.launches``."""
+    b, t, h, hd = _check_inputs("flash_bwd_dkv_kernel", (q, k, v, dout, dk, dv))
     _check_stats("flash_bwd_dkv_kernel", (b, h, t), q.device, (m, l, big_d))
     lib = _library("flash_bwd", "rsdl_flash_bwd_dkv", 9)
-    dk = torch.empty((b, t, h, hd), dtype=k.dtype, device=k.device)
-    dv = torch.empty_like(dk)
     with torch.cuda.device(q.device):
         rc = lib.rsdl_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -211,14 +214,15 @@ def flash_bwd_dq_kernel(
     m: torch.Tensor,
     l: torch.Tensor,
     big_d: torch.Tensor,
+    dq: torch.Tensor,
     causal: bool = False,
 ) -> torch.Tensor:
-    """Launch K4 on the current stream: ``dq``. Counts its launches in
+    """Launch K4 on the current stream, writing into ``dq`` (as ``dk`` of
+    :func:`flash_bwd_dkv_kernel`), and return it. Counts its launches in
     ``flash_bwd_dq_kernel.launches``."""
-    b, t, h, hd = _check_inputs("flash_bwd_dq_kernel", (q, k, v, dout))
+    b, t, h, hd = _check_inputs("flash_bwd_dq_kernel", (q, k, v, dout, dq))
     _check_stats("flash_bwd_dq_kernel", (b, h, t), q.device, (m, l, big_d))
     lib = _library("flash_bwd", "rsdl_flash_bwd_dq", 8)
-    dq = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.rsdl_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -237,39 +241,51 @@ flash_bwd_dq_kernel.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
-    """K2 forward saving ``(q, k, v, out, m, l)``; K3 then K4 backward. On
-    CPU tensors, the plain versions of the same."""
+    """Attention over a packed ``qkv`` ``[b, t, 3, h, hd]``: K2 forward
+    saving ``(qkv, out, m, l)``; K3 then K4 backward, writing into views of
+    one packed gradient. On CPU tensors, the plain versions of the same."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
-        if q.is_cuda:
+    def forward(ctx, qkv, causal: bool):
+        q, k, v = qkv.unbind(2)
+        if qkv.is_cuda:
             out, m, l = flash_fwd_kernel(q, k, v, causal)
         else:
             out, m, l = flash_forward_reference(q, k, v, causal)
         ctx.causal = causal
-        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.save_for_backward(qkv, out, m, l)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, m, l = ctx.saved_tensors
-        if not q.is_cuda:
-            dq, dk, dv = flash_backward_reference(q, k, v, out, m, l, dout, ctx.causal)
-            return dq, dk, dv, None
+        qkv, out, m, l = ctx.saved_tensors
+        q, k, v = qkv.unbind(2)
+        if not qkv.is_cuda:
+            grads = flash_backward_reference(q, k, v, out, m, l, dout, ctx.causal)
+            return torch.stack(grads, dim=2), None
         # The kernels take dO with any strides but a contiguous last dim;
         # only a cotangent strided there is copied.
         if dout.stride(-1) != 1:
             dout = dout.contiguous()
         big_d = row_dot(dout, out)
-        dk, dv = flash_bwd_dkv_kernel(q, k, v, dout, m, l, big_d, ctx.causal)
-        dq = flash_bwd_dq_kernel(q, k, v, dout, m, l, big_d, ctx.causal)
-        return dq, dk, dv, None
+        dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+        dq, dk, dv = dqkv.unbind(2)
+        flash_bwd_dkv_kernel(q, k, v, dout, m, l, big_d, dk, dv, ctx.causal)
+        flash_bwd_dq_kernel(q, k, v, dout, m, l, big_d, dq, ctx.causal)
+        return dqkv, None
+
+
+def flash_attention_qkv(qkv: torch.Tensor, causal: bool = False) -> torch.Tensor:
+    """Softmax attention over a packed ``[batch, seq, 3, heads, head_dim]``
+    projection (q, k, v along dim 2), exact and differentiable: the kernels
+    on CUDA tensors, the plain versions on CPU tensors. Returns
+    ``[batch, seq, heads, head_dim]``."""
+    return FlashAttention.apply(qkv, causal)
 
 
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
 ) -> torch.Tensor:
-    """Softmax attention over ``[batch, seq, heads, head_dim]``, exact and
-    differentiable: the kernels on CUDA tensors, the plain versions on CPU
-    tensors."""
-    return FlashAttention.apply(q, k, v, causal)
+    """:func:`flash_attention_qkv` over separate ``[batch, seq, heads,
+    head_dim]`` tensors, stacked into one packed copy first."""
+    return flash_attention_qkv(torch.stack((q, k, v), dim=2), causal)

@@ -12,9 +12,11 @@ attention. Prints:
 
 * the step's phases timed with CUDA events (forward, backward, Adam),
   medians over ``--steps`` steps after warm-up;
-* a ``torch.profiler`` window over the same number of steps: device time by
-  kernel (top 25) and grouped by kind, and the device's busy share of the
-  window's wall time;
+* a ``torch.profiler`` window over the same number of steps, read from its
+  chrome trace: device time by kernel (top 25), grouped by kind, and
+  grouped by the op that launched it (in the backward the autograd node,
+  such as ``SelectBackward0``; in the forward and the optimizer the
+  outermost op), and the device's busy share of the window's wall time;
 * the card's name and power limit.
 
 Exits 2 with no result when no CUDA device is present.
@@ -65,11 +67,52 @@ def kind_of(name: str) -> str:
     return "elementwise/other"
 
 
-def device_time_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
+def device_events(trace_path: str):
+    """``[(kernel name, op, device us)]`` for every kernel, memset and copy
+    in a chrome trace of the profiler. ``op`` is the op that launched it
+    (linked by ``External id``), followed up that op's nesting on its
+    thread to the autograd node running it (``bwd <node>``) or, outside
+    the backward, to the outermost op (``fwd <op>``)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    by_thread, by_ext = {}, {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("cpu_op", "user_annotation"):
+            by_thread.setdefault((e["pid"], e["tid"]), []).append(e)
+            if e["cat"] == "cpu_op":
+                by_ext[e["args"].get("External id")] = e
+    label = {}
+    for ops in by_thread.values():
+        ops.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack = []  # enclosing ops, outermost first
+        for e in ops:
+            while stack and stack[-1]["ts"] + stack[-1]["dur"] < e["ts"]:
+                stack.pop()
+            name = e["name"]
+            parent = label.get(id(stack[-1])) if stack else None
+            if name.startswith("autograd::engine::evaluate_function: "):
+                label[id(e)] = "bwd " + name.split(": ", 1)[1]
+            elif parent is not None:
+                label[id(e)] = parent
+            elif e["cat"] == "cpu_op" and not name.startswith("ProfilerStep"):
+                label[id(e)] = "fwd " + name
+            stack.append(e)
+    out = []
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy"):
+            op = by_ext.get(e.get("args", {}).get("External id"))
+            out.append((e["name"], label.get(id(op), "unattributed"), float(e["dur"])))
+    return out
+
+
+def totals(rows, key):
+    """``[(key, device us, count)]`` summed over ``rows``, largest first."""
+    acc = {}
+    for row in rows:
+        k = key(row)
+        us, n = acc.get(k, (0.0, 0))
+        acc[k] = (us + row[2], n + 1)
+    return sorted(((k, us, n) for k, (us, n) in acc.items()), key=lambda r: -r[1])
 
 
 def main() -> int:
@@ -79,7 +122,8 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--warmup", type=int, default=5)
     parser.add_argument("--compute", choices=["bf16", "fp32"], default="bf16")
-    parser.add_argument("--trace", help="write a chrome trace of the profiled window here")
+    parser.add_argument("--trace", help="write the chrome trace of the profiled window here "
+                        "(default build/step_trace.json)")
     args = parser.parse_args()
 
     import torch
@@ -150,31 +194,25 @@ def main() -> int:
             step()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
-    if args.trace:
-        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
-        prof.export_chrome_trace(args.trace)
-    rows = []
-    for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) is not None and "CUDA" not in str(evt.device_type):
-            continue
-        # Ranges such as "Optimizer.step#Adam.step" span kernels counted
-        # on their own rows.
-        if getattr(evt, "is_user_annotation", False) or "#" in evt.key:
-            continue
-        us = device_time_us(evt)
-        if us > 0:
-            rows.append((us, evt.count, evt.key))
-    rows.sort(reverse=True)
-    busy_us = sum(us for us, _, _ in rows)
-    print(f"[profile] window {window_us!r} us over {args.steps} steps; device busy "
+    trace = args.trace or os.path.join(ROOT, "build", "step_trace.json")
+    os.makedirs(os.path.dirname(os.path.abspath(trace)), exist_ok=True)
+    prof.export_chrome_trace(trace)
+    # Device times from the trace's kernel, memset and copy events (CUPTI's
+    # own durations; one stream, so they never overlap).
+    rows = device_events(trace)
+    busy_us = sum(us for _, _, us in rows)
+    n = args.steps
+    print(f"[profile] window {window_us!r} us over {n} steps; device busy "
           f"{busy_us!r} us = {busy_us / window_us!r} of wall")
-    by_kind = {}
-    for us, _, key in rows:
-        by_kind[kind_of(key)] = by_kind.get(kind_of(key), 0.0) + us
-    for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
-        print(f"[profile] kind {kind}: {us / args.steps!r} us/step ({us / busy_us:.3f} of busy)")
-    for us, count, key in rows[:25]:
-        print(f"[profile] {us / args.steps:10.1f} us/step  x{count // args.steps:<4d} {key[:110]}")
+    # The profiler slows the host; the back-to-back step ran without it.
+    print(f"[profile] device busy {busy_us / n / 1e3!r} ms per step = "
+          f"{busy_us / n / 1e3 / wall_ms!r} of the back-to-back step")
+    for kind, us, _ in totals(rows, lambda r: kind_of(r[0])):
+        print(f"[profile] kind {kind}: {us / n!r} us/step ({us / busy_us:.3f} of busy)")
+    for name, us, count in totals(rows, lambda r: r[0])[:25]:
+        print(f"[profile] {us / n:10.1f} us/step  x{count / n:<6.1f} {name[:110]}")
+    for op, us, count in totals(rows, lambda r: r[1])[:30]:
+        print(f"[by op] {us / n:10.1f} us/step  x{count / n:<6.1f} {op}")
     print(f"[profile] model {args.model}, {args.compute} compute, batch {args.batch}")
     print(smi)
     return 0
