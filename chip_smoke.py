@@ -5,24 +5,30 @@
 
 Phases, each of which fails the script (non-zero exit) on any error:
 
-1. build: compile the port's CUDA kernels from their sources in
+1. build: compile the port's CUDA kernels from their five sources in
    ``ray_shuffling_data_loader_tpu_torch/ops/csrc/`` (``interaction.cu``,
-   ``flash_fwd.cu``, ``flash_bwd.cu``; one ``nvcc`` each, all started
-   together) into ``build/kernels/`` and log each kernel's registers and
-   spills;
+   ``flash_fwd.cu``, ``flash_bwd.cu`` and the tensor-core route's
+   ``flash_fwd_mma.cu``, ``flash_bwd_dkv_mma.cu``; one ``nvcc`` each, all
+   started together) into ``build/kernels/`` and log each kernel's
+   registers and spills;
 2. kernel: hold each kernel against its plain PyTorch version on the card:
    the interaction (K1) at the DLRM's ``(65536, 19, 32)`` bf16 and a ragged
    ``(500, 27, 16)`` fp32; the flash forward (K2, output and the ``m``,
    ``l`` statistics) and backward (K3: dK, dV; K4: dQ) at the
    TabTransformer's ``[65536, 19, 4, 8]`` bf16 (q, k, v strided views of
    one ``[b, t, 3, h, hd]`` tensor, dQ, dK, dV views of one packed
-   gradient), the CausalLM's ``[4, 512, 4, 16]`` bf16 causal, ``[1, 300, 2,
-   8]`` fp32 causal, ``[2, 56, 2, 8]`` fp32 and three shapes of the other
-   head-dim buckets; and the autograd Function over the packed tensor at
-   the same shapes.
+   gradient), the CausalLM's ``[4, 512, 4, 16]`` bf16 causal, ``[2, 4096,
+   8, 64]`` bf16 causal and not, ``[1, 300, 2, 8]`` fp32 causal, ``[2, 56,
+   2, 8]`` fp32, shapes of every head-dim bucket of both routes (ragged
+   t among them) and one bf16 shape on each side of ``T_MIN``; every case
+   the tensor-core route takes on both routes of K2 and K3; and the
+   autograd Function over the packed tensor (default routes) at the same
+   shapes.
    Time every kernel beside its bound, its plain version and the PyTorch
    library call that computes the same, at the main paths' shapes and at
-   ``[2, 4096, 8, 64]`` bf16, causal and not;
+   ``[2, 4096, 8, 64]`` bf16, causal and not, K2 and K3 on both routes;
+   and sweep both routes at ``[4, t, 4, hd]`` causal, hd 16 and 64, t 32
+   to 256, where ``T_MIN`` was chosen;
 3. slices: write the README's Quick-start dataset (10^6 rows, 10 files,
    5 row groups each) and, for each of the full-width
    ``dlrm_for_data_spec()`` and ``transformer_for_data_spec()``, shuffle it
@@ -34,7 +40,8 @@ Phases, each of which fails the script (non-zero exit) on any error:
    TabTransformer step (two layers);
 4. lm: 20 Adam (3e-3) steps of ``CausalLM(vocab 64, seq 512, embed 64, 2
    layers, 4 heads)`` on ``synthetic_tokens(4, 512, 64)``; the loss must
-   fall and each flash kernel launch twice per step;
+   fall and each flash kernel launch twice per step, K2 and K3 on the
+   tensor-core route only (on the TabTransformer path, never);
 5. parity: one batch through each trained module on ``cuda`` (kernels)
    and through the same module with the same weights on the CPU (plain
    versions), in fp32 with TF32 off.
@@ -53,6 +60,7 @@ import copy
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -61,7 +69,8 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCES = ("interaction", "flash_fwd", "flash_bwd")
+KERNEL_SOURCES = ("interaction", "flash_fwd", "flash_bwd", "flash_fwd_mma", "flash_bwd_dkv_mma")
+CSRC = "ray_shuffling_data_loader_tpu_torch/ops/csrc/"
 JAX_FLASH = "ray_shuffling_data_loader_tpu/ops/flash_attention.py"
 
 MAIN_SHAPE = (65536, 19, 32)
@@ -91,7 +100,18 @@ FLASH_CASES = (
     ("wide_heads", (2, 200, 2, 64), "bfloat16", True),
     ("max_head_dim", (1, 70, 3, 120), "float32", False),
     ("unaligned", (3, 5, 2, 20), "bfloat16", False),
+    # The tensor-core route: the long shape, and head dims of 2 to 8
+    # k-steps (32, 80, 96, 128) with t ragged against the 64-row tiles.
+    ("long", LONG_SHAPE, "bfloat16", False),
+    ("long_causal", LONG_SHAPE, "bfloat16", True),
+    ("hd32_ragged", (2, 333, 3, 32), "bfloat16", False),
+    ("hd80_ragged", (1, 77, 2, 80), "bfloat16", True),
+    ("hd96_ragged", (1, 100, 2, 96), "bfloat16", False),
+    ("hd128_ragged", (1, 157, 2, 128), "bfloat16", True),
 )
+# The route sweep that chose T_MIN: the CausalLM's batch and heads.
+SWEEP_T = (32, 64, 128, 256)
+SWEEP_HD = (16, 64)
 # Flash tolerances. fp32: the order of tests/test_flash_attention.py (2e-5
 # forward, 1e-4 gradients): kernel and plain version take the same fp32
 # products and sum them in another order, and the kernel rescales its
@@ -113,6 +133,9 @@ STATS_TOL = dict(atol=1e-5, rtol=2e-5)
 H100_SXM_NAME = "H100 80GB HBM3"
 H100_SXM_RATE = 3.35e12
 BF16_PEAK = 989e12  # dense tensor-core rate, H100 SXM at 700 W
+# About 10 ms at the H100's 1.98 GHz: time for the host to queue 50 calls
+# of a wrapper that takes up to 200 us on the host.
+SPIN_CYCLES = 20_000_000
 
 
 def log(msg: str) -> None:
@@ -149,10 +172,15 @@ def memory_rate(torch, name: str):
 
 
 def time_ms(torch, fn, *args, reps: int = 50) -> float:
+    """Device ms per call of ``fn(*args)``. The card first spins for
+    SPIN_CYCLES, while the host queues all ``reps`` calls, so a kernel
+    shorter than its wrapper's host time is timed on the card, not at the
+    host's launch rate."""
     for _ in range(3):
         fn(*args)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn(*args)
@@ -173,14 +201,19 @@ def reset_launches(ops) -> None:
     for fn in (ops.interaction_kernel, ops.flash_fwd_kernel, ops.flash_bwd_dkv_kernel,
                ops.flash_bwd_dq_kernel):
         fn.launches = 0
+    ops.flash_fwd_kernel.mma_launches = ops.flash_bwd_dkv_kernel.mma_launches = 0
 
 
 def read_launches(ops) -> dict:
+    """Launches per kernel: ``flash_fwd`` and ``flash_bwd_dkv`` count both
+    routes, ``*_mma`` the tensor-core route alone."""
     return {
         "interaction": ops.interaction_kernel.launches,
         "flash_fwd": ops.flash_fwd_kernel.launches,
         "flash_bwd_dkv": ops.flash_bwd_dkv_kernel.launches,
         "flash_bwd_dq": ops.flash_bwd_dq_kernel.launches,
+        "flash_fwd_mma": ops.flash_fwd_kernel.mma_launches,
+        "flash_bwd_dkv_mma": ops.flash_bwd_dkv_kernel.mma_launches,
     }
 
 
@@ -193,9 +226,18 @@ def phase_build():
     log(f"[build] {len(paths)} kernel libraries in {time.perf_counter() - t0:.2f} s (in parallel)")
     for name, path in paths.items():
         log(f"[build] {name}: {os.path.relpath(path, ROOT)}")
+        # ptxas -v: an entry's name, then its spills, then its registers.
+        entry = spills = None
         for line in _build.build_log(name).splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            found = re.search(r"Compiling entry function '(\w+)'", line)
+            if found:
+                entry = found.group(1)
+            elif "spill stores" in line:
+                spills = line.strip()
+            elif "registers" in line and entry:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                log(f"[build] {name}: {entry}: {regs} registers; {spills}")
+                entry = spills = None
 
 
 def phase_interaction(torch, rate: float, rate_src: str) -> dict:
@@ -279,48 +321,71 @@ def flash_work(shape, elem: int, causal: bool):
     }
 
 
+def compare(torch, label: str, pairs) -> dict:
+    """Hold each ``(key, got, want, tol)`` within ``tol``; returns the max
+    absolute differences."""
+    errs = {}
+    for key, got, want, tol in pairs:
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{label} {key}: {got.dtype} {tuple(got.shape)}, "
+                                 f"want {want.dtype} {tuple(want.shape)}")
+        errs[key] = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), **tol,
+                                   msg=lambda s: f"{label} {key}: {s}")
+    return errs
+
+
 def check_flash(torch, ops, case, gen) -> dict:
+    """K2, K3 and K4 against the plain versions on every route of K2 and K3
+    that takes the case (``errors[route]``), then the autograd Function on
+    the default route (``errors["function"]``)."""
     name, shape, dtype_name, causal = case
     dtype = getattr(torch, dtype_name)
     qkv, dout = flash_inputs(torch, shape, dtype, gen)
     q, k, v = qkv.unbind(2)
-    dq, dk, dv = packed_grads(torch, qkv)
-    out, m, l = ops.flash_fwd_kernel(q, k, v, causal)
-    torch.cuda.synchronize()
+    default = ops.flash_route(q, k, v)
+    routes = ops.ROUTES if ops.mma_supported(q, k, v) else ("simt",)
     out_r, m_r, l_r = ops.flash_forward_reference(q, k, v, causal)
-    big_d = ops.row_dot(dout, out)
-    ops.flash_bwd_dkv_kernel(q, k, v, dout, m, l, big_d, dk, dv, causal)
-    ops.flash_bwd_dq_kernel(q, k, v, dout, m, l, big_d, dq, causal)
-    torch.cuda.synchronize()
-    dq_r, dk_r, dv_r = ops.flash_backward_reference(q, k, v, out, m, l, dout, causal)
-    # The Function as the encoder block calls it: its packed gradient must
-    # hold the same dQ, dK, dV at the right places.
+    tol = FLASH_TOL[dtype_name]
+    errs = {"route": default}
+    for route in routes:
+        dq, dk, dv = packed_grads(torch, qkv)
+        out, m, l = ops.flash_fwd_kernel(q, k, v, causal, route)
+        big_d = ops.row_dot(dout, out)
+        ops.flash_bwd_dkv_kernel(q, k, v, dout, m, l, big_d, dk, dv, causal, route)
+        ops.flash_bwd_dq_kernel(q, k, v, dout, m, l, big_d, dq, causal)
+        torch.cuda.synchronize()
+        grads_r = ops.flash_backward_reference(q, k, v, out, m, l, dout, causal)
+        errs[route] = compare(torch, f"{name} ({route})", (
+            ("out", out, out_r, tol["out"]), ("m", m, m_r, STATS_TOL), ("l", l, l_r, STATS_TOL),
+            *((key, got, want, tol["grad"]) for key, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads_r)),
+        ))
+        if route == default:
+            default_grads_r = grads_r
+    # The Function as the encoder block calls it (the default route): its
+    # packed gradient must hold the same dQ, dK, dV at the right places.
     leaf = qkv.detach().requires_grad_(True)
     fn_out = ops.flash_attention_qkv(leaf, causal)
     fn_out.backward(dout)
     torch.cuda.synchronize()
-    tol = FLASH_TOL[dtype_name]
-    errs = {}
-    for key, got, want, t in (
-        ("out", out, out_r, tol["out"]), ("m", m, m_r, STATS_TOL), ("l", l, l_r, STATS_TOL),
-        ("dq", dq, dq_r, tol["grad"]), ("dk", dk, dk_r, tol["grad"]), ("dv", dv, dv_r, tol["grad"]),
-        ("function out", fn_out, out_r, tol["out"]),
-        ("function dqkv", leaf.grad, torch.stack((dq_r, dk_r, dv_r), dim=2), tol["grad"]),
-    ):
-        if got.dtype != want.dtype or got.shape != want.shape:
-            raise AssertionError(f"{name} {key}: {got.dtype} {tuple(got.shape)}, "
-                                 f"want {want.dtype} {tuple(want.shape)}")
-        errs[key] = (got.float() - want.float()).abs().max().item()
-        torch.testing.assert_close(got.float(), want.float(), **t, msg=lambda s: f"{name} {key}: {s}")
-    log(f"[kernel] flash {name} {list(shape)} {dtype_name} causal={causal}: max |kernel - plain| "
-        + ", ".join(f"{k_} {e!r}" for k_, e in errs.items())
+    errs["function"] = compare(torch, f"{name} (function)", (
+        ("out", fn_out, out_r, tol["out"]),
+        ("dqkv", leaf.grad, torch.stack(default_grads_r, dim=2), tol["grad"]),
+    ))
+    log(f"[kernel] flash {name} {list(shape)} {dtype_name} causal={causal}, route {default} "
+        f"(checked: {', '.join(routes)}): max |kernel - plain| "
+        + "; ".join(f"{r}: " + ", ".join(f"{k_} {e!r}" for k_, e in errs[r].items())
+                    for r in (*routes, "function"))
         + f" (out {tol['out']}, m/l {STATS_TOL}, grads {tol['grad']})")
     return errs
 
 
 def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
     """Each flash kernel, its plain version and the library call, in bf16
-    at ``shape``: ``{kernel: {ms, plain_ms, library_ms, bound_ms, ...}}``."""
+    at ``shape``: ``{kernel: {ms, plain_ms, library_ms, bound_ms, ...}}``.
+    ``flash_fwd`` and ``flash_bwd_dkv`` are the CUDA-core route; where the
+    tensor-core route takes the shape, ``flash_fwd_mma`` and
+    ``flash_bwd_dkv_mma`` are timed beside them in the same call."""
     import torch.nn.functional as F
 
     qkv, dout = flash_inputs(torch, shape, torch.bfloat16, gen)
@@ -328,8 +393,12 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
     dq, dk, dv = packed_grads(torch, qkv)
     out, m, l = ops.flash_fwd_kernel(q, k, v, causal)
     big_d = ops.row_dot(dout, out)
-    fwd_ms = time_ms(torch, ops.flash_fwd_kernel, q, k, v, causal)
-    dkv_ms = time_ms(torch, ops.flash_bwd_dkv_kernel, q, k, v, dout, m, l, big_d, dk, dv, causal)
+    routes = ops.ROUTES if ops.mma_supported(q, k, v) else ("simt",)
+    fwd_ms, dkv_ms = {}, {}
+    for route in routes:
+        fwd_ms[route] = time_ms(torch, ops.flash_fwd_kernel, q, k, v, causal, route)
+        dkv_ms[route] = time_ms(torch, ops.flash_bwd_dkv_kernel, q, k, v, dout, m, l, big_d, dk, dv,
+                                causal, route)
     dq_ms = time_ms(torch, ops.flash_bwd_dq_kernel, q, k, v, dout, m, l, big_d, dq, causal)
     reps = 10 if shape[1] > 1024 else 50
     plain_fwd_ms = time_ms(torch, ops.flash_forward_reference, q, k, v, causal, reps=reps)
@@ -363,13 +432,16 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
         )
     work = flash_work(shape, 2, causal)
     times = {
-        "flash_fwd": (fwd_ms, plain_fwd_ms, sdpa_fwd_ms),
-        "flash_bwd_dkv": (dkv_ms, plain_bwd_ms, sdpa_bwd_ms),
+        "flash_fwd": (fwd_ms["simt"], plain_fwd_ms, sdpa_fwd_ms),
+        "flash_bwd_dkv": (dkv_ms["simt"], plain_bwd_ms, sdpa_bwd_ms),
         "flash_bwd_dq": (dq_ms, plain_bwd_ms, sdpa_bwd_ms),
     }
+    if "mma" in routes:
+        times["flash_fwd_mma"] = (fwd_ms["mma"], plain_fwd_ms, sdpa_fwd_ms)
+        times["flash_bwd_dkv_mma"] = (dkv_ms["mma"], plain_bwd_ms, sdpa_bwd_ms)
     result = {}
     for kname, (ms, plain_ms, lib_ms) in times.items():
-        nbytes, nops = work[kname]
+        nbytes, nops = work[kname.removesuffix("_mma")]
         bound_ms, bound_by = bound(nbytes, nops, rate, BF16_PEAK)
         result[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                              bound_by=bound_by, bytes=nbytes, ops=nops)
@@ -379,30 +451,68 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
     return result
 
 
+def route_sweep(torch, ops, gen) -> list:
+    """Both routes of K2 and K3 at ``[4, t, 4, hd]`` bf16 causal (the
+    CausalLM's batch and heads), where ``T_MIN`` was chosen."""
+    rows = []
+    for hd in SWEEP_HD:
+        for t in SWEEP_T:
+            shape = (4, t, 4, hd)
+            qkv, dout = flash_inputs(torch, shape, torch.bfloat16, gen)
+            q, k, v = qkv.unbind(2)
+            _, dk, dv = packed_grads(torch, qkv)
+            out, m, l = ops.flash_fwd_kernel(q, k, v, True, "simt")
+            big_d = ops.row_dot(dout, out)
+            row = {"shape": list(shape)}
+            for route in ops.ROUTES:
+                row[f"fwd_{route}_ms"] = time_ms(torch, ops.flash_fwd_kernel, q, k, v, True, route)
+                row[f"dkv_{route}_ms"] = time_ms(torch, ops.flash_bwd_dkv_kernel, q, k, v, dout, m,
+                                                 l, big_d, dk, dv, True, route)
+            log(f"[kernel] route sweep {shape} bf16 causal: K2 mma {row['fwd_mma_ms']!r} ms, "
+                f"simt {row['fwd_simt_ms']!r} ms; K3 mma {row['dkv_mma_ms']!r} ms, "
+                f"simt {row['dkv_simt_ms']!r} ms (T_MIN {ops.T_MIN}: route "
+                f"{ops.flash_route(q, k, v)})")
+            rows.append(row)
+    return rows
+
+
 def phase_flash(torch, rate: float):
     import ray_shuffling_data_loader_tpu_torch.ops as ops
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    errs = {case[0]: check_flash(torch, ops, case, gen) for case in FLASH_CASES}
+    # One bf16 shape on each side of T_MIN.
+    cases = (*FLASH_CASES, ("below_t_min", (4, ops.T_MIN - 1, 4, 16), "bfloat16", True),
+             ("at_t_min", (4, ops.T_MIN, 4, 16), "bfloat16", True))
+    errs = {case[0]: check_flash(torch, ops, case, gen) for case in cases}
+    for name, want in (("tabtransformer", "simt"), ("causal_lm", "mma"), ("below_t_min", "simt"),
+                       ("at_t_min", "mma"), ("long", "mma")):
+        if errs[name]["route"] != want:
+            raise AssertionError(f"flash {name}: route {errs[name]['route']}, want {want}")
     timings = {
         "tabtransformer": time_flash(torch, ops, TAB_SHAPE, False, rate, gen),
         "causal_lm": time_flash(torch, ops, LM_SHAPE, True, rate, gen),
         "long": time_flash(torch, ops, LONG_SHAPE, False, rate, gen),
         "long_causal": time_flash(torch, ops, LONG_SHAPE, True, rate, gen),
     }
-    tab_err = errs["tabtransformer"]
+    sweep = route_sweep(torch, ops, gen)
+    tab_err = errs["tabtransformer"]["simt"]
+    lm_err = errs["causal_lm"]["mma"]
     entries = []
-    for kname, line, err in (
-        ("flash_fwd", 50, max(tab_err["out"], tab_err["m"], tab_err["l"])),
-        ("flash_bwd_dkv", 252, max(tab_err["dk"], tab_err["dv"])),
-        ("flash_bwd_dq", 331, tab_err["dq"]),
+    for kname, line, err, source, cell in (
+        ("flash_fwd", 50, max(tab_err["out"], tab_err["m"], tab_err["l"]), "flash_fwd.cu",
+         "tabtransformer"),
+        ("flash_bwd_dkv", 252, max(tab_err["dk"], tab_err["dv"]), "flash_bwd.cu", "tabtransformer"),
+        ("flash_bwd_dq", 331, tab_err["dq"], "flash_bwd.cu", "tabtransformer"),
+        ("flash_fwd_mma", 50, max(lm_err["out"], lm_err["m"], lm_err["l"]), "flash_fwd_mma.cu",
+         "causal_lm"),
+        ("flash_bwd_dkv_mma", 252, max(lm_err["dk"], lm_err["dv"]), "flash_bwd_dkv_mma.cu",
+         "causal_lm"),
     ):
-        t = timings["tabtransformer"][kname]
+        t = timings[cell][kname]
         entries.append({
             "name": kname,
             "route": "cuda",
-            "source": "ray_shuffling_data_loader_tpu_torch/ops/csrc/"
-                      + ("flash_fwd.cu" if kname == "flash_fwd" else "flash_bwd.cu"),
+            "source": CSRC + source,
             "replaces": f"{JAX_FLASH}:{line}",
             "launches": None,
             "max_abs_err": err,
@@ -412,7 +522,7 @@ def phase_flash(torch, rate: float):
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
-    return entries, {"errors": errs, "timings": timings}
+    return entries, {"errors": errs, "timings": timings, "route_sweep": sweep}
 
 
 def train_slice(torch, port, filenames, num_rows, model, label: str) -> dict:
@@ -496,14 +606,17 @@ def phase_slices(torch, data_dir: str) -> dict:
             f"in {time.perf_counter() - t0:.2f} s")
         dlrm = train_slice(torch, port, filenames, num_rows, port.dlrm_for_data_spec(), "dlrm")
         n = dlrm["launches"]
-        if n["interaction"] != dlrm["steps"] or n["flash_fwd"] or n["flash_bwd_dkv"] or n["flash_bwd_dq"]:
+        if n["interaction"] != dlrm["steps"] or any(v for k, v in n.items() if k != "interaction"):
             raise AssertionError(f"dlrm: launches {n} in {dlrm['steps']} steps")
         tab_model = port.transformer_for_data_spec()
         tab = train_slice(torch, port, filenames, num_rows, tab_model, "tabtransformer")
         n = tab["launches"]
         want = 2 * tab["steps"]  # two encoder layers
-        if n["interaction"] or any(n[k] != want for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")):
-            raise AssertionError(f"tabtransformer: launches {n}, want {want} of each flash kernel")
+        # t = 19, hd = 8: the CUDA-core route only.
+        if (n["interaction"] or n["flash_fwd_mma"] or n["flash_bwd_dkv_mma"]
+                or any(n[k] != want for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))):
+            raise AssertionError(f"tabtransformer: launches {n}, want {want} of each flash kernel, "
+                                 f"none on the tensor-core route")
         return {"dlrm": dlrm, "tabtransformer": tab}
     finally:
         port.runtime.shutdown()
@@ -531,10 +644,13 @@ def phase_lm(torch) -> dict:
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"lm: loss did not fall: {losses}")
     want = 2 * steps
+    # t = 512, hd = 16, bf16: K2 and K3 on the tensor-core route only.
     if launches["interaction"] or any(
-        launches[k] != want for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+        launches[k] != want
+        for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_mma", "flash_bwd_dkv_mma")
     ):
-        raise AssertionError(f"lm: launches {launches}, want {want} of each flash kernel")
+        raise AssertionError(f"lm: launches {launches}, want {want} of each flash kernel, "
+                             f"K2 and K3 all on the tensor-core route")
     median_ms = statistics.median(step_s[1:]) * 1e3
     log(f"[lm] {steps} steps, loss {losses[0]!r} -> {losses[-1]!r}; step median {median_ms!r} ms "
         f"(first {step_s[0] * 1e3!r} ms); launches {launches}")
@@ -591,8 +707,10 @@ def main() -> int:
             shutil.rmtree(data_dir, ignore_errors=True)
         lm = phase_lm(torch)
         for entry in kernels:
-            path = slices["dlrm"] if entry["name"] == "interaction" else slices["tabtransformer"]
-            entry["launches"] = path["launches"][entry["name"]]
+            kname = entry["name"]
+            path = (slices["dlrm"] if kname == "interaction" else lm if kname.endswith("_mma")
+                    else slices["tabtransformer"])
+            entry["launches"] = path["launches"][kname]
         parity = {
             label: phase_parity(torch, label, slices[label]["model"], slices[label]["batch"])
             for label in ("dlrm", "tabtransformer")

@@ -1,11 +1,16 @@
 """Flash attention over ``[batch, seq, heads, head_dim]``, forward and
 backward.
 
-On CUDA tensors the forward is the hand-written kernel
-``csrc/flash_fwd.cu`` (K2), which also returns the float32 softmax row
-statistics ``(m, l)``, and the backward is ``csrc/flash_bwd.cu``: dK and dV
-(K3), then dQ (K4), both recomputing the probabilities from the saved
-statistics. ``D = rowsum(dO * out)`` between them is plain tensor code. On
+On CUDA tensors the forward is the hand-written kernel K2, which also
+returns the float32 softmax row statistics ``(m, l)``, and the backward is
+dK and dV (K3), then dQ (K4), both recomputing the probabilities from the
+saved statistics. ``D = rowsum(dO * out)`` between them is plain tensor
+code. K2 and K3 have two routes, which :func:`flash_route` picks per call:
+``"mma"``, tensor-core kernels (``csrc/flash_fwd_mma.cu``,
+``csrc/flash_bwd_dkv_mma.cu``) for bf16 heads of at least :data:`T_MIN`
+tokens and a head dim that is a multiple of 16; ``"simt"``, the CUDA-core
+kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), for everything
+else. K4 is always ``csrc/flash_bwd.cu``. On
 CPU tensors the same :class:`FlashAttention` runs the two plain versions,
 :func:`flash_forward_reference` and :func:`flash_backward_reference`, which
 compute the same quantities densely and hand over the same statistics.
@@ -32,6 +37,13 @@ from ray_shuffling_data_loader_tpu_torch.ops import _build
 NEG_INF = -1e30  # finite "minus infinity": NEG_INF - NEG_INF is 0, not NaN
 MAX_HEAD_DIM = 128  # kMaxHeadDim of csrc/flash_common.cuh
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The shortest sequence that takes the tensor-core route. chip_smoke.py's
+# route sweep timed both routes of K2 and K3 on the card at [4, t, 4, hd]
+# causal, hd 16 and 64, t 32 to 256: the tensor-core route was the faster
+# at every point, t = 32 included (PERF.md), so the crossover lies at or
+# below the sweep's shortest t.
+T_MIN = 32
+ROUTES = ("mma", "simt")
 
 
 def attention_reference(
@@ -105,6 +117,48 @@ def flash_backward_reference(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def mma_supported(*tensors: torch.Tensor) -> bool:
+    """Whether the tensor-core kernels take these ``[b, t, h, hd]`` tensors
+    (the inputs and outputs of one call): bf16, one shape, ``hd`` a multiple
+    of 16 up to 128, a contiguous last dim, and 16-byte aligned pointers and
+    (b, t, h) strides, as ``vectorizable`` of ``csrc/flash_common.cuh``
+    checks them."""
+    q = tensors[0]
+    if q.dim() != 4 or q.shape[3] % 16 or q.shape[3] > MAX_HEAD_DIM:
+        return False
+    for x in tensors:
+        if x.dtype != torch.bfloat16 or x.shape != q.shape or x.stride(-1) != 1:
+            return False
+        if x.data_ptr() % 16 or any(s * x.element_size() % 16 for s in x.stride()[:3]):
+            return False
+    return True
+
+
+def flash_route(*tensors: torch.Tensor) -> str:
+    """The route of K2 and K3 for these tensors: ``"mma"`` where
+    :func:`mma_supported` holds and the sequence has at least
+    :data:`T_MIN` tokens, else ``"simt"``."""
+    if mma_supported(*tensors) and tensors[0].shape[1] >= T_MIN:
+        return "mma"
+    return "simt"
+
+
+def _pick_route(name: str, route, tensors: Sequence[torch.Tensor]) -> str:
+    """``route`` checked against the tensors, or :func:`flash_route` when
+    it is None."""
+    if route is None:
+        return flash_route(*tensors)
+    if route not in ROUTES:
+        raise ValueError(f"{name}: route must be None or one of {ROUTES}, got {route!r}")
+    if route == "mma" and not mma_supported(*tensors):
+        shapes = ", ".join(f"{x.dtype} {tuple(x.shape)}" for x in tensors)
+        raise ValueError(
+            f"{name}: the mma route takes bf16 [b, t, h, hd] tensors with hd a multiple of 16 "
+            f"up to {MAX_HEAD_DIM} and 16-byte aligned pointers and strides; got {shapes}"
+        )
+    return route
+
+
 def _library(name: str, fn_name: str, n_ptrs: int) -> ctypes.CDLL:
     lib = _build.load(name)
     fn = getattr(lib, fn_name)
@@ -155,23 +209,30 @@ def _raise_on(rc: int, name: str) -> None:
 
 
 def flash_fwd_kernel(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False, route=None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K2 on the current stream: ``(out, m, l)``. Counts its
-    launches in ``flash_fwd_kernel.launches``."""
+    """Launch K2 on the current stream: ``(out, m, l)``. ``route`` (None:
+    :func:`flash_route`) picks the kernel; ``"mma"`` on tensors it does not
+    take raises ``ValueError``. Counts its launches in
+    ``flash_fwd_kernel.launches``, those of the tensor-core route also in
+    ``flash_fwd_kernel.mma_launches``."""
+    route = _pick_route("flash_fwd_kernel", route, (q, k, v))
     b, t, h, hd = _check_inputs("flash_fwd_kernel", (q, k, v))
-    lib = _library("flash_fwd", "rsdl_flash_fwd", 6)
+    name = "flash_fwd_mma" if route == "mma" else "flash_fwd"
+    fn = f"rsdl_{name}"
+    lib = _library(name, fn, 6)
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
     m = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     with torch.cuda.device(q.device):
-        rc = lib.rsdl_flash_fwd(
+        rc = getattr(lib, fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
             _strides((q, k, v, out)), b, t, h, hd, int(causal), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _raise_on(rc, "flash forward kernel")
+    _raise_on(rc, f"flash forward kernel ({route})")
     flash_fwd_kernel.launches += 1
+    flash_fwd_kernel.mma_launches += route == "mma"
     return out, m, l
 
 
@@ -186,23 +247,31 @@ def flash_bwd_dkv_kernel(
     dk: torch.Tensor,
     dv: torch.Tensor,
     causal: bool = False,
+    route=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K3 on the current stream, writing into ``dk`` and ``dv``
     (``[b, t, h, hd]`` in q's dtype, any strides but a contiguous last dim),
     and return them. ``big_d`` is ``rowsum(dout * out)``, float32
-    ``[b, h, t]``. Counts its launches in ``flash_bwd_dkv_kernel.launches``."""
-    b, t, h, hd = _check_inputs("flash_bwd_dkv_kernel", (q, k, v, dout, dk, dv))
+    ``[b, h, t]``. ``route`` as for :func:`flash_fwd_kernel`. Counts its
+    launches in ``flash_bwd_dkv_kernel.launches`` and those of the
+    tensor-core route also in ``flash_bwd_dkv_kernel.mma_launches``."""
+    tensors = (q, k, v, dout, dk, dv)
+    route = _pick_route("flash_bwd_dkv_kernel", route, tensors)
+    b, t, h, hd = _check_inputs("flash_bwd_dkv_kernel", tensors)
     _check_stats("flash_bwd_dkv_kernel", (b, h, t), q.device, (m, l, big_d))
-    lib = _library("flash_bwd", "rsdl_flash_bwd_dkv", 9)
+    name, fn = ("flash_bwd_dkv_mma", "rsdl_flash_bwd_dkv_mma") if route == "mma" else (
+        "flash_bwd", "rsdl_flash_bwd_dkv")
+    lib = _library(name, fn, 9)
     with torch.cuda.device(q.device):
-        rc = lib.rsdl_flash_bwd_dkv(
+        rc = getattr(lib, fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             m.data_ptr(), l.data_ptr(), big_d.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _strides((q, k, v, dout, dk, dv)), b, t, h, hd, int(causal), _DTYPE_CODES[q.dtype],
+            _strides(tensors), b, t, h, hd, int(causal), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _raise_on(rc, "flash dK/dV kernel")
+    _raise_on(rc, f"flash dK/dV kernel ({route})")
     flash_bwd_dkv_kernel.launches += 1
+    flash_bwd_dkv_kernel.mma_launches += route == "mma"
     return dk, dv
 
 
@@ -235,8 +304,8 @@ def flash_bwd_dq_kernel(
     return dq
 
 
-flash_fwd_kernel.launches = 0
-flash_bwd_dkv_kernel.launches = 0
+flash_fwd_kernel.launches = flash_fwd_kernel.mma_launches = 0
+flash_bwd_dkv_kernel.launches = flash_bwd_dkv_kernel.mma_launches = 0
 flash_bwd_dq_kernel.launches = 0
 
 

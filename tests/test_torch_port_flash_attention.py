@@ -2,7 +2,8 @@
 (interpret mode on the CPU) on the same numpy inputs: the plain version of
 K2 (output and softmax statistics), the plain version of K3 and K4 (the
 gradients from the same statistics), and gradients through the port's
-autograd Function."""
+autograd Function; and the choice between the CUDA-core and the
+tensor-core routes of K2 and K3."""
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +18,9 @@ from ray_shuffling_data_loader_tpu.ops.flash_attention import (
 from ray_shuffling_data_loader_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from ray_shuffling_data_loader_tpu.ops.ring_attention import attention_reference as jax_attention_reference
 from ray_shuffling_data_loader_tpu_torch.ops.flash_attention import (
+    MAX_HEAD_DIM,
     NEG_INF,
+    T_MIN,
     attention_reference,
     flash_attention,
     flash_backward_reference,
@@ -25,6 +28,8 @@ from ray_shuffling_data_loader_tpu_torch.ops.flash_attention import (
     flash_bwd_dq_kernel,
     flash_forward_reference,
     flash_fwd_kernel,
+    flash_route,
+    mma_supported,
 )
 
 # The shapes and blocks of tests/test_flash_attention.py's dense check.
@@ -32,6 +37,11 @@ SHAPES = [
     ((2, 64, 2, 8), (16, 16)),  # several kv blocks per q block
     ((1, 56, 2, 8), (16, 24)),  # ragged: seq divides neither block
     ((2, 8, 1, 4), (128, 128)),  # seq smaller than the block
+    # Shapes of the tensor-core route (head dims 32, 64, 128), t ragged
+    # against its 64-row tiles.
+    ((1, 200, 2, 64), (128, 128)),
+    ((1, 130, 3, 32), (64, 64)),
+    ((1, 72, 2, 128), (32, 32)),
 ]
 
 
@@ -141,3 +151,92 @@ def test_kernels_refuse_cpu_tensors():
     assert q.grad is not None
     after = (flash_fwd_kernel.launches, flash_bwd_dkv_kernel.launches, flash_bwd_dq_kernel.launches)
     assert after == before
+
+
+def _bf16(shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _packed(shape):
+    """q, k, v as the encoder block hands them over: views of one packed
+    ``[b, t, 3, h, hd]`` projection."""
+    b, t, h, hd = shape
+    return torch.zeros((b, t, 3, h, hd), dtype=torch.bfloat16).unbind(2)
+
+
+def _offset_by_one(shape):
+    """A bf16 tensor whose data starts 2 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=torch.bfloat16)[1:].view(shape)
+
+
+def _odd_head_stride(shape):
+    """Heads 40 bytes apart: hd = 16 of a [.., h, 20] tensor."""
+    b, t, h, hd = shape
+    return torch.zeros((b, t, h, hd + 4), dtype=torch.bfloat16)[..., :hd]
+
+
+ROUTE_CASES = [
+    ("bf16_at_t_min", lambda: (_bf16((2, T_MIN, 4, 16)),), "mma"),
+    ("fp32_at_t_min", lambda: (torch.zeros((2, T_MIN, 4, 16)),), "simt"),
+    ("bf16_below_t_min", lambda: (_bf16((2, T_MIN - 1, 4, 16)),), "simt"),
+    ("tabtransformer", lambda: (_bf16((8, 19, 4, 8)),), "simt"),
+    ("causal_lm_packed", lambda: _packed((4, 512, 4, 16)), "mma"),
+    ("hd8", lambda: (_bf16((2, 128, 2, 8)),), "simt"),
+    ("hd16", lambda: (_bf16((2, 128, 2, 16)),), "mma"),
+    ("hd20", lambda: (_bf16((2, 128, 2, 20)),), "simt"),
+    ("hd64", lambda: (_bf16((2, 128, 2, 64)),), "mma"),
+    ("hd120", lambda: (_bf16((2, 128, 2, 120)),), "simt"),
+    ("hd128", lambda: (_bf16((2, 128, 2, MAX_HEAD_DIM)),), "mma"),
+    ("hd144", lambda: (_bf16((2, 128, 2, 144)),), "simt"),
+    ("unaligned_pointer", lambda: (_bf16((2, 128, 2, 64)), _offset_by_one((2, 128, 2, 64))), "simt"),
+    ("unaligned_head_stride", lambda: (_odd_head_stride((2, 128, 2, 16)),), "simt"),
+    ("mixed_dtypes", lambda: (_bf16((2, 128, 2, 64)), torch.zeros((2, 128, 2, 64))), "simt"),
+]
+
+
+@pytest.mark.parametrize("name,make,want", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
+def test_flash_route(name, make, want):
+    tensors = make()
+    assert flash_route(*tensors) == want
+    # Below T_MIN the tensor-core kernels still take the tensors (a forced
+    # route launches them); only the default prefers the CUDA-core route.
+    assert mma_supported(*tensors) == (want == "mma" or name == "bf16_below_t_min")
+
+
+REFUSED = [
+    ("fp32", lambda: torch.zeros((1, 64, 2, 16))),
+    ("hd20", lambda: _bf16((1, 64, 2, 20))),
+    ("hd8", lambda: _bf16((1, 64, 2, 8))),
+    ("unaligned", lambda: _offset_by_one((1, 64, 2, 16))),
+]
+
+
+@pytest.mark.parametrize("name,make", REFUSED, ids=[c[0] for c in REFUSED])
+def test_mma_route_refuses_shapes_it_does_not_take(name, make):
+    q = make()
+    b, t, h, _ = q.shape
+    stats = torch.zeros((b, h, t))
+    with pytest.raises(ValueError, match="mma route"):
+        flash_fwd_kernel(q, q, q, route="mma")
+    with pytest.raises(ValueError, match="mma route"):
+        flash_bwd_dkv_kernel(q, q, q, q, stats, stats, stats, q.clone(), q.clone(), route="mma")
+
+
+def test_route_argument_is_checked_before_the_device():
+    q = _bf16((1, T_MIN - 1, 2, 16))
+    with pytest.raises(ValueError, match="route must be"):
+        flash_fwd_kernel(q, q, q, route="tensor")
+    # A route the tensors allow passes its check and then meets the CPU
+    # refusal, forced below T_MIN as well.
+    for route in ("mma", "simt"):
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_fwd_kernel(q, q, q, route=route)
+
+
+def test_cpu_function_counts_no_launch_on_either_route():
+    qkv = torch.from_numpy(np.random.default_rng(7).standard_normal((1, 64, 3, 2, 16))).to(
+        torch.bfloat16).requires_grad_(True)
+    before = (flash_fwd_kernel.mma_launches, flash_bwd_dkv_kernel.mma_launches)
+    flash_attention(*qkv.unbind(2), causal=True).float().sum().backward()
+    assert (flash_fwd_kernel.mma_launches, flash_bwd_dkv_kernel.mma_launches) == before
