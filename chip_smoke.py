@@ -5,15 +5,18 @@
 
 Phases, each of which fails the script (non-zero exit) on any error:
 
-1. build: compile the port's CUDA kernels from their five sources in
+1. build: compile the port's CUDA kernels from their seven sources in
    ``ray_shuffling_data_loader_tpu_torch/ops/csrc/`` (``interaction.cu``,
    ``flash_fwd.cu``, ``flash_bwd.cu`` and the tensor-core route's
-   ``flash_fwd_mma.cu``, ``flash_bwd_dkv_mma.cu``; one ``nvcc`` each, all
-   started together) into ``build/kernels/`` and log each kernel's
-   registers and spills;
+   ``interaction_mma.cu``, ``flash_fwd_mma.cu``, ``flash_bwd_dkv_mma.cu``,
+   ``flash_bwd_dq_mma.cu``; one ``nvcc`` each, all started together) into
+   ``build/kernels/`` and log each kernel's registers and spills;
 2. kernel: hold each kernel against its plain PyTorch version on the card:
-   the interaction (K1) at the DLRM's ``(65536, 19, 32)`` bf16 and a ragged
-   ``(500, 27, 16)`` fp32; the flash forward (K2, output and the ``m``,
+   the interaction (K1) on its tensor-core route at the DLRM's ``(65536,
+   19, 32)`` bf16, a batch ragged against its tile ``(1001, 19, 32)``,
+   ``(500, 27, 16)``, ``(4096, 64, 64)`` and ``(8192, 27, 128)`` in bf16,
+   and on its CUDA-core route at the DLRM's shape and a ragged ``(500, 27,
+   16)`` fp32; the flash forward (K2, output and the ``m``,
    ``l`` statistics) and backward (K3: dK, dV; K4: dQ) at the
    TabTransformer's ``[65536, 19, 4, 8]`` bf16 (q, k, v strided views of
    one ``[b, t, 3, h, hd]`` tensor, dQ, dK, dV views of one packed
@@ -21,14 +24,14 @@ Phases, each of which fails the script (non-zero exit) on any error:
    8, 64]`` bf16 causal and not, ``[1, 300, 2, 8]`` fp32 causal, ``[2, 56,
    2, 8]`` fp32, shapes of every head-dim bucket of both routes (ragged
    t among them) and one bf16 shape on each side of ``T_MIN``; every case
-   the tensor-core route takes on both routes of K2 and K3; and the
+   the tensor-core route takes on both routes of K2, K3 and K4; and the
    autograd Function over the packed tensor (default routes) at the same
    shapes.
    Time every kernel beside its bound, its plain version and the PyTorch
    library call that computes the same, at the main paths' shapes and at
-   ``[2, 4096, 8, 64]`` bf16, causal and not, K2 and K3 on both routes;
-   and sweep both routes at ``[4, t, 4, hd]`` causal, hd 16 and 64, t 32
-   to 256, where ``T_MIN`` was chosen;
+   ``[2, 4096, 8, 64]`` bf16, causal and not, K1 to K4 on both routes;
+   and sweep both routes of K2, K3 and K4 at ``[4, t, 4, hd]`` causal, hd
+   16 and 64, t 32 to 256, where ``T_MIN`` was chosen;
 3. slices: write the README's Quick-start dataset (10^6 rows, 10 files,
    5 row groups each) and, for each of the full-width
    ``dlrm_for_data_spec()`` and ``transformer_for_data_spec()``, shuffle it
@@ -36,15 +39,17 @@ Phases, each of which fails the script (non-zero exit) on any error:
    65536, 8 reducers) and train on every batch with Adam 1e-3. Each epoch
    must deliver every key at most once and exactly the full batches'
    worth, every loss must be finite, and over the path the interaction
-   kernel must launch once per DLRM step and each flash kernel twice per
-   TabTransformer step (two layers);
+   kernel must launch once per DLRM step, all on its tensor-core route,
+   and each flash kernel twice per TabTransformer step (two layers), none
+   on a tensor-core route;
 4. lm: 20 Adam (3e-3) steps of ``CausalLM(vocab 64, seq 512, embed 64, 2
    layers, 4 heads)`` on ``synthetic_tokens(4, 512, 64)``; the loss must
-   fall and each flash kernel launch twice per step, K2 and K3 on the
-   tensor-core route only (on the TabTransformer path, never);
-5. parity: one batch through each trained module on ``cuda`` (kernels)
-   and through the same module with the same weights on the CPU (plain
-   versions), in fp32 with TF32 off.
+   fall and each flash kernel launch twice per step, all on the
+   tensor-core route;
+5. parity: one batch through each trained module on ``cuda`` (kernels;
+   in fp32 the interaction's CUDA-core route) and through the same module
+   with the same weights on the CPU (plain versions), in fp32 with TF32
+   off.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. Prints a ``{"kernels": [...]}`` line, the card's name and power
@@ -69,12 +74,18 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCES = ("interaction", "flash_fwd", "flash_bwd", "flash_fwd_mma", "flash_bwd_dkv_mma")
+KERNEL_SOURCES = ("interaction", "flash_fwd", "flash_bwd", "interaction_mma", "flash_fwd_mma",
+                  "flash_bwd_dkv_mma", "flash_bwd_dq_mma")
 CSRC = "ray_shuffling_data_loader_tpu_torch/ops/csrc/"
 JAX_FLASH = "ray_shuffling_data_loader_tpu/ops/flash_attention.py"
 
 MAIN_SHAPE = (65536, 19, 32)
 RAGGED_SHAPE = (500, 27, 16)
+# The tensor-core route of K1: the DLRM's shape, a batch ragged against its
+# 8-sample tile, (500, 27, 16) (16-sample tiles, an odd pair count), N = 64
+# and D = 128 (MLPerf DLRM's 26 tables + the dense row at width 128).
+INTERACTION_MMA_SHAPES = (MAIN_SHAPE, (1001, 19, 32), RAGGED_SHAPE, (4096, 64, 64),
+                          (8192, 27, 128))
 # bf16: kernel and plain version both sum in fp32 and round once to bf16,
 # so a different summation order can move a result by at most one bf16
 # step, which is at most 2**-7 of its value. Summing in bf16, or rounding
@@ -197,24 +208,26 @@ def bound(nbytes: float, ops: float, rate: float, peak: float):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+LAUNCH_COUNTED = ("interaction_kernel", "flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                  "flash_bwd_dq_kernel")
+
+
 def reset_launches(ops) -> None:
-    for fn in (ops.interaction_kernel, ops.flash_fwd_kernel, ops.flash_bwd_dkv_kernel,
-               ops.flash_bwd_dq_kernel):
-        fn.launches = 0
-    ops.flash_fwd_kernel.mma_launches = ops.flash_bwd_dkv_kernel.mma_launches = 0
+    for name in LAUNCH_COUNTED:
+        fn = getattr(ops, name)
+        fn.launches = fn.mma_launches = 0
 
 
 def read_launches(ops) -> dict:
-    """Launches per kernel: ``flash_fwd`` and ``flash_bwd_dkv`` count both
+    """Launches per kernel: ``interaction``, ``flash_fwd`` etc. count both
     routes, ``*_mma`` the tensor-core route alone."""
-    return {
-        "interaction": ops.interaction_kernel.launches,
-        "flash_fwd": ops.flash_fwd_kernel.launches,
-        "flash_bwd_dkv": ops.flash_bwd_dkv_kernel.launches,
-        "flash_bwd_dq": ops.flash_bwd_dq_kernel.launches,
-        "flash_fwd_mma": ops.flash_fwd_kernel.mma_launches,
-        "flash_bwd_dkv_mma": ops.flash_bwd_dkv_kernel.mma_launches,
-    }
+    counts = {}
+    for name in LAUNCH_COUNTED:
+        fn = getattr(ops, name)
+        key = name.removesuffix("_kernel")
+        counts[key] = fn.launches
+        counts[f"{key}_mma"] = fn.mma_launches
+    return counts
 
 
 def phase_build():
@@ -240,56 +253,73 @@ def phase_build():
                 entry = spills = None
 
 
-def phase_interaction(torch, rate: float, rate_src: str) -> dict:
+def phase_interaction(torch, rate: float, rate_src: str) -> list:
+    """K1 on both routes against the plain version, then both timed at the
+    DLRM's shape: the ``interaction`` (CUDA-core) and ``interaction_mma``
+    (tensor-core) entries of the kernels line."""
     from ray_shuffling_data_loader_tpu_torch.ops.interaction import (
         dot_interaction_reference,
         interaction_kernel,
+        interaction_route,
         num_pairs,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs = {}
-    for shape, dtype, tol in (
-        (MAIN_SHAPE, torch.bfloat16, BF16_TOL),
-        (RAGGED_SHAPE, torch.float32, FP32_TOL),
-    ):
+
+    def embeddings(shape, dtype):
         # Embedding-like values: the model's tables start at std 1/sqrt(D).
-        x = (torch.randn(shape, device="cuda", generator=gen) / shape[2] ** 0.5).to(dtype)
-        got = interaction_kernel(x)
+        return (torch.randn(shape, device="cuda", generator=gen) / shape[2] ** 0.5).to(dtype)
+
+    errs = {}
+    cases = [("mma", shape, torch.bfloat16, BF16_TOL) for shape in INTERACTION_MMA_SHAPES]
+    cases += [("simt", MAIN_SHAPE, torch.bfloat16, BF16_TOL), ("simt", RAGGED_SHAPE, torch.float32, FP32_TOL)]
+    for route, shape, dtype, tol in cases:
+        x = embeddings(shape, dtype)
+        got = interaction_kernel(x, route)
         torch.cuda.synchronize()
         want = dot_interaction_reference(x)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         torch.testing.assert_close(got.float(), want.float(), **tol)
-        errs[shape] = err
-        log(f"[kernel] interaction {shape} {dtype}: max |kernel - plain| = {err!r} "
-            f"(atol {tol['atol']}, rtol {tol['rtol']})")
+        errs[route, shape] = err
+        log(f"[kernel] interaction ({route}) {shape} {dtype}: max |kernel - plain| = {err!r} "
+            f"(atol {tol['atol']}, rtol {tol['rtol']}; default route {interaction_route(x)})")
+    if interaction_route(embeddings(MAIN_SHAPE, torch.bfloat16)) != "mma":
+        raise AssertionError("interaction: the DLRM's shape does not take the tensor-core route")
 
     b, n, d = MAIN_SHAPE
-    x = (torch.randn(MAIN_SHAPE, device="cuda", generator=gen) / d ** 0.5).to(torch.bfloat16)
-    ms = time_ms(torch, interaction_kernel, x)
+    x = embeddings(MAIN_SHAPE, torch.bfloat16)
+    iu, ju = torch.triu_indices(n, n, 1, device="cuda")
+    ms = {route: time_ms(torch, interaction_kernel, x, route) for route in ("simt", "mma")}
     plain_ms = time_ms(torch, dot_interaction_reference, x)
+    # A yardstick, not a library call for K1: the whole bf16 Gram by bmm,
+    # then the triangle gathered (two calls, and N^2 outputs, not N(N-1)/2).
+    bmm_ms = time_ms(torch, lambda: torch.bmm(x, x.transpose(1, 2))[:, iu, ju])
     nbytes = b * n * d * 2 + b * num_pairs(n) * 2
     ops = 2 * b * num_pairs(n) * d
     bound_ms, bound_by = bound(nbytes, ops, rate, BF16_PEAK)
-    log(f"[kernel] interaction {MAIN_SHAPE} bf16: kernel {ms!r} ms, plain {plain_ms!r} ms, "
-        f"bound {bound_ms!r} ms by {bound_by} ({nbytes} B at {rate:.4g} B/s from {rate_src}; "
-        f"{ops} ops at bf16 peak)")
-    return {
-        "name": "interaction",
-        "route": "cuda",
-        "source": "ray_shuffling_data_loader_tpu_torch/ops/csrc/interaction.cu",
-        "replaces": "ray_shuffling_data_loader_tpu/ops/interaction.py:68",
-        "launches": None,
-        "max_abs_err": errs[MAIN_SHAPE],
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        # No single PyTorch call computes the strict upper triangle of a
-        # batched Gram (bmm plus a gather is two).
-        "library_ms": None,
-    }
+    log(f"[kernel] interaction {MAIN_SHAPE} bf16: mma {ms['mma']!r} ms, simt {ms['simt']!r} ms, "
+        f"plain {plain_ms!r} ms, bmm + gather {bmm_ms!r} ms, bound {bound_ms!r} ms by {bound_by} "
+        f"({nbytes} B at {rate:.4g} B/s from {rate_src}; {ops} ops at bf16 peak)")
+    return [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": CSRC + source,
+            "replaces": "ray_shuffling_data_loader_tpu/ops/interaction.py:68",
+            "launches": None,
+            "max_abs_err": errs[route, MAIN_SHAPE],
+            "ms": ms[route],
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # No single PyTorch call computes the strict upper triangle of
+            # a batched Gram (bmm plus a gather is two).
+            "library_ms": None,
+        }
+        for name, route, source in (("interaction", "simt", "interaction.cu"),
+                                    ("interaction_mma", "mma", "interaction_mma.cu"))
+    ]
 
 
 def flash_inputs(torch, shape, dtype, gen):
@@ -336,8 +366,8 @@ def compare(torch, label: str, pairs) -> dict:
 
 
 def check_flash(torch, ops, case, gen) -> dict:
-    """K2, K3 and K4 against the plain versions on every route of K2 and K3
-    that takes the case (``errors[route]``), then the autograd Function on
+    """K2, K3 and K4 against the plain versions on every route that takes
+    the case (``errors[route]``), then the autograd Function on
     the default route (``errors["function"]``)."""
     name, shape, dtype_name, causal = case
     dtype = getattr(torch, dtype_name)
@@ -353,7 +383,7 @@ def check_flash(torch, ops, case, gen) -> dict:
         out, m, l = ops.flash_fwd_kernel(q, k, v, causal, route)
         big_d = ops.row_dot(dout, out)
         ops.flash_bwd_dkv_kernel(q, k, v, dout, m, l, big_d, dk, dv, causal, route)
-        ops.flash_bwd_dq_kernel(q, k, v, dout, m, l, big_d, dq, causal)
+        ops.flash_bwd_dq_kernel(q, k, v, dout, m, l, big_d, dq, causal, route)
         torch.cuda.synchronize()
         grads_r = ops.flash_backward_reference(q, k, v, out, m, l, dout, causal)
         errs[route] = compare(torch, f"{name} ({route})", (
@@ -383,9 +413,9 @@ def check_flash(torch, ops, case, gen) -> dict:
 def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
     """Each flash kernel, its plain version and the library call, in bf16
     at ``shape``: ``{kernel: {ms, plain_ms, library_ms, bound_ms, ...}}``.
-    ``flash_fwd`` and ``flash_bwd_dkv`` are the CUDA-core route; where the
-    tensor-core route takes the shape, ``flash_fwd_mma`` and
-    ``flash_bwd_dkv_mma`` are timed beside them in the same call."""
+    ``flash_fwd``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` are the CUDA-core
+    route; where the tensor-core route takes the shape, the ``*_mma``
+    kernels are timed beside them in the same call."""
     import torch.nn.functional as F
 
     qkv, dout = flash_inputs(torch, shape, torch.bfloat16, gen)
@@ -394,12 +424,13 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
     out, m, l = ops.flash_fwd_kernel(q, k, v, causal)
     big_d = ops.row_dot(dout, out)
     routes = ops.ROUTES if ops.mma_supported(q, k, v) else ("simt",)
-    fwd_ms, dkv_ms = {}, {}
+    fwd_ms, dkv_ms, dq_ms = {}, {}, {}
     for route in routes:
         fwd_ms[route] = time_ms(torch, ops.flash_fwd_kernel, q, k, v, causal, route)
         dkv_ms[route] = time_ms(torch, ops.flash_bwd_dkv_kernel, q, k, v, dout, m, l, big_d, dk, dv,
                                 causal, route)
-    dq_ms = time_ms(torch, ops.flash_bwd_dq_kernel, q, k, v, dout, m, l, big_d, dq, causal)
+        dq_ms[route] = time_ms(torch, ops.flash_bwd_dq_kernel, q, k, v, dout, m, l, big_d, dq,
+                               causal, route)
     reps = 10 if shape[1] > 1024 else 50
     plain_fwd_ms = time_ms(torch, ops.flash_forward_reference, q, k, v, causal, reps=reps)
     plain_bwd_ms = time_ms(torch, ops.flash_backward_reference, q, k, v, out, m, l, dout, causal,
@@ -434,11 +465,12 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
     times = {
         "flash_fwd": (fwd_ms["simt"], plain_fwd_ms, sdpa_fwd_ms),
         "flash_bwd_dkv": (dkv_ms["simt"], plain_bwd_ms, sdpa_bwd_ms),
-        "flash_bwd_dq": (dq_ms, plain_bwd_ms, sdpa_bwd_ms),
+        "flash_bwd_dq": (dq_ms["simt"], plain_bwd_ms, sdpa_bwd_ms),
     }
     if "mma" in routes:
         times["flash_fwd_mma"] = (fwd_ms["mma"], plain_fwd_ms, sdpa_fwd_ms)
         times["flash_bwd_dkv_mma"] = (dkv_ms["mma"], plain_bwd_ms, sdpa_bwd_ms)
+        times["flash_bwd_dq_mma"] = (dq_ms["mma"], plain_bwd_ms, sdpa_bwd_ms)
     result = {}
     for kname, (ms, plain_ms, lib_ms) in times.items():
         nbytes, nops = work[kname.removesuffix("_mma")]
@@ -452,7 +484,7 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
 
 
 def route_sweep(torch, ops, gen) -> list:
-    """Both routes of K2 and K3 at ``[4, t, 4, hd]`` bf16 causal (the
+    """Both routes of K2, K3 and K4 at ``[4, t, 4, hd]`` bf16 causal (the
     CausalLM's batch and heads), where ``T_MIN`` was chosen."""
     rows = []
     for hd in SWEEP_HD:
@@ -460,7 +492,7 @@ def route_sweep(torch, ops, gen) -> list:
             shape = (4, t, 4, hd)
             qkv, dout = flash_inputs(torch, shape, torch.bfloat16, gen)
             q, k, v = qkv.unbind(2)
-            _, dk, dv = packed_grads(torch, qkv)
+            dq, dk, dv = packed_grads(torch, qkv)
             out, m, l = ops.flash_fwd_kernel(q, k, v, True, "simt")
             big_d = ops.row_dot(dout, out)
             row = {"shape": list(shape)}
@@ -468,9 +500,12 @@ def route_sweep(torch, ops, gen) -> list:
                 row[f"fwd_{route}_ms"] = time_ms(torch, ops.flash_fwd_kernel, q, k, v, True, route)
                 row[f"dkv_{route}_ms"] = time_ms(torch, ops.flash_bwd_dkv_kernel, q, k, v, dout, m,
                                                  l, big_d, dk, dv, True, route)
+                row[f"dq_{route}_ms"] = time_ms(torch, ops.flash_bwd_dq_kernel, q, k, v, dout, m,
+                                                l, big_d, dq, True, route)
             log(f"[kernel] route sweep {shape} bf16 causal: K2 mma {row['fwd_mma_ms']!r} ms, "
                 f"simt {row['fwd_simt_ms']!r} ms; K3 mma {row['dkv_mma_ms']!r} ms, "
-                f"simt {row['dkv_simt_ms']!r} ms (T_MIN {ops.T_MIN}: route "
+                f"simt {row['dkv_simt_ms']!r} ms; K4 mma {row['dq_mma_ms']!r} ms, "
+                f"simt {row['dq_simt_ms']!r} ms (T_MIN {ops.T_MIN}: route "
                 f"{ops.flash_route(q, k, v)})")
             rows.append(row)
     return rows
@@ -507,6 +542,7 @@ def phase_flash(torch, rate: float):
          "causal_lm"),
         ("flash_bwd_dkv_mma", 252, max(lm_err["dk"], lm_err["dv"]), "flash_bwd_dkv_mma.cu",
          "causal_lm"),
+        ("flash_bwd_dq_mma", 331, lm_err["dq"], "flash_bwd_dq_mma.cu", "causal_lm"),
     ):
         t = timings[cell][kname]
         entries.append({
@@ -606,14 +642,17 @@ def phase_slices(torch, data_dir: str) -> dict:
             f"in {time.perf_counter() - t0:.2f} s")
         dlrm = train_slice(torch, port, filenames, num_rows, port.dlrm_for_data_spec(), "dlrm")
         n = dlrm["launches"]
-        if n["interaction"] != dlrm["steps"] or any(v for k, v in n.items() if k != "interaction"):
-            raise AssertionError(f"dlrm: launches {n} in {dlrm['steps']} steps")
+        # bf16, (65536, 19, 32): the tensor-core route only.
+        if (n["interaction"] != dlrm["steps"] or n["interaction_mma"] != dlrm["steps"]
+                or any(v for k, v in n.items() if not k.startswith("interaction"))):
+            raise AssertionError(f"dlrm: launches {n} in {dlrm['steps']} steps, want one K1 per "
+                                 f"step, all on the tensor-core route")
         tab_model = port.transformer_for_data_spec()
         tab = train_slice(torch, port, filenames, num_rows, tab_model, "tabtransformer")
         n = tab["launches"]
         want = 2 * tab["steps"]  # two encoder layers
         # t = 19, hd = 8: the CUDA-core route only.
-        if (n["interaction"] or n["flash_fwd_mma"] or n["flash_bwd_dkv_mma"]
+        if (n["interaction"] or any(n[k] for k in n if k.endswith("_mma"))
                 or any(n[k] != want for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))):
             raise AssertionError(f"tabtransformer: launches {n}, want {want} of each flash kernel, "
                                  f"none on the tensor-core route")
@@ -644,34 +683,46 @@ def phase_lm(torch) -> dict:
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"lm: loss did not fall: {losses}")
     want = 2 * steps
-    # t = 512, hd = 16, bf16: K2 and K3 on the tensor-core route only.
+    # t = 512, hd = 16, bf16: the tensor-core route only.
     if launches["interaction"] or any(
         launches[k] != want
-        for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_mma", "flash_bwd_dkv_mma")
+        for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_mma", "flash_bwd_dkv_mma",
+                  "flash_bwd_dq_mma")
     ):
         raise AssertionError(f"lm: launches {launches}, want {want} of each flash kernel, "
-                             f"K2 and K3 all on the tensor-core route")
+                             f"all on the tensor-core route")
     median_ms = statistics.median(step_s[1:]) * 1e3
     log(f"[lm] {steps} steps, loss {losses[0]!r} -> {losses[-1]!r}; step median {median_ms!r} ms "
         f"(first {step_s[0] * 1e3!r} ms); launches {launches}")
     return {"losses": losses, "step_ms_median": median_ms, "launches": launches}
 
 
-def phase_parity(torch, label: str, model, batch) -> float:
+def phase_parity(torch, label: str, model, batch):
+    """``(max |cuda - cpu|, launches of the fp32 forward on cuda)``; the
+    interaction and the flash kernels take their CUDA-core routes there."""
+    import ray_shuffling_data_loader_tpu_torch.ops as ops
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = 8192
     features = {k: v[:rows] for k, v in batch[0].items()}
     model.compute_dtype = torch.float32
     with torch.no_grad():
+        reset_launches(ops)
         on_gpu = model(features).cpu()
+        launches = read_launches(ops)
         cpu_model = copy.deepcopy(model).to("cpu")
         on_cpu = cpu_model({k: v.cpu() for k, v in features.items()})
     err = (on_gpu - on_cpu).abs().max().item()
     torch.testing.assert_close(on_gpu, on_cpu, **PARITY_TOL)
+    # A forward: K1 once, or K2 once per encoder layer.
+    want = {"interaction": 1} if label == "dlrm" else {"flash_fwd": 2}
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        raise AssertionError(f"parity {label}: launches {launches}, want {want}, all on the "
+                             f"CUDA-core route")
     log(f"[parity] {label}: {rows} rows fp32, cuda vs cpu: max |diff| = {err!r} "
-        f"(atol {PARITY_TOL['atol']}, rtol {PARITY_TOL['rtol']})")
-    return err
+        f"(atol {PARITY_TOL['atol']}, rtol {PARITY_TOL['rtol']}); launches {launches}")
+    return err, launches
 
 
 def main() -> int:
@@ -696,7 +747,7 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         rate, rate_src, measured = memory_rate(torch, name)
         log(f"[kernel] bounds use {rate:.4g} B/s ({rate_src}); measured copy rate {measured:.4g} B/s")
-        kernels = [phase_interaction(torch, rate, rate_src)]
+        kernels = phase_interaction(torch, rate, rate_src)
         flash_entries, flash = phase_flash(torch, rate)
         kernels += flash_entries
         log(f"[kernel] done at {time.perf_counter() - t_start:.1f} s")
@@ -706,15 +757,22 @@ def main() -> int:
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
         lm = phase_lm(torch)
-        for entry in kernels:
-            kname = entry["name"]
-            path = (slices["dlrm"] if kname == "interaction" else lm if kname.endswith("_mma")
-                    else slices["tabtransformer"])
-            entry["launches"] = path["launches"][kname]
         parity = {
             label: phase_parity(torch, label, slices[label]["model"], slices[label]["batch"])
             for label in ("dlrm", "tabtransformer")
         }
+        # Each kernel's launches on the path that runs it: the DLRM's bf16
+        # steps (K1's tensor-core route), its fp32 parity forward (K1's
+        # CUDA-core route), the CausalLM (the flash kernels' tensor-core
+        # route) and the TabTransformer (their CUDA-core route).
+        for entry in kernels:
+            kname = entry["name"]
+            if kname.startswith("interaction"):
+                counts = slices["dlrm"]["launches"] if kname.endswith("_mma") else parity["dlrm"][1]
+            else:
+                counts = (lm if kname.endswith("_mma") else slices["tabtransformer"])["launches"]
+            entry["launches"] = (counts[kname] if kname.endswith("_mma")
+                                 else counts[kname] - counts[f"{kname}_mma"])
     except Exception:
         traceback.print_exc()
         print("chip_smoke: a phase failed", file=sys.stderr)
@@ -732,7 +790,7 @@ def main() -> int:
                         for label, sl in slices.items()
                     },
                     "lm": lm,
-                    "parity_max_abs_diff": parity,
+                    "parity_max_abs_diff": {label: err for label, (err, _) in parity.items()},
                 },
                 f, indent=1,
             )

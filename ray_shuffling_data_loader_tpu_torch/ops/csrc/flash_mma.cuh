@@ -1,7 +1,8 @@
-// Tensor-core pieces of the flash attention kernels flash_fwd_mma.cu (K2)
-// and flash_bwd_dkv_mma.cu (K3): ldmatrix, mma.sync m16n8k16 in bf16 with
-// float32 accumulators, cp.async with zero fill, and the two-term bf16
-// split of a float32 operand.
+// Tensor-core pieces of the flash attention kernels flash_fwd_mma.cu (K2),
+// flash_bwd_dkv_mma.cu (K3) and flash_bwd_dq_mma.cu (K4), and of the dot
+// interaction's interaction_mma.cu (K1): ldmatrix, mma.sync m16n8k16 in
+// bf16 with float32 accumulators, cp.async with zero fill, and the
+// two-term bf16 split of a float32 operand.
 //
 // Fragment layouts (PTX ISA, "mma.m16n8k16" with .bf16): lane l of a warp,
 // g = l / 4, c = 2 * (l % 4).

@@ -5,13 +5,13 @@ On CUDA tensors the forward is the hand-written kernel K2, which also
 returns the float32 softmax row statistics ``(m, l)``, and the backward is
 dK and dV (K3), then dQ (K4), both recomputing the probabilities from the
 saved statistics. ``D = rowsum(dO * out)`` between them is plain tensor
-code. K2 and K3 have two routes, which :func:`flash_route` picks per call:
-``"mma"``, tensor-core kernels (``csrc/flash_fwd_mma.cu``,
-``csrc/flash_bwd_dkv_mma.cu``) for bf16 heads of at least :data:`T_MIN`
+code. Each kernel has two routes, which :func:`flash_route` picks per
+call, one rule for all three: ``"mma"``, tensor-core kernels
+(``csrc/flash_fwd_mma.cu``, ``csrc/flash_bwd_dkv_mma.cu``,
+``csrc/flash_bwd_dq_mma.cu``) for bf16 heads of at least :data:`T_MIN`
 tokens and a head dim that is a multiple of 16; ``"simt"``, the CUDA-core
 kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), for everything
-else. K4 is always ``csrc/flash_bwd.cu``. On
-CPU tensors the same :class:`FlashAttention` runs the two plain versions,
+else. On CPU tensors the same :class:`FlashAttention` runs the two plain versions,
 :func:`flash_forward_reference` and :func:`flash_backward_reference`, which
 compute the same quantities densely and hand over the same statistics.
 There is no fallback from one to the other: a kernel that fails to build
@@ -38,10 +38,10 @@ NEG_INF = -1e30  # finite "minus infinity": NEG_INF - NEG_INF is 0, not NaN
 MAX_HEAD_DIM = 128  # kMaxHeadDim of csrc/flash_common.cuh
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The shortest sequence that takes the tensor-core route. chip_smoke.py's
-# route sweep timed both routes of K2 and K3 on the card at [4, t, 4, hd]
-# causal, hd 16 and 64, t 32 to 256: the tensor-core route was the faster
-# at every point, t = 32 included (PERF.md), so the crossover lies at or
-# below the sweep's shortest t.
+# route sweep times both routes of K2, K3 and K4 on the card at
+# [4, t, 4, hd] causal, hd 16 and 64, t 32 to 256: the tensor-core route
+# was the faster at every point, t = 32 included (PERF.md), so the
+# crossover lies at or below the sweep's shortest t.
 T_MIN = 32
 ROUTES = ("mma", "simt")
 
@@ -135,7 +135,7 @@ def mma_supported(*tensors: torch.Tensor) -> bool:
 
 
 def flash_route(*tensors: torch.Tensor) -> str:
-    """The route of K2 and K3 for these tensors: ``"mma"`` where
+    """The route of K2, K3 and K4 for these tensors: ``"mma"`` where
     :func:`mma_supported` holds and the sequence has at least
     :data:`T_MIN` tokens, else ``"simt"``."""
     if mma_supported(*tensors) and tensors[0].shape[1] >= T_MIN:
@@ -285,28 +285,36 @@ def flash_bwd_dq_kernel(
     big_d: torch.Tensor,
     dq: torch.Tensor,
     causal: bool = False,
+    route=None,
 ) -> torch.Tensor:
     """Launch K4 on the current stream, writing into ``dq`` (as ``dk`` of
-    :func:`flash_bwd_dkv_kernel`), and return it. Counts its launches in
-    ``flash_bwd_dq_kernel.launches``."""
-    b, t, h, hd = _check_inputs("flash_bwd_dq_kernel", (q, k, v, dout, dq))
+    :func:`flash_bwd_dkv_kernel`), and return it. ``route`` as for
+    :func:`flash_fwd_kernel`. Counts its launches in
+    ``flash_bwd_dq_kernel.launches`` and those of the tensor-core route also
+    in ``flash_bwd_dq_kernel.mma_launches``."""
+    tensors = (q, k, v, dout, dq)
+    route = _pick_route("flash_bwd_dq_kernel", route, tensors)
+    b, t, h, hd = _check_inputs("flash_bwd_dq_kernel", tensors)
     _check_stats("flash_bwd_dq_kernel", (b, h, t), q.device, (m, l, big_d))
-    lib = _library("flash_bwd", "rsdl_flash_bwd_dq", 8)
+    name, fn = ("flash_bwd_dq_mma", "rsdl_flash_bwd_dq_mma") if route == "mma" else (
+        "flash_bwd", "rsdl_flash_bwd_dq")
+    lib = _library(name, fn, 8)
     with torch.cuda.device(q.device):
-        rc = lib.rsdl_flash_bwd_dq(
+        rc = getattr(lib, fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             m.data_ptr(), l.data_ptr(), big_d.data_ptr(), dq.data_ptr(),
-            _strides((q, k, v, dout, dq)), b, t, h, hd, int(causal), _DTYPE_CODES[q.dtype],
+            _strides(tensors), b, t, h, hd, int(causal), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _raise_on(rc, "flash dQ kernel")
+    _raise_on(rc, f"flash dQ kernel ({route})")
     flash_bwd_dq_kernel.launches += 1
+    flash_bwd_dq_kernel.mma_launches += route == "mma"
     return dq
 
 
 flash_fwd_kernel.launches = flash_fwd_kernel.mma_launches = 0
 flash_bwd_dkv_kernel.launches = flash_bwd_dkv_kernel.mma_launches = 0
-flash_bwd_dq_kernel.launches = 0
+flash_bwd_dq_kernel.launches = flash_bwd_dq_kernel.mma_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

@@ -3,7 +3,7 @@
 K2 (output and softmax statistics), the plain version of K3 and K4 (the
 gradients from the same statistics), and gradients through the port's
 autograd Function; and the choice between the CUDA-core and the
-tensor-core routes of K2 and K3."""
+tensor-core routes of K2, K3 and K4."""
 
 import jax
 import jax.numpy as jnp
@@ -79,6 +79,20 @@ def test_backward_reference_matches_pallas_from_the_same_stats(causal, shape, bl
     out, m, l = _flash_forward(jq, jk, jv, causal, *blocks, interpret=True, return_stats=True)
     want = _flash_backward_pallas(jq, jk, jv, out, m, l, jct, causal, *blocks, interpret=True)
     got = flash_backward_reference(*_t(q, k, v, out, m, l, ct), causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=0, err_msg=name)
+
+
+def test_backward_reference_matches_pallas_at_the_lm_head_dim():
+    """The CausalLM's head dim 16, causal, with t = 96 ragged against the
+    64-row tiles of the tensor-core kernels and the Pallas blocks."""
+    shape, blocks = (1, 96, 2, 16), (64, 64)
+    q, k, v = _qkv(shape, seed=8)
+    ct = np.random.default_rng(9).standard_normal(shape).astype(np.float32)
+    jq, jk, jv, jct = map(jnp.asarray, (q, k, v, ct))
+    out, m, l = _flash_forward(jq, jk, jv, True, *blocks, interpret=True, return_stats=True)
+    want = _flash_backward_pallas(jq, jk, jv, out, m, l, jct, True, *blocks, interpret=True)
+    got = flash_backward_reference(*_t(q, k, v, out, m, l, ct), True)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=0, err_msg=name)
 
@@ -221,22 +235,30 @@ def test_mma_route_refuses_shapes_it_does_not_take(name, make):
         flash_fwd_kernel(q, q, q, route="mma")
     with pytest.raises(ValueError, match="mma route"):
         flash_bwd_dkv_kernel(q, q, q, q, stats, stats, stats, q.clone(), q.clone(), route="mma")
+    with pytest.raises(ValueError, match="mma route"):
+        flash_bwd_dq_kernel(q, q, q, q, stats, stats, stats, q.clone(), route="mma")
 
 
 def test_route_argument_is_checked_before_the_device():
     q = _bf16((1, T_MIN - 1, 2, 16))
+    stats = torch.zeros((1, 2, T_MIN - 1))
     with pytest.raises(ValueError, match="route must be"):
         flash_fwd_kernel(q, q, q, route="tensor")
+    with pytest.raises(ValueError, match="route must be"):
+        flash_bwd_dq_kernel(q, q, q, q, stats, stats, stats, q.clone(), route="tensor")
     # A route the tensors allow passes its check and then meets the CPU
     # refusal, forced below T_MIN as well.
     for route in ("mma", "simt"):
         with pytest.raises(ValueError, match="CUDA"):
             flash_fwd_kernel(q, q, q, route=route)
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_bwd_dq_kernel(q, q, q, q, stats, stats, stats, q.clone(), route=route)
 
 
 def test_cpu_function_counts_no_launch_on_either_route():
     qkv = torch.from_numpy(np.random.default_rng(7).standard_normal((1, 64, 3, 2, 16))).to(
         torch.bfloat16).requires_grad_(True)
-    before = (flash_fwd_kernel.mma_launches, flash_bwd_dkv_kernel.mma_launches)
+    counters = (flash_fwd_kernel, flash_bwd_dkv_kernel, flash_bwd_dq_kernel)
+    before = tuple(fn.mma_launches for fn in counters)
     flash_attention(*qkv.unbind(2), causal=True).float().sum().backward()
-    assert (flash_fwd_kernel.mma_launches, flash_bwd_dkv_kernel.mma_launches) == before
+    assert tuple(fn.mma_launches for fn in counters) == before
