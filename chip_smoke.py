@@ -42,17 +42,29 @@ Phases, each of which fails the script (non-zero exit) on any error:
    kernel must launch once per DLRM step, all on its tensor-core route,
    and each flash kernel twice per TabTransformer step (two layers), none
    on a tensor-core route;
-4. lm: 20 Adam (3e-3) steps of ``CausalLM(vocab 64, seq 512, embed 64, 2
+4. ranks: data-parallel DLRM training with one process per trainer rank
+   (``multirank``) on the same dataset, all ranks on ``cuda:0``: 2 ranks
+   over ``gloo`` with ``DistributedDataParallel`` (mean) for 2 epochs; 3
+   ranks over ``gloo`` with ``make_psum_train_step`` (Adasum, bf16 on the
+   wire) for 1 epoch; 1 rank over ``nccl`` with ``make_psum_train_step``
+   (mean) for 3 steps; batch 65536 per rank, 8 reducers in rank 0's
+   spawned worker pool, the full-width DLRM in bf16. In each run every
+   epoch must deliver each key at most once across the ranks and each rank
+   exactly its full batches, every loss must be finite, all ranks must end
+   with the same parameters bit for bit, and each rank must launch the
+   interaction kernel once per step, all on its tensor-core route, and no
+   flash kernel;
+5. lm: 20 Adam (3e-3) steps of ``CausalLM(vocab 64, seq 512, embed 64, 2
    layers, 4 heads)`` on ``synthetic_tokens(4, 512, 64)``; the loss must
    fall and each flash kernel launch twice per step, all on the
    tensor-core route;
-5. parity: one batch through each trained module on ``cuda`` (kernels;
+6. parity: one batch through each trained module on ``cuda`` (kernels;
    in fp32 the interaction's CUDA-core route) and through the same module
    with the same weights on the CPU (plain versions), in fp32 with TF32
    off.
 
 Every launch count is set to 0 just before a path is driven and read just
-after. Prints a ``{"kernels": [...]}`` line, the card's name and power
+after; in the ranks phase, by each rank in its own process. Prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero, with no result, when no CUDA device is present.
 """
@@ -606,6 +618,7 @@ def train_slice(torch, port, filenames, num_rows, model, label: str) -> dict:
         log(f"[slice {label}] epoch {epoch}: {got.size} distinct keys exactly once, "
             f"{len(keys)} steps, {epoch_s[-1]!r} s")
     launches = read_launches(ops)
+    ds.join()  # the shuffle ended and the queue's name is free again
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{label}: non-finite loss: {losses}")
     stats = ds.stats.as_dict()
@@ -630,10 +643,13 @@ def train_slice(torch, port, filenames, num_rows, model, label: str) -> dict:
     }
 
 
+NUM_ROWS = 10**6
+
+
 def phase_slices(torch, data_dir: str) -> dict:
     import ray_shuffling_data_loader_tpu_torch as port
 
-    num_rows = 10**6
+    num_rows = NUM_ROWS
     port.runtime.init()
     try:
         t0 = time.perf_counter()
@@ -656,9 +672,58 @@ def phase_slices(torch, data_dir: str) -> dict:
                 or any(n[k] != want for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))):
             raise AssertionError(f"tabtransformer: launches {n}, want {want} of each flash kernel, "
                                  f"none on the tensor-core route")
-        return {"dlrm": dlrm, "tabtransformer": tab}
+        return {"dlrm": dlrm, "tabtransformer": tab, "filenames": filenames}
     finally:
         port.runtime.shutdown()
+
+
+# (label, multirank arguments): the three runs of the ranks phase.
+RANK_RUNS = (
+    ("ddp_mean_2", ["--num-trainers", "2", "--backend", "gloo", "--step", "ddp", "--epochs", "2"]),
+    ("adasum_bf16_3", ["--num-trainers", "3", "--backend", "gloo", "--step", "psum", "--grad-reduce", "adasum",
+                       "--grad-dtype", "bfloat16", "--epochs", "1"]),
+    ("nccl_1", ["--num-trainers", "1", "--backend", "nccl", "--step", "psum", "--epochs", "1", "--max-steps", "3"]),
+)
+
+
+def phase_ranks(filenames, smi: str) -> dict:
+    """The multi-rank runs; each rank's numbers on lines of their own."""
+    from ray_shuffling_data_loader_tpu_torch import multirank
+
+    t_phase = time.perf_counter()
+    runs = {}
+    for label, argv in RANK_RUNS:
+        args = multirank.parse_args([
+            *argv, "--batch-size", "65536", "--num-rows", str(NUM_ROWS), "--num-reducers", "8", "--seed", "0",
+            "--timeout", "300",
+        ])
+        t0 = time.perf_counter()
+        out = multirank.run(args, filenames=filenames)
+        wall = time.perf_counter() - t0
+        if out["returncode"] != 0:
+            raise AssertionError(f"[ranks] {label}: exit code {out['returncode']}: {out['problems']}")
+        for res in out["ranks"]:
+            n = res["launches"]
+            if (n["interaction"]["launches"] != res["steps"] or n["interaction"]["mma_launches"] != res["steps"]
+                    or any(n[k]["launches"] for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))):
+                raise AssertionError(f"[ranks] {label} rank {res['rank']}: launches {n} in {res['steps']} steps, "
+                                     "want one interaction per step, all on the tensor-core route, and no flash")
+            e = res["epochs"]
+            log(f"[ranks] {label} rank {res['rank']} ({res['device']}): {res['steps']} steps "
+                f"({', '.join(str(x['steps']) + ' + ' + str(x['drained']) + ' drained' for x in e)} per epoch), "
+                f"step median {res['step_ms_median']!r} ms (first {res['step_ms_first']!r} ms); collective "
+                f"{res['comm_ms']!r} ms for {res['comm_bytes']} B per step; stall share {res['stall_share']!r}; "
+                f"first batch {[x['first_batch_s'] for x in e]!r} s; get_batch round trip "
+                f"{min(x['get_batch_min_s'] for x in e)!r} s (min; median "
+                f"{statistics.median(x['get_batch_median_s'] for x in e)!r} s); worker pool ready "
+                f"{res['pool_ready_s']!r} s; shm {res['shm_dir']} {res['shm_free_bytes']} B free; store peak "
+                f"{res['store_peak_bytes']!r} B; peak device memory {res['peak_device_bytes']} B; "
+                f"launches {n['interaction']}; losses {res['losses'][0]!r} -> {res['losses'][-1]!r}")
+        log(f"[ranks] {label}: {len(out['ranks'])} ranks, exactly once in every epoch, finite losses, "
+            f"parameters bit-identical ({out['ranks'][0]['params_sha256'][:16]}), {wall:.1f} s ({smi})")
+        runs[label] = {"wall_s": wall, "ranks": out["ranks"]}
+    log(f"[ranks] done in {time.perf_counter() - t_phase:.1f} s")
+    return runs
 
 
 def phase_lm(torch) -> dict:
@@ -754,6 +819,7 @@ def main() -> int:
         shutil.rmtree(data_dir, ignore_errors=True)
         try:
             slices = phase_slices(torch, data_dir)
+            ranks = phase_ranks(slices.pop("filenames"), smi)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
         lm = phase_lm(torch)
@@ -790,6 +856,7 @@ def main() -> int:
                         for label, sl in slices.items()
                     },
                     "lm": lm,
+                    "ranks": ranks,
                     "parity_max_abs_diff": {label: err for label, (err, _) in parity.items()},
                 },
                 f, indent=1,

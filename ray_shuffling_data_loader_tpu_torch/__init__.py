@@ -1,89 +1,78 @@
 """PyTorch/CUDA port of the shuffling data loader.
 
-Parquet -> per-epoch map/reduce shuffle -> exact-size batches staged to the
-GPU -> the train step of the DLRM, whose dot interaction is a hand-written
-CUDA kernel, or of the TabTransformer; and the causal LM. Both transformers
-attend through hand-written CUDA flash attention kernels, forward and
-backward. Entry points run on CUDA unless the caller passes
-``device="cpu"``. The package is independent of the JAX package it was
-ported from, which stays the reference its tests compare against.
+Parquet -> per-epoch map/reduce shuffle in spawned worker processes over a
+shared-memory store -> a named cross-process batch queue -> exact-size
+batches staged to the GPU of each trainer rank -> the train step of the
+DLRM, whose dot interaction is a hand-written CUDA kernel, or of the
+TabTransformer, alone or data-parallel over ranks; and the causal LM.
+Both transformers attend through hand-written CUDA flash attention
+kernels, forward and backward. Entry points run on CUDA unless the caller
+passes ``device="cpu"``. The package is independent of the JAX package it
+was ported from, which stays the reference its tests compare against.
+
+Names resolve on first use (PEP 562): the spawned shuffle workers import
+this package for :mod:`.runtime` and :mod:`.shuffle` and never load
+``torch``.
 """
 
-from ray_shuffling_data_loader_tpu_torch import runtime
-from ray_shuffling_data_loader_tpu_torch.convert import (
-    dlrm_state_dict_from_jax,
-    lm_state_dict_from_jax,
-    transformer_state_dict_from_jax,
-)
-from ray_shuffling_data_loader_tpu_torch.data_generation import (
-    DATA_SPEC,
-    KEY_COLUMN,
-    LABEL_COLUMN,
-    generate_data,
-)
-from ray_shuffling_data_loader_tpu_torch.dataset import CarryRebatcher, ShufflingDataset
-from ray_shuffling_data_loader_tpu_torch.device_dataset import (
-    DeviceShufflingDataset,
-    HostToDeviceStats,
-    TorchBatchSpec,
-)
-from ray_shuffling_data_loader_tpu_torch.models import (
-    CausalLM,
-    TabTransformer,
-    TabularDLRM,
-    dlrm_for_data_spec,
-    example_features,
-    next_token_loss,
-    synthetic_tokens,
-    transformer_for_data_spec,
-)
-from ray_shuffling_data_loader_tpu_torch.ops import (
-    attention_reference,
-    dot_interaction,
-    dot_interaction_reference,
-    flash_attention,
-    flash_attention_qkv,
-    interaction_kernel,
-)
-from ray_shuffling_data_loader_tpu_torch.parallel import (
-    bce_loss,
-    make_optimizer,
-    make_train_step,
-)
-from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch
-from ray_shuffling_data_loader_tpu_torch.utils import resolve_device
+import importlib
 
-__all__ = [
-    "CarryRebatcher",
-    "CausalLM",
-    "ColumnBatch",
-    "DATA_SPEC",
-    "DeviceShufflingDataset",
-    "HostToDeviceStats",
-    "KEY_COLUMN",
-    "LABEL_COLUMN",
-    "ShufflingDataset",
-    "TabTransformer",
-    "TabularDLRM",
-    "TorchBatchSpec",
-    "attention_reference",
-    "bce_loss",
-    "dlrm_for_data_spec",
-    "dlrm_state_dict_from_jax",
-    "dot_interaction",
-    "dot_interaction_reference",
-    "example_features",
-    "flash_attention",
-    "flash_attention_qkv",
-    "generate_data",
-    "interaction_kernel",
-    "lm_state_dict_from_jax",
-    "make_optimizer",
-    "make_train_step",
-    "next_token_loss",
-    "resolve_device",
-    "runtime",
-    "synthetic_tokens",
-    "transformer_for_data_spec",
-    "transformer_state_dict_from_jax",
-]
+_EXPORTS = {
+    "runtime": None,
+    "dlrm_state_dict_from_jax": "convert",
+    "lm_state_dict_from_jax": "convert",
+    "transformer_state_dict_from_jax": "convert",
+    "DATA_SPEC": "data_generation",
+    "KEY_COLUMN": "data_generation",
+    "LABEL_COLUMN": "data_generation",
+    "generate_data": "data_generation",
+    "BatchQueue": "batch_queue",
+    "ProducerDiedError": "batch_queue",
+    "CarryRebatcher": "dataset",
+    "ShufflingDataset": "dataset",
+    "DeviceShufflingDataset": "device_dataset",
+    "HostToDeviceStats": "device_dataset",
+    "TorchBatchSpec": "device_dataset",
+    "CausalLM": "models",
+    "TabTransformer": "models",
+    "TabularDLRM": "models",
+    "dlrm_for_data_spec": "models",
+    "example_features": "models",
+    "next_token_loss": "models",
+    "synthetic_tokens": "models",
+    "transformer_for_data_spec": "models",
+    "attention_reference": "ops",
+    "dot_interaction": "ops",
+    "dot_interaction_reference": "ops",
+    "flash_attention": "ops",
+    "flash_attention_qkv": "ops",
+    "interaction_kernel": "ops",
+    "DATA_AXIS": "parallel",
+    "adasum_reduce": "parallel",
+    "bce_loss": "parallel",
+    "init_data_parallel": "parallel",
+    "make_optimizer": "parallel",
+    "make_psum_train_step": "parallel",
+    "make_train_step": "parallel",
+    "ColumnBatch": "runtime",
+    "resolve_device": "utils",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module = _EXPORTS[name]
+    if module is None:
+        # importlib, not ``from . import``: that form would re-enter this
+        # hook while the attribute is still unbound.
+        return importlib.import_module(f"{__name__}.{name}")
+    value = getattr(importlib.import_module(f"{__name__}.{module}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -1,107 +1,254 @@
-"""In-process batch queue: one FIFO per ``(epoch, rank)`` plus the epoch
-window.
+"""The cross-process batch queue: a named actor holding one FIFO per
+``(epoch, rank)`` and the epoch window.
 
-The shuffle driver puts each reducer's output on its rank's queue for the
-epoch and ends the epoch with a trailing ``None`` sentinel per rank
-(:meth:`BatchQueue.producer_done`). Trainers block in
+The shuffle (rank 0) spawns the queue actor and registers itself as
+its producer. It puts each reducer's output ref on its rank's queue and
+ends an epoch with a trailing ``None`` sentinel per rank
+(:meth:`BatchQueue.producer_done`). Trainer ranks, in any process of the
+session, connect to the actor by name; they block in
 :meth:`BatchQueue.get_batch` and ack what they consumed with
-:meth:`BatchQueue.task_done`. :meth:`BatchQueue.new_epoch` is the only
-backpressure: an epoch is admitted while fewer than
-``max_concurrent_epochs`` epochs are in flight, else it waits until the
-oldest one is fully produced and fully acked.
+:meth:`BatchQueue.task_done`. :meth:`BatchQueue.new_epoch` admits an epoch
+while fewer than ``max_concurrent_epochs`` epochs are in flight, else it
+waits until the oldest one is fully produced and fully acked.
 
-Queues are registered by name so that trainer ranks running as threads of
-the same process can connect to the queue rank 0 created.
+A consumer blocked on an empty queue checks the producer's liveness every
+``$RSDL_PRODUCER_LIVENESS_S`` seconds (default 2) and raises
+:class:`ProducerDiedError` when it died mid-epoch, instead of hanging.
+
+This module imports the standard library and the runtime only.
 """
 
 from __future__ import annotations
 
-import queue
-import threading
-import time
-from collections import deque
-from typing import Any, Dict, List
+import asyncio
+import collections
+import os
+from typing import Any, List, Optional
+
+from ray_shuffling_data_loader_tpu_torch import runtime
+from ray_shuffling_data_loader_tpu_torch.runtime import ActorDiedError
 
 DEFAULT_QUEUE_NAME = "BatchQueue"
 
-_REGISTRY: Dict[str, "BatchQueue"] = {}
-_REGISTRY_LOCK = threading.Lock()
+
+class Empty(Exception):
+    pass
+
+
+class Full(Exception):
+    pass
+
+
+class ProducerDiedError(Exception):
+    """A blocked consumer found its queue empty and the producer dead: the
+    epoch can never complete."""
+
+    def __init__(self, epoch: int, rank: int):
+        super().__init__(
+            f"batch-queue producer died before finishing epoch {epoch} "
+            f"(consumer rank {rank}); the epoch cannot complete"
+        )
+        self.epoch = epoch
+        self.rank = rank
+
+    def __reduce__(self):
+        return (ProducerDiedError, (self.epoch, self.rank))
+
+
+def _liveness_interval_s() -> float:
+    """Seconds between a blocked consumer's liveness checks, at least
+    50 ms (no busy loop against the actor)."""
+    try:
+        value = float(os.environ.get("RSDL_PRODUCER_LIVENESS_S", "2.0"))
+    except ValueError:
+        return 2.0
+    return max(0.05, value)
+
+
+class _QueueActor:
+    """Server side, on the actor's single-threaded event loop: no locks."""
+
+    def __init__(self, max_epochs: int, num_epochs: int, num_trainers: int, maxsize: int):
+        self.max_epochs = max_epochs
+        self.num_epochs = num_epochs
+        self.num_trainers = num_trainers
+        self.maxsize = maxsize
+        self.curr_epochs: collections.deque = collections.deque()
+        grid = lambda make: [[make() for _ in range(num_trainers)] for _ in range(num_epochs)]  # noqa: E731
+        self.queues: List[List[asyncio.Queue]] = grid(lambda: asyncio.Queue(maxsize))
+        self.producer_done_events: List[List[asyncio.Event]] = grid(asyncio.Event)
+        # Set by every consume: a producer waiting for room in put_batch
+        # wakes and checks again.
+        self.space_events: List[List[asyncio.Event]] = grid(asyncio.Event)
+        self._producer_pid: Optional[int] = None
+
+    def register_producer(self, pid: int) -> None:
+        self._producer_pid = int(pid)
+
+    def producer_alive(self, epoch: int) -> bool:
+        """Can ``epoch`` still complete? Yes once every rank's sentinel is
+        in, with no producer registered, or while the producer lives."""
+        if all(e.is_set() for e in self.producer_done_events[epoch]) or self._producer_pid is None:
+            return True
+        return _pid_alive(self._producer_pid)
+
+    async def new_epoch(self, epoch: int) -> None:
+        if len(self.curr_epochs) == self.max_epochs:
+            first = self.curr_epochs.popleft()
+            await asyncio.gather(*(e.wait() for e in self.producer_done_events[first]))
+            await asyncio.gather(*(q.join() for q in self.queues[first]))
+        self.curr_epochs.append(epoch)
+
+    async def producer_done(self, rank: int, epoch: int) -> None:
+        await self.queues[epoch][rank].put(None)
+        self.producer_done_events[epoch][rank].set()
+
+    async def wait_until_all_epochs_done(self) -> None:
+        last = self.num_epochs - 1
+        await asyncio.gather(*(e.wait() for e in self.producer_done_events[last]))
+        await asyncio.gather(*(q.join() for q in self.queues[last]))
+
+    def qsize(self, rank: int, epoch: int) -> int:
+        return self.queues[epoch][rank].qsize()
+
+    async def put_batch(self, rank, epoch, items, timeout=None) -> None:
+        """All or nothing: wait for room for every item, then enqueue them
+        with no await in between, so a timeout leaves the queue as it
+        was."""
+        queue = self.queues[epoch][rank]
+        items = list(items)
+        if self.maxsize > 0 and len(items) > self.maxsize:
+            raise Full(f"Cannot ever add {len(items)} items to a queue with maxsize {self.maxsize}.")
+        loop = asyncio.get_running_loop()
+        deadline = None if timeout is None else loop.time() + timeout
+        space = self.space_events[epoch][rank]
+        while self.maxsize > 0 and queue.qsize() + len(items) > self.maxsize:
+            space.clear()  # armed together with the failed room check
+            remaining = None if deadline is None else deadline - loop.time()
+            if remaining is not None and remaining <= 0:
+                raise Full
+            try:
+                await asyncio.wait_for(space.wait(), remaining)
+            except asyncio.TimeoutError:
+                raise Full from None
+        for item in items:
+            queue.put_nowait(item)
+
+    async def get_batch(self, rank, epoch, timeout=None) -> List[Any]:
+        """Block for one item (``Empty`` after ``timeout``), then drain
+        whatever else has arrived."""
+        queue = self.queues[epoch][rank]
+        try:
+            batch = [await asyncio.wait_for(queue.get(), timeout)]
+        except asyncio.TimeoutError:
+            raise Empty from None
+        while not queue.empty():
+            batch.append(queue.get_nowait())
+        self.space_events[epoch][rank].set()
+        return batch
+
+    def task_done(self, rank, epoch, num_items: int = 1) -> None:
+        for _ in range(num_items):
+            self.queues[epoch][rank].task_done()
+        self.space_events[epoch][rank].set()
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
 
 
 class BatchQueue:
-    def __init__(self, num_epochs: int, num_trainers: int, max_concurrent_epochs: int):
-        self.num_epochs = num_epochs
-        self.num_trainers = num_trainers
-        self.max_epochs = max_concurrent_epochs
-        self.curr_epochs: deque = deque()
-        self.queues: List[List[queue.Queue]] = [
-            [queue.Queue() for _ in range(num_trainers)] for _ in range(num_epochs)
-        ]
-        self.producer_done_events: List[List[threading.Event]] = [
-            [threading.Event() for _ in range(num_trainers)] for _ in range(num_epochs)
-        ]
+    """Client handle of the queue actor. Rank 0 creates the actor
+    (``connect=False``, registering the calling process as its producer);
+    other ranks connect to it by ``name`` with backoff (``connect=True``)."""
+
+    def __init__(
+        self,
+        num_epochs: int,
+        num_trainers: int,
+        max_concurrent_epochs: int,
+        maxsize: int = 0,
+        name: Optional[str] = None,
+        connect: bool = False,
+        connect_retries: int = 5,
+    ) -> None:
+        runtime.ensure_initialized()
+        if connect:
+            if name is None:
+                raise ValueError("connect=True needs the queue's name")
+            self.actor = runtime.connect_actor(name, num_retries=connect_retries)
+        else:
+            self.actor = runtime.spawn_actor(
+                _QueueActor, max_concurrent_epochs, num_epochs, num_trainers, maxsize, name=name
+            )
+            self.actor.call("register_producer", os.getpid())
+
+    def __getstate__(self):
+        return {"actor": self.actor}
+
+    def __setstate__(self, state):
+        self.actor = state["actor"]
+
+    def ready(self) -> None:
+        self.actor.wait_ready()
 
     def new_epoch(self, epoch: int) -> None:
-        """Admit ``epoch``; with the window full, first wait for the oldest
-        in-flight epoch to be produced and acked in full."""
-        if len(self.curr_epochs) == self.max_epochs:
-            first = self.curr_epochs.popleft()
-            for event in self.producer_done_events[first]:
-                event.wait()
-            for q in self.queues[first]:
-                q.join()
-        self.curr_epochs.append(epoch)
-
-    def put_batch(self, rank: int, epoch: int, items: List[Any]) -> None:
-        q = self.queues[epoch][rank]
-        for item in items:
-            q.put(item)
+        """Admit ``epoch``, blocking on the epoch window."""
+        self.actor.call("new_epoch", epoch)
 
     def producer_done(self, rank: int, epoch: int) -> None:
-        self.queues[epoch][rank].put(None)
-        self.producer_done_events[epoch][rank].set()
-
-    def get_batch(self, rank: int, epoch: int) -> List[Any]:
-        """Block for one item, then drain whatever else has arrived."""
-        q = self.queues[epoch][rank]
-        items = [q.get()]
-        while True:
-            try:
-                items.append(q.get_nowait())
-            except queue.Empty:
-                return items
+        self.actor.call_oneway("producer_done", rank, epoch)
 
     def task_done(self, rank: int, epoch: int, num_items: int = 1) -> None:
-        q = self.queues[epoch][rank]
-        for _ in range(num_items):
-            q.task_done()
+        self.actor.call_oneway("task_done", rank, epoch, num_items)
 
     def wait_until_all_epochs_done(self) -> None:
-        last = self.num_epochs - 1
-        for event in self.producer_done_events[last]:
-            event.wait()
-        for q in self.queues[last]:
-            q.join()
+        self.actor.call("wait_until_all_epochs_done")
+
+    def qsize(self, rank: int, epoch: int) -> int:
+        return self.actor.call("qsize", rank, epoch)
+
+    def put_batch(self, rank, epoch, items, timeout=None) -> None:
+        """Enqueue ``items`` together, waiting for room (``Full`` after
+        ``timeout``)."""
+        if timeout is not None and timeout < 0:
+            raise ValueError("'timeout' must be a non-negative number")
+        self.actor.call("put_batch", rank, epoch, list(items), timeout)
+
+    def get_batch(self, rank: int, epoch: int, timeout: Optional[float] = None) -> List[Any]:
+        """Block for the next item, then take every item already there.
+        With ``timeout``, raise ``Empty`` after it; without, wait in slices
+        of the liveness interval, and a dead producer with the queue empty
+        raises :class:`ProducerDiedError`. The queue actor dies with its
+        producer's process, so losing the actor mid-wait means the same."""
+        if timeout is not None:
+            if timeout < 0:
+                raise ValueError("'timeout' must be a non-negative number")
+            return self.actor.call("get_batch", rank, epoch, timeout)
+        interval = _liveness_interval_s()
+        try:
+            while True:
+                try:
+                    return self.actor.call("get_batch", rank, epoch, interval)
+                except Empty:
+                    if not self.actor.call("producer_alive", epoch):
+                        raise ProducerDiedError(epoch, rank) from None
+        except ActorDiedError as exc:
+            raise ProducerDiedError(epoch, rank) from exc
+
+    def shutdown(self, force: bool = False, grace_period_s: float = 5.0) -> None:
+        if self.actor is not None:
+            self.actor.terminate(force=force, grace_period_s=grace_period_s)
+        self.actor = None
 
 
-def create_queue(
-    name: str, num_epochs: int, num_trainers: int, max_concurrent_epochs: int
-) -> BatchQueue:
-    """Create and register the queue ``name`` (replacing a stale one)."""
-    bq = BatchQueue(num_epochs, num_trainers, max_concurrent_epochs)
-    with _REGISTRY_LOCK:
-        _REGISTRY[name] = bq
-    return bq
-
-
-def connect_queue(name: str, timeout: float = 60.0) -> BatchQueue:
-    """The queue ``name`` once rank 0 has created it."""
-    deadline = time.monotonic() + timeout
-    while True:
-        with _REGISTRY_LOCK:
-            bq = _REGISTRY.get(name)
-        if bq is not None:
-            return bq
-        if time.monotonic() > deadline:
-            raise TimeoutError(f"batch queue {name!r} was never created")
-        time.sleep(0.01)
+def connect_queue(name: str = DEFAULT_QUEUE_NAME, num_retries: int = 5) -> BatchQueue:
+    """A handle of the queue ``name`` that rank 0 created, from any
+    process of the session."""
+    return BatchQueue(0, 0, 0, name=name, connect=True, connect_retries=num_retries)

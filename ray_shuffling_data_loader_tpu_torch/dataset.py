@@ -1,23 +1,23 @@
 """The shuffling dataset: exact-size host batches of every epoch's shuffle.
 
-Rank 0 creates the batch queue and runs the multi-epoch shuffle on a
-daemon thread. Every rank iterates batches of exactly ``batch_size`` rows,
-re-cut from the reducer outputs with a carry buffer, and acks what it
-consumed so the epoch window can move on.
+Rank 0 spawns the named batch queue actor, registering itself as its
+producer, and runs the multi-epoch shuffle on a daemon thread. Every other
+rank, in the same process or in any other process of the session,
+connects to the queue by name with retry. Each rank maps its reducer
+outputs from the shared-memory store (zero copy), re-cuts them into
+batches of exactly ``batch_size`` rows with a carry buffer, and acks what
+it consumed so the epoch window can move on.
 """
 
 from __future__ import annotations
 
 import os
 import threading
-from typing import Iterator, List, Optional
+import time
+from typing import Dict, Iterator, List, Optional
 
 from ray_shuffling_data_loader_tpu_torch import runtime
-from ray_shuffling_data_loader_tpu_torch.batch_queue import (
-    DEFAULT_QUEUE_NAME,
-    connect_queue,
-    create_queue,
-)
+from ray_shuffling_data_loader_tpu_torch.batch_queue import DEFAULT_QUEUE_NAME, BatchQueue
 from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch
 from ray_shuffling_data_loader_tpu_torch.shuffle import shuffle
 
@@ -91,7 +91,7 @@ class ShufflingDataset:
         num_reducers: reducer count (default: a share of the host's cores).
         max_concurrent_epochs: epochs shuffled ahead of training.
         seed: root seed of every epoch's permutations.
-        queue_name: name of the in-process batch queue ranks share.
+        queue_name: name of the batch queue actor the ranks share.
         start_epoch: first epoch to shuffle (resume; epochs stay absolute).
         narrow_to_32: cast 64-bit columns to 32 bits at decode.
     """
@@ -123,28 +123,37 @@ class ShufflingDataset:
         self._skip_batches = 0
         self._error: Optional[BaseException] = None
         self._thread: Optional[threading.Thread] = None
+        # Rank 0: the shuffle's store_peak_bytes and the epoch in progress.
+        self.shuffle_stats: Dict[str, int] = {}
+        # The last epoch iterated: seconds of each get_batch call, and the
+        # rows read from the store (before the re-cut).
+        self.get_batch_s: List[float] = []
+        self.rows_read = 0
         if rank != 0:
-            self._batch_queue = connect_queue(queue_name)
+            self._batch_queue = BatchQueue(
+                num_epochs, num_trainers, max_concurrent_epochs, name=queue_name, connect=True
+            )
             return
-        self._batch_queue = create_queue(
-            queue_name, num_epochs, num_trainers, max_concurrent_epochs
-        )
+        self._batch_queue = BatchQueue(num_epochs, num_trainers, max_concurrent_epochs, name=queue_name)
+        self._batch_queue.ready()
 
         def _drive():
             try:
                 shuffle(
                     filenames, self._batch_queue, num_epochs, num_reducers,
                     num_trainers, seed=seed, start_epoch=start_epoch,
-                    narrow_to_32=narrow_to_32,
+                    narrow_to_32=narrow_to_32, stats=self.shuffle_stats,
                 )
+                # Every rank has acked the last epoch: nothing calls the
+                # queue again, and its name is free for the next dataset.
+                self._batch_queue.shutdown()
             except Exception as exc:  # raised on the consumer side
                 self._error = exc
-                # Unblock every rank still waiting on an epoch.
-                bq = self._batch_queue
-                for epoch in range(num_epochs):
+                # Unblock every rank waiting on an epoch that will not come:
+                # the epochs before the failing one are fully signalled.
+                for epoch in range(self.shuffle_stats.get("epoch", start_epoch), num_epochs):
                     for r in range(num_trainers):
-                        if not bq.producer_done_events[epoch][r].is_set():
-                            bq.producer_done(r, epoch)
+                        self._batch_queue.producer_done(r, epoch)
 
         self._thread = threading.Thread(target=_drive, name="shuffle-driver", daemon=True)
         self._thread.start()
@@ -169,16 +178,25 @@ class ShufflingDataset:
                 "dataset."
             )
         epoch, rank = self._epoch, self._rank
+        store = runtime.get_context().store
         rebatch = CarryRebatcher(self._batch_size, self._skip_batches)
+        self.get_batch_s = []
+        self.rows_read = 0
         is_done = False
         while not is_done:
+            t0 = time.perf_counter()
             pending = self._batch_queue.get_batch(rank, epoch)
+            self.get_batch_s.append(time.perf_counter() - t0)
             if pending[-1] is None:
                 is_done = True
                 pending.pop()
             num_outstanding = len(pending)
-            for cb in pending:
+            for ref in pending:
+                cb = store.get_columns(ref)
+                store.free(ref)  # the mapping outlives the unlink
+                self.rows_read += cb.num_rows
                 yield from rebatch.feed(cb)
+                del cb
             if num_outstanding:
                 self._batch_queue.task_done(rank, epoch, num_outstanding)
         self._raise_if_failed()
@@ -188,9 +206,17 @@ class ShufflingDataset:
         # Ack the end-of-epoch sentinel itself.
         self._batch_queue.task_done(rank, epoch, 1)
         self._last_epoch = epoch
-        if epoch == self._num_epochs - 1 and self._thread is not None:
-            self._thread.join()
-            self._raise_if_failed()
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        """Rank 0: wait until every rank has consumed the last epoch and
+        the shuffle thread has ended; raises its error, if any. Not part
+        of iteration: rank 0's stream may end before another rank's, and
+        ranks that step together must not wait on each other there."""
+        if self._thread is not None:
+            self._thread.join(timeout)
+            if self._thread.is_alive():
+                raise TimeoutError("the shuffle thread is still running")
+        self._raise_if_failed()
 
     def _raise_if_failed(self) -> None:
         if self._error is not None:

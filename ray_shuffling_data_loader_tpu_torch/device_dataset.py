@@ -159,7 +159,8 @@ class DeviceShufflingDataset:
     ``device``: ``features`` maps each feature column to a ``[B]`` tensor.
 
     Arguments as :class:`~.dataset.ShufflingDataset`, plus the batch spec,
-    ``device`` (``None`` = CUDA; the CPU only when asked for) and
+    ``device`` (the rank's device; ``None`` = ``cuda``, the current CUDA
+    device; the CPU only when asked for) and
     ``prefetch_depth`` (batches staged ahead; 2 = double buffering).
     ``drop_last`` defaults to True: a ragged final batch changes the
     step's shapes.
@@ -225,6 +226,15 @@ class DeviceShufflingDataset:
     @property
     def batch_size(self) -> int:
         return self._ds.batch_size
+
+    @property
+    def dataset(self) -> ShufflingDataset:
+        """The host dataset this stages from."""
+        return self._ds
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        """See :meth:`ShufflingDataset.join`."""
+        self._ds.join(timeout)
 
     def set_epoch(self, epoch: int, skip_batches: int = 0) -> None:
         """Skipped batches are suppressed before staging: no copy is paid
@@ -293,7 +303,8 @@ class DeviceShufflingDataset:
             ]
             nbytes = host.numel() * 4
         else:
-            dev, event = self._to_device([torch.from_numpy(np.ascontiguousarray(c)) for c in cols])
+            # Store-backed columns are read-only views of a mapped segment.
+            dev, event = self._to_device([torch.from_numpy(np.require(c, requirements=("C", "W"))) for c in cols])
             rows = dev
             nbytes = sum(c.nbytes for c in cols)
         features = dict(zip(spec.feature_columns, rows[:-1]))

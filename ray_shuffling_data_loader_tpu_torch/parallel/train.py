@@ -1,17 +1,30 @@
-"""The single-device train step: BCE on the float label, Adam.
+"""Train steps: BCE on the float label, Adam; on one device or
+data-parallel over a ``torch.distributed`` group.
 
 ``torch.optim.Adam`` with betas (0.9, 0.999) and eps 1e-8 makes the same
 update as ``optax.adam``: ``lr * m̂ / (sqrt(v̂) + eps)`` with bias-corrected
 moments.
+
+The gradient plane has two forms, as in the JAX package:
+
+* :func:`make_train_step` with a group wraps the model in
+  ``DistributedDataParallel``, whose bucketed all-reduce overlaps the
+  backward pass (the counterpart of the jitted step on a data-only mesh);
+* :func:`make_psum_train_step` reduces explicitly after ``backward()``:
+  the mean (an all-reduce sum over the world size) or Adasum
+  (:func:`adasum_reduce`), optionally in a narrower dtype on the wire.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+Step = Callable[[Dict[str, torch.Tensor], torch.Tensor], Dict[str, torch.Tensor]]
 
 
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -26,18 +39,207 @@ def make_optimizer(model: nn.Module, lr: float = 1e-3) -> torch.optim.Optimizer:
     return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
-def make_train_step(
-    model: nn.Module, optimizer: torch.optim.Optimizer
-) -> Callable[[Dict[str, torch.Tensor], torch.Tensor], Dict[str, torch.Tensor]]:
+def _device_of(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, group=None) -> Step:
     """``step(features, labels) -> {"loss"}``: one forward, backward and
     optimizer update. The loss comes back as a detached device tensor, so
-    the step does not wait for the device."""
+    the step does not wait for the device.
+
+    With ``group``, the model is wrapped in ``DistributedDataParallel``
+    over it: rank 0's weights are broadcast at construction, and every
+    rank applies the same mean gradient. The loss is the rank's own."""
+    net: nn.Module = model
+    if group is not None:
+        device = _device_of(model)
+        net = nn.parallel.DistributedDataParallel(
+            model,
+            device_ids=[device] if device.type == "cuda" else None,
+            process_group=group,
+        )
+
+    def step(features: Dict[str, torch.Tensor], labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        optimizer.zero_grad(set_to_none=True)
+        loss = bce_loss(net(features), labels)
+        loss.backward()
+        optimizer.step()
+        return {"loss": loss.detach()}
+
+    return step
+
+
+def broadcast_parameters(model: nn.Module, group, src: int = 0) -> None:
+    """Give every rank rank ``src``'s parameters and buffers."""
+    with torch.no_grad():
+        for tensor in model.state_dict().values():
+            dist.broadcast(tensor, src, group=group)
+
+
+def all_ranks_have_batch(has_batch: bool, group, device: torch.device) -> bool:
+    """True while every rank of ``group`` still has a batch: ranks whose
+    streams differ in length stop stepping together, so their collectives
+    stay matched. ``device`` is where the flag travels (``cuda`` for
+    NCCL)."""
+    flag = torch.tensor([1 if has_batch else 0], dtype=torch.int32, device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+    return bool(flag.item())
+
+
+# -- the explicit gradient plane ----------------------------------------------
+
+
+def _flatten(tensors: Sequence[torch.Tensor], dtype: Optional[torch.dtype]) -> List[torch.Tensor]:
+    """One flat buffer per dtype (``dtype`` casts them all to one), in
+    first-seen order: one collective per buffer instead of one per
+    tensor."""
+    groups: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        groups.setdefault(dtype or t.dtype, []).append(t)
+    return [torch.cat([t.reshape(-1).to(dt) for t in ts]) for dt, ts in groups.items()]
+
+
+def _unflatten_into(buffers: Sequence[torch.Tensor], tensors: Sequence[torch.Tensor], dtype) -> None:
+    """Copy the flat ``buffers`` back into ``tensors`` (in their dtypes)."""
+    offsets: Dict[torch.dtype, int] = {}
+    by_dtype = {buf.dtype: buf for buf in buffers}
+    for t in tensors:
+        dt = dtype or t.dtype
+        at = offsets.get(dt, 0)
+        t.copy_(by_dtype[dt][at : at + t.numel()].view_as(t))
+        offsets[dt] = at + t.numel()
+
+
+def _tree_dot(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> torch.Tensor:
+    """fp32 inner product of two gradient lists, summed over all of them."""
+    return sum(torch.dot(x.float(), y.float()) for x, y in zip(a, b))
+
+
+def _adasum_combine(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The symmetric Adasum operator (Maleki et al., 2020):
+
+        adasum(a, b) = (1 - a.b / 2|a|^2) a + (1 - a.b / 2|b|^2) b
+
+    Orthogonal gradients add; equal ones return themselves. The dot
+    products run in fp32 over the whole lists; the result keeps each
+    tensor's dtype. Both butterfly partners compute the same bits: the
+    products and the two terms commute exactly, and the two scalings are
+    separate multiplications (no fused multiply-add favours one side)."""
+    dot, na, nb = _tree_dot(a, b), _tree_dot(a, a), _tree_dot(b, b)
+    zero = torch.zeros((), dtype=torch.float32, device=dot.device)
+    ca = 1.0 - torch.where(na > 0, dot / (2.0 * na), zero)
+    cb = 1.0 - torch.where(nb > 0, dot / (2.0 * nb), zero)
+    return [(x.float() * ca + y.float() * cb).to(x.dtype) for x, y in zip(a, b)]
+
+
+_PINNED: Dict[tuple, torch.Tensor] = {}
+
+
+def _host_buffer(like: torch.Tensor, slot: str) -> torch.Tensor:
+    """A cached pinned host buffer shaped like ``like``."""
+    key = (slot, like.numel(), like.dtype)
+    buf = _PINNED.get(key)
+    if buf is None:
+        buf = _PINNED[key] = torch.empty(like.numel(), dtype=like.dtype, pin_memory=True)
+    return buf
+
+
+def _p2p(buffers: List[torch.Tensor], group, send_to: Optional[int], recv_from: Optional[int]):
+    """Send ``buffers`` to group rank ``send_to`` and/or receive the same
+    shapes from ``recv_from``, as one batch of point-to-point operations;
+    returns the received list (or None).
+
+    gloo's point-to-point calls take host tensors only, so on gloo a CUDA
+    exchange is staged through pinned host buffers; NCCL exchanges the
+    device tensors directly."""
+    staged = dist.get_backend(group) == "gloo" and buffers[0].device.type == "cuda"
+    ops, received = [], []
+    for i, buf in enumerate(buffers):
+        if send_to is not None:
+            src = _host_buffer(buf, f"send{i}").copy_(buf) if staged else buf
+            ops.append(dist.P2POp(dist.isend, src, dist.get_global_rank(group, send_to), group))
+        if recv_from is not None:
+            dst = _host_buffer(buf, f"recv{i}") if staged else torch.empty_like(buf)
+            ops.append(dist.P2POp(dist.irecv, dst, dist.get_global_rank(group, recv_from), group))
+            received.append(dst)
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    if recv_from is None:
+        return None
+    return [r.to(b.device) for r, b in zip(received, buffers)] if staged else received
+
+
+def adasum_reduce(grads: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """All-reduce the gradient list ``grads`` (flat buffers, typically one
+    per dtype) across ``group`` with Adasum; every rank gets the same
+    result.
+
+    A butterfly: ``log2(p)`` rounds in which rank ``i`` exchanges with
+    ``i ^ 2^r`` and both apply :func:`_adasum_combine`, over the largest
+    power of two ``p`` not above the world size ``n``. With ``n`` not a
+    power of two, each rank ``p + j`` first folds its gradients into rank
+    ``j`` (one combine there), sits out the butterfly, and receives the
+    result at the end. Adasum is not associative, so this grouping is part
+    of the operator: the same as the JAX package's ``adasum_reduce``."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    pow2 = 1 << (n.bit_length() - 1)
+    rem = n - pow2
+    if me >= pow2:  # the remainder: fold in, then wait for the result
+        _p2p(grads, group, send_to=me - pow2, recv_from=None)
+        return _p2p(grads, group, send_to=None, recv_from=me - pow2)
+    if me < rem:
+        grads = _adasum_combine(grads, _p2p(grads, group, send_to=None, recv_from=pow2 + me))
+    for r in range(pow2.bit_length() - 1):
+        partner = me ^ (1 << r)
+        grads = _adasum_combine(grads, _p2p(grads, group, send_to=partner, recv_from=partner))
+    if me < rem:
+        _p2p(grads, group, send_to=pow2 + me, recv_from=None)
+    return grads
+
+
+def make_psum_train_step(
+    model: nn.Module,
+    optimizer: torch.optim.Optimizer,
+    group,
+    grad_dtype: Optional[torch.dtype] = None,
+    grad_reduce: str = "mean",
+) -> Step:
+    """``step(features, labels) -> {"loss"}`` with the gradients reduced
+    explicitly over ``group`` after ``backward()``.
+
+    ``grad_reduce``: ``"mean"`` (an all-reduce sum divided by the world
+    size) or ``"adasum"`` (:func:`adasum_reduce`). The gradients are first
+    flattened into one buffer per dtype. ``grad_dtype`` (e.g.
+    ``torch.bfloat16``) is the dtype on the wire only: the gradients are
+    cast down before the collective and back after, and the parameters
+    keep their dtype. The loss returned is the mean over the ranks. Rank
+    0's weights are broadcast when the step is made."""
+    if grad_reduce not in ("mean", "adasum"):
+        raise ValueError(f"grad_reduce must be 'mean' or 'adasum', got {grad_reduce!r}")
+    if group is None:
+        raise ValueError("make_psum_train_step needs a process group; see init_data_parallel")
+    world = dist.get_world_size(group)
+    broadcast_parameters(model, group)
+    params = [p for p in model.parameters() if p.requires_grad]
 
     def step(features: Dict[str, torch.Tensor], labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
         loss = bce_loss(model(features), labels)
         loss.backward()
+        grads = [p.grad for p in params]
+        buffers = _flatten(grads, grad_dtype)
+        if grad_reduce == "adasum":
+            buffers = adasum_reduce(buffers, group)
+        else:
+            for buf in buffers:
+                dist.all_reduce(buf, group=group)
+                buf.div_(world)
+        _unflatten_into(buffers, grads, grad_dtype)
+        mean_loss = loss.detach().clone()
+        dist.all_reduce(mean_loss, group=group)
         optimizer.step()
-        return {"loss": loss.detach()}
+        return {"loss": mean_loss.div_(world)}
 
     return step

@@ -1,0 +1,94 @@
+"""The retry policies of the actor layer: bounded exponential backoff with
+jitter, so that N trainer ranks dialling one queue actor spread out
+instead of retrying in lockstep.
+
+This module imports the standard library only.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import time
+from dataclasses import dataclass
+from typing import Iterator, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class RetryPolicy:
+    """``max_attempts`` counts the first try. Each delay is
+    ``base * multiplier**(attempt - 1)`` capped at ``max_delay_s``, its
+    ``jitter`` fraction drawn at random; ``deadline_s`` bounds the whole
+    sequence."""
+
+    max_attempts: int = 5
+    base_delay_s: float = 0.05
+    max_delay_s: float = 2.0
+    multiplier: float = 2.0
+    jitter: float = 0.5
+    deadline_s: Optional[float] = None
+
+    def delay(self, attempt: int) -> float:
+        d = min(self.max_delay_s, self.base_delay_s * self.multiplier ** max(0, attempt - 1))
+        return d * (1.0 - self.jitter) + random.random() * self.jitter * d
+
+    def attempts(self) -> Iterator[Tuple[int, "_Attempt"]]:
+        """``(attempt, handle)`` pairs; after a failure call
+        ``handle.backoff()`` to sleep before the next attempt."""
+        deadline = None if self.deadline_s is None else time.monotonic() + self.deadline_s
+        for attempt in range(1, self.max_attempts + 1):
+            yield attempt, _Attempt(self, attempt, deadline)
+            if deadline is not None and time.monotonic() >= deadline:
+                return
+
+
+class _Attempt:
+    __slots__ = ("_policy", "_attempt", "_deadline")
+
+    def __init__(self, policy: RetryPolicy, attempt: int, deadline: Optional[float]):
+        self._policy = policy
+        self._attempt = attempt
+        self._deadline = deadline
+
+    def backoff(self) -> None:
+        d = self._policy.delay(self._attempt)
+        if self._deadline is not None:
+            d = min(d, max(0.0, self._deadline - time.monotonic()))
+        if d > 0:
+            time.sleep(d)
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+def connect_policy(num_retries: int) -> RetryPolicy:
+    """Discovery of a named actor: from 0.5 s, capped at
+    ``$RSDL_CONNECT_MAX_BACKOFF_S`` (default 5 s), 50 % jitter."""
+    return RetryPolicy(
+        max_attempts=max(1, num_retries),
+        base_delay_s=0.5,
+        max_delay_s=_env_float("RSDL_CONNECT_MAX_BACKOFF_S", 5.0),
+    )
+
+
+_CALL_POLICY: Optional[RetryPolicy] = None
+
+
+def call_policy() -> RetryPolicy:
+    """Sending one call: rides out a connection reset, not a dead actor
+    (``$RSDL_CALL_RETRIES`` attempts, default 3, within
+    ``$RSDL_CALL_DEADLINE_S``, default 10 s). Read once per process: it
+    sits on every queue call."""
+    global _CALL_POLICY
+    if _CALL_POLICY is None:
+        _CALL_POLICY = RetryPolicy(
+            max_attempts=int(_env_float("RSDL_CALL_RETRIES", 3)),
+            base_delay_s=0.05,
+            max_delay_s=0.5,
+            deadline_s=_env_float("RSDL_CALL_DEADLINE_S", 10.0),
+        )
+    return _CALL_POLICY

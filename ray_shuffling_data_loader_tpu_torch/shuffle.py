@@ -11,21 +11,29 @@ For every epoch:
   (``np.array_split``) and each rank receives its reducers' outputs in
   reducer order.
 
+Maps and reduces run in the session's spawned worker pool. A map writes
+its grouped rows into one shared-memory store segment and returns one
+row-window ref per reducer; a reduce reads its windows by ref and writes
+its permuted rows into a segment of its own, whose ref the shuffle puts on
+the rank's queue. Bulk data never passes through a pipe.
+
 Given the same files, seed and reducer count, the row stream is the one
 the JAX package's shuffle delivers under its default settings: the seeds,
 the draws and the group-by order are the same.
+
+This module imports numpy and pyarrow only: the workers load it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ray_shuffling_data_loader_tpu_torch import runtime
 from ray_shuffling_data_loader_tpu_torch.batch_queue import BatchQueue
-from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch
+from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch, ObjectRef
 
 _INT32 = np.iinfo(np.int32)
 
@@ -122,28 +130,44 @@ def shuffle_map(
     epoch: int,
     seed: int,
     narrow_to_32: bool = False,
-) -> List[ColumnBatch]:
-    """Decode one file and split its rows into ``num_reducers`` partitions
-    (empty ones included when the file has few rows)."""
+) -> List[ObjectRef]:
+    """Decode one file and group its rows by reducer straight into one
+    store segment; returns one row-window ref per reducer (empty windows
+    included when the file has few rows)."""
     batch = read_parquet_columns(filename)
     if narrow_to_32:
         batch = ColumnBatch({k: _narrow_column(k, v) for k, v in batch.columns.items()})
     assignment = _file_assignment(seed, epoch, file_index, batch.num_rows, num_reducers)
     order, offsets = _group_order(assignment, num_reducers)
-    grouped = batch.take(order)
-    return [
-        grouped.slice(int(offsets[r]), int(offsets[r + 1]))
-        for r in range(num_reducers)
-    ]
+    store = runtime.ensure_initialized().store
+    pending = store.create_columns({k: (v.shape, v.dtype) for k, v in batch.columns.items()})
+    try:
+        for k, v in batch.columns.items():
+            np.take(v, order, axis=0, out=pending.columns[k])
+        return pending.publish_slices(
+            [(int(offsets[r]), int(offsets[r + 1])) for r in range(num_reducers)]
+        )
+    finally:
+        pending.abort()  # reclaims the segment if anything above raised
 
 
 def shuffle_reduce(
-    reduce_index: int, epoch: int, seed: int, parts: Sequence[ColumnBatch]
-) -> ColumnBatch:
-    """Concatenate this reducer's partitions in file order and permute."""
+    reduce_index: int, epoch: int, seed: int, part_refs: Sequence[ObjectRef]
+) -> ObjectRef:
+    """Concatenate this reducer's partitions in file order and permute them
+    straight into one store segment; returns its ref. The inputs stay: the
+    epoch frees them once the result has landed."""
+    store = runtime.ensure_initialized().store
+    parts = [store.get_columns(r) for r in part_refs]
     total = sum(p.num_rows for p in parts)
     perm = _reduce_seed(seed, epoch, reduce_index).permutation(total)
-    return ColumnBatch.concat_take(parts, perm)
+    template = parts[0]
+    pending = store.create_columns({k: ((total, *v.shape[1:]), v.dtype) for k, v in template.items()})
+    try:
+        ColumnBatch.concat_take(parts, perm, out=pending.columns)
+        return pending.seal()
+    finally:
+        pending.abort()
 
 
 def rank_of_reducers(num_reducers: int, num_trainers: int) -> np.ndarray:
@@ -166,29 +190,44 @@ def shuffle_epoch(
     num_trainers: int,
     seed: int,
     narrow_to_32: bool = False,
+    stats: Optional[Dict[str, int]] = None,
 ) -> None:
-    """One epoch's maps and reduces on the task pool; each reducer's output
-    goes to its rank in reducer order, then every rank gets its
-    end-of-epoch signal."""
-    pool = runtime.ensure_initialized().pool
+    """One epoch's maps and reduces in the session's worker pool; each
+    reducer's output ref goes to its rank in reducer order, then every rank
+    gets its end-of-epoch signal. Map partitions are freed as their reducer
+    lands; the consumer frees the reducer's output. ``stats`` keeps the
+    store's peak bytes, sampled after the maps and after each reduce."""
+    ctx = runtime.ensure_initialized()
+    store, pool = ctx.store, ctx.pool
+
+    def sample():
+        if stats is not None:
+            stats["store_peak_bytes"] = max(stats.get("store_peak_bytes", 0), store.store_stats().total_bytes)
+
     map_futs = [
-        pool.submit(
-            shuffle_map, filename, file_index, num_reducers, epoch, seed, narrow_to_32
-        )
+        pool.submit(shuffle_map, filename, file_index, num_reducers, epoch, seed, narrow_to_32)
         for file_index, filename in enumerate(filenames)
     ]
-    partitions = [f.result() for f in map_futs]
-    reduce_futs = [
-        pool.submit(
-            shuffle_reduce, r, epoch, seed, [parts[r] for parts in partitions]
-        )
-        for r in range(num_reducers)
-    ]
-    del partitions
-    rank_of = rank_of_reducers(num_reducers, num_trainers)
-    for r, fut in enumerate(reduce_futs):
-        batch_queue.put_batch(int(rank_of[r]), epoch, [fut.result()])
-        reduce_futs[r] = None  # the queue owns the output now
+    partitions: List[List[ObjectRef]] = []
+    try:
+        for f in map_futs:
+            partitions.append(f.result())
+        sample()
+        reduce_futs = [
+            pool.submit(shuffle_reduce, r, epoch, seed, [parts[r] for parts in partitions])
+            for r in range(num_reducers)
+        ]
+        rank_of = rank_of_reducers(num_reducers, num_trainers)
+        for r, fut in enumerate(reduce_futs):
+            out = fut.result()
+            sample()
+            store.free([parts[r] for parts in partitions])
+            batch_queue.put_batch(int(rank_of[r]), epoch, [out])
+    finally:
+        # After a failure: the maps still running publish what this cannot
+        # free, and the session's cleanup takes those.
+        for parts in partitions:
+            store.free(parts)
     for rank in range(num_trainers):
         batch_queue.producer_done(rank, epoch)
 
@@ -202,14 +241,18 @@ def shuffle(
     seed: int = 0,
     start_epoch: int = 0,
     narrow_to_32: bool = False,
+    stats: Optional[Dict[str, int]] = None,
 ) -> None:
     """Shuffle every epoch from ``start_epoch``; each epoch first waits for
-    the queue's epoch window to admit it."""
+    the queue's epoch window to admit it. ``stats["epoch"]`` is the epoch
+    in progress."""
     check_shuffle_plan()
     for epoch in range(start_epoch, num_epochs):
+        if stats is not None:
+            stats["epoch"] = epoch
         batch_queue.new_epoch(epoch)
         shuffle_epoch(
             epoch, filenames, batch_queue, num_reducers, num_trainers, seed,
-            narrow_to_32=narrow_to_32,
+            narrow_to_32=narrow_to_32, stats=stats,
         )
     batch_queue.wait_until_all_epochs_done()
