@@ -47,13 +47,15 @@ Phases, each of which fails the script (non-zero exit) on any error:
    over ``gloo`` with ``DistributedDataParallel`` (mean) for 2 epochs; 3
    ranks over ``gloo`` with ``make_psum_train_step`` (Adasum, bf16 on the
    wire) for 1 epoch; 1 rank over ``nccl`` with ``make_psum_train_step``
-   (mean) for 3 steps; batch 65536 per rank, 8 reducers in rank 0's
-   spawned worker pool, the full-width DLRM in bf16. In each run every
-   epoch must deliver each key at most once across the ranks and each rank
-   exactly its full batches, every loss must be finite, all ranks must end
-   with the same parameters bit for bit, and each rank must launch the
-   interaction kernel once per step, all on its tensor-core route, and no
-   flash kernel;
+   (mean, bf16 on the wire) for 3 steps; batch 65536 per rank, 8 reducers
+   in rank 0's spawned worker pool, the full-width DLRM in bf16. Ranks step
+   until the last one runs out (a rank whose shard is done steps on its
+   last batch with its loss weighted 0). In each run every epoch must
+   deliver each key at most once across the ranks and each rank exactly
+   its full batches, all trained, every loss must be finite, all ranks
+   must end with the same parameters bit for bit, and each rank must
+   launch the interaction kernel once per step, all on its tensor-core
+   route, and no flash kernel;
 5. lm: 20 Adam (3e-3) steps of ``CausalLM(vocab 64, seq 512, embed 64, 2
    layers, 4 heads)`` on ``synthetic_tokens(4, 512, 64)``; the loss must
    fall and each flash kernel launch twice per step, all on the
@@ -682,7 +684,8 @@ RANK_RUNS = (
     ("ddp_mean_2", ["--num-trainers", "2", "--backend", "gloo", "--step", "ddp", "--epochs", "2"]),
     ("adasum_bf16_3", ["--num-trainers", "3", "--backend", "gloo", "--step", "psum", "--grad-reduce", "adasum",
                        "--grad-dtype", "bfloat16", "--epochs", "1"]),
-    ("nccl_1", ["--num-trainers", "1", "--backend", "nccl", "--step", "psum", "--epochs", "1", "--max-steps", "3"]),
+    ("nccl_1", ["--num-trainers", "1", "--backend", "nccl", "--step", "psum", "--grad-dtype", "bfloat16", "--epochs", "1",
+                "--max-steps", "3"]),
 )
 
 
@@ -710,9 +713,9 @@ def phase_ranks(filenames, smi: str) -> dict:
                                      "want one interaction per step, all on the tensor-core route, and no flash")
             e = res["epochs"]
             log(f"[ranks] {label} rank {res['rank']} ({res['device']}): {res['steps']} steps "
-                f"({', '.join(str(x['steps']) + ' + ' + str(x['drained']) + ' drained' for x in e)} per epoch), "
+                f"({', '.join(f"{x['steps']} ({x['idle']} idle) + {x['drained']} drained" for x in e)} per epoch), "
                 f"step median {res['step_ms_median']!r} ms (first {res['step_ms_first']!r} ms); collective "
-                f"{res['comm_ms']!r} ms for {res['comm_bytes']} B per step; stall share {res['stall_share']!r}; "
+                f"(timed alone) {res['comm_ms']!r} ms for {res['comm_bytes']} B per step; stall share {res['stall_share']!r}; "
                 f"first batch {[x['first_batch_s'] for x in e]!r} s; get_batch round trip "
                 f"{min(x['get_batch_min_s'] for x in e)!r} s (min; median "
                 f"{statistics.median(x['get_batch_median_s'] for x in e)!r} s); worker pool ready "

@@ -18,9 +18,11 @@ queue actor and runs the shuffle in its worker pool; the other ranks
 connect to the queue by name.
 
 Ranks' shards differ in length (reducers split into contiguous runs). All
-ranks keep stepping while every rank still has a batch; the batches left
-after that are delivered and counted but not trained, so the collectives
-of all ranks stay matched.
+ranks keep stepping until the last one runs out, so their collectives stay
+matched: a rank whose shard is done steps on its last batch with its loss
+weighted 0 (``idle``), and the gradient is the mean over the ranks that
+brought a batch. Every delivered batch is trained; only ``--max-steps``
+leaves the rest of a shard delivered and counted but untrained.
 
 The backend is always explicit: ``nccl`` with one CUDA device per rank,
 ``gloo`` where ranks share a device. Rank ``r`` uses ``cuda:r % devices``.
@@ -68,7 +70,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--num-reducers", type=int, default=8)
     p.add_argument("--num-workers", type=int, default=None, help="rank 0's shuffle worker processes")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--lr", type=float, default=1e-3)
     # Full width by default; smaller for a quick run on the CPU.
     p.add_argument("--embed-dim", type=int, default=32)
     p.add_argument("--vocab-cap", type=int, default=None)
@@ -129,13 +130,13 @@ def run_rank(spec: dict, rank: int) -> int:
     import ray_shuffling_data_loader_tpu_torch.ops as ops
     from ray_shuffling_data_loader_tpu_torch.parallel import (
         adasum_reduce,
-        all_ranks_have_batch,
         init_data_parallel,
         make_optimizer,
         make_psum_train_step,
         make_train_step,
+        ranks_with_batch,
     )
-    from ray_shuffling_data_loader_tpu_torch.parallel.train import _flatten
+    from ray_shuffling_data_loader_tpu_torch.parallel.train import _flatten, _gathered_sum
     from ray_shuffling_data_loader_tpu_torch.runtime.store import free_bytes
 
     world = spec["num_trainers"]
@@ -165,7 +166,7 @@ def run_rank(spec: dict, rank: int) -> int:
         embed_dim=spec["embed_dim"], vocab_cap=spec["vocab_cap"],
         compute_dtype=getattr(torch, spec["compute_dtype"]), device=device,
     )
-    optimizer = make_optimizer(model, lr=spec["lr"])
+    optimizer = make_optimizer(model)
     grad_dtype = getattr(torch, spec["grad_dtype"]) if spec["grad_dtype"] else None
     if spec["step"] == "ddp":
         step = make_train_step(model, optimizer, group)
@@ -174,24 +175,35 @@ def run_rank(spec: dict, rank: int) -> int:
     for fn in (ops.interaction_kernel, ops.flash_fwd_kernel, ops.flash_bwd_dkv_kernel, ops.flash_bwd_dq_kernel):
         fn.launches = fn.mma_launches = 0
     losses, step_s, epochs = [], [], []
+    last = None  # this rank's last batch: what it steps on once its shard is done
     for epoch in range(spec["epochs"]):
         ds.set_epoch(epoch)
-        keys, steps, drained = [], 0, 0
+        keys, steps, idle, drained = [], 0, 0, 0
         t_epoch = time.perf_counter()
         stall0 = ds.stats.stall_s
         it = iter(ds)
         item = next(it, None)
-        while all_ranks_have_batch(item is not None, group, flag_device):
-            feats, labels = item
-            keys.append(feats.pop(port.KEY_COLUMN))
+        while spec["max_steps"] is None or steps < spec["max_steps"]:
+            active = ranks_with_batch(item is not None, group, flag_device)
+            if active == 0:
+                break
             t0 = time.perf_counter()
-            losses.append(step(feats, labels)["loss"].item())
+            if item is not None:
+                feats, labels = item
+                keys.append(feats.pop(port.KEY_COLUMN))
+                last = (feats, labels)
+                losses.append(step(feats, labels, active)["loss"].item())
+            else:
+                if last is None:
+                    raise RuntimeError(f"rank {rank} has no batch yet to take part in a step with")
+                step(*last, active, idle=True)
+                idle += 1
             step_s.append(time.perf_counter() - t0)
             steps += 1
             item = None
             if spec["max_steps"] is None or steps < spec["max_steps"]:
                 item = next(it, None)
-        # Delivered, not trained: what is left of this rank's shard.
+        # Delivered, not trained: what --max-steps left of this rank's shard.
         rest = [] if item is None else [item]
         for feats, _ in [*rest, *it]:
             keys.append(feats[port.KEY_COLUMN])
@@ -201,20 +213,23 @@ def run_rank(spec: dict, rank: int) -> int:
         np.save(os.path.join(spec["out_dir"], f"rank{rank}-epoch{epoch}.npy"), got)
         host = ds.dataset
         epochs.append({
-            "steps": steps, "drained": drained, "rows_read": host.rows_read, "keys": int(got.size),
+            "steps": steps, "idle": idle, "drained": drained, "rows_read": host.rows_read, "keys": int(got.size),
             "wall_s": wall, "stall_s": ds.stats.stall_s - stall0, "first_batch_s": ds.stats.first_batch_s,
             "get_batch_min_s": min(host.get_batch_s), "get_batch_median_s": statistics.median(host.get_batch_s),
         })
-        print(f"[rank {rank}] epoch {epoch}: {steps} steps, {drained} batches drained, "
+        print(f"[rank {rank}] epoch {epoch}: {steps} steps ({idle} idle), {drained} batches drained, "
               f"{got.size} keys of {host.rows_read} rows read, {wall:.2f} s", flush=True)
     ds.join()
-    # The step's collective timed alone on the same bytes, on every rank.
-    grads = [p.detach() for p in model.parameters()]
-    buffers = _flatten(grads, grad_dtype)
+    # A stand-in for the step's collective, timed alone on buffers of the
+    # same bytes on every rank: DDP's own all-reduce runs in buckets that
+    # overlap the backward pass and is not timed apart from it.
+    buffers = _flatten([p.detach() for p in model.parameters()], grad_dtype)
     if spec["grad_reduce"] == "adasum":
         comm_s = _time_collective(lambda: adasum_reduce(buffers, group), device)
+    elif grad_dtype is not None:
+        comm_s = _time_collective(lambda: [_gathered_sum(b, group) for b in buffers], device)
     else:
-        comm_s = _time_collective(lambda: [dist.all_reduce(b.clone(), group=group) for b in buffers], device)
+        comm_s = _time_collective(lambda: [dist.all_reduce(b, group=group) for b in buffers], device)
     comm_bytes = sum(b.numel() * b.element_size() for b in buffers)
     launches = {
         name: {"launches": fn.launches, "mma_launches": fn.mma_launches}
@@ -259,7 +274,8 @@ def _free_port() -> int:
 
 def check(spec: dict, results: List[dict]) -> List[str]:
     """The run's failures: exactly once per epoch across ranks, each rank
-    exactly its full batches, finite losses, equal parameters."""
+    exactly its full batches, every batch trained (unless ``--max-steps``
+    cut the epoch), finite losses, equal parameters."""
     import numpy as np
 
     problems = []
@@ -277,6 +293,9 @@ def check(spec: dict, results: List[dict]) -> List[str]:
         for r, (k, n) in enumerate(zip(keys, rows)):
             if k.size != n // batch * batch:
                 problems.append(f"epoch {epoch} rank {r}: {k.size} keys, want {n // batch * batch}")
+            drained = results[r]["epochs"][epoch]["drained"]
+            if spec["max_steps"] is None and drained:
+                problems.append(f"epoch {epoch} rank {r}: {drained} delivered batches not trained")
     if not all(np.isfinite(res["losses"]).all() for res in results):
         problems.append("a loss is not finite")
     if len({res["params_sha256"] for res in results}) != 1:

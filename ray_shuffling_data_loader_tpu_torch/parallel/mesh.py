@@ -10,9 +10,6 @@ or run on the CPU.
 
 from __future__ import annotations
 
-from datetime import timedelta
-from typing import Optional
-
 import torch
 import torch.distributed as dist
 
@@ -20,36 +17,23 @@ DATA_AXIS = "data"
 BACKENDS = ("nccl", "gloo")
 
 
-def init_data_parallel(
-    rank: int,
-    world_size: int,
-    backend: str,
-    init_method: str,
-    local_world_size: Optional[int] = None,
-    timeout_s: float = 600.0,
-):
+def init_data_parallel(rank: int, world_size: int, backend: str, init_method: str):
     """Join rank ``rank`` of ``world_size`` into the data-parallel group
     and return it (the default group).
 
     ``init_method`` is the rendezvous, e.g. ``tcp://localhost:<port>``.
-    ``local_world_size`` counts the ranks on this host (default: all of
-    them); with ``"nccl"`` it must not exceed the host's CUDA devices, and
+    With ``"nccl"`` the ranks must not outnumber the host's CUDA devices:
     a run that would put two ranks on one device raises ``ValueError``
     before any process group is made.
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    if backend == "nccl":
-        local = world_size if local_world_size is None else local_world_size
-        devices = torch.cuda.device_count()
-        if local > devices:
-            raise ValueError(
-                f"backend 'nccl' needs one CUDA device per rank, but {local} ranks "
-                f"share {devices} device(s) on this host; pass backend='gloo' for "
-                "ranks that share a device"
-            )
-    dist.init_process_group(
-        backend, init_method=init_method, rank=rank, world_size=world_size,
-        timeout=timedelta(seconds=timeout_s),
-    )
+    devices = torch.cuda.device_count()
+    if backend == "nccl" and world_size > devices:
+        raise ValueError(
+            f"backend 'nccl' needs one CUDA device per rank, but {world_size} ranks "
+            f"share {devices} device(s) on this host; pass backend='gloo' for "
+            "ranks that share a device"
+        )
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world_size)
     return dist.group.WORLD

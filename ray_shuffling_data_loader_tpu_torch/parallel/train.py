@@ -24,7 +24,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-Step = Callable[[Dict[str, torch.Tensor], torch.Tensor], Dict[str, torch.Tensor]]
+Step = Callable[..., Dict[str, torch.Tensor]]
 
 
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -44,14 +44,23 @@ def _device_of(model: nn.Module) -> torch.device:
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, group=None) -> Step:
-    """``step(features, labels) -> {"loss"}``: one forward, backward and
-    optimizer update. The loss comes back as a detached device tensor, so
-    the step does not wait for the device.
+    """``step(features, labels, ranks_active=None, idle=False) -> {"loss"}``:
+    one forward, backward and optimizer update. The loss comes back as a
+    detached device tensor, so the step does not wait for the device.
 
     With ``group``, the model is wrapped in ``DistributedDataParallel``
     over it: rank 0's weights are broadcast at construction, and every
-    rank applies the same mean gradient. The loss is the rank's own."""
+    rank applies the same mean gradient. The loss is the rank's own.
+    Ranks whose shards differ in length keep stepping together until the
+    last one runs out (see :func:`ranks_with_batch`): ``ranks_active`` is
+    how many ranks bring a batch to this step, and a rank whose shard has
+    run out passes ``idle=True`` with a batch it already trained. Its loss
+    is weighted 0, so it adds nothing to the gradient but takes part in
+    DDP's all-reduce and makes the same update; the others weight theirs
+    by ``world / ranks_active``, so the gradient is the mean over the
+    ranks that brought a batch."""
     net: nn.Module = model
+    world = 1
     if group is not None:
         device = _device_of(model)
         net = nn.parallel.DistributedDataParallel(
@@ -59,11 +68,16 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, group=No
             device_ids=[device] if device.type == "cuda" else None,
             process_group=group,
         )
+        world = dist.get_world_size(group)
 
-    def step(features: Dict[str, torch.Tensor], labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def step(
+        features: Dict[str, torch.Tensor], labels: torch.Tensor, ranks_active: Optional[int] = None, idle: bool = False
+    ) -> Dict[str, torch.Tensor]:
+        active = world if ranks_active is None else ranks_active
         optimizer.zero_grad(set_to_none=True)
         loss = bce_loss(net(features), labels)
-        loss.backward()
+        weight = 0.0 if idle else world / active
+        (loss if weight == 1.0 else loss * weight).backward()
         optimizer.step()
         return {"loss": loss.detach()}
 
@@ -77,14 +91,14 @@ def broadcast_parameters(model: nn.Module, group, src: int = 0) -> None:
             dist.broadcast(tensor, src, group=group)
 
 
-def all_ranks_have_batch(has_batch: bool, group, device: torch.device) -> bool:
-    """True while every rank of ``group`` still has a batch: ranks whose
-    streams differ in length stop stepping together, so their collectives
-    stay matched. ``device`` is where the flag travels (``cuda`` for
-    NCCL)."""
-    flag = torch.tensor([1 if has_batch else 0], dtype=torch.int32, device=device)
-    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
-    return bool(flag.item())
+def ranks_with_batch(has_batch: bool, group, device: torch.device) -> int:
+    """How many ranks of ``group`` still have a batch for this step. Ranks
+    step together while it is above 0, so their collectives stay matched
+    and no delivered batch goes untrained. ``device`` is where the count
+    travels (``cuda`` for NCCL)."""
+    count = torch.tensor([1 if has_batch else 0], dtype=torch.int32, device=device)
+    dist.all_reduce(count, group=group)
+    return int(count.item())
 
 
 # -- the explicit gradient plane ----------------------------------------------
@@ -199,6 +213,21 @@ def adasum_reduce(grads: List[torch.Tensor], group) -> List[torch.Tensor]:
     return grads
 
 
+def _gathered_sum(buf: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of a narrow (e.g. bf16) buffer, rounded to its
+    dtype once: every rank's buffer is gathered as it is, so the wire
+    carries the narrow dtype, and summed in fp32 in rank order. A ring
+    all-reduce in the narrow dtype would round at every hop, in an order
+    that differs from chunk to chunk; this is the sum JAX's ``pmean``
+    rounds."""
+    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, buf, group=group)
+    total = parts[0].float()
+    for part in parts[1:]:
+        total += part
+    return total.to(buf.dtype)
+
+
 def make_psum_train_step(
     model: nn.Module,
     optimizer: torch.optim.Optimizer,
@@ -206,16 +235,23 @@ def make_psum_train_step(
     grad_dtype: Optional[torch.dtype] = None,
     grad_reduce: str = "mean",
 ) -> Step:
-    """``step(features, labels) -> {"loss"}`` with the gradients reduced
-    explicitly over ``group`` after ``backward()``.
+    """``step(features, labels, ranks_active=None, idle=False) -> {"loss"}``
+    with the gradients reduced explicitly over ``group`` after
+    ``backward()``.
 
-    ``grad_reduce``: ``"mean"`` (an all-reduce sum divided by the world
-    size) or ``"adasum"`` (:func:`adasum_reduce`). The gradients are first
-    flattened into one buffer per dtype. ``grad_dtype`` (e.g.
-    ``torch.bfloat16``) is the dtype on the wire only: the gradients are
-    cast down before the collective and back after, and the parameters
-    keep their dtype. The loss returned is the mean over the ranks. Rank
-    0's weights are broadcast when the step is made."""
+    ``grad_reduce``: ``"mean"`` (an all-reduce sum divided by the number
+    of ranks that brought a batch) or ``"adasum"`` (:func:`adasum_reduce`).
+    The gradients are first flattened into one buffer per dtype.
+    ``grad_dtype`` (e.g. ``torch.bfloat16``) is the dtype on the wire only:
+    the gradients are cast down before the collective and back after, and
+    the parameters keep their dtype. The mean then gathers the narrow
+    buffers and sums them in fp32 (:func:`_gathered_sum`), rounding once. The loss returned is the mean over the
+    ranks that brought a batch. Rank 0's weights are broadcast when the
+    step is made.
+
+    ``ranks_active`` and ``idle`` are as in :func:`make_train_step`: an idle
+    rank's gradients are zeros, which the mean does not count and Adasum
+    leaves out exactly (``adasum(g, 0) == g``)."""
     if grad_reduce not in ("mean", "adasum"):
         raise ValueError(f"grad_reduce must be 'mean' or 'adasum', got {grad_reduce!r}")
     if group is None:
@@ -224,22 +260,27 @@ def make_psum_train_step(
     broadcast_parameters(model, group)
     params = [p for p in model.parameters() if p.requires_grad]
 
-    def step(features: Dict[str, torch.Tensor], labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def step(
+        features: Dict[str, torch.Tensor], labels: torch.Tensor, ranks_active: Optional[int] = None, idle: bool = False
+    ) -> Dict[str, torch.Tensor]:
+        active = world if ranks_active is None else ranks_active
         optimizer.zero_grad(set_to_none=True)
         loss = bce_loss(model(features), labels)
-        loss.backward()
+        (loss * 0.0 if idle else loss).backward()
         grads = [p.grad for p in params]
         buffers = _flatten(grads, grad_dtype)
         if grad_reduce == "adasum":
             buffers = adasum_reduce(buffers, group)
-        else:
+        elif grad_dtype is None:
             for buf in buffers:
                 dist.all_reduce(buf, group=group)
-                buf.div_(world)
+                buf.div_(active)
+        else:
+            buffers = [_gathered_sum(buf, group).div_(active) for buf in buffers]
         _unflatten_into(buffers, grads, grad_dtype)
-        mean_loss = loss.detach().clone()
+        mean_loss = torch.zeros_like(loss) if idle else loss.detach().clone()
         dist.all_reduce(mean_loss, group=group)
         optimizer.step()
-        return {"loss": mean_loss.div_(world)}
+        return {"loss": mean_loss.div_(active)}
 
     return step

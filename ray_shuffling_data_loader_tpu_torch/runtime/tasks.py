@@ -1,27 +1,30 @@
 """Task execution: a pool of spawned worker processes with futures and a
 ``wait`` primitive.
 
-Tasks are plain importable functions; their arguments and results are
-pickled control messages, and bulk data travels through the shared-memory
-store as :class:`~.store.ObjectRef`. Workers are started with the
-``spawn`` method only: a fresh interpreter inherits no CUDA state (a
-``fork`` after CUDA is initialised breaks CUDA in the child) and imports
-only what its tasks need. A spawned child also runs the parent's
-``__main__`` module again under the name ``__mp_main__``, so a script that
-starts a pool keeps its work under ``if __name__ == "__main__":``.
+The pool is ``concurrent.futures.ProcessPoolExecutor`` on the ``spawn``
+start method: a fresh interpreter inherits no CUDA state (a ``fork`` after
+CUDA is initialised breaks CUDA in the child) and imports only what its
+tasks need. A spawned child also runs the parent's ``__main__`` module
+again under the name ``__mp_main__``, so a script that starts a pool keeps
+its work under ``if __name__ == "__main__":``. Tasks are plain importable
+functions; bulk data travels through the shared-memory store as
+:class:`~.store.ObjectRef`. A worker that dies fails the pool's pending
+futures with ``BrokenProcessPool``.
 
 This module imports the standard library only.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import multiprocessing as mp
 import os
-import pickle
 import threading
 import time
 import traceback
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+TaskFuture = cf.Future
 
 
 class TaskError(Exception):
@@ -36,215 +39,66 @@ class TaskError(Exception):
         return (TaskError, (self.args[0] if self.args else "", self.error_type))
 
 
-class TaskFuture:
-    def __init__(self, task_id: int):
-        self.task_id = task_id
-        self._event = threading.Event()
-        self._result = None
-        self._error = None
-        self._waiters_lock = threading.Lock()
-        self._waiters: List[threading.Event] = []
+def _init_worker(env: Dict[str, str]) -> None:
+    os.environ.update(env)
+    parent = os.getppid()
 
-    def done(self) -> bool:
-        return self._event.is_set()
+    def watch_parent():
+        # A pool owner killed without shutdown leaves no one to stop us.
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(0)
 
-    def result(self, timeout: Optional[float] = None):
-        if not self._event.wait(timeout):
-            raise TimeoutError(f"task {self.task_id} not done after {timeout}s")
-        if self._error is not None:
-            # A task's own failure is {"tb", "type"}; a pool failure (worker
-            # died, pool shut down) a plain string.
-            if isinstance(self._error, dict):
-                raise TaskError(self._error["tb"], error_type=self._error["type"])
-            raise TaskError(self._error)
-        return self._result
+    threading.Thread(target=watch_parent, daemon=True).start()
 
-    def _add_waiter(self, event: threading.Event) -> None:
-        with self._waiters_lock:
-            if self._event.is_set():
-                event.set()
-            else:
-                self._waiters.append(event)
 
-    def _remove_waiter(self, event: threading.Event) -> None:
-        with self._waiters_lock:
-            try:
-                self._waiters.remove(event)
-            except ValueError:
-                pass
-
-    def _fulfill(self, result, error) -> None:
-        self._result = result
-        self._error = error
-        self._event.set()
-        with self._waiters_lock:
-            waiters, self._waiters = self._waiters, []
-        for w in waiters:
-            w.set()
+def _run_task(fn: Callable, args, kwargs):
+    try:
+        return fn(*args, **kwargs)
+    except Exception as exc:
+        raise TaskError(traceback.format_exc(), type(exc).__name__) from None
 
 
 def wait(
     futures: Sequence[TaskFuture], num_returns: int = 1, timeout: Optional[float] = None
 ) -> Tuple[List[TaskFuture], List[TaskFuture]]:
     """Block until ``num_returns`` futures are done (or ``timeout``);
-    returns ``(done, pending)`` in submission order. Completions wake the
-    waiter through a shared event: no polling."""
+    returns ``(done, pending)`` in submission order."""
     deadline = None if timeout is None else time.monotonic() + timeout
-    notify = threading.Event()
-    for f in futures:
-        f._add_waiter(notify)
-    try:
-        while True:
-            # Clear before checking: a completion racing the check either
-            # shows in done() or sets the event again.
-            notify.clear()
-            if sum(f.done() for f in futures) >= num_returns:
-                break
-            remaining = None if deadline is None else deadline - time.monotonic()
-            if remaining is not None and remaining <= 0:
-                break
-            notify.wait(remaining)
-    finally:
-        for f in futures:
-            f._remove_waiter(notify)
-    done_ids = {id(f) for f in futures if f.done()}  # one snapshot
-    return [f for f in futures if id(f) in done_ids], [f for f in futures if id(f) not in done_ids]
-
-
-def _worker_main(task_q, result_q, env: Dict[str, str]) -> None:
-    os.environ.update(env)
-    parent = os.getppid()
-
-    def _watch_parent():
-        # A pool owner killed without shutdown leaves no one to stop us.
-        while True:
-            time.sleep(1.0)
-            if os.getppid() != parent:
-                os._exit(0)
-
-    threading.Thread(target=_watch_parent, daemon=True).start()
-    pid = os.getpid()
-    result_q.put(("ready", None, pid))
-    while True:
-        item = task_q.get()
-        if item is None:
+    while sum(f.done() for f in futures) < num_returns:
+        remaining = None if deadline is None else deadline - time.monotonic()
+        if remaining is not None and remaining <= 0:
             break
-        task_id, blob = item
-        result_q.put(("start", task_id, pid))
-        try:
-            fn, args, kwargs = pickle.loads(blob)
-            result_q.put(("done", task_id, fn(*args, **kwargs), None))
-        except Exception as exc:
-            result_q.put(("done", task_id, None, {"tb": traceback.format_exc(), "type": type(exc).__name__}))
+        cf.wait([f for f in futures if not f.done()], remaining, cf.FIRST_COMPLETED)
+    done = [f.done() for f in futures]
+    return [f for f, d in zip(futures, done) if d], [f for f, d in zip(futures, done) if not d]
 
 
 class WorkerPool:
-    """``num_workers`` spawned processes sharing one task queue. ``env`` is
-    set in each worker before its first task."""
+    """``num_workers`` spawned processes. ``env`` is set in each worker
+    before its first task."""
 
     def __init__(self, num_workers: int, env: Optional[Dict[str, str]] = None):
         self.num_workers = num_workers
         t0 = time.perf_counter()
-        ctx = mp.get_context("spawn")
-        self._task_q = ctx.Queue()
-        self._result_q = ctx.Queue()
-        self._procs = [
-            ctx.Process(target=_worker_main, args=(self._task_q, self._result_q, dict(env or {})), daemon=True)
-            for _ in range(num_workers)
-        ]
-        for p in self._procs:
-            p.start()
-        self._futures: Dict[int, TaskFuture] = {}
-        self._running_on: Dict[int, int] = {}  # task id -> worker pid
-        self._lock = threading.Lock()
-        self._next_id = 0
-        self._closed = False
-        self._t0 = t0
-        self._num_ready = 0
-        # Seconds from construction until every worker was up and waiting
-        # for tasks (None until then).
+        self._executor = cf.ProcessPoolExecutor(
+            num_workers, mp_context=mp.get_context("spawn"), initializer=_init_worker, initargs=(dict(env or {}),)
+        )
+        # Seconds from construction until one no-op per worker has run
+        # (None until then): the executor starts a process per task while
+        # none is idle, so this is the pool's start-up.
         self.ready_s: Optional[float] = None
-        self._collector = threading.Thread(target=self._collect, name="rsdl-pool-collect", daemon=True)
-        self._collector.start()
-        self._watchdog = threading.Thread(target=self._watch, name="rsdl-pool-watch", daemon=True)
-        self._watchdog.start()
+        warm = [self._executor.submit(os.getpid) for _ in range(num_workers)]
 
-    def _collect(self) -> None:
-        while True:
-            try:
-                item = self._result_q.get()
-            except (EOFError, OSError):
-                break
-            if item is None:
-                break
-            if item[0] == "ready":
-                self._num_ready += 1
-                if self._num_ready == self.num_workers:
-                    self.ready_s = time.perf_counter() - self._t0
-                continue
-            if item[0] == "start":
-                with self._lock:
-                    self._running_on[item[1]] = item[2]
-                continue
-            _, task_id, result, error = item
-            with self._lock:
-                fut = self._futures.pop(task_id, None)
-                self._running_on.pop(task_id, None)
-            if fut is not None:
-                fut._fulfill(result, error)
+        def ready(_):
+            if all(f.done() for f in warm):
+                self.ready_s = time.perf_counter() - t0
 
-    def _watch(self) -> None:
-        # A worker that died mid-task (killed, out of memory) fails that
-        # task's future instead of leaving its caller waiting forever.
-        while not self._closed:
-            time.sleep(0.5)
-            dead = {p.pid for p in self._procs if not p.is_alive() and p.exitcode}
-            if not dead:
-                continue
-            with self._lock:
-                lost = [tid for tid, pid in self._running_on.items() if pid in dead]
-                futs = [(self._futures.pop(tid, None), self._running_on.pop(tid)) for tid in lost]
-            for fut, pid in futs:
-                if fut is not None:
-                    fut._fulfill(None, f"worker process {pid} died while running this task")
+        for f in warm:
+            f.add_done_callback(ready)
 
     def submit(self, fn: Callable, *args, **kwargs) -> TaskFuture:
-        if self._closed:
-            raise RuntimeError("worker pool is shut down")
-        # Pickle here: the queue's feeder thread would swallow the error.
-        blob = pickle.dumps((fn, args, kwargs))
-        with self._lock:
-            task_id = self._next_id
-            self._next_id += 1
-            fut = self._futures[task_id] = TaskFuture(task_id)
-        self._task_q.put((task_id, blob))
-        return fut
+        return self._executor.submit(_run_task, fn, args, kwargs)
 
     def shutdown(self) -> None:
-        if self._closed:
-            return
-        self._closed = True
-        for _ in self._procs:
-            try:
-                self._task_q.put(None)
-            except Exception:
-                pass
-        for p in self._procs:
-            p.join(timeout=2)
-            if p.is_alive():
-                p.terminate()
-        for p in self._procs:
-            # A worker that survives SIGTERM would hang the interpreter's
-            # exit in multiprocessing's own join.
-            p.join(timeout=2)
-            if p.is_alive():
-                p.kill()
-                p.join()
-        try:
-            self._result_q.put(None)
-        except Exception:
-            pass
-        with self._lock:
-            futs, self._futures = list(self._futures.values()), {}
-        for fut in futs:
-            fut._fulfill(None, "worker pool shut down")
+        self._executor.shutdown(wait=True, cancel_futures=True)

@@ -39,10 +39,11 @@ from ray_shuffling_data_loader_tpu_torch.parallel import init_data_parallel, mak
 
 REPO = helpers.REPO
 DEADLINE_S = 60
-MEAN_BATCH, MEAN_STEPS = 64, 3
+MEAN_BATCH, MEAN_STEPS = 96, 3  # 96 rows split evenly over 2, 3 and 4 ranks
 LEAF_SHAPES = ((7, 3), (5,), (4, 4))
 # world size -> the cases its ranks compute
-WORLD_CASES = {2: ("mean", "adasum", "bf16"), 3: ("adasum",), 4: ("mean", "adasum"), 5: ("adasum",)}
+WORLD_CASES = {2: ("mean", "adasum", "bf16", "steps"), 3: ("adasum", "steps", "idle"), 4: ("mean", "adasum"),
+               5: ("adasum",)}
 
 
 def _free_port():
@@ -336,6 +337,88 @@ def test_bf16_wire_tracks_fp32(worlds):
         assert str(res["bf16_wire_bf16_dtype"]) == "torch.float32"
 
 
+# The port's update against JAX's, relative to its size: within 3e-5 for
+# both wires at 2 and 3 ranks; the fp32 wire is 2.5e-3 from JAX's bf16 one.
+UPDATE_RTOL = 2e-4
+
+
+def _update_error(got, want, start):
+    """``|got - want| / |want - start|`` over every parameter: how far the
+    port's update is from JAX's, relative to the update's size."""
+    num = sum(float(np.sum((got[k] - want[k]) ** 2)) for k in want)
+    den = sum(float(np.sum((want[k] - start[k]) ** 2)) for k in want)
+    return (num / den) ** 0.5
+
+
+@pytest.mark.parametrize("world", [2, 3])
+@pytest.mark.parametrize("reduce", ["mean", "adasum"])
+def test_wire_dtype_and_reduce_steps_match_jax(worlds, world, reduce):
+    """The bf16 wire and Adasum steps against JAX ``make_psum_train_step``
+    with the same ``grad_dtype`` and ``grad_reduce`` on the same mesh,
+    weights and shards: three SGD steps, their mean losses and the
+    parameters after them. The tolerance on the update is one that the
+    fp32 wire fails against JAX's bf16 wire. SGD, not Adam: Adam's first
+    steps move each weight by about ``lr`` whatever the gradient's
+    rounding, which would hide the wire."""
+    inputs, params, results = worlds(world)
+    mesh = _data_mesh(world)
+    bsh = batch_sharding(mesh, 1)
+    start = {k: v.numpy() for k, v in dlrm_state_dict_from_jax(jax.tree.map(np.asarray, params)).items()}
+    want = {}
+    for wire in (None, jnp.bfloat16):
+        jmodel, opt = _jax_model(), optax.sgd(helpers.STEP_LR)
+        state = TrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=opt.init(params))
+        state = jax.device_put(state, NamedSharding(mesh, P()))
+        step = jax_psum_step(jmodel, opt, mesh, grad_dtype=wire, grad_reduce=reduce, donate_state=False)
+        batches = [({c: jax.device_put(v[s], bsh) for c, v in inputs["feats"].items()},
+                    jax.device_put(inputs["labels"][s], bsh)) for s in range(MEAN_STEPS)]
+        # XLA may keep a value wider than its cast says where nothing else
+        # reads the narrow one ("excess precision"); without it, JAX's bf16
+        # wire rounds where its program casts, as the port's does.
+        step = step.lower(state, *batches[0]).compile({"xla_allow_excess_precision": False})
+        losses = []
+        for feats, labels in batches:
+            state, metrics = step(state, feats, labels)
+            losses.append(float(metrics["loss"]))
+        final = dlrm_state_dict_from_jax(jax.tree.map(np.asarray, state.params))
+        want["bfloat16" if wire else "float32"] = (losses, {k: v.numpy() for k, v in final.items()})
+    for r, res in enumerate(results):
+        for wire, (losses, final) in want.items():
+            case = f"step_{reduce}_{wire}"
+            np.testing.assert_allclose(res[f"{case}_losses"], losses, atol=1e-4, rtol=0, err_msg=f"{case} rank {r}")
+            got = {k: res[f"{case}_param_{k}"] for k in final}
+            assert _update_error(got, final, start) < UPDATE_RTOL, f"{case} rank {r}"
+            # Every rank holds the same parameters.
+            for k in final:
+                np.testing.assert_array_equal(got[k], results[0][f"{case}_param_{k}"])
+        # The tolerance tells the wires apart: the fp32 wire misses JAX's bf16.
+        fp32_wire = {k: res[f"step_{reduce}_float32_param_{k}"] for k in start}
+        assert _update_error(fp32_wire, want["bfloat16"][1], start) > 5 * UPDATE_RTOL
+
+
+@pytest.mark.parametrize("kind", helpers.IDLE_STEPS)
+def test_idle_ranks_add_nothing_to_the_step(worlds, kind):
+    """Three ranks, of which only rank 0 brings a batch: the DDP and the
+    explicit steps make the update of the JAX step on rank 0's shard
+    alone, on every rank."""
+    world = 3
+    inputs, params, results = worlds(world)
+    mesh = _data_mesh(1)
+    rows = slice(0, MEAN_BATCH // world)
+    opt = optax.sgd(helpers.STEP_LR)
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=opt.init(params))
+    step = jax_psum_step(_jax_model(), opt, mesh, grad_reduce="mean" if kind == "ddp" else kind, donate_state=False)
+    for s in range(MEAN_STEPS):
+        state, _ = step(state, {c: v[s, rows] for c, v in inputs["feats"].items()}, inputs["labels"][s, rows])
+    want = {k: v.numpy() for k, v in dlrm_state_dict_from_jax(jax.tree.map(np.asarray, state.params)).items()}
+    start = {k: v.numpy() for k, v in dlrm_state_dict_from_jax(jax.tree.map(np.asarray, params)).items()}
+    for r, res in enumerate(results):
+        got = {k: res[f"idle_{kind}_param_{k}"] for k in want}
+        assert _update_error(got, want, start) < UPDATE_RTOL, f"rank {r}"
+        for k in want:
+            np.testing.assert_array_equal(got[k], results[0][f"idle_{kind}_param_{k}"])
+
+
 # -- (f) what raises ------------------------------------------------------------------
 
 
@@ -358,15 +441,16 @@ def test_nccl_on_a_shared_device_and_unknown_reduce_raise():
 # -- the multi-rank trainer end to end --------------------------------------------
 
 
-def test_multirank_trains_three_uneven_ranks_with_adasum(tmp_path):
-    """Three rank processes, five reducers (shards of unequal length),
-    Adasum with bf16 on the wire: the launcher's checks hold (exactly once,
-    each rank its full batches, equal parameters, finite losses)."""
+def _three_uneven_ranks(tmp_path, step_args):
+    """Three rank processes, five reducers (shards of unequal length): the
+    launcher's checks hold (exactly once, each rank its full batches, every
+    batch trained, equal parameters, finite losses); returns the ranks'
+    results."""
     from ray_shuffling_data_loader_tpu_torch import multirank
 
     port_runtime.shutdown()
     args = multirank.parse_args([
-        "--num-trainers", "3", "--backend", "gloo", "--step", "psum", "--grad-reduce", "adasum", "--grad-dtype", "bfloat16",
+        "--num-trainers", "3", "--backend", "gloo", *step_args,
         "--epochs", "1", "--device", "cpu", "--num-rows", "12000", "--num-files", "3", "--row-groups", "1",
         "--batch-size", "1000", "--num-reducers", "5", "--vocab-cap", "1000", "--embed-dim", "8",
         "--compute-dtype", "float32", "--num-workers", "2", "--data-dir", str(tmp_path), "--timeout", str(DEADLINE_S),
@@ -375,11 +459,26 @@ def test_multirank_trains_three_uneven_ranks_with_adasum(tmp_path):
     assert out["returncode"] == 0, out["problems"]
     ranks = out["ranks"]
     assert [r["rank"] for r in ranks] == [0, 1, 2]
-    steps = ranks[0]["steps"]
-    # Every rank stepped while all had a batch; the longer shards drained.
-    assert steps == min(r["epochs"][0]["rows_read"] // 1000 for r in ranks) > 0
-    assert sum(r["epochs"][0]["keys"] for r in ranks) == sum(r["epochs"][0]["rows_read"] // 1000 * 1000 for r in ranks)
-    assert all(len(r["losses"]) == steps for r in ranks)
+    full = [r["epochs"][0]["rows_read"] // 1000 for r in ranks]
+    assert min(full) < max(full)  # a shorter shard: its rank idles
+    # Every rank stepped until the last ran out, and trained each of its batches.
+    assert all(r["steps"] == max(full) for r in ranks)
+    assert [r["epochs"][0]["steps"] - r["epochs"][0]["idle"] for r in ranks] == full
+    assert [len(r["losses"]) for r in ranks] == full
+    assert sum(r["epochs"][0]["keys"] for r in ranks) == sum(full) * 1000
+    return ranks
+
+
+def test_multirank_trains_three_uneven_ranks_with_adasum(tmp_path):
+    """Adasum with bf16 on the wire."""
+    ranks = _three_uneven_ranks(
+        tmp_path, ["--step", "psum", "--grad-reduce", "adasum", "--grad-dtype", "bfloat16"]
+    )
     # Rank 0 ran the shuffle: its pool and the store's peak are reported.
     assert ranks[0]["pool_ready_s"] > 0 and ranks[0]["store_peak_bytes"] > 0
     assert ranks[1]["pool_ready_s"] is None
+
+
+def test_multirank_trains_three_uneven_ranks_with_ddp(tmp_path):
+    """DistributedDataParallel: an idle rank still joins its all-reduce."""
+    _three_uneven_ranks(tmp_path, ["--step", "ddp"])

@@ -7,6 +7,7 @@ import errno
 import glob
 import json
 import mmap
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -212,7 +213,12 @@ def test_owner_shutdown_leaves_no_process_or_segment():
     runtime.shutdown()
     ctx = runtime.init(num_workers=2)
     runtime.put_columns({"v": np.arange(3)})
-    pids = [p.pid for p in ctx.pool._procs]
+    deadline = time.monotonic() + DEADLINE_S
+    while ctx.pool.ready_s is None:  # every worker started
+        assert time.monotonic() < deadline
+        time.sleep(0.05)
+    pids = [p.pid for p in multiprocessing.active_children()]
+    assert len(pids) >= 2
     actor = runtime.spawn_actor(helpers.Mailbox)
     pids.append(actor.pid)
     runtime.shutdown()

@@ -83,6 +83,62 @@ def _bf16_losses(torch, port, group, spec, rank, world):
     return out
 
 
+# The step cases held against the JAX step: (gradient reduction, wire dtype).
+STEP_CASES = (("mean", None), ("mean", "bfloat16"), ("adasum", None), ("adasum", "bfloat16"))
+STEP_LR = 0.1
+
+
+def _sgd_steps(torch, port, group, spec, rank, world):
+    """For each step case: the mean losses of three SGD steps on this
+    rank's shards, and the parameters after them."""
+    data = np.load(spec["inputs"])
+    shard = data["labels"].shape[1] // world
+    rows = slice(rank * shard, (rank + 1) * shard)
+    out = {}
+    for reduce, wire in STEP_CASES:
+        case = f"{reduce}_{wire or 'float32'}"
+        model = port.dlrm_for_data_spec(**SMALL_DLRM, compute_dtype=torch.float32, device="cpu")
+        model.load_state_dict(torch.load(spec["state"]))
+        step = port.make_psum_train_step(
+            model, torch.optim.SGD(model.parameters(), lr=STEP_LR), group,
+            grad_dtype=getattr(torch, wire) if wire else None, grad_reduce=reduce,
+        )
+        losses = []
+        for s in range(data["labels"].shape[0]):
+            feats = {c: torch.from_numpy(data[f"feat_{c}"][s, rows]) for c in model.columns}
+            losses.append(float(step(feats, torch.from_numpy(data["labels"][s, rows]))["loss"]))
+        out[f"step_{case}_losses"] = np.asarray(losses)
+        for name, tensor in model.state_dict().items():
+            out[f"step_{case}_param_{name}"] = tensor.numpy()
+    return out
+
+
+IDLE_STEPS = ("ddp", "mean", "adasum")
+
+
+def _idle_steps(torch, port, group, spec, rank, world):
+    """Three SGD steps in which only rank 0 brings a batch (its shard) and
+    every other rank idles on its own: the parameters after them."""
+    data = np.load(spec["inputs"])
+    shard = data["labels"].shape[1] // world
+    rows = slice(rank * shard, (rank + 1) * shard)
+    out = {}
+    for kind in IDLE_STEPS:
+        model = port.dlrm_for_data_spec(**SMALL_DLRM, compute_dtype=torch.float32, device="cpu")
+        model.load_state_dict(torch.load(spec["state"]))
+        opt = torch.optim.SGD(model.parameters(), lr=STEP_LR)
+        if kind == "ddp":
+            step = port.make_train_step(model, opt, group)
+        else:
+            step = port.make_psum_train_step(model, opt, group, grad_reduce=kind)
+        for s in range(data["labels"].shape[0]):
+            feats = {c: torch.from_numpy(data[f"feat_{c}"][s, rows]) for c in model.columns}
+            step(feats, torch.from_numpy(data["labels"][s, rows]), 1, idle=rank != 0)
+        for name, tensor in model.state_dict().items():
+            out[f"idle_{kind}_param_{name}"] = tensor.numpy()
+    return out
+
+
 def grad_rank_main(spec_path, rank):
     import torch
 
@@ -99,6 +155,10 @@ def grad_rank_main(spec_path, rank):
         out["mean_losses"] = _mean_losses(torch, port, group, spec, rank, world)
     if "bf16" in spec["cases"]:
         out.update(_bf16_losses(torch, port, group, spec, rank, world))
+    if "steps" in spec["cases"]:
+        out.update(_sgd_steps(torch, port, group, spec, rank, world))
+    if "idle" in spec["cases"]:
+        out.update(_idle_steps(torch, port, group, spec, rank, world))
     if "adasum" in spec["cases"]:
         grads = np.load(spec["grads"])
         for case in ADASUM_CASES:

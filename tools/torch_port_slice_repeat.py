@@ -2,16 +2,13 @@
 """Repeat ``chip_smoke.py``'s single-rank DLRM slice to measure the spread
 of its step median on one NVIDIA GPU, for one checkout of the repo.
 
-    python3 tools/torch_port_slice_repeat.py <checkout root> <plain|copy> <repeats>
+    python3 tools/torch_port_slice_repeat.py <checkout root> <repeats>
 
 Writes the Quick-start dataset (10^6 rows, 10 files, 5 row groups) under
 ``<root>/build/exp_data`` and runs ``train_slice`` of that checkout's
 ``chip_smoke.py`` ``<repeats>`` times in one session (2 epochs, batch
-65536, 8 reducers each), printing one ``EXP`` line per repeat. ``copy``
-copies each reducer output out of the shared-memory store before it is
-re-cut and staged, to tell whether staging from mapped segments costs the
-step. Run a parent and a change checkout in turns in one call to compare
-them; each run needs the card (it exits non-zero without one).
+65536, 8 reducers each), printing one ``EXP`` line per repeat. Run a
+parent and a change checkout in turns in one call to compare them; each run needs the card (it exits non-zero without one).
 """
 
 import importlib.util
@@ -20,9 +17,8 @@ import shutil
 import sys
 
 
-def main(root: str, variant: str, reps: int) -> int:
+def main(root: str, reps: int) -> int:
     sys.path.insert(0, os.path.abspath(root))
-    import numpy as np
     import torch
 
     spec = importlib.util.spec_from_file_location("chip_smoke_of_root", os.path.join(root, "chip_smoke.py"))
@@ -30,21 +26,14 @@ def main(root: str, variant: str, reps: int) -> int:
     spec.loader.exec_module(smoke)
     import ray_shuffling_data_loader_tpu_torch as port
 
-    if variant == "copy":
-        from ray_shuffling_data_loader_tpu_torch.runtime import store
-
-        mapped = store.ObjectStore.get_columns
-        store.ObjectStore.get_columns = lambda self, ref: store.ColumnBatch(
-            {k: np.array(v) for k, v in mapped(self, ref).items()}
-        )
     data_dir = os.path.join(root, "build", "exp_data")
     shutil.rmtree(data_dir, ignore_errors=True)
     port.runtime.init()
     try:
         files, _ = port.generate_data(10**6, 10, 5, 0.0, data_dir, seed=0)
         for r in range(reps):
-            out = smoke.train_slice(torch, port, files, 10**6, port.dlrm_for_data_spec(), f"dlrm-{variant}-{r}")
-            print(f"EXP {root} {variant} rep {r}: step median {out['step_ms_median']:.3f} ms, "
+            out = smoke.train_slice(torch, port, files, 10**6, port.dlrm_for_data_spec(), f"dlrm-{r}")
+            print(f"EXP {root} rep {r}: step median {out['step_ms_median']:.3f} ms, "
                   f"epochs {[round(e, 4) for e in out['epoch_s']]}", flush=True)
     finally:
         port.runtime.shutdown()
@@ -53,4 +42,4 @@ def main(root: str, variant: str, reps: int) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1], sys.argv[2], int(sys.argv[3])))
+    sys.exit(main(sys.argv[1], int(sys.argv[2])))
