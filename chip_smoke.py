@@ -41,7 +41,23 @@ Phases, each of which fails the script (non-zero exit) on any error:
    worth, every loss must be finite, and over the path the interaction
    kernel must launch once per DLRM step, all on its tensor-core route,
    and each flash kernel twice per TabTransformer step (two layers), none
-   on a tensor-core route;
+   on a tensor-core route. The loader runs its defaults (decode cache,
+   the schedule policy, packed reducer outputs staged in one copy): each
+   epoch must stage at least one batch direct, and each run logs its
+   schedules, the resolved ``cache_decoded``, the decoded-size estimate
+   against the store's budget, the host probe's figures, direct and
+   carried batches with the host time per batch of each kind, the
+   staging stall, each epoch's shuffle seconds and the store's peak;
+   delivery: on the same dataset, delivery only (no step) for 2 epochs
+   three ways: the defaults; ``RSDL_INDEX_SHUFFLE=on``; and
+   ``RSDL_DEVICE_DIRECT=off``, ``RSDL_INDEX_SHUFFLE=off`` with
+   ``cache_decoded=False``. Every staged tensor of every batch must be
+   equal across the three (per-batch digests computed on the card), the
+   forced run must take the index schedule in epoch 1, and the last run
+   must stage nothing direct and cache nothing. Each run logs a profile
+   of the stager's thread: the median ms of one stage per kind of batch
+   (direct; carried, still a view of a segment's mapping; carried, rows
+   the carry concatenated) and of the consumer's mapping of a segment;
 4. ranks: data-parallel DLRM training with one process per trainer rank
    (``multirank``) on the same dataset, all ranks on ``cuda:0``: 2 ranks
    over ``gloo`` with ``DistributedDataParallel`` (mean) for 2 epochs; 3
@@ -52,7 +68,8 @@ Phases, each of which fails the script (non-zero exit) on any error:
    until the last one runs out (a rank whose shard is done steps on its
    last batch with its loss weighted 0). In each run every epoch must
    deliver each key at most once across the ranks and each rank exactly
-   its full batches, all trained, every loss must be finite, all ranks
+   its full batches, all trained, every loss must be finite, every rank
+   must log the same loss (the global batch's) at every step, all ranks
    must end with the same parameters bit for bit, and each rank must
    launch the interaction kernel once per step, all on its tensor-core
    route, and no flash kernel;
@@ -575,6 +592,159 @@ def phase_flash(torch, rate: float):
     return entries, {"errors": errs, "timings": timings, "route_sweep": sweep}
 
 
+def delivery_report(port, ds, filenames, label: str) -> dict:
+    """Log how a finished ``DeviceShufflingDataset`` run delivered: each
+    epoch's schedule and shuffle seconds, the resolved ``cache_decoded``,
+    the decoded-size estimate against the store's budget, the host probe's
+    figures, direct and carried batches with the host time each kind took
+    to stage, the staging stall and the store's peak."""
+    from ray_shuffling_data_loader_tpu_torch import shuffle as port_shuffle
+
+    host, st = ds.dataset, ds.stats
+    out = {
+        "schedules": [s for _, s in host.schedule_log],
+        "epoch_shuffle_s": host.shuffle_stats.get("epoch_shuffle_s"),
+        "cache_decoded": host.shuffle_stats.get("cache_decoded"),
+        "est_decoded_bytes": port_shuffle._est_decoded_bytes(list(filenames), True),
+        "capacity_bytes": port.runtime.get_context().store.capacity_bytes,
+        "probe": port_shuffle._PROBE_CACHE.get("costs"),
+        "batches_direct": st.batches_direct,
+        "batches_carried": st.batches_carried,
+        "put_dispatch_direct_ms": st.put_dispatch_direct_s / max(1, st.batches_direct) * 1e3,
+        "put_dispatch_carried_ms": (st.put_dispatch_s - st.put_dispatch_direct_s) / max(1, st.batches_carried) * 1e3,
+        "stall_staging_s": st.stall_staging_s,
+        "store_peak_bytes": host.shuffle_stats.get("store_peak_bytes"),
+    }
+    log(f"[{label}] schedules {out['schedules']}, shuffle {out['epoch_shuffle_s']!r} s per epoch; "
+        f"cache_decoded {out['cache_decoded']} (estimate {out['est_decoded_bytes']!r} B against capacity "
+        f"{out['capacity_bytes']} B); probe {out['probe']}; batches {out['batches_direct']} direct, "
+        f"{out['batches_carried']} carried; put_dispatch {out['put_dispatch_direct_ms']!r} ms per direct batch, "
+        f"{out['put_dispatch_carried_ms']!r} ms per carried; stall_staging {out['stall_staging_s']!r} s; "
+        f"store peak {out['store_peak_bytes']} B")
+    return out
+
+
+def batch_digest(torch, tensors):
+    """Per staged tensor, on the card: the int64 sum of its 32-bit words
+    and their sum weighted by position (1-based)."""
+    out = []
+    for t in tensors:
+        x = t.contiguous().view(torch.int32).to(torch.int64)
+        w = torch.arange(1, x.numel() + 1, device=x.device, dtype=torch.int64)
+        out += [x.sum(), (x * w).sum()]
+    return torch.stack(out)
+
+
+def profile_staging(ds, store):
+    """Time each call of ``ds._stage`` and, on the stager's thread, of the
+    store's ``get_columns`` (the consumer's mapping of a segment), by kind
+    of batch: ``direct``; ``carried_mapped``, whose columns still view a
+    segment's mapping; ``carried_owned``, rows the carry concatenated.
+    Returns the ``(kind, thread, ms)`` records and a function that removes
+    the wrappers."""
+    import threading
+
+    records = []
+    stage, get_columns = ds._stage, store.get_columns
+
+    def timed(kind, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        records.append((kind, threading.get_ident(), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def timed_stage(cb, direct=False):
+        kind = "direct" if direct else ("carried_mapped" if cb._keepalive is not None else "carried_owned")
+        return timed(kind, stage, cb, direct)
+
+    ds._stage = timed_stage
+    store.get_columns = lambda *a, **k: timed("get_columns", get_columns, *a, **k)
+
+    def remove():
+        del ds._stage, store.get_columns
+
+    return records, remove
+
+
+def staging_profile(records) -> dict:
+    """Per kind of :func:`profile_staging` record: calls and the median ms
+    of one call."""
+    stager = {ident for kind, ident, _ in records if kind != "get_columns"}
+    out = {}
+    for kind in ("direct", "carried_mapped", "carried_owned", "get_columns"):
+        ms = [t for k, ident, t in records if k == kind and ident in stager]
+        if ms:
+            out[kind] = {"n": len(ms), "median_ms": statistics.median(ms)}
+    return out
+
+
+# (label, environment, cache_decoded): the delivery phase's three runs.
+DELIVERY_RUNS = (
+    ("defaults", {}, None),
+    ("index_forced", {"RSDL_INDEX_SHUFFLE": "on"}, None),
+    ("all_off", {"RSDL_DEVICE_DIRECT": "off", "RSDL_INDEX_SHUFFLE": "off"}, False),
+)
+
+
+def phase_delivery(torch, filenames) -> dict:
+    """Delivery only (no step), 2 epochs on the slices' dataset, three
+    ways (:data:`DELIVERY_RUNS`): every staged tensor of every batch must
+    be equal across them (per-batch digests computed on the card), and the
+    forced run must take the index schedule in epoch 1."""
+    import ray_shuffling_data_loader_tpu_torch as port
+
+    feature_columns = [c for c in port.DATA_SPEC if c != port.LABEL_COLUMN] + [port.KEY_COLUMN]
+    runs = {}
+    port.runtime.init()
+    try:
+        for label, env, cache_decoded in DELIVERY_RUNS:
+            saved = {k: os.environ.get(k) for k in ("RSDL_DEVICE_DIRECT", "RSDL_INDEX_SHUFFLE")}
+            os.environ.update(env)
+            try:
+                t0 = time.perf_counter()
+                ds = port.DeviceShufflingDataset(
+                    filenames, num_epochs=2, num_trainers=1, batch_size=65536, rank=0,
+                    feature_columns=feature_columns, label_column=port.LABEL_COLUMN, num_reducers=8, seed=0,
+                    device="cuda", cache_decoded=cache_decoded,
+                )
+                records, unprofile = profile_staging(ds, port.runtime.get_context().store)
+                digests = []
+                try:
+                    for epoch in range(2):
+                        ds.set_epoch(epoch)
+                        digests += [batch_digest(torch, [*features.values(), labels]) for features, labels in ds]
+                finally:
+                    unprofile()
+                ds.join()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            report = delivery_report(port, ds, filenames, f"delivery {label}")
+            report.update(wall_s=wall, batches=len(digests), staging_profile=staging_profile(records))
+            runs[label] = (torch.stack(digests).cpu(), report)
+            log(f"[delivery {label}] {len(digests)} batches in {wall!r} s")
+            for kind, prof in report["staging_profile"].items():
+                log(f"[delivery {label}] {kind}: {prof['n']} calls, median {prof['median_ms']!r} ms")
+    finally:
+        port.runtime.shutdown()
+    ref = runs["defaults"][0]
+    for label, (digest, report) in runs.items():
+        if digest.shape != ref.shape or not torch.equal(digest, ref):
+            raise AssertionError(f"[delivery] {label}: staged tensors differ from the defaults' run")
+    if runs["index_forced"][1]["schedules"][1] != "index":
+        raise AssertionError(f"[delivery] index_forced: schedules {runs['index_forced'][1]['schedules']}")
+    off = runs["all_off"][1]
+    if off["batches_direct"] or off["cache_decoded"] or set(off["schedules"]) != {"mapreduce"}:
+        raise AssertionError(f"[delivery] all_off: {off}")
+    log(f"[delivery] {ref.shape[0]} batches, every staged tensor equal across {', '.join(runs)}")
+    return {label: report for label, (_, report) in runs.items()}
+
+
 def train_slice(torch, port, filenames, num_rows, model, label: str) -> dict:
     """Two epochs of ``model`` on the shuffled dataset, with the launch
     counts set to 0 just before and read just after."""
@@ -596,10 +766,12 @@ def train_slice(torch, port, filenames, num_rows, model, label: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_launches(ops)
     steps, step_s, losses, epoch_s = 0, [], [], []
+    direct_per_epoch = []
     last = None
     for epoch in range(num_epochs):
         ds.set_epoch(epoch)
         keys = []
+        direct0 = ds.stats.batches_direct
         t_epoch = time.perf_counter()
         for features, labels in ds:
             keys.append(features.pop(port.KEY_COLUMN))
@@ -610,6 +782,7 @@ def train_slice(torch, port, filenames, num_rows, model, label: str) -> dict:
             steps += 1
             last = (features, labels)
         epoch_s.append(time.perf_counter() - t_epoch)
+        direct_per_epoch.append(ds.stats.batches_direct - direct0)
         got = torch.cat(keys).cpu().numpy()
         want_rows = (num_rows // batch_size) * batch_size
         if got.size != want_rows or np.unique(got).size != got.size:
@@ -618,11 +791,14 @@ def train_slice(torch, port, filenames, num_rows, model, label: str) -> dict:
         if got.min() < 0 or got.max() >= num_rows:
             raise AssertionError(f"{label} epoch {epoch}: key out of range")
         log(f"[slice {label}] epoch {epoch}: {got.size} distinct keys exactly once, "
-            f"{len(keys)} steps, {epoch_s[-1]!r} s")
+            f"{len(keys)} steps ({direct_per_epoch[-1]} staged direct), {epoch_s[-1]!r} s")
+        if not direct_per_epoch[-1]:
+            raise AssertionError(f"{label} epoch {epoch}: no batch was staged direct")
     launches = read_launches(ops)
     ds.join()  # the shuffle ended and the queue's name is free again
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{label}: non-finite loss: {losses}")
+    delivery = delivery_report(port, ds, filenames, f"slice {label}")
     stats = ds.stats.as_dict()
     median_ms = statistics.median(step_s[1:]) * 1e3
     log(f"[slice {label}] {steps} steps, losses {losses[0]!r} -> {losses[-1]!r}; "
@@ -641,6 +817,8 @@ def train_slice(torch, port, filenames, num_rows, model, label: str) -> dict:
         "epoch_s": epoch_s,
         "losses": losses,
         "staging": stats,
+        "delivery": delivery,
+        "direct_per_epoch": direct_per_epoch,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
     }
 
@@ -822,7 +1000,9 @@ def main() -> int:
         shutil.rmtree(data_dir, ignore_errors=True)
         try:
             slices = phase_slices(torch, data_dir)
-            ranks = phase_ranks(slices.pop("filenames"), smi)
+            filenames = slices.pop("filenames")
+            delivery = phase_delivery(torch, filenames)
+            ranks = phase_ranks(filenames, smi)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
         lm = phase_lm(torch)
@@ -859,6 +1039,7 @@ def main() -> int:
                         for label, sl in slices.items()
                     },
                     "lm": lm,
+                    "delivery": delivery,
                     "ranks": ranks,
                     "parity_max_abs_diff": {label: err for label, (err, _) in parity.items()},
                 },

@@ -7,6 +7,11 @@ connects to the queue by name with retry. Each rank maps its reducer
 outputs from the shared-memory store (zero copy), re-cuts them into
 batches of exactly ``batch_size`` rows with a carry buffer, and acks what
 it consumed so the epoch window can move on.
+
+A packed reducer output (whole batches already cut at the rank's batch
+grid, :func:`~.runtime.store.iter_packed_batches`) is yielded batch by
+batch as zero-copy views; only the plain head and tail of a reducer's
+interval go through the carry buffer.
 """
 
 from __future__ import annotations
@@ -14,12 +19,13 @@ from __future__ import annotations
 import os
 import threading
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 from ray_shuffling_data_loader_tpu_torch import runtime
 from ray_shuffling_data_loader_tpu_torch.batch_queue import DEFAULT_QUEUE_NAME, BatchQueue
-from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch
-from ray_shuffling_data_loader_tpu_torch.shuffle import shuffle
+from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch, ObjectRef
+from ray_shuffling_data_loader_tpu_torch.runtime.store import is_device_batch, iter_packed_batches
+from ray_shuffling_data_loader_tpu_torch.shuffle import BatchConsumer, shuffle
 
 # Default reducer share of the host's cores.
 REDUCER_CLUSTER_CORE_SHARE = 0.6
@@ -94,6 +100,11 @@ class ShufflingDataset:
         queue_name: name of the batch queue actor the ranks share.
         start_epoch: first epoch to shuffle (resume; epochs stay absolute).
         narrow_to_32: cast 64-bit columns to 32 bits at decode.
+        cache_decoded: keep each file's decoded columns in the store after
+            the first epoch (None: decided by the shuffle's policy).
+        device_layout: a staging consumer's ``{"batch": B, "columns":
+            [...]}``: reducers then pack their whole batches, and this
+            iterator yields those as views with ``.packed`` set.
     """
 
     def __init__(
@@ -110,6 +121,8 @@ class ShufflingDataset:
         queue_name: str = DEFAULT_QUEUE_NAME,
         start_epoch: int = 0,
         narrow_to_32: bool = False,
+        cache_decoded: Optional[bool] = None,
+        device_layout: Optional[dict] = None,
     ):
         runtime.ensure_initialized()
         if num_reducers is None:
@@ -123,8 +136,10 @@ class ShufflingDataset:
         self._skip_batches = 0
         self._error: Optional[BaseException] = None
         self._thread: Optional[threading.Thread] = None
-        # Rank 0: the shuffle's store_peak_bytes and the epoch in progress.
-        self.shuffle_stats: Dict[str, int] = {}
+        # Rank 0: the shuffle's stats (see ``shuffle``) and each epoch's
+        # schedule.
+        self.shuffle_stats: Dict[str, Any] = {}
+        self.schedule_log: List[tuple] = []
         # The last epoch iterated: seconds of each get_batch call, and the
         # rows read from the store (before the re-cut).
         self.get_batch_s: List[float] = []
@@ -136,13 +151,16 @@ class ShufflingDataset:
             return
         self._batch_queue = BatchQueue(num_epochs, num_trainers, max_concurrent_epochs, name=queue_name)
         self._batch_queue.ready()
+        consumer = BatchConsumerQueue(self._batch_queue)
 
         def _drive():
             try:
                 shuffle(
-                    filenames, self._batch_queue, num_epochs, num_reducers,
+                    filenames, consumer, num_epochs, num_reducers,
                     num_trainers, seed=seed, start_epoch=start_epoch,
-                    narrow_to_32=narrow_to_32, stats=self.shuffle_stats,
+                    narrow_to_32=narrow_to_32, cache_decoded=cache_decoded,
+                    schedule_log=self.schedule_log, device_layout=device_layout,
+                    stats=self.shuffle_stats,
                 )
                 # Every rank has acked the last epoch: nothing calls the
                 # queue again, and its name is free for the next dataset.
@@ -192,10 +210,27 @@ class ShufflingDataset:
                 pending.pop()
             num_outstanding = len(pending)
             for ref in pending:
-                cb = store.get_columns(ref)
+                # Every row is read: fill the page tables in one call, not
+                # one fault per page inside the stager's copy.
+                cb = store.get_columns(ref, populate=True)
                 store.free(ref)  # the mapping outlives the unlink
-                self.rows_read += cb.num_rows
-                yield from rebatch.feed(cb)
+                if not is_device_batch(cb):
+                    self.rows_read += cb.num_rows
+                    yield from rebatch.feed(cb)
+                elif cb.layout.get("batch") == self._batch_size and (rebatch.buf is None or rebatch.buf.num_rows == 0):
+                    # Whole batches cut at this rank's grid: the carry is
+                    # empty whenever one arrives, by construction.
+                    for pb in iter_packed_batches(cb):
+                        self.rows_read += pb.num_rows
+                        if rebatch.to_skip > 0:
+                            rebatch.to_skip -= 1
+                        else:
+                            yield pb
+                else:
+                    # Misaligned with this consumer: re-cut like any rows.
+                    for pb in iter_packed_batches(cb):
+                        self.rows_read += pb.num_rows
+                        yield from rebatch.feed(pb)
                 del cb
             if num_outstanding:
                 self._batch_queue.task_done(rank, epoch, num_outstanding)
@@ -221,3 +256,22 @@ class ShufflingDataset:
     def _raise_if_failed(self) -> None:
         if self._error is not None:
             raise RuntimeError("the shuffle driver failed") from self._error
+
+
+class BatchConsumerQueue(BatchConsumer):
+    """The shuffle's consumer interface over a :class:`BatchQueue`."""
+
+    def __init__(self, batch_queue: BatchQueue):
+        self._batch_queue = batch_queue
+
+    def consume(self, rank: int, epoch: int, batches: List[ObjectRef]) -> None:
+        self._batch_queue.put_batch(rank, epoch, batches)
+
+    def producer_done(self, rank: int, epoch: int) -> None:
+        self._batch_queue.producer_done(rank, epoch)
+
+    def wait_until_ready(self, epoch: int) -> None:
+        self._batch_queue.new_epoch(epoch)
+
+    def wait_until_all_epochs_done(self) -> None:
+        self._batch_queue.wait_until_all_epochs_done()

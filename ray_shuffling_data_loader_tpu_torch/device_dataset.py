@@ -16,9 +16,19 @@ after the event of its previous copy has completed. On the device the
 batch unpacks into row views, ``.view(torch.float32)`` for float rows:
 no kernel and no copy.
 
+**Direct staging.** A packed spec asks the shuffle for its layout
+(``{"batch": B, "columns": [features..., label]}``, unless
+``RSDL_DEVICE_DIRECT=off``) before the dataset is built. Reducers then
+write their whole batches already in that layout, and such a batch
+arrives as a view with ``.packed`` set: its contiguous
+``[n_cols + 1, B]`` int32 prefix goes into the pinned buffer in one copy,
+where a carried batch (the boundaries between reducers) is packed column
+by column. The segment's mapping is read only by that copy, never by the
+DMA. Both kinds unpack on the device in the same way.
+
 Whether a spec is packed is decided once, from the spec: explicit non
 4-byte types or per-column shapes take per-column staging. A staging
-failure raises.
+failure raises; there is no fallback from one path to another.
 """
 
 from __future__ import annotations
@@ -34,7 +44,7 @@ import torch
 
 from ray_shuffling_data_loader_tpu_torch.dataset import ShufflingDataset
 from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch
-from ray_shuffling_data_loader_tpu_torch.shuffle import _narrow_column
+from ray_shuffling_data_loader_tpu_torch.shuffle import _narrow_column, device_direct_enabled
 from ray_shuffling_data_loader_tpu_torch.utils.device import DeviceLike, resolve_device
 
 _TORCH_OF_NUMPY = {
@@ -102,9 +112,11 @@ class TorchBatchSpec:
 
 
 class HostToDeviceStats:
-    """Staging counters: bytes and batches staged, host time spent packing
-    and starting copies, the consumer's stall time on the ring split by
-    cause, and peak device memory while staging.
+    """Staging counters: bytes and batches staged (``batches_direct`` from
+    packed reducer output in one copy, ``batches_carried`` packed on the
+    host), host time spent packing and starting copies (all batches, and
+    ``put_dispatch_direct_s`` of the direct ones), the consumer's stall
+    time on the ring split by cause, and peak device memory while staging.
 
     ``stall_upstream_s``: the stager was itself waiting on the host dataset
     (epoch window or shuffle). ``stall_staging_s``: a host batch existed and
@@ -113,7 +125,10 @@ class HostToDeviceStats:
     def __init__(self):
         self.bytes_staged = 0
         self.batches_staged = 0
+        self.batches_direct = 0
+        self.batches_carried = 0
         self.put_dispatch_s = 0.0
+        self.put_dispatch_direct_s = 0.0
         self.stall_s = 0.0
         self.stalls = 0
         self.stall_upstream_s = 0.0
@@ -131,7 +146,10 @@ class HostToDeviceStats:
         return {
             "bytes_staged": self.bytes_staged,
             "batches_staged": self.batches_staged,
+            "batches_direct": self.batches_direct,
+            "batches_carried": self.batches_carried,
             "put_dispatch_s": self.put_dispatch_s,
+            "put_dispatch_direct_s": self.put_dispatch_direct_s,
             "stall_s": self.stall_s,
             "stalls": self.stalls,
             "stall_upstream_s": self.stall_upstream_s,
@@ -162,6 +180,7 @@ class DeviceShufflingDataset:
     ``device`` (the rank's device; ``None`` = ``cuda``, the current CUDA
     device; the CPU only when asked for) and
     ``prefetch_depth`` (batches staged ahead; 2 = double buffering).
+    ``cache_decoded`` defaults to the shuffle's policy.
     ``drop_last`` defaults to True: a ragged final batch changes the
     step's shapes.
     """
@@ -187,6 +206,7 @@ class DeviceShufflingDataset:
         device: DeviceLike = None,
         prefetch_depth: int = 2,
         start_epoch: int = 0,
+        cache_decoded: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
         self._spec = TorchBatchSpec(
@@ -198,6 +218,10 @@ class DeviceShufflingDataset:
             label_shape=label_shape,
         ).normalize()
         self._packed = self._spec.packable()
+        # Asked for before the dataset exists: rank 0's constructor starts
+        # the shuffle.
+        self.device_layout = self._device_layout_request(batch_size)
+        self._direct_sigs: Dict[tuple, bool] = {}
         self._prefetch_depth = max(1, prefetch_depth)
         self._cuda = self.device.type == "cuda"
         if self._cuda:
@@ -221,6 +245,8 @@ class DeviceShufflingDataset:
             # Staging narrows to 32 bits anyway; narrowing at decode halves
             # every host pass.
             narrow_to_32=True,
+            cache_decoded=cache_decoded,
+            device_layout=self.device_layout,
         )
 
     @property
@@ -242,6 +268,37 @@ class DeviceShufflingDataset:
         self._ds.set_epoch(epoch, skip_batches=skip_batches)
 
     # -- staging --------------------------------------------------------------
+
+    def _device_layout_request(self, batch_size: int) -> Optional[Dict[str, Any]]:
+        """The staging layout to ask the shuffle for: the packed row order
+        (features, then the label), or None when the spec is not packed or
+        ``RSDL_DEVICE_DIRECT`` is off. One device per process takes the
+        whole batch, so any batch size goes."""
+        if not self._packed or not device_direct_enabled():
+            return None
+        spec = self._spec
+        return {"batch": int(batch_size), "columns": [*spec.feature_columns, spec.label_column]}
+
+    def _direct_ok(self, cb: ColumnBatch) -> bool:
+        """Is this packed batch's prefix exactly what host staging would
+        have packed: the spec's columns in its order, each in the dtype the
+        spec stages (4 bytes wide)? Decided once per layout signature."""
+        lay = cb.layout or {}
+        sig = (tuple(lay.get("columns", ())), tuple(lay.get("dtypes", ())))
+        ok = self._direct_sigs.get(sig)
+        if ok is None:
+            spec = self._spec
+            want = [*spec.feature_columns, spec.label_column]
+            names, dtypes = list(sig[0]), [np.dtype(d) for d in sig[1]]
+            ok = names[: len(want)] == want and len(dtypes) == len(names)
+            if ok:
+                for dt, want_t in zip(dtypes, (*spec.feature_types, spec.label_type)):
+                    target = want_t if want_t is not None else _NUMPY_OF_TORCH[_default_device_dtype(dt)]
+                    if dt != target or dt.itemsize != 4:
+                        ok = False
+                        break
+            self._direct_sigs[sig] = ok
+        return ok
 
     @staticmethod
     def _host_column(name: str, column: np.ndarray, dtype, shape) -> np.ndarray:
@@ -276,40 +333,45 @@ class DeviceShufflingDataset:
             self._pinned[slot] = buf
         return buf.view(-1)[: n_rows * rows].view(n_rows, rows), slot
 
-    def _stage(self, cb: ColumnBatch) -> _Staged:
+    def _stage(self, cb: ColumnBatch, direct: bool = False) -> _Staged:
+        """Convert one batch and start its copy to the device. ``direct``:
+        a packed batch (:meth:`_direct_ok`), whose ``[n_cols + 1, B]``
+        prefix block goes into the pinned slot in one copy. Otherwise the
+        columns are converted and packed one by one (an unpacked spec:
+        copied column by column)."""
         spec = self._spec
-        cols = [
-            self._host_column(name, cb[name], dtype, shape)
-            for name, dtype, shape in zip(
-                spec.feature_columns, spec.feature_types, spec.feature_shapes
+        if direct:
+            block = cb.packed[: len(spec.feature_columns) + 1]
+            host, slot = self._packed_host_buffer(*block.shape)
+            np.copyto(host.numpy(), block)
+            dtypes = [_TORCH_OF_NUMPY[np.dtype(d)] for d in cb.layout["dtypes"][: len(block)]]
+        else:
+            cols = [
+                self._host_column(name, cb[name], dtype, shape)
+                for name, dtype, shape in zip(
+                    spec.feature_columns, spec.feature_types, spec.feature_shapes
+                )
+            ]
+            cols.append(
+                self._host_column(spec.label_column, cb[spec.label_column], spec.label_type, spec.label_shape)
             )
-        ]
-        cols.append(
-            self._host_column(spec.label_column, cb[spec.label_column], spec.label_type, spec.label_shape)
-        )
-        dtypes = [_TORCH_OF_NUMPY[c.dtype] for c in cols]
-        if self._packed:
+            dtypes = [_TORCH_OF_NUMPY[c.dtype] for c in cols]
+            if not self._packed:
+                # Store-backed columns are read-only views of a mapped segment.
+                dev, event = self._to_device([torch.from_numpy(np.require(c, requirements=("C", "W"))) for c in cols])
+                self.stats.bytes_staged += sum(c.nbytes for c in cols)
+                return _Staged(dict(zip(spec.feature_columns, dev[:-1])), dev[-1], dev, event)
             host, slot = self._packed_host_buffer(len(cols), cb.num_rows)
             host_np = host.numpy()
             for i, c in enumerate(cols):
                 host_np[i] = c.view(np.int32)
-            dev, event = self._to_device([host])
-            if slot >= 0:
-                self._pinned_events[slot] = event
-            packed = dev[0]
-            rows = [
-                packed[i] if dt == torch.int32 else packed[i].view(dt)
-                for i, dt in enumerate(dtypes)
-            ]
-            nbytes = host.numel() * 4
-        else:
-            # Store-backed columns are read-only views of a mapped segment.
-            dev, event = self._to_device([torch.from_numpy(np.require(c, requirements=("C", "W"))) for c in cols])
-            rows = dev
-            nbytes = sum(c.nbytes for c in cols)
-        features = dict(zip(spec.feature_columns, rows[:-1]))
-        self.stats.bytes_staged += nbytes
-        return _Staged(features, rows[-1], dev, event)
+        dev, event = self._to_device([host])
+        if slot >= 0:
+            self._pinned_events[slot] = event
+        packed = dev[0]
+        rows = [packed[i] if dt == torch.int32 else packed[i].view(dt) for i, dt in enumerate(dtypes)]
+        self.stats.bytes_staged += host.numel() * 4
+        return _Staged(dict(zip(spec.feature_columns, rows[:-1])), rows[-1], dev, event)
 
     def _to_device(self, host: List[torch.Tensor]):
         """Start the copies on the side stream; returns the device tensors
@@ -355,9 +417,16 @@ class DeviceShufflingDataset:
                         continue
                     phase[0] = "staging"
                     t0 = time.perf_counter()
-                    item = self._stage(cb)
-                    self.stats.put_dispatch_s += time.perf_counter() - t0
+                    direct = cb.packed is not None and self._direct_ok(cb)
+                    item = self._stage(cb, direct)
+                    dt = time.perf_counter() - t0
+                    self.stats.put_dispatch_s += dt
                     self.stats.batches_staged += 1
+                    if direct:
+                        self.stats.put_dispatch_direct_s += dt
+                        self.stats.batches_direct += 1
+                    else:
+                        self.stats.batches_carried += 1
                     if self.stats.batches_staged % 8 == 0:
                         self.stats.sample_device_memory(self.device)
                     while not cancel.is_set():

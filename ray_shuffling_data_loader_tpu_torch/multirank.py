@@ -28,8 +28,9 @@ The backend is always explicit: ``nccl`` with one CUDA device per rank,
 ``gloo`` where ranks share a device. Rank ``r`` uses ``cuda:r % devices``.
 
 The launcher checks the run: every epoch delivers each key at most once
-and each rank exactly its full batches, every loss is finite, and every
-rank ends with the same parameters, bit for bit. It returns the worst exit
+and each rank exactly its full batches, every loss is finite, every rank
+logs the same loss at every step (the global batch's), and every rank
+ends with the same parameters, bit for bit. It returns the worst exit
 code of the ranks (a rank that fails fails the run) and 1 if a check
 fails. This module imports ``torch`` only inside the rank's functions: a
 rank runs it as ``__main__``, and its spawned shuffle workers import
@@ -192,12 +193,13 @@ def run_rank(spec: dict, rank: int) -> int:
                 feats, labels = item
                 keys.append(feats.pop(port.KEY_COLUMN))
                 last = (feats, labels)
-                losses.append(step(feats, labels, active)["loss"].item())
+                out = step(feats, labels, active)
             else:
                 if last is None:
                     raise RuntimeError(f"rank {rank} has no batch yet to take part in a step with")
-                step(*last, active, idle=True)
+                out = step(*last, active, idle=True)
                 idle += 1
+            losses.append(out["loss"].item())  # the global batch's: the same on every rank
             step_s.append(time.perf_counter() - t0)
             steps += 1
             item = None
@@ -275,7 +277,8 @@ def _free_port() -> int:
 def check(spec: dict, results: List[dict]) -> List[str]:
     """The run's failures: exactly once per epoch across ranks, each rank
     exactly its full batches, every batch trained (unless ``--max-steps``
-    cut the epoch), finite losses, equal parameters."""
+    cut the epoch), finite losses, the same loss logged by every rank at
+    every step, equal parameters."""
     import numpy as np
 
     problems = []
@@ -298,6 +301,8 @@ def check(spec: dict, results: List[dict]) -> List[str]:
                 problems.append(f"epoch {epoch} rank {r}: {drained} delivered batches not trained")
     if not all(np.isfinite(res["losses"]).all() for res in results):
         problems.append("a loss is not finite")
+    if any(res["losses"] != results[0]["losses"] for res in results):
+        problems.append("ranks logged different losses")
     if len({res["params_sha256"] for res in results}) != 1:
         problems.append("ranks ended with different parameters")
     if len({res["steps"] for res in results}) != 1:

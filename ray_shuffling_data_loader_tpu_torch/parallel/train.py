@@ -50,7 +50,10 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, group=No
 
     With ``group``, the model is wrapped in ``DistributedDataParallel``
     over it: rank 0's weights are broadcast at construction, and every
-    rank applies the same mean gradient. The loss is the rank's own.
+    rank applies the same mean gradient. The loss is the global batch's,
+    as the explicit step's and the JAX package's data-parallel step's: the
+    ranks' losses (0 from an idle rank) all-reduced over the group and
+    divided by ``ranks_active``, the same on every rank.
     Ranks whose shards differ in length keep stepping together until the
     last one runs out (see :func:`ranks_with_batch`): ``ranks_active`` is
     how many ranks bring a batch to this step, and a rank whose shard has
@@ -79,7 +82,11 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, group=No
         weight = 0.0 if idle else world / active
         (loss if weight == 1.0 else loss * weight).backward()
         optimizer.step()
-        return {"loss": loss.detach()}
+        if group is None:
+            return {"loss": loss.detach()}
+        total = torch.zeros_like(loss) if idle else loss.detach().clone()
+        dist.all_reduce(total, group=group)
+        return {"loss": total.div_(active)}
 
     return step
 

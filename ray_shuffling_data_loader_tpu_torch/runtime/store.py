@@ -12,6 +12,20 @@ each column's dtype, shape and offset, then the columns, each starting on
 a 64-byte boundary. Segments are created under a hidden ``.tmp`` name and
 renamed when complete, so a reader never maps a half-written one.
 
+**Budget.** A session's shared-memory residency is capped at
+``capacity_bytes`` (:func:`_default_capacity_bytes`: 0.8 of the shm
+filesystem by default). A segment that would take the session over it is
+created in the disk-backed spill directory instead; readers find a
+segment in either place.
+
+**Packed segments.** A segment may carry a layout descriptor in its meta.
+A reducer that knows the trainer's staging layout writes its whole
+batches as one column :data:`PACKED_COLUMN` of shape ``[n_batches, n_cols,
+batch]`` int32, each batch one contiguous ``[n_cols, batch]`` block, float
+columns as their bit patterns; :func:`iter_packed_batches` cuts it into
+per-batch views whose ``.packed`` block is copied to the device in one
+piece.
+
 This module imports numpy only: the spawned task workers load it.
 """
 
@@ -23,6 +37,7 @@ import mmap
 import os
 import secrets
 import struct
+import time
 from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
@@ -46,14 +61,40 @@ def _default_shm_dir() -> str:
     return tempfile.gettempdir()
 
 
+def _default_spill_dir() -> str:
+    """``$RSDL_SPILL_DIR``, else ``rsdl-spill`` in the temp dir."""
+    d = os.environ.get("RSDL_SPILL_DIR")
+    if d:
+        return d
+    import tempfile
+
+    return os.path.join(tempfile.gettempdir(), "rsdl-spill")
+
+
+def _default_capacity_bytes(shm_dir: str) -> Optional[int]:
+    """The session's shared-memory budget: ``$RSDL_STORE_CAPACITY_BYTES``
+    (a value of 0 or less means no budget), else
+    ``$RSDL_STORE_CAPACITY_FRACTION`` (default 0.8) of the size of the
+    filesystem holding ``shm_dir``; None when that cannot be read."""
+    env = os.environ.get("RSDL_STORE_CAPACITY_BYTES")
+    if env:
+        return int(env) if int(env) > 0 else None
+    frac = float(os.environ.get("RSDL_STORE_CAPACITY_FRACTION", "0.8"))
+    try:
+        st = os.statvfs(shm_dir)
+    except OSError:
+        return None
+    return int(st.f_blocks * st.f_frsize * frac)
+
+
 def _align(n: int) -> int:
     return (n + _ALIGN - 1) // _ALIGN * _ALIGN
 
 
-def _plan_layout(spec: Mapping[str, Tuple[Tuple[int, ...], np.dtype]]):
+def _plan_layout(spec: Mapping[str, Tuple[Tuple[int, ...], np.dtype]], layout: Optional[dict] = None):
     """The one definition of the segment format for a ``{name: (shape,
     dtype)}`` spec: ``(per-column meta, meta blob, payload start, total
-    bytes)``."""
+    bytes)``. ``layout``, a JSON-safe descriptor, rides in the meta."""
     meta: List[dict] = []
     offset = 0
     for name, (shape, dtype) in spec.items():
@@ -64,7 +105,10 @@ def _plan_layout(spec: Mapping[str, Tuple[Tuple[int, ...], np.dtype]]):
             {"name": name, "dtype": dtype.str, "shape": list(shape), "offset": offset, "nbytes": nbytes}
         )
         offset += nbytes
-    meta_blob = json.dumps({"columns": meta}).encode()
+    head: Dict[str, object] = {"columns": meta}
+    if layout is not None:
+        head["layout"] = layout
+    meta_blob = json.dumps(head).encode()
     payload_start = _align(_HEADER.size + len(meta_blob))
     return meta, meta_blob, payload_start, payload_start + _align(offset)
 
@@ -118,11 +162,22 @@ class ObjectRef:
 class ColumnBatch(Mapping):
     """Named equal-length numpy columns (``Mapping[str, np.ndarray]``),
     plain arrays or zero-copy views of a mapped segment, which the batch
-    keeps alive."""
+    keeps alive. ``layout`` is the segment's layout descriptor, if any;
+    ``packed`` is set on the per-batch views of a packed segment
+    (:func:`iter_packed_batches`): the contiguous ``[n_cols, batch]`` int32
+    block that the logical columns view."""
 
-    def __init__(self, columns: Dict[str, np.ndarray], _keepalive=None):
+    def __init__(
+        self,
+        columns: Dict[str, np.ndarray],
+        _keepalive=None,
+        layout: Optional[dict] = None,
+        packed: Optional[np.ndarray] = None,
+    ):
         self._columns = columns
         self._keepalive = _keepalive
+        self.layout = layout
+        self.packed = packed
         lengths = {len(v) for v in columns.values()}
         if len(lengths) > 1:
             raise ValueError(f"ragged columns: {lengths}")
@@ -150,8 +205,11 @@ class ColumnBatch(Mapping):
         return sum(v.nbytes for v in self._columns.values())
 
     def slice(self, start: int, stop: int) -> "ColumnBatch":
-        """Zero-copy row slice (the mapping stays alive with it)."""
-        return ColumnBatch({k: v[start:stop] for k, v in self._columns.items()}, _keepalive=self._keepalive)
+        """Zero-copy row slice (the mapping stays alive with it). A packed
+        segment slices along its batch axis, so its layout stays valid."""
+        return ColumnBatch(
+            {k: v[start:stop] for k, v in self._columns.items()}, _keepalive=self._keepalive, layout=self.layout
+        )
 
     @staticmethod
     def concat(batches: Sequence[Optional["ColumnBatch"]]) -> "ColumnBatch":
@@ -161,15 +219,6 @@ class ColumnBatch(Mapping):
         if len(batches) == 1:
             return batches[0]
         return ColumnBatch({k: np.concatenate([b[k] for b in batches]) for k in batches[0]})
-
-    @staticmethod
-    def concat_take(batches: Sequence["ColumnBatch"], indices: np.ndarray, out: Dict[str, np.ndarray]) -> None:
-        """``concat(batches).take(indices)`` into the preallocated ``out``
-        views (a segment's): the reduce stage's gather."""
-        batches = [b for b in batches if b.num_rows > 0]
-        if batches:
-            for k, dst in out.items():
-                np.take(np.concatenate([b[k] for b in batches]), indices, axis=0, out=dst)
 
 
 class PendingColumns:
@@ -196,16 +245,17 @@ class PendingColumns:
 
     def publish_slices(self, windows: Sequence[Tuple[int, int]]) -> List[ObjectRef]:
         assert not self._published, "already published"
+        seg_dir = os.path.dirname(self._tmp)  # shm or spill: links stay beside it
         refs: List[ObjectRef] = []
         try:
             for start, stop in windows:
                 link_id = self._store._new_object_id()
-                os.link(self._tmp, os.path.join(self._store.shm_dir, link_id))
+                os.link(self._tmp, os.path.join(seg_dir, link_id))
                 refs.append(ObjectRef(link_id, self.nbytes, self._store.session, (int(start), int(stop))))
         except BaseException:
             for ref in refs:  # no caller ever sees these links
                 try:
-                    os.unlink(os.path.join(self._store.shm_dir, ref.object_id))
+                    os.unlink(os.path.join(seg_dir, ref.object_id))
                 except FileNotFoundError:
                     pass
             raise
@@ -222,11 +272,15 @@ class PendingColumns:
             self._published = True
 
 
-def map_segment_file(path: str, object_id: str = "?") -> ColumnBatch:
-    """mmap a published segment file into zero-copy column views."""
+def map_segment_file(path: str, object_id: str = "?", populate: bool = False) -> ColumnBatch:
+    """mmap a published segment file into zero-copy column views.
+    ``populate``: fill the mapping's page tables in the one call
+    (``MAP_POPULATE``), for a reader that will read every byte, instead of
+    one page fault per first touch."""
     fd = os.open(path, os.O_RDONLY)
     try:
-        mm = mmap.mmap(fd, os.fstat(fd).st_size, prot=mmap.PROT_READ)
+        flags = mmap.MAP_SHARED | (getattr(mmap, "MAP_POPULATE", 0) if populate else 0)
+        mm = mmap.mmap(fd, os.fstat(fd).st_size, flags=flags, prot=mmap.PROT_READ)
     finally:
         os.close(fd)
     magic, meta_len = _HEADER.unpack_from(mm, 0)
@@ -243,7 +297,7 @@ def map_segment_file(path: str, object_id: str = "?") -> ColumnBatch:
         ).reshape(m["shape"])
         for m in meta["columns"]
     }
-    return ColumnBatch(cols, _keepalive=mm)
+    return ColumnBatch(cols, _keepalive=mm, layout=meta.get("layout"))
 
 
 def serialize_columns(columns: Mapping[str, np.ndarray]) -> bytes:
@@ -261,22 +315,65 @@ def serialize_columns(columns: Mapping[str, np.ndarray]) -> bytes:
     return bytes(out)
 
 
+# -- packed segments ------------------------------------------------------------
+
+PACKED_COLUMN = "__packed__"
+DEVICE_BATCH_KIND = "device-batch"
+
+
+def is_device_batch(cb: ColumnBatch) -> bool:
+    """Does ``cb`` hold a packed segment (whole batches in staging layout)?"""
+    return cb.layout is not None and cb.layout.get("kind") == DEVICE_BATCH_KIND and PACKED_COLUMN in cb
+
+
+def iter_packed_batches(cb: ColumnBatch) -> Iterator[ColumnBatch]:
+    """A packed segment's batches as :class:`ColumnBatch` views: each
+    logical column is row ``i`` of the batch's block, bit-viewed back to its
+    dtype, and ``.packed`` is the whole ``[n_cols, batch]`` block. The views
+    keep the segment's mapping alive."""
+    lay = cb.layout or {}
+    mat = cb[PACKED_COLUMN]
+    names = lay["columns"]
+    dtypes = [np.dtype(d) for d in lay["dtypes"]]
+    for b in range(mat.shape[0]):
+        block = mat[b]
+        cols = {name: block[i].view(dt) for i, (name, dt) in enumerate(zip(names, dtypes))}
+        yield ColumnBatch(cols, _keepalive=cb._keepalive, layout=lay, packed=block)
+
+
 @dataclass
 class StoreStats:
     """One session's residency: objects (every ref, hardlinks included) and
-    bytes (once per physical segment)."""
+    bytes (once per physical segment), ``spill_bytes`` of them on disk."""
 
     num_objects: int = 0
     total_bytes: int = 0
+    spill_bytes: int = 0
 
 
 class ObjectStore:
-    """The session's store over one shared-memory directory."""
+    """The session's store over one shared-memory directory and its spill
+    directory.
+
+    ``capacity_bytes`` caps the session's shared-memory residency: a
+    segment that would take the session over it is created in
+    ``spill_dir``. None (no budget) when the budget cannot be read or the
+    spill directory is the shm directory itself."""
 
     def __init__(self, session: str, shm_dir: Optional[str] = None):
         self.session = session
         self.shm_dir = shm_dir or _default_shm_dir()
         os.makedirs(self.shm_dir, exist_ok=True)
+        self.capacity_bytes: Optional[int] = _default_capacity_bytes(self.shm_dir)
+        self.spill_dir = _default_spill_dir()
+        if os.path.realpath(self.spill_dir) == os.path.realpath(self.shm_dir):
+            self.capacity_bytes = None
+        # The session's shm bytes, rescanned at most every 0.2 s; creations
+        # since the scan are added on top (frees are not subtracted: the
+        # estimate errs high, and a segment spills a little early).
+        self._scan_bytes = 0
+        self._scan_adjust = 0
+        self._scan_at = float("-inf")
 
     def _new_object_id(self) -> str:
         return f"{self.session}-{secrets.token_hex(8)}"
@@ -284,16 +381,62 @@ class ObjectStore:
     def _path(self, object_id: str) -> str:
         return os.path.join(self.shm_dir, object_id)
 
+    def _session_files(self, directory: str, unfinished: bool = False) -> Iterator[Tuple[str, os.stat_result]]:
+        """``(name, stat)`` of every published segment link of this session
+        in ``directory``, and with ``unfinished`` of every segment still
+        being written."""
+        prefix = f"{self.session}-"
+        try:
+            names = os.listdir(directory)
+        except FileNotFoundError:
+            return
+        for name in names:
+            if name.startswith(prefix) and (unfinished or not name.endswith(".tmp")):
+                try:
+                    yield name, os.stat(os.path.join(directory, name))
+                except FileNotFoundError:
+                    continue
+
+    def _shm_session_bytes(self) -> int:
+        """This session's shared-memory bytes (once per segment). The
+        filesystem is the truth the session's processes share; racing
+        workers may each overshoot the budget by one segment."""
+        now = time.monotonic()
+        if now - self._scan_at > 0.2:
+            seen = {st.st_ino: st.st_size for _, st in self._session_files(self.shm_dir, unfinished=True)}
+            self._scan_bytes, self._scan_adjust, self._scan_at = sum(seen.values()), 0, now
+        return self._scan_bytes + self._scan_adjust
+
+    def _placement_dir(self, nbytes: int) -> str:
+        """Where a new segment of ``nbytes`` goes: the shm directory while
+        the session stays within its budget, else the spill directory."""
+        if self.capacity_bytes is not None and nbytes + self._shm_session_bytes() > self.capacity_bytes:
+            os.makedirs(self.spill_dir, exist_ok=True)
+            return self.spill_dir
+        self._scan_adjust += nbytes
+        return self.shm_dir
+
+    def _find_segment(self, object_id: str) -> Optional[str]:
+        """A published link's path, in the shm directory or the spill one."""
+        for directory in (self.shm_dir, self.spill_dir):
+            path = os.path.join(directory, object_id)
+            if os.path.exists(path):
+                return path
+        return None
+
     # -- write path ---------------------------------------------------------
 
-    def create_columns(self, spec: Mapping[str, Tuple[Tuple[int, ...], np.dtype]]) -> PendingColumns:
-        """Allocate a segment for ``{name: (shape, dtype)}`` and return its
-        writable views. The pages are reserved up front: a segment that does
-        not fit raises :class:`StoreFullError` here, not a bus error when a
-        view is written."""
-        meta, meta_blob, payload_start, total = _plan_layout(spec)
+    def create_columns(
+        self, spec: Mapping[str, Tuple[Tuple[int, ...], np.dtype]], layout: Optional[dict] = None
+    ) -> PendingColumns:
+        """Allocate a segment for ``{name: (shape, dtype)}`` (stamped with
+        ``layout``) and return its writable views. The pages are reserved up
+        front: a segment that does not fit raises :class:`StoreFullError`
+        here, not a bus error when a view is written."""
+        meta, meta_blob, payload_start, total = _plan_layout(spec, layout)
         object_id = self._new_object_id()
-        path = self._path(object_id)
+        directory = self._placement_dir(total)
+        path = os.path.join(directory, object_id)
         tmp = path + ".tmp"
         fd = os.open(tmp, os.O_CREAT | os.O_EXCL | os.O_RDWR, 0o600)
         try:
@@ -302,7 +445,7 @@ class ObjectStore:
             except OSError as exc:
                 os.unlink(tmp)
                 if exc.errno in (errno.ENOSPC, errno.EFBIG):
-                    raise StoreFullError(self.shm_dir, total, free_bytes(self.shm_dir)) from exc
+                    raise StoreFullError(directory, total, free_bytes(directory)) from exc
                 raise
             mm = mmap.mmap(fd, max(total, 1))
         finally:
@@ -333,11 +476,15 @@ class ObjectStore:
 
     # -- read path ----------------------------------------------------------
 
-    def get_columns(self, ref: ObjectRef) -> ColumnBatch:
-        """Zero-copy views of a ref's segment (its row window, if any). A
-        missing segment raises :class:`ObjectLostError`."""
+    def get_columns(self, ref: ObjectRef, populate: bool = False) -> ColumnBatch:
+        """Zero-copy views of a ref's segment (its row window, if any),
+        mapped populated if asked (:func:`map_segment_file`). A missing
+        segment raises :class:`ObjectLostError`."""
+        path = self._find_segment(ref.object_id)
         try:
-            batch = map_segment_file(self._path(ref.object_id), ref.object_id)
+            if path is None:
+                raise FileNotFoundError(ref.object_id)
+            batch = map_segment_file(path, ref.object_id, populate)
         except FileNotFoundError:
             raise ObjectLostError(ref.object_id, "no segment") from None
         if ref.rows is not None:
@@ -345,7 +492,7 @@ class ObjectStore:
         return batch
 
     def exists(self, ref: ObjectRef) -> bool:
-        return os.path.exists(self._path(ref.object_id))
+        return self._find_segment(ref.object_id) is not None
 
     def free(self, refs) -> None:
         """Unlink each ref's link. Mapped views stay valid until they are
@@ -353,41 +500,32 @@ class ObjectStore:
         if isinstance(refs, ObjectRef):
             refs = [refs]
         for ref in refs:
-            try:
-                os.unlink(self._path(ref.object_id))
-            except FileNotFoundError:
-                pass
+            path = self._find_segment(ref.object_id)
+            if path is not None:
+                try:
+                    os.unlink(path)
+                except FileNotFoundError:
+                    pass
 
     def store_stats(self) -> StoreStats:
         stats = StoreStats()
-        prefix = f"{self.session}-"
         seen = set()
-        try:
-            names = os.listdir(self.shm_dir)
-        except FileNotFoundError:
-            return stats
-        for name in names:
-            if name.startswith(prefix) and not name.endswith(".tmp"):
-                try:
-                    st = os.stat(self._path(name))
-                except FileNotFoundError:
-                    continue
+        for directory, spilled in ((self.shm_dir, False), (self.spill_dir, True)):
+            for _, st in self._session_files(directory):
                 stats.num_objects += 1
                 if st.st_ino not in seen:
                     seen.add(st.st_ino)
                     stats.total_bytes += st.st_size
+                    if spilled:
+                        stats.spill_bytes += st.st_size
         return stats
 
     def cleanup(self) -> None:
-        """Unlink every segment of this session, unfinished ones included."""
-        prefix = f"{self.session}-"
-        try:
-            names = os.listdir(self.shm_dir)
-        except FileNotFoundError:
-            return
-        for name in names:
-            if name.startswith(prefix):
+        """Unlink every segment of this session in both directories,
+        unfinished ones included."""
+        for directory in (self.shm_dir, self.spill_dir):
+            for name, _ in list(self._session_files(directory, unfinished=True)):
                 try:
-                    os.unlink(self._path(name))
+                    os.unlink(os.path.join(directory, name))
                 except FileNotFoundError:
                     pass

@@ -1,6 +1,7 @@
-"""The per-epoch map/reduce shuffle over Parquet files.
+"""The per-epoch shuffle over Parquet files, and its delivery to a
+:class:`BatchConsumer`.
 
-For every epoch:
+For every epoch (the *mapreduce* schedule):
 
 * each **map** task decodes one file, draws every row's reducer from a
   generator seeded by ``(seed, epoch, file_index)`` and groups the rows by
@@ -14,12 +15,30 @@ For every epoch:
 Maps and reduces run in the session's spawned worker pool. A map writes
 its grouped rows into one shared-memory store segment and returns one
 row-window ref per reducer; a reduce reads its windows by ref and writes
-its permuted rows into a segment of its own, whose ref the shuffle puts on
-the rank's queue. Bulk data never passes through a pipe.
+its permuted rows into a segment of its own, whose ref the shuffle hands
+to the rank's consumer. Bulk data never passes through a pipe.
+
+Three defaults change how, never what, an epoch delivers:
+
+* **Decode cache** (``cache_decoded=None`` resolves through
+  :func:`_decode_cache_auto`): the first epoch's maps also keep each
+  file's decoded columns in a segment, and later maps partition from it
+  instead of Parquet. The segments are freed when the run ends or fails.
+* **Index schedule** (``RSDL_INDEX_SHUFFLE=auto|on|off``, decided per
+  epoch by :func:`_index_schedule_allowed`): once every file is cached,
+  a :func:`shuffle_plan` per file groups row *indices* by reducer, and a
+  :func:`shuffle_gather_reduce` per reducer gathers its rows straight from
+  the cached segments.
+* **Packed outputs** (a consumer's ``device_layout``, unless
+  ``RSDL_DEVICE_DIRECT=off``): a reducer that knows where its rows start
+  in its rank's stream writes the whole batches of its interval as one
+  packed segment in staging layout, between a head and a tail of plain
+  columns (:class:`_PackedOutput`).
 
 Given the same files, seed and reducer count, the row stream is the one
 the JAX package's shuffle delivers under its default settings: the seeds,
-the draws and the group-by order are the same.
+the draws and the group-by order are the same, whichever schedule and
+output form an epoch takes.
 
 This module imports numpy and pyarrow only: the workers load it.
 """
@@ -27,15 +46,39 @@ This module imports numpy and pyarrow only: the workers load it.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from ray_shuffling_data_loader_tpu_torch import runtime
-from ray_shuffling_data_loader_tpu_torch.batch_queue import BatchQueue
 from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch, ObjectRef
+from ray_shuffling_data_loader_tpu_torch.runtime.store import DEVICE_BATCH_KIND, PACKED_COLUMN
 
 _INT32 = np.iinfo(np.int32)
+
+
+class BatchConsumer:
+    """What the shuffle delivers to: each reducer's output refs, in
+    reducer order per rank, and the end of each rank's epoch."""
+
+    def consume(self, rank: int, epoch: int, batches: List[ObjectRef]) -> None:
+        """Take one reducer's output refs (one columnar segment, or a
+        packed output's head, body and tail in delivery order)."""
+        raise NotImplementedError
+
+    def producer_done(self, rank: int, epoch: int) -> None:
+        """Every batch of ``(epoch, rank)`` has been produced."""
+        raise NotImplementedError
+
+    def wait_until_ready(self, epoch: int) -> None:
+        """Block until the consumer can admit ``epoch``."""
+        raise NotImplementedError
+
+    def wait_until_all_epochs_done(self) -> None:
+        """Block until every batch of every epoch has been consumed."""
+        raise NotImplementedError
 
 
 def read_parquet_columns(filename: str) -> ColumnBatch:
@@ -130,44 +173,267 @@ def shuffle_map(
     epoch: int,
     seed: int,
     narrow_to_32: bool = False,
-) -> List[ObjectRef]:
+    cache_ref: Optional[ObjectRef] = None,
+    publish_cache: bool = False,
+):
     """Decode one file and group its rows by reducer straight into one
     store segment; returns one row-window ref per reducer (empty windows
-    included when the file has few rows)."""
-    batch = read_parquet_columns(filename)
-    if narrow_to_32:
-        batch = ColumnBatch({k: _narrow_column(k, v) for k, v in batch.columns.items()})
+    included when the file has few rows).
+
+    ``cache_ref``: take the rows from this decode-cache segment instead of
+    Parquet. ``publish_cache``: also write the decoded (and narrowed)
+    columns once to a segment of their own and return ``(refs,
+    cache_ref)``; a publish that does not fit returns a None cache ref,
+    and the file is decoded again in later epochs."""
+    store = runtime.ensure_initialized().store
+    new_cache_ref = None
+    if cache_ref is not None:
+        batch = store.get_columns(cache_ref)
+    else:
+        batch = read_parquet_columns(filename)
+        if narrow_to_32:
+            batch = ColumnBatch({k: _narrow_column(k, v) for k, v in batch.columns.items()})
+        if publish_cache:
+            try:
+                new_cache_ref = store.put_columns(batch.columns)
+            except OSError:
+                new_cache_ref = None
     assignment = _file_assignment(seed, epoch, file_index, batch.num_rows, num_reducers)
     order, offsets = _group_order(assignment, num_reducers)
-    store = runtime.ensure_initialized().store
-    pending = store.create_columns({k: (v.shape, v.dtype) for k, v in batch.columns.items()})
     try:
-        for k, v in batch.columns.items():
-            np.take(v, order, axis=0, out=pending.columns[k])
+        pending = store.create_columns({k: (v.shape, v.dtype) for k, v in batch.columns.items()})
+        try:
+            for k, v in batch.columns.items():
+                np.take(v, order, axis=0, out=pending.columns[k])
+            refs = pending.publish_slices(
+                [(int(offsets[r]), int(offsets[r + 1])) for r in range(num_reducers)]
+            )
+        finally:
+            pending.abort()  # reclaims the segment if anything above raised
+    except BaseException:
+        if new_cache_ref is not None:
+            store.free(new_cache_ref)  # no caller will learn of it
+        raise
+    return (refs, new_cache_ref) if publish_cache else refs
+
+
+def shuffle_plan(
+    file_index: int, num_reducers: int, epoch: int, seed: int, cache_ref: ObjectRef
+) -> List[ObjectRef]:
+    """The index schedule's map: the same seeded draw and stable grouping
+    as :func:`shuffle_map`, over row indices only. Returns one ref per
+    reducer over one ``{"idx"}`` segment: each reducer's row indices in the
+    cached file, in file order, the rows the materialized map's partition
+    would hold. Column data is not read."""
+    store = runtime.ensure_initialized().store
+    n = store.get_columns(cache_ref).num_rows
+    assignment = _file_assignment(seed, epoch, file_index, n, num_reducers)
+    order, offsets = _group_order(assignment, num_reducers)
+    idx_dtype = np.int32 if n <= _INT32.max else np.int64
+    pending = store.create_columns({"idx": ((n,), np.dtype(idx_dtype))})
+    try:
+        np.copyto(pending.columns["idx"], order, casting="same_kind")
         return pending.publish_slices(
             [(int(offsets[r]), int(offsets[r + 1])) for r in range(num_reducers)]
         )
     finally:
-        pending.abort()  # reclaims the segment if anything above raised
+        pending.abort()
+
+
+# -- packed outputs ------------------------------------------------------------
+#
+# A rank's batch grid is fixed: batch k covers rows [kB, (k+1)B) of the
+# rank's stream. A reducer whose rows occupy [start, start + total) of that
+# stream splits them into
+#
+#   head: rows [start, ceil(start / B) * B), the end of a batch that the
+#         previous reducer began (plain columns);
+#   body: the m whole batches inside the interval, as ONE segment of shape
+#         [m, n_cols, B] int32, each batch a contiguous [n_cols, B] block
+#         (float columns as bit patterns): what one host-to-device copy
+#         stages, with no re-cut and no pack on the host;
+#   tail: the rest, carried into the next reducer's first batch.
+#
+# The delivered stream is the one of columnar outputs: the grid is where
+# the consumer's carry re-cut would have cut anyway.
+
+
+class _PackedOutput:
+    """The batch-aligned destination of one reduce task: head, body and
+    tail segments over every column of the reducer's output, the
+    requested staging columns first, so that the stream keeps the column
+    set of columnar outputs."""
+
+    def __init__(self, store, layout: dict, start: int, total: int, names: List[str],
+                 col_dtypes: Dict[str, np.dtype]):
+        self.B = B = int(layout["batch"])
+        self.names = names = list(names)
+        self.dtypes = [np.dtype(col_dtypes[n]) for n in names]
+        self.ncols = len(names)
+        self.total = int(total)
+        self.h = h = min(total, (-int(start)) % B)
+        self.m = m = (total - h) // B
+        self.t = total - h - m * B
+        self._store = store
+        self._pendings: list = []
+        # Three allocations in turn: if a later one fails, the earlier
+        # unpublished segments are reclaimed here, as no caller holds this
+        # object yet.
+        try:
+            self.head = self._remainder(h)
+            descriptor = {
+                "kind": DEVICE_BATCH_KIND,
+                "batch": B,
+                "columns": names,
+                "dtypes": [d.str for d in self.dtypes],
+            }
+            self.body = store.create_columns({PACKED_COLUMN: ((m, self.ncols, B), np.dtype(np.int32))},
+                                             layout=descriptor)
+            self._pendings.append(self.body)
+            self.mat = self.body.columns[PACKED_COLUMN]
+            self.tail = self._remainder(self.t)
+        except BaseException:
+            self.abort()
+            raise
+
+    def _remainder(self, rows: int):
+        if rows <= 0:
+            return None
+        pending = self._store.create_columns({n: ((rows,), d) for n, d in zip(self.names, self.dtypes)})
+        self._pendings.append(pending)
+        return pending
+
+    def chunks(self):
+        """``(lo, hi, {name: writable view})`` destinations of output rows
+        ``[lo, hi)``, in output order. A body chunk's views are the rows of
+        its block, bit-viewed back to the column dtypes."""
+        if self.head is not None:
+            yield 0, self.h, self.head.columns
+        for b in range(self.m):
+            lo = self.h + b * self.B
+            yield lo, lo + self.B, {n: self.mat[b, i].view(dt) for i, (n, dt) in enumerate(zip(self.names, self.dtypes))}
+        if self.tail is not None:
+            yield self.h + self.m * self.B, self.total, self.tail.columns
+
+    def seal(self) -> List[ObjectRef]:
+        """Publish head, body and tail (those present) in delivery order."""
+        return [p.seal() for p in (self.head, self.body, self.tail) if p is not None]
+
+    def abort(self) -> None:
+        for p in self._pendings:
+            p.abort()
+
+
+def _packed_output(store, pack, total: int, template) -> Optional[_PackedOutput]:
+    """A :class:`_PackedOutput` when this reducer can pack: it was given
+    ``pack = (rank-stream start, layout)``, every column is flat and 4 bytes
+    wide, the requested columns exist, and the interval holds at least one
+    whole aligned batch. Else None: the reducer writes one columnar segment
+    (refs describe themselves, so a stream may mix both)."""
+    if pack is None or total <= 0 or template is None:
+        return None
+    start, layout = pack
+    try:
+        B = int(layout["batch"])
+        req = list(layout["columns"])
+    except (KeyError, TypeError, ValueError):
+        return None
+    if B <= 0 or not req:
+        return None
+    all_names = list(template)
+    if any(n not in all_names for n in req):
+        return None
+    names = req + [n for n in all_names if n not in req]
+    col_dtypes: Dict[str, np.dtype] = {}
+    for n in names:
+        v = template[n]
+        if v.dtype.itemsize != 4 or v.shape[1:] != ():
+            return None
+        col_dtypes[n] = v.dtype
+    h = min(total, (-int(start)) % B)
+    if (total - h) // B < 1:
+        return None
+    return _PackedOutput(store, layout, start, total, names, col_dtypes)
+
+
+def _permuted_output(store, pack, template, source: Callable[[str], np.ndarray], perm: np.ndarray):
+    """Write ``source(name)[perm]`` for every column of ``template``: into
+    one columnar segment (returns its ref), or, when the reducer packs,
+    into its head, body and tail (returns their refs)."""
+    total = len(perm)
+    packed = _packed_output(store, pack, total, template)
+    if packed is None:
+        pending = store.create_columns({k: ((total, *v.shape[1:]), v.dtype) for k, v in template.items()})
+        try:
+            for k, dst in pending.columns.items():
+                np.take(source(k), perm, axis=0, out=dst)
+            return pending.seal()
+        finally:
+            pending.abort()
+    try:
+        chunks = list(packed.chunks())
+        for k in packed.names:
+            src = source(k)
+            for lo, hi, views in chunks:
+                np.take(src, perm[lo:hi], out=views[k])
+        return packed.seal()
+    finally:
+        packed.abort()
 
 
 def shuffle_reduce(
-    reduce_index: int, epoch: int, seed: int, part_refs: Sequence[ObjectRef]
-) -> ObjectRef:
+    reduce_index: int, epoch: int, seed: int, part_refs: Sequence[ObjectRef], pack=None
+) -> Union[ObjectRef, List[ObjectRef]]:
     """Concatenate this reducer's partitions in file order and permute them
-    straight into one store segment; returns its ref. The inputs stay: the
-    epoch frees them once the result has landed."""
+    straight into the store; returns the output's ref, or with ``pack =
+    (rank-stream start, layout)`` its head, body and tail refs
+    (:class:`_PackedOutput`). The inputs stay: the epoch frees them once
+    the result has landed."""
     store = runtime.ensure_initialized().store
     parts = [store.get_columns(r) for r in part_refs]
-    total = sum(p.num_rows for p in parts)
+    perm = _reduce_seed(seed, epoch, reduce_index).permutation(sum(p.num_rows for p in parts))
+    return _permuted_output(store, pack, parts[0], lambda k: np.concatenate([p[k] for p in parts]), perm)
+
+
+def shuffle_gather_reduce(
+    reduce_index: int,
+    epoch: int,
+    seed: int,
+    idx_refs: Sequence[ObjectRef],
+    cache_refs: Sequence[ObjectRef],
+    pack=None,
+) -> Union[ObjectRef, List[ObjectRef]]:
+    """The index schedule's reduce: the same permutation as
+    :func:`shuffle_reduce`, over rows gathered from the cached files
+    (each file's index window, ascending, in file order), so the output is
+    the materialized reducer's, bit for bit. Returns as
+    :func:`shuffle_reduce` does."""
+    store = runtime.ensure_initialized().store
+    caches = [store.get_columns(r) for r in cache_refs]
+    idx_parts = [store.get_columns(r)["idx"] for r in idx_refs]
+    offsets = np.zeros(len(idx_parts) + 1, dtype=np.int64)
+    np.cumsum([len(ix) for ix in idx_parts], out=offsets[1:])
+    total = int(offsets[-1])
     perm = _reduce_seed(seed, epoch, reduce_index).permutation(total)
-    template = parts[0]
-    pending = store.create_columns({k: ((total, *v.shape[1:]), v.dtype) for k, v in template.items()})
-    try:
-        ColumnBatch.concat_take(parts, perm, out=pending.columns)
-        return pending.seal()
-    finally:
-        pending.abort()
+    template = caches[0]
+
+    def source(k: str) -> np.ndarray:
+        # One near-sequential take per file (its windows ascend), then the
+        # permutation runs over this compact 1/R of the data.
+        compact = np.empty((total, *template[k].shape[1:]), template[k].dtype)
+        for i, (idx, cache) in enumerate(zip(idx_parts, caches)):
+            np.take(cache[k], idx, axis=0, out=compact[offsets[i] : offsets[i + 1]])
+        return compact
+
+    return _permuted_output(store, pack, template, source, perm)
+
+
+def _ref_window_rows(ref) -> Optional[int]:
+    """Rows of a window ref; None for a ref over a whole segment."""
+    rows = getattr(ref, "rows", None)
+    if rows is None:
+        return None
+    return int(rows[1]) - int(rows[0])
 
 
 def rank_of_reducers(num_reducers: int, num_trainers: int) -> np.ndarray:
@@ -182,77 +448,429 @@ def rank_of_reducers(num_reducers: int, num_trainers: int) -> np.ndarray:
     )
 
 
+def _pack_starts(partitions: List[List[ObjectRef]], rank_of: np.ndarray, device_layout: Optional[dict]) -> list:
+    """Each reducer's ``(start in its rank's stream, layout)``, from the
+    row counts its input windows carry; all None without a layout or when a
+    window's count is unknown."""
+    none = [None] * len(rank_of)
+    if device_layout is None:
+        return none
+    at: Dict[int, int] = {}
+    out = []
+    for r, rank in enumerate(rank_of.tolist()):
+        rows = [_ref_window_rows(parts[r]) for parts in partitions]
+        if any(c is None for c in rows):
+            return none
+        out.append((at.get(rank, 0), device_layout))
+        at[rank] = at.get(rank, 0) + sum(rows)
+    return out
+
+
+# -- the decode cache and the schedule policy -------------------------------------
+
+
+class _DecodeCache:
+    """The shuffle's registry of per-file decode-cache segments.
+
+    The first epoch to map file ``i`` publishes its cache; a later epoch's
+    map of that file waits on the publishing map and partitions from the
+    segment. :meth:`free_all` frees every segment at the end of the run,
+    failed or not."""
+
+    def __init__(self, enabled: bool):
+        self.enabled = enabled
+        self._lock = threading.Lock()
+        self._futs: dict = {}  # file index -> the publishing map's future
+
+    def claim_or_wait(self, index: int) -> Tuple[Optional[ObjectRef], bool]:
+        """``(cache_ref, publish)`` for file ``index``: the first caller
+        gets ``(None, True)`` and publishes; later callers wait for that
+        map and get ``(ref, False)``. A failed publish, or a publishing map
+        that failed, means decoding again."""
+        if not self.enabled:
+            return None, False
+        with self._lock:
+            fut = self._futs.get(index)
+            if fut is None:
+                return None, True
+        try:
+            return fut.result()[1], False
+        except Exception:
+            return None, False
+
+    def register(self, index: int, fut) -> None:
+        with self._lock:
+            self._futs[index] = fut
+
+    def hot_refs(self, num_files: int) -> Optional[List[ObjectRef]]:
+        """Every file's cache ref once its publishing map has resolved
+        (waiting for those still running), else None: a file not yet
+        published, or whose publish failed, keeps the epoch off the index
+        schedule."""
+        if not self.enabled:
+            return None
+        refs = []
+        for i in range(num_files):
+            with self._lock:
+                fut = self._futs.get(i)
+            if fut is None:
+                return None
+            try:
+                ref = fut.result()[1]
+            except Exception:
+                return None
+            if ref is None:
+                return None
+            refs.append(ref)
+        return refs
+
+    def free_all(self) -> None:
+        """Free every published cache segment, waiting for the maps still
+        publishing."""
+        with self._lock:
+            futs, self._futs = list(self._futs.values()), {}
+        refs = []
+        for fut in futs:
+            try:
+                ref = fut.result()[1]
+            except Exception:
+                continue
+            if ref is not None:
+                refs.append(ref)
+        if refs:
+            runtime.get_context().store.free(refs)
+
+
+# Measured once per process: the host costs the schedule policy models,
+# and the decoded-size estimates.
+_PROBE_CACHE: Dict[Any, Any] = {}
+_PROBE_LOCK = threading.Lock()
+_PROBE_SMALL = 2 << 20  # a gather that stays in the caches
+_PROBE_LARGE = 64 << 20  # a gather from DRAM
+
+
+def _probed_host_costs() -> Dict[str, float]:
+    """The host costs the index-schedule policy models with, measured once
+    per process (about 0.2 s):
+
+    * ``gather_small`` / ``gather_large``: bytes/s of a random-permutation
+      row gather (``np.take``, the index schedule's hot operation) over a
+      cache-resident and a DRAM-resident buffer;
+    * ``copy``: bytes/s (read plus write) of the same take with sorted
+      indices, the materialized schedule's sequential passes;
+    * ``roundtrip``: seconds to publish, map and free one tiny segment, the
+      per-object cost the materialized schedule pays files x reducers
+      times an epoch."""
+    with _PROBE_LOCK:
+        hit = _PROBE_CACHE.get("costs")
+        if hit is not None:
+            return hit
+        rng = np.random.default_rng(0)
+
+        def gather_bps(nbytes: int) -> float:
+            rows = nbytes // 8
+            buf = np.arange(rows, dtype=np.int64)  # not zeros: no shared zero page
+            idx = rng.permutation(rows)
+            np.take(buf, idx[: 1 << 14])
+            t0 = time.perf_counter()
+            np.take(buf, idx)
+            return buf.nbytes / max(1e-9, time.perf_counter() - t0)
+
+        g_small, g_large = gather_bps(_PROBE_SMALL), gather_bps(_PROBE_LARGE)
+        buf = np.arange(_PROBE_LARGE // 8, dtype=np.int64)
+        t0 = time.perf_counter()
+        np.take(buf, np.arange(len(buf)))
+        copy = 2 * buf.nbytes / max(1e-9, time.perf_counter() - t0)
+        store = runtime.get_context().store
+        tiny = {"x": np.zeros(16, np.int64)}
+        store.free(store.put_columns(tiny))  # warm
+        t0 = time.perf_counter()
+        ref = store.put_columns(tiny)
+        store.get_columns(ref)
+        store.free(ref)
+        roundtrip = max(1e-5, time.perf_counter() - t0)
+        costs = {"gather_small": float(g_small), "gather_large": float(g_large), "copy": float(copy),
+                 "roundtrip": float(roundtrip)}
+        _PROBE_CACHE["costs"] = costs
+        return costs
+
+
+def _gather_bw_for(cache_bytes: float) -> float:
+    """Gather bytes/s at the dataset's cached size: the small figure below
+    the small probe size, the large one above the large size, log-linear
+    in between."""
+    c = _probed_host_costs()
+    lo, hi = float(_PROBE_SMALL), float(_PROBE_LARGE)
+    if cache_bytes <= lo:
+        return c["gather_small"]
+    if cache_bytes >= hi:
+        return c["gather_large"]
+    frac = (np.log(cache_bytes) - np.log(lo)) / (np.log(hi) - np.log(lo))
+    return float(np.exp((1 - frac) * np.log(c["gather_small"]) + frac * np.log(c["gather_large"])))
+
+
+def _dataset_stats_task(filenames: List[str], narrow_to_32: bool) -> Tuple[float, int]:
+    """Run in a worker: ``(decoded bytes per row, total rows)``, bytes per
+    row from the schema of the first file's first batch (after
+    narrowing), rows from every file's footer."""
+    import pyarrow.parquet as pq
+
+    pf = pq.ParquetFile(filenames[0])
+    per_row = 0.0
+    for batch in pf.iter_batches(batch_size=1 << 16):
+        if batch.num_rows == 0:
+            continue
+        for col in batch.schema:
+            dt = np.dtype(col.type.to_pandas_dtype())
+            per_row += float((narrowed_dtype(dt) if narrow_to_32 else dt).itemsize)
+        break
+    if per_row == 0.0:
+        raise OSError(f"empty sample from {filenames[0]}")
+    total_rows = pf.metadata.num_rows + sum(pq.ParquetFile(f).metadata.num_rows for f in filenames[1:])
+    return per_row, int(total_rows)
+
+
+def _est_decoded_bytes(filenames: List[str], narrow_to_32: bool) -> float:
+    """The dataset's decoded size: bytes per row times rows (from a worker,
+    :func:`_dataset_stats_task`), plus 15 % headroom; cached per process.
+    If that fails, the files' sizes times a fixed expansion (0.7 narrowed,
+    1.3 not); an unreadable file raises ``OSError``."""
+    if not filenames:
+        return 0.0
+    key = ("est", tuple(filenames), narrow_to_32)
+    with _PROBE_LOCK:
+        if key in _PROBE_CACHE:
+            return _PROBE_CACHE[key]
+    try:
+        per_row, total_rows = runtime.get_context().pool.submit(
+            _dataset_stats_task, list(filenames), narrow_to_32
+        ).result()
+        est = per_row * total_rows * 1.15
+    except Exception:
+        est = sum(os.path.getsize(f) for f in filenames) * (0.7 if narrow_to_32 else 1.3)
+    with _PROBE_LOCK:
+        _PROBE_CACHE[key] = est
+    return est
+
+
+def _decode_cache_auto(filenames: List[str], num_epochs: int, narrow_to_32: bool = False) -> bool:
+    """``cache_decoded=None``: cache when at least two epochs read the
+    files and the estimated decoded size is under 0.35 of the store's
+    budget (room for it beside about two epochs in flight). Off when the
+    store has no budget: nothing would absorb a wrong guess."""
+    if num_epochs < 2:
+        return False
+    try:
+        est = _est_decoded_bytes(filenames, narrow_to_32)
+    except OSError:
+        return False
+    cap = runtime.get_context().store.capacity_bytes
+    if cap is None:
+        return False
+    return est < 0.35 * cap
+
+
+def _index_schedule_allowed(filenames: List[str], num_reducers: int, narrow_to_32: bool) -> bool:
+    """May a cache-hot epoch take the index schedule?
+    ``RSDL_INDEX_SHUFFLE=on|off`` decides; ``auto`` (the default) compares
+    the two schedules' modelled epoch times on this host
+    (:func:`_probed_host_costs`):
+
+    * index: ``min(8, R) x cache / gather_bw``: R gathers, each touching a
+      64-byte line per 8-byte element of its 1/R of the rows, at most the
+      whole cache 8 times;
+    * materialized: ``3 x cache / copy_bw`` (map partition, reduce
+      permute, cache read) plus ``files x R`` store round trips;
+
+    and takes the index schedule when it is no slower."""
+    mode = os.environ.get("RSDL_INDEX_SHUFFLE", "auto").strip().lower()
+    if mode in ("on", "1", "true"):
+        return True
+    if mode in ("off", "0", "false"):
+        return False
+    try:
+        est_cache = _est_decoded_bytes(filenames, narrow_to_32)
+    except OSError:
+        return False
+    costs = _probed_host_costs()
+    gather_bw = _gather_bw_for(est_cache)
+    if gather_bw <= 0 or costs["copy"] <= 0:
+        return False
+    t_index = min(8, num_reducers) * est_cache / gather_bw
+    t_mat = 3.0 * est_cache / costs["copy"] + len(filenames) * num_reducers * costs["roundtrip"]
+    return t_index <= t_mat
+
+
+def device_direct_enabled() -> bool:
+    """The ``RSDL_DEVICE_DIRECT`` kill switch: ``auto`` (the default)
+    honours a consumer's layout request; ``off``, ``0`` or ``false``
+    refuse it."""
+    return os.environ.get("RSDL_DEVICE_DIRECT", "auto").strip().lower() not in ("off", "0", "false")
+
+
+def _device_layout_allowed(device_layout: Optional[dict]) -> Optional[dict]:
+    """The consumer's layout request, unless the kill switch is off."""
+    if device_layout is None or not device_direct_enabled():
+        return None
+    return device_layout
+
+
+# -- the epochs --------------------------------------------------------------------
+
+
+def _reclaim(store, fut, unwrap: bool = False) -> None:
+    """Free what a task of a failed epoch published, once it has ended."""
+    try:
+        out = fut.result()
+    except Exception:
+        return
+    if unwrap:
+        out = out[0]
+    store.free(out if isinstance(out, (list, tuple)) else [out])
+
+
 def shuffle_epoch(
     epoch: int,
     filenames: Sequence[str],
-    batch_queue: BatchQueue,
+    batch_consumer: BatchConsumer,
     num_reducers: int,
     num_trainers: int,
     seed: int,
     narrow_to_32: bool = False,
-    stats: Optional[Dict[str, int]] = None,
+    decode_cache: Optional[_DecodeCache] = None,
+    schedule_log: Optional[list] = None,
+    device_layout: Optional[dict] = None,
+    stats: Optional[Dict[str, Any]] = None,
 ) -> None:
     """One epoch's maps and reduces in the session's worker pool; each
-    reducer's output ref goes to its rank in reducer order, then every rank
-    gets its end-of-epoch signal. Map partitions are freed as their reducer
-    lands; the consumer frees the reducer's output. ``stats`` keeps the
-    store's peak bytes, sampled after the maps and after each reduce."""
+    reducer's output refs go to its rank in reducer order, then every rank
+    gets its end-of-epoch signal. The epoch takes the index schedule when
+    every file's cache is hot and :func:`_index_schedule_allowed` agrees
+    (``schedule_log`` gets ``(epoch, "index" | "mapreduce")``). With a
+    ``device_layout``, each reducer learns its start in its rank's stream
+    and packs. Partitions are freed as their reducer lands, the consumer
+    frees the outputs, and a failed epoch frees what its tasks published.
+    ``stats["store_peak_bytes"]`` keeps the store's peak, sampled after
+    the maps and after each reduce."""
     ctx = runtime.ensure_initialized()
     store, pool = ctx.store, ctx.pool
+    if decode_cache is None:
+        decode_cache = _DecodeCache(enabled=False)
+    cache_refs = (
+        decode_cache.hot_refs(len(filenames))
+        if decode_cache.enabled and _index_schedule_allowed(list(filenames), num_reducers, narrow_to_32)
+        else None
+    )
+    schedule = "index" if cache_refs is not None else "mapreduce"
+    if schedule_log is not None:
+        schedule_log.append((epoch, schedule))
 
     def sample():
         if stats is not None:
             stats["store_peak_bytes"] = max(stats.get("store_peak_bytes", 0), store.store_stats().total_bytes)
 
-    map_futs = [
-        pool.submit(shuffle_map, filename, file_index, num_reducers, epoch, seed, narrow_to_32)
-        for file_index, filename in enumerate(filenames)
-    ]
+    map_futs, publishing = [], []
+    for file_index, filename in enumerate(filenames):
+        if schedule == "index":
+            fut = pool.submit(shuffle_plan, file_index, num_reducers, epoch, seed, cache_refs[file_index])
+            publish = False
+        else:
+            cache_ref, publish = decode_cache.claim_or_wait(file_index)
+            fut = pool.submit(
+                shuffle_map, filename, file_index, num_reducers, epoch, seed, narrow_to_32, cache_ref, publish
+            )
+            if publish:
+                decode_cache.register(file_index, fut)
+        map_futs.append(fut)
+        publishing.append(publish)
     partitions: List[List[ObjectRef]] = []
+    reduce_futs: list = []
+    delivered = 0
     try:
-        for f in map_futs:
-            partitions.append(f.result())
+        for fut, publish in zip(map_futs, publishing):
+            out = fut.result()
+            partitions.append(out[0] if publish else out)
         sample()
-        reduce_futs = [
-            pool.submit(shuffle_reduce, r, epoch, seed, [parts[r] for parts in partitions])
-            for r in range(num_reducers)
-        ]
         rank_of = rank_of_reducers(num_reducers, num_trainers)
+        pack_for = _pack_starts(partitions, rank_of, device_layout)
+        for r in range(num_reducers):
+            parts_r = [parts[r] for parts in partitions]
+            if schedule == "index":
+                reduce_futs.append(pool.submit(shuffle_gather_reduce, r, epoch, seed, parts_r, cache_refs, pack_for[r]))
+            else:
+                reduce_futs.append(pool.submit(shuffle_reduce, r, epoch, seed, parts_r, pack_for[r]))
         for r, fut in enumerate(reduce_futs):
             out = fut.result()
             sample()
             store.free([parts[r] for parts in partitions])
-            batch_queue.put_batch(int(rank_of[r]), epoch, [out])
+            batch_consumer.consume(int(rank_of[r]), epoch, out if isinstance(out, list) else [out])
+            delivered = r + 1
+    except BaseException:
+        for fut in reduce_futs[delivered:]:
+            _reclaim(store, fut)
+        for fut, publish in zip(map_futs[len(partitions):], publishing[len(partitions):]):
+            _reclaim(store, fut, unwrap=publish)  # its cache segment is the decode cache's
+        raise
     finally:
-        # After a failure: the maps still running publish what this cannot
-        # free, and the session's cleanup takes those.
         for parts in partitions:
             store.free(parts)
     for rank in range(num_trainers):
-        batch_queue.producer_done(rank, epoch)
+        batch_consumer.producer_done(rank, epoch)
 
 
 def shuffle(
     filenames: Sequence[str],
-    batch_queue: BatchQueue,
+    batch_consumer: BatchConsumer,
     num_epochs: int,
     num_reducers: int,
     num_trainers: int,
     seed: int = 0,
     start_epoch: int = 0,
     narrow_to_32: bool = False,
-    stats: Optional[Dict[str, int]] = None,
-) -> None:
-    """Shuffle every epoch from ``start_epoch``; each epoch first waits for
-    the queue's epoch window to admit it. ``stats["epoch"]`` is the epoch
-    in progress."""
+    cache_decoded: Optional[bool] = None,
+    schedule_log: Optional[list] = None,
+    device_layout: Optional[dict] = None,
+    stats: Optional[Dict[str, Any]] = None,
+) -> float:
+    """Shuffle every epoch from ``start_epoch`` into ``batch_consumer``;
+    each epoch first waits for the consumer to admit it. Returns the
+    run's seconds.
+
+    ``cache_decoded``: keep each file's decoded columns in the store after
+    the first epoch, so later epochs skip Parquet (None: on when at least
+    two epochs run and the estimate fits the store's budget,
+    :func:`_decode_cache_auto`); a hot cache also lets later epochs take
+    the index schedule. ``schedule_log``: each epoch appends ``(epoch,
+    "index" | "mapreduce")``. ``device_layout``: a staging consumer's
+    ``{"batch": B, "columns": [...]}``; reducers then pack their whole
+    batches (unless ``RSDL_DEVICE_DIRECT=off``). ``stats``: the resolved
+    ``cache_decoded``, the epoch in progress (``epoch``), each epoch's
+    shuffle seconds (``epoch_shuffle_s``, admission excluded) and the
+    store's peak bytes."""
     check_shuffle_plan()
-    for epoch in range(start_epoch, num_epochs):
-        if stats is not None:
-            stats["epoch"] = epoch
-        batch_queue.new_epoch(epoch)
-        shuffle_epoch(
-            epoch, filenames, batch_queue, num_reducers, num_trainers, seed,
-            narrow_to_32=narrow_to_32, stats=stats,
-        )
-    batch_queue.wait_until_all_epochs_done()
+    start = time.perf_counter()
+    filenames = list(filenames)
+    if cache_decoded is None:
+        cache_decoded = _decode_cache_auto(filenames, num_epochs - start_epoch, narrow_to_32)
+    device_layout = _device_layout_allowed(device_layout)
+    if stats is not None:
+        stats["cache_decoded"] = cache_decoded
+        stats.setdefault("epoch_shuffle_s", [])
+    decode_cache = _DecodeCache(enabled=cache_decoded)
+    try:
+        for epoch in range(start_epoch, num_epochs):
+            if stats is not None:
+                stats["epoch"] = epoch
+            batch_consumer.wait_until_ready(epoch)
+            t0 = time.perf_counter()
+            shuffle_epoch(
+                epoch, filenames, batch_consumer, num_reducers, num_trainers, seed,
+                narrow_to_32=narrow_to_32, decode_cache=decode_cache, schedule_log=schedule_log,
+                device_layout=device_layout, stats=stats,
+            )
+            if stats is not None:
+                stats["epoch_shuffle_s"].append(time.perf_counter() - t0)
+    finally:
+        decode_cache.free_all()
+    batch_consumer.wait_until_all_epochs_done()
+    return time.perf_counter() - start

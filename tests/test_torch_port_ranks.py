@@ -42,7 +42,7 @@ DEADLINE_S = 60
 MEAN_BATCH, MEAN_STEPS = 96, 3  # 96 rows split evenly over 2, 3 and 4 ranks
 LEAF_SHAPES = ((7, 3), (5,), (4, 4))
 # world size -> the cases its ranks compute
-WORLD_CASES = {2: ("mean", "adasum", "bf16", "steps"), 3: ("adasum", "steps", "idle"), 4: ("mean", "adasum"),
+WORLD_CASES = {2: ("mean", "adasum", "bf16", "steps", "ddp_loss"), 3: ("adasum", "steps", "idle"), 4: ("mean", "adasum"),
                5: ("adasum",)}
 
 
@@ -296,6 +296,35 @@ def test_mean_step_matches_jax_psum_step(worlds, world):
         np.testing.assert_allclose(res["mean_losses"], want, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("shards", helpers.SHARDS)
+def test_ddp_step_reports_the_global_batch_loss(worlds, shards):
+    """The DDP step reports the loss of the global batch, as the explicit
+    mean step and the JAX package's data-parallel step do: at 2 ranks, on
+    equal shards and with rank 1 idle (rank 0's shard alone), every rank
+    logs the same loss, within 1e-4 of JAX's ``make_psum_train_step``
+    on the same weights and shards."""
+    world = 2
+    inputs, params, results = worlds(world)
+    n = 1 if shards == "uneven" else world
+    rows = slice(0, MEAN_BATCH // world) if shards == "uneven" else slice(None)
+    mesh = _data_mesh(n)
+    jmodel, opt = _jax_model(), optax.adam(1e-3)
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=opt.init(params))
+    state = jax.device_put(state, NamedSharding(mesh, P()))
+    step = jax_psum_step(jmodel, opt, mesh, donate_state=False)
+    bsh = batch_sharding(mesh, 1)
+    want = []
+    for s in range(MEAN_STEPS):
+        feats = {c: jax.device_put(v[s, rows], bsh) for c, v in inputs["feats"].items()}
+        state, metrics = step(state, feats, jax.device_put(inputs["labels"][s, rows], bsh))
+        want.append(float(metrics["loss"]))
+    for r, res in enumerate(results):
+        ddp, mean = res[f"loss_ddp_{shards}"], res[f"loss_mean_{shards}"]
+        np.testing.assert_allclose(ddp, want, atol=1e-4, rtol=0, err_msg=f"rank {r}")
+        np.testing.assert_allclose(ddp, mean, atol=1e-6, rtol=0, err_msg=f"rank {r}")
+        np.testing.assert_array_equal(ddp, results[0][f"loss_ddp_{shards}"])
+
+
 @pytest.mark.parametrize("world", [2, 3, 4, 5])
 def test_adasum_matches_jax_and_its_limits(worlds, world):
     inputs, _, results = worlds(world)
@@ -464,7 +493,9 @@ def _three_uneven_ranks(tmp_path, step_args):
     # Every rank stepped until the last ran out, and trained each of its batches.
     assert all(r["steps"] == max(full) for r in ranks)
     assert [r["epochs"][0]["steps"] - r["epochs"][0]["idle"] for r in ranks] == full
-    assert [len(r["losses"]) for r in ranks] == full
+    # One loss per step, the global batch's: the same on every rank.
+    assert [len(r["losses"]) for r in ranks] == [max(full)] * 3
+    assert all(r["losses"] == ranks[0]["losses"] for r in ranks)
     assert sum(r["epochs"][0]["keys"] for r in ranks) == sum(full) * 1000
     return ranks
 

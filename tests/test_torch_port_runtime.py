@@ -133,16 +133,24 @@ def test_pool_submit_wait_and_remote_traceback(session):
         time.sleep(0.05)
 
 
-def test_workers_import_no_torch(session, tmp_path):
+def test_workers_import_no_torch(session, tmp_path, monkeypatch):
     from ray_shuffling_data_loader_tpu_torch import data_generation
     from ray_shuffling_data_loader_tpu_torch.dataset import ShufflingDataset
 
     files, _ = data_generation.generate_data(2000, 2, 1, 0.0, str(tmp_path))
-    ds = ShufflingDataset(files, 1, 1, 500, 0, num_reducers=2, queue_name="no-torch")
-    ds.set_epoch(0)
-    assert sum(b.num_rows for b in ds) == 2000
+    # Every kind of task: the decoded-size estimate (the cache's default
+    # policy), caching maps, packed reduces, and the index schedule's plans
+    # and gathers.
+    monkeypatch.setenv("RSDL_INDEX_SHUFFLE", "on")
+    ds = ShufflingDataset(
+        files, 2, 1, 500, 0, num_reducers=2, queue_name="no-torch", device_layout={"batch": 500, "columns": ["key"]}
+    )
+    for epoch in range(2):
+        ds.set_epoch(epoch)
+        assert sum(b.num_rows for b in ds) == 2000
     ds.join(timeout=DEADLINE_S)
-    # The workers ran the maps and reduces; the tasks land on either.
+    assert ds.shuffle_stats["cache_decoded"] and ds.schedule_log == [(0, "mapreduce"), (1, "index")]
+    # The workers ran the tasks; they land on either.
     loaded = [runtime.submit(helpers.loaded_modules).result(timeout=DEADLINE_S) for _ in range(4)]
     assert any("ray_shuffling_data_loader_tpu_torch.shuffle" in mods for mods in loaded)
     for mods in loaded:
@@ -283,12 +291,15 @@ def test_package_root_is_lazy_and_resolves_every_name():
 def test_store_holds_no_more_than_the_epochs_in_flight(session, tmp_path):
     """With a window of two epochs and a consumer that has not started,
     the store holds the reducer outputs of two epochs and nothing else;
-    consumed epochs leave nothing behind."""
+    consumed epochs leave nothing behind. (The decode cache, which the
+    next test holds, is off here.)"""
     from ray_shuffling_data_loader_tpu_torch import data_generation
     from ray_shuffling_data_loader_tpu_torch.dataset import ShufflingDataset
 
     files, _ = data_generation.generate_data(4000, 2, 1, 0.0, str(tmp_path))
-    ds = ShufflingDataset(files, 4, 1, 500, 0, num_reducers=2, max_concurrent_epochs=2, queue_name="window")
+    ds = ShufflingDataset(
+        files, 4, 1, 500, 0, num_reducers=2, max_concurrent_epochs=2, queue_name="window", cache_decoded=False
+    )
     deadline = time.monotonic() + DEADLINE_S
     # The shuffle is at epoch 2 once epochs 0 and 1 are shuffled; epoch 2
     # waits in the window for epoch 0's acks.
@@ -306,6 +317,34 @@ def test_store_holds_no_more_than_the_epochs_in_flight(session, tmp_path):
     ds.join(timeout=DEADLINE_S)
     assert runtime.store_stats().num_objects == 0
     assert ds.shuffle_stats["store_peak_bytes"] <= 3 * epoch_bytes + 8 * 4096
+
+
+def test_the_decode_cache_holds_one_segment_per_file_until_the_run_ends(session, tmp_path):
+    """With the decode cache on, the store holds the two epochs in flight
+    and one decoded segment per file; the run's end frees the cache."""
+    from ray_shuffling_data_loader_tpu_torch import data_generation
+    from ray_shuffling_data_loader_tpu_torch.dataset import ShufflingDataset
+
+    files, _ = data_generation.generate_data(4000, 2, 1, 0.0, str(tmp_path))
+    ds = ShufflingDataset(
+        files, 4, 1, 500, 0, num_reducers=2, max_concurrent_epochs=2, queue_name="cache", cache_decoded=True
+    )
+    deadline = time.monotonic() + DEADLINE_S
+    while ds.shuffle_stats.get("epoch") != 2:
+        assert time.monotonic() < deadline
+        time.sleep(0.05)
+    stats = runtime.store_stats()
+    ds.set_epoch(0)
+    epoch_bytes = sum(b.nbytes for b in ds)
+    assert stats.num_objects == 4 + len(files)
+    # Two epochs' outputs and the files' decoded rows, one epoch's worth.
+    assert 3 * epoch_bytes <= stats.total_bytes <= 3 * epoch_bytes + 6 * 4096
+    for epoch in range(1, 4):
+        ds.set_epoch(epoch)
+        assert sum(b.num_rows for b in ds) == 4000
+    ds.join(timeout=DEADLINE_S)
+    assert ds.shuffle_stats["cache_decoded"] is True
+    assert runtime.store_stats().num_objects == 0
 
 
 def test_queue_window_full_and_empty(session):

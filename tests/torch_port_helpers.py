@@ -139,6 +139,34 @@ def _idle_steps(torch, port, group, spec, rank, world):
     return out
 
 
+SHARDS = ("equal", "uneven")
+
+
+def _ddp_losses(torch, port, group, spec, rank, world):
+    """The losses that the DDP and the explicit mean step report, from the
+    same weights: three Adam (1e-3) steps on equal shards, then, from the
+    weights again, three in which only rank 0 brings a batch (its shard)
+    and every other rank idles on its own."""
+    data = np.load(spec["inputs"])
+    shard = data["labels"].shape[1] // world
+    rows = slice(rank * shard, (rank + 1) * shard)
+    out = {}
+    for kind in ("ddp", "mean"):
+        for shards in SHARDS:
+            model = port.dlrm_for_data_spec(**SMALL_DLRM, compute_dtype=torch.float32, device="cpu")
+            model.load_state_dict(torch.load(spec["state"]))
+            opt = port.make_optimizer(model, lr=1e-3)
+            step = port.make_train_step(model, opt, group) if kind == "ddp" else port.make_psum_train_step(model, opt, group)
+            losses = []
+            for s in range(data["labels"].shape[0]):
+                feats = {c: torch.from_numpy(data[f"feat_{c}"][s, rows]) for c in model.columns}
+                labels = torch.from_numpy(data["labels"][s, rows])
+                res = step(feats, labels) if shards == "equal" else step(feats, labels, 1, idle=rank != 0)
+                losses.append(float(res["loss"]))
+            out[f"loss_{kind}_{shards}"] = np.asarray(losses)
+    return out
+
+
 def grad_rank_main(spec_path, rank):
     import torch
 
@@ -159,6 +187,8 @@ def grad_rank_main(spec_path, rank):
         out.update(_sgd_steps(torch, port, group, spec, rank, world))
     if "idle" in spec["cases"]:
         out.update(_idle_steps(torch, port, group, spec, rank, world))
+    if "ddp_loss" in spec["cases"]:
+        out.update(_ddp_losses(torch, port, group, spec, rank, world))
     if "adasum" in spec["cases"]:
         grads = np.load(spec["grads"])
         for case in ADASUM_CASES:
