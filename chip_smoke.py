@@ -13,7 +13,8 @@ Phases, each of which fails the script (non-zero exit) on any error:
    ``build/kernels/`` and log each kernel's registers and spills;
 2. kernel: hold each kernel against its plain PyTorch version on the card:
    the interaction (K1) on its tensor-core route at the DLRM's ``(65536,
-   19, 32)`` bf16, a batch ragged against its tile ``(1001, 19, 32)``,
+   19, 32)`` bf16 and the resident phase's ``(250000, 19, 32)``, a batch
+   ragged against its tile ``(1001, 19, 32)``,
    ``(500, 27, 16)``, ``(4096, 64, 64)`` and ``(8192, 27, 128)`` in bf16,
    and on its CUDA-core route at the DLRM's shape and a ragged ``(500, 27,
    16)`` fp32; the flash forward (K2, output and the ``m``,
@@ -28,7 +29,8 @@ Phases, each of which fails the script (non-zero exit) on any error:
    autograd Function over the packed tensor (default routes) at the same
    shapes.
    Time every kernel beside its bound, its plain version and the PyTorch
-   library call that computes the same, at the main paths' shapes and at
+   library call that computes the same, at the main paths' shapes (K1 also
+   at the resident phase's, logged) and at
    ``[2, 4096, 8, 64]`` bf16, causal and not, K1 to K4 on both routes;
    and sweep both routes of K2, K3 and K4 at ``[4, t, 4, hd]`` causal, hd
    16 and 64, t 32 to 256, where ``T_MIN`` was chosen;
@@ -73,11 +75,32 @@ Phases, each of which fails the script (non-zero exit) on any error:
    must end with the same parameters bit for bit, and each rank must
    launch the interaction kernel once per step, all on its tensor-core
    route, and no flash kernel;
-5. lm: 20 Adam (3e-3) steps of ``CausalLM(vocab 64, seq 512, embed 64, 2
+5. resident: the JAX package's flagship path at ``bench.py``'s quick
+   shape: 11,904,761 rows in 16 files of 2 row groups (seed 0), batch
+   250,000 (47 full batches per epoch), 2 epochs, seed 0; the 19 feature
+   columns, ``key`` (for the checks; the DLRM reads only its columns) and
+   the label: 21 packed columns. ``fits_device`` must say yes; the
+   staging is logged (seconds, pieces, bytes, peak device bytes). Epoch 0
+   per batch through two ``DeviceResidentShufflingDataset``s, the
+   materialized schedule (the budget's choice, which must be it) and the
+   gather schedule: the delivered keys must equal
+   ``epoch_permutation(0, 0, n)[:47 * 250000]`` computed on the CPU, in
+   both. Epoch 1 on the full-width ``dlrm_for_data_spec()`` (Adam 1e-3,
+   ``capturable=True``): an eager loop over the materialized dataset's
+   batches, then from the same initial weights and a fresh optimizer the
+   fused epoch (``make_fused_epoch``: one CUDA-graph capture, 47 replays)
+   on each schedule; each fused epoch's losses must be within 1e-5 of the
+   eager loop's, K1 must be captured once per step on its tensor-core
+   route (its launches on this path are the captured launches times the
+   replays). Logs ms per batch (CUDA events) and rows/s of the eager and
+   the fused epoch and the permutation's ms. A ``TrialStatsCollector``
+   hears the materialized dataset and, in ``[slice dlrm]``, the DLRM
+   slice; ``process_stats`` writes their CSVs under ``build/stats/``;
+6. lm: 20 Adam (3e-3) steps of ``CausalLM(vocab 64, seq 512, embed 64, 2
    layers, 4 heads)`` on ``synthetic_tokens(4, 512, 64)``; the loss must
    fall and each flash kernel launch twice per step, all on the
    tensor-core route;
-6. parity: one batch through each trained module on ``cuda`` (kernels;
+7. parity: one batch through each trained module on ``cuda`` (kernels;
    in fp32 the interaction's CUDA-core route) and through the same module
    with the same weights on the CPU (plain versions), in fp32 with TF32
    off.
@@ -111,11 +134,12 @@ CSRC = "ray_shuffling_data_loader_tpu_torch/ops/csrc/"
 JAX_FLASH = "ray_shuffling_data_loader_tpu/ops/flash_attention.py"
 
 MAIN_SHAPE = (65536, 19, 32)
+RESIDENT_SHAPE = (250000, 19, 32)  # the DLRM's at the resident phase's batch
 RAGGED_SHAPE = (500, 27, 16)
 # The tensor-core route of K1: the DLRM's shape, a batch ragged against its
 # 8-sample tile, (500, 27, 16) (16-sample tiles, an odd pair count), N = 64
 # and D = 128 (MLPerf DLRM's 26 tables + the dense row at width 128).
-INTERACTION_MMA_SHAPES = (MAIN_SHAPE, (1001, 19, 32), RAGGED_SHAPE, (4096, 64, 64),
+INTERACTION_MMA_SHAPES = (MAIN_SHAPE, RESIDENT_SHAPE, (1001, 19, 32), RAGGED_SHAPE, (4096, 64, 64),
                           (8192, 27, 128))
 # bf16: kernel and plain version both sum in fp32 and round once to bf16,
 # so a different summation order can move a result by at most one bf16
@@ -332,6 +356,13 @@ def phase_interaction(torch, rate: float, rate_src: str) -> list:
     log(f"[kernel] interaction {MAIN_SHAPE} bf16: mma {ms['mma']!r} ms, simt {ms['simt']!r} ms, "
         f"plain {plain_ms!r} ms, bmm + gather {bmm_ms!r} ms, bound {bound_ms!r} ms by {bound_by} "
         f"({nbytes} B at {rate:.4g} B/s from {rate_src}; {ops} ops at bf16 peak)")
+    rb, rn, rd = RESIDENT_SHAPE
+    xr = embeddings(RESIDENT_SHAPE, torch.bfloat16)
+    r_bytes, r_ops = rb * rn * rd * 2 + rb * num_pairs(rn) * 2, 2 * rb * num_pairs(rn) * rd
+    r_bound, r_by = bound(r_bytes, r_ops, rate, BF16_PEAK)
+    log(f"[kernel] interaction {RESIDENT_SHAPE} bf16 (the resident phase's): mma "
+        f"{time_ms(torch, interaction_kernel, xr, 'mma')!r} ms, plain {time_ms(torch, dot_interaction_reference, xr)!r} "
+        f"ms, bound {r_bound!r} ms by {r_by} ({r_bytes} B)")
     return [
         {
             "name": name,
@@ -745,9 +776,11 @@ def phase_delivery(torch, filenames) -> dict:
     return {label: report for label, (_, report) in runs.items()}
 
 
-def train_slice(torch, port, filenames, num_rows, model, label: str) -> dict:
+def train_slice(torch, port, filenames, num_rows, model, label: str, collector=None) -> dict:
     """Two epochs of ``model`` on the shuffled dataset, with the launch
-    counts set to 0 just before and read just after."""
+    counts set to 0 just before and read just after. ``collector``: a
+    ``TrialStatsCollector`` actor that hears the run; its stats come back
+    as ``trial``."""
     import numpy as np
 
     import ray_shuffling_data_loader_tpu_torch.ops as ops
@@ -761,7 +794,7 @@ def train_slice(torch, port, filenames, num_rows, model, label: str) -> dict:
         # "key" rides along for the exactly-once check and is dropped
         # before the step.
         feature_columns=[*feature_columns, port.KEY_COLUMN],
-        label_column=port.LABEL_COLUMN, num_reducers=8, seed=0, device="cuda",
+        label_column=port.LABEL_COLUMN, num_reducers=8, seed=0, device="cuda", stats_collector=collector,
     )
     torch.cuda.reset_peak_memory_stats()
     reset_launches(ops)
@@ -800,6 +833,10 @@ def train_slice(torch, port, filenames, num_rows, model, label: str) -> dict:
         raise AssertionError(f"{label}: non-finite loss: {losses}")
     delivery = delivery_report(port, ds, filenames, f"slice {label}")
     stats = ds.stats.as_dict()
+    trial = None
+    if collector is not None:
+        collector.call_oneway("report_staging", 0, stats)
+        trial = collector.call("get_stats", 60)
     median_ms = statistics.median(step_s[1:]) * 1e3
     log(f"[slice {label}] {steps} steps, losses {losses[0]!r} -> {losses[-1]!r}; "
         f"step median {median_ms!r} ms (first {step_s[0] * 1e3!r} ms); "
@@ -820,6 +857,7 @@ def train_slice(torch, port, filenames, num_rows, model, label: str) -> dict:
         "delivery": delivery,
         "direct_per_epoch": direct_per_epoch,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "trial": trial,
     }
 
 
@@ -836,7 +874,9 @@ def phase_slices(torch, data_dir: str) -> dict:
         filenames, nbytes = port.generate_data(num_rows, 10, 5, 0.0, data_dir, seed=0)
         log(f"[slice] generated {num_rows} rows ({nbytes} B) in {len(filenames)} files "
             f"in {time.perf_counter() - t0:.2f} s")
-        dlrm = train_slice(torch, port, filenames, num_rows, port.dlrm_for_data_spec(), "dlrm")
+        collector = port.runtime.spawn_actor(port.TrialStatsCollector, 2, len(filenames), 8, num_rows, 65536, 1,
+                                             name="slice-dlrm-stats")
+        dlrm = train_slice(torch, port, filenames, num_rows, port.dlrm_for_data_spec(), "dlrm", collector)
         n = dlrm["launches"]
         # bf16, (65536, 19, 32): the tensor-core route only.
         if (n["interaction"] != dlrm["steps"] or n["interaction_mma"] != dlrm["steps"]
@@ -905,6 +945,179 @@ def phase_ranks(filenames, smi: str) -> dict:
         runs[label] = {"wall_s": wall, "ranks": out["ranks"]}
     log(f"[ranks] done in {time.perf_counter() - t_phase:.1f} s")
     return runs
+
+
+# bench.py's quick shape (the JAX package's own configuration of the
+# resident path): rows, files, row groups per file, batch, epochs.
+RESIDENT_ROWS, RESIDENT_FILES, RESIDENT_ROW_GROUPS = 11_904_761, 16, 2
+RESIDENT_BATCH, RESIDENT_EPOCHS = 250_000, 2
+# The fused epoch against the eager loop: the same kernels in the same
+# order on the same data; a replay may differ only by the order of a
+# reduction inside one of them.
+FUSED_TOL = 1e-5
+
+
+def cuda_ms(torch, fn):
+    """``(result, device ms)`` of ``fn()``, timed with CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def trial_line(label: str, trial) -> str:
+    row = trial.row()
+    return (f"[stats] {label}: row throughput {row['row_throughput']!r} rows/s, duration {row['duration']!r} s, "
+            f"stall {row['total_stall_s']!r} s ({row['stall_pct']!r} %), epochs {row['num_epochs']}, "
+            f"bytes staged {row['total_bytes_staged']}")
+
+
+def phase_resident(torch, data_dir: str, smi: str) -> dict:
+    """The device-resident loader and its fused epoch (docstring, phase 5)."""
+    import numpy as np
+
+    import ray_shuffling_data_loader_tpu_torch as port
+    import ray_shuffling_data_loader_tpu_torch.ops as ops
+    from ray_shuffling_data_loader_tpu_torch import resident
+
+    n, b = RESIDENT_ROWS, RESIDENT_BATCH
+    full = n // b
+    key = port.KEY_COLUMN
+    feature_columns = [c for c in port.DATA_SPEC if c != port.LABEL_COLUMN] + [key]
+    out = {}
+    port.runtime.init()
+    try:
+        t0 = time.perf_counter()
+        filenames, nbytes = port.generate_data(n, RESIDENT_FILES, RESIDENT_ROW_GROUPS, 0.0, data_dir, seed=0)
+        log(f"[resident] generated {n} rows ({nbytes} B) in {len(filenames)} files in "
+            f"{time.perf_counter() - t0:.2f} s")
+        budget, per_device = resident.device_memory_budget(device="cuda")
+        need = resident.packed_nbytes(n, len(feature_columns))
+        fits = port.fits_device(filenames, len(feature_columns), device="cuda")
+        log(f"[resident] fits_device: {fits} ({need} B packed against a budget of {budget} B, per device "
+            f"{per_device})")
+        if not fits:
+            raise AssertionError("[resident] fits_device said no at bench.py's quick shape")
+        collector = port.runtime.spawn_actor(port.TrialStatsCollector, RESIDENT_EPOCHS, 1, 1, n, b, 1,
+                                             name="resident-stats")
+        datasets = {}
+        for label, materialize, sc in (("materialized", None, collector), ("gather", False, None)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            ds = port.DeviceResidentShufflingDataset(
+                filenames, RESIDENT_EPOCHS, b, feature_columns, port.LABEL_COLUMN, seed=0, device="cuda",
+                materialize_epoch=materialize, stats_collector=sc,
+            )
+            staged_s = time.perf_counter() - t0
+            pieces = math.ceil(n / resident.DEFAULT_PIECE_ROWS)
+            staging_peak = torch.cuda.max_memory_allocated() - before
+            log(f"[resident] {label}: staged {ds.stats.bytes_staged} B in {pieces} pieces in {staged_s!r} s "
+                f"(first batch {ds.stats.first_batch_s!r} s); peak device memory of the staging "
+                f"{staging_peak} B (above the {before} B allocated before); schedule materialized={ds._materialize}")
+            out[f"staging_{label}"] = {"s": staged_s, "bytes": ds.stats.bytes_staged, "pieces": pieces,
+                                       "peak_device_bytes": staging_peak}
+            datasets[label] = ds
+        if not datasets["materialized"]._materialize:
+            raise AssertionError("[resident] the budget chose the gather schedule at 1 GB on an 80 GB card")
+
+        # Epoch 0 per batch: the delivered keys are the JAX package's
+        # permutation, in both schedules.
+        want = port.epoch_permutation(0, 0, n, device="cpu")[: full * b]
+        # The first call of a run, then two more.
+        perm_ms = [cuda_ms(torch, lambda: port.epoch_permutation(0, 1, n, device="cuda"))[1] for _ in range(3)]
+        for label, ds in datasets.items():
+            ds.set_epoch(0)
+            key_batches, epoch_ms = cuda_ms(torch, lambda: [f[key].clone() for f, _ in ds])
+            batches = len(key_batches)
+            if batches != full or not torch.equal(torch.cat(key_batches).cpu().to(torch.int64), want):
+                raise AssertionError(f"[resident] {label} epoch 0: {batches} batches; keys differ from "
+                                     "epoch_permutation(0, 0, n)")
+            log(f"[resident] {label} epoch 0: {batches} batches, keys == epoch_permutation(0, 0, {n})"
+                f"[:{full * b}], exactly once; {epoch_ms / batches!r} ms per batch (delivery only)")
+        if np.unique(want.numpy()).size != want.numel():
+            raise AssertionError("[resident] the permutation repeats a row")
+        log(f"[resident] schedules equal; epoch_permutation of {n} rows on the card: {perm_ms!r} ms (three calls)")
+        out["perm_ms"] = perm_ms
+
+        # Epoch 1: the eager loop, then the fused epoch on each schedule,
+        # from the same weights and a fresh optimizer each time.
+        model = port.dlrm_for_data_spec()
+        initial = [p.detach().clone() for p in model.parameters()]
+
+        def fresh_step():
+            with torch.no_grad():
+                for p, v in zip(model.parameters(), initial):
+                    p.copy_(v)
+            return port.make_train_step(model, port.make_optimizer(model, capturable=True))
+
+        step = fresh_step()
+        ds = datasets["materialized"]
+        ds.set_epoch(1)
+        reset_launches(ops)
+
+        def eager():
+            losses = []
+            for f, labels in ds:
+                f.pop(key)
+                losses.append(step(f, labels)["loss"])
+            return torch.stack(losses)
+
+        eager_losses, eager_ms = cuda_ms(torch, eager)
+        eager_launches = read_launches(ops)
+        if eager_launches["interaction_mma"] != full or eager_launches["interaction"] != full:
+            raise AssertionError(f"[resident] eager: launches {eager_launches}, want {full} on the tensor-core route")
+        out["eager"] = {"ms_per_batch": eager_ms / full, "rows_per_s": b * full / (eager_ms / 1e3),
+                        "losses": eager_losses.tolist()}
+        log(f"[resident] eager epoch 1: {full} steps, {eager_ms / full!r} ms per batch, "
+            f"{out['eager']['rows_per_s']!r} rows/s; losses {eager_losses[0].item()!r} -> "
+            f"{eager_losses[-1].item()!r}")
+        for label, ds in datasets.items():
+            step = fresh_step()
+            reset_launches(ops)
+            t0 = time.perf_counter()
+            run_epoch = port.make_fused_epoch(ds, step)
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            captured = read_launches(ops)
+            per_step = captured["interaction_mma"] / (resident.FUSED_WARMUP_STEPS + 1)
+            if per_step != 1 or captured["interaction"] != captured["interaction_mma"]:
+                raise AssertionError(f"[resident] {label}: {captured} in {resident.FUSED_WARMUP_STEPS} warm-up "
+                                     "steps and the capture, want one K1 each on the tensor-core route")
+            reset_launches(ops)
+            losses, fused_ms = cuda_ms(torch, lambda: run_epoch(1))
+            replayed = read_launches(ops)
+            if losses.shape != (full,) or not torch.isfinite(losses).all():
+                raise AssertionError(f"[resident] {label} fused: losses {losses}")
+            diffs = (losses - eager_losses).abs()
+            diff = diffs.max().item()
+            differ = torch.nonzero(diffs).flatten().tolist()
+            if diff > FUSED_TOL:
+                raise AssertionError(f"[resident] {label} fused: max |fused - eager| loss {diff!r} > {FUSED_TOL}")
+            launches = int(per_step) * full
+            out[f"fused_{label}"] = {
+                "ms_per_batch": fused_ms / full, "rows_per_s": b * full / (fused_ms / 1e3),
+                "max_abs_loss_diff": diff, "bit_equal": not differ, "first_differing_step": differ[0] if differ else None,
+                "capture_s": capture_s, "k1_launches": launches, "python_launches_in_replays": replayed,
+            }
+            log(f"[resident] fused {label} epoch 1 (one CUDA graph, {full} replays): {fused_ms / full!r} ms per "
+                f"batch, {out[f'fused_{label}']['rows_per_s']!r} rows/s; max |fused - eager| loss {diff!r} "
+                f"(bit-equal: {not differ}; {len(differ)} of {full} steps differ, the first at step "
+                f"{differ[0] if differ else None}); warm-up and capture {capture_s!r} s; "
+                f"K1 launches on this path: {int(per_step)} captured x {full} replays = {launches}, all on the "
+                f"tensor-core route ({resident.FUSED_WARMUP_STEPS} more in the warm-up; the wrappers count "
+                f"Python calls, and replays make none: {replayed['interaction']})")
+        out["k1_launches"] = out["fused_materialized"]["k1_launches"]
+        for ds in datasets.values():
+            ds.close()
+        out["trial"] = collector.call("get_stats", 60)
+        log(trial_line("resident materialized", out["trial"]) + f" ({smi})")
+    finally:
+        port.runtime.shutdown()
+    return out
 
 
 def phase_lm(torch) -> dict:
@@ -1005,6 +1218,20 @@ def main() -> int:
             ranks = phase_ranks(filenames, smi)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
+        resident_dir = os.path.join(ROOT, "build", "resident_data")
+        shutil.rmtree(resident_dir, ignore_errors=True)
+        try:
+            resident = phase_resident(torch, resident_dir, smi)
+        finally:
+            shutil.rmtree(resident_dir, ignore_errors=True)
+        trials = [slices["dlrm"].pop("trial"), resident.pop("trial")]
+        trials[1].trial = 1
+        import ray_shuffling_data_loader_tpu_torch as port
+
+        stats_dir = os.path.join(ROOT, "build", "stats")
+        summary = port.process_stats(trials, stats_dir=stats_dir)
+        log(trial_line("slice dlrm", trials[0]))
+        log(f"[stats] wrote {', '.join(sorted(os.listdir(stats_dir)))} under build/stats/: {summary}")
         lm = phase_lm(torch)
         parity = {
             label: phase_parity(torch, label, slices[label]["model"], slices[label]["batch"])
@@ -1041,6 +1268,7 @@ def main() -> int:
                     "lm": lm,
                     "delivery": delivery,
                     "ranks": ranks,
+                    "resident": resident,
                     "parity_max_abs_diff": {label: err for label, (err, _) in parity.items()},
                 },
                 f, indent=1,

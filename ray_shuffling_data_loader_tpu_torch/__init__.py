@@ -6,7 +6,10 @@ batches staged to the GPU of each trainer rank -> the train step of the
 DLRM, whose dot interaction is a hand-written CUDA kernel, or of the
 TabTransformer, alone or data-parallel over ranks; and the causal LM.
 Both transformers attend through hand-written CUDA flash attention
-kernels, forward and backward. Entry points run on CUDA unless the caller
+kernels, forward and backward. A dataset that fits the card can instead
+stay in its memory and shuffle there every epoch
+(:class:`~.resident.DeviceResidentShufflingDataset`), with an epoch of
+DLRM steps replayed from one CUDA graph (:func:`~.resident.make_fused_epoch`). Entry points run on CUDA unless the caller
 passes ``device="cpu"``. The package is independent of the JAX package it
 was ported from, which stays the reference its tests compare against.
 
@@ -30,6 +33,7 @@ _EXPORTS = {
     "ProducerDiedError": "batch_queue",
     "CarryRebatcher": "dataset",
     "ShufflingDataset": "dataset",
+    "DeviceResidentShufflingDataset": "resident",
     "DeviceShufflingDataset": "device_dataset",
     "HostToDeviceStats": "device_dataset",
     "TorchBatchSpec": "device_dataset",
@@ -55,6 +59,12 @@ _EXPORTS = {
     "make_psum_train_step": "parallel",
     "make_train_step": "parallel",
     "ColumnBatch": "runtime",
+    "TorchShufflingDataset": "torch_dataset",
+    "TrialStatsCollector": "stats",
+    "epoch_permutation": "utils",
+    "fits_device": "resident",
+    "make_fused_epoch": "resident",
+    "process_stats": "stats",
     "resolve_device": "utils",
 }
 

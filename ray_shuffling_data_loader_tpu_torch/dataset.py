@@ -105,6 +105,8 @@ class ShufflingDataset:
         device_layout: a staging consumer's ``{"batch": B, "columns":
             [...]}``: reducers then pack their whole batches, and this
             iterator yields those as views with ``.packed`` set.
+        stats_collector: a :class:`~.stats.TrialStatsCollector` handle
+            that rank 0's shuffle reports to.
     """
 
     def __init__(
@@ -123,6 +125,7 @@ class ShufflingDataset:
         narrow_to_32: bool = False,
         cache_decoded: Optional[bool] = None,
         device_layout: Optional[dict] = None,
+        stats_collector=None,
     ):
         runtime.ensure_initialized()
         if num_reducers is None:
@@ -160,7 +163,7 @@ class ShufflingDataset:
                     num_trainers, seed=seed, start_epoch=start_epoch,
                     narrow_to_32=narrow_to_32, cache_decoded=cache_decoded,
                     schedule_log=self.schedule_log, device_layout=device_layout,
-                    stats=self.shuffle_stats,
+                    stats=self.shuffle_stats, stats_collector=stats_collector,
                 )
                 # Every rank has acked the last epoch: nothing calls the
                 # queue again, and its name is free for the next dataset.

@@ -182,7 +182,8 @@ class DeviceShufflingDataset:
     ``prefetch_depth`` (batches staged ahead; 2 = double buffering).
     ``cache_decoded`` defaults to the shuffle's policy.
     ``drop_last`` defaults to True: a ragged final batch changes the
-    step's shapes.
+    step's shapes. ``stats_collector`` goes to the shuffle (see
+    :class:`~.dataset.ShufflingDataset`).
     """
 
     def __init__(
@@ -207,6 +208,7 @@ class DeviceShufflingDataset:
         prefetch_depth: int = 2,
         start_epoch: int = 0,
         cache_decoded: Optional[bool] = None,
+        stats_collector=None,
     ):
         self.device = resolve_device(device)
         self._spec = TorchBatchSpec(
@@ -247,6 +249,7 @@ class DeviceShufflingDataset:
             narrow_to_32=True,
             cache_decoded=cache_decoded,
             device_layout=self.device_layout,
+            stats_collector=stats_collector,
         )
 
     @property

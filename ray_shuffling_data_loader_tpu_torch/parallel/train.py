@@ -35,8 +35,11 @@ def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     )
 
 
-def make_optimizer(model: nn.Module, lr: float = 1e-3) -> torch.optim.Optimizer:
-    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+def make_optimizer(model: nn.Module, lr: float = 1e-3, capturable: bool = False) -> torch.optim.Optimizer:
+    """Adam as ``optax.adam``. ``capturable``: keep the step count on the
+    device, so that a CUDA graph can capture the update (the fused epoch
+    of :func:`~..resident.make_fused_epoch` needs it)."""
+    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, capturable=capturable)
 
 
 def _device_of(model: nn.Module) -> torch.device:
@@ -61,7 +64,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, group=No
     is weighted 0, so it adds nothing to the gradient but takes part in
     DDP's all-reduce and makes the same update; the others weight theirs
     by ``world / ranks_active``, so the gradient is the mean over the
-    ranks that brought a batch."""
+    ranks that brought a batch.
+
+    The step carries its ``model`` and ``optimizer`` as attributes."""
     net: nn.Module = model
     world = 1
     if group is not None:
@@ -88,6 +93,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, group=No
         dist.all_reduce(total, group=group)
         return {"loss": total.div_(active)}
 
+    step.model, step.optimizer = model, optimizer
     return step
 
 
@@ -137,20 +143,26 @@ def _tree_dot(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> torch.Ten
     return sum(torch.dot(x.float(), y.float()) for x, y in zip(a, b))
 
 
-def _adasum_combine(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The symmetric Adasum operator (Maleki et al., 2020):
+def _adasum_coefficients(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``[ca, cb]`` of the symmetric Adasum operator (Maleki et al., 2020):
 
-        adasum(a, b) = (1 - a.b / 2|a|^2) a + (1 - a.b / 2|b|^2) b
+        adasum(a, b) = (1 - a.b / 2|a|^2) a + (1 - a.b / 2|b|^2) b = ca a + cb b
 
     Orthogonal gradients add; equal ones return themselves. The dot
-    products run in fp32 over the whole lists; the result keeps each
-    tensor's dtype. Both butterfly partners compute the same bits: the
-    products and the two terms commute exactly, and the two scalings are
-    separate multiplications (no fused multiply-add favours one side)."""
+    products run in fp32 over the whole lists."""
     dot, na, nb = _tree_dot(a, b), _tree_dot(a, a), _tree_dot(b, b)
     zero = torch.zeros((), dtype=torch.float32, device=dot.device)
     ca = 1.0 - torch.where(na > 0, dot / (2.0 * na), zero)
     cb = 1.0 - torch.where(nb > 0, dot / (2.0 * nb), zero)
+    return torch.stack([ca, cb])
+
+
+def _adasum_apply(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor], coeffs: torch.Tensor) -> List[torch.Tensor]:
+    """``ca a + cb b`` in fp32, each tensor back in its dtype. The two
+    scalings are separate multiplications (no fused multiply-add favours
+    one side) and the sum commutes, so a partner holding ``(b, a)`` and
+    the coefficients swapped computes the same bits."""
+    ca, cb = coeffs[0], coeffs[1]
     return [(x.float() * ca + y.float() * cb).to(x.dtype) for x, y in zip(a, b)]
 
 
@@ -197,7 +209,8 @@ def adasum_reduce(grads: List[torch.Tensor], group) -> List[torch.Tensor]:
     result.
 
     A butterfly: ``log2(p)`` rounds in which rank ``i`` exchanges with
-    ``i ^ 2^r`` and both apply :func:`_adasum_combine`, over the largest
+    ``i ^ 2^r`` and both apply the Adasum operator
+    (:func:`_adasum_coefficients`), over the largest
     power of two ``p`` not above the world size ``n``. With ``n`` not a
     power of two, each rank ``p + j`` first folds its gradients into rank
     ``j`` (one combine there), sits out the butterfly, and receives the
@@ -211,10 +224,21 @@ def adasum_reduce(grads: List[torch.Tensor], group) -> List[torch.Tensor]:
         _p2p(grads, group, send_to=me - pow2, recv_from=None)
         return _p2p(grads, group, send_to=None, recv_from=me - pow2)
     if me < rem:
-        grads = _adasum_combine(grads, _p2p(grads, group, send_to=None, recv_from=pow2 + me))
+        other = _p2p(grads, group, send_to=None, recv_from=pow2 + me)
+        grads = _adasum_apply(grads, other, _adasum_coefficients(grads, other))
     for r in range(pow2.bit_length() - 1):
         partner = me ^ (1 << r)
-        grads = _adasum_combine(grads, _p2p(grads, group, send_to=partner, recv_from=partner))
+        other = _p2p(grads, group, send_to=partner, recv_from=partner)
+        # Two processes may round the same dot products differently (a CPU
+        # BLAS picks its thread count at run time), and then the ranks
+        # would diverge: the lower rank's coefficients serve both.
+        if me < partner:
+            coeffs = _adasum_coefficients(grads, other)
+            _p2p([coeffs], group, send_to=partner, recv_from=None)
+        else:
+            slot = torch.empty(2, dtype=torch.float32, device=grads[0].device)
+            coeffs = _p2p([slot], group, send_to=None, recv_from=partner)[0].flip(0)
+        grads = _adasum_apply(grads, other, coeffs)
     if me < rem:
         _p2p(grads, group, send_to=pow2 + me, recv_from=None)
     return grads

@@ -40,6 +40,14 @@ the JAX package's shuffle delivers under its default settings: the seeds,
 the draws and the group-by order are the same, whichever schedule and
 output form an epoch takes.
 
+A ``stats_collector`` (a :class:`~.stats.TrialStatsCollector` actor's
+handle) hears, as the JAX package's does, each epoch's start and
+admission wait, each task's start and duration, and each reducer output
+delivered to a rank, and the run's end.
+
+The device-resident loader's decode task, :func:`_decode_narrow_to_store`,
+lives here too, so that the workers never import torch.
+
 This module imports numpy and pyarrow only: the workers load it.
 """
 
@@ -81,17 +89,55 @@ class BatchConsumer:
         raise NotImplementedError
 
 
-def read_parquet_columns(filename: str) -> ColumnBatch:
-    """Decode a local Parquet file to contiguous numpy columns."""
+def read_parquet_columns(
+    filename: str, columns: Optional[Sequence[str]] = None, use_threads: bool = False
+) -> ColumnBatch:
+    """Decode a local Parquet file to contiguous numpy columns.
+
+    ``columns``: decode only these (None: all); a name the file lacks
+    raises Arrow's ``ArrowInvalid``, a ``ValueError``. ``use_threads``: let
+    Arrow decode with its own threads. Off by default: the worker pool
+    decodes one file per worker, and Arrow's threads on top of that
+    oversubscribe a busy host."""
     import pyarrow.parquet as pq
 
-    table = pq.read_table(filename, use_threads=False, memory_map=True)
+    table = pq.read_table(
+        filename, columns=None if columns is None else list(columns), use_threads=use_threads, memory_map=True
+    )
     return ColumnBatch(
         {
             name: np.ascontiguousarray(col.to_numpy(zero_copy_only=False))
             for name, col in zip(table.column_names, table.columns)
         }
     )
+
+
+def _arrow_decode_threads(stage_tasks: int) -> bool:
+    """Should this worker's decode use Arrow's threads? Yes when the host
+    has at least twice as many cores as the stage runs decodes at once
+    (``min(stage_tasks, cores)``); Arrow's pool is then capped to this
+    decode's share of the cores. Decided in the worker, from its own
+    host's cores."""
+    cores = os.cpu_count() or 1
+    concurrent = min(max(1, stage_tasks), cores)
+    if cores < 2 * concurrent:
+        return False
+    import pyarrow as pa
+
+    pa.set_cpu_count(max(2, cores // concurrent))
+    return True
+
+
+def _decode_narrow_to_store(filename: str, columns: Sequence[str], stage_tasks: int = 0) -> ObjectRef:
+    """Pool task of the device-resident loader's staging: decode
+    ``columns`` of one file, narrow 64-bit columns to 32 bits and put them
+    in the store. Returns the ref. ``stage_tasks``: the decodes the stage
+    runs at once, from which the worker decides on Arrow's threads."""
+    batch = read_parquet_columns(
+        filename, columns=columns, use_threads=stage_tasks > 0 and _arrow_decode_threads(stage_tasks)
+    )
+    cols = {name: _narrow_column(name, batch.columns[name]) for name in columns}
+    return runtime.ensure_initialized().store.put_columns(cols)
 
 
 def narrowed_dtype(dtype) -> np.dtype:
@@ -175,6 +221,7 @@ def shuffle_map(
     narrow_to_32: bool = False,
     cache_ref: Optional[ObjectRef] = None,
     publish_cache: bool = False,
+    stats_collector=None,
 ):
     """Decode one file and group its rows by reducer straight into one
     store segment; returns one row-window ref per reducer (empty windows
@@ -185,6 +232,9 @@ def shuffle_map(
     columns once to a segment of their own and return ``(refs,
     cache_ref)``; a publish that does not fit returns a None cache ref,
     and the file is decoded again in later epochs."""
+    if stats_collector is not None:
+        stats_collector.call_oneway("map_start", epoch)
+    start = time.perf_counter()
     store = runtime.ensure_initialized().store
     new_cache_ref = None
     if cache_ref is not None:
@@ -198,6 +248,7 @@ def shuffle_map(
                 new_cache_ref = store.put_columns(batch.columns)
             except OSError:
                 new_cache_ref = None
+    end_read = time.perf_counter()
     assignment = _file_assignment(seed, epoch, file_index, batch.num_rows, num_reducers)
     order, offsets = _group_order(assignment, num_reducers)
     try:
@@ -214,30 +265,39 @@ def shuffle_map(
         if new_cache_ref is not None:
             store.free(new_cache_ref)  # no caller will learn of it
         raise
+    if stats_collector is not None:
+        stats_collector.call_oneway("map_done", epoch, time.perf_counter() - start, end_read - start)
     return (refs, new_cache_ref) if publish_cache else refs
 
 
 def shuffle_plan(
-    file_index: int, num_reducers: int, epoch: int, seed: int, cache_ref: ObjectRef
+    file_index: int, num_reducers: int, epoch: int, seed: int, cache_ref: ObjectRef, stats_collector=None
 ) -> List[ObjectRef]:
     """The index schedule's map: the same seeded draw and stable grouping
     as :func:`shuffle_map`, over row indices only. Returns one ref per
     reducer over one ``{"idx"}`` segment: each reducer's row indices in the
     cached file, in file order, the rows the materialized map's partition
     would hold. Column data is not read."""
+    if stats_collector is not None:
+        stats_collector.call_oneway("map_start", epoch)
+    start = time.perf_counter()
     store = runtime.ensure_initialized().store
     n = store.get_columns(cache_ref).num_rows
+    end_read = time.perf_counter()
     assignment = _file_assignment(seed, epoch, file_index, n, num_reducers)
     order, offsets = _group_order(assignment, num_reducers)
     idx_dtype = np.int32 if n <= _INT32.max else np.int64
     pending = store.create_columns({"idx": ((n,), np.dtype(idx_dtype))})
     try:
         np.copyto(pending.columns["idx"], order, casting="same_kind")
-        return pending.publish_slices(
+        refs = pending.publish_slices(
             [(int(offsets[r]), int(offsets[r + 1])) for r in range(num_reducers)]
         )
     finally:
         pending.abort()
+    if stats_collector is not None:
+        stats_collector.call_oneway("map_done", epoch, time.perf_counter() - start, end_read - start)
+    return refs
 
 
 # -- packed outputs ------------------------------------------------------------
@@ -382,17 +442,23 @@ def _permuted_output(store, pack, template, source: Callable[[str], np.ndarray],
 
 
 def shuffle_reduce(
-    reduce_index: int, epoch: int, seed: int, part_refs: Sequence[ObjectRef], pack=None
+    reduce_index: int, epoch: int, seed: int, part_refs: Sequence[ObjectRef], pack=None, stats_collector=None
 ) -> Union[ObjectRef, List[ObjectRef]]:
     """Concatenate this reducer's partitions in file order and permute them
     straight into the store; returns the output's ref, or with ``pack =
     (rank-stream start, layout)`` its head, body and tail refs
     (:class:`_PackedOutput`). The inputs stay: the epoch frees them once
     the result has landed."""
+    if stats_collector is not None:
+        stats_collector.call_oneway("reduce_start", epoch)
+    start = time.perf_counter()
     store = runtime.ensure_initialized().store
     parts = [store.get_columns(r) for r in part_refs]
     perm = _reduce_seed(seed, epoch, reduce_index).permutation(sum(p.num_rows for p in parts))
-    return _permuted_output(store, pack, parts[0], lambda k: np.concatenate([p[k] for p in parts]), perm)
+    out = _permuted_output(store, pack, parts[0], lambda k: np.concatenate([p[k] for p in parts]), perm)
+    if stats_collector is not None:
+        stats_collector.call_oneway("reduce_done", epoch, time.perf_counter() - start)
+    return out
 
 
 def shuffle_gather_reduce(
@@ -402,12 +468,16 @@ def shuffle_gather_reduce(
     idx_refs: Sequence[ObjectRef],
     cache_refs: Sequence[ObjectRef],
     pack=None,
+    stats_collector=None,
 ) -> Union[ObjectRef, List[ObjectRef]]:
     """The index schedule's reduce: the same permutation as
     :func:`shuffle_reduce`, over rows gathered from the cached files
     (each file's index window, ascending, in file order), so the output is
     the materialized reducer's, bit for bit. Returns as
     :func:`shuffle_reduce` does."""
+    if stats_collector is not None:
+        stats_collector.call_oneway("reduce_start", epoch)
+    start = time.perf_counter()
     store = runtime.ensure_initialized().store
     caches = [store.get_columns(r) for r in cache_refs]
     idx_parts = [store.get_columns(r)["idx"] for r in idx_refs]
@@ -425,7 +495,10 @@ def shuffle_gather_reduce(
             np.take(cache[k], idx, axis=0, out=compact[offsets[i] : offsets[i + 1]])
         return compact
 
-    return _permuted_output(store, pack, template, source, perm)
+    out = _permuted_output(store, pack, template, source, perm)
+    if stats_collector is not None:
+        stats_collector.call_oneway("reduce_done", epoch, time.perf_counter() - start)
+    return out
 
 
 def _ref_window_rows(ref) -> Optional[int]:
@@ -741,6 +814,7 @@ def shuffle_epoch(
     schedule_log: Optional[list] = None,
     device_layout: Optional[dict] = None,
     stats: Optional[Dict[str, Any]] = None,
+    stats_collector=None,
 ) -> None:
     """One epoch's maps and reduces in the session's worker pool; each
     reducer's output refs go to its rank in reducer order, then every rank
@@ -752,6 +826,8 @@ def shuffle_epoch(
     frees the outputs, and a failed epoch frees what its tasks published.
     ``stats["store_peak_bytes"]`` keeps the store's peak, sampled after
     the maps and after each reduce."""
+    if stats_collector is not None:
+        stats_collector.call_oneway("epoch_start", epoch)
     ctx = runtime.ensure_initialized()
     store, pool = ctx.store, ctx.pool
     if decode_cache is None:
@@ -772,12 +848,15 @@ def shuffle_epoch(
     map_futs, publishing = [], []
     for file_index, filename in enumerate(filenames):
         if schedule == "index":
-            fut = pool.submit(shuffle_plan, file_index, num_reducers, epoch, seed, cache_refs[file_index])
+            fut = pool.submit(
+                shuffle_plan, file_index, num_reducers, epoch, seed, cache_refs[file_index], stats_collector
+            )
             publish = False
         else:
             cache_ref, publish = decode_cache.claim_or_wait(file_index)
             fut = pool.submit(
-                shuffle_map, filename, file_index, num_reducers, epoch, seed, narrow_to_32, cache_ref, publish
+                shuffle_map, filename, file_index, num_reducers, epoch, seed, narrow_to_32, cache_ref, publish,
+                stats_collector,
             )
             if publish:
                 decode_cache.register(file_index, fut)
@@ -796,14 +875,19 @@ def shuffle_epoch(
         for r in range(num_reducers):
             parts_r = [parts[r] for parts in partitions]
             if schedule == "index":
-                reduce_futs.append(pool.submit(shuffle_gather_reduce, r, epoch, seed, parts_r, cache_refs, pack_for[r]))
+                reduce_futs.append(pool.submit(
+                    shuffle_gather_reduce, r, epoch, seed, parts_r, cache_refs, pack_for[r], stats_collector
+                ))
             else:
-                reduce_futs.append(pool.submit(shuffle_reduce, r, epoch, seed, parts_r, pack_for[r]))
+                reduce_futs.append(pool.submit(shuffle_reduce, r, epoch, seed, parts_r, pack_for[r], stats_collector))
         for r, fut in enumerate(reduce_futs):
             out = fut.result()
+            out = out if isinstance(out, list) else [out]
             sample()
             store.free([parts[r] for parts in partitions])
-            batch_consumer.consume(int(rank_of[r]), epoch, out if isinstance(out, list) else [out])
+            batch_consumer.consume(int(rank_of[r]), epoch, out)
+            if stats_collector is not None:
+                stats_collector.call_oneway("consume", int(rank_of[r]), epoch, sum(ref.nbytes for ref in out))
             delivered = r + 1
     except BaseException:
         for fut in reduce_futs[delivered:]:
@@ -831,6 +915,7 @@ def shuffle(
     schedule_log: Optional[list] = None,
     device_layout: Optional[dict] = None,
     stats: Optional[Dict[str, Any]] = None,
+    stats_collector=None,
 ) -> float:
     """Shuffle every epoch from ``start_epoch`` into ``batch_consumer``;
     each epoch first waits for the consumer to admit it. Returns the
@@ -846,7 +931,10 @@ def shuffle(
     batches (unless ``RSDL_DEVICE_DIRECT=off``). ``stats``: the resolved
     ``cache_decoded``, the epoch in progress (``epoch``), each epoch's
     shuffle seconds (``epoch_shuffle_s``, admission excluded) and the
-    store's peak bytes."""
+    store's peak bytes. ``stats_collector``: a
+    :class:`~.stats.TrialStatsCollector` handle that hears the run's
+    events (module docstring), ``trial_done`` with the run's seconds
+    last."""
     check_shuffle_plan()
     start = time.perf_counter()
     filenames = list(filenames)
@@ -861,16 +949,22 @@ def shuffle(
         for epoch in range(start_epoch, num_epochs):
             if stats is not None:
                 stats["epoch"] = epoch
+            throttle_start = time.perf_counter()
             batch_consumer.wait_until_ready(epoch)
             t0 = time.perf_counter()
+            if stats_collector is not None:
+                stats_collector.call_oneway("epoch_throttle", epoch, t0 - throttle_start)
             shuffle_epoch(
                 epoch, filenames, batch_consumer, num_reducers, num_trainers, seed,
                 narrow_to_32=narrow_to_32, decode_cache=decode_cache, schedule_log=schedule_log,
-                device_layout=device_layout, stats=stats,
+                device_layout=device_layout, stats=stats, stats_collector=stats_collector,
             )
             if stats is not None:
                 stats["epoch_shuffle_s"].append(time.perf_counter() - t0)
     finally:
         decode_cache.free_all()
     batch_consumer.wait_until_all_epochs_done()
-    return time.perf_counter() - start
+    duration = time.perf_counter() - start
+    if stats_collector is not None:
+        stats_collector.call_oneway("trial_done", duration)
+    return duration

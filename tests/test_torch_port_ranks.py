@@ -356,6 +356,27 @@ def test_adasum_matches_jax_and_its_limits(worlds, world):
                 assert np.all(got[i] == 0)
 
 
+def test_adasum_ranks_agree_when_their_dot_products_round_differently(tmp_path):
+    """Two ranks on different thread counts sum the same dot products in
+    other orders; the butterfly must still leave both with the same bits."""
+    world, n = 2, 2_000_003
+    rng = np.random.default_rng(1)
+    grads = {f"{case}_0": rng.standard_normal((world, n)).astype(np.float32) for case in helpers.ADASUM_CASES}
+    grads_path = str(tmp_path / "grads.npz")
+    np.savez(grads_path, **grads)
+    spec = {"world": world, "cases": ["adasum"], "init_method": f"tcp://localhost:{_free_port()}",
+            "grads": grads_path, "num_leaves": 1, "out_dir": str(tmp_path), "threads": [1, 4]}
+    spec_path = str(tmp_path / "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    helper = os.path.join(REPO, "tests", "torch_port_helpers.py")
+    _wait_all([subprocess.Popen([sys.executable, helper, spec_path, str(r)], stderr=subprocess.PIPE, text=True)
+               for r in range(world)])
+    results = [np.load(str(tmp_path / f"rank{r}.npz")) for r in range(world)]
+    for case in helpers.ADASUM_CASES:
+        np.testing.assert_array_equal(results[0][f"adasum_{case}_0"], results[1][f"adasum_{case}_0"], err_msg=case)
+
+
 def test_bf16_wire_tracks_fp32(worlds):
     _, _, results = worlds(2)
     for res in results:

@@ -139,8 +139,8 @@ def test_workers_import_no_torch(session, tmp_path, monkeypatch):
 
     files, _ = data_generation.generate_data(2000, 2, 1, 0.0, str(tmp_path))
     # Every kind of task: the decoded-size estimate (the cache's default
-    # policy), caching maps, packed reduces, and the index schedule's plans
-    # and gathers.
+    # policy), caching maps, packed reduces, the index schedule's plans
+    # and gathers, and the resident loader's decode.
     monkeypatch.setenv("RSDL_INDEX_SHUFFLE", "on")
     ds = ShufflingDataset(
         files, 2, 1, 500, 0, num_reducers=2, queue_name="no-torch", device_layout={"batch": 500, "columns": ["key"]}
@@ -150,6 +150,11 @@ def test_workers_import_no_torch(session, tmp_path, monkeypatch):
         assert sum(b.num_rows for b in ds) == 2000
     ds.join(timeout=DEADLINE_S)
     assert ds.shuffle_stats["cache_decoded"] and ds.schedule_log == [(0, "mapreduce"), (1, "index")]
+    # The device-resident loader's decode, on both workers.
+    from ray_shuffling_data_loader_tpu_torch.shuffle import _decode_narrow_to_store
+
+    refs = [runtime.submit(_decode_narrow_to_store, f, ["key"], 2) for f in files for _ in range(2)]
+    runtime.free([fut.result(timeout=DEADLINE_S) for fut in refs])
     # The workers ran the tasks; they land on either.
     loaded = [runtime.submit(helpers.loaded_modules).result(timeout=DEADLINE_S) for _ in range(4)]
     assert any("ray_shuffling_data_loader_tpu_torch.shuffle" in mods for mods in loaded)

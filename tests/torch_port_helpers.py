@@ -173,10 +173,10 @@ def grad_rank_main(spec_path, rank):
     sys.path.insert(0, REPO)
     import ray_shuffling_data_loader_tpu_torch as port
 
-    torch.set_num_threads(1)
     with open(spec_path) as f:
         spec = json.load(f)
     world = spec["world"]
+    torch.set_num_threads(spec.get("threads", [1] * world)[rank])
     group = port.init_data_parallel(rank, world, "gloo", spec["init_method"])
     out = {}
     if "mean" in spec["cases"]:
