@@ -103,7 +103,24 @@ Phases, each of which fails the script (non-zero exit) on any error:
 7. parity: one batch through each trained module on ``cuda`` (kernels;
    in fp32 the interaction's CUDA-core route) and through the same module
    with the same weights on the CPU (plain versions), in fp32 with TF32
-   off.
+   off;
+8. resume: the trainer (``python -m
+   ray_shuffling_data_loader_tpu_torch.train_dlrm``) preempted and
+   restarted, on the Quick-start dataset (10^6 rows, 10 files, seed 0)
+   with the full-width DLRM (bf16, Adam 1e-3), batch 65536 (15 batches an
+   epoch), 2 epochs, ``--loader mapreduce``, ``RSDL_JOURNAL`` set and a
+   checkpoint every 4 steps. A control run goes uninterrupted; a victim,
+   in a session of its own, SIGKILLs its own process group (this script's
+   child code wraps its train step) after step 10, its last checkpoint
+   at step 8; the resume (``RSDL_RESUME=redeliver``) must train steps 9
+   to 30 on the control's ``key`` batches bit for bit with losses within
+   1e-5, re-attach more than 0 journaled stages, launch K1 once per step
+   trained on its tensor-core route, and leave no segment of either
+   session in its shm directory. Then a victim and a resume with
+   ``--loader resident``, whose keys must be ``epoch_permutation``'s.
+   Logs the checkpoint's bytes and save seconds, the restore seconds, the
+   seconds from the restart to its first batch, the stages re-attached and
+   re-executed, and the steps replayed.
 
 Every launch count is set to 0 just before a path is driven and read just
 after; in the ranks phase, by each rank in its own process. Prints a ``{"kernels": [...]}`` line, the card's name and power
@@ -1184,6 +1201,192 @@ def phase_parity(torch, label: str, model, batch):
     return err, launches
 
 
+# The child of the resume phase: the trainer, whose train step this code
+# wraps to SIGKILL the child's process group (the trainer, its shuffle
+# workers and its queue actor) once KILL_AFTER_STEP steps have trained.
+RESUME_CHILD = r"""
+import os, signal, sys
+sys.path.insert(0, os.environ["RESUME_ROOT"])
+
+if __name__ == "__main__":
+    kill_after = int(os.environ.get("KILL_AFTER_STEP", "0"))
+    if kill_after:
+        import ray_shuffling_data_loader_tpu_torch.parallel as parallel
+
+        make = parallel.make_train_step
+
+        def make_train_step(*a, **k):
+            step = make(*a, **k)
+            count = [0]
+
+            def killing_step(*sa, **sk):
+                out = step(*sa, **sk)
+                count[0] += 1
+                if count[0] == kill_after:
+                    float(out["loss"])
+                    os.killpg(os.getpgid(0), signal.SIGKILL)
+                return out
+
+            return killing_step
+
+        parallel.make_train_step = make_train_step
+    from ray_shuffling_data_loader_tpu_torch import train_dlrm
+
+    sys.exit(train_dlrm.main(sys.argv[1:]))
+"""
+RESUME_BATCH, RESUME_EPOCHS, RESUME_EVERY, RESUME_KILL = 65536, 2, 4, 10
+RESUME_LOSS_TOL = 1e-5  # PERF.md's bound: the embedding backward's atomics
+
+
+def resume_run(work: str, shm: str, name: str, loader: str, kill_after: int = 0, checkpoint: bool = True,
+               env_extra=None) -> dict:
+    """One trainer child in a session of its own: its exit code, RESULT,
+    records per step and the unix time it started."""
+    import numpy as np
+
+    script = os.path.join(work, "child.py")
+    with open(script, "w") as f:
+        f.write(RESUME_CHILD)
+    record = os.path.join(work, f"rec-{name}")
+    shutil.rmtree(record, ignore_errors=True)
+    argv = [sys.executable, script, "--num-rows", str(NUM_ROWS), "--num-files", "10", "--num-row-groups-per-file",
+            "5", "--batch-size", str(RESUME_BATCH), "--epochs", str(RESUME_EPOCHS), "--num-reducers", "8",
+            "--seed", "0", "--data-dir", os.path.join(work, "data"), "--loader", loader, "--device", "cuda",
+            "--checkpoint-every", str(RESUME_EVERY), "--record", record]
+    if checkpoint:
+        argv += ["--checkpoint-dir", os.path.join(work, f"ckpt-{loader}")]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
+    env.update(RESUME_ROOT=ROOT, KILL_AFTER_STEP=str(kill_after), RSDL_SHM_DIR=shm, **(env_extra or {}))
+    started = time.time()
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=work,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        try:
+            os.killpg(proc.pid, 9)  # whatever of the child's group is left
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    steps = {}
+    path = os.path.join(record, "steps.jsonl")
+    if os.path.exists(path):
+        for line in open(path):
+            rec = json.loads(line)
+            rec["keys"] = np.load(os.path.join(record, f"keys-{rec['step']:06d}.npy"))
+            steps[rec["step"]] = rec
+    results = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+    return {"rc": proc.returncode, "result": json.loads(results[-1][7:]) if results else None, "steps": steps,
+            "started": started, "stdout": out, "stderr": err}
+
+
+def check_resumed_launches(label: str, run: dict, steps: int) -> None:
+    res = run["result"]
+    if res["interaction_launches"] != steps or res["interaction_mma_launches"] != steps:
+        raise AssertionError(f"[resume] {label}: K1 launches {res['interaction_launches']} "
+                             f"(tensor-core {res['interaction_mma_launches']}) in {steps} steps, want one per step "
+                             "on the tensor-core route")
+
+
+def phase_resume(torch, work: str, smi: str) -> dict:
+    """The trainer preempted and resumed (docstring, phase 8)."""
+    # A directory of its own on the shared-memory filesystem, so that what
+    # the sessions leave there can be counted.
+    shm = os.path.join("/dev/shm" if os.path.isdir("/dev/shm") else work, f"chip-smoke-resume-{os.getpid()}")
+    os.makedirs(shm)
+    try:
+        return _phase_resume(torch, work, shm, smi)
+    finally:
+        shutil.rmtree(shm, ignore_errors=True)
+
+
+def _phase_resume(torch, work: str, shm: str, smi: str) -> dict:
+    import numpy as np
+
+    from ray_shuffling_data_loader_tpu_torch.utils.prng import epoch_permutation
+
+    per_epoch = NUM_ROWS // RESUME_BATCH
+    total = per_epoch * RESUME_EPOCHS
+    ckpt_step = RESUME_KILL // RESUME_EVERY * RESUME_EVERY
+    journal = {"RSDL_JOURNAL": os.path.join(work, "journal")}
+    out = {}
+
+    def expect(cond, what, run=None):
+        if not cond:
+            tail = f"\n{run['stdout'][-3000:]}\n{run['stderr'][-3000:]}" if run else ""
+            raise AssertionError(f"[resume] {what}{tail}")
+
+    control = resume_run(work, shm, "control", "mapreduce", checkpoint=False)
+    expect(control["rc"] == 0 and sorted(control["steps"]) == list(range(1, total + 1)),
+           f"control: exit {control['rc']}, steps {sorted(control['steps'])}", control)
+    expect(all(math.isfinite(r["loss"]) for r in control["steps"].values()), "control: a loss is not finite")
+    check_resumed_launches("control", control, total)
+    for loader in ("mapreduce", "resident"):
+        victim = resume_run(work, shm, f"victim-{loader}", loader, kill_after=RESUME_KILL, env_extra=journal)
+        expect(victim["rc"] == -9, f"{loader} victim: exit {victim['rc']}, want SIGKILL", victim)
+        # The child dies inside step RESUME_KILL, before recording it.
+        expect(sorted(victim["steps"]) == list(range(1, RESUME_KILL)), f"{loader} victim: steps {sorted(victim['steps'])}")
+        replayed = RESUME_KILL - ckpt_step
+        resumed = resume_run(work, shm, f"resume-{loader}", loader,
+                             env_extra={**journal, "RSDL_RESUME": "redeliver"})
+        res = resumed["result"]
+        expect(resumed["rc"] == 0 and res is not None, f"{loader} resume: exit {resumed['rc']}", resumed)
+        expect(f"resuming from step {ckpt_step}" in resumed["stdout"], f"{loader} resume did not start at {ckpt_step}",
+               resumed)
+        want = list(range(ckpt_step + 1, total + 1))
+        expect(sorted(resumed["steps"]) == want, f"{loader} resume: steps {sorted(resumed['steps'])}")
+        check_resumed_launches(f"{loader} resume", resumed, len(want))
+        worst = 0.0
+        for s in want:
+            got = resumed["steps"][s]
+            if loader == "mapreduce":
+                ref = control["steps"][s]
+                expect(np.array_equal(got["keys"], ref["keys"]), f"mapreduce step {s}: keys differ from the control's")
+                worst = max(worst, abs(got["loss"] - ref["loss"]))
+            else:
+                epoch, b = got["epoch"], got["batch"]
+                perm = epoch_permutation(0, epoch, NUM_ROWS, device="cpu").numpy()
+                expect(np.array_equal(got["keys"], perm[b * RESUME_BATCH:(b + 1) * RESUME_BATCH]),
+                       f"resident step {s}: keys differ from epoch_permutation(0, {epoch})")
+                expect(math.isfinite(got["loss"]), f"resident step {s}: loss {got['loss']}")
+        expect(worst <= RESUME_LOSS_TOL, f"mapreduce: max |resumed - control| loss {worst!r} > {RESUME_LOSS_TOL}")
+        counters = res.get("resume") or {}
+        reattached = counters.get("maps_reattached", 0) + counters.get("reduces_reattached", 0)
+        reexecuted = counters.get("maps_reexecuted", 0) + counters.get("reduces_reexecuted", 0)
+        if loader == "mapreduce":
+            expect(counters.get("mode") == "redeliver" and counters.get("from_run"), f"no journal resumed: {counters}")
+            expect(reattached > 0, f"mapreduce resume re-attached no stage: {counters}")
+        left = sorted(os.listdir(shm))
+        if loader == "mapreduce":
+            expect(not left, f"mapreduce: segments left in the shm directory: {left[:5]} ({len(left)})")
+        for name in left:  # the resident loader journals nothing: a killed run's leftovers are not swept
+            os.unlink(os.path.join(shm, name))
+        restart_s = res["first_batch_at"] - resumed["started"]
+        ck = resumed["result"]["checkpoint_bytes"]
+        log(f"[resume] {loader}: checkpoint {ck[0] if ck else None} B, save "
+            f"{[round(x, 4) for x in res['checkpoint_save_s']]!r} s (fsync included); restore {res['restore_s']!r} s; "
+            f"restart to first batch {restart_s!r} s ({res['first_batch_s']!r} s after main()); stages re-attached "
+            f"{reattached} (maps {counters.get('maps_reattached', 0)}, reduces {counters.get('reduces_reattached', 0)}), "
+            f"re-executed {reexecuted}; steps replayed {replayed} (victim killed after step {RESUME_KILL}, "
+            f"checkpoint {ckpt_step}); K1 launches {res['interaction_launches']} in {len(want)} steps; "
+            f"max |loss - control| {worst!r}; segments left {len(left)}; {counters}; start-up (s since main(), "
+            f"cumulative) {res['startup_s']} ({smi})")
+        out[loader] = {
+            "checkpoint_bytes": ck, "checkpoint_save_s": res["checkpoint_save_s"], "restore_s": res["restore_s"],
+            "restart_to_first_batch_s": restart_s, "first_batch_s": res["first_batch_s"], "resume": counters,
+            "steps_replayed": replayed, "k1_launches": res["interaction_launches"], "steps_trained": len(want),
+            "max_loss_diff": worst, "stall_s": res["stall_s"], "segments_left": len(left),
+            "startup_s": res["startup_s"],
+        }
+        shutil.rmtree(os.path.join(work, f"ckpt-{loader}"), ignore_errors=True)
+    out["control"] = {"k1_launches": control["result"]["interaction_launches"], "steps": total,
+                      "first_batch_s": control["result"]["first_batch_s"], "startup_s": control["result"]["startup_s"]}
+    log(f"[resume] control: {total} steps, K1 launches {control['result']['interaction_launches']}, start-up "
+        f"{control['result']['startup_s']}; resumed key "
+        f"streams equal the control's (mapreduce) and epoch_permutation's (resident) bit for bit ({smi})")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON here")
@@ -1232,6 +1435,13 @@ def main() -> int:
         summary = port.process_stats(trials, stats_dir=stats_dir)
         log(trial_line("slice dlrm", trials[0]))
         log(f"[stats] wrote {', '.join(sorted(os.listdir(stats_dir)))} under build/stats/: {summary}")
+        resume_dir = os.path.join(ROOT, "build", "resume")
+        shutil.rmtree(resume_dir, ignore_errors=True)
+        os.makedirs(resume_dir)
+        try:
+            resume = phase_resume(torch, resume_dir, smi)
+        finally:
+            shutil.rmtree(resume_dir, ignore_errors=True)
         lm = phase_lm(torch)
         parity = {
             label: phase_parity(torch, label, slices[label]["model"], slices[label]["batch"])
@@ -1269,6 +1479,7 @@ def main() -> int:
                     "delivery": delivery,
                     "ranks": ranks,
                     "resident": resident,
+                    "resume": resume,
                     "parity_max_abs_diff": {label: err for label, (err, _) in parity.items()},
                 },
                 f, indent=1,

@@ -22,6 +22,9 @@ import importlib
 
 _EXPORTS = {
     "runtime": None,
+    "BatchCursor": "checkpoint",
+    "CheckpointManager": "checkpoint",
+    "adam_state_dict_from_jax": "convert",
     "dlrm_state_dict_from_jax": "convert",
     "lm_state_dict_from_jax": "convert",
     "transformer_state_dict_from_jax": "convert",

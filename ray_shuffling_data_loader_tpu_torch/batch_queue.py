@@ -15,6 +15,14 @@ A consumer blocked on an empty queue checks the producer's liveness every
 ``$RSDL_PRODUCER_LIVENESS_S`` seconds (default 2) and raises
 :class:`ProducerDiedError` when it died mid-epoch, instead of hanging.
 
+A journaled shuffle tags each reducer's publication with its reducer
+index (``seq``). The actor keeps one delivery cursor per ``(epoch,
+rank)``, the next ``seq`` it accepts, and drops a re-published reducer
+below it whole (:meth:`BatchQueue.put_batch` returns False), so a
+resumed producer never hands a trainer the same rows twice. A resumed
+producer seeds the cursors from its journal
+(:meth:`BatchQueue.restore_delivery_cursors`).
+
 This module imports the standard library and the runtime only.
 """
 
@@ -23,7 +31,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import os
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from ray_shuffling_data_loader_tpu_torch import runtime
 from ray_shuffling_data_loader_tpu_torch.runtime import ActorDiedError
@@ -81,6 +89,10 @@ class _QueueActor:
         # wakes and checks again.
         self.space_events: List[List[asyncio.Event]] = grid(asyncio.Event)
         self._producer_pid: Optional[int] = None
+        self._items_enqueued = 0
+        # (epoch, rank) -> the next reducer seq this actor accepts.
+        self._delivery_seq: Dict[Tuple[int, int], int] = {}
+        self._republish_dropped = 0
 
     def register_producer(self, pid: int) -> None:
         self._producer_pid = int(pid)
@@ -111,10 +123,15 @@ class _QueueActor:
     def qsize(self, rank: int, epoch: int) -> int:
         return self.queues[epoch][rank].qsize()
 
-    async def put_batch(self, rank, epoch, items, timeout=None) -> None:
+    async def put_batch(self, rank, epoch, items, timeout=None, seq=None) -> bool:
         """All or nothing: wait for room for every item, then enqueue them
         with no await in between, so a timeout leaves the queue as it
-        was."""
+        was. A ``seq`` below the ``(epoch, rank)`` cursor is a reducer
+        that already landed: dropped, counted, and False returned."""
+        key = (int(epoch), int(rank))
+        if seq is not None and seq < self._delivery_seq.get(key, 0):
+            self._republish_dropped += 1
+            return False
         queue = self.queues[epoch][rank]
         items = list(items)
         if self.maxsize > 0 and len(items) > self.maxsize:
@@ -133,6 +150,10 @@ class _QueueActor:
                 raise Full from None
         for item in items:
             queue.put_nowait(item)
+        self._items_enqueued += len(items)
+        if seq is not None:  # only once the items landed
+            self._delivery_seq[key] = seq + 1
+        return True
 
     async def get_batch(self, rank, epoch, timeout=None) -> List[Any]:
         """Block for one item (``Empty`` after ``timeout``), then drain
@@ -151,6 +172,31 @@ class _QueueActor:
         for _ in range(num_items):
             self.queues[epoch][rank].task_done()
         self.space_events[epoch][rank].set()
+
+    def restore_delivery_cursors(self, cursors: Dict[str, int]) -> None:
+        """Seed the cursors (``{"epoch/rank": seq}``) from a journal,
+        max-merged: an actor that outlived its producer keeps cursors that
+        went further."""
+        for key, seq in cursors.items():
+            e, r = key.split("/")
+            k = (int(e), int(r))
+            self._delivery_seq[k] = max(self._delivery_seq.get(k, 0), int(seq))
+
+    def status_snapshot(self) -> Dict[str, Any]:
+        """The window's live state: epochs in flight, queue depths of
+        their ``(epoch, rank)`` queues, the producer's liveness, items
+        enqueued and re-publishes dropped so far."""
+        return {
+            "in_flight_epochs": list(self.curr_epochs),
+            "num_epochs": self.num_epochs,
+            "num_trainers": self.num_trainers,
+            "producer_pid": self._producer_pid,
+            "producer_alive": self._producer_pid is None or _pid_alive(self._producer_pid),
+            "items_enqueued_total": self._items_enqueued,
+            "republish_dropped_total": self._republish_dropped,
+            "depth_total": sum(q.qsize() for qs in self.queues for q in qs),
+            "depths": {f"{e}/{r}": q.qsize() for e in self.curr_epochs for r, q in enumerate(self.queues[e])},
+        }
 
 
 def _pid_alive(pid: int) -> bool:
@@ -214,12 +260,21 @@ class BatchQueue:
     def qsize(self, rank: int, epoch: int) -> int:
         return self.actor.call("qsize", rank, epoch)
 
-    def put_batch(self, rank, epoch, items, timeout=None) -> None:
+    def put_batch(self, rank, epoch, items, timeout=None, seq=None) -> bool:
         """Enqueue ``items`` together, waiting for room (``Full`` after
-        ``timeout``)."""
+        ``timeout``). ``seq``: the reducer index of a journaled delivery;
+        False means the actor dropped it as a re-publish, and the caller
+        still owns the refs."""
         if timeout is not None and timeout < 0:
             raise ValueError("'timeout' must be a non-negative number")
-        self.actor.call("put_batch", rank, epoch, list(items), timeout)
+        return self.actor.call("put_batch", rank, epoch, list(items), timeout, seq)
+
+    def restore_delivery_cursors(self, cursors: Dict[str, int]) -> None:
+        """Seed the actor's delivery cursors (``{"epoch/rank": seq}``)."""
+        self.actor.call("restore_delivery_cursors", dict(cursors))
+
+    def status_snapshot(self) -> Dict[str, Any]:
+        return self.actor.call("status_snapshot")
 
     def get_batch(self, rank: int, epoch: int, timeout: Optional[float] = None) -> List[Any]:
         """Block for the next item, then take every item already there.

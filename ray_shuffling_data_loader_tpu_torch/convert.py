@@ -13,11 +13,15 @@ the module does not have raises.
   ``mlp_up``, ``mlp_down``; then ``ln_out`` and ``head``.
 * CausalLM: ``token_embed``, ``pos_embed``, ``block_<i>`` as above, and
   ``ln_out``.
+
+:func:`adam_state_dict_from_jax` turns optax Adam's state (``count``,
+``mu``, ``nu``, trees like the parameters) into ``torch.optim.Adam``'s
+``state_dict`` for the same model, through the same name mapping.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -109,3 +113,54 @@ def lm_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]
         else:
             raise KeyError(f"unexpected CausalLM parameter {name!r}")
     return state
+
+
+def _adam_moments(opt_state) -> Tuple[Any, Any, Any]:
+    """``(count, mu, nu)`` of optax Adam's ``ScaleByAdamState``, found in
+    the state of ``optax.adam`` (a chain: a tuple, or after a msgpack
+    restore without a target a dict ``{"0": ..., "1": ...}``)."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state.count, opt_state.mu, opt_state.nu
+    if isinstance(opt_state, Mapping):
+        if {"count", "mu", "nu"} <= set(opt_state):
+            return opt_state["count"], opt_state["mu"], opt_state["nu"]
+        parts = list(opt_state.values())
+    elif isinstance(opt_state, (tuple, list)):
+        parts = list(opt_state)
+    else:
+        parts = []
+    for part in parts:
+        try:
+            return _adam_moments(part)
+        except KeyError:
+            continue
+    raise KeyError("no Adam state (count, mu, nu) in this optimizer state")
+
+
+def adam_state_dict_from_jax(opt_state, model: torch.nn.Module, lr: float = 1e-3) -> Dict[str, Any]:
+    """``torch.optim.Adam``'s ``state_dict`` for ``model`` (a DLRM,
+    TabTransformer or CausalLM of the port) from optax ``adam``'s state:
+    the moments go through the parameter mapping of the matching
+    ``*_state_dict_from_jax``, ``count`` becomes every parameter's
+    ``step``. The parameter groups are those of
+    :func:`~.parallel.train.make_optimizer` with ``lr`` (optax's state
+    does not hold the learning rate)."""
+    from ray_shuffling_data_loader_tpu_torch.models import CausalLM, TabTransformer
+    from ray_shuffling_data_loader_tpu_torch.parallel.train import make_optimizer
+
+    count, mu, nu = _adam_moments(opt_state)
+    convert = (
+        transformer_state_dict_from_jax if isinstance(model, TabTransformer)
+        else lm_state_dict_from_jax if isinstance(model, CausalLM)
+        else dlrm_state_dict_from_jax
+    )
+    mu_t, nu_t = convert(mu), convert(nu)
+    names = [name for name, _ in model.named_parameters()]
+    if set(names) != set(mu_t):
+        raise KeyError(f"Adam moments do not match the model's parameters: {sorted(set(names) ^ set(mu_t))}")
+    step = float(np.asarray(count))
+    state = {
+        i: {"step": torch.tensor(step, dtype=torch.float32), "exp_avg": mu_t[name], "exp_avg_sq": nu_t[name]}
+        for i, name in enumerate(names)
+    }
+    return {"state": state, "param_groups": make_optimizer(model, lr=lr).state_dict()["param_groups"]}

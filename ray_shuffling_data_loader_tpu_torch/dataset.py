@@ -267,11 +267,18 @@ class BatchConsumerQueue(BatchConsumer):
     def __init__(self, batch_queue: BatchQueue):
         self._batch_queue = batch_queue
 
-    def consume(self, rank: int, epoch: int, batches: List[ObjectRef]) -> None:
-        self._batch_queue.put_batch(rank, epoch, batches)
+    def consume(self, rank: int, epoch: int, batches: List[ObjectRef], seq: Optional[int] = None) -> None:
+        if self._batch_queue.put_batch(rank, epoch, batches, seq=seq) is False:
+            # A re-publish the queue already holds: nothing will consume
+            # these refs, so free them here.
+            runtime.get_context().store.free(batches)
 
     def producer_done(self, rank: int, epoch: int) -> None:
         self._batch_queue.producer_done(rank, epoch)
+
+    def restore_delivery_cursors(self, cursors: Dict[str, int]) -> None:
+        """Seed the queue's delivery cursors from a journal."""
+        self._batch_queue.restore_delivery_cursors(cursors)
 
     def wait_until_ready(self, epoch: int) -> None:
         self._batch_queue.new_epoch(epoch)

@@ -38,8 +38,18 @@ def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def make_optimizer(model: nn.Module, lr: float = 1e-3, capturable: bool = False) -> torch.optim.Optimizer:
     """Adam as ``optax.adam``. ``capturable``: keep the step count on the
     device, so that a CUDA graph can capture the update (the fused epoch
-    of :func:`~..resident.make_fused_epoch` needs it)."""
-    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, capturable=capturable)
+    of :func:`~..resident.make_fused_epoch` needs it).
+
+    On the CPU the update runs in Adam's fused kernel. The per-tensor
+    update takes its square root from MKL's vector math, whose bits depend
+    on the code path MKL picks in each process, and whose first call in a
+    process can come out inexact while other threads start running ATen
+    ops: data-parallel ranks then end with different parameters. The
+    fused kernel rounds each operation exactly on any host."""
+    fused = True if _device_of(model).type == "cpu" else None
+    return torch.optim.Adam(
+        model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, capturable=capturable, fused=fused
+    )
 
 
 def _device_of(model: nn.Module) -> torch.device:

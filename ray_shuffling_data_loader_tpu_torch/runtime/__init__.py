@@ -44,7 +44,7 @@ class RuntimeContext:
         self.runtime_dir = runtime_dir
         self.owner = owner
         self.session = os.path.basename(runtime_dir)
-        self.store = ObjectStore(self.session)
+        self.store = ObjectStore(self.session, sessions_file=os.path.join(runtime_dir, "adopted-sessions"))
         self.num_workers = num_workers
         self._pool: Optional[WorkerPool] = None
         self._pool_lock = threading.Lock()

@@ -16,7 +16,10 @@ renamed when complete, so a reader never maps a half-written one.
 ``capacity_bytes`` (:func:`_default_capacity_bytes`: 0.8 of the shm
 filesystem by default). A segment that would take the session over it is
 created in the disk-backed spill directory instead; readers find a
-segment in either place.
+segment in either place. A resumed run re-attaches segments that a
+preempted session left behind (:meth:`ObjectStore.adopt_session`): they
+keep their old prefix and count towards the budget until they are swept
+(:meth:`ObjectStore.cleanup` with ``session=``).
 
 **Packed segments.** A segment may carry a layout descriptor in its meta.
 A reducer that knows the trainer's staging layout writes its whole
@@ -360,8 +363,11 @@ class ObjectStore:
     ``spill_dir``. None (no budget) when the budget cannot be read or the
     spill directory is the shm directory itself."""
 
-    def __init__(self, session: str, shm_dir: Optional[str] = None):
+    def __init__(self, session: str, shm_dir: Optional[str] = None, sessions_file: Optional[str] = None):
         self.session = session
+        # The sessions whose segments this one adopted, one per line: a
+        # file every process of the session reads.
+        self._sessions_file = sessions_file
         self.shm_dir = shm_dir or _default_shm_dir()
         os.makedirs(self.shm_dir, exist_ok=True)
         self.capacity_bytes: Optional[int] = _default_capacity_bytes(self.shm_dir)
@@ -381,17 +387,39 @@ class ObjectStore:
     def _path(self, object_id: str) -> str:
         return os.path.join(self.shm_dir, object_id)
 
-    def _session_files(self, directory: str, unfinished: bool = False) -> Iterator[Tuple[str, os.stat_result]]:
-        """``(name, stat)`` of every published segment link of this session
-        in ``directory``, and with ``unfinished`` of every segment still
-        being written."""
-        prefix = f"{self.session}-"
+    def adopted_sessions(self) -> List[str]:
+        """The preempted sessions whose segments this session re-attached."""
+        if self._sessions_file is None:
+            return []
+        try:
+            with open(self._sessions_file) as f:
+                return [line.strip() for line in f if line.strip()]
+        except FileNotFoundError:
+            return []
+
+    def adopt_session(self, session: str) -> None:
+        """Count ``session``'s surviving segments as this session's (the
+        budget and :meth:`store_stats`) until :meth:`cleanup` sweeps it."""
+        if self._sessions_file is None or session == self.session or session in self.adopted_sessions():
+            return
+        with open(self._sessions_file, "a") as f:
+            f.write(session + "\n")
+
+    def _session_files(
+        self, directory: str, unfinished: bool = False, sessions: Optional[Sequence[str]] = None
+    ) -> Iterator[Tuple[str, os.stat_result]]:
+        """``(name, stat)`` of every published segment link of ``sessions``
+        (default: this session and the ones it adopted) in ``directory``,
+        and with ``unfinished`` of every segment still being written."""
+        if sessions is None:
+            sessions = [self.session, *self.adopted_sessions()]
+        prefixes = tuple(f"{s}-" for s in sessions)
         try:
             names = os.listdir(directory)
         except FileNotFoundError:
             return
         for name in names:
-            if name.startswith(prefix) and (unfinished or not name.endswith(".tmp")):
+            if name.startswith(prefixes) and (unfinished or not name.endswith(".tmp")):
                 try:
                     yield name, os.stat(os.path.join(directory, name))
                 except FileNotFoundError:
@@ -492,6 +520,9 @@ class ObjectStore:
         return batch
 
     def exists(self, ref: ObjectRef) -> bool:
+        """Is the ref's segment still published? A ref of another session
+        (a preempted run's, re-attached on resume) resolves like one of
+        this session's."""
         return self._find_segment(ref.object_id) is not None
 
     def free(self, refs) -> None:
@@ -520,12 +551,21 @@ class ObjectStore:
                         stats.spill_bytes += st.st_size
         return stats
 
-    def cleanup(self) -> None:
-        """Unlink every segment of this session in both directories,
-        unfinished ones included."""
+    def cleanup(self, session: Optional[str] = None, keep: Sequence[str] = ()) -> None:
+        """Unlink every segment of ``session`` (default: this one) in both
+        directories, unfinished ones included, except the object ids in
+        ``keep``. Sweeping an adopted session ends its adoption."""
+        session = self.session if session is None else session
+        keep = set(keep)
         for directory in (self.shm_dir, self.spill_dir):
-            for name, _ in list(self._session_files(directory, unfinished=True)):
+            for name, _ in list(self._session_files(directory, unfinished=True, sessions=[session])):
+                if name in keep:
+                    continue
                 try:
                     os.unlink(os.path.join(directory, name))
                 except FileNotFoundError:
                     pass
+        adopted = self.adopted_sessions()
+        if session in adopted and self._sessions_file is not None:
+            with open(self._sessions_file, "w") as f:
+                f.writelines(s + "\n" for s in adopted if s != session)

@@ -40,6 +40,13 @@ the JAX package's shuffle delivers under its default settings: the seeds,
 the draws and the group-by order are the same, whichever schedule and
 output form an epoch takes.
 
+**Journal** (``RSDL_JOURNAL`` or ``shuffle(resume_from=)``,
+:mod:`.runtime.journal`): the run's epoch window is journaled at the
+barriers, and a later run resumes it: completed epochs skipped, stage
+results re-attached while their segments survive (else run again from
+the seed), the delivery cursor honoured. Off, the journal module is not
+even imported.
+
 A ``stats_collector`` (a :class:`~.stats.TrialStatsCollector` actor's
 handle) hears, as the JAX package's does, each epoch's start and
 admission wait, each task's start and duration, and each reducer output
@@ -177,19 +184,42 @@ def _reduce_seed(seed: int, epoch: int, reducer: int) -> np.random.Generator:
     )
 
 
+def shuffle_plan_spec() -> Tuple[str, int]:
+    """``RSDL_SHUFFLE_PLAN`` parsed as the JAX package parses it:
+    ``("rowwise", 0)`` when unset or ``rowwise``, ``("block", G)`` for
+    ``block`` (G = 1) or ``block:G``; anything else raises ``ValueError``."""
+    env = os.environ.get("RSDL_SHUFFLE_PLAN", "").strip().lower()
+    if env in ("", "rowwise", "row", "off"):
+        return ("rowwise", 0)
+    if env == "block":
+        return ("block", 1)
+    if env.startswith("block:"):
+        try:
+            g = int(env.split(":", 1)[1])
+        except ValueError:
+            g = 0
+        if g >= 1:
+            return ("block", g)
+    raise ValueError(
+        f"RSDL_SHUFFLE_PLAN={env!r}: expected 'rowwise', 'block', or 'block:<G>' with integer G >= 1"
+    )
+
+
+def shuffle_plan_label() -> str:
+    """The plan as the JAX package labels it (``rowwise`` or ``block:G``):
+    part of a checkpoint cursor's and a journal run's stream identity."""
+    family, g = shuffle_plan_spec()
+    return family if family == "rowwise" else f"block:{g}"
+
+
 def check_shuffle_plan() -> None:
     """Only the rowwise plan family is ported: ``RSDL_SHUFFLE_PLAN`` unset
     or ``rowwise`` passes, ``block[:G]`` raises ``NotImplementedError``,
     anything else ``ValueError``."""
-    env = os.environ.get("RSDL_SHUFFLE_PLAN", "").strip().lower()
-    if env in ("", "rowwise", "row", "off"):
-        return
-    if env == "block" or env.startswith("block:"):
+    if shuffle_plan_spec()[0] == "block":
         raise NotImplementedError(
-            f"RSDL_SHUFFLE_PLAN={env!r}: the block plan family is not "
-            "ported yet; only 'rowwise' is"
+            f"RSDL_SHUFFLE_PLAN={shuffle_plan_label()!r}: the block plan family is not ported yet; only 'rowwise' is"
         )
-    raise ValueError(f"RSDL_SHUFFLE_PLAN={env!r}: expected 'rowwise' or 'block[:G]'")
 
 
 def _file_assignment(
@@ -791,6 +821,108 @@ def _device_layout_allowed(device_layout: Optional[dict]) -> Optional[dict]:
 # -- the epochs --------------------------------------------------------------------
 
 
+class _Resolved:
+    """A finished future's stand-in: a stage result re-attached from the
+    journal."""
+
+    def __init__(self, value):
+        self._value = value
+
+    def result(self, timeout=None):
+        return self._value
+
+    def done(self) -> bool:
+        return True
+
+
+def _journaled_refs(ref_dicts) -> Optional[List[ObjectRef]]:
+    """The refs of one journaled stage result when every segment is still
+    published, else None: the stage then runs again, with the same
+    result."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import journal as jmod
+
+    store = runtime.get_context().store
+    refs = [jmod.ref_from_json(d) for d in ref_dicts or []]
+    return refs if refs and all(store.exists(r) for r in refs) else None
+
+
+def _journaled_ref_dicts(resume_state):
+    """Every ref a folded journal names: map partitions, decode-cache
+    segments, reduce outputs."""
+    for st in resume_state.epochs.values():
+        for m in st.maps.values():
+            yield from m.get("refs") or []
+            if m.get("cache_ref"):
+                yield m["cache_ref"]
+        for refs in st.reduces.values():
+            yield from refs
+
+
+def _preempted_sessions(resume_state) -> List[str]:
+    """The sessions, other than this one, whose segments the journal names."""
+    cur = runtime.get_context().store.session
+    sessions = {resume_state.identity.get("session")}
+    sessions.update(d.get("session") for d in _journaled_ref_dicts(resume_state))
+    return sorted(s for s in sessions if s and s != cur)
+
+
+def _adopt_preempted(resume_state) -> None:
+    """At a resume's start: sweep the preempted sessions' segments that the
+    journal does not name (a dead queue's batches, half-written segments)
+    and count the rest towards this session's budget."""
+    store = runtime.get_context().store
+    named = {d["id"] for d in _journaled_ref_dicts(resume_state)}
+    for session in _preempted_sessions(resume_state):
+        store.cleanup(session=session, keep=named)
+        store.adopt_session(session)
+
+
+def _sweep_preempted(resume_state) -> None:
+    """At a resumed run's end: whatever is left of the preempted sessions
+    goes; a predecessor in this very session has its journaled refs that
+    were not re-attached freed one by one."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import journal as jmod
+
+    store = runtime.get_context().store
+    for session in _preempted_sessions(resume_state):
+        store.cleanup(session=session)
+    if resume_state.identity.get("session") == store.session:
+        store.free([jmod.ref_from_json(d) for d in _journaled_ref_dicts(resume_state)])
+
+
+def _seed_decode_cache(decode_cache: "_DecodeCache", resume_state) -> None:
+    """Re-attach the newest surviving decode-cache segment of each file."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import journal as jmod
+
+    store = runtime.get_context().store
+    best: Dict[int, ObjectRef] = {}
+    for e in sorted(resume_state.epochs):
+        for i, m in resume_state.epochs[e].maps.items():
+            if m.get("cache_ref"):
+                ref = jmod.ref_from_json(m["cache_ref"])
+                if store.exists(ref):
+                    best[int(i)] = ref
+    for i, ref in best.items():
+        decode_cache.register(i, _Resolved((None, ref)))
+
+
+def _count(stats: Optional[Dict[str, Any]], key: str, n: int = 1) -> None:
+    """Add to the run's resume counters (``stats["resume"]``)."""
+    if stats is not None and n:
+        counters = stats.setdefault("resume", {})
+        counters[key] = counters.get(key, 0) + n
+
+
+def _accepts_seq(consumer: BatchConsumer) -> bool:
+    """Does the consumer take a reducer's ``seq`` (idempotent delivery)?"""
+    import inspect
+
+    try:
+        return "seq" in inspect.signature(consumer.consume).parameters
+    except (TypeError, ValueError):
+        return False
+
+
 def _reclaim(store, fut, unwrap: bool = False) -> None:
     """Free what a task of a failed epoch published, once it has ended."""
     try:
@@ -815,7 +947,9 @@ def shuffle_epoch(
     device_layout: Optional[dict] = None,
     stats: Optional[Dict[str, Any]] = None,
     stats_collector=None,
-) -> None:
+    journal=None,
+    est=None,
+) -> bool:
     """One epoch's maps and reduces in the session's worker pool; each
     reducer's output refs go to its rank in reducer order, then every rank
     gets its end-of-epoch signal. The epoch takes the index schedule when
@@ -825,7 +959,15 @@ def shuffle_epoch(
     and packs. Partitions are freed as their reducer lands, the consumer
     frees the outputs, and a failed epoch frees what its tasks published.
     ``stats["store_peak_bytes"]`` keeps the store's peak, sampled after
-    the maps and after each reduce."""
+    the maps and after each reduce.
+
+    ``journal`` (a :class:`~.runtime.journal.RunJournal`): append the
+    epoch's barriers. ``est``: the epoch's journaled progress from a
+    preempted run: a fully delivered epoch runs no task, a stage whose
+    journaled segments survive is re-attached, and reducers below the
+    delivery cursor are not delivered again. Returns False when a suspend
+    request stopped the epoch (its running reduces journaled), else
+    True."""
     if stats_collector is not None:
         stats_collector.call_oneway("epoch_start", epoch)
     ctx = runtime.ensure_initialized()
@@ -840,13 +982,52 @@ def shuffle_epoch(
     schedule = "index" if cache_refs is not None else "mapreduce"
     if schedule_log is not None:
         schedule_log.append((epoch, schedule))
+    jmod = None
+    if journal is not None:
+        from ray_shuffling_data_loader_tpu_torch.runtime import journal as jmod
+    if est is not None and est.schedule is not None and est.schedule != schedule:
+        # Stage results of the other schedule do not fit this one's tasks;
+        # the cursor holds, as both schedules deliver the same stream.
+        pruned = type(est)(est.epoch)
+        pruned.schedule, pruned.delivered, pruned.rank_rows = schedule, est.delivered, dict(est.rank_rows)
+        est = pruned
+    cursor = est.delivered if est is not None else 0
+    if journal is not None:
+        journal.append("epoch", epoch=epoch, schedule=schedule)
+    if est is not None and cursor >= num_reducers:
+        # Delivered whole before the preemption: no map, no reduce.
+        _count(stats, "epochs_skipped")
+        for rank in range(num_trainers):
+            batch_consumer.producer_done(rank, epoch)
+        if journal is not None:
+            journal.append("epoch-done", epoch=epoch)
+        return True
+    consume_seq = journal is not None and _accepts_seq(batch_consumer)
 
     def sample():
         if stats is not None:
             stats["store_peak_bytes"] = max(stats.get("store_peak_bytes", 0), store.store_stats().total_bytes)
 
-    map_futs, publishing = [], []
+    def attached(journaled, stage: str, expect: Optional[int] = None):
+        """A journaled stage result whose segments all survive, else None
+        (the stage runs again)."""
+        if not journaled:
+            return None
+        refs = _journaled_refs(journaled)
+        if refs is None or (expect is not None and len(refs) != expect):
+            _count(stats, f"{stage}s_reexecuted")
+            return None
+        _count(stats, f"{stage}s_reattached")
+        return refs
+
+    map_futs, publishing, attached_maps = [], [], set()
     for file_index, filename in enumerate(filenames):
+        refs = attached((est.maps.get(file_index) or {}).get("refs"), "map", num_reducers) if est else None
+        if refs is not None:
+            map_futs.append(_Resolved(refs))
+            publishing.append(False)
+            attached_maps.add(file_index)
+            continue
         if schedule == "index":
             fut = pool.submit(
                 shuffle_plan, file_index, num_reducers, epoch, seed, cache_refs[file_index], stats_collector
@@ -865,33 +1046,78 @@ def shuffle_epoch(
     partitions: List[List[ObjectRef]] = []
     reduce_futs: list = []
     delivered = 0
+    completed = True
     try:
-        for fut, publish in zip(map_futs, publishing):
+        for i, (fut, publish) in enumerate(zip(map_futs, publishing)):
             out = fut.result()
             partitions.append(out[0] if publish else out)
+            if journal is not None and i not in attached_maps:
+                rec = {"refs": [jmod.ref_to_json(x) for x in partitions[-1]]}
+                if publish and out[1] is not None:
+                    rec["cache_ref"] = jmod.ref_to_json(out[1])
+                journal.append("map", epoch=epoch, file=i, **rec)
         sample()
         rank_of = rank_of_reducers(num_reducers, num_trainers)
         pack_for = _pack_starts(partitions, rank_of, device_layout)
+        attached_reduces = set()
         for r in range(num_reducers):
             parts_r = [parts[r] for parts in partitions]
-            if schedule == "index":
+            refs = attached(est.reduces.get(r), "reduce") if est is not None and r >= cursor else None
+            if r < cursor or refs is not None:
+                # Delivered already, or its output survived: the inputs go.
+                store.free(parts_r)
+                reduce_futs.append(None if r < cursor else _Resolved(refs))
+                if refs is not None:
+                    attached_reduces.add(r)
+            elif schedule == "index":
                 reduce_futs.append(pool.submit(
                     shuffle_gather_reduce, r, epoch, seed, parts_r, cache_refs, pack_for[r], stats_collector
                 ))
             else:
                 reduce_futs.append(pool.submit(shuffle_reduce, r, epoch, seed, parts_r, pack_for[r], stats_collector))
-        for r, fut in enumerate(reduce_futs):
+        _count(stats, "reducers_skipped", cursor)
+        delivered = cursor
+        for r in range(cursor, num_reducers):
+            fut = reduce_futs[r]
+            if jmod is not None and jmod.suspend_requested():
+                # The reducer just delivered was the quiesce window: journal
+                # the outputs of the reduces still running, so that the
+                # resume re-attaches them, and stop here.
+                deadline = time.monotonic() + 60.0
+                for r2 in range(r, num_reducers):
+                    if r2 in attached_reduces:
+                        continue
+                    try:
+                        out2 = reduce_futs[r2].result(timeout=max(0.0, deadline - time.monotonic()))
+                    except Exception:
+                        continue
+                    out2 = out2 if isinstance(out2, list) else [out2]
+                    journal.append("reduce", epoch=epoch, reducer=r2, refs=[jmod.ref_to_json(x) for x in out2])
+                delivered = num_reducers
+                completed = False
+                break
             out = fut.result()
             out = out if isinstance(out, list) else [out]
             sample()
-            store.free([parts[r] for parts in partitions])
-            batch_consumer.consume(int(rank_of[r]), epoch, out)
+            if r not in attached_reduces:
+                store.free([parts[r] for parts in partitions])
+                if journal is not None:
+                    journal.append("reduce", epoch=epoch, reducer=r, refs=[jmod.ref_to_json(x) for x in out])
+            rank = int(rank_of[r])
+            if consume_seq:
+                batch_consumer.consume(rank, epoch, out, seq=r)
+            else:
+                batch_consumer.consume(rank, epoch, out)
+            if journal is not None:
+                rows = sum(_ref_window_rows(ref) or 0 for ref in out)
+                journal.append("deliver", epoch=epoch, reducer=r, rank=rank, rows=int(rows), sampled=0)
             if stats_collector is not None:
-                stats_collector.call_oneway("consume", int(rank_of[r]), epoch, sum(ref.nbytes for ref in out))
+                stats_collector.call_oneway("consume", rank, epoch, sum(ref.nbytes for ref in out))
             delivered = r + 1
     except BaseException:
         for fut in reduce_futs[delivered:]:
-            _reclaim(store, fut)
+            if fut is not None and not isinstance(fut, _Resolved):
+                _reclaim(store, fut)
         for fut, publish in zip(map_futs[len(partitions):], publishing[len(partitions):]):
             _reclaim(store, fut, unwrap=publish)  # its cache segment is the decode cache's
         raise
@@ -900,6 +1126,9 @@ def shuffle_epoch(
             store.free(parts)
     for rank in range(num_trainers):
         batch_consumer.producer_done(rank, epoch)
+    if journal is not None and completed:
+        journal.append("epoch-done", epoch=epoch)
+    return completed
 
 
 def shuffle(
@@ -916,6 +1145,7 @@ def shuffle(
     device_layout: Optional[dict] = None,
     stats: Optional[Dict[str, Any]] = None,
     stats_collector=None,
+    resume_from: Optional[str] = None,
 ) -> float:
     """Shuffle every epoch from ``start_epoch`` into ``batch_consumer``;
     each epoch first waits for the consumer to admit it. Returns the
@@ -930,40 +1160,110 @@ def shuffle(
     ``{"batch": B, "columns": [...]}``; reducers then pack their whole
     batches (unless ``RSDL_DEVICE_DIRECT=off``). ``stats``: the resolved
     ``cache_decoded``, the epoch in progress (``epoch``), each epoch's
-    shuffle seconds (``epoch_shuffle_s``, admission excluded) and the
-    store's peak bytes. ``stats_collector``: a
+    shuffle seconds (``epoch_shuffle_s``, admission excluded), the
+    store's peak bytes, and on a journaled run its ``journal`` path and
+    the ``resume`` counters (stages re-attached and re-executed, epochs
+    and reducers skipped). ``stats_collector``: a
     :class:`~.stats.TrialStatsCollector` handle that hears the run's
     events (module docstring), ``trial_done`` with the run's seconds
-    last."""
+    last.
+
+    ``resume_from``: resume a preempted run from its journal: ``"auto"``
+    (or ``RSDL_RESUME=auto``) finds the newest resumable run under
+    ``RSDL_JOURNAL`` whose identity matches this call, ``"redeliver"``
+    re-attaches as ``"auto"`` does but delivers the whole stream again
+    (for a consumer that restarted), and a path names a journal file or
+    directory, refused on a mismatch. With
+    ``RSDL_JOURNAL`` set, every run journals its window, and on the main
+    thread SIGTERM suspends it (:mod:`.runtime.journal`)."""
     check_shuffle_plan()
     start = time.perf_counter()
     filenames = list(filenames)
+    device_layout = _device_layout_allowed(device_layout)
+    # Imported only when asked for: with RSDL_JOURNAL unset and no
+    # resume_from the journal module never loads and no handler is set.
+    jmod = journal = resume_state = None
+    if resume_from is not None or os.environ.get("RSDL_JOURNAL"):
+        from ray_shuffling_data_loader_tpu_torch.runtime import journal as jmod
+
+        identity = jmod.run_identity(
+            filenames, num_epochs, num_reducers, num_trainers, seed, start_epoch, narrow_to_32,
+            shuffle_plan_label(), None, device_layout,
+        )
+        resume_state, resume_mode = jmod.resolve_resume(resume_from, identity)
+        if not jmod.enabled() and resume_state is None:
+            jmod = None  # nothing to resume, nowhere to journal
+    if jmod is not None:
+        runtime.ensure_initialized()
+        jmod.clear_suspend()
+        journal = jmod.begin_run(identity, resume=resume_state, mode=resume_mode)
+        jmod.install_sigterm_handler()
+        if stats is not None:
+            stats["journal"] = journal.path
+            stats["resume"] = {"from_run": resume_state.run_id if resume_state else None, "mode": resume_mode}
+        if resume_state is not None:
+            _adopt_preempted(resume_state)
+            restore = getattr(batch_consumer, "restore_delivery_cursors", None)
+            cursors = {
+                f"{e}/{rank}": st.delivered
+                for e, st in resume_state.epochs.items() if st.delivered > 0 for rank in range(num_trainers)
+            }
+            if restore is not None and resume_mode == "cursor" and cursors:
+                # A reducer that reached the queue between its publish and
+                # its journal record is then dropped on re-publish.
+                restore(cursors)
     if cache_decoded is None:
         cache_decoded = _decode_cache_auto(filenames, num_epochs - start_epoch, narrow_to_32)
-    device_layout = _device_layout_allowed(device_layout)
     if stats is not None:
         stats["cache_decoded"] = cache_decoded
         stats.setdefault("epoch_shuffle_s", [])
     decode_cache = _DecodeCache(enabled=cache_decoded)
+    if resume_state is not None and cache_decoded:
+        _seed_decode_cache(decode_cache, resume_state)
+    suspended = False
     try:
-        for epoch in range(start_epoch, num_epochs):
-            if stats is not None:
-                stats["epoch"] = epoch
-            throttle_start = time.perf_counter()
-            batch_consumer.wait_until_ready(epoch)
-            t0 = time.perf_counter()
-            if stats_collector is not None:
-                stats_collector.call_oneway("epoch_throttle", epoch, t0 - throttle_start)
-            shuffle_epoch(
-                epoch, filenames, batch_consumer, num_reducers, num_trainers, seed,
-                narrow_to_32=narrow_to_32, decode_cache=decode_cache, schedule_log=schedule_log,
-                device_layout=device_layout, stats=stats, stats_collector=stats_collector,
-            )
-            if stats is not None:
-                stats["epoch_shuffle_s"].append(time.perf_counter() - t0)
-    finally:
-        decode_cache.free_all()
-    batch_consumer.wait_until_all_epochs_done()
+        try:
+            for epoch in range(start_epoch, num_epochs):
+                if jmod is not None and jmod.suspend_requested():
+                    suspended = True
+                    break
+                if stats is not None:
+                    stats["epoch"] = epoch
+                throttle_start = time.perf_counter()
+                batch_consumer.wait_until_ready(epoch)
+                t0 = time.perf_counter()
+                if stats_collector is not None:
+                    stats_collector.call_oneway("epoch_throttle", epoch, t0 - throttle_start)
+                est = resume_state.epochs.get(epoch) if resume_state is not None else None
+                if not shuffle_epoch(
+                    epoch, filenames, batch_consumer, num_reducers, num_trainers, seed,
+                    narrow_to_32=narrow_to_32, decode_cache=decode_cache, schedule_log=schedule_log,
+                    device_layout=device_layout, stats=stats, stats_collector=stats_collector,
+                    journal=journal, est=est,
+                ):
+                    suspended = True
+                    break
+                if stats is not None:
+                    stats["epoch_shuffle_s"].append(time.perf_counter() - t0)
+        finally:
+            if not suspended:
+                # A suspended window keeps its segments for the resume.
+                decode_cache.free_all()
+        if suspended:
+            journal.append("suspended")
+            if jmod.suspend_should_exit():
+                jmod.suspend_and_exit(journal)  # exits 0
+            jmod.end_run(journal, status="suspended")
+            raise jmod.RunSuspended(journal.path)
+        batch_consumer.wait_until_all_epochs_done()
+        if journal is not None:
+            if resume_state is not None:
+                _sweep_preempted(resume_state)
+            jmod.end_run(journal)
+    except BaseException as exc:
+        if journal is not None and not isinstance(exc, jmod.RunSuspended):
+            jmod.end_run(journal, status="failed")  # stays resumable
+        raise
     duration = time.perf_counter() - start
     if stats_collector is not None:
         stats_collector.call_oneway("trial_done", duration)

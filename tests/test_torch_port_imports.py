@@ -88,6 +88,47 @@ def test_running_the_port_loads_no_jax(tmp_path):
     assert "LOADED []" in out.stdout, out.stdout
 
 
+def test_checkpoint_journal_and_trainer_load_no_jax(tmp_path):
+    """The checkpoint, the shuffle's journal and the trainer, driven
+    through a journaled shuffle and a checkpoint round trip, load no JAX
+    module."""
+    script = textwrap.dedent(
+        f"""
+        import os, sys
+        sys.path.insert(0, {REPO!r})
+        os.environ["RSDL_JOURNAL"] = {str(tmp_path / "journal")!r}
+        import torch
+        import ray_shuffling_data_loader_tpu_torch as port
+        from ray_shuffling_data_loader_tpu_torch import train_dlrm
+        from ray_shuffling_data_loader_tpu_torch.runtime import journal
+
+        if __name__ == "__main__":
+            port.runtime.init(num_workers=1)
+            files, _ = port.generate_data(400, 2, 1, 0.0, {str(tmp_path / "data")!r})
+            ds = port.ShufflingDataset(files, 1, 1, 100, 0, num_reducers=2)
+            ds.set_epoch(0)
+            assert sum(b.num_rows for b in ds) == 400
+            ds.join()
+            assert journal.load_run(ds.shuffle_stats["journal"]).done
+            model = port.dlrm_for_data_spec(embed_dim=4, top_mlp=(8,), vocab_cap=16, device="cpu")
+            opt = port.make_optimizer(model)
+            mgr = port.CheckpointManager({str(tmp_path / "ck")!r})
+            mgr.save(1, cursor=port.BatchCursor(), state={{"model": model.state_dict(), "optimizer": opt.state_dict()}})
+            mgr.restore(target={{"model": model, "optimizer": opt}})
+            assert train_dlrm.parse_args(["--smoke"]).batch_size == 4096
+            port.runtime.shutdown()
+            loaded = sorted({{m.split(".")[0] for m in sys.modules}} & set({sorted(FORBIDDEN)!r}))
+            print("LOADED", loaded)
+        """
+    )
+    path = tmp_path / "drive.py"
+    path.write_text(script)
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA", "RSDL_"))}
+    out = subprocess.run([sys.executable, str(path)], capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     model = port.dlrm_for_data_spec(embed_dim=4, top_mlp=(8,), vocab_cap=16, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -106,6 +147,11 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         port.transformer_for_data_spec(embed_dim=4, num_layers=1, num_heads=2, vocab_cap=16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port.CausalLM(16, 8, embed_dim=4, num_layers=1, num_heads=2)
+    # The trainer, too, before it starts a session.
+    from ray_shuffling_data_loader_tpu_torch import train_dlrm
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_dlrm.main(["--smoke"])
     assert resolve_device("cpu") == torch.device("cpu")
     assert port.example_features(model, 4, device="cpu")[model.columns[0]].device.type == "cpu"
 

@@ -263,6 +263,7 @@ def worlds(tmp_path_factory):
         cache[world] = ({"feats": feats, "labels": labels, "bf16_labels": bf16_labels, "grads": grads}, params, results)
         return cache[world]
 
+    run.inputs_path, run.state_path = inputs_path, state_path
     return run
 
 
@@ -375,6 +376,26 @@ def test_adasum_ranks_agree_when_their_dot_products_round_differently(tmp_path):
     results = [np.load(str(tmp_path / f"rank{r}.npz")) for r in range(world)]
     for case in helpers.ADASUM_CASES:
         np.testing.assert_array_equal(results[0][f"adasum_{case}_0"], results[1][f"adasum_{case}_0"], err_msg=case)
+
+
+def test_adam_ranks_agree_when_their_vector_math_takes_other_paths(worlds, tmp_path):
+    """Two ranks whose MKL takes different code paths (one process held to
+    MKL's compatible path, as a host or a racing first call can make it)
+    must still end every Adam step with the same bits."""
+    spec = {"world": 2, "cases": ["adam"], "init_method": f"tcp://localhost:{_free_port()}",
+            "inputs": worlds.inputs_path, "state": worlds.state_path, "out_dir": str(tmp_path),
+            "threads": [2, 2]}
+    spec_path = str(tmp_path / "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    helper = os.path.join(REPO, "tests", "torch_port_helpers.py")
+    envs = [dict(os.environ), dict(os.environ, MKL_CBWR="COMPATIBLE")]
+    _wait_all([subprocess.Popen([sys.executable, helper, spec_path, str(r)], stderr=subprocess.PIPE, text=True,
+                                env=envs[r]) for r in range(2)])
+    results = [np.load(str(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    assert len(results[0].files) > 2
+    for key in results[0].files:
+        np.testing.assert_array_equal(results[0][key], results[1][key], err_msg=key)
 
 
 def test_bf16_wire_tracks_fp32(worlds):

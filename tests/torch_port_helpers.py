@@ -167,6 +167,26 @@ def _ddp_losses(torch, port, group, spec, rank, world):
     return out
 
 
+def _adam_params(torch, port, group, spec, rank, world):
+    """The parameters after three Adam (1e-3) steps on this rank's shards,
+    with the DDP and with the explicit mean step, from the same weights."""
+    data = np.load(spec["inputs"])
+    shard = data["labels"].shape[1] // world
+    rows = slice(rank * shard, (rank + 1) * shard)
+    out = {}
+    for kind in ("ddp", "mean"):
+        model = port.dlrm_for_data_spec(**SMALL_DLRM, compute_dtype=torch.float32, device="cpu")
+        model.load_state_dict(torch.load(spec["state"]))
+        opt = port.make_optimizer(model, lr=1e-3)
+        step = port.make_train_step(model, opt, group) if kind == "ddp" else port.make_psum_train_step(model, opt, group)
+        for s in range(data["labels"].shape[0]):
+            feats = {c: torch.from_numpy(data[f"feat_{c}"][s, rows]) for c in model.columns}
+            step(feats, torch.from_numpy(data["labels"][s, rows]))
+        for name, tensor in model.state_dict().items():
+            out[f"adam_{kind}_param_{name}"] = tensor.numpy()
+    return out
+
+
 def grad_rank_main(spec_path, rank):
     import torch
 
@@ -187,6 +207,8 @@ def grad_rank_main(spec_path, rank):
         out.update(_sgd_steps(torch, port, group, spec, rank, world))
     if "idle" in spec["cases"]:
         out.update(_idle_steps(torch, port, group, spec, rank, world))
+    if "adam" in spec["cases"]:
+        out.update(_adam_params(torch, port, group, spec, rank, world))
     if "ddp_loss" in spec["cases"]:
         out.update(_ddp_losses(torch, port, group, spec, rank, world))
     if "adasum" in spec["cases"]:
