@@ -65,16 +65,28 @@ Phases, each of which fails the script (non-zero exit) on any error:
    over ``gloo`` with ``DistributedDataParallel`` (mean) for 2 epochs; 3
    ranks over ``gloo`` with ``make_psum_train_step`` (Adasum, bf16 on the
    wire) for 1 epoch; 1 rank over ``nccl`` with ``make_psum_train_step``
-   (mean, bf16 on the wire) for 3 steps; batch 65536 per rank, 8 reducers
-   in rank 0's spawned worker pool, the full-width DLRM in bf16. Ranks step
-   until the last one runs out (a rank whose shard is done steps on its
-   last batch with its loss weighted 0). In each run every epoch must
-   deliver each key at most once across the ranks and each rank exactly
-   its full batches, all trained, every loss must be finite, every rank
-   must log the same loss (the global batch's) at every step, all ranks
-   must end with the same parameters bit for bit, and each rank must
-   launch the interaction kernel once per step, all on its tensor-core
-   route, and no flash kernel;
+   (mean, bf16 on the wire) for 3 steps; and ``dp2_mp2``: 4 ranks over
+   ``gloo``, 2 trainers × ``--model-parallelism 2`` with DDP over each data
+   group for 1 epoch, ``embeddings_name12`` and ``embeddings_name14``
+   sharded by rows over each model group (and nothing else), whose lead
+   reads the batch and broadcasts it to its peer; batch 65536 per data
+   index, 8 reducers in rank 0's spawned worker pool, the full-width DLRM
+   in bf16. Ranks step until the last one runs out (a rank whose shard is
+   done steps on its last batch with its loss weighted 0). In each run
+   every epoch must deliver each key at most once across the leads and
+   each lead exactly its full batches, all trained by every rank of its
+   model group, every loss must be finite, every rank must log the same
+   loss (the global batch's) at every step, the replicated parameters
+   must be bit-identical on every rank, each shard across its data group
+   and the gathered state on every rank, and each rank must launch the
+   interaction kernel once per step, all on its tensor-core route, and no
+   flash kernel; ``dp2_mp2``'s losses must be within 1e-4 of
+   ``ddp_mean_2``'s epoch 0 (the same batches). Each rank logs its
+   parameter and peak device bytes, the data-group reduce and the
+   lookup's model-group sum timed alone with their bytes, and its
+   start-up and shutdown (seconds since spawn to imports, runtime joined,
+   process groups, model built and sharded, optimizer made, step made,
+   pool ready, first batch, last step, report written, teardown);
 5. resident: the JAX package's flagship path at ``bench.py``'s quick
    shape: 11,904,761 rows in 16 files of 2 row groups (seed 0), batch
    250,000 (47 full batches per epoch), 2 epochs, seed 0; the 19 feature
@@ -914,14 +926,23 @@ def phase_slices(torch, data_dir: str) -> dict:
         port.runtime.shutdown()
 
 
-# (label, multirank arguments): the three runs of the ranks phase.
+# (label, multirank arguments): the four runs of the ranks phase.
 RANK_RUNS = (
     ("ddp_mean_2", ["--num-trainers", "2", "--backend", "gloo", "--step", "ddp", "--epochs", "2"]),
     ("adasum_bf16_3", ["--num-trainers", "3", "--backend", "gloo", "--step", "psum", "--grad-reduce", "adasum",
                        "--grad-dtype", "bfloat16", "--epochs", "1"]),
     ("nccl_1", ["--num-trainers", "1", "--backend", "nccl", "--step", "psum", "--grad-dtype", "bfloat16", "--epochs", "1",
                 "--max-steps", "3"]),
+    ("dp2_mp2", ["--num-trainers", "2", "--model-parallelism", "2", "--backend", "gloo", "--step", "ddp",
+                 "--epochs", "1"]),
 )
+# The tables the rule shards at full width over a model group of 2.
+SHARDED_AT_MP2 = ["embeddings.embeddings_name12.weight", "embeddings.embeddings_name14.weight"]
+# dp2_mp2 against ddp_mean_2 on the same batches: the forward is exact, so
+# only the order of the sharded tables' gradient sums may differ.
+MP_LOSS_TOL = 1e-4
+STARTUP_MARKS = ("imports", "runtime", "groups", "model", "optimizer", "step_made", "pool_ready", "first_batch",
+                 "last_step", "reported", "teardown")
 
 
 def phase_ranks(filenames, smi: str) -> dict:
@@ -940,25 +961,49 @@ def phase_ranks(filenames, smi: str) -> dict:
         wall = time.perf_counter() - t0
         if out["returncode"] != 0:
             raise AssertionError(f"[ranks] {label}: exit code {out['returncode']}: {out['problems']}")
+        want_sharded = SHARDED_AT_MP2 if args.model_parallelism == 2 else []
         for res in out["ranks"]:
             n = res["launches"]
             if (n["interaction"]["launches"] != res["steps"] or n["interaction"]["mma_launches"] != res["steps"]
                     or any(n[k]["launches"] for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))):
                 raise AssertionError(f"[ranks] {label} rank {res['rank']}: launches {n} in {res['steps']} steps, "
                                      "want one interaction per step, all on the tensor-core route, and no flash")
+            if res["sharded"] != want_sharded:
+                raise AssertionError(f"[ranks] {label} rank {res['rank']}: sharded {res['sharded']}, "
+                                     f"want {want_sharded}")
             e = res["epochs"]
-            log(f"[ranks] {label} rank {res['rank']} ({res['device']}): {res['steps']} steps "
+            lead = "rows_read" in e[0]
+            reading = (f"stall share {res['stall_share']!r}; first batch {[x['first_batch_s'] for x in e]!r} s; "
+                       f"get_batch round trip {min(x['get_batch_min_s'] for x in e)!r} s (min; median "
+                       f"{statistics.median(x['get_batch_median_s'] for x in e)!r} s); "
+                       if lead else "batches from its lead; ")
+            log(f"[ranks] {label} rank {res['rank']} (data {res['data_index']}, model {res['model_index']}; "
+                f"{res['device']}): {res['steps']} steps "
                 f"({', '.join(f"{x['steps']} ({x['idle']} idle) + {x['drained']} drained" for x in e)} per epoch), "
-                f"step median {res['step_ms_median']!r} ms (first {res['step_ms_first']!r} ms); collective "
-                f"(timed alone) {res['comm_ms']!r} ms for {res['comm_bytes']} B per step; stall share {res['stall_share']!r}; "
-                f"first batch {[x['first_batch_s'] for x in e]!r} s; get_batch round trip "
-                f"{min(x['get_batch_min_s'] for x in e)!r} s (min; median "
-                f"{statistics.median(x['get_batch_median_s'] for x in e)!r} s); worker pool ready "
-                f"{res['pool_ready_s']!r} s; shm {res['shm_dir']} {res['shm_free_bytes']} B free; store peak "
-                f"{res['store_peak_bytes']!r} B; peak device memory {res['peak_device_bytes']} B; "
-                f"launches {n['interaction']}; losses {res['losses'][0]!r} -> {res['losses'][-1]!r}")
+                f"step median {res['step_ms_median']!r} ms (first {res['step_ms_first']!r} ms); data-group "
+                f"collective (timed alone) {res['comm_ms']!r} ms for {res['comm_bytes']} B per step; lookup sum "
+                f"over the model group (timed alone) {res['lookup_sum_ms']!r} ms for {res['lookup_sum_bytes']!r} B "
+                f"per step; {reading}worker pool ready {res['pool_ready_s']!r} s; shm {res['shm_dir']} "
+                f"{res['shm_free_bytes']} B free; store peak {res['store_peak_bytes']!r} B; parameters "
+                f"{res['param_count']} ({res['param_bytes']} B; sharded {res['sharded']}); peak device memory "
+                f"{res['peak_device_bytes']} B; launches {n['interaction']}; losses {res['losses'][0]!r} -> "
+                f"{res['losses'][-1]!r}")
+            marks = res["startup_s"]
+            log(f"[ranks] {label} rank {res['rank']} start-up and shutdown, s since spawn: "
+                + ", ".join(f"{k} {marks[k]:.3f}" for k in STARTUP_MARKS if k in marks))
+        if label == "dp2_mp2":
+            ref = runs["ddp_mean_2"]["ranks"][0]
+            first = ref["losses"][: ref["epochs"][0]["steps"]]
+            got = out["ranks"][0]["losses"]
+            worst = max(abs(a - b) for a, b in zip(got, first)) if len(got) == len(first) else math.inf
+            if not worst <= MP_LOSS_TOL:
+                raise AssertionError(f"[ranks] dp2_mp2: losses {got} against ddp_mean_2's epoch 0 {first}: "
+                                     f"max difference {worst!r} > {MP_LOSS_TOL}")
+            log(f"[ranks] dp2_mp2: {len(got)} global losses within {MP_LOSS_TOL} of ddp_mean_2's epoch 0 on the same "
+                f"batches: max |difference| {worst!r}")
         log(f"[ranks] {label}: {len(out['ranks'])} ranks, exactly once in every epoch, finite losses, "
-            f"parameters bit-identical ({out['ranks'][0]['params_sha256'][:16]}), {wall:.1f} s ({smi})")
+            f"replicated parameters bit-identical on every rank, shards across their data group, gathered state "
+            f"({out['ranks'][0]['params_sha256'][:16]}) on every rank, {wall:.1f} s ({smi})")
         runs[label] = {"wall_s": wall, "ranks": out["ranks"]}
     log(f"[ranks] done in {time.perf_counter() - t_phase:.1f} s")
     return runs
@@ -1459,6 +1504,9 @@ def main() -> int:
                 counts = (lm if kname.endswith("_mma") else slices["tabtransformer"])["launches"]
             entry["launches"] = (counts[kname] if kname.endswith("_mma")
                                  else counts[kname] - counts[f"{kname}_mma"])
+            if kname == "interaction_mma":  # and on every rank of the vocab-sharded run
+                entry["launches_ranks_dp2_mp2"] = sum(
+                    res["launches"]["interaction"]["mma_launches"] for res in ranks["dp2_mp2"]["ranks"])
     except Exception:
         traceback.print_exc()
         print("chip_smoke: a phase failed", file=sys.stderr)

@@ -26,6 +26,7 @@ _EXPORTS = {
     "CheckpointManager": "checkpoint",
     "adam_state_dict_from_jax": "convert",
     "dlrm_state_dict_from_jax": "convert",
+    "gather_state_dict": "convert",
     "lm_state_dict_from_jax": "convert",
     "transformer_state_dict_from_jax": "convert",
     "DATA_SPEC": "data_generation",
@@ -60,7 +61,9 @@ _EXPORTS = {
     "init_data_parallel": "parallel",
     "make_optimizer": "parallel",
     "make_psum_train_step": "parallel",
+    "make_mesh": "parallel",
     "make_train_step": "parallel",
+    "shard_model": "parallel",
     "ColumnBatch": "runtime",
     "TorchShufflingDataset": "torch_dataset",
     "TrialStatsCollector": "stats",

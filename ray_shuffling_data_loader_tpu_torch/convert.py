@@ -17,6 +17,15 @@ the module does not have raises.
 :func:`adam_state_dict_from_jax` turns optax Adam's state (``count``,
 ``mu``, ``nu``, trees like the parameters) into ``torch.optim.Adam``'s
 ``state_dict`` for the same model, through the same name mapping.
+
+**Vocab sharding.** The DLRM's and TabTransformer's converters take a
+rank's place on the model axis (``model_index`` of ``model_size``) and
+return its shard: each table that the JAX package's rule
+(:func:`~.parallel.mesh.param_spec`, applied to the JAX name and shape
+that :func:`jax_name_and_shape` gives) selects is cut to that rank's
+rows. :func:`adam_state_dict_from_jax` cuts the moments as the model's
+tables are cut, and :func:`gather_state_dict` puts the full state back
+together on every rank.
 """
 
 from __future__ import annotations
@@ -25,6 +34,10 @@ from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ray_shuffling_data_loader_tpu_torch.parallel.mesh import DEFAULT_VOCAB_SHARD_THRESHOLD, param_spec
+from ray_shuffling_data_loader_tpu_torch.parallel.sharded_embedding import shard_rows, sharded_tables
 
 _EMBED_PREFIX = "embed_"
 _DENSE_PREFIX = "Dense_"
@@ -68,8 +81,60 @@ def _block(state: Dict[str, torch.Tensor], name: str, leaf: Mapping[str, Any]) -
             raise KeyError(f"unexpected encoder block parameter {name}/{sub}")
 
 
-def dlrm_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A ``state_dict`` for :class:`~.models.dlrm.TabularDLRM`."""
+def jax_name_and_shape(name: str, shape) -> Tuple[str, Tuple[int, ...]]:
+    """The JAX package's name (its path under ``params``, joined by ``/``)
+    and shape of the port's parameter ``name`` of ``shape``: a dense
+    kernel is the transpose of an ``nn.Linear`` weight."""
+    parts = name.split(".")
+    shape = tuple(shape)
+    if parts[0] == "embeddings" and len(parts) == 3:
+        return f"{_EMBED_PREFIX}{parts[1]}", shape
+    if parts[0] in ("col_embed", "token_embed", "pos_embed") and len(parts) == 1:
+        return parts[0], shape
+    if parts[0] == "mlp" and len(parts) == 3:
+        prefix, dense, leaf = f"{_DENSE_PREFIX}{parts[1]}", True, parts[2]
+    elif parts[0] == "blocks" and len(parts) == 4:
+        prefix, dense, leaf = f"{_BLOCK_PREFIX}{parts[1]}/{parts[2]}", parts[2] in _BLOCK_DENSES, parts[3]
+    elif parts[0] in ("ln_out", "head") and len(parts) == 2:
+        prefix, dense, leaf = parts[0], parts[0] == "head", parts[1]
+    else:
+        raise KeyError(f"no JAX name for parameter {name!r}")
+    if leaf == "bias":
+        return f"{prefix}/bias", shape
+    return (f"{prefix}/kernel", shape[::-1]) if dense else (f"{prefix}/scale", shape)
+
+
+def sharded_names(named_shapes, model_size: int, vocab_shard_threshold: int = DEFAULT_VOCAB_SHARD_THRESHOLD):
+    """The names among ``(name, shape)`` pairs of the port's parameters
+    that the JAX package's rule shards over ``model_size`` ranks. Only
+    embedding tables can be sharded here: any other selected parameter
+    raises ``NotImplementedError``."""
+    names = []
+    for name, shape in named_shapes:
+        if param_spec(jax_name_and_shape(name, shape)[1], model_size, vocab_shard_threshold):
+            if not (name.startswith("embeddings.") and name.endswith(".weight")):
+                raise NotImplementedError(f"the vocab-sharding rule selects {name!r}, which is not an embedding "
+                                          "table; only tables can be sharded")
+            names.append(name)
+    return names
+
+
+def _shard(state: Dict[str, torch.Tensor], model_index: int, model_size: int, threshold: int):
+    """``state`` with each table the rule selects cut to rank
+    ``model_index``'s rows."""
+    for name in sharded_names(((k, v.shape) for k, v in state.items()), model_size, threshold):
+        state[name] = shard_rows(state[name], model_index, model_size)
+    return state
+
+
+def dlrm_state_dict_from_jax(
+    params: Mapping[str, Any],
+    model_index: int = 0,
+    model_size: int = 1,
+    vocab_shard_threshold: int = DEFAULT_VOCAB_SHARD_THRESHOLD,
+) -> Dict[str, torch.Tensor]:
+    """A ``state_dict`` for :class:`~.models.dlrm.TabularDLRM`; with
+    ``model_size`` > 1, rank ``model_index``'s shard of it."""
     state: Dict[str, torch.Tensor] = {}
     for name, leaf in _unwrap(params).items():
         if name.startswith(_EMBED_PREFIX):
@@ -78,11 +143,17 @@ def dlrm_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
             _dense(state, f"mlp.{int(name[len(_DENSE_PREFIX):])}", leaf)
         else:
             raise KeyError(f"unexpected DLRM parameter {name!r}")
-    return state
+    return _shard(state, model_index, model_size, vocab_shard_threshold)
 
 
-def transformer_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A ``state_dict`` for :class:`~.models.transformer.TabTransformer`."""
+def transformer_state_dict_from_jax(
+    params: Mapping[str, Any],
+    model_index: int = 0,
+    model_size: int = 1,
+    vocab_shard_threshold: int = DEFAULT_VOCAB_SHARD_THRESHOLD,
+) -> Dict[str, torch.Tensor]:
+    """A ``state_dict`` for :class:`~.models.transformer.TabTransformer`;
+    with ``model_size`` > 1, rank ``model_index``'s shard of it."""
     state: Dict[str, torch.Tensor] = {}
     for name, leaf in _unwrap(params).items():
         if name.startswith(_EMBED_PREFIX):
@@ -97,7 +168,7 @@ def transformer_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torc
             _dense(state, "head", leaf)
         else:
             raise KeyError(f"unexpected TabTransformer parameter {name!r}")
-    return state
+    return _shard(state, model_index, model_size, vocab_shard_threshold)
 
 
 def lm_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -142,7 +213,8 @@ def adam_state_dict_from_jax(opt_state, model: torch.nn.Module, lr: float = 1e-3
     TabTransformer or CausalLM of the port) from optax ``adam``'s state:
     the moments go through the parameter mapping of the matching
     ``*_state_dict_from_jax``, ``count`` becomes every parameter's
-    ``step``. The parameter groups are those of
+    ``step``. The moments of a sharded table are cut to the model's rows
+    of it. The parameter groups are those of
     :func:`~.parallel.train.make_optimizer` with ``lr`` (optax's state
     does not hold the learning rate)."""
     from ray_shuffling_data_loader_tpu_torch.models import CausalLM, TabTransformer
@@ -155,6 +227,10 @@ def adam_state_dict_from_jax(opt_state, model: torch.nn.Module, lr: float = 1e-3
         else dlrm_state_dict_from_jax
     )
     mu_t, nu_t = convert(mu), convert(nu)
+    for prefix, table in sharded_tables(model).items():
+        for moments in (mu_t, nu_t):
+            name = f"{prefix}.weight"
+            moments[name] = shard_rows(moments[name], table.mesh.model_index, table.mesh.model_size)
     names = [name for name, _ in model.named_parameters()]
     if set(names) != set(mu_t):
         raise KeyError(f"Adam moments do not match the model's parameters: {sorted(set(names) ^ set(mu_t))}")
@@ -164,3 +240,16 @@ def adam_state_dict_from_jax(opt_state, model: torch.nn.Module, lr: float = 1e-3
         for i, name in enumerate(names)
     }
     return {"state": state, "param_groups": make_optimizer(model, lr=lr).state_dict()["param_groups"]}
+
+
+def gather_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's full ``state_dict``, on every rank: each sharded table's
+    shards all-gathered over its model group (a collective: every rank of
+    the mesh calls it), the rest as the rank holds it."""
+    state = dict(model.state_dict())
+    for prefix, table in sharded_tables(model).items():
+        shard = table.weight.detach()
+        parts = [torch.empty_like(shard) for _ in range(table.mesh.model_size)]
+        dist.all_gather(parts, shard, group=table.mesh.model_group)
+        state[f"{prefix}.weight"] = torch.cat(parts)
+    return state

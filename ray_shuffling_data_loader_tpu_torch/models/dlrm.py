@@ -3,7 +3,8 @@ columns.
 
 * one embedding table per column, taken in ``sorted()`` column-name order
   (so ``embeddings_name10`` follows ``embeddings_name1``), ids folded into
-  the table with ``% vocab``;
+  the table with ``% vocab``; a table may be sharded by rows over a model
+  group (:func:`~..parallel.shard_model`);
 * the ``[B, 19, D]`` stack and its pairwise dot interaction
   (:func:`~..ops.dot_interaction`, the CUDA kernel on the GPU);
 * a top MLP over ``[stack, interaction]`` that computes in ``compute_dtype``
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ray_shuffling_data_loader_tpu_torch.ops import dot_interaction, num_pairs
+from ray_shuffling_data_loader_tpu_torch.parallel.sharded_embedding import embed_columns
 from ray_shuffling_data_loader_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -67,11 +69,8 @@ class TabularDLRM(nn.Module):
     def forward(self, features: Dict[str, torch.Tensor]) -> torch.Tensor:
         """``features``: column -> integer ``[B]`` ids. Returns float32
         ``[B]`` logits."""
-        embeds = []
-        for col in self.columns:
-            idx = (features[col].reshape(-1) % self.vocab_sizes[col]).long()
-            embeds.append(F.embedding(idx, self.embeddings[col].weight).to(self.compute_dtype))
-        stacked = torch.stack(embeds, dim=1)  # [B, N, D]
+        embeds = embed_columns(self.embeddings, self.columns, self.vocab_sizes, features)
+        stacked = torch.stack([e.to(self.compute_dtype) for e in embeds], dim=1)  # [B, N, D]
         inter = dot_interaction(stacked)
         x = torch.cat([stacked.reshape(stacked.shape[0], -1), inter], dim=-1)
         cdt = self.compute_dtype

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ray_shuffling_data_loader_tpu_torch.ops import flash_attention_qkv
+from ray_shuffling_data_loader_tpu_torch.parallel.sharded_embedding import embed_columns
 from ray_shuffling_data_loader_tpu_torch.utils.device import DeviceLike, resolve_device
 
 LN_EPS = 1e-6  # flax's LayerNorm epsilon
@@ -142,10 +143,7 @@ class TabTransformer(nn.Module):
     def forward(self, features: Dict[str, torch.Tensor]) -> torch.Tensor:
         """``features``: column -> integer ``[B]`` ids. Returns float32
         ``[B]`` logits."""
-        tokens = []
-        for col in self.columns:
-            idx = (features[col].reshape(-1) % self.vocab_sizes[col]).long()
-            tokens.append(F.embedding(idx, self.embeddings[col].weight))
+        tokens = embed_columns(self.embeddings, self.columns, self.vocab_sizes, features)
         x = (torch.stack(tokens, dim=1) + self.col_embed[None]).to(self.compute_dtype)
         for block in self.blocks:
             x = block(x)

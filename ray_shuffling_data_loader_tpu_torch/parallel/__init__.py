@@ -1,4 +1,13 @@
-from ray_shuffling_data_loader_tpu_torch.parallel.mesh import DATA_AXIS, init_data_parallel
+from ray_shuffling_data_loader_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    DEFAULT_VOCAB_SHARD_THRESHOLD,
+    MODEL_AXIS,
+    Mesh,
+    init_data_parallel,
+    make_mesh,
+    param_spec,
+)
+from ray_shuffling_data_loader_tpu_torch.parallel.sharded_embedding import ShardedEmbedding
 from ray_shuffling_data_loader_tpu_torch.parallel.train import (
     adasum_reduce,
     bce_loss,
@@ -7,16 +16,24 @@ from ray_shuffling_data_loader_tpu_torch.parallel.train import (
     make_psum_train_step,
     make_train_step,
     ranks_with_batch,
+    shard_model,
 )
 
 __all__ = [
     "DATA_AXIS",
+    "DEFAULT_VOCAB_SHARD_THRESHOLD",
+    "MODEL_AXIS",
+    "Mesh",
+    "ShardedEmbedding",
     "adasum_reduce",
     "bce_loss",
     "broadcast_parameters",
     "init_data_parallel",
+    "make_mesh",
     "make_optimizer",
     "make_psum_train_step",
     "make_train_step",
+    "param_spec",
     "ranks_with_batch",
+    "shard_model",
 ]

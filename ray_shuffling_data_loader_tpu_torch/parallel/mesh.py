@@ -1,25 +1,39 @@
-"""The data-parallel process group: the port's ``data`` mesh axis.
+"""The ranks' process groups: the port's ``(data, model)`` mesh.
 
 Each trainer rank is one process. :func:`init_data_parallel` joins the
-ranks into one ``torch.distributed`` group over which the gradients are
-reduced. The backend is always the caller's choice: ``"nccl"`` with one
-CUDA device per rank, ``"gloo"`` where ranks share a device (NCCL refuses
-two ranks on one device; gloo carries CUDA tensors through host memory)
-or run on the CPU.
+ranks into one ``torch.distributed`` world. The backend is always the
+caller's choice: ``"nccl"`` with one CUDA device per rank, ``"gloo"``
+where ranks share a device (NCCL refuses two ranks on one device; gloo
+carries CUDA tensors through host memory) or run on the CPU.
+
+:func:`make_mesh` lays the world out as the JAX package's ``(data,
+model)`` grid: rank ``r`` is data index ``r // M`` and model index
+``r % M``. Gradients are reduced over the ``data`` group (the ranks that
+hold the same rows of every table); the tall embedding tables that
+:func:`param_spec` selects are split by rows over the ``model`` group (the
+ranks that see the same batch).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
 BACKENDS = ("nccl", "gloo")
+
+# Embedding tables at least this tall get their vocab dim sharded over
+# MODEL_AXIS; everything smaller replicates.
+DEFAULT_VOCAB_SHARD_THRESHOLD = 16_384
 
 
 def init_data_parallel(rank: int, world_size: int, backend: str, init_method: str):
-    """Join rank ``rank`` of ``world_size`` into the data-parallel group
-    and return it (the default group).
+    """Join rank ``rank`` of ``world_size`` into the world and return it
+    (the default group).
 
     ``init_method`` is the rendezvous, e.g. ``tcp://localhost:<port>``.
     With ``"nccl"`` the ranks must not outnumber the host's CUDA devices:
@@ -37,3 +51,73 @@ def init_data_parallel(rank: int, world_size: int, backend: str, init_method: st
         )
     dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world_size)
     return dist.group.WORLD
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """One rank's place in the ``(data, model)`` grid and its two groups.
+
+    ``data_group`` holds the ranks of model index ``model_index`` (the
+    world when ``model_size`` is 1); ``model_group`` the ranks of data
+    index ``data_index`` (None when ``model_size`` is 1)."""
+
+    data_index: int
+    model_index: int
+    data_size: int
+    model_size: int
+    data_group: Any
+    model_group: Optional[Any]
+
+    @property
+    def is_lead(self) -> bool:
+        """The first rank of its model group: the one that reads the batch."""
+        return self.model_index == 0
+
+
+def make_mesh(model_parallelism: int = 1, world: Optional[int] = None) -> Mesh:
+    """This rank's :class:`Mesh` over the initialised world of ``world``
+    ranks (default: its size).
+
+    ``model_parallelism`` must divide the world; the data axis takes the
+    rest. Every rank makes every group, in the same order, as
+    ``dist.new_group`` requires. ``model_parallelism=1`` is pure data
+    parallelism over the world and makes no group."""
+    if world is None:
+        world = dist.get_world_size()
+    if model_parallelism < 1 or world % model_parallelism != 0:
+        raise ValueError(f"model_parallelism={model_parallelism} does not divide world size {world}")
+    m_size, d_size = model_parallelism, world // model_parallelism
+    rank = dist.get_rank()
+    d, m = divmod(rank, m_size)
+    if m_size == 1:
+        return Mesh(d, 0, d_size, 1, dist.group.WORLD, None)
+    data_group = model_group = None
+    for j in range(m_size):  # ranks with model index j
+        group = dist.new_group([i * m_size + j for i in range(d_size)])
+        if j == m:
+            data_group = group
+    for i in range(d_size):  # ranks with data index i
+        group = dist.new_group([i * m_size + j for j in range(m_size)])
+        if i == d:
+            model_group = group
+    return Mesh(d, m, d_size, m_size, data_group, model_group)
+
+
+def param_spec(
+    shape: Tuple[int, ...],
+    model_size: int,
+    vocab_shard_threshold: int = DEFAULT_VOCAB_SHARD_THRESHOLD,
+) -> Tuple[Optional[str], ...]:
+    """The JAX package's sharding rule for one parameter of ``shape`` (in
+    the JAX package's layout), as a partition spec: ``(MODEL_AXIS, None)``
+    for a 2-D array whose leading (vocab) dimension is at least
+    ``vocab_shard_threshold`` and divisible by ``model_size`` > 1, else
+    ``()`` (replicated)."""
+    if (
+        len(shape) == 2
+        and shape[0] >= vocab_shard_threshold
+        and shape[0] % model_size == 0
+        and model_size > 1
+    ):
+        return (MODEL_AXIS, None)
+    return ()

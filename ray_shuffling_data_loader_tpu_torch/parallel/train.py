@@ -13,6 +13,11 @@ The gradient plane has two forms, as in the JAX package:
 * :func:`make_psum_train_step` reduces explicitly after ``backward()``:
   the mean (an all-reduce sum over the world size) or Adasum
   (:func:`adasum_reduce`), optionally in a narrower dtype on the wire.
+
+Over a ``(data, model)`` mesh (:func:`~.mesh.make_mesh`),
+:func:`shard_model` cuts the tall embedding tables to this rank's rows
+(the counterpart of the JAX package's sharded ``init_state``) and
+:func:`make_train_step` reduces over the mesh's data group.
 """
 
 from __future__ import annotations
@@ -23,6 +28,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ray_shuffling_data_loader_tpu_torch.parallel.mesh import DEFAULT_VOCAB_SHARD_THRESHOLD, Mesh
+from ray_shuffling_data_loader_tpu_torch.parallel.sharded_embedding import ShardedEmbedding, model_mesh, shard_rows
 
 Step = Callable[..., Dict[str, torch.Tensor]]
 
@@ -56,6 +64,32 @@ def _device_of(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def shard_model(
+    model: nn.Module,
+    mesh: Mesh,
+    vocab_shard_threshold: Optional[int] = None,
+    device: Optional[torch.device] = None,
+) -> nn.Module:
+    """Replace each embedding table that the JAX package's rule selects
+    (:func:`~..convert.sharded_names`: at least ``vocab_shard_threshold``
+    rows, default 16,384, divisible by the model size) by this rank's
+    :class:`~.sharded_embedding.ShardedEmbedding` of it, then move the
+    model to ``device``. Build the model on the host: its full tables then
+    never reach the device, and only the shards (and, once the optimizer
+    is made, their moments) live there. A rule that selects anything but
+    a table raises ``NotImplementedError``. Returns the model."""
+    from ray_shuffling_data_loader_tpu_torch.convert import sharded_names
+
+    threshold = DEFAULT_VOCAB_SHARD_THRESHOLD if vocab_shard_threshold is None else vocab_shard_threshold
+    shapes = [(name, p.shape) for name, p in model.named_parameters()]
+    for name in sharded_names(shapes, mesh.model_size, threshold):
+        parent, col, _ = name.split(".")
+        tables = model.get_submodule(parent)
+        weight = tables[col].weight.detach()
+        tables[col] = ShardedEmbedding(shard_rows(weight, mesh.model_index, mesh.model_size), weight.shape[0], mesh)
+    return model if device is None else model.to(device)
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, group=None) -> Step:
     """``step(features, labels, ranks_active=None, idle=False) -> {"loss"}``:
     one forward, backward and optimizer update. The loss comes back as a
@@ -76,9 +110,17 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, group=No
     by ``world / ranks_active``, so the gradient is the mean over the
     ranks that brought a batch.
 
+    A model sharded by :func:`shard_model` takes its mesh's data group (the
+    ranks that hold the same rows): any other group raises ``ValueError``,
+    since it would average different shards together.
+
     The step carries its ``model`` and ``optimizer`` as attributes."""
     net: nn.Module = model
     world = 1
+    mesh = model_mesh(model)
+    if mesh is not None and group is not mesh.data_group:
+        raise ValueError("a model with sharded tables reduces its gradients over its mesh's data group; "
+                         "pass group=mesh.data_group")
     if group is not None:
         device = _device_of(model)
         net = nn.parallel.DistributedDataParallel(
@@ -297,6 +339,9 @@ def make_psum_train_step(
         raise ValueError(f"grad_reduce must be 'mean' or 'adasum', got {grad_reduce!r}")
     if group is None:
         raise ValueError("make_psum_train_step needs a process group; see init_data_parallel")
+    if model_mesh(model) is not None:
+        raise ValueError("make_psum_train_step requires replicated parameters; a model with sharded tables "
+                         "trains with make_train_step")
     world = dist.get_world_size(group)
     broadcast_parameters(model, group)
     params = [p for p in model.parameters() if p.requires_grad]

@@ -88,11 +88,13 @@ class WorkerPool:
         # (None until then): the executor starts a process per task while
         # none is idle, so this is the pool's start-up.
         self.ready_s: Optional[float] = None
+        self.ready_at: Optional[float] = None  # the same moment, as ``time.time()``
         warm = [self._executor.submit(os.getpid) for _ in range(num_workers)]
 
         def ready(_):
             if all(f.done() for f in warm):
                 self.ready_s = time.perf_counter() - t0
+                self.ready_at = time.time()
 
         for f in warm:
             f.add_done_callback(ready)

@@ -32,9 +32,10 @@ shuffle re-attach what the preempted run had already computed
 (:mod:`.runtime.journal`).
 
 ``--model-parallelism`` above 1, ``--grad-reduce mean|adasum`` and
-``--grad-bf16`` are the JAX example's multi-device gradient planes; the
-port has them only across processes (:mod:`.multirank`) and raises
-``NotImplementedError`` here.
+``--grad-bf16`` are the JAX example's multi-device planes. One process
+drives one card here, so the port has them only across processes, one
+per rank (:mod:`.multirank`, with ``--model-parallelism M`` for the
+vocab-sharded tables), and raises ``NotImplementedError`` here.
 
 ``--record DIR`` writes each trained step's ``key`` column
 (``keys-<step>.npy``) and a line of ``steps.jsonl`` (step, epoch, batch,
@@ -54,7 +55,7 @@ import sys
 import time
 from typing import List
 
-_NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 5: vocab sharding over a model group)"
+_MULTIRANK = "one process drives one card; run the ranks as processes with python -m ray_shuffling_data_loader_tpu_torch.multirank"
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -135,11 +136,12 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     args = parse_args(argv)
     if args.model_parallelism != 1:
-        raise NotImplementedError(f"--model-parallelism {args.model_parallelism}: {_NOT_PORTED}")
+        raise NotImplementedError(
+            f"--model-parallelism {args.model_parallelism}: {_MULTIRANK} --model-parallelism {args.model_parallelism}"
+        )
     if args.grad_reduce != "pjit" or args.grad_bf16:
         raise NotImplementedError(
-            f"--grad-reduce {args.grad_reduce}{' --grad-bf16' if args.grad_bf16 else ''} in one process: "
-            f"{_NOT_PORTED}; data-parallel ranks run as processes in multirank"
+            f"--grad-reduce {args.grad_reduce}{' --grad-bf16' if args.grad_bf16 else ''}: {_MULTIRANK} --step psum"
         )
 
     import numpy as np

@@ -223,5 +223,97 @@ def grad_rank_main(spec_path, rank):
     return 0
 
 
+# -- the trainer rank of the model-parallel tests -------------------------------
+
+# The models of the model-parallel tests, each with the arguments of the
+# port's constructor and its vocab-shard threshold: the small DLRM of
+# tests/test_models_parallel.py and the TabTransformer of
+# tests/test_transformer.py's sharded step, both in float32.
+MP_MODELS = {
+    "dlrm": (dict(SMALL_DLRM), 512),
+    "transformer": (dict(embed_dim=16, num_layers=1, num_heads=2, vocab_cap=2048), 512),
+}
+MP_LR = 1e-3
+FORBIDDEN_TOP_LEVELS = {"jax", "flax", "optax", "ray_shuffling_data_loader_tpu"}
+
+
+def _mp_model(torch, port, kind, params, mesh=None):
+    """The port's model ``kind`` with the JAX weights ``params``, sharded
+    over ``mesh`` when given (its state converted as rank
+    ``mesh.model_index``'s shard)."""
+    kwargs, threshold = MP_MODELS[kind]
+    build = port.dlrm_for_data_spec if kind == "dlrm" else port.transformer_for_data_spec
+    convert = port.dlrm_state_dict_from_jax if kind == "dlrm" else port.transformer_state_dict_from_jax
+    model = build(**kwargs, compute_dtype=torch.float32, device="cpu")
+    if mesh is None:
+        model.load_state_dict(convert(params))
+        return model
+    port.shard_model(model, mesh, threshold)
+    model.load_state_dict(convert(params, mesh.model_index, mesh.model_size, threshold))
+    return model
+
+
+def mp_rank_main(spec, rank):
+    """Rank ``rank`` of a ``(data, model)`` world: for each model kind, the
+    sharded forward against the unsharded one (``forward``), the gathered
+    initial state (``gather``), and three Adam steps from the JAX
+    package's initial state on data index ``d``'s rows of each global
+    batch (``train``)."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    import ray_shuffling_data_loader_tpu_torch as port
+    from ray_shuffling_data_loader_tpu_torch.convert import adam_state_dict_from_jax, gather_state_dict
+    from ray_shuffling_data_loader_tpu_torch.parallel.sharded_embedding import sharded_tables
+
+    torch.set_num_threads(1)
+    port.init_data_parallel(rank, spec["world"], "gloo", spec["init_method"])
+    mesh = port.make_mesh(spec["model_parallelism"])
+    out = {}
+    for kind in MP_MODELS:
+        with open(spec[f"{kind}_state"], "rb") as f:
+            state = pickle.load(f)
+        data = np.load(spec[f"{kind}_inputs"])
+        columns = sorted(c[len("feat_"):] for c in data.files if c.startswith("feat_"))
+        model = _mp_model(torch, port, kind, state["params"], mesh)
+        out[f"{kind}_sharded"] = np.asarray(sorted(sharded_tables(model)))
+        if "forward" in spec["cases"]:
+            full = _mp_model(torch, port, kind, state["params"])
+            feats = {c: torch.from_numpy(data[f"feat_{c}"][0]) for c in columns}
+            with torch.no_grad():
+                out[f"{kind}_forward_sharded"] = model(feats).numpy()
+                out[f"{kind}_forward_full"] = full(feats).numpy()
+        if "gather" in spec["cases"]:
+            for name, tensor in gather_state_dict(model).items():
+                out[f"{kind}_gathered_{name}"] = tensor.numpy()
+        if "train" in spec["cases"]:
+            opt = port.make_optimizer(model, lr=MP_LR)
+            opt.load_state_dict(adam_state_dict_from_jax(state["opt_state"], model, lr=MP_LR))
+            step = port.make_train_step(model, opt, mesh.data_group)
+            shard = data["labels"].shape[1] // mesh.data_size
+            rows = slice(mesh.data_index * shard, (mesh.data_index + 1) * shard)
+            losses = []
+            for s in range(data["labels"].shape[0]):
+                feats = {c: torch.from_numpy(data[f"feat_{c}"][s, rows]) for c in columns}
+                losses.append(float(step(feats, torch.from_numpy(data["labels"][s, rows]))["loss"]))
+            out[f"{kind}_losses"] = np.asarray(losses)
+            for name, tensor in gather_state_dict(model).items():
+                out[f"{kind}_param_{name}"] = tensor.numpy()
+            for name, p in model.named_parameters():
+                out[f"{kind}_shard_{name}"] = p.detach().numpy()
+                out[f"{kind}_exp_avg_{name}"] = opt.state[p]["exp_avg"].numpy()
+                out[f"{kind}_exp_avg_sq_{name}"] = opt.state[p]["exp_avg_sq"].numpy()
+    out["loaded_jax"] = np.asarray(sorted({m.split(".")[0] for m in sys.modules} & FORBIDDEN_TOP_LEVELS))
+    np.savez(os.path.join(spec["out_dir"], f"rank{rank}.npz"), **out)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 if __name__ == "__main__":
+    with open(sys.argv[1]) as f:
+        spec = json.load(f)
+    if "model_parallelism" in spec:
+        sys.exit(mp_rank_main(spec, int(sys.argv[2])))
     sys.exit(grad_rank_main(sys.argv[1], int(sys.argv[2])))
