@@ -11,6 +11,17 @@ Phases, each of which fails the script (non-zero exit) on any error:
    ``interaction_mma.cu``, ``flash_fwd_mma.cu``, ``flash_bwd_dkv_mma.cu``,
    ``flash_bwd_dq_mma.cu``; one ``nvcc`` each, all started together) into
    ``build/kernels/`` and log each kernel's registers and spills;
+   native: build the shuffle's host kernels
+   (``ray_shuffling_data_loader_tpu_torch/native/kernels.cc``, g++) and
+   hold every entry point against its plain numpy version, bit for bit, at
+   the shapes the shuffle gives it: the map of one Quick-start file
+   (100,000 rows, 21 columns, 8 reducers: the narrowing and the group-by
+   scatter), one reducer's fused concat-gather over 8 parts and its
+   permutation (125,000 rows), one file of the resident phase (744,048
+   rows: the group-by, the scatter) and the probe's 8 M rows (both
+   gathers, the scatter, the group-by, the narrowing); log each one's
+   GB/s, its numpy version's and its thread count against the host's
+   copy rate, and the schedule policy's probe with the kernels on and off;
 2. kernel: hold each kernel against its plain PyTorch version on the card:
    the interaction (K1) on its tensor-core route at the DLRM's ``(65536,
    19, 32)`` bf16 and the resident phase's ``(250000, 19, 32)``, a batch
@@ -50,13 +61,23 @@ Phases, each of which fails the script (non-zero exit) on any error:
    against the store's budget, the host probe's figures, direct and
    carried batches with the host time per batch of each kind, the
    staging stall, each epoch's shuffle seconds and the store's peak;
+   every run's host passes (take or take_multi, the narrowing, the
+   group-by scatter) must have run on the C++ kernels and none on numpy;
    delivery: on the same dataset, delivery only (no step) for 2 epochs
-   three ways: the defaults; ``RSDL_INDEX_SHUFFLE=on``; and
+   six ways: the defaults; ``RSDL_INDEX_SHUFFLE=on``;
    ``RSDL_DEVICE_DIRECT=off``, ``RSDL_INDEX_SHUFFLE=off`` with
-   ``cache_decoded=False``. Every staged tensor of every batch must be
-   equal across the three (per-batch digests computed on the card), the
-   forced run must take the index schedule in epoch 1, and the last run
-   must stage nothing direct and cache nothing. Each run logs a profile
+   ``cache_decoded=False``; ``RSDL_DISABLE_NATIVE=1``;
+   ``RSDL_SHUFFLE_PLAN=block:1``; and ``RSDL_SHUFFLE_PLAN=block:1
+   RSDL_SELECTIVE_READS=auto``. Each epoch must deliver every key at most
+   once and the full batches' worth. Every staged tensor of every batch
+   must be equal across the first four and across the last two
+   (per-batch digests computed on the card), and differ between the two
+   groups; the forced run must take the index schedule in epoch 1, the
+   all-off run must stage nothing direct and cache nothing, the host
+   passes must run on the C++ kernels (on numpy alone with
+   ``RSDL_DISABLE_NATIVE=1``), and the selective run must take the
+   selective schedule in both epochs and decode each of the dataset's 50
+   row groups once an epoch. Each run logs a profile
    of the stager's thread: the median ms of one stage per kind of batch
    (direct; carried, still a view of a segment's mapping; carried, rows
    the carry concatenated) and of the consumer's mapping of a segment;
@@ -335,6 +356,175 @@ def phase_build():
                 regs = re.search(r"Used (\d+) registers", line).group(1)
                 log(f"[build] {name}: {entry}: {regs} registers; {spills}")
                 entry = spills = None
+
+
+# The host kernels' shapes: the map of one Quick-start file (100,000 rows,
+# 21 columns, 8 reducers), one reducer's take over 8 parts (125,000 rows),
+# one file of the resident phase (744,048 rows) and the probe's 8 M rows.
+QUICK_FILE_ROWS, QUICK_COLUMNS, QUICK_REDUCERS = 100_000, 21, 8
+REDUCER_PARTS, REDUCER_ROWS = 8, 125_000
+RESIDENT_FILE_ROWS = 744_048
+PROBE_ROWS = (64 << 20) // 8
+HOST_KERNELS = "ray_shuffling_data_loader_tpu_torch/native/kernels.cc"
+
+
+def host_copy_rate(np) -> float:
+    """Bytes/s (read plus write) of ``np.copyto`` between two 512 MiB
+    buffers, best of 3: the host's memory rate, the host kernels' bound."""
+    src = np.arange(64 << 20, dtype=np.int64)
+    dst = np.empty_like(src)
+    best = float("inf")
+    for _ in range(4):
+        t0 = time.perf_counter()
+        np.copyto(dst, src)
+        best = min(best, time.perf_counter() - t0)
+    return 2 * src.nbytes / best
+
+
+def best_s(fn, reps: int = 3) -> float:
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def same_bits(a, b) -> bool:
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def phase_native() -> dict:
+    """Build the host kernels (``native/kernels.cc``, g++), hold every entry
+    point against its plain numpy version, bit for bit, at the shapes the
+    shuffle gives it, time both against the host's copy rate, and read the
+    schedule policy's probe with the kernels on and off."""
+    import numpy as np
+
+    from ray_shuffling_data_loader_tpu_torch import native
+    from ray_shuffling_data_loader_tpu_torch import runtime as port_runtime
+    from ray_shuffling_data_loader_tpu_torch import shuffle as port_shuffle
+
+    t0 = time.perf_counter()
+    path = native.build()
+    native.load()
+    build_s = time.perf_counter() - t0
+    log(f"[native] built {os.path.relpath(path, ROOT)} from {HOST_KERNELS} in {build_s:.2f} s "
+        f"(g++ {' '.join(native.CXX_FLAGS)}); default {native.num_threads()} threads on {os.cpu_count()} cores")
+    copy_rate = host_copy_rate(np)
+    log(f"[native] host copy rate {copy_rate / 1e9:.4g} GB/s (read + write, np.copyto of 512 MiB, best of 3)")
+    rng = np.random.default_rng(0)
+
+    def threads_for(n, group=False):
+        cap = max(1, n // native._MIN_ROWS_PER_THREAD) if group else (n >> 19 if n >= 1 << 14 else 1)
+        return max(1, min(native.num_threads(), cap))
+
+    def cols_of(n, dtype):
+        return {f"c{i}": rng.integers(0, 1 << 30, size=n).astype(dtype) for i in range(QUICK_COLUMNS)}
+
+    cases = []
+
+    def case(label, kernel, n, threads, nbytes, run, plain):
+        got, want = run(), plain()
+        if not same_bits(got, want):
+            raise AssertionError(f"[native] {label}: {kernel} differs from its numpy version")
+        t_native, t_plain = best_s(run), best_s(plain)
+        row = {"label": label, "kernel": kernel, "rows": n, "threads": threads, "bytes": nbytes,
+               "native_ms": t_native * 1e3, "plain_ms": t_plain * 1e3,
+               "native_gbs": nbytes / t_native / 1e9, "plain_gbs": nbytes / t_plain / 1e9,
+               "bound_ms": nbytes / copy_rate * 1e3}
+        cases.append(row)
+        log(f"[native] {label}: {kernel}, {n} rows, {threads} thread(s), {nbytes} B: native {row['native_ms']!r} ms "
+            f"({row['native_gbs']:.4g} GB/s), numpy {row['plain_ms']!r} ms ({row['plain_gbs']:.4g} GB/s), "
+            f"bound {row['bound_ms']!r} ms at the copy rate; bit-equal")
+
+    # The map of one Quick-start file: narrowing, then the group-by scatter.
+    wide = cols_of(QUICK_FILE_ROWS, np.int64)
+    wide["labels"] = rng.random(QUICK_FILE_ROWS)
+    n = QUICK_FILE_ROWS
+    case("quick map: narrow", "narrow", n, threads_for(n), sum(v.nbytes * 3 // 2 for v in wide.values()),
+         lambda: [native.narrow_i64_checked(v) if v.dtype == np.int64 else native.narrow(v, np.float32)
+                  for v in wide.values()],
+         lambda: [native.narrow_i64_checked_plain(v) if v.dtype == np.int64 else native.narrow_plain(v, np.float32)
+                  for v in wide.values()])
+    narrow_cols = cols_of(n, np.int32)
+    assignment = rng.integers(QUICK_REDUCERS, size=n)
+    out = {k: np.empty_like(v) for k, v in narrow_cols.items()}
+    case("quick map: group-by", "group_rows", n, threads_for(n, True),
+         2 * sum(v.nbytes for v in narrow_cols.values()) + assignment.nbytes,
+         lambda: native.group_rows_multi(narrow_cols, assignment, QUICK_REDUCERS, out=out),
+         lambda: native.group_rows_multi_plain(narrow_cols, assignment, QUICK_REDUCERS))
+    # One reducer: its 8 parts gathered in one pass, and the index
+    # schedule's permutation of a compact column.
+    part = REDUCER_ROWS // REDUCER_PARTS
+    parts = {k: [v[i * part:(i + 1) * part] for i in range(REDUCER_PARTS)]
+             for k, v in cols_of(REDUCER_ROWS, np.int32).items()}
+    perm = rng.permutation(REDUCER_ROWS)
+    per_col = 2 * REDUCER_ROWS * 4 + perm.nbytes
+    dst = {k: np.empty(REDUCER_ROWS, np.int32) for k in parts}
+    case("reducer: concat-gather", "take_multi", REDUCER_ROWS, threads_for(REDUCER_ROWS), QUICK_COLUMNS * per_col,
+         lambda: {k: native.take_multi(p, perm, out=dst[k]) for k, p in parts.items()},
+         lambda: {k: native.take_multi_plain(p, perm) for k, p in parts.items()})
+    compact = {k: np.concatenate(p) for k, p in parts.items()}
+    case("reducer: permute", "take", REDUCER_ROWS, threads_for(REDUCER_ROWS), QUICK_COLUMNS * per_col,
+         lambda: {k: native.take(v, perm, out=dst[k]) for k, v in compact.items()},
+         lambda: {k: native.take_plain(v, perm) for k, v in compact.items()})
+    # One resident-shape file.
+    n = RESIDENT_FILE_ROWS
+    res_cols = cols_of(n, np.int32)
+    res_asg = rng.integers(QUICK_REDUCERS, size=n)
+    res_out = {k: np.empty_like(v) for k, v in res_cols.items()}
+    case("resident file: group-by", "group_rows", n, threads_for(n, True),
+         2 * sum(v.nbytes for v in res_cols.values()) + res_asg.nbytes,
+         lambda: native.group_rows_multi(res_cols, res_asg, QUICK_REDUCERS, out=res_out),
+         lambda: native.group_rows_multi_plain(res_cols, res_asg, QUICK_REDUCERS))
+    res_perm = rng.permutation(n)
+    col = res_cols["c0"]
+    scattered = np.empty_like(col)
+    case("resident file: scatter", "scatter", n, threads_for(n), 2 * col.nbytes + res_perm.nbytes,
+         lambda: native.scatter(col, res_perm, scattered),
+         lambda: native.scatter_plain(col, res_perm, np.empty_like(col)))
+    # The probe's 8 M rows: a random and a sequential gather, the scatter
+    # and the group-by where every kernel runs threaded.
+    n = PROBE_ROWS
+    buf = np.arange(n, dtype=np.int64)
+    for label, idx in (("probe: random gather", rng.permutation(n)), ("probe: sequential gather", np.arange(n))):
+        case(label, "take", n, threads_for(n), 2 * buf.nbytes + idx.nbytes,
+             lambda idx=idx: native.take(buf, idx), lambda idx=idx: native.take_plain(buf, idx))
+    big_perm = rng.permutation(n)
+    big_out = np.empty_like(buf)
+    case("probe size: scatter", "scatter", n, threads_for(n), 2 * buf.nbytes + big_perm.nbytes,
+         lambda: native.scatter(buf, big_perm, big_out),
+         lambda: native.scatter_plain(buf, big_perm, np.empty_like(buf)))
+    big_asg = rng.integers(QUICK_REDUCERS, size=n)
+    case("probe size: group-by", "group_rows", n, threads_for(n, True), 2 * buf.nbytes + big_asg.nbytes,
+         lambda: native.group_rows_multi({"k": buf}, big_asg, QUICK_REDUCERS),
+         lambda: native.group_rows_multi_plain({"k": buf}, big_asg, QUICK_REDUCERS))
+    case("probe size: narrow", "narrow", n, threads_for(n), buf.nbytes * 3 // 2,
+         lambda: native.narrow_i64_checked(buf), lambda: native.narrow_i64_checked_plain(buf))
+    # The schedule policy's probe as ``shuffle()``'s process takes it, with the kernels
+    # on (the default) and off (the numpy the port timed before).
+    probes = {}
+    port_runtime.init()
+    try:
+        for label, flag in (("native", True), ("numpy", False)):
+            native.set_enabled(flag)
+            try:
+                port_shuffle._PROBE_CACHE.pop("costs", None)
+                probes[label] = port_shuffle._probed_host_costs()
+            finally:
+                native.set_enabled(None)
+                port_shuffle._PROBE_CACHE.pop("costs", None)
+            log(f"[native] probe ({label}): " + ", ".join(f"{k} {v!r}" for k, v in probes[label].items()))
+    finally:
+        port_runtime.shutdown()
+    return {"build_s": build_s, "copy_rate": copy_rate, "cases": cases, "probe": probes,
+            "threads": native.num_threads(), "cores": os.cpu_count()}
 
 
 def phase_interaction(torch, rate: float, rate_src: str) -> list:
@@ -674,7 +864,15 @@ def delivery_report(port, ds, filenames, label: str) -> dict:
         "put_dispatch_carried_ms": (st.put_dispatch_s - st.put_dispatch_direct_s) / max(1, st.batches_carried) * 1e3,
         "stall_staging_s": st.stall_staging_s,
         "store_peak_bytes": host.shuffle_stats.get("store_peak_bytes"),
+        "plan": host.shuffle_stats.get("plan"),
+        "selective_reads": host.shuffle_stats.get("selective_reads"),
+        "native_calls": host.shuffle_stats.get("native_calls"),
+        "plain_calls": host.shuffle_stats.get("plain_calls"),
+        "selective_rowgroups": {e: sorted(map(tuple, g))
+                                for e, g in host.shuffle_stats.get("selective_rowgroups", {}).items()},
     }
+    log(f"[{label}] plan {out['plan']}; selective reads: {out['selective_reads']}; host kernel calls "
+        f"native {out['native_calls']}, numpy {out['plain_calls']}")
     log(f"[{label}] schedules {out['schedules']}, shuffle {out['epoch_shuffle_s']!r} s per epoch; "
         f"cache_decoded {out['cache_decoded']} (estimate {out['est_decoded_bytes']!r} B against capacity "
         f"{out['capacity_bytes']} B); probe {out['probe']}; batches {out['batches_direct']} direct, "
@@ -682,6 +880,23 @@ def delivery_report(port, ds, filenames, label: str) -> dict:
         f"{out['put_dispatch_carried_ms']!r} ms per carried; stall_staging {out['stall_staging_s']!r} s; "
         f"store peak {out['store_peak_bytes']} B")
     return out
+
+
+def check_host_calls(label: str, report: dict, native_on: bool = True, group_by: bool = True) -> None:
+    """The stage tasks ran every host pass of the run on the C++ kernels
+    (take or take_multi, the narrowing and, unless the schedule has no
+    map, the group-by scatter), and none on numpy; with ``native_on``
+    False, the other way round."""
+    ran, idle = report["native_calls"], report["plain_calls"]
+    if not native_on:
+        ran, idle = idle, ran
+    need = {"take or take_multi": ran["take"] + ran["take_multi"], "narrow": ran["narrow"]}
+    if group_by:
+        need["group_rows"] = ran["group_rows"]
+    short = [k for k, v in need.items() if v <= 0]
+    if short or any(idle.values()):
+        raise AssertionError(f"[{label}] host kernel calls: native {report['native_calls']}, numpy "
+                             f"{report['plain_calls']} (none of {short}; want {'native' if native_on else 'numpy'})")
 
 
 def batch_digest(torch, tensors):
@@ -738,45 +953,68 @@ def staging_profile(records) -> dict:
     return out
 
 
-# (label, environment, cache_decoded): the delivery phase's three runs.
+# (label, environment, cache_decoded): the delivery phase's runs. The first
+# four deliver the defaults' stream: the index schedule forced, everything
+# off, and the host kernels' plain numpy versions. The last two take the
+# block plan with one row group a block, materialized and selective.
 DELIVERY_RUNS = (
     ("defaults", {}, None),
     ("index_forced", {"RSDL_INDEX_SHUFFLE": "on"}, None),
     ("all_off", {"RSDL_DEVICE_DIRECT": "off", "RSDL_INDEX_SHUFFLE": "off"}, False),
+    ("native_off", {"RSDL_DISABLE_NATIVE": "1"}, None),
+    ("block_1", {"RSDL_SHUFFLE_PLAN": "block:1"}, None),
+    ("block_1_selective", {"RSDL_SHUFFLE_PLAN": "block:1", "RSDL_SELECTIVE_READS": "auto"}, None),
 )
+ROWWISE_RUNS = ("defaults", "index_forced", "all_off", "native_off")
+BLOCK_RUNS = ("block_1", "block_1_selective")
 
 
-def phase_delivery(torch, filenames) -> dict:
-    """Delivery only (no step), 2 epochs on the slices' dataset, three
-    ways (:data:`DELIVERY_RUNS`): every staged tensor of every batch must
-    be equal across them (per-batch digests computed on the card), and the
-    forced run must take the index schedule in epoch 1."""
+def phase_delivery(torch, filenames, num_rows: int, batch_size: int = 65536, device: str = "cuda") -> dict:
+    """Delivery only (no step), 2 epochs on the slices' dataset
+    (:data:`DELIVERY_RUNS`): each epoch delivers every key at most once and
+    exactly the full batches' worth; every staged tensor of every batch is
+    equal across the rowwise runs and across the block runs (per-batch
+    digests computed on the card), which differ from each other; the forced
+    run takes the index schedule in epoch 1; the host passes ran on the C++
+    kernels, or all on numpy in ``native_off``; the selective run takes
+    the selective schedule and decodes each row group of the dataset once
+    an epoch."""
     import ray_shuffling_data_loader_tpu_torch as port
 
     feature_columns = [c for c in port.DATA_SPEC if c != port.LABEL_COLUMN] + [port.KEY_COLUMN]
+    env_keys = sorted({k for _, env, _ in DELIVERY_RUNS for k in env})
     runs = {}
     port.runtime.init()
     try:
         for label, env, cache_decoded in DELIVERY_RUNS:
-            saved = {k: os.environ.get(k) for k in ("RSDL_DEVICE_DIRECT", "RSDL_INDEX_SHUFFLE")}
+            saved = {k: os.environ.pop(k, None) for k in env_keys}
             os.environ.update(env)
             try:
                 t0 = time.perf_counter()
                 ds = port.DeviceShufflingDataset(
-                    filenames, num_epochs=2, num_trainers=1, batch_size=65536, rank=0,
+                    filenames, num_epochs=2, num_trainers=1, batch_size=batch_size, rank=0,
                     feature_columns=feature_columns, label_column=port.LABEL_COLUMN, num_reducers=8, seed=0,
-                    device="cuda", cache_decoded=cache_decoded,
+                    device=device, cache_decoded=cache_decoded,
                 )
                 records, unprofile = profile_staging(ds, port.runtime.get_context().store)
                 digests = []
                 try:
                     for epoch in range(2):
                         ds.set_epoch(epoch)
-                        digests += [batch_digest(torch, [*features.values(), labels]) for features, labels in ds]
+                        keys = []
+                        for features, labels in ds:
+                            keys.append(features[port.KEY_COLUMN])
+                            digests.append(batch_digest(torch, [*features.values(), labels]))
+                        got = torch.cat(keys)
+                        want = (num_rows // batch_size) * batch_size
+                        if got.numel() != want or torch.unique(got).numel() != want:
+                            raise AssertionError(f"[delivery {label}] epoch {epoch}: {got.numel()} keys, "
+                                                 f"{torch.unique(got).numel()} distinct; want {want}")
                 finally:
                     unprofile()
                 ds.join()
-                torch.cuda.synchronize()
+                if device == "cuda":
+                    torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             finally:
                 for k, v in saved.items():
@@ -787,22 +1025,45 @@ def phase_delivery(torch, filenames) -> dict:
             report = delivery_report(port, ds, filenames, f"delivery {label}")
             report.update(wall_s=wall, batches=len(digests), staging_profile=staging_profile(records))
             runs[label] = (torch.stack(digests).cpu(), report)
-            log(f"[delivery {label}] {len(digests)} batches in {wall!r} s")
+            log(f"[delivery {label}] {len(digests)} batches in {wall!r} s, every key at most once per epoch")
             for kind, prof in report["staging_profile"].items():
                 log(f"[delivery {label}] {kind}: {prof['n']} calls, median {prof['median_ms']!r} ms")
+            check_host_calls(f"delivery {label}", report, native_on=label != "native_off",
+                             group_by=label != "block_1_selective")
     finally:
         port.runtime.shutdown()
-    ref = runs["defaults"][0]
-    for label, (digest, report) in runs.items():
-        if digest.shape != ref.shape or not torch.equal(digest, ref):
-            raise AssertionError(f"[delivery] {label}: staged tensors differ from the defaults' run")
+    for group in (ROWWISE_RUNS, BLOCK_RUNS):
+        ref = runs[group[0]][0]
+        for label in group:
+            digest = runs[label][0]
+            if digest.shape != ref.shape or not torch.equal(digest, ref):
+                raise AssertionError(f"[delivery] {label}: staged tensors differ from the {group[0]} run's")
+    if torch.equal(runs["defaults"][0], runs["block_1"][0]):
+        raise AssertionError("[delivery] the block plan delivered the rowwise stream")
     if runs["index_forced"][1]["schedules"][1] != "index":
         raise AssertionError(f"[delivery] index_forced: schedules {runs['index_forced'][1]['schedules']}")
     off = runs["all_off"][1]
     if off["batches_direct"] or off["cache_decoded"] or set(off["schedules"]) != {"mapreduce"}:
         raise AssertionError(f"[delivery] all_off: {off}")
-    log(f"[delivery] {ref.shape[0]} batches, every staged tensor equal across {', '.join(runs)}")
+    sel = runs["block_1_selective"][1]
+    groups = sorted((i, g) for i, f in enumerate(filenames) for g in range(len(port_row_groups(f))))
+    if sel["schedules"] != ["selective", "selective"] or any(sel["selective_rowgroups"].get(e) != groups
+                                                             for e in range(2)):
+        raise AssertionError(f"[delivery] block_1_selective: schedules {sel['schedules']}, row groups decoded "
+                             f"{sel['selective_rowgroups']}, want each of {len(groups)} once an epoch")
+    for label in BLOCK_RUNS:
+        log(f"[delivery {label}] shuffle {runs[label][1]['epoch_shuffle_s']!r} s per epoch "
+            f"(schedules {runs[label][1]['schedules']})")
+    log(f"[delivery] block_1_selective decoded each of the {len(groups)} row groups once in each epoch")
+    log(f"[delivery] {runs['defaults'][0].shape[0]} batches, every staged tensor equal across {', '.join(ROWWISE_RUNS)}, "
+        f"and across {', '.join(BLOCK_RUNS)}")
     return {label: report for label, (_, report) in runs.items()}
+
+
+def port_row_groups(filename: str) -> list:
+    from ray_shuffling_data_loader_tpu_torch import shuffle as port_shuffle
+
+    return port_shuffle.file_row_group_sizes(filename)
 
 
 def train_slice(torch, port, filenames, num_rows, model, label: str, collector=None) -> dict:
@@ -861,6 +1122,7 @@ def train_slice(torch, port, filenames, num_rows, model, label: str, collector=N
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{label}: non-finite loss: {losses}")
     delivery = delivery_report(port, ds, filenames, f"slice {label}")
+    check_host_calls(f"slice {label}", delivery)
     stats = ds.stats.as_dict()
     trial = None
     if collector is not None:
@@ -1450,6 +1712,7 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         phase_build()
+        host = phase_native()
         # The plain versions' fp32 products must not round their inputs to TF32.
         torch.backends.cuda.matmul.allow_tf32 = False
         rate, rate_src, measured = memory_rate(torch, name)
@@ -1462,7 +1725,7 @@ def main() -> int:
         try:
             slices = phase_slices(torch, data_dir)
             filenames = slices.pop("filenames")
-            delivery = phase_delivery(torch, filenames)
+            delivery = phase_delivery(torch, filenames, NUM_ROWS)
             ranks = phase_ranks(filenames, smi)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
@@ -1524,6 +1787,7 @@ def main() -> int:
                         for label, sl in slices.items()
                     },
                     "lm": lm,
+                    "native": host,
                     "delivery": delivery,
                     "ranks": ranks,
                     "resident": resident,

@@ -42,6 +42,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ray_shuffling_data_loader_tpu_torch import native
 from ray_shuffling_data_loader_tpu_torch.dataset import ShufflingDataset
 from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch
 from ray_shuffling_data_loader_tpu_torch.shuffle import _narrow_column, device_direct_enabled
@@ -312,7 +313,7 @@ class DeviceShufflingDataset:
             if column.dtype == np.int64 and target == np.int32:
                 column = _narrow_column(name, column)
             else:
-                column = column.astype(target)
+                column = native.narrow(column, target)
         if shape is not None:
             column = column.reshape((-1, *shape))
         return column

@@ -1,13 +1,10 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
-with a plain C interface. In a checkout the libraries go under
-``build/kernels/`` at its root; in an installed package, under
-``$XDG_CACHE_HOME`` (default ``~/.cache``)
-``/ray_shuffling_data_loader_tpu_torch/kernels``. A library's file name
-carries a hash of its source, the shared headers and the flags, so a build
-happens only when one of them changes. A missing ``nvcc``, a failed build
-or a failed load raises.
+with a plain C interface, in the directory of :func:`.._build.build_dir`.
+A library's file name carries a hash of its source, the shared headers and
+the flags, so a build happens only when one of them changes. A missing
+``nvcc``, a failed build or a failed load raises.
 """
 
 from __future__ import annotations
@@ -16,23 +13,14 @@ import ctypes
 import hashlib
 import os
 import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Dict
 
+from ray_shuffling_data_loader_tpu_torch._build import build_dir, compile_library
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-
-
-def _build_dir() -> Path:
-    root = Path(__file__).resolve().parents[2]
-    if (root / "pyproject.toml").is_file():
-        return root / "build" / "kernels"
-    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(Path.home(), ".cache")
-    return Path(cache) / "ray_shuffling_data_loader_tpu_torch" / "kernels"
-
-
-BUILD_DIR = _build_dir()
+BUILD_DIR = build_dir()
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -77,16 +65,7 @@ def build(name: str) -> Path:
     target = library_path(name)
     if target.is_file():
         return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    target.with_suffix(".log").write_text(proc.stdout)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"kernel build failed: {name}: nvcc exited {proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, target)
-    return target
+    return compile_library([nvcc_path(), *NVCC_FLAGS, str(CSRC / f"{name}.cu")], target, "nvcc")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -53,9 +53,14 @@ class RuntimeContext:
     @property
     def pool(self) -> WorkerPool:
         """The worker pool, started at first use: ranks that only consume
-        never start one. Its workers join this session."""
+        never start one. Its workers join this session. The host kernels
+        (:mod:`..native`) are built first, unless switched off, so that the
+        workers only load them."""
         with self._pool_lock:
             if self._pool is None:
+                from ray_shuffling_data_loader_tpu_torch import native
+
+                native.ensure_built()
                 self._pool = WorkerPool(self.num_workers, env={_ENV_DIR: self.runtime_dir})
             return self._pool
 

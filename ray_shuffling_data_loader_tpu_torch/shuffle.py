@@ -35,10 +35,34 @@ Three defaults change how, never what, an epoch delivers:
   packed segment in staging layout, between a head and a tail of plain
   columns (:class:`_PackedOutput`).
 
-Given the same files, seed and reducer count, the row stream is the one
-the JAX package's shuffle delivers under its default settings: the seeds,
-the draws and the group-by order are the same, whichever schedule and
-output form an epoch takes.
+Two opt-in settings change what an epoch delivers or how it reads:
+
+* **Plan family** (``RSDL_SHUFFLE_PLAN=rowwise|block[:G]``, resolved once
+  by ``shuffle()`` and handed to every stage task): rowwise draws each row's
+  reducer; a block plan deals runs of ``G`` consecutive row groups to
+  reducers (:func:`_group_owners`), so a whole row group travels to one
+  reducer. A different stream from rowwise, the same in every schedule.
+* **Selective schedule** (``RSDL_SELECTIVE_READS=off|auto|on``, default
+  off, :func:`selective_reads_decision`): no map writes anything; a
+  :func:`shuffle_selective_plan` per file returns counts from the footer,
+  and a :func:`shuffle_selective_reduce` per reducer decodes just the row
+  groups that hold its rows. ``auto`` engages under a block plan only,
+  where those selections are disjoint and each row group is decoded once
+  an epoch.
+
+Given the same files, seed, reducer count and plan, the row stream is the
+one the JAX package's shuffle delivers: the seeds, the draws and the
+group-by order are the same, whichever schedule and output form an epoch
+takes.
+
+The host passes run the C++ kernels of :mod:`.native`: the map's group-by
+scatter, the reduce's fused concat and gather, the index and selective
+schedules' gathers, the narrowing and the schedule policy's probe. The
+process that calls ``shuffle()`` builds them before its pool spawns and
+tells each stage task whether to use them (``RSDL_DISABLE_NATIVE``
+selects their plain numpy versions, bit for bit the same); each task
+returns its calls of each, and
+``shuffle(stats=)`` sums them (``native_calls``, ``plain_calls``).
 
 **Journal** (``RSDL_JOURNAL`` or ``shuffle(resume_from=)``,
 :mod:`.runtime.journal`): the run's epoch window is journaled at the
@@ -60,6 +84,7 @@ This module imports numpy and pyarrow only: the workers load it.
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import os
 import threading
 import time
@@ -67,7 +92,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from ray_shuffling_data_loader_tpu_torch import runtime
+from ray_shuffling_data_loader_tpu_torch import native, runtime
 from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch, ObjectRef
 from ray_shuffling_data_loader_tpu_torch.runtime.store import DEVICE_BATCH_KIND, PACKED_COLUMN
 
@@ -96,27 +121,147 @@ class BatchConsumer:
         raise NotImplementedError
 
 
+def _table_to_columns(table) -> Dict[str, np.ndarray]:
+    return {name: np.ascontiguousarray(col.to_numpy(zero_copy_only=False))
+            for name, col in zip(table.column_names, table.columns)}
+
+
+def _np_dtype_of(field) -> Optional[np.dtype]:
+    """The numpy dtype an Arrow field decodes to, or None when it has no
+    fixed-width numeric one."""
+    try:
+        dt = np.dtype(field.type.to_pandas_dtype())
+    except (TypeError, NotImplementedError):
+        return None
+    return dt if dt.kind in "fiub" else None
+
+
+_RG_META_LOCK = threading.Lock()
+_RG_META_CACHE: Dict[str, Tuple[int, ...]] = {}
+
+
+def file_row_group_sizes(filename: str) -> List[int]:
+    """Rows of each row group, from the Parquet footer, cached per
+    process: the block plan reads every file's footer every epoch, and a
+    run's files do not change."""
+    with _RG_META_LOCK:
+        hit = _RG_META_CACHE.get(filename)
+    if hit is not None:
+        return list(hit)
+    import pyarrow.parquet as pq
+
+    meta = pq.ParquetFile(filename, memory_map=True).metadata
+    sizes = tuple(int(meta.row_group(g).num_rows) for g in range(meta.num_row_groups))
+    with _RG_META_LOCK:
+        _RG_META_CACHE[filename] = sizes
+    return list(sizes)
+
+
+def decode_rowgroup_threads(stage_tasks: int) -> int:
+    """Threads for one decode of selected row groups
+    (``RSDL_DECODE_ROWGROUPS``): 1 when unset or ``off``; ``auto``, this
+    task's share of the cores (``cores // min(stage_tasks, cores)``) when
+    the host has twice as many cores as the stage runs tasks, else 1;
+    ``on``, that share but at least 2; an integer, that many."""
+    env = os.environ.get("RSDL_DECODE_ROWGROUPS", "").strip().lower()
+    if env in ("", "off", "0", "false"):
+        return 1
+    cores = os.cpu_count() or 1
+    concurrent = min(max(1, stage_tasks), cores)
+    fair = max(1, cores // concurrent)
+    if env in ("on", "true"):
+        return max(2, fair)
+    if env != "auto":
+        try:
+            return max(1, int(env))
+        except ValueError:
+            pass
+    return fair if cores >= 2 * concurrent else 1
+
+
+def _decode_rowgroups_parallel(filename: str, names: List[str], sel: List[int], threads: int):
+    """Decode row groups ``sel`` with ``threads`` threads striped over
+    columns: each thread reads the whole selection of its columns on a
+    reader of its own (Arrow decodes without the GIL) and converts them as
+    the single read does, so the columns are the same bits. Striping by
+    columns needs no assembly across threads, which striping by row groups
+    would. None for a file of one column (nothing to stripe) or when a
+    thread failed; the caller then reads in one go."""
+    import pyarrow.parquet as pq
+
+    if len(names) < 2:
+        return None
+    threads = min(threads, len(names))
+    stripes = [names[k::threads] for k in range(threads)]
+    results: Dict[str, np.ndarray] = {}
+    errors: List[BaseException] = []
+
+    def work(cols: List[str]) -> None:
+        try:
+            table = pq.ParquetFile(filename, memory_map=True).read_row_groups(sel, columns=cols, use_threads=False)
+            results.update(_table_to_columns(table))
+        except BaseException as exc:
+            errors.append(exc)
+
+    workers = [threading.Thread(target=work, args=(cols,), name="rsdl-decode-rg") for cols in stripes[1:]]
+    for w in workers:
+        w.start()
+    work(stripes[0])
+    for w in workers:
+        w.join()
+    if errors or set(results) != set(names):
+        return None
+    return {name: results[name] for name in names}
+
+
 def read_parquet_columns(
-    filename: str, columns: Optional[Sequence[str]] = None, use_threads: bool = False
+    filename: str,
+    columns: Optional[Sequence[str]] = None,
+    use_threads: bool = False,
+    row_groups: Optional[Sequence[int]] = None,
+    rowgroup_threads: int = 1,
 ) -> ColumnBatch:
     """Decode a local Parquet file to contiguous numpy columns.
 
     ``columns``: decode only these (None: all); a name the file lacks
-    raises Arrow's ``ArrowInvalid``, a ``ValueError``. ``use_threads``: let
-    Arrow decode with its own threads. Off by default: the worker pool
-    decodes one file per worker, and Arrow's threads on top of that
-    oversubscribe a busy host."""
+    raises a ``ValueError`` (Arrow's ``ArrowInvalid`` when the whole file
+    is read). ``use_threads``: let Arrow
+    decode with its own threads. Off by default: the worker pool decodes
+    one file per worker, and Arrow's threads on top of that oversubscribe
+    a busy host. ``row_groups``: decode only these row groups, in
+    ascending order (the selective schedule's read): the same columns as
+    the whole file's rows of those groups, as long as a column decodes to
+    one dtype in every group. ``rowgroup_threads > 1``: decode them with
+    :func:`_decode_rowgroups_parallel` (then ``use_threads`` is ignored)."""
     import pyarrow.parquet as pq
 
-    table = pq.read_table(
-        filename, columns=None if columns is None else list(columns), use_threads=use_threads, memory_map=True
-    )
-    return ColumnBatch(
-        {
-            name: np.ascontiguousarray(col.to_numpy(zero_copy_only=False))
-            for name, col in zip(table.column_names, table.columns)
-        }
-    )
+    if row_groups is None and rowgroup_threads <= 1:
+        table = pq.read_table(
+            filename, columns=None if columns is None else list(columns), use_threads=use_threads, memory_map=True
+        )
+        return ColumnBatch(_table_to_columns(table))
+    pf = pq.ParquetFile(filename, memory_map=True)
+    schema = pf.schema_arrow
+    names = list(schema.names) if columns is None else list(columns)
+    missing = [c for c in names if c not in schema.names]
+    if missing:
+        raise ValueError(f"projected columns not in {filename!r} schema: {missing}")
+    if not names:
+        raise ValueError(f"projection selects no columns of {filename!r}")
+    sel = list(range(pf.metadata.num_row_groups)) if row_groups is None else sorted(int(g) for g in row_groups)
+    cols = None
+    if rowgroup_threads > 1 and sel:
+        cols = _decode_rowgroups_parallel(filename, names, sel, rowgroup_threads)
+    if cols is None:
+        if sel:
+            cols = _table_to_columns(pf.read_row_groups(sel, columns=names, use_threads=use_threads))
+        else:
+            # No group selected: empty columns of the schema's dtypes.
+            cols = {}
+            for name in names:
+                dt = _np_dtype_of(schema.field(name))
+                cols[name] = np.empty(0, dt if dt is not None else np.int64)
+    return ColumnBatch(cols)
 
 
 def _arrow_decode_threads(stage_tasks: int) -> bool:
@@ -158,17 +303,20 @@ def narrowed_dtype(dtype) -> np.dtype:
 
 
 def _narrow_column(name: str, v: np.ndarray) -> np.ndarray:
-    """int64 -> int32, refusing values outside int32's range; float64 ->
-    float32 (lossy by design)."""
+    """Cast a 64-bit column to 32 bits: int64 -> int32 with the range check
+    in the same pass (:func:`.native.narrow_i64_checked`), refusing values
+    outside int32's range, which would wrap silently; float64 -> float32,
+    lossy by design (:func:`.native.narrow`)."""
     if v.dtype == np.int64:
-        if v.size and (v.min() < _INT32.min or v.max() > _INT32.max):
+        out = native.narrow_i64_checked(v)
+        if out is None:
             raise ValueError(
                 f"narrow_to_32: column {name!r} has values outside int32 "
                 "range; disable narrowing for this dataset"
             )
-        return v.astype(np.int32)
+        return out
     if v.dtype == np.float64:
-        return v.astype(np.float32)
+        return native.narrow(v, np.float32)
     return v
 
 
@@ -212,34 +360,66 @@ def shuffle_plan_label() -> str:
     return family if family == "rowwise" else f"block:{g}"
 
 
-def check_shuffle_plan() -> None:
-    """Only the rowwise plan family is ported: ``RSDL_SHUFFLE_PLAN`` unset
-    or ``rowwise`` passes, ``block[:G]`` raises ``NotImplementedError``,
-    anything else ``ValueError``."""
-    if shuffle_plan_spec()[0] == "block":
-        raise NotImplementedError(
-            f"RSDL_SHUFFLE_PLAN={shuffle_plan_label()!r}: the block plan family is not ported yet; only 'rowwise' is"
-        )
+def _group_owners(
+    seed: int, epoch: int, file_index: int, group_sizes: Sequence[int], num_reducers: int, granularity: int
+) -> np.ndarray:
+    """Each row group's reducer under a block plan: runs of
+    ``granularity`` consecutive row groups form blocks, dealt to reducers
+    round-robin from a seeded start and then shuffled with the file's
+    generator, so reducers get block counts within one of each other and
+    the extra blocks do not always land on the low reducers."""
+    rng = _map_seed(seed, epoch, file_index)
+    n_groups = len(group_sizes)
+    n_blocks = -(-n_groups // granularity) if n_groups else 0
+    if n_blocks == 0:
+        return np.empty(0, dtype=np.int64)
+    owners = (np.arange(n_blocks, dtype=np.int64) + int(rng.integers(num_reducers))) % num_reducers
+    rng.shuffle(owners)
+    return np.repeat(owners, granularity)[:n_groups]
+
+
+def _label_of_plan(plan: Tuple[str, int]) -> str:
+    """The label of a resolved plan (``rowwise`` or ``block:G``)."""
+    family, granularity = plan
+    return family if family == "rowwise" else f"block:{granularity}"
 
 
 def _file_assignment(
-    seed: int, epoch: int, file_index: int, n: int, num_reducers: int
+    seed: int,
+    epoch: int,
+    file_index: int,
+    n: int,
+    num_reducers: int,
+    filename: Optional[str] = None,
+    plan: Optional[Tuple[str, int]] = None,
 ) -> np.ndarray:
-    """Each row's reducer for one file: an independent seeded draw per row
-    (the rowwise plan family)."""
-    return _map_seed(seed, epoch, file_index).integers(num_reducers, size=n)
+    """Each row's reducer for one file: the one definition every schedule
+    partitions with. Rowwise draws each row's reducer from the file's
+    generator; a block plan gives every row of a row group its group's
+    owner (:func:`_group_owners`, from the footer's row-group sizes of
+    ``filename``; no data is read). ``plan``: ``shuffle()``'s resolved
+    ``(family, granularity)`` (None: this process's environment, for
+    direct callers)."""
+    family, granularity = plan if plan is not None else shuffle_plan_spec()
+    if family == "rowwise":
+        return _map_seed(seed, epoch, file_index).integers(num_reducers, size=n)
+    if filename is None:
+        raise ValueError("block shuffle plan needs the source filename to read row-group sizes from the footer")
+    sizes = np.asarray(file_row_group_sizes(filename), dtype=np.int64)
+    if int(sizes.sum()) != int(n):
+        raise ValueError(
+            f"block shuffle plan: footer row count {int(sizes.sum())} != caller row count {n} for {filename!r} "
+            "(stale decode cache or changed dataset)"
+        )
+    return np.repeat(_group_owners(seed, epoch, file_index, sizes, num_reducers, granularity), sizes)
 
 
-def _group_order(assignment: np.ndarray, num_reducers: int) -> Tuple[np.ndarray, np.ndarray]:
-    """``(order, offsets)`` of a stable group-by: ``order`` lists row
-    indices reducer by reducer, each reducer's rows in file order;
-    reducer ``r`` owns ``order[offsets[r]:offsets[r + 1]]``."""
-    # Narrow keys let numpy's stable sort take its radix path.
-    key_dtype = np.uint8 if num_reducers <= 256 else np.uint16 if num_reducers <= 65536 else np.int64
-    order = np.argsort(assignment.astype(key_dtype), kind="stable")
-    offsets = np.zeros(num_reducers + 1, dtype=np.int64)
-    np.cumsum(np.bincount(assignment, minlength=num_reducers), out=offsets[1:])
-    return order, offsets
+def plan_is_prunable(plan: Optional[Tuple[str, int]] = None) -> bool:
+    """Can a reducer skip a row group under this plan? Never under
+    rowwise (every group holds rows of every reducer); always under a
+    block plan. ``plan`` as for :func:`_file_assignment`."""
+    family, _ = plan if plan is not None else shuffle_plan_spec()
+    return family == "block"
 
 
 def shuffle_map(
@@ -252,10 +432,13 @@ def shuffle_map(
     cache_ref: Optional[ObjectRef] = None,
     publish_cache: bool = False,
     stats_collector=None,
+    plan: Optional[Tuple[str, int]] = None,
 ):
     """Decode one file and group its rows by reducer straight into one
-    store segment; returns one row-window ref per reducer (empty windows
-    included when the file has few rows).
+    store segment (:func:`.native.group_rows_multi`, one stable counting
+    scatter); returns one row-window ref per reducer (empty windows
+    included when the file has few rows). ``plan``: ``shuffle()``'s resolved
+    plan (:func:`_file_assignment`).
 
     ``cache_ref``: take the rows from this decode-cache segment instead of
     Parquet. ``publish_cache``: also write the decoded (and narrowed)
@@ -279,13 +462,11 @@ def shuffle_map(
             except OSError:
                 new_cache_ref = None
     end_read = time.perf_counter()
-    assignment = _file_assignment(seed, epoch, file_index, batch.num_rows, num_reducers)
-    order, offsets = _group_order(assignment, num_reducers)
+    assignment = _file_assignment(seed, epoch, file_index, batch.num_rows, num_reducers, filename, plan)
     try:
         pending = store.create_columns({k: (v.shape, v.dtype) for k, v in batch.columns.items()})
         try:
-            for k, v in batch.columns.items():
-                np.take(v, order, axis=0, out=pending.columns[k])
+            _, offsets = native.group_rows_multi(batch.columns, assignment, num_reducers, out=pending.columns)
             refs = pending.publish_slices(
                 [(int(offsets[r]), int(offsets[r + 1])) for r in range(num_reducers)]
             )
@@ -301,21 +482,29 @@ def shuffle_map(
 
 
 def shuffle_plan(
-    file_index: int, num_reducers: int, epoch: int, seed: int, cache_ref: ObjectRef, stats_collector=None
+    file_index: int,
+    num_reducers: int,
+    epoch: int,
+    seed: int,
+    cache_ref: ObjectRef,
+    stats_collector=None,
+    filename: Optional[str] = None,
+    plan: Optional[Tuple[str, int]] = None,
 ) -> List[ObjectRef]:
     """The index schedule's map: the same seeded draw and stable grouping
     as :func:`shuffle_map`, over row indices only. Returns one ref per
     reducer over one ``{"idx"}`` segment: each reducer's row indices in the
     cached file, in file order, the rows the materialized map's partition
-    would hold. Column data is not read."""
+    would hold. Column data is not read. ``filename``: the file's path, for
+    the footer a block plan reads; ``plan`` as for :func:`shuffle_map`."""
     if stats_collector is not None:
         stats_collector.call_oneway("map_start", epoch)
     start = time.perf_counter()
     store = runtime.ensure_initialized().store
     n = store.get_columns(cache_ref).num_rows
     end_read = time.perf_counter()
-    assignment = _file_assignment(seed, epoch, file_index, n, num_reducers)
-    order, offsets = _group_order(assignment, num_reducers)
+    assignment = _file_assignment(seed, epoch, file_index, n, num_reducers, filename, plan)
+    order, offsets = native.group_order(assignment, num_reducers)
     idx_dtype = np.int32 if n <= _INT32.max else np.int64
     pending = store.create_columns({"idx": ((n,), np.dtype(idx_dtype))})
     try:
@@ -446,17 +635,28 @@ def _packed_output(store, pack, total: int, template) -> Optional[_PackedOutput]
     return _PackedOutput(store, layout, start, total, names, col_dtypes)
 
 
-def _permuted_output(store, pack, template, source: Callable[[str], np.ndarray], perm: np.ndarray):
-    """Write ``source(name)[perm]`` for every column of ``template``: into
-    one columnar segment (returns its ref), or, when the reducer packs,
-    into its head, body and tail (returns their refs)."""
+def _gather(src, idx: np.ndarray, out: np.ndarray) -> None:
+    """``src[idx]`` into ``out``: ``src`` one array (:func:`.native.take`)
+    or the parts of one, in order (:func:`.native.take_multi`)."""
+    if isinstance(src, list):
+        native.take_multi(src, idx, out=out)
+    else:
+        native.take(src, idx, out=out)
+
+
+def _permuted_output(store, pack, template, source: Callable[[str], Any], perm: np.ndarray):
+    """Write ``source(name)[perm]`` for every column of ``template``
+    (``source`` gives an array or the list of parts of one, see
+    :func:`_gather`): into one columnar segment (returns its ref), or,
+    when the reducer packs, into its head, body and tail (returns their
+    refs)."""
     total = len(perm)
     packed = _packed_output(store, pack, total, template)
     if packed is None:
         pending = store.create_columns({k: ((total, *v.shape[1:]), v.dtype) for k, v in template.items()})
         try:
             for k, dst in pending.columns.items():
-                np.take(source(k), perm, axis=0, out=dst)
+                _gather(source(k), perm, dst)
             return pending.seal()
         finally:
             pending.abort()
@@ -465,7 +665,7 @@ def _permuted_output(store, pack, template, source: Callable[[str], np.ndarray],
         for k in packed.names:
             src = source(k)
             for lo, hi, views in chunks:
-                np.take(src, perm[lo:hi], out=views[k])
+                _gather(src, perm[lo:hi], views[k])
         return packed.seal()
     finally:
         packed.abort()
@@ -474,18 +674,23 @@ def _permuted_output(store, pack, template, source: Callable[[str], np.ndarray],
 def shuffle_reduce(
     reduce_index: int, epoch: int, seed: int, part_refs: Sequence[ObjectRef], pack=None, stats_collector=None
 ) -> Union[ObjectRef, List[ObjectRef]]:
-    """Concatenate this reducer's partitions in file order and permute them
-    straight into the store; returns the output's ref, or with ``pack =
-    (rank-stream start, layout)`` its head, body and tail refs
-    (:class:`_PackedOutput`). The inputs stay: the epoch frees them once
-    the result has landed."""
+    """Permute this reducer's partitions, in file order, straight into the
+    store: one fused concat and gather per column
+    (:func:`.native.take_multi`), with no concatenated copy. Returns the
+    output's ref, or with ``pack = (rank-stream start, layout)`` its head,
+    body and tail refs (:class:`_PackedOutput`). The inputs stay: the
+    epoch frees them once the result has landed."""
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_start", epoch)
     start = time.perf_counter()
     store = runtime.ensure_initialized().store
-    parts = [store.get_columns(r) for r in part_refs]
+    # Mapped populated: the gather reads its partitions in a random order,
+    # and first touches of pages in a random order cost more than filling
+    # the page tables in one call (measured on the host of an H100 machine,
+    # tools/torch_port_stage_profile.py).
+    parts = [store.get_columns(r, populate=True) for r in part_refs]
     perm = _reduce_seed(seed, epoch, reduce_index).permutation(sum(p.num_rows for p in parts))
-    out = _permuted_output(store, pack, parts[0], lambda k: np.concatenate([p[k] for p in parts]), perm)
+    out = _permuted_output(store, pack, parts[0], lambda k: [p[k] for p in parts], perm)
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_done", epoch, time.perf_counter() - start)
     return out
@@ -522,10 +727,155 @@ def shuffle_gather_reduce(
         # permutation runs over this compact 1/R of the data.
         compact = np.empty((total, *template[k].shape[1:]), template[k].dtype)
         for i, (idx, cache) in enumerate(zip(idx_parts, caches)):
-            np.take(cache[k], idx, axis=0, out=compact[offsets[i] : offsets[i + 1]])
+            native.take(cache[k], idx, out=compact[offsets[i] : offsets[i + 1]])
         return compact
 
     out = _permuted_output(store, pack, template, source, perm)
+    if stats_collector is not None:
+        stats_collector.call_oneway("reduce_done", epoch, time.perf_counter() - start)
+    return out
+
+
+# -- the selective schedule ----------------------------------------------------------
+
+
+def selective_reads_decision(plan: Optional[Tuple[str, int]] = None) -> Tuple[bool, str]:
+    """``(engage, reason)`` of ``RSDL_SELECTIVE_READS`` (default off) for
+    the selective schedule. ``auto`` engages only under a prunable plan
+    (:func:`plan_is_prunable`): under rowwise every reducer's selection
+    holds every row group, so each file would be decoded about R times an
+    epoch, and ``auto`` declines to the materialized schedule, saying so.
+    ``on`` forces it under any plan; anything else is off. ``plan``: the
+    ``shuffle()``'s resolved plan (None: this process's environment)."""
+    plan = plan if plan is not None else shuffle_plan_spec()
+    label = _label_of_plan(plan)
+    mode = os.environ.get("RSDL_SELECTIVE_READS", "").strip().lower()
+    if mode in ("1", "on", "true"):
+        return True, f"forced on (plan={label})"
+    if mode == "auto":
+        if plan_is_prunable(plan):
+            return True, f"auto: plan {label} is prunable (disjoint per-reducer row-group selections)"
+        return False, (
+            "auto declined: rowwise plan is not prunable — selective would re-read every row group ~R times; "
+            "running the materialized schedule (set RSDL_SHUFFLE_PLAN=block to engage)"
+        )
+    return False, "off"
+
+
+def shuffle_selective_plan(
+    filename: str,
+    file_index: int,
+    num_reducers: int,
+    epoch: int,
+    seed: int,
+    plan: Optional[Tuple[str, int]] = None,
+    stats_collector=None,
+) -> List[int]:
+    """The selective schedule's map: the seeded draw over the footer's row
+    count, with no data read and nothing written to the store. Returns
+    each reducer's rows from this file, for the delivery offsets and the
+    packed outputs."""
+    if stats_collector is not None:
+        stats_collector.call_oneway("map_start", epoch)
+    start = time.perf_counter()
+    n = sum(file_row_group_sizes(filename))
+    end_read = time.perf_counter()
+    assignment = _file_assignment(seed, epoch, file_index, n, num_reducers, filename, plan)
+    counts = np.bincount(assignment, minlength=num_reducers)
+    if stats_collector is not None:
+        stats_collector.call_oneway("map_done", epoch, time.perf_counter() - start, end_read - start)
+    return [int(c) for c in counts]
+
+
+def selective_file_selection(
+    filename: str,
+    file_index: int,
+    reduce_index: int,
+    num_reducers: int,
+    epoch: int,
+    seed: int,
+    plan: Optional[Tuple[str, int]] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """One file's read for one reducer: ``(row_groups, positions)``, the
+    row groups that hold its rows under the seeded plan, and where each of
+    its rows, in file order, lies in the decode of just those groups. The
+    rows are those the materialized map gives this reducer
+    (:func:`_file_assignment`); under a block plan the reducers'
+    selections are disjoint."""
+    sizes = np.asarray(file_row_group_sizes(filename), dtype=np.int64)
+    assignment = _file_assignment(seed, epoch, file_index, int(sizes.sum()), num_reducers, filename, plan)
+    mine = np.flatnonzero(assignment == reduce_index)
+    offs = np.zeros(len(sizes) + 1, dtype=np.int64)
+    np.cumsum(sizes, out=offs[1:])
+    g_idx = np.searchsorted(offs, mine, side="right") - 1
+    gsel = np.unique(g_idx)
+    # Where each selected group starts in the selection's decode.
+    base_of = np.zeros(len(sizes), dtype=np.int64)
+    acc = 0
+    for g in gsel:
+        base_of[g] = acc
+        acc += int(sizes[g])
+    return gsel, base_of[g_idx] + (mine - offs[g_idx])
+
+
+# (file index, row group) of each decode by this process's selective reduces
+# since the stage wrapper last took them (:func:`_run_stage`).
+_DECODED_ROWGROUPS: List[Tuple[int, int]] = []
+
+
+def shuffle_selective_reduce(
+    reduce_index: int,
+    epoch: int,
+    seed: int,
+    filenames: Sequence[str],
+    num_reducers: int,
+    narrow_to_32: bool = False,
+    pack=None,
+    plan: Optional[Tuple[str, int]] = None,
+    stats_collector=None,
+) -> Union[ObjectRef, List[ObjectRef]]:
+    """The selective schedule's reduce: decode only the row groups that
+    hold this reducer's rows (:func:`selective_file_selection`; with
+    ``RSDL_DECODE_ROWGROUPS``, threaded), gather its rows from each in file
+    order (:func:`.native.take`) and apply :func:`shuffle_reduce`'s
+    permutation, plain or packed: the materialized reducer's output, bit
+    for bit, with nothing of the epoch in the store but the outputs.
+    A column whose dtype depends on the selection (Arrow decodes an int64
+    group with nulls as float64) raises."""
+    if stats_collector is not None:
+        stats_collector.call_oneway("reduce_start", epoch)
+    start = time.perf_counter()
+    store = runtime.ensure_initialized().store
+    selections = [
+        selective_file_selection(f, i, reduce_index, num_reducers, epoch, seed, plan) for i, f in enumerate(filenames)
+    ]
+    dst_off = np.zeros(len(selections) + 1, dtype=np.int64)
+    np.cumsum([len(pos) for _, pos in selections], out=dst_off[1:])
+    total = int(dst_off[-1])
+    perm = _reduce_seed(seed, epoch, reduce_index).permutation(total)
+    threads = decode_rowgroup_threads(num_reducers)
+    compact: Optional[Dict[str, np.ndarray]] = None
+    for i, (fname, (gsel, pos)) in enumerate(zip(filenames, selections)):
+        groups = [int(g) for g in gsel]
+        batch = read_parquet_columns(fname, row_groups=groups, rowgroup_threads=threads)
+        _DECODED_ROWGROUPS.extend((i, g) for g in groups)
+        cols = {k: _narrow_column(k, v) for k, v in batch.columns.items()} if narrow_to_32 else batch.columns
+        if compact is None:
+            compact = {k: np.empty((total, *v.shape[1:]), v.dtype) for k, v in cols.items()}
+        for k, v in cols.items():
+            if k not in compact or v.dtype != compact[k].dtype:
+                raise ValueError(
+                    f"selective schedule: file {fname!r} decoded column {k!r} as {v.dtype} where an earlier file "
+                    f"decoded {compact[k].dtype if k in compact else 'absent'}: selection-dependent dtypes (nullable "
+                    "columns) are not supported; run with RSDL_SELECTIVE_READS=off for this dataset"
+                )
+        lo, hi = int(dst_off[i]), int(dst_off[i + 1])
+        if hi > lo:
+            for k, v in cols.items():
+                native.take(v, pos, out=compact[k][lo:hi])
+        del batch, cols
+    compact = compact or {}
+    out = _permuted_output(store, pack, compact, compact.__getitem__, perm)
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_done", epoch, time.perf_counter() - start)
     return out
@@ -551,22 +901,30 @@ def rank_of_reducers(num_reducers: int, num_trainers: int) -> np.ndarray:
     )
 
 
+def _pack_starts_from_totals(totals, rank_of: np.ndarray, device_layout: Optional[dict]) -> list:
+    """Each reducer's ``(start in its rank's stream, layout)`` from its
+    row count; all None without a layout."""
+    if device_layout is None:
+        return [None] * len(rank_of)
+    at: Dict[int, int] = {}
+    out = []
+    for total, rank in zip(np.asarray(totals).tolist(), rank_of.tolist()):
+        out.append((at.get(rank, 0), device_layout))
+        at[rank] = at.get(rank, 0) + int(total)
+    return out
+
+
 def _pack_starts(partitions: List[List[ObjectRef]], rank_of: np.ndarray, device_layout: Optional[dict]) -> list:
     """Each reducer's ``(start in its rank's stream, layout)``, from the
     row counts its input windows carry; all None without a layout or when a
     window's count is unknown."""
-    none = [None] * len(rank_of)
-    if device_layout is None:
-        return none
-    at: Dict[int, int] = {}
-    out = []
-    for r, rank in enumerate(rank_of.tolist()):
+    totals = []
+    for r in range(len(rank_of)):
         rows = [_ref_window_rows(parts[r]) for parts in partitions]
         if any(c is None for c in rows):
-            return none
-        out.append((at.get(rank, 0), device_layout))
-        at[rank] = at.get(rank, 0) + sum(rows)
-    return out
+            return [None] * len(rank_of)
+        totals.append(sum(rows))
+    return _pack_starts_from_totals(totals, rank_of, device_layout)
 
 
 # -- the decode cache and the schedule policy -------------------------------------
@@ -657,7 +1015,8 @@ def _probed_host_costs() -> Dict[str, float]:
     per process (about 0.2 s):
 
     * ``gather_small`` / ``gather_large``: bytes/s of a random-permutation
-      row gather (``np.take``, the index schedule's hot operation) over a
+      row gather (:func:`.native.take`, threaded, the index schedule's hot
+      operation; numpy under ``RSDL_DISABLE_NATIVE``) over a
       cache-resident and a DRAM-resident buffer;
     * ``copy``: bytes/s (read plus write) of the same take with sorted
       indices, the materialized schedule's sequential passes;
@@ -674,15 +1033,16 @@ def _probed_host_costs() -> Dict[str, float]:
             rows = nbytes // 8
             buf = np.arange(rows, dtype=np.int64)  # not zeros: no shared zero page
             idx = rng.permutation(rows)
-            np.take(buf, idx[: 1 << 14])
+            native.take(buf, idx[: 1 << 14])
             t0 = time.perf_counter()
-            np.take(buf, idx)
+            native.take(buf, idx)
             return buf.nbytes / max(1e-9, time.perf_counter() - t0)
 
         g_small, g_large = gather_bps(_PROBE_SMALL), gather_bps(_PROBE_LARGE)
         buf = np.arange(_PROBE_LARGE // 8, dtype=np.int64)
+        seq = np.arange(len(buf))
         t0 = time.perf_counter()
-        np.take(buf, np.arange(len(buf)))
+        native.take(buf, seq)
         copy = 2 * buf.nbytes / max(1e-9, time.perf_counter() - t0)
         store = runtime.get_context().store
         tiny = {"x": np.zeros(16, np.int64)}
@@ -934,6 +1294,64 @@ def _reclaim(store, fut, unwrap: bool = False) -> None:
     store.free(out if isinstance(out, (list, tuple)) else [out])
 
 
+def _run_stage(fn: Callable, native_on: bool, args: tuple):
+    """Run one stage task in a worker with ``shuffle()``'s choice of host
+    kernels; returns ``(result, counts)``: the task's calls of each host
+    kernel, run natively or by numpy, and the row groups its selective
+    decodes read."""
+    native.set_enabled(native_on)
+    before = native.counts()
+    del _DECODED_ROWGROUPS[:]
+    try:
+        out = fn(*args)
+    finally:
+        native.set_enabled(None)
+    decoded = list(_DECODED_ROWGROUPS)
+    del _DECODED_ROWGROUPS[:]
+    return out, {**native.counts_since(before), "rowgroups": decoded}
+
+
+class _StageTally:
+    """Sums the counts of an epoch's stage tasks into the run's
+    ``stats``: ``native_calls`` and ``plain_calls`` per host kernel, and
+    per epoch the ``(file, row group)`` pairs that selective reduces
+    decoded (``selective_rowgroups``)."""
+
+    def __init__(self, stats: Optional[Dict[str, Any]], epoch: int):
+        self.stats = stats if stats is not None else {}
+        self.epoch = epoch
+        self._lock = threading.Lock()
+
+    def add(self, counts: dict) -> None:
+        with self._lock:
+            for key, name in (("native", "native_calls"), ("plain", "plain_calls")):
+                total = self.stats.setdefault(name, dict.fromkeys(native.KERNELS, 0))
+                for kernel, n in counts[key].items():
+                    total[kernel] = total.get(kernel, 0) + n
+            if counts["rowgroups"]:
+                self.stats.setdefault("selective_rowgroups", {}).setdefault(self.epoch, []).extend(
+                    counts["rowgroups"])
+
+
+def _submit_stage(pool, tally: _StageTally, native_on: bool, fn: Callable, *args) -> cf.Future:
+    """Submit ``fn(*args)`` through :func:`_run_stage`; the returned future
+    resolves to ``fn``'s result, and its counts go to ``tally``."""
+    inner = pool.submit(_run_stage, fn, native_on, args)
+    outer: cf.Future = cf.Future()
+
+    def done(f):
+        try:
+            out, counts = f.result()
+        except BaseException as exc:
+            outer.set_exception(exc)
+            return
+        tally.add(counts)
+        outer.set_result(out)
+
+    inner.add_done_callback(done)
+    return outer
+
+
 def shuffle_epoch(
     epoch: int,
     filenames: Sequence[str],
@@ -949,29 +1367,48 @@ def shuffle_epoch(
     stats_collector=None,
     journal=None,
     est=None,
+    plan: Optional[Tuple[str, int]] = None,
+    native_on: Optional[bool] = None,
 ) -> bool:
     """One epoch's maps and reduces in the session's worker pool; each
     reducer's output refs go to its rank in reducer order, then every rank
     gets its end-of-epoch signal. The epoch takes the index schedule when
-    every file's cache is hot and :func:`_index_schedule_allowed` agrees
-    (``schedule_log`` gets ``(epoch, "index" | "mapreduce")``). With a
-    ``device_layout``, each reducer learns its start in its rank's stream
-    and packs. Partitions are freed as their reducer lands, the consumer
-    frees the outputs, and a failed epoch frees what its tasks published.
+    every file's cache is hot and :func:`_index_schedule_allowed` agrees,
+    else the selective schedule when :func:`selective_reads_decision`
+    engages, else the materialized one (``schedule_log`` gets ``(epoch,
+    "index" | "selective" | "mapreduce")``). With a ``device_layout``,
+    each reducer learns its start in its rank's stream and packs.
+    Partitions are freed as their reducer lands, the consumer frees the
+    outputs, and a failed epoch frees what its tasks published.
     ``stats["store_peak_bytes"]`` keeps the store's peak, sampled after
-    the maps and after each reduce.
+    the maps and after each reduce; the stage tasks' host-kernel calls add
+    to ``stats["native_calls"]`` and ``stats["plain_calls"]``.
+
+    ``plan``: ``shuffle()``'s resolved plan (None: this process's
+    environment); ``native_on``: whether the stage tasks run the host
+    kernels (None: :func:`.native.enabled` here). Both reach every task
+    as arguments.
 
     ``journal`` (a :class:`~.runtime.journal.RunJournal`): append the
     epoch's barriers. ``est``: the epoch's journaled progress from a
     preempted run: a fully delivered epoch runs no task, a stage whose
-    journaled segments survive is re-attached, and reducers below the
-    delivery cursor are not delivered again. Returns False when a suspend
-    request stopped the epoch (its running reduces journaled), else
-    True."""
+    journaled segments survive is re-attached (a selective map's counts
+    always are), and reducers below the delivery cursor are not delivered
+    again. Returns False when a suspend request stopped the epoch (its
+    running reduces journaled), else True."""
     if stats_collector is not None:
         stats_collector.call_oneway("epoch_start", epoch)
     ctx = runtime.ensure_initialized()
     store, pool = ctx.store, ctx.pool
+    if plan is None:
+        plan = shuffle_plan_spec()
+    if native_on is None:
+        native_on = native.enabled()
+    tally = _StageTally(stats, epoch)
+
+    def submit(fn, *args):
+        return _submit_stage(pool, tally, native_on, fn, *args)
+
     if decode_cache is None:
         decode_cache = _DecodeCache(enabled=False)
     cache_refs = (
@@ -979,15 +1416,22 @@ def shuffle_epoch(
         if decode_cache.enabled and _index_schedule_allowed(list(filenames), num_reducers, narrow_to_32)
         else None
     )
-    schedule = "index" if cache_refs is not None else "mapreduce"
+    if cache_refs is not None:
+        schedule = "index"
+    else:
+        engage, reason = selective_reads_decision(plan)
+        schedule = "selective" if engage else "mapreduce"
+        if stats is not None:
+            stats["selective_reads"] = reason
+    selective = schedule == "selective"
     if schedule_log is not None:
         schedule_log.append((epoch, schedule))
     jmod = None
     if journal is not None:
         from ray_shuffling_data_loader_tpu_torch.runtime import journal as jmod
     if est is not None and est.schedule is not None and est.schedule != schedule:
-        # Stage results of the other schedule do not fit this one's tasks;
-        # the cursor holds, as both schedules deliver the same stream.
+        # Stage results of another schedule do not fit this one's tasks;
+        # the cursor holds, as every schedule delivers the same stream.
         pruned = type(est)(est.epoch)
         pruned.schedule, pruned.delivered, pruned.rank_rows = schedule, est.delivered, dict(est.rank_rows)
         est = pruned
@@ -1020,30 +1464,52 @@ def shuffle_epoch(
         _count(stats, f"{stage}s_reattached")
         return refs
 
+    def attached_map(file_index: int):
+        """The journaled result of map ``file_index``, else None: a
+        selective map's counts, or partitions whose segments survive."""
+        m = (est.maps.get(file_index) or {}) if est is not None else {}
+        if not selective:
+            return attached(m.get("refs"), "map", num_reducers)
+        counts = m.get("counts")
+        if counts is None or len(counts) != num_reducers:
+            return None
+        _count(stats, "maps_reattached")
+        return [int(c) for c in counts]
+
+    def free_inputs(r: int) -> None:
+        if not selective:
+            store.free([parts[r] for parts in partitions])
+
     map_futs, publishing, attached_maps = [], [], set()
     for file_index, filename in enumerate(filenames):
-        refs = attached((est.maps.get(file_index) or {}).get("refs"), "map", num_reducers) if est else None
-        if refs is not None:
-            map_futs.append(_Resolved(refs))
+        result = attached_map(file_index)
+        if result is not None:
+            map_futs.append(_Resolved(result))
             publishing.append(False)
             attached_maps.add(file_index)
             continue
         if schedule == "index":
-            fut = pool.submit(
-                shuffle_plan, file_index, num_reducers, epoch, seed, cache_refs[file_index], stats_collector
+            fut = submit(
+                shuffle_plan, file_index, num_reducers, epoch, seed, cache_refs[file_index], stats_collector,
+                filename, plan,
             )
+            publish = False
+        elif selective:
+            fut = submit(shuffle_selective_plan, filename, file_index, num_reducers, epoch, seed, plan,
+                         stats_collector)
             publish = False
         else:
             cache_ref, publish = decode_cache.claim_or_wait(file_index)
-            fut = pool.submit(
+            fut = submit(
                 shuffle_map, filename, file_index, num_reducers, epoch, seed, narrow_to_32, cache_ref, publish,
-                stats_collector,
+                stats_collector, plan,
             )
             if publish:
                 decode_cache.register(file_index, fut)
         map_futs.append(fut)
         publishing.append(publish)
-    partitions: List[List[ObjectRef]] = []
+    # Per file: one window ref per reducer, or a selective map's counts.
+    partitions: list = []
     reduce_futs: list = []
     delivered = 0
     completed = True
@@ -1052,29 +1518,41 @@ def shuffle_epoch(
             out = fut.result()
             partitions.append(out[0] if publish else out)
             if journal is not None and i not in attached_maps:
-                rec = {"refs": [jmod.ref_to_json(x) for x in partitions[-1]]}
+                if selective:
+                    rec = {"counts": list(partitions[-1])}
+                else:
+                    rec = {"refs": [jmod.ref_to_json(x) for x in partitions[-1]]}
                 if publish and out[1] is not None:
                     rec["cache_ref"] = jmod.ref_to_json(out[1])
                 journal.append("map", epoch=epoch, file=i, **rec)
         sample()
         rank_of = rank_of_reducers(num_reducers, num_trainers)
-        pack_for = _pack_starts(partitions, rank_of, device_layout)
+        if selective:
+            totals = np.sum(np.asarray(partitions, dtype=np.int64).reshape(len(filenames), num_reducers), axis=0)
+            pack_for = _pack_starts_from_totals(totals, rank_of, device_layout)
+        else:
+            pack_for = _pack_starts(partitions, rank_of, device_layout)
         attached_reduces = set()
         for r in range(num_reducers):
-            parts_r = [parts[r] for parts in partitions]
+            parts_r = None if selective else [parts[r] for parts in partitions]
             refs = attached(est.reduces.get(r), "reduce") if est is not None and r >= cursor else None
             if r < cursor or refs is not None:
                 # Delivered already, or its output survived: the inputs go.
-                store.free(parts_r)
+                free_inputs(r)
                 reduce_futs.append(None if r < cursor else _Resolved(refs))
                 if refs is not None:
                     attached_reduces.add(r)
             elif schedule == "index":
-                reduce_futs.append(pool.submit(
+                reduce_futs.append(submit(
                     shuffle_gather_reduce, r, epoch, seed, parts_r, cache_refs, pack_for[r], stats_collector
                 ))
+            elif selective:
+                reduce_futs.append(submit(
+                    shuffle_selective_reduce, r, epoch, seed, list(filenames), num_reducers, narrow_to_32,
+                    pack_for[r], plan, stats_collector,
+                ))
             else:
-                reduce_futs.append(pool.submit(shuffle_reduce, r, epoch, seed, parts_r, pack_for[r], stats_collector))
+                reduce_futs.append(submit(shuffle_reduce, r, epoch, seed, parts_r, pack_for[r], stats_collector))
         _count(stats, "reducers_skipped", cursor)
         delivered = cursor
         for r in range(cursor, num_reducers):
@@ -1100,7 +1578,7 @@ def shuffle_epoch(
             out = out if isinstance(out, list) else [out]
             sample()
             if r not in attached_reduces:
-                store.free([parts[r] for parts in partitions])
+                free_inputs(r)
                 if journal is not None:
                     journal.append("reduce", epoch=epoch, reducer=r, refs=[jmod.ref_to_json(x) for x in out])
             rank = int(rank_of[r])
@@ -1118,12 +1596,14 @@ def shuffle_epoch(
         for fut in reduce_futs[delivered:]:
             if fut is not None and not isinstance(fut, _Resolved):
                 _reclaim(store, fut)
-        for fut, publish in zip(map_futs[len(partitions):], publishing[len(partitions):]):
-            _reclaim(store, fut, unwrap=publish)  # its cache segment is the decode cache's
+        if not selective:  # a selective map publishes nothing
+            for fut, publish in zip(map_futs[len(partitions):], publishing[len(partitions):]):
+                _reclaim(store, fut, unwrap=publish)  # its cache segment is the decode cache's
         raise
     finally:
-        for parts in partitions:
-            store.free(parts)
+        if not selective:
+            for parts in partitions:
+                store.free(parts)
     for rank in range(num_trainers):
         batch_consumer.producer_done(rank, epoch)
     if journal is not None and completed:
@@ -1156,14 +1636,19 @@ def shuffle(
     two epochs run and the estimate fits the store's budget,
     :func:`_decode_cache_auto`); a hot cache also lets later epochs take
     the index schedule. ``schedule_log``: each epoch appends ``(epoch,
-    "index" | "mapreduce")``. ``device_layout``: a staging consumer's
-    ``{"batch": B, "columns": [...]}``; reducers then pack their whole
-    batches (unless ``RSDL_DEVICE_DIRECT=off``). ``stats``: the resolved
-    ``cache_decoded``, the epoch in progress (``epoch``), each epoch's
-    shuffle seconds (``epoch_shuffle_s``, admission excluded), the
-    store's peak bytes, and on a journaled run its ``journal`` path and
-    the ``resume`` counters (stages re-attached and re-executed, epochs
-    and reducers skipped). ``stats_collector``: a
+    "index" | "selective" | "mapreduce")``. ``device_layout``: a staging
+    consumer's ``{"batch": B, "columns": [...]}``; reducers then pack their
+    whole batches (unless ``RSDL_DEVICE_DIRECT=off``). ``stats``: the
+    resolved ``cache_decoded``, the resolved ``plan`` label and the
+    ``selective_reads`` decision's reason, the epoch in progress
+    (``epoch``), each epoch's shuffle seconds (``epoch_shuffle_s``,
+    admission excluded), the store's peak bytes, the stage tasks'
+    host-kernel calls (``native_calls``, ``plain_calls``: per kernel of
+    :mod:`.native`), the row groups each selective epoch decoded
+    (``selective_rowgroups``: epoch -> ``(file, row group)`` pairs), and
+    on a journaled run its ``journal`` path and the ``resume`` counters
+    (stages re-attached and re-executed, epochs and reducers skipped).
+    ``stats_collector``: a
     :class:`~.stats.TrialStatsCollector` handle that hears the run's
     events (module docstring), ``trial_done`` with the run's seconds
     last.
@@ -1175,8 +1660,16 @@ def shuffle(
     (for a consumer that restarted), and a path names a journal file or
     directory, refused on a mismatch. With
     ``RSDL_JOURNAL`` set, every run journals its window, and on the main
-    thread SIGTERM suspends it (:mod:`.runtime.journal`)."""
-    check_shuffle_plan()
+    thread SIGTERM suspends it (:mod:`.runtime.journal`).
+
+    The plan (``RSDL_SHUFFLE_PLAN``) and the choice of host kernels
+    (``RSDL_DISABLE_NATIVE``) are read here, once, and handed to every
+    stage task; the kernels are built here if they are not yet. A
+    malformed plan raises ``ValueError`` before any task starts."""
+    plan = shuffle_plan_spec()
+    native_on = native.enabled()
+    if native_on:
+        native.ensure_built()
     start = time.perf_counter()
     filenames = list(filenames)
     device_layout = _device_layout_allowed(device_layout)
@@ -1188,7 +1681,7 @@ def shuffle(
 
         identity = jmod.run_identity(
             filenames, num_epochs, num_reducers, num_trainers, seed, start_epoch, narrow_to_32,
-            shuffle_plan_label(), None, device_layout,
+            _label_of_plan(plan), None, device_layout,
         )
         resume_state, resume_mode = jmod.resolve_resume(resume_from, identity)
         if not jmod.enabled() and resume_state is None:
@@ -1216,6 +1709,7 @@ def shuffle(
         cache_decoded = _decode_cache_auto(filenames, num_epochs - start_epoch, narrow_to_32)
     if stats is not None:
         stats["cache_decoded"] = cache_decoded
+        stats["plan"] = _label_of_plan(plan)
         stats.setdefault("epoch_shuffle_s", [])
     decode_cache = _DecodeCache(enabled=cache_decoded)
     if resume_state is not None and cache_decoded:
@@ -1239,7 +1733,7 @@ def shuffle(
                     epoch, filenames, batch_consumer, num_reducers, num_trainers, seed,
                     narrow_to_32=narrow_to_32, decode_cache=decode_cache, schedule_log=schedule_log,
                     device_layout=device_layout, stats=stats, stats_collector=stats_collector,
-                    journal=journal, est=est,
+                    journal=journal, est=est, plan=plan, native_on=native_on,
                 ):
                     suspended = True
                     break

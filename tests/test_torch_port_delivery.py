@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from ray_shuffling_data_loader_tpu import dataset as jax_dataset
+from ray_shuffling_data_loader_tpu import native as jax_native
 from ray_shuffling_data_loader_tpu import runtime as jax_runtime
 from ray_shuffling_data_loader_tpu.jax_dataset import JaxShufflingDataset
 from ray_shuffling_data_loader_tpu.runtime import store as jax_store
@@ -106,20 +107,34 @@ def _logical_columns(cb):
 
 
 MODES = list(itertools.product(("auto", "off"), ("on", "off"), (True, False)))
+# The host kernels on (the default), or their plain numpy versions.
+NATIVE = {"native": "", "plain": "1"}
 
 
+def _host_passes(monkeypatch, native):
+    # The JAX package reads the same variable once per process, at its
+    # first kernel call: load its kernels first, so that they stay on for
+    # the JAX side of every test in this process.
+    assert jax_native.native_available()
+    monkeypatch.setenv("RSDL_DISABLE_NATIVE", NATIVE[native])
+    return native == "native"
+
+
+@pytest.mark.parametrize("native", sorted(NATIVE))
 @pytest.mark.parametrize("skip", [0, 3])
 @pytest.mark.parametrize("drop_last", [False, True])
 @pytest.mark.parametrize("direct,index,cache", MODES)
 def test_staged_tensors_match_jax_in_every_mode(
-    files, jax_staged, monkeypatch, direct, index, cache, drop_last, skip
+    files, jax_staged, monkeypatch, direct, index, cache, drop_last, skip, native
 ):
     """``RSDL_DEVICE_DIRECT`` auto/off x ``RSDL_INDEX_SHUFFLE`` on/off x
-    ``cache_decoded``: every staged tensor equals the JAX package's, bit
-    for bit; direct batches are exactly the whole aligned batches of the
-    reducers' intervals; the index schedule runs from epoch 1 exactly when
-    forced with the cache on."""
+    ``cache_decoded`` x ``RSDL_DISABLE_NATIVE``: every staged tensor equals
+    the JAX package's, bit for bit; direct batches are exactly the whole
+    aligned batches of the reducers' intervals; the index schedule runs
+    from epoch 1 exactly when forced with the cache on; every host pass of
+    the stage tasks ran the C++ kernels, or with them off numpy."""
     want = jax_staged(drop_last, skip)
+    native_on = _host_passes(monkeypatch, native)
     monkeypatch.setenv("RSDL_DEVICE_DIRECT", direct)
     monkeypatch.setenv("RSDL_INDEX_SHUFFLE", index)
     ds = DeviceShufflingDataset(
@@ -151,6 +166,11 @@ def test_staged_tensors_match_jax_in_every_mode(
     assert ds.dataset.shuffle_stats["cache_decoded"] is cache
     schedules = [s for _, s in ds.dataset.schedule_log]
     assert schedules == (["mapreduce", "index"] if index == "on" and cache else ["mapreduce"] * 2)
+    calls = ds.dataset.shuffle_stats
+    ran, idle = (calls["native_calls"], calls["plain_calls"]) if native_on else (calls["plain_calls"],
+                                                                               calls["native_calls"])
+    assert ran["group_rows"] > 0 and ran["narrow"] > 0 and ran["take" if "index" in schedules else "take_multi"] > 0
+    assert not any(idle.values())
     assert port_runtime.store_stats().num_objects == 0
 
 
@@ -159,10 +179,13 @@ def _staged_stream_epoch(ds, epoch, skip):
     return [(f, l) for f, l in ds]
 
 
+@pytest.mark.parametrize("native", sorted(NATIVE))
 @pytest.mark.parametrize("index,cache", list(itertools.product(("on", "off"), (True, False))))
-def test_row_stream_with_packed_outputs_matches_jax(files, local_runtime, monkeypatch, index, cache):
+def test_row_stream_with_packed_outputs_matches_jax(files, local_runtime, monkeypatch, index, cache, native):
     """The host stream with a staging layout: the same rows and columns
-    as the JAX package's, and packed batches at the same places."""
+    as the JAX package's, and packed batches at the same places, with the
+    host kernels on or off."""
+    _host_passes(monkeypatch, native)
     monkeypatch.setenv("RSDL_INDEX_SHUFFLE", index)
     layout = {"batch": BATCH, "columns": [KEY_COLUMN, LABEL_COLUMN]}
     kwargs = dict(num_reducers=NUM_REDUCERS, seed=SEED, narrow_to_32=True, cache_decoded=cache, device_layout=layout)

@@ -223,15 +223,17 @@ def test_per_column_staging_for_unpackable_specs(files):
 
 
 def test_unported_plan_and_narrowing_range_raise(monkeypatch, files):
+    """The block plan family is ported now: ``block`` and ``block:2`` run
+    and deliver every key once. A malformed plan and a narrowing out of
+    int32's range still raise."""
     for plan in ("block", "block:2"):
         monkeypatch.setenv("RSDL_SHUFFLE_PLAN", plan)
-        with pytest.raises(NotImplementedError):
-            shuffle(files, None, 1, 2, 1)
         ds = ShufflingDataset(files, 1, 1, 1000, 0, num_reducers=2, queue_name=_qname())
         ds.set_epoch(0)
-        with pytest.raises(RuntimeError) as info:
-            list(ds)
-        assert isinstance(info.value.__cause__, NotImplementedError)
+        keys = np.concatenate([b["key"] for b in ds])
+        ds.join()
+        assert sorted(keys.tolist()) == list(range(len(keys))) and len(keys) > 0
+        assert ds.shuffle_stats["plan"] == ("block:1" if plan == "block" else plan)
     monkeypatch.setenv("RSDL_SHUFFLE_PLAN", "bogus")
     with pytest.raises(ValueError):
         shuffle(files, None, 1, 2, 1)

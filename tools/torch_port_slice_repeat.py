@@ -7,7 +7,9 @@ of its step median on one NVIDIA GPU, for one checkout of the repo.
 Writes the Quick-start dataset (10^6 rows, 10 files, 5 row groups) under
 ``<root>/build/exp_data`` and runs ``train_slice`` of that checkout's
 ``chip_smoke.py`` ``<repeats>`` times in one session (2 epochs, batch
-65536, 8 reducers each), printing one ``EXP`` line per repeat. Run a
+65536, 8 reducers each), printing one ``EXP`` line per repeat: the step
+median, each epoch's wall and shuffle seconds with its schedule, and the
+trainer's stall. Run a
 parent and a change checkout in turns in one call to compare them; each run needs the card (it exits non-zero without one).
 """
 
@@ -34,7 +36,9 @@ def main(root: str, reps: int) -> int:
         for r in range(reps):
             out = smoke.train_slice(torch, port, files, 10**6, port.dlrm_for_data_spec(), f"dlrm-{r}")
             print(f"EXP {root} rep {r}: step median {out['step_ms_median']:.3f} ms, "
-                  f"epochs {[round(e, 4) for e in out['epoch_s']]}", flush=True)
+                  f"epochs {[round(e, 4) for e in out['epoch_s']]}, shuffle "
+                  f"{out['delivery']['epoch_shuffle_s']!r} s per epoch ({out['delivery']['schedules']}), "
+                  f"stall {out['staging']['stall_s']!r} s", flush=True)
     finally:
         port.runtime.shutdown()
         shutil.rmtree(data_dir, ignore_errors=True)
