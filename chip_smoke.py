@@ -108,6 +108,28 @@ Phases, each of which fails the script (non-zero exit) on any error:
    start-up and shutdown (seconds since spawn to imports, runtime joined,
    process groups, model built and sharded, optimizer made, step made,
    pool ready, first batch, last step, report written, teardown);
+   plan: the read plane. The Quick-start shape (10^6 rows, 10 files, seed
+   0) written with 20 row groups a file, so that at 8 reducers the plan
+   compiler picks ``block:1``. Six 2-epoch DLRM runs (batch 65536, bf16,
+   Adam 1e-3, the same initial weights, deterministic algorithms on):
+   ``RSDL_PLAN=auto`` with the decode cache (``block:1`` planned,
+   selective declined) and without it (selective engaged), each against
+   the same terms set by hand (``RSDL_SHUFFLE_PLAN=block:1``,
+   ``RSDL_SELECTIVE_READS`` to match, ``RSDL_DECODE_PUSHDOWN=on``); and
+   ``RSDL_DECODE_PUSHDOWN=on`` against ``off`` with a layout that leaves
+   out ``key``. Each pair's staged tensors (per-batch digests on the
+   card) and losses must be bit-identical, every epoch must deliver the
+   full batches' worth (each key once where ``key`` is staged), K1 must
+   launch once per step on its tensor-core route, and the layout's
+   projection must prune bytes. Then delivery only (``shuffle()``, 8
+   reducers): an explicit projection of ``key``, ``labels`` and
+   ``embeddings_name0`` to ``_name7`` must deliver every key once an
+   epoch and exactly those columns, logged with its estimate and the
+   schedules ``auto`` chose beside the full decode's; and two runs back
+   to back with ``RSDL_DECODE_CACHE_SHARED=on``: the second must decode
+   no Parquet in epoch 0 and deliver the first's stream. Each run logs
+   its terms, schedules, shuffle seconds, row groups and bytes decoded,
+   the pruned bytes and the shared cache's hits;
 5. resident: the JAX package's flagship path at ``bench.py``'s quick
    shape: 11,904,761 rows in 16 files of 2 row groups (seed 0), batch
    250,000 (47 full batches per epoch), 2 epochs, seed 0; the 19 feature
@@ -165,6 +187,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import copy
 import json
 import math
@@ -953,6 +976,23 @@ def staging_profile(records) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def environment(env: dict, clear=()):
+    """Set ``env`` (after removing the variables ``clear``) for the block,
+    then put every variable back as it was."""
+    keys = set(env) | set(clear)
+    saved = {k: os.environ.pop(k, None) for k in keys}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 # (label, environment, cache_decoded): the delivery phase's runs. The first
 # four deliver the defaults' stream: the index schedule forced, everything
 # off, and the host kernels' plain numpy versions. The last two take the
@@ -987,9 +1027,7 @@ def phase_delivery(torch, filenames, num_rows: int, batch_size: int = 65536, dev
     port.runtime.init()
     try:
         for label, env, cache_decoded in DELIVERY_RUNS:
-            saved = {k: os.environ.pop(k, None) for k in env_keys}
-            os.environ.update(env)
-            try:
+            with environment(env, clear=env_keys):
                 t0 = time.perf_counter()
                 ds = port.DeviceShufflingDataset(
                     filenames, num_epochs=2, num_trainers=1, batch_size=batch_size, rank=0,
@@ -1016,12 +1054,6 @@ def phase_delivery(torch, filenames, num_rows: int, batch_size: int = 65536, dev
                 if device == "cuda":
                     torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            finally:
-                for k, v in saved.items():
-                    if v is None:
-                        os.environ.pop(k, None)
-                    else:
-                        os.environ[k] = v
             report = delivery_report(port, ds, filenames, f"delivery {label}")
             report.update(wall_s=wall, batches=len(digests), staging_profile=staging_profile(records))
             runs[label] = (torch.stack(digests).cpu(), report)
@@ -1186,6 +1218,242 @@ def phase_slices(torch, data_dir: str) -> dict:
         return {"dlrm": dlrm, "tabtransformer": tab, "filenames": filenames}
     finally:
         port.runtime.shutdown()
+
+
+PLAN_ROW_GROUPS = 20  # at 8 reducers, >= 2R row groups a file: the planner's block:1
+PLAN_KNOBS = ("RSDL_PLAN", "RSDL_SHUFFLE_PLAN", "RSDL_SELECTIVE_READS", "RSDL_DECODE_PUSHDOWN",
+              "RSDL_DECODE_CACHE_SHARED", "RSDL_INDEX_SHUFFLE")
+# (label, environment, cache_decoded, key staged): the DLRM runs of the
+# plan phase, in pairs held bit-identical: each planned run and the same
+# terms set by hand, and the layout's projection against the full decode.
+PLAN_DLRM_RUNS = (
+    ("planned_cache", {"RSDL_PLAN": "auto"}, True, True),
+    ("hand_cache", {"RSDL_SHUFFLE_PLAN": "block:1", "RSDL_SELECTIVE_READS": "off", "RSDL_DECODE_PUSHDOWN": "on"},
+     True, True),
+    ("planned_nocache", {"RSDL_PLAN": "auto"}, False, True),
+    ("hand_nocache", {"RSDL_SHUFFLE_PLAN": "block:1", "RSDL_SELECTIVE_READS": "on", "RSDL_DECODE_PUSHDOWN": "on"},
+     False, True),
+    ("pushdown_on", {"RSDL_DECODE_PUSHDOWN": "on"}, None, False),
+    ("pushdown_off", {"RSDL_DECODE_PUSHDOWN": "off"}, None, False),
+)
+PLAN_PAIRS = (("planned_cache", "hand_cache"), ("planned_nocache", "hand_nocache"), ("pushdown_on", "pushdown_off"))
+NARROW_PROJECTION = ["key", "labels"] + [f"embeddings_name{i}" for i in range(8)]
+
+
+def read_plane_line(label: str, stats: dict, schedules) -> dict:
+    """Log and return what a run's read plane did: the plan and its terms,
+    the projection, each epoch's schedule and shuffle seconds, the row
+    groups and bytes decoded from Parquet, the pruned bytes and the shared
+    cache's hits."""
+    out = {
+        "plan": stats.get("plan"),
+        "plan_terms": {k: v["value"] for k, v in (stats.get("plan_terms") or {}).items()},
+        "selective_reads": stats.get("selective_reads"),
+        "columns": stats.get("columns"),
+        "schedules": list(schedules),
+        "epoch_shuffle_s": stats.get("epoch_shuffle_s"),
+        "decode_rowgroups": stats.get("decode_rowgroups"),
+        "decode_bytes": stats.get("decode_bytes"),
+        "decode_bytes_pruned": stats.get("decode_bytes_pruned"),
+        "shared_cache_hits": stats.get("shared_cache_hits"),
+        "cache_decoded": stats.get("cache_decoded"),
+    }
+    def short(cols):
+        return cols if cols is None or len(cols) <= 10 else f"{len(cols)} columns"
+
+    terms = {k: short(v) if k == "columns" else v for k, v in out["plan_terms"].items()}
+    log(f"[plan {label}] plan {out['plan']} (terms {terms}); selective: {out['selective_reads']}; "
+        f"columns {short(out['columns'])}; cache_decoded {out['cache_decoded']}")
+    log(f"[plan {label}] schedules {out['schedules']}, shuffle {out['epoch_shuffle_s']!r} s per epoch; decoded "
+        f"{out['decode_rowgroups']} row groups, {out['decode_bytes']} B; pruned {out['decode_bytes_pruned']} B; "
+        f"shared-cache hits {out['shared_cache_hits']}")
+    return out
+
+
+def plan_dlrm_run(torch, port, filenames, model, init_state, label: str, cache_decoded, with_key: bool) -> dict:
+    """Two epochs of the DLRM from ``init_state`` (a fresh Adam 1e-3) over
+    the plan phase's dataset: per batch a digest of the staged tensors
+    (``key`` excluded) and the loss; K1's launches counted from 0."""
+    import numpy as np
+
+    import ray_shuffling_data_loader_tpu_torch.ops as ops
+
+    batch_size = 65536
+    features = [c for c in port.DATA_SPEC if c != port.LABEL_COLUMN]
+    model.load_state_dict(init_state)
+    step = port.make_train_step(model, port.make_optimizer(model))
+    ds = port.DeviceShufflingDataset(
+        filenames, num_epochs=2, num_trainers=1, batch_size=batch_size, rank=0,
+        feature_columns=features + ([port.KEY_COLUMN] if with_key else []), label_column=port.LABEL_COLUMN,
+        num_reducers=8, seed=0, device="cuda", cache_decoded=cache_decoded,
+    )
+    reset_launches(ops)
+    digests, losses = [], []
+    for epoch in range(2):
+        ds.set_epoch(epoch)
+        keys, rows = [], 0
+        for feats, labels in ds:
+            if with_key:
+                keys.append(feats.pop(port.KEY_COLUMN))
+            rows += labels.numel()
+            digests.append(batch_digest(torch, [*feats.values(), labels]))
+            losses.append(step(feats, labels)["loss"].item())
+        want = (NUM_ROWS // batch_size) * batch_size
+        if rows != want:
+            raise AssertionError(f"[plan {label}] epoch {epoch}: {rows} rows, want {want}")
+        if with_key:
+            got = torch.cat(keys).cpu().numpy()
+            if np.unique(got).size != want or got.min() < 0 or got.max() >= NUM_ROWS:
+                raise AssertionError(f"[plan {label}] epoch {epoch}: {np.unique(got).size} distinct keys of {want}")
+    launches = read_launches(ops)
+    ds.join()
+    steps = len(losses)
+    if launches["interaction"] != steps or launches["interaction_mma"] != steps:
+        raise AssertionError(f"[plan {label}] launches {launches} in {steps} steps, want one K1 per step, all on "
+                             f"the tensor-core route")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[plan {label}] non-finite loss: {losses}")
+    stats = ds.dataset.shuffle_stats
+    report = read_plane_line(label, stats, [s for _, s in ds.dataset.schedule_log])
+    check_host_calls(f"plan {label}", {"native_calls": stats["native_calls"], "plain_calls": stats["plain_calls"]},
+                     group_by="selective" not in report["schedules"])
+    log(f"[plan {label}] {steps} steps, losses {losses[0]!r} -> {losses[-1]!r}; K1 launches {launches['interaction']}")
+    return {"digests": torch.stack(digests).cpu(), "losses": losses, "launches": launches, "report": report}
+
+
+class _KeyColumns:
+    """A draining consumer for delivery-only runs: every ``key`` per epoch
+    and the column set of every segment."""
+
+    def __init__(self, port):
+        self.port = port
+        self.keys, self.column_sets = {}, set()
+
+    def consume(self, rank, epoch, batches):
+        store = self.port.runtime.get_context().store
+        for ref in batches:
+            cb = store.get_columns(ref)
+            self.column_sets.add(tuple(sorted(cb.columns)))
+            self.keys.setdefault(epoch, []).append(cb["key"].copy())
+        store.free(batches)
+
+    def producer_done(self, rank, epoch):
+        pass
+
+    def wait_until_ready(self, epoch):
+        pass
+
+    def wait_until_all_epochs_done(self):
+        pass
+
+
+def plan_delivery(port, filenames, **kwargs) -> tuple:
+    """One 2-epoch ``shuffle()`` into :class:`_KeyColumns` (8 reducers, one
+    rank, narrowed); returns the consumer, the stats and the schedules."""
+    from ray_shuffling_data_loader_tpu_torch import shuffle as port_shuffle
+
+    consumer, stats, log_ = _KeyColumns(port), {}, []
+    port_shuffle.shuffle(filenames, consumer, 2, 8, 1, seed=0, narrow_to_32=True, schedule_log=log_, stats=stats,
+                         **kwargs)
+    return consumer, stats, [s for _, s in log_]
+
+
+def phase_plan(torch, data_dir: str) -> dict:
+    """The read plane on the Quick-start shape written with 20 row groups a
+    file: the planned DLRM runs against the hand-set ones and the
+    layout's projection against the full decode (staged tensors and
+    losses bit-identical; the DLRM step under deterministic algorithms,
+    whose embedding backward is otherwise not); an explicit narrow
+    projection, delivery only; and the shared decode cache over two runs."""
+    import numpy as np
+
+    import ray_shuffling_data_loader_tpu_torch as port
+    from ray_shuffling_data_loader_tpu_torch import shuffle as port_shuffle
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    port.runtime.init()
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    try:
+        t0 = time.perf_counter()
+        filenames, nbytes = port.generate_data(NUM_ROWS, 10, PLAN_ROW_GROUPS, 0.0, data_dir, seed=0)
+        log(f"[plan] generated {NUM_ROWS} rows ({nbytes} B) in {len(filenames)} files of {PLAN_ROW_GROUPS} row "
+            f"groups in {time.perf_counter() - t0:.2f} s")
+        model = port.dlrm_for_data_spec()
+        init_state = copy.deepcopy(model.state_dict())
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        runs = {}
+        for label, env, cache_decoded, with_key in PLAN_DLRM_RUNS:
+            with environment(env, clear=PLAN_KNOBS):
+                runs[label] = plan_dlrm_run(torch, port, filenames, model, init_state, label, cache_decoded, with_key)
+        torch.use_deterministic_algorithms(deterministic)
+        for a, b in PLAN_PAIRS:
+            ra, rb = runs[a], runs[b]
+            if not torch.equal(ra["digests"], rb["digests"]):
+                raise AssertionError(f"[plan] {a}: staged tensors differ from {b}'s")
+            diff = max(abs(x - y) for x, y in zip(ra["losses"], rb["losses"]))
+            if ra["losses"] != rb["losses"]:
+                raise AssertionError(f"[plan] {a}: losses differ from {b}'s by up to {diff!r}")
+            log(f"[plan] {a} = {b}: {len(ra['losses'])} batches' staged tensors and losses bit-identical")
+        reports = {label: run["report"] for label, run in runs.items()}
+        want_cols = [c for c in port.DATA_SPEC if c != port.LABEL_COLUMN] + [port.KEY_COLUMN, port.LABEL_COLUMN]
+        for label in ("planned_cache", "planned_nocache"):
+            r = reports[label]
+            if r["plan"] != "block:1" or r["plan_terms"].get("plan") != ["block", 1] or r["columns"] != want_cols:
+                raise AssertionError(f"[plan] {label}: {r}")
+        if "selective" in reports["planned_cache"]["schedules"] or reports["planned_cache"]["plan_terms"]["selective"]:
+            raise AssertionError(f"[plan] planned_cache engaged selective: {reports['planned_cache']}")
+        if reports["planned_nocache"]["schedules"] != ["selective"] * 2:
+            raise AssertionError(f"[plan] planned_nocache: {reports['planned_nocache']}")
+        if not reports["pushdown_on"]["decode_bytes_pruned"] or reports["pushdown_off"]["decode_bytes_pruned"]:
+            raise AssertionError(f"[plan] pruned bytes: on {reports['pushdown_on']['decode_bytes_pruned']}, "
+                                 f"off {reports['pushdown_off']['decode_bytes_pruned']}")
+        out["dlrm"] = {label: {"losses": run["losses"], "launches": run["launches"], **run["report"]}
+                       for label, run in runs.items()}
+        out["launches"] = {k: sum(run["launches"][k] for run in runs.values()) for k in runs["pushdown_on"]["launches"]}
+        del model, init_state, runs
+
+        # An explicit narrow projection, delivery only, against the full decode.
+        delivery = {}
+        for label, kwargs in (("narrow_projection", {"columns": NARROW_PROJECTION}), ("full_decode", {})):
+            consumer, stats, schedules = plan_delivery(port, filenames, **kwargs)
+            for epoch in range(2):
+                keys = np.concatenate(consumer.keys[epoch])
+                if keys.size != NUM_ROWS or not np.array_equal(np.sort(keys), np.arange(NUM_ROWS)):
+                    raise AssertionError(f"[plan {label}] epoch {epoch}: {keys.size} keys, not each key once")
+            est = port_shuffle._est_decoded_bytes(filenames, True, kwargs.get("columns"))
+            delivery[label] = {**read_plane_line(label, stats, schedules), "est_decoded_bytes": est,
+                               "column_sets": sorted(consumer.column_sets)}
+            log(f"[plan {label}] estimate {est!r} B; schedules auto chose {schedules}; every key once an epoch")
+        if delivery["narrow_projection"]["column_sets"] != [tuple(sorted(NARROW_PROJECTION))]:
+            raise AssertionError(f"[plan] narrow projection delivered {delivery['narrow_projection']['column_sets']}")
+        out["delivery"] = delivery
+
+        # The shared decode cache over two runs back to back.
+        shared = {}
+        with environment({"RSDL_DECODE_CACHE_SHARED": "on"}, clear=PLAN_KNOBS):
+            try:
+                for label in ("shared_first", "shared_second"):
+                    consumer, stats, schedules = plan_delivery(port, filenames, cache_decoded=True)
+                    shared[label] = {**read_plane_line(label, stats, schedules),
+                                     "keys": [np.concatenate(consumer.keys[e]) for e in range(2)]}
+            finally:
+                port_shuffle.shared_decode_cache_clear(free=True)
+        first, second = shared["shared_first"], shared["shared_second"]
+        if second["decode_rowgroups"].get(0) or not first["decode_rowgroups"].get(0):
+            raise AssertionError(f"[plan] row groups decoded in epoch 0: first {first['decode_rowgroups']}, "
+                                 f"second {second['decode_rowgroups']}")
+        if not all(np.array_equal(a, b) for a, b in zip(first.pop("keys"), second.pop("keys"))):
+            raise AssertionError("[plan] the shared-cache runs delivered different streams")
+        log(f"[plan] shared cache: the second run decoded no Parquet in epoch 0 and delivered the first's stream; "
+            f"epoch 0 shuffle {first['epoch_shuffle_s'][0]!r} s, then {second['epoch_shuffle_s'][0]!r} s")
+        out["shared"] = shared
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+        port.runtime.shutdown()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[plan] phase {out['wall_s']:.1f} s; K1 launches over its DLRM runs {out['launches']}")
+    return out
 
 
 # (label, multirank arguments): the four runs of the ranks phase.
@@ -1729,6 +1997,12 @@ def main() -> int:
             ranks = phase_ranks(filenames, smi)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
+        plan_dir = os.path.join(ROOT, "build", "plan_data")
+        shutil.rmtree(plan_dir, ignore_errors=True)
+        try:
+            plan = phase_plan(torch, plan_dir)
+        finally:
+            shutil.rmtree(plan_dir, ignore_errors=True)
         resident_dir = os.path.join(ROOT, "build", "resident_data")
         shutil.rmtree(resident_dir, ignore_errors=True)
         try:
@@ -1770,6 +2044,8 @@ def main() -> int:
             if kname == "interaction_mma":  # and on every rank of the vocab-sharded run
                 entry["launches_ranks_dp2_mp2"] = sum(
                     res["launches"]["interaction"]["mma_launches"] for res in ranks["dp2_mp2"]["ranks"])
+                # and in the plan phase's six DLRM runs
+                entry["launches_plan"] = plan["launches"]["interaction_mma"]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: a phase failed", file=sys.stderr)
@@ -1790,6 +2066,7 @@ def main() -> int:
                     "native": host,
                     "delivery": delivery,
                     "ranks": ranks,
+                    "plan": plan,
                     "resident": resident,
                     "resume": resume,
                     "parity_max_abs_diff": {label: err for label, (err, _) in parity.items()},

@@ -90,6 +90,18 @@ def _default_capacity_bytes(shm_dir: str) -> Optional[int]:
     return int(st.f_blocks * st.f_frsize * frac)
 
 
+def fetch_window_depth(default: int = 8) -> int:
+    """``RSDL_FETCH_WINDOW_DEPTH``: how many input windows a reduce keeps
+    in flight (at least 1), else ``default`` when unset or malformed."""
+    env = os.environ.get("RSDL_FETCH_WINDOW_DEPTH")
+    if not env:
+        return default
+    try:
+        return max(1, int(env))
+    except ValueError:
+        return default
+
+
 def _align(n: int) -> int:
     return (n + _ALIGN - 1) // _ALIGN * _ALIGN
 

@@ -50,6 +50,18 @@ Two opt-in settings change what an epoch delivers or how it reads:
   where those selections are disjoint and each row group is decoded once
   an epoch.
 
+The read plane decides what a run decodes and who decides it:
+
+* **Decode pushdown** (``shuffle(columns=)``, ``RSDL_DECODE_PUSHDOWN``,
+  :func:`_pushdown_columns`): every decode reads only the projection,
+  and the stream holds exactly its columns.
+* **Shared decode cache** (``RSDL_DECODE_CACHE_SHARED``): the decode
+  cache outlives the run, for the next run over the same files.
+* **Plan compiler** (``RSDL_PLAN=auto``, :mod:`.analysis.planner`): the
+  plan family, the selective schedule, the projection and the tasks'
+  threads, decided from the Parquet footers where the environment leaves
+  them unset.
+
 Given the same files, seed, reducer count and plan, the row stream is the
 one the JAX package's shuffle delivers: the seeds, the draws and the
 group-by order are the same, whichever schedule and output form an epoch
@@ -214,6 +226,34 @@ def _decode_rowgroups_parallel(filename: str, names: List[str], sel: List[int], 
     return {name: results[name] for name in names}
 
 
+# What this process's Parquet decodes read since the stage wrapper last
+# took the counts (:func:`_run_stage`): row groups, decoded bytes, and the
+# decoded bytes the projection and the row-group selection left out.
+_DECODE_COUNTS = {"rowgroups": 0, "bytes": 0, "bytes_pruned": 0}
+
+
+def _count_decode(schema, group_rows: Sequence[int], sel: Sequence[int], proj: Optional[Sequence[str]]) -> None:
+    """Add one decode to :data:`_DECODE_COUNTS`. Widths are the decoded
+    ones before narrowing (8 bytes where a column has no fixed-width
+    dtype), and the pruned bytes are the JAX package's
+    ``shuffle.decode_bytes_pruned``: every row of each column left out,
+    plus the projected columns of the rows in groups not selected."""
+    total_rows = int(sum(group_rows))
+    sel_rows = int(sum(group_rows[g] for g in sel))
+    proj_bytes = pruned_col_bytes = 0
+    for i in range(len(schema.names)):
+        field = schema.field(i)
+        dt = _np_dtype_of(field)
+        width = dt.itemsize if dt is not None else 8
+        if proj is not None and field.name not in proj:
+            pruned_col_bytes += width
+        else:
+            proj_bytes += width
+    _DECODE_COUNTS["rowgroups"] += len(sel)
+    _DECODE_COUNTS["bytes"] += sel_rows * proj_bytes
+    _DECODE_COUNTS["bytes_pruned"] += total_rows * pruned_col_bytes + (total_rows - sel_rows) * proj_bytes
+
+
 def read_parquet_columns(
     filename: str,
     columns: Optional[Sequence[str]] = None,
@@ -223,32 +263,38 @@ def read_parquet_columns(
 ) -> ColumnBatch:
     """Decode a local Parquet file to contiguous numpy columns.
 
-    ``columns``: decode only these (None: all); a name the file lacks
-    raises a ``ValueError`` (Arrow's ``ArrowInvalid`` when the whole file
-    is read). ``use_threads``: let Arrow
+    ``columns``: decode only these, in this order (None: all); a name the
+    file lacks raises a ``ValueError``, and so does a projection that
+    selects no column. ``use_threads``: let Arrow
     decode with its own threads. Off by default: the worker pool decodes
     one file per worker, and Arrow's threads on top of that oversubscribe
     a busy host. ``row_groups``: decode only these row groups, in
     ascending order (the selective schedule's read): the same columns as
     the whole file's rows of those groups, as long as a column decodes to
     one dtype in every group. ``rowgroup_threads > 1``: decode them with
-    :func:`_decode_rowgroups_parallel` (then ``use_threads`` is ignored)."""
+    :func:`_decode_rowgroups_parallel` (then ``use_threads`` is ignored).
+    Every read adds to :data:`_DECODE_COUNTS`."""
     import pyarrow.parquet as pq
 
-    if row_groups is None and rowgroup_threads <= 1:
-        table = pq.read_table(
-            filename, columns=None if columns is None else list(columns), use_threads=use_threads, memory_map=True
-        )
-        return ColumnBatch(_table_to_columns(table))
     pf = pq.ParquetFile(filename, memory_map=True)
     schema = pf.schema_arrow
-    names = list(schema.names) if columns is None else list(columns)
-    missing = [c for c in names if c not in schema.names]
-    if missing:
-        raise ValueError(f"projected columns not in {filename!r} schema: {missing}")
-    if not names:
-        raise ValueError(f"projection selects no columns of {filename!r}")
-    sel = list(range(pf.metadata.num_row_groups)) if row_groups is None else sorted(int(g) for g in row_groups)
+    group_rows = [int(pf.metadata.row_group(g).num_rows) for g in range(pf.metadata.num_row_groups)]
+    if columns is None and row_groups is None and rowgroup_threads <= 1:
+        _count_decode(schema, group_rows, range(len(group_rows)), None)
+        table = pq.read_table(filename, use_threads=use_threads, memory_map=True)
+        return ColumnBatch(_table_to_columns(table))
+    proj = None if columns is None else list(columns)
+    if proj is not None:
+        # The JAX package lets the audit key it appends be missing; the
+        # port has no audit plane yet, so every missing name raises.
+        missing = [c for c in proj if c not in schema.names]
+        if missing:
+            raise ValueError(f"projected columns not in {filename!r} schema: {missing}")
+        if not proj:
+            raise ValueError(f"projection selects no columns of {filename!r} (requested {list(columns)!r})")
+    names = list(schema.names) if proj is None else proj
+    sel = list(range(len(group_rows))) if row_groups is None else sorted(int(g) for g in row_groups)
+    _count_decode(schema, group_rows, sel, proj)
     cols = None
     if rowgroup_threads > 1 and sel:
         cols = _decode_rowgroups_parallel(filename, names, sel, rowgroup_threads)
@@ -422,6 +468,44 @@ def plan_is_prunable(plan: Optional[Tuple[str, int]] = None) -> bool:
     return family == "block"
 
 
+# -- the plan compiler's hooks -------------------------------------------------
+
+
+def _plan_enabled() -> bool:
+    """Is the plan compiler on (``RSDL_PLAN=auto|on``)? Read before
+    anything of it is imported: off, :mod:`.analysis.planner` and
+    :mod:`.runtime.plan` never load."""
+    return (os.environ.get("RSDL_PLAN") or "").strip().lower() in ("auto", "on", "1", "true")
+
+
+def _clear_plan_state() -> None:
+    """Unregister the finished run's plan, if the plan module is loaded
+    (never the reason it loads)."""
+    import sys
+
+    mod = sys.modules.get("ray_shuffling_data_loader_tpu_torch.runtime.plan")
+    if mod is not None:
+        mod.set_current(None)
+
+
+def _apply_task_knobs(knobs: Optional[dict]) -> None:
+    """Apply a planned ``native_threads`` in the stage task's process
+    (the host kernels read the process default). The other knobs are read
+    where they are used."""
+    if knobs and knobs.get("native_threads") is not None:
+        native.set_num_threads(int(knobs["native_threads"]))
+
+
+def _knob_decode_threads(knobs: Optional[dict], stage_tasks: int) -> int:
+    """Threads for a task's decode: the planned
+    ``decode_rowgroup_threads`` when the task was given one, else
+    :func:`decode_rowgroup_threads`. Planned values come as arguments:
+    a worker's environment dates from its spawn."""
+    if knobs and knobs.get("decode_rowgroup_threads") is not None:
+        return max(1, int(knobs["decode_rowgroup_threads"]))
+    return decode_rowgroup_threads(stage_tasks)
+
+
 def shuffle_map(
     filename: str,
     file_index: int,
@@ -433,12 +517,18 @@ def shuffle_map(
     publish_cache: bool = False,
     stats_collector=None,
     plan: Optional[Tuple[str, int]] = None,
+    columns: Optional[Sequence[str]] = None,
+    knobs: Optional[dict] = None,
+    stage_tasks: int = 1,
 ):
     """Decode one file and group its rows by reducer straight into one
     store segment (:func:`.native.group_rows_multi`, one stable counting
     scatter); returns one row-window ref per reducer (empty windows
     included when the file has few rows). ``plan``: ``shuffle()``'s resolved
-    plan (:func:`_file_assignment`).
+    plan (:func:`_file_assignment`). ``columns``: the run's decode
+    projection (:func:`_pushdown_columns`; None: every column): only these
+    are decoded, partitioned and delivered. ``knobs``: the planned task
+    knobs (:func:`_knob_decode_threads`, over ``stage_tasks`` maps).
 
     ``cache_ref``: take the rows from this decode-cache segment instead of
     Parquet. ``publish_cache``: also write the decoded (and narrowed)
@@ -453,7 +543,8 @@ def shuffle_map(
     if cache_ref is not None:
         batch = store.get_columns(cache_ref)
     else:
-        batch = read_parquet_columns(filename)
+        batch = read_parquet_columns(filename, columns=columns,
+                                     rowgroup_threads=_knob_decode_threads(knobs, stage_tasks))
         if narrow_to_32:
             batch = ColumnBatch({k: _narrow_column(k, v) for k, v in batch.columns.items()})
         if publish_cache:
@@ -739,17 +830,27 @@ def shuffle_gather_reduce(
 # -- the selective schedule ----------------------------------------------------------
 
 
-def selective_reads_decision(plan: Optional[Tuple[str, int]] = None) -> Tuple[bool, str]:
+def selective_reads_decision(
+    plan: Optional[Tuple[str, int]] = None, planned: Optional[bool] = None
+) -> Tuple[bool, str]:
     """``(engage, reason)`` of ``RSDL_SELECTIVE_READS`` (default off) for
     the selective schedule. ``auto`` engages only under a prunable plan
     (:func:`plan_is_prunable`): under rowwise every reducer's selection
     holds every row group, so each file would be decoded about R times an
     epoch, and ``auto`` declines to the materialized schedule, saying so.
     ``on`` forces it under any plan; anything else is off. ``plan``: the
-    ``shuffle()``'s resolved plan (None: this process's environment)."""
+    ``shuffle()``'s resolved plan (None: this process's environment).
+    ``planned``: the plan compiler's decision, taken only when the
+    variable is unset, and then only under a prunable plan."""
     plan = plan if plan is not None else shuffle_plan_spec()
     label = _label_of_plan(plan)
     mode = os.environ.get("RSDL_SELECTIVE_READS", "").strip().lower()
+    if mode == "" and planned is not None:
+        if planned and plan_is_prunable(plan):
+            return True, f"planned: engaged (plan={label})"
+        if planned:
+            return False, f"planned engage declined: plan {label} is not prunable"
+        return False, "planned: off"
     if mode in ("1", "on", "true"):
         return True, f"forced on (plan={label})"
     if mode == "auto":
@@ -833,10 +934,13 @@ def shuffle_selective_reduce(
     pack=None,
     plan: Optional[Tuple[str, int]] = None,
     stats_collector=None,
+    columns: Optional[Sequence[str]] = None,
+    knobs: Optional[dict] = None,
 ) -> Union[ObjectRef, List[ObjectRef]]:
     """The selective schedule's reduce: decode only the row groups that
-    hold this reducer's rows (:func:`selective_file_selection`; with
-    ``RSDL_DECODE_ROWGROUPS``, threaded), gather its rows from each in file
+    hold this reducer's rows (:func:`selective_file_selection`), and of
+    them only ``columns`` (the run's projection; None: every column),
+    threaded by :func:`_knob_decode_threads`; gather its rows from each in file
     order (:func:`.native.take`) and apply :func:`shuffle_reduce`'s
     permutation, plain or packed: the materialized reducer's output, bit
     for bit, with nothing of the epoch in the store but the outputs.
@@ -853,11 +957,11 @@ def shuffle_selective_reduce(
     np.cumsum([len(pos) for _, pos in selections], out=dst_off[1:])
     total = int(dst_off[-1])
     perm = _reduce_seed(seed, epoch, reduce_index).permutation(total)
-    threads = decode_rowgroup_threads(num_reducers)
+    threads = _knob_decode_threads(knobs, num_reducers)
     compact: Optional[Dict[str, np.ndarray]] = None
     for i, (fname, (gsel, pos)) in enumerate(zip(filenames, selections)):
         groups = [int(g) for g in gsel]
-        batch = read_parquet_columns(fname, row_groups=groups, rowgroup_threads=threads)
+        batch = read_parquet_columns(fname, columns=columns, row_groups=groups, rowgroup_threads=threads)
         _DECODED_ROWGROUPS.extend((i, g) for g in groups)
         cols = {k: _narrow_column(k, v) for k, v in batch.columns.items()} if narrow_to_32 else batch.columns
         if compact is None:
@@ -927,7 +1031,49 @@ def _pack_starts(partitions: List[List[ObjectRef]], rank_of: np.ndarray, device_
     return _pack_starts_from_totals(totals, rank_of, device_layout)
 
 
-# -- the decode cache and the schedule policy -------------------------------------
+# -- the decode cache, its shared tier, and the schedule policy ---------------------
+#
+# With RSDL_DECODE_CACHE_SHARED on, a run's decode-cache segments outlive
+# it: at its end they are promoted into this process's registry, keyed by
+# what they hold (session, file, projection, narrowing), and the next
+# run over the same files starts cache-hot. Every claim checks that the
+# segment still exists; one that was freed is decoded again, never handed
+# out.
+
+_SHARED_CACHE_LOCK = threading.Lock()
+_SHARED_CACHE: Dict[tuple, ObjectRef] = {}
+
+
+def shared_decode_cache_enabled() -> bool:
+    """``RSDL_DECODE_CACHE_SHARED``: ``on``, ``1``, ``true`` or ``auto``
+    arm the shared tier; anything else, and unset, leave it off. (The JAX
+    package also arms it under its multi-job service plane, which the port
+    does not have.)"""
+    return os.environ.get("RSDL_DECODE_CACHE_SHARED", "").strip().lower() in ("1", "on", "true", "auto")
+
+
+def _shared_cache_key(session: str, filename: str, columns: Optional[Sequence[str]], narrow: bool) -> tuple:
+    """What one file's cache segment holds: the store session (refs belong
+    to one), the file, the projection and the narrowing. Another
+    projection or narrowing never reads this segment."""
+    path = filename if "://" in filename else os.path.abspath(filename)
+    return (session, path, None if columns is None else tuple(columns), bool(narrow))
+
+
+def shared_decode_cache_clear(free: bool = False) -> None:
+    """Drop every entry of the shared registry; ``free``: and free their
+    segments."""
+    with _SHARED_CACHE_LOCK:
+        refs = list(_SHARED_CACHE.values())
+        _SHARED_CACHE.clear()
+    if free and refs:
+        runtime.get_context().store.free(refs)
+
+
+def _shared_cache_spared() -> set:
+    """The object ids of the promoted segments, which outlive their run."""
+    with _SHARED_CACHE_LOCK:
+        return {ref.object_id for ref in _SHARED_CACHE.values()}
 
 
 class _DecodeCache:
@@ -936,20 +1082,56 @@ class _DecodeCache:
     The first epoch to map file ``i`` publishes its cache; a later epoch's
     map of that file waits on the publishing map and partitions from the
     segment. :meth:`free_all` frees every segment at the end of the run,
-    failed or not."""
+    failed or not.
 
-    def __init__(self, enabled: bool):
+    ``shared_keys`` (one :func:`_shared_cache_key` per file) arms the
+    shared tier: claims look in the process's registry first, and the
+    resolved segments are promoted into it instead of freed.
+    ``shared_hits`` counts the claims that found there a segment another
+    run published."""
+
+    def __init__(self, enabled: bool, shared_keys: Optional[List[tuple]] = None):
         self.enabled = enabled
         self._lock = threading.Lock()
         self._futs: dict = {}  # file index -> the publishing map's future
+        self._shared_keys = shared_keys
+        self.shared_hits = 0
+
+    def _shared_get(self, index: int) -> Optional[ObjectRef]:
+        """File ``index``'s segment from the shared registry while it
+        exists; an entry whose segment is gone is dropped."""
+        if self._shared_keys is None:
+            return None
+        key = self._shared_keys[index]
+        with _SHARED_CACHE_LOCK:
+            ref = _SHARED_CACHE.get(key)
+        if ref is None:
+            return None
+        if runtime.get_context().store.exists(ref):
+            return ref
+        with _SHARED_CACHE_LOCK:
+            if _SHARED_CACHE.get(key) is ref:
+                del _SHARED_CACHE[key]
+        return None
+
+    def _share(self, index: int, ref: Optional[ObjectRef]) -> None:
+        if self._shared_keys is not None and ref is not None:
+            with _SHARED_CACHE_LOCK:
+                _SHARED_CACHE[self._shared_keys[index]] = ref
 
     def claim_or_wait(self, index: int) -> Tuple[Optional[ObjectRef], bool]:
-        """``(cache_ref, publish)`` for file ``index``: the first caller
-        gets ``(None, True)`` and publishes; later callers wait for that
+        """``(cache_ref, publish)`` for file ``index``: a live segment of
+        the shared tier gives ``(ref, False)``; else the first caller
+        gets ``(None, True)`` and publishes, and later callers wait for that
         map and get ``(ref, False)``. A failed publish, or a publishing map
         that failed, means decoding again."""
         if not self.enabled:
             return None, False
+        ref = self._shared_get(index)
+        if ref is not None:
+            with self._lock:
+                self.shared_hits += index not in self._futs
+            return ref, False
         with self._lock:
             fut = self._futs.get(index)
             if fut is None:
@@ -964,39 +1146,52 @@ class _DecodeCache:
             self._futs[index] = fut
 
     def hot_refs(self, num_files: int) -> Optional[List[ObjectRef]]:
-        """Every file's cache ref once its publishing map has resolved
-        (waiting for those still running), else None: a file not yet
-        published, or whose publish failed, keeps the epoch off the index
-        schedule."""
+        """Every file's cache ref, from the shared tier or once its
+        publishing map has resolved (waiting for those still running),
+        else None: a file not yet published, or whose publish failed,
+        keeps the epoch off the index schedule. A published ref is
+        promoted into the shared tier when it is armed."""
         if not self.enabled:
             return None
         refs = []
+        hits = 0
         for i in range(num_files):
+            ref = self._shared_get(i)
             with self._lock:
                 fut = self._futs.get(i)
-            if fut is None:
-                return None
-            try:
-                ref = fut.result()[1]
-            except Exception:
-                return None
-            if ref is None:
-                return None
+            if ref is not None:
+                hits += fut is None
+            else:
+                if fut is None:
+                    return None
+                try:
+                    ref = fut.result()[1]
+                except Exception:
+                    return None
+                if ref is None:
+                    return None
+                self._share(i, ref)
             refs.append(ref)
+        with self._lock:
+            self.shared_hits += hits
         return refs
 
     def free_all(self) -> None:
         """Free every published cache segment, waiting for the maps still
-        publishing."""
+        publishing; with the shared tier armed, promote them instead."""
         with self._lock:
-            futs, self._futs = list(self._futs.values()), {}
+            futs, self._futs = dict(self._futs), {}
         refs = []
-        for fut in futs:
+        for index, fut in futs.items():
             try:
                 ref = fut.result()[1]
             except Exception:
                 continue
-            if ref is not None:
+            if ref is None:
+                continue
+            if self._shared_keys is not None:
+                self._share(index, ref)
+            else:
                 refs.append(ref)
         if refs:
             runtime.get_context().store.free(refs)
@@ -1072,18 +1267,24 @@ def _gather_bw_for(cache_bytes: float) -> float:
     return float(np.exp((1 - frac) * np.log(c["gather_small"]) + frac * np.log(c["gather_large"])))
 
 
-def _dataset_stats_task(filenames: List[str], narrow_to_32: bool) -> Tuple[float, int]:
+def _dataset_stats_task(
+    filenames: List[str], narrow_to_32: bool, columns: Optional[Sequence[str]] = None
+) -> Tuple[float, int]:
     """Run in a worker: ``(decoded bytes per row, total rows)``, bytes per
     row from the schema of the first file's first batch (after
-    narrowing), rows from every file's footer."""
+    narrowing; of ``columns`` only, the run's projection, when given),
+    rows from every file's footer."""
     import pyarrow.parquet as pq
 
     pf = pq.ParquetFile(filenames[0])
     per_row = 0.0
+    wanted = None if columns is None else set(columns)
     for batch in pf.iter_batches(batch_size=1 << 16):
         if batch.num_rows == 0:
             continue
         for col in batch.schema:
+            if wanted is not None and col.name not in wanted:
+                continue
             dt = np.dtype(col.type.to_pandas_dtype())
             per_row += float((narrowed_dtype(dt) if narrow_to_32 else dt).itemsize)
         break
@@ -1093,20 +1294,21 @@ def _dataset_stats_task(filenames: List[str], narrow_to_32: bool) -> Tuple[float
     return per_row, int(total_rows)
 
 
-def _est_decoded_bytes(filenames: List[str], narrow_to_32: bool) -> float:
-    """The dataset's decoded size: bytes per row times rows (from a worker,
-    :func:`_dataset_stats_task`), plus 15 % headroom; cached per process.
-    If that fails, the files' sizes times a fixed expansion (0.7 narrowed,
-    1.3 not); an unreadable file raises ``OSError``."""
+def _est_decoded_bytes(filenames: List[str], narrow_to_32: bool, columns: Optional[Sequence[str]] = None) -> float:
+    """The dataset's decoded size (of ``columns`` only, when given): bytes
+    per row times rows (from a worker, :func:`_dataset_stats_task`), plus
+    15 % headroom; cached per process and projection. If that fails, the
+    files' sizes times a fixed expansion (0.7 narrowed, 1.3 not); an
+    unreadable file raises ``OSError``."""
     if not filenames:
         return 0.0
-    key = ("est", tuple(filenames), narrow_to_32)
+    key = ("est", tuple(filenames), narrow_to_32, None if columns is None else tuple(columns))
     with _PROBE_LOCK:
         if key in _PROBE_CACHE:
             return _PROBE_CACHE[key]
     try:
         per_row, total_rows = runtime.get_context().pool.submit(
-            _dataset_stats_task, list(filenames), narrow_to_32
+            _dataset_stats_task, list(filenames), narrow_to_32, None if columns is None else list(columns)
         ).result()
         est = per_row * total_rows * 1.15
     except Exception:
@@ -1116,15 +1318,18 @@ def _est_decoded_bytes(filenames: List[str], narrow_to_32: bool) -> float:
     return est
 
 
-def _decode_cache_auto(filenames: List[str], num_epochs: int, narrow_to_32: bool = False) -> bool:
+def _decode_cache_auto(
+    filenames: List[str], num_epochs: int, narrow_to_32: bool = False, columns: Optional[Sequence[str]] = None
+) -> bool:
     """``cache_decoded=None``: cache when at least two epochs read the
-    files and the estimated decoded size is under 0.35 of the store's
+    files and the estimated decoded size (of the projection ``columns``)
+    is under 0.35 of the store's
     budget (room for it beside about two epochs in flight). Off when the
     store has no budget: nothing would absorb a wrong guess."""
     if num_epochs < 2:
         return False
     try:
-        est = _est_decoded_bytes(filenames, narrow_to_32)
+        est = _est_decoded_bytes(filenames, narrow_to_32, columns)
     except OSError:
         return False
     cap = runtime.get_context().store.capacity_bytes
@@ -1133,11 +1338,14 @@ def _decode_cache_auto(filenames: List[str], num_epochs: int, narrow_to_32: bool
     return est < 0.35 * cap
 
 
-def _index_schedule_allowed(filenames: List[str], num_reducers: int, narrow_to_32: bool) -> bool:
+def _index_schedule_allowed(
+    filenames: List[str], num_reducers: int, narrow_to_32: bool, columns: Optional[Sequence[str]] = None
+) -> bool:
     """May a cache-hot epoch take the index schedule?
     ``RSDL_INDEX_SHUFFLE=on|off`` decides; ``auto`` (the default) compares
     the two schedules' modelled epoch times on this host
-    (:func:`_probed_host_costs`):
+    (:func:`_probed_host_costs`), for the cache of the projection
+    ``columns``:
 
     * index: ``min(8, R) x cache / gather_bw``: R gathers, each touching a
       64-byte line per 8-byte element of its 1/R of the rows, at most the
@@ -1152,7 +1360,7 @@ def _index_schedule_allowed(filenames: List[str], num_reducers: int, narrow_to_3
     if mode in ("off", "0", "false"):
         return False
     try:
-        est_cache = _est_decoded_bytes(filenames, narrow_to_32)
+        est_cache = _est_decoded_bytes(filenames, narrow_to_32, columns)
     except OSError:
         return False
     costs = _probed_host_costs()
@@ -1176,6 +1384,33 @@ def _device_layout_allowed(device_layout: Optional[dict]) -> Optional[dict]:
     if device_layout is None or not device_direct_enabled():
         return None
     return device_layout
+
+
+def _pushdown_columns(device_layout: Optional[dict], columns: Optional[Sequence[str]]) -> Optional[List[str]]:
+    """The run's decode projection, or None (decode every column): the one
+    reader of ``RSDL_DECODE_PUSHDOWN``. ``off`` (``0``, ``false``): None.
+    ``auto`` (the default): an explicit ``columns``. ``on`` (``1``,
+    ``true``): also, without one, the staging layout's columns (the
+    operator says that nothing else reads the stream). An empty request
+    decodes everything; the result keeps its order with repeats
+    dropped."""
+    mode = os.environ.get("RSDL_DECODE_PUSHDOWN", "auto").strip().lower()
+    if mode in ("off", "0", "false"):
+        return None
+    need: Optional[List[str]] = None
+    if columns is not None:
+        need = [str(c) for c in columns]
+    elif mode in ("on", "1", "true") and device_layout is not None:
+        try:
+            need = [str(c) for c in device_layout["columns"]]
+        except (KeyError, TypeError):
+            return None
+    if not need:
+        return None
+    # The JAX package appends the audit key here when its audit plane is
+    # armed; that waits for the port's audit plane.
+    seen: set = set()
+    return [c for c in need if not (c in seen or seen.add(c))]
 
 
 # -- the epochs --------------------------------------------------------------------
@@ -1240,14 +1475,16 @@ def _adopt_preempted(resume_state) -> None:
 def _sweep_preempted(resume_state) -> None:
     """At a resumed run's end: whatever is left of the preempted sessions
     goes; a predecessor in this very session has its journaled refs that
-    were not re-attached freed one by one."""
+    were not re-attached freed one by one. Segments promoted into the
+    shared decode-cache tier are spared."""
     from ray_shuffling_data_loader_tpu_torch.runtime import journal as jmod
 
     store = runtime.get_context().store
+    spare = _shared_cache_spared()
     for session in _preempted_sessions(resume_state):
-        store.cleanup(session=session)
+        store.cleanup(session=session, keep=spare)
     if resume_state.identity.get("session") == store.session:
-        store.free([jmod.ref_from_json(d) for d in _journaled_ref_dicts(resume_state)])
+        store.free([jmod.ref_from_json(d) for d in _journaled_ref_dicts(resume_state) if d["id"] not in spare])
 
 
 def _seed_decode_cache(decode_cache: "_DecodeCache", resume_state) -> None:
@@ -1294,28 +1531,34 @@ def _reclaim(store, fut, unwrap: bool = False) -> None:
     store.free(out if isinstance(out, (list, tuple)) else [out])
 
 
-def _run_stage(fn: Callable, native_on: bool, args: tuple):
+def _run_stage(fn: Callable, native_on: bool, knobs: Optional[dict], args: tuple):
     """Run one stage task in a worker with ``shuffle()``'s choice of host
-    kernels; returns ``(result, counts)``: the task's calls of each host
-    kernel, run natively or by numpy, and the row groups its selective
-    decodes read."""
+    kernels and its planned task knobs (:func:`_apply_task_knobs`);
+    returns ``(result, counts)``: the task's calls of each host
+    kernel, run natively or by numpy, the row groups its selective
+    decodes read, and its Parquet decodes' counts (:data:`_DECODE_COUNTS`)."""
     native.set_enabled(native_on)
+    _apply_task_knobs(knobs)
     before = native.counts()
     del _DECODED_ROWGROUPS[:]
+    _DECODE_COUNTS.update(dict.fromkeys(_DECODE_COUNTS, 0))
     try:
         out = fn(*args)
     finally:
         native.set_enabled(None)
     decoded = list(_DECODED_ROWGROUPS)
     del _DECODED_ROWGROUPS[:]
-    return out, {**native.counts_since(before), "rowgroups": decoded}
+    return out, {**native.counts_since(before), "rowgroups": decoded, "decode": dict(_DECODE_COUNTS)}
 
 
 class _StageTally:
     """Sums the counts of an epoch's stage tasks into the run's
-    ``stats``: ``native_calls`` and ``plain_calls`` per host kernel, and
-    per epoch the ``(file, row group)`` pairs that selective reduces
-    decoded (``selective_rowgroups``)."""
+    ``stats``: ``native_calls`` and ``plain_calls`` per host kernel; per
+    epoch the ``(file, row group)`` pairs that selective reduces
+    decoded (``selective_rowgroups``), the row groups and bytes decoded
+    from Parquet (``decode_rowgroups``, ``decode_bytes``); and the bytes
+    the projection and the selections left out (``decode_bytes_pruned``,
+    over the run)."""
 
     def __init__(self, stats: Optional[Dict[str, Any]], epoch: int):
         self.stats = stats if stats is not None else {}
@@ -1331,12 +1574,17 @@ class _StageTally:
             if counts["rowgroups"]:
                 self.stats.setdefault("selective_rowgroups", {}).setdefault(self.epoch, []).extend(
                     counts["rowgroups"])
+            decode = counts["decode"]
+            for key, name in (("rowgroups", "decode_rowgroups"), ("bytes", "decode_bytes")):
+                per_epoch = self.stats.setdefault(name, {})
+                per_epoch[self.epoch] = per_epoch.get(self.epoch, 0) + decode[key]
+            self.stats["decode_bytes_pruned"] = self.stats.get("decode_bytes_pruned", 0) + decode["bytes_pruned"]
 
 
-def _submit_stage(pool, tally: _StageTally, native_on: bool, fn: Callable, *args) -> cf.Future:
+def _submit_stage(pool, tally: _StageTally, native_on: bool, knobs: Optional[dict], fn: Callable, *args) -> cf.Future:
     """Submit ``fn(*args)`` through :func:`_run_stage`; the returned future
     resolves to ``fn``'s result, and its counts go to ``tally``."""
-    inner = pool.submit(_run_stage, fn, native_on, args)
+    inner = pool.submit(_run_stage, fn, native_on, knobs, args)
     outer: cf.Future = cf.Future()
 
     def done(f):
@@ -1369,6 +1617,8 @@ def shuffle_epoch(
     est=None,
     plan: Optional[Tuple[str, int]] = None,
     native_on: Optional[bool] = None,
+    columns: Optional[Sequence[str]] = None,
+    knobs: Optional[dict] = None,
 ) -> bool:
     """One epoch's maps and reduces in the session's worker pool; each
     reducer's output refs go to its rank in reducer order, then every rank
@@ -1386,8 +1636,11 @@ def shuffle_epoch(
 
     ``plan``: ``shuffle()``'s resolved plan (None: this process's
     environment); ``native_on``: whether the stage tasks run the host
-    kernels (None: :func:`.native.enabled` here). Both reach every task
-    as arguments.
+    kernels (None: :func:`.native.enabled` here); ``columns``: the run's
+    decode projection (:func:`_pushdown_columns`; None: every column);
+    ``knobs``: the plan compiler's task knobs (None: none), whose
+    ``selective`` decides the schedule where ``RSDL_SELECTIVE_READS`` is
+    unset. All reach every task as arguments.
 
     ``journal`` (a :class:`~.runtime.journal.RunJournal`): append the
     epoch's barriers. ``est``: the epoch's journaled progress from a
@@ -1407,19 +1660,19 @@ def shuffle_epoch(
     tally = _StageTally(stats, epoch)
 
     def submit(fn, *args):
-        return _submit_stage(pool, tally, native_on, fn, *args)
+        return _submit_stage(pool, tally, native_on, knobs, fn, *args)
 
     if decode_cache is None:
         decode_cache = _DecodeCache(enabled=False)
     cache_refs = (
         decode_cache.hot_refs(len(filenames))
-        if decode_cache.enabled and _index_schedule_allowed(list(filenames), num_reducers, narrow_to_32)
+        if decode_cache.enabled and _index_schedule_allowed(list(filenames), num_reducers, narrow_to_32, columns)
         else None
     )
     if cache_refs is not None:
         schedule = "index"
     else:
-        engage, reason = selective_reads_decision(plan)
+        engage, reason = selective_reads_decision(plan, planned=(knobs or {}).get("selective"))
         schedule = "selective" if engage else "mapreduce"
         if stats is not None:
             stats["selective_reads"] = reason
@@ -1502,7 +1755,7 @@ def shuffle_epoch(
             cache_ref, publish = decode_cache.claim_or_wait(file_index)
             fut = submit(
                 shuffle_map, filename, file_index, num_reducers, epoch, seed, narrow_to_32, cache_ref, publish,
-                stats_collector, plan,
+                stats_collector, plan, columns, knobs, len(filenames),
             )
             if publish:
                 decode_cache.register(file_index, fut)
@@ -1549,7 +1802,7 @@ def shuffle_epoch(
             elif selective:
                 reduce_futs.append(submit(
                     shuffle_selective_reduce, r, epoch, seed, list(filenames), num_reducers, narrow_to_32,
-                    pack_for[r], plan, stats_collector,
+                    pack_for[r], plan, stats_collector, columns, knobs,
                 ))
             else:
                 reduce_futs.append(submit(shuffle_reduce, r, epoch, seed, parts_r, pack_for[r], stats_collector))
@@ -1618,54 +1871,75 @@ def shuffle(
     num_reducers: int,
     num_trainers: int,
     seed: int = 0,
+    stats_collector=None,
     start_epoch: int = 0,
     narrow_to_32: bool = False,
     cache_decoded: Optional[bool] = None,
     schedule_log: Optional[list] = None,
     device_layout: Optional[dict] = None,
-    stats: Optional[Dict[str, Any]] = None,
-    stats_collector=None,
+    columns: Optional[Sequence[str]] = None,
     resume_from: Optional[str] = None,
+    stats: Optional[Dict[str, Any]] = None,
 ) -> float:
     """Shuffle every epoch from ``start_epoch`` into ``batch_consumer``;
     each epoch first waits for the consumer to admit it. Returns the
-    run's seconds.
+    run's seconds. The parameters are the JAX package's, in its order,
+    then the port's own ``stats``.
 
-    ``cache_decoded``: keep each file's decoded columns in the store after
-    the first epoch, so later epochs skip Parquet (None: on when at least
-    two epochs run and the estimate fits the store's budget,
-    :func:`_decode_cache_auto`); a hot cache also lets later epochs take
-    the index schedule. ``schedule_log``: each epoch appends ``(epoch,
-    "index" | "selective" | "mapreduce")``. ``device_layout``: a staging
-    consumer's ``{"batch": B, "columns": [...]}``; reducers then pack their
-    whole batches (unless ``RSDL_DEVICE_DIRECT=off``). ``stats``: the
-    resolved ``cache_decoded``, the resolved ``plan`` label and the
-    ``selective_reads`` decision's reason, the epoch in progress
-    (``epoch``), each epoch's shuffle seconds (``epoch_shuffle_s``,
-    admission excluded), the store's peak bytes, the stage tasks'
-    host-kernel calls (``native_calls``, ``plain_calls``: per kernel of
-    :mod:`.native`), the row groups each selective epoch decoded
-    (``selective_rowgroups``: epoch -> ``(file, row group)`` pairs), and
-    on a journaled run its ``journal`` path and the ``resume`` counters
-    (stages re-attached and re-executed, epochs and reducers skipped).
     ``stats_collector``: a
     :class:`~.stats.TrialStatsCollector` handle that hears the run's
     events (module docstring), ``trial_done`` with the run's seconds
-    last.
+    last. ``cache_decoded``: keep each file's decoded columns in the store after
+    the first epoch, so later epochs skip Parquet (None: on when at least
+    two epochs run and the estimate fits the store's budget,
+    :func:`_decode_cache_auto`); a hot cache also lets later epochs take
+    the index schedule. With ``RSDL_DECODE_CACHE_SHARED`` on, the cache
+    outlives the run for the next one over the same files, projection and
+    narrowing (:func:`shared_decode_cache_enabled`). ``schedule_log``:
+    each epoch appends ``(epoch,
+    "index" | "selective" | "mapreduce")``. ``device_layout``: a staging
+    consumer's ``{"batch": B, "columns": [...]}``; reducers then pack their
+    whole batches (unless ``RSDL_DEVICE_DIRECT=off``). ``columns``: decode
+    only these columns; the stream then holds exactly them
+    (:func:`_pushdown_columns` says when a projection applies, and
+    ``RSDL_DECODE_PUSHDOWN=on`` also takes one from the layout).
 
     ``resume_from``: resume a preempted run from its journal: ``"auto"``
     (or ``RSDL_RESUME=auto``) finds the newest resumable run under
-    ``RSDL_JOURNAL`` whose identity matches this call, ``"redeliver"``
+    ``RSDL_JOURNAL`` whose identity (the resolved projection included)
+    matches this call, ``"redeliver"``
     re-attaches as ``"auto"`` does but delivers the whole stream again
     (for a consumer that restarted), and a path names a journal file or
     directory, refused on a mismatch. With
     ``RSDL_JOURNAL`` set, every run journals its window, and on the main
     thread SIGTERM suspends it (:mod:`.runtime.journal`).
 
+    ``stats``: the resolved ``cache_decoded``, the resolved ``plan`` label
+    and the ``selective_reads`` decision's reason, the resolved projection
+    (``columns``), the epoch in progress
+    (``epoch``), each epoch's shuffle seconds (``epoch_shuffle_s``,
+    admission excluded), the store's peak bytes, the stage tasks'
+    host-kernel calls (``native_calls``, ``plain_calls``: per kernel of
+    :mod:`.native`), the row groups each selective epoch decoded
+    (``selective_rowgroups``: epoch -> ``(file, row group)`` pairs), the
+    row groups and bytes each epoch decoded from Parquet
+    (``decode_rowgroups``, ``decode_bytes``: epoch -> count) and the bytes
+    the projection and the selections spared (``decode_bytes_pruned``),
+    the files whose cache came from the shared tier
+    (``shared_cache_hits``), under the plan compiler its terms
+    (``plan_terms``) and the re-planner's changes (``plan_replans``), and
+    on a journaled run its ``journal`` path and the ``resume`` counters
+    (stages re-attached and re-executed, epochs and reducers skipped).
+
     The plan (``RSDL_SHUFFLE_PLAN``) and the choice of host kernels
     (``RSDL_DISABLE_NATIVE``) are read here, once, and handed to every
     stage task; the kernels are built here if they are not yet. A
-    malformed plan raises ``ValueError`` before any task starts."""
+    malformed plan raises ``ValueError`` before any task starts. Under
+    ``RSDL_PLAN=auto`` (or ``on``) the plan compiler
+    (:func:`.analysis.planner.compile_plan`) decides the knobs the
+    environment leaves unset: the plan, the selective schedule, the
+    projection and the tasks' threads; :func:`.analysis.planner.replan`
+    may change some between epochs."""
     plan = shuffle_plan_spec()
     native_on = native.enabled()
     if native_on:
@@ -1673,91 +1947,134 @@ def shuffle(
     start = time.perf_counter()
     filenames = list(filenames)
     device_layout = _device_layout_allowed(device_layout)
+    rplan = planner = task_knobs = None
+    if _plan_enabled():
+        from ray_shuffling_data_loader_tpu_torch.analysis import planner
+        from ray_shuffling_data_loader_tpu_torch.runtime import plan as plan_state
+
+        runtime.ensure_initialized()
+        rplan = planner.compile_plan(
+            filenames, num_reducers=num_reducers, num_trainers=num_trainers, num_epochs=num_epochs,
+            start_epoch=start_epoch, columns=columns, device_layout=device_layout, narrow_to_32=narrow_to_32,
+            cache_decoded=cache_decoded,
+        )
+        plan = rplan.plan
+        if columns is None and rplan.projection is not None:
+            columns = list(rplan.projection)
+        task_knobs = rplan.task_knobs()
+        plan_state.set_current(rplan)
+        if stats is not None:
+            stats["plan_terms"] = rplan.terms_dict()
+            stats["plan_replans"] = []
+    columns = _pushdown_columns(device_layout, columns)
     # Imported only when asked for: with RSDL_JOURNAL unset and no
     # resume_from the journal module never loads and no handler is set.
     jmod = journal = resume_state = None
-    if resume_from is not None or os.environ.get("RSDL_JOURNAL"):
-        from ray_shuffling_data_loader_tpu_torch.runtime import journal as jmod
-
-        identity = jmod.run_identity(
-            filenames, num_epochs, num_reducers, num_trainers, seed, start_epoch, narrow_to_32,
-            _label_of_plan(plan), None, device_layout,
-        )
-        resume_state, resume_mode = jmod.resolve_resume(resume_from, identity)
-        if not jmod.enabled() and resume_state is None:
-            jmod = None  # nothing to resume, nowhere to journal
-    if jmod is not None:
-        runtime.ensure_initialized()
-        jmod.clear_suspend()
-        journal = jmod.begin_run(identity, resume=resume_state, mode=resume_mode)
-        jmod.install_sigterm_handler()
-        if stats is not None:
-            stats["journal"] = journal.path
-            stats["resume"] = {"from_run": resume_state.run_id if resume_state else None, "mode": resume_mode}
-        if resume_state is not None:
-            _adopt_preempted(resume_state)
-            restore = getattr(batch_consumer, "restore_delivery_cursors", None)
-            cursors = {
-                f"{e}/{rank}": st.delivered
-                for e, st in resume_state.epochs.items() if st.delivered > 0 for rank in range(num_trainers)
-            }
-            if restore is not None and resume_mode == "cursor" and cursors:
-                # A reducer that reached the queue between its publish and
-                # its journal record is then dropped on re-publish.
-                restore(cursors)
-    if cache_decoded is None:
-        cache_decoded = _decode_cache_auto(filenames, num_epochs - start_epoch, narrow_to_32)
-    if stats is not None:
-        stats["cache_decoded"] = cache_decoded
-        stats["plan"] = _label_of_plan(plan)
-        stats.setdefault("epoch_shuffle_s", [])
-    decode_cache = _DecodeCache(enabled=cache_decoded)
-    if resume_state is not None and cache_decoded:
-        _seed_decode_cache(decode_cache, resume_state)
-    suspended = False
     try:
-        try:
-            for epoch in range(start_epoch, num_epochs):
-                if jmod is not None and jmod.suspend_requested():
-                    suspended = True
-                    break
-                if stats is not None:
-                    stats["epoch"] = epoch
-                throttle_start = time.perf_counter()
-                batch_consumer.wait_until_ready(epoch)
-                t0 = time.perf_counter()
-                if stats_collector is not None:
-                    stats_collector.call_oneway("epoch_throttle", epoch, t0 - throttle_start)
-                est = resume_state.epochs.get(epoch) if resume_state is not None else None
-                if not shuffle_epoch(
-                    epoch, filenames, batch_consumer, num_reducers, num_trainers, seed,
-                    narrow_to_32=narrow_to_32, decode_cache=decode_cache, schedule_log=schedule_log,
-                    device_layout=device_layout, stats=stats, stats_collector=stats_collector,
-                    journal=journal, est=est, plan=plan, native_on=native_on,
-                ):
-                    suspended = True
-                    break
-                if stats is not None:
-                    stats["epoch_shuffle_s"].append(time.perf_counter() - t0)
-        finally:
-            if not suspended:
-                # A suspended window keeps its segments for the resume.
-                decode_cache.free_all()
-        if suspended:
-            journal.append("suspended")
-            if jmod.suspend_should_exit():
-                jmod.suspend_and_exit(journal)  # exits 0
-            jmod.end_run(journal, status="suspended")
-            raise jmod.RunSuspended(journal.path)
-        batch_consumer.wait_until_all_epochs_done()
-        if journal is not None:
+        if resume_from is not None or os.environ.get("RSDL_JOURNAL"):
+            from ray_shuffling_data_loader_tpu_torch.runtime import journal as jmod
+
+            identity = jmod.run_identity(
+                filenames, num_epochs, num_reducers, num_trainers, seed, start_epoch, narrow_to_32,
+                _label_of_plan(plan), columns, device_layout,
+            )
+            resume_state, resume_mode = jmod.resolve_resume(resume_from, identity)
+            if not jmod.enabled() and resume_state is None:
+                jmod = None  # nothing to resume, nowhere to journal
+        if jmod is not None:
+            runtime.ensure_initialized()
+            jmod.clear_suspend()
+            journal = jmod.begin_run(identity, resume=resume_state, mode=resume_mode)
+            jmod.install_sigterm_handler()
+            if stats is not None:
+                stats["journal"] = journal.path
+                stats["resume"] = {"from_run": resume_state.run_id if resume_state else None, "mode": resume_mode}
             if resume_state is not None:
-                _sweep_preempted(resume_state)
-            jmod.end_run(journal)
-    except BaseException as exc:
-        if journal is not None and not isinstance(exc, jmod.RunSuspended):
-            jmod.end_run(journal, status="failed")  # stays resumable
-        raise
+                _adopt_preempted(resume_state)
+                restore = getattr(batch_consumer, "restore_delivery_cursors", None)
+                cursors = {
+                    f"{e}/{rank}": st.delivered
+                    for e, st in resume_state.epochs.items() if st.delivered > 0 for rank in range(num_trainers)
+                }
+                if restore is not None and resume_mode == "cursor" and cursors:
+                    # A reducer that reached the queue between its publish and
+                    # its journal record is then dropped on re-publish.
+                    restore(cursors)
+        if cache_decoded is None:
+            cache_decoded = _decode_cache_auto(filenames, num_epochs - start_epoch, narrow_to_32, columns)
+        if stats is not None:
+            stats["cache_decoded"] = cache_decoded
+            stats["plan"] = _label_of_plan(plan)
+            stats["columns"] = columns
+            stats.setdefault("epoch_shuffle_s", [])
+        shared_keys = None
+        if cache_decoded and shared_decode_cache_enabled():
+            session = runtime.ensure_initialized().store.session
+            with _SHARED_CACHE_LOCK:
+                # Entries of another session are unreachable: their
+                # segments went with that session's clean-up.
+                for key in [k for k in _SHARED_CACHE if k[0] != session]:
+                    del _SHARED_CACHE[key]
+            shared_keys = [_shared_cache_key(session, f, columns, narrow_to_32) for f in filenames]
+        decode_cache = _DecodeCache(enabled=cache_decoded, shared_keys=shared_keys)
+        if resume_state is not None and cache_decoded:
+            _seed_decode_cache(decode_cache, resume_state)
+        suspended = False
+        try:
+            try:
+                for epoch in range(start_epoch, num_epochs):
+                    if jmod is not None and jmod.suspend_requested():
+                        suspended = True
+                        break
+                    if stats is not None:
+                        stats["epoch"] = epoch
+                    throttle_start = time.perf_counter()
+                    batch_consumer.wait_until_ready(epoch)
+                    t0 = time.perf_counter()
+                    if stats_collector is not None:
+                        stats_collector.call_oneway("epoch_throttle", epoch, t0 - throttle_start)
+                    if rplan is not None and epoch > start_epoch:
+                        changes = planner.replan(rplan, epoch=epoch)
+                        if changes:
+                            task_knobs = rplan.task_knobs()
+                            if stats is not None:
+                                stats["plan_replans"].extend({"epoch": epoch, **c} for c in changes)
+                                stats["plan_terms"] = rplan.terms_dict()
+                    est = resume_state.epochs.get(epoch) if resume_state is not None else None
+                    completed = shuffle_epoch(
+                        epoch, filenames, batch_consumer, num_reducers, num_trainers, seed,
+                        narrow_to_32=narrow_to_32, decode_cache=decode_cache, schedule_log=schedule_log,
+                        device_layout=device_layout, stats=stats, stats_collector=stats_collector,
+                        journal=journal, est=est, plan=plan, native_on=native_on, columns=columns, knobs=task_knobs,
+                    )
+                    if stats is not None:
+                        stats["shared_cache_hits"] = decode_cache.shared_hits
+                    if not completed:
+                        suspended = True
+                        break
+                    if stats is not None:
+                        stats["epoch_shuffle_s"].append(time.perf_counter() - t0)
+            finally:
+                if not suspended:
+                    # A suspended window keeps its segments for the resume.
+                    decode_cache.free_all()
+            if suspended:
+                journal.append("suspended")
+                if jmod.suspend_should_exit():
+                    jmod.suspend_and_exit(journal)  # exits 0
+                jmod.end_run(journal, status="suspended")
+                raise jmod.RunSuspended(journal.path)
+            batch_consumer.wait_until_all_epochs_done()
+            if journal is not None:
+                if resume_state is not None:
+                    _sweep_preempted(resume_state)
+                jmod.end_run(journal)
+        except BaseException as exc:
+            if journal is not None and not isinstance(exc, jmod.RunSuspended):
+                jmod.end_run(journal, status="failed")  # stays resumable
+            raise
+    finally:
+        _clear_plan_state()
     duration = time.perf_counter() - start
     if stats_collector is not None:
         stats_collector.call_oneway("trial_done", duration)
