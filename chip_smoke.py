@@ -41,8 +41,10 @@ Phases, each of which fails the script (non-zero exit) on any error:
    shapes.
    Time every kernel beside its bound, its plain version and the PyTorch
    library call that computes the same, at the main paths' shapes (K1 also
-   at the resident phase's, logged) and at
-   ``[2, 4096, 8, 64]`` bf16, causal and not, K1 to K4 on both routes;
+   at the resident phase's, logged), at the sp trainer's (a ring hop's
+   ``[2, 128, 4, 16]``, causal and not, and Ulysses' ``[2, 512, 1, 16]``
+   causal) and at ``[2, 4096, 8, 64]`` bf16, causal and not, K1 to K4 on
+   both routes;
    and sweep both routes of K2, K3 and K4 at ``[4, t, 4, hd]`` causal, hd
    16 and 64, t 32 to 256, where ``T_MIN`` was chosen;
 3. slices: write the README's Quick-start dataset (10^6 rows, 10 files,
@@ -155,11 +157,34 @@ Phases, each of which fails the script (non-zero exit) on any error:
    layers, 4 heads)`` on ``synthetic_tokens(4, 512, 64)``; the loss must
    fall and each flash kernel launch twice per step, all on the
    tensor-core route;
-7. parity: one batch through each trained module on ``cuda`` (kernels;
+7. sp: sequence parallelism. (a) The ops: one group of 4 ``gloo`` ranks
+   on the card (this script with ``--sp-op-rank``) runs ring attention,
+   causal and not, and Ulysses, causal, at the CausalLM's global ``[4,
+   512, 4, 16]`` and at ``[2, 4096, 8, 64]``, bf16, each rank on its
+   sequence chunk. Each case's output and q, k, v gradients with the
+   kernels must match the same op's plain tensor code (``use_flash=False``)
+   on the card and one process's fp32 dense attention on the whole
+   sequence; rank ``me`` must launch K2 ``me + 1`` times in a causal ring
+   and 4 times in a full one (no K3, K4: the ring's backward is tensor
+   code), and Ulysses one K2, K3 and K4, all on the tensor-core route; at
+   the long shape the causal ring's peak device bytes must lie below the
+   dense op's (q, k, v all-gathered, dense attention on the whole
+   sequence); each version's fwd+bwd ms are logged. (b) The slice:
+   ``python -m ray_shuffling_data_loader_tpu_torch.train_long_context
+   --backend gloo --attention ring ulysses`` at its defaults (the JAX
+   example's: vocab 64, seq 512, embed 64, 2 layers, 4 heads, batch 4,
+   Adam 3e-3, 20 steps, seed 0, bf16; dp 2 x sp 4 = 8 ranks on ``cuda:0``):
+   each run's loss must fall, its step 0 be within 2e-3 of one process's
+   ``CausalLM`` on the same weights and tokens, its parameters
+   bit-identical on all 8 ranks, and each rank must launch K2 2(s + 1)
+   times a step in the ring (sp index s) and K2, K3, K4 twice a step in
+   Ulysses, all on the tensor-core route. Logs each rank's step median,
+   the collectives' share of a step, peak device bytes and start-up;
+8. parity: one batch through each trained module on ``cuda`` (kernels;
    in fp32 the interaction's CUDA-core route) and through the same module
    with the same weights on the CPU (plain versions), in fp32 with TF32
    off;
-8. resume: the trainer (``python -m
+9. resume: the trainer (``python -m
    ray_shuffling_data_loader_tpu_torch.train_dlrm``) preempted and
    restarted, on the Quick-start dataset (10^6 rows, 10 files, seed 0)
    with the full-width DLRM (bf16, Adam 1e-3), batch 65536 (15 batches an
@@ -229,6 +254,11 @@ PARITY_TOL = dict(atol=1e-4, rtol=1e-4)
 TAB_SHAPE = (65536, 19, 4, 8)
 LM_SHAPE = (4, 512, 4, 16)
 LONG_SHAPE = (2, 4096, 8, 64)  # benchmarks/bench_attention.py's default
+# The flash kernels' shapes on the sp phase's trainer (the CausalLM's
+# [4, 512, 4, 16] over dp 2 x sp 4): a ring hop's block, and the whole
+# sequence of one head in the Ulysses body.
+SP_RING_HOP_SHAPE = (2, 128, 4, 16)
+SP_ULYSSES_SHAPE = (2, 512, 1, 16)
 FLASH_CASES = (
     ("tabtransformer", TAB_SHAPE, "bfloat16", False),
     ("causal_lm", LM_SHAPE, "bfloat16", True),
@@ -832,6 +862,9 @@ def phase_flash(torch, rate: float):
         "causal_lm": time_flash(torch, ops, LM_SHAPE, True, rate, gen),
         "long": time_flash(torch, ops, LONG_SHAPE, False, rate, gen),
         "long_causal": time_flash(torch, ops, LONG_SHAPE, True, rate, gen),
+        "sp_ring_hop": time_flash(torch, ops, SP_RING_HOP_SHAPE, False, rate, gen),
+        "sp_ring_hop_causal": time_flash(torch, ops, SP_RING_HOP_SHAPE, True, rate, gen),
+        "sp_ulysses": time_flash(torch, ops, SP_ULYSSES_SHAPE, True, rate, gen),
     }
     sweep = route_sweep(torch, ops, gen)
     tab_err = errs["tabtransformer"]["simt"]
@@ -1864,7 +1897,7 @@ def check_resumed_launches(label: str, run: dict, steps: int) -> None:
 
 
 def phase_resume(torch, work: str, smi: str) -> dict:
-    """The trainer preempted and resumed (docstring, phase 8)."""
+    """The trainer preempted and resumed (docstring, phase 9)."""
     # A directory of its own on the shared-memory filesystem, so that what
     # the sessions leave there can be counted.
     shm = os.path.join("/dev/shm" if os.path.isdir("/dev/shm") else work, f"chip-smoke-resume-{os.getpid()}")
@@ -1962,9 +1995,237 @@ def _phase_resume(torch, work: str, shm: str, smi: str) -> dict:
     return out
 
 
+# -- sequence parallelism ------------------------------------------------------------
+
+# (a) the ops on one group of 4 gloo ranks on the card, at the CausalLM's
+# global shape and the long one; (schedule, causal) cases.
+SP_OP_WORLD = 4
+SP_OP_SHAPES = (("lm", LM_SHAPE), ("long", LONG_SHAPE))
+SP_OP_CASES = (("ring", False), ("ring", True), ("ulysses", True))
+# Kernels against the same op's plain tensor code, both bf16 on the card.
+# The ring's flash hops return their block bf16, merged in fp32, where the
+# plain hops keep fp32 to the end: out may part by two bf16 roundings (2**-8
+# of the value each) of values up to max |v| ~ 4, hence atol 2e-2; the
+# gradients inherit one rounding from out (through D = rowsum(dO ⊙ out)).
+SP_KERNEL_TOL = dict(atol=2e-2, rtol=2**-6)
+# Against one process's fp32 dense attention on the same bf16 inputs:
+# tests/test_ring_attention.py's bf16 tolerance.
+SP_REF_TOL = dict(atol=5e-2, rtol=5e-2)
+SP_TIME_REPS = 3
+# (b) the slice: train_long_context at its defaults, ring then Ulysses.
+SP_ATTENTIONS = ("ring", "ulysses")
+# Step 0 of the 8 ranks against one process's CausalLM on the same weights
+# and tokens, both bf16: other roundings of bf16 activations move the mean
+# loss (about 4.2) by a few bf16 steps of the logits, averaged over 2,044
+# positions a row.
+SP_LOSS_TOL = 2e-3
+
+
+def _sp_fwd_bwd(torch, fn, q, k, v, dout):
+    """``(out, dq, dk, dv)`` of ``fn`` on fresh leaves, synchronized."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    out = fn(*leaves)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    return out.detach(), *(x.grad for x in leaves)
+
+
+def _sp_ms(torch, fn, q, k, v, dout) -> float:
+    """Median host ms of one forward and backward of ``fn`` (synchronized),
+    after one warm-up; every rank of the group calls it alike."""
+    _sp_fwd_bwd(torch, fn, q, k, v, dout)
+    times = []
+    for _ in range(SP_TIME_REPS):
+        t0 = time.perf_counter()
+        _sp_fwd_bwd(torch, fn, q, k, v, dout)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def sp_op_rank(spec: dict, rank: int) -> int:
+    """Rank ``rank`` of the ``[sp]`` phase's op group: each case's kernels
+    against its plain tensor code and against fp32 dense attention, the
+    K2–K4 launches of the kernel version, ms of each version and of the
+    dense op, and at the long shape the peak device bytes of the causal
+    ring and of the dense op. Raises on a disagreement or a wrong count."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    import ray_shuffling_data_loader_tpu_torch.ops as ops
+    from ray_shuffling_data_loader_tpu_torch.parallel import init_data_parallel
+    from ray_shuffling_data_loader_tpu_torch.train_long_context import dense_attention
+
+    torch.cuda.set_device(0)
+    world = spec["world"]
+    init_data_parallel(rank, world, "gloo", spec["init_method"])
+    group = dist.group.WORLD
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"rank": rank, "shapes": {}}
+    for shape_name, shape in SP_OP_SHAPES:
+        b, t, h, hd = shape
+        tl = t // world
+        gen = torch.Generator().manual_seed(7)  # the same global inputs on every rank
+        q, k, v, dout = (torch.randn(shape, generator=gen).to("cuda", torch.bfloat16) for _ in range(4))
+        rows = slice(rank * tl, (rank + 1) * tl)
+        local = [x[:, rows].contiguous() for x in (q, k, v, dout)]
+        res, refs = {}, {}
+        for schedule, causal in SP_OP_CASES:
+            label = f"{schedule}_{'causal' if causal else 'full'}"
+            make = ops.make_ring_attention if schedule == "ring" else ops.make_ulysses_attention
+            reset_launches(ops)
+            got = _sp_fwd_bwd(torch, make(group, causal=causal, use_flash=True), *local)
+            launches = read_launches(ops)
+            plain = _sp_fwd_bwd(torch, make(group, causal=causal, use_flash=False), *local)
+            if any(read_launches(ops)[key] != n for key, n in launches.items()):
+                raise AssertionError(f"[sp] rank {rank} {shape_name} {label}: the plain version launched a kernel")
+            if schedule == "ring":
+                fwd = rank + 1 if causal else world
+                want = {"flash_fwd": fwd, "flash_fwd_mma": fwd}
+            else:
+                want = {f"{kname}{suffix}": 1 for kname in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+                        for suffix in ("", "_mma")}
+            if any(launches[key] != want.get(key, 0) for key in launches):
+                raise AssertionError(f"[sp] rank {rank} {shape_name} {label}: launches {launches}, want {want} "
+                                     "(all on the tensor-core route)")
+            if causal not in refs:  # one process's fp32 dense attention on the whole sequence
+                leaves = [x.float().requires_grad_(True) for x in (q, k, v)]
+                ref_out = ops.attention_reference(*leaves, causal=causal)
+                ref_out.backward(dout.float())
+                refs[causal] = [x[:, rows].contiguous() for x in (ref_out.detach(), *(x.grad for x in leaves))]
+                del leaves, ref_out
+            want_ref = refs[causal]
+            keys = ("out", "dq", "dk", "dv")
+            errs = compare(torch, f"[sp] rank {rank} {shape_name} {label} kernels vs plain",
+                           [(key, g, p, SP_KERNEL_TOL) for key, g, p in zip(keys, got, plain)])
+            ref_errs = compare(torch, f"[sp] rank {rank} {shape_name} {label} kernels vs fp32 dense",
+                               [(key, g.float(), w, SP_REF_TOL) for key, g, w in zip(keys, got, want_ref)])
+            res[label] = {
+                "launches": launches, "max_abs_err_plain": errs, "max_abs_err_reference": ref_errs,
+                "ms": _sp_ms(torch, make(group, causal=causal, use_flash=True), *local),
+                "plain_ms": _sp_ms(torch, make(group, causal=causal, use_flash=False), *local),
+            }
+        res["dense_causal_ms"] = _sp_ms(torch, dense_attention(group, rank), *local)
+        if shape_name == "long":
+            for label, fn in (("ring", ops.make_ring_attention(group, causal=True)),
+                              ("dense", dense_attention(group, rank))):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                _sp_fwd_bwd(torch, fn, *local)
+                res[f"{label}_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+            if not res["ring_peak_bytes"] < res["dense_peak_bytes"]:
+                raise AssertionError(f"[sp] rank {rank}: the ring's peak {res['ring_peak_bytes']} B is not below "
+                                     f"the dense op's {res['dense_peak_bytes']} B")
+        out["shapes"][shape_name] = res
+        del q, k, v, dout, local, refs, want_ref
+        torch.cuda.empty_cache()
+    with open(os.path.join(spec["out_dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _sp_op_group(work: str) -> list:
+    """Spawn the op group's ranks (this script with ``--sp-op-rank``) and
+    return their results; a failed rank fails the phase."""
+    from ray_shuffling_data_loader_tpu_torch.multirank import _free_port, wait_ranks
+
+    spec = {"world": SP_OP_WORLD, "init_method": f"tcp://localhost:{_free_port()}", "out_dir": work}
+    spec_path = os.path.join(work, "sp_ops.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sp-op-rank", str(r), "--sp-spec",
+                               spec_path]) for r in range(SP_OP_WORLD)]
+    returncode, codes = wait_ranks(procs, 300)
+    if returncode:
+        raise AssertionError(f"[sp] op group: exit code {returncode}, rank exit codes {codes}")
+    return [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(SP_OP_WORLD)]
+
+
+def phase_sp(torch, work: str, smi: str) -> dict:
+    """Sequence parallelism (docstring, phase 7): the ops on 4 ranks, then
+    the long-context trainer on 8."""
+    import ray_shuffling_data_loader_tpu_torch as port
+    from ray_shuffling_data_loader_tpu_torch import train_long_context
+
+    t_phase = time.perf_counter()
+    ops_out = _sp_op_group(work)
+    for res in ops_out:
+        for shape_name, shape in SP_OP_SHAPES:
+            r = res["shapes"][shape_name]
+            for label, c in ((k_, v_) for k_, v_ in r.items() if isinstance(v_, dict)):
+                log(f"[sp] rank {res['rank']} {shape_name} {list(shape)} bf16 {label}: kernels vs plain max |diff| "
+                    f"{c['max_abs_err_plain']} ({SP_KERNEL_TOL}); vs fp32 dense {c['max_abs_err_reference']} "
+                    f"({SP_REF_TOL}); launches {c['launches']}; fwd+bwd {c['ms']!r} ms, plain {c['plain_ms']!r} ms")
+            log(f"[sp] rank {res['rank']} {shape_name}: dense causal (all-gather + attention_reference) fwd+bwd "
+                f"{r['dense_causal_ms']!r} ms"
+                + (f"; peak device bytes over the inputs: ring causal {r['ring_peak_bytes']}, dense "
+                   f"{r['dense_peak_bytes']}" if shape_name == "long" else ""))
+    t_ops = time.perf_counter() - t_phase
+    # (b) the slice at its defaults, ring then Ulysses in one spawn of the ranks.
+    args = train_long_context.parse_args(["--backend", "gloo", "--attention", *SP_ATTENTIONS, "--timeout", "300"])
+    t0 = time.perf_counter()
+    run = train_long_context.run(args)
+    wall = time.perf_counter() - t0
+    if run["returncode"] != 0:
+        raise AssertionError(f"[sp] train_long_context: exit code {run['returncode']}: {run['problems']}")
+    model = port.CausalLM(args.vocab, args.seq_len, embed_dim=args.embed_dim, num_layers=args.layers,
+                          num_heads=args.heads)
+    tokens = torch.from_numpy(port.synthetic_tokens(args.batch, args.seq_len, args.vocab, seed=args.seed)).to("cuda")
+    with torch.no_grad():
+        one_process = port.next_token_loss(model(tokens), tokens).item()
+    steps = args.steps
+    runs = {}
+    for i, attention in enumerate(SP_ATTENTIONS):
+        first = run["ranks"][0]["runs"][i]
+        if not abs(first["losses"][0] - one_process) <= SP_LOSS_TOL:
+            raise AssertionError(f"[sp] {attention}: step 0's loss {first['losses'][0]!r} against one process's "
+                                 f"{one_process!r}: more than {SP_LOSS_TOL} apart")
+        for res in run["ranks"]:
+            r = res["runs"][i]
+            n = r["launches"]
+            if attention == "ring":
+                want = {"flash_fwd": 2 * (res["sp_index"] + 1) * steps}
+                want["flash_fwd_mma"] = want["flash_fwd"]
+            else:
+                want = {key: 2 * steps for key in n}
+            if any(n[key] != want.get(key, 0) for key in n):
+                raise AssertionError(f"[sp] {attention} rank {res['rank']}: launches {n} in {steps} steps, "
+                                     f"want {want} (two layers; all on the tensor-core route)")
+            log(f"[sp] {attention} rank {res['rank']} (data {res['data_index']}, sp {res['sp_index']}; "
+                f"{res['device']}): step median {r['step_ms_median']!r} ms (first {r['step_ms'][0]!r} ms), "
+                f"collectives {r['comm_share']!r} of a step (median); peak device {r['peak_device_bytes']} B; "
+                f"launches {n}; losses {r['losses'][0]!r} -> {r['losses'][-1]!r}")
+        runs[attention] = {
+            "losses": first["losses"],
+            "step_ms_median": statistics.median(res["runs"][i]["step_ms_median"] for res in run["ranks"]),
+            "comm_share": statistics.median(res["runs"][i]["comm_share"] for res in run["ranks"]),
+            "launches": {key: sum(res["runs"][i]["launches"][key] for res in run["ranks"])
+                         for key in first["launches"]},
+        }
+        log(f"[sp] {attention}: {steps} steps on dp 2 x sp 4 gloo ranks, loss {first['losses'][0]!r} -> "
+            f"{first['losses'][-1]!r}; step 0 within {abs(first['losses'][0] - one_process)!r} of one process's "
+            f"{one_process!r}; parameters bit-identical on all 8 ranks ({first['params_sha256'][:16]}); "
+            f"launches over the ranks {runs[attention]['launches']} ({smi})")
+    for res in run["ranks"]:
+        marks = res["startup_s"]
+        log(f"[sp] rank {res['rank']} start-up, s since spawn: " + ", ".join(f"{k} {v:.3f}" for k, v in marks.items()))
+    out = {"ops": ops_out, "train": runs, "one_process_loss": one_process, "ranks": run["ranks"],
+           "spawn_to_first_step_s": max(res["startup_s"]["first_step"] for res in run["ranks"]),
+           "ops_s": t_ops, "train_s": wall, "wall_s": time.perf_counter() - t_phase}
+    log(f"[sp] phase {out['wall_s']:.1f} s (ops {t_ops:.1f} s, trainer {wall:.1f} s; spawn to first step "
+        f"{out['spawn_to_first_step_s']:.1f} s)")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON here")
+    # A rank of the sp phase's op group.
+    parser.add_argument("--sp-op-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--sp-spec", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -1972,6 +2233,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.sp_op_rank is not None:
+        with open(args.sp_spec) as f:
+            return sp_op_rank(json.load(f), args.sp_op_rank)
     sys.path.insert(0, ROOT)
     name = torch.cuda.get_device_name(0)
     smi = smi_name_and_limit()
@@ -2025,6 +2289,13 @@ def main() -> int:
         finally:
             shutil.rmtree(resume_dir, ignore_errors=True)
         lm = phase_lm(torch)
+        sp_dir = os.path.join(ROOT, "build", "sp")
+        shutil.rmtree(sp_dir, ignore_errors=True)
+        os.makedirs(sp_dir)
+        try:
+            sp = phase_sp(torch, sp_dir, smi)
+        finally:
+            shutil.rmtree(sp_dir, ignore_errors=True)
         parity = {
             label: phase_parity(torch, label, slices[label]["model"], slices[label]["batch"])
             for label in ("dlrm", "tabtransformer")
@@ -2032,7 +2303,9 @@ def main() -> int:
         # Each kernel's launches on the path that runs it: the DLRM's bf16
         # steps (K1's tensor-core route), its fp32 parity forward (K1's
         # CUDA-core route), the CausalLM (the flash kernels' tensor-core
-        # route) and the TabTransformer (their CUDA-core route).
+        # route) and the TabTransformer (their CUDA-core route); and on the
+        # flash kernels' tensor-core route the sp runs' sums over their
+        # ranks (launches_sp_ring, launches_sp_ulysses).
         for entry in kernels:
             kname = entry["name"]
             if kname.startswith("interaction"):
@@ -2041,6 +2314,9 @@ def main() -> int:
                 counts = (lm if kname.endswith("_mma") else slices["tabtransformer"])["launches"]
             entry["launches"] = (counts[kname] if kname.endswith("_mma")
                                  else counts[kname] - counts[f"{kname}_mma"])
+            if kname.startswith("flash") and kname.endswith("_mma"):  # and over the ranks of each sp run
+                for attention in SP_ATTENTIONS:
+                    entry[f"launches_sp_{attention}"] = sp["train"][attention]["launches"][kname]
             if kname == "interaction_mma":  # and on every rank of the vocab-sharded run
                 entry["launches_ranks_dp2_mp2"] = sum(
                     res["launches"]["interaction"]["mma_launches"] for res in ranks["dp2_mp2"]["ranks"])
@@ -2063,6 +2339,7 @@ def main() -> int:
                         for label, sl in slices.items()
                     },
                     "lm": lm,
+                    "sp": sp,
                     "native": host,
                     "delivery": delivery,
                     "ranks": ranks,

@@ -50,11 +50,15 @@ _EXPORTS = {
     "synthetic_tokens": "models",
     "transformer_for_data_spec": "models",
     "attention_reference": "ops",
+    "blockwise_attention": "ops",
     "dot_interaction": "ops",
     "dot_interaction_reference": "ops",
     "flash_attention": "ops",
     "flash_attention_qkv": "ops",
     "interaction_kernel": "ops",
+    "make_ring_attention": "ops",
+    "make_ulysses_attention": "ops",
+    "ring_attention": "ops",
     "DATA_AXIS": "parallel",
     "adasum_reduce": "parallel",
     "bce_loss": "parallel",
@@ -62,6 +66,7 @@ _EXPORTS = {
     "make_optimizer": "parallel",
     "make_psum_train_step": "parallel",
     "make_mesh": "parallel",
+    "make_sp_mesh": "parallel",
     "make_train_step": "parallel",
     "shard_model": "parallel",
     "ColumnBatch": "runtime",

@@ -4,11 +4,14 @@ token ids, ``tokens [batch, seq] -> logits [batch, seq, vocab]``.
 Token and position embeddings are added in float32 before the cast to
 ``compute_dtype``; the blocks are the TabTransformer's
 :class:`~.transformer.EncoderBlock` with causal flash attention (the CUDA
-kernels on the GPU); the readout is tied to the token embedding and taken
-in float32.
+kernels on the GPU) or a causal ``attention_fn`` (ring or Ulysses
+attention over a sequence-parallel group, :mod:`~..ops.ring_attention`);
+the readout is tied to the token embedding and taken in float32.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -21,7 +24,8 @@ from ray_shuffling_data_loader_tpu_torch.utils.device import DeviceLike, resolve
 
 class CausalLM(nn.Module):
     """Next-token transformer, built on ``device`` (default ``cuda``). The
-    initial weights come from a generator seeded with 0."""
+    initial weights come from a generator seeded with 0. ``attention_fn(q,
+    k, v) -> out`` must mask causally (None: causal flash attention)."""
 
     def __init__(
         self,
@@ -32,6 +36,7 @@ class CausalLM(nn.Module):
         num_heads: int = 4,
         compute_dtype: torch.dtype = torch.bfloat16,
         device: DeviceLike = None,
+        attention_fn: Optional[Callable] = None,
     ):
         super().__init__()
         dev = resolve_device(device)
@@ -42,16 +47,19 @@ class CausalLM(nn.Module):
         self.token_embed = nn.Parameter(torch.empty(vocab_size, embed_dim).normal_(std=0.02, generator=gen))
         self.pos_embed = nn.Parameter(torch.empty(max_seq_len, embed_dim).normal_(std=0.02, generator=gen))
         self.blocks = nn.ModuleList(
-            EncoderBlock(embed_dim, num_heads, causal=True, generator=gen)
+            EncoderBlock(embed_dim, num_heads, causal=True, generator=gen, attention_fn=attention_fn)
             for _ in range(num_layers)
         )
         self.ln_out = LayerNorm(embed_dim)
         self.to(dev)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, start: int = 0) -> torch.Tensor:
+        """``tokens [batch, t] -> logits [batch, t, vocab]``. ``start`` is the
+        global position of ``tokens[:, 0]``: a rank of a sequence-parallel
+        group holds the chunk that starts there."""
         t = tokens.shape[1]
         x = F.embedding((tokens % self.vocab_size).long(), self.token_embed)
-        x = (x + self.pos_embed[None, :t]).to(self.compute_dtype)
+        x = (x + self.pos_embed[None, start:start + t]).to(self.compute_dtype)
         for block in self.blocks:
             x = block(x)
         x = self.ln_out(x)

@@ -7,7 +7,9 @@ into :func:`~..parallel.make_train_step` and every loader unchanged.
   folded in with ``% vocab``; a learned per-column embedding is added in
   float32 before the cast to ``compute_dtype``;
 * ``num_layers`` pre-norm :class:`EncoderBlock` s whose attention is
-  :func:`~..ops.flash_attention_qkv` (the CUDA kernels on the GPU);
+  :func:`~..ops.flash_attention_qkv` (the CUDA kernels on the GPU), or
+  the pluggable ``attention_fn(q, k, v) -> out`` over ``[batch, seq,
+  heads, head_dim]`` (e.g. :func:`~..ops.make_ring_attention`'s);
 * a final LayerNorm, a mean over the tokens and a width-1 ``head``.
 
 The numerics follow flax's defaults, which the JAX package's model uses:
@@ -19,7 +21,7 @@ input, weight and bias to the compute dtype.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -66,7 +68,9 @@ def init_linear(layer: nn.Linear, gen: torch.Generator) -> nn.Linear:
 class EncoderBlock(nn.Module):
     """Pre-norm transformer block over ``[batch, seq, dim]``, computing in
     the dtype of its input. ``causal`` masks attention to earlier tokens;
-    ``generator`` draws the initial weights."""
+    ``generator`` draws the initial weights. ``attention_fn(q, k, v) ->
+    out`` over ``[batch, seq, heads, head_dim]`` replaces the packed flash
+    attention (and must mask causally itself where it should)."""
 
     def __init__(
         self,
@@ -74,12 +78,14 @@ class EncoderBlock(nn.Module):
         num_heads: int,
         causal: bool,
         generator: torch.Generator,
+        attention_fn: Optional[Callable] = None,
     ):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} not divisible by num_heads {num_heads}")
         self.num_heads = num_heads
         self.causal = causal
+        self.attention_fn = attention_fn
         self.ln_attn = LayerNorm(embed_dim)
         self.qkv = init_linear(nn.Linear(embed_dim, 3 * embed_dim), generator)
         self.proj = init_linear(nn.Linear(embed_dim, embed_dim), generator)
@@ -92,7 +98,10 @@ class EncoderBlock(nn.Module):
         cdt = x.dtype
         h = self.ln_attn(x)
         qkv = dense(self.qkv, h, cdt).reshape(b, t, 3, self.num_heads, d // self.num_heads)
-        attn = flash_attention_qkv(qkv, self.causal)
+        if self.attention_fn is None:
+            attn = flash_attention_qkv(qkv, self.causal)
+        else:
+            attn = self.attention_fn(*qkv.unbind(2))
         x = x + dense(self.proj, attn.reshape(b, t, d), cdt)
         h = self.ln_mlp(x)
         h = F.gelu(dense(self.mlp_up, h, cdt), approximate="tanh")
@@ -107,6 +116,7 @@ class TabTransformer(nn.Module):
         embed_dim: token width.
         num_layers, num_heads: the encoder's shape.
         compute_dtype: dtype of the activations and matmuls.
+        attention_fn: the blocks' attention (None: flash attention).
 
     The initial weights come from a generator seeded with 0.
     """
@@ -118,6 +128,7 @@ class TabTransformer(nn.Module):
         num_layers: int = 2,
         num_heads: int = 4,
         compute_dtype: torch.dtype = torch.bfloat16,
+        attention_fn: Optional[Callable] = None,
     ):
         super().__init__()
         self.vocab_sizes = dict(vocab_sizes)
@@ -134,7 +145,7 @@ class TabTransformer(nn.Module):
             torch.empty(len(self.columns), embed_dim).normal_(std=0.02, generator=gen)
         )
         self.blocks = nn.ModuleList(
-            EncoderBlock(embed_dim, num_heads, causal=False, generator=gen)
+            EncoderBlock(embed_dim, num_heads, causal=False, generator=gen, attention_fn=attention_fn)
             for _ in range(num_layers)
         )
         self.ln_out = LayerNorm(embed_dim)
@@ -158,9 +169,11 @@ def transformer_for_data_spec(
     vocab_cap: Optional[int] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
     device: DeviceLike = None,
+    attention_fn: Optional[Callable] = None,
 ) -> TabTransformer:
     """The TabTransformer for the ``DATA_SPEC`` cardinalities, on ``device``
-    (default ``cuda``); ``vocab_cap`` shrinks the tables for small runs."""
+    (default ``cuda``); ``vocab_cap`` shrinks the tables for small runs;
+    ``attention_fn`` as for :class:`TabTransformer`."""
     from ray_shuffling_data_loader_tpu_torch.data_generation import (
         DATA_SPEC,
         LABEL_COLUMN,
@@ -177,4 +190,5 @@ def transformer_for_data_spec(
         num_layers=num_layers,
         num_heads=num_heads,
         compute_dtype=compute_dtype,
+        attention_fn=attention_fn,
     ).to(resolve_device(device))

@@ -62,7 +62,7 @@ import statistics
 import subprocess
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 RANKS_DIR = "multirank"
 QUEUE_NAME = "multirank-queue"
@@ -388,6 +388,31 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def wait_ranks(procs: List[subprocess.Popen], timeout: float) -> Tuple[int, List[int]]:
+    """Wait for the rank processes ``procs`` under one deadline of
+    ``timeout`` seconds: ``(returncode, exit codes)``. A failed rank leaves
+    the others blocked in a collective, so the first failure, or the
+    deadline, kills the rest. The return code is the worst exit code, or
+    124 when the deadline cut a run that had not failed."""
+    deadline = time.monotonic() + timeout
+    codes: List[Optional[int]] = [None] * len(procs)
+    try:
+        while any(c is None for c in codes):
+            codes = [p.poll() for p in procs]
+            if any(c not in (None, 0) for c in codes) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        codes = [p.wait() for p in procs]
+    returncode = max(codes, key=abs)
+    if returncode == 0 and time.monotonic() > deadline:
+        returncode = 124
+    return returncode, codes
+
+
 def check(spec: dict, results: List[dict]) -> List[str]:
     """The run's failures: exactly once per epoch across the leads, each
     lead exactly its full batches, every batch trained (unless
@@ -469,23 +494,7 @@ def run(args: argparse.Namespace, filenames: Optional[List[str]] = None) -> Dict
         world = args.num_trainers * args.model_parallelism
         procs = [subprocess.Popen([*cmd, "--rank", str(r), "--spawned-at", repr(time.time())], env=env)
                  for r in range(world)]
-        deadline = time.monotonic() + args.timeout
-        codes: List[Optional[int]] = [None] * len(procs)
-        try:
-            while any(c is None for c in codes):
-                codes = [p.poll() for p in procs]
-                # A failed rank leaves the others blocked in a collective.
-                if any(c not in (None, 0) for c in codes) or time.monotonic() > deadline:
-                    break
-                time.sleep(0.2)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-            codes = [p.wait() for p in procs]
-        returncode = max(codes, key=abs)
-        if returncode == 0 and time.monotonic() > deadline:
-            returncode = 124
+        returncode, codes = wait_ranks(procs, args.timeout)
         results, problems = [], []
         if returncode == 0:
             for r in range(world):

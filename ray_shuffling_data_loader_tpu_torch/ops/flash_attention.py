@@ -15,7 +15,9 @@ else. On CPU tensors the same :class:`FlashAttention` runs the two plain version
 :func:`flash_forward_reference` and :func:`flash_backward_reference`, which
 compute the same quantities densely and hand over the same statistics.
 There is no fallback from one to the other: a kernel that fails to build
-or launch raises.
+or launch raises. ``RSDL_FLASH_BWD=xla`` (the JAX package's escape hatch)
+replaces K3 and K4, on either device, by the exact backward in key chunks
+of :func:`~.ring_attention.blockwise_attention`.
 
 The kernels take strided tensors with a contiguous last dim. The
 Function works on one packed ``[b, t, 3, h, hd]`` projection: the kernels
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 from typing import Sequence, Tuple
 
 import torch
@@ -44,6 +47,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # crossover lies at or below the sweep's shortest t.
 T_MIN = 32
 ROUTES = ("mma", "simt")
+# The key chunk of the RSDL_FLASH_BWD=xla backward: the JAX package's
+# max(block_k, 128) at its default block_k of 128.
+FLASH_BWD_XLA_CHUNK = 128
 
 
 def attention_reference(
@@ -337,6 +343,13 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         qkv, out, m, l = ctx.saved_tensors
         q, k, v = qkv.unbind(2)
+        if os.environ.get("RSDL_FLASH_BWD", "pallas").lower() == "xla":
+            # The escape hatch of the JAX package's flash VJP: the exact
+            # backward in key chunks of 128, in place of K3 and K4.
+            from ray_shuffling_data_loader_tpu_torch.ops.ring_attention import _chunked_attention_bwd
+
+            grads = _chunked_attention_bwd(q, k, v, out, dout, ctx.causal, FLASH_BWD_XLA_CHUNK)
+            return torch.stack(grads, dim=2), None
         if not qkv.is_cuda:
             grads = flash_backward_reference(q, k, v, out, m, l, dout, ctx.causal)
             return torch.stack(grads, dim=2), None

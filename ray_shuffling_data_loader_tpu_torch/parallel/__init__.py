@@ -3,8 +3,10 @@ from ray_shuffling_data_loader_tpu_torch.parallel.mesh import (
     DEFAULT_VOCAB_SHARD_THRESHOLD,
     MODEL_AXIS,
     Mesh,
+    SequenceMesh,
     init_data_parallel,
     make_mesh,
+    make_sp_mesh,
     param_spec,
 )
 from ray_shuffling_data_loader_tpu_torch.parallel.sharded_embedding import ShardedEmbedding
@@ -24,6 +26,7 @@ __all__ = [
     "DEFAULT_VOCAB_SHARD_THRESHOLD",
     "MODEL_AXIS",
     "Mesh",
+    "SequenceMesh",
     "ShardedEmbedding",
     "adasum_reduce",
     "bce_loss",
@@ -32,6 +35,7 @@ __all__ = [
     "make_mesh",
     "make_optimizer",
     "make_psum_train_step",
+    "make_sp_mesh",
     "make_train_step",
     "param_spec",
     "ranks_with_batch",

@@ -11,7 +11,8 @@ model)`` grid: rank ``r`` is data index ``r // M`` and model index
 ``r % M``. Gradients are reduced over the ``data`` group (the ranks that
 hold the same rows of every table); the tall embedding tables that
 :func:`param_spec` selects are split by rows over the ``model`` group (the
-ranks that see the same batch).
+ranks that see the same batch). :func:`make_sp_mesh` lays it out as the
+``(data, sp)`` grid of sequence parallelism the same way.
 """
 
 from __future__ import annotations
@@ -74,6 +75,36 @@ class Mesh:
         return self.model_index == 0
 
 
+def _grid(inner: int, world: Optional[int], what: str) -> Tuple[int, int, int, int, Any, Optional[Any]]:
+    """Rank ``r``'s place in a ``(outer, inner)`` grid of the initialised
+    world, ``r = outer_index * inner + inner_index``, and its two groups:
+    ``(outer_index, inner_index, outer_size, inner_size, outer_group,
+    inner_group)``. The outer group holds the ranks of this inner index,
+    the inner group those of this outer index. Every rank makes every
+    group, in the same order, as ``dist.new_group`` requires; with
+    ``inner`` 1 the outer group is the world and no group is made.
+    ``what`` names ``inner`` in the error raised when it does not divide
+    the world."""
+    if world is None:
+        world = dist.get_world_size()
+    if inner < 1 or world % inner != 0:
+        raise ValueError(f"{what}={inner} does not divide world size {world}")
+    i_size, o_size = inner, world // inner
+    o, i = divmod(dist.get_rank(), i_size)
+    if i_size == 1:
+        return o, 0, o_size, 1, dist.group.WORLD, None
+    outer_group = inner_group = None
+    for j in range(i_size):  # ranks with inner index j
+        group = dist.new_group([n * i_size + j for n in range(o_size)])
+        if j == i:
+            outer_group = group
+    for n in range(o_size):  # ranks with outer index n
+        group = dist.new_group([n * i_size + j for j in range(i_size)])
+        if n == o:
+            inner_group = group
+    return o, i, o_size, i_size, outer_group, inner_group
+
+
 def make_mesh(model_parallelism: int = 1, world: Optional[int] = None) -> Mesh:
     """This rank's :class:`Mesh` over the initialised world of ``world``
     ranks (default: its size).
@@ -82,25 +113,30 @@ def make_mesh(model_parallelism: int = 1, world: Optional[int] = None) -> Mesh:
     rest. Every rank makes every group, in the same order, as
     ``dist.new_group`` requires. ``model_parallelism=1`` is pure data
     parallelism over the world and makes no group."""
-    if world is None:
-        world = dist.get_world_size()
-    if model_parallelism < 1 or world % model_parallelism != 0:
-        raise ValueError(f"model_parallelism={model_parallelism} does not divide world size {world}")
-    m_size, d_size = model_parallelism, world // model_parallelism
-    rank = dist.get_rank()
-    d, m = divmod(rank, m_size)
-    if m_size == 1:
-        return Mesh(d, 0, d_size, 1, dist.group.WORLD, None)
-    data_group = model_group = None
-    for j in range(m_size):  # ranks with model index j
-        group = dist.new_group([i * m_size + j for i in range(d_size)])
-        if j == m:
-            data_group = group
-    for i in range(d_size):  # ranks with data index i
-        group = dist.new_group([i * m_size + j for j in range(m_size)])
-        if i == d:
-            model_group = group
-    return Mesh(d, m, d_size, m_size, data_group, model_group)
+    return Mesh(*_grid(model_parallelism, world, "model_parallelism"))
+
+
+@dataclass(frozen=True)
+class SequenceMesh:
+    """One rank's place in the ``(data, sp)`` grid of sequence parallelism:
+    the batch splits over the data axis, the sequence over the ``sp`` axis.
+    ``sp_group`` holds the ranks of data index ``data_index``, which hold
+    one batch shard's sequence chunks in sp order (None when ``sp_size``
+    is 1: the rank alone)."""
+
+    data_index: int
+    sp_index: int
+    data_size: int
+    sp_size: int
+    sp_group: Optional[Any]
+
+
+def make_sp_mesh(sp: int, world: Optional[int] = None) -> SequenceMesh:
+    """This rank's :class:`SequenceMesh` over the initialised world: rank
+    ``r`` is data index ``r // sp`` and sp index ``r % sp``, as the JAX
+    package's ``devices.reshape(dp, sp)``. ``sp`` must divide the world."""
+    d, s, d_size, s_size, _, sp_group = _grid(sp, world, "sp")
+    return SequenceMesh(d, s, d_size, s_size, sp_group)
 
 
 def param_spec(

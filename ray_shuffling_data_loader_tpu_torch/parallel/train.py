@@ -29,6 +29,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ray_shuffling_data_loader_tpu_torch.parallel.collectives import p2p
 from ray_shuffling_data_loader_tpu_torch.parallel.mesh import DEFAULT_VOCAB_SHARD_THRESHOLD, Mesh
 from ray_shuffling_data_loader_tpu_torch.parallel.sharded_embedding import ShardedEmbedding, model_mesh, shard_rows
 
@@ -218,43 +219,6 @@ def _adasum_apply(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor], coeffs: 
     return [(x.float() * ca + y.float() * cb).to(x.dtype) for x, y in zip(a, b)]
 
 
-_PINNED: Dict[tuple, torch.Tensor] = {}
-
-
-def _host_buffer(like: torch.Tensor, slot: str) -> torch.Tensor:
-    """A cached pinned host buffer shaped like ``like``."""
-    key = (slot, like.numel(), like.dtype)
-    buf = _PINNED.get(key)
-    if buf is None:
-        buf = _PINNED[key] = torch.empty(like.numel(), dtype=like.dtype, pin_memory=True)
-    return buf
-
-
-def _p2p(buffers: List[torch.Tensor], group, send_to: Optional[int], recv_from: Optional[int]):
-    """Send ``buffers`` to group rank ``send_to`` and/or receive the same
-    shapes from ``recv_from``, as one batch of point-to-point operations;
-    returns the received list (or None).
-
-    gloo's point-to-point calls take host tensors only, so on gloo a CUDA
-    exchange is staged through pinned host buffers; NCCL exchanges the
-    device tensors directly."""
-    staged = dist.get_backend(group) == "gloo" and buffers[0].device.type == "cuda"
-    ops, received = [], []
-    for i, buf in enumerate(buffers):
-        if send_to is not None:
-            src = _host_buffer(buf, f"send{i}").copy_(buf) if staged else buf
-            ops.append(dist.P2POp(dist.isend, src, dist.get_global_rank(group, send_to), group))
-        if recv_from is not None:
-            dst = _host_buffer(buf, f"recv{i}") if staged else torch.empty_like(buf)
-            ops.append(dist.P2POp(dist.irecv, dst, dist.get_global_rank(group, recv_from), group))
-            received.append(dst)
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    if recv_from is None:
-        return None
-    return [r.to(b.device) for r, b in zip(received, buffers)] if staged else received
-
-
 def adasum_reduce(grads: List[torch.Tensor], group) -> List[torch.Tensor]:
     """All-reduce the gradient list ``grads`` (flat buffers, typically one
     per dtype) across ``group`` with Adasum; every rank gets the same
@@ -273,26 +237,26 @@ def adasum_reduce(grads: List[torch.Tensor], group) -> List[torch.Tensor]:
     pow2 = 1 << (n.bit_length() - 1)
     rem = n - pow2
     if me >= pow2:  # the remainder: fold in, then wait for the result
-        _p2p(grads, group, send_to=me - pow2, recv_from=None)
-        return _p2p(grads, group, send_to=None, recv_from=me - pow2)
+        p2p(grads, group, send_to=me - pow2, recv_from=None)
+        return p2p(grads, group, send_to=None, recv_from=me - pow2)
     if me < rem:
-        other = _p2p(grads, group, send_to=None, recv_from=pow2 + me)
+        other = p2p(grads, group, send_to=None, recv_from=pow2 + me)
         grads = _adasum_apply(grads, other, _adasum_coefficients(grads, other))
     for r in range(pow2.bit_length() - 1):
         partner = me ^ (1 << r)
-        other = _p2p(grads, group, send_to=partner, recv_from=partner)
+        other = p2p(grads, group, send_to=partner, recv_from=partner)
         # Two processes may round the same dot products differently (a CPU
         # BLAS picks its thread count at run time), and then the ranks
         # would diverge: the lower rank's coefficients serve both.
         if me < partner:
             coeffs = _adasum_coefficients(grads, other)
-            _p2p([coeffs], group, send_to=partner, recv_from=None)
+            p2p([coeffs], group, send_to=partner, recv_from=None)
         else:
             slot = torch.empty(2, dtype=torch.float32, device=grads[0].device)
-            coeffs = _p2p([slot], group, send_to=None, recv_from=partner)[0].flip(0)
+            coeffs = p2p([slot], group, send_to=None, recv_from=partner)[0].flip(0)
         grads = _adasum_apply(grads, other, coeffs)
     if me < rem:
-        _p2p(grads, group, send_to=pow2 + me, recv_from=None)
+        p2p(grads, group, send_to=pow2 + me, recv_from=None)
     return grads
 
 

@@ -129,6 +129,41 @@ def test_checkpoint_journal_and_trainer_load_no_jax(tmp_path):
     assert "LOADED []" in out.stdout, out.stdout
 
 
+def test_sequence_parallel_path_loads_no_jax(tmp_path):
+    """A rank of the long-context trainer (ring, Ulysses and dense attention,
+    a world of one) and the ops over a two-rank group load no JAX module."""
+    script = textwrap.dedent(
+        f"""
+        import json, socket, sys, time
+        sys.path.insert(0, {REPO!r})
+        import torch
+        import torch.distributed as dist
+        from ray_shuffling_data_loader_tpu_torch import train_long_context
+        from ray_shuffling_data_loader_tpu_torch.ops import blockwise_attention, make_ulysses_attention
+
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        args = train_long_context.parse_args(["--backend", "gloo", "--device", "cpu", "--dp", "1", "--sp", "1",
+                                              "--seq-len", "32", "--embed-dim", "16", "--steps", "2",
+                                              "--attention", "ring", "ulysses", "dense"])
+        spec = {{**vars(args), "init_method": f"tcp://localhost:{{port}}", "out_dir": {str(tmp_path)!r}}}
+        assert train_long_context.run_rank(spec, 0, time.time()) == 0
+        runs = json.load(open({str(tmp_path / "rank0.json")!r}))["runs"]
+        assert [r["attention"] for r in runs] == ["ring", "ulysses", "dense"], runs
+        q = torch.randn(1, 8, 2, 4, requires_grad=True)
+        blockwise_attention(q, q, q, causal=True, kv_chunk=3).sum().backward()
+        make_ulysses_attention(None, causal=True)(q, q, q).sum().backward()
+        loaded = sorted({{m.split(".")[0] for m in sys.modules}} & set({sorted(FORBIDDEN)!r}))
+        print("LOADED", loaded)
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     model = port.dlrm_for_data_spec(embed_dim=4, top_mlp=(8,), vocab_cap=16, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -152,6 +187,11 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_dlrm.main(["--smoke"])
+    # The long-context trainer, before it spawns a rank.
+    from ray_shuffling_data_loader_tpu_torch import train_long_context
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_long_context.main(["--backend", "gloo"])
     assert resolve_device("cpu") == torch.device("cpu")
     assert port.example_features(model, 4, device="cpu")[model.columns[0]].device.type == "cpu"
 

@@ -1,6 +1,7 @@
 """Code that the port's process tests run in other processes: tasks for
-the worker pool, an actor class, and the trainer rank of the gradient
-tests (``python tests/torch_port_helpers.py <spec.json> <rank>``).
+the worker pool, an actor class, the trainer rank of the gradient tests
+and the rank of the sequence-parallel op tests (``python
+tests/torch_port_helpers.py <spec.json> <rank>``).
 
 Pool workers and actors import this module, so it imports ``torch`` only
 inside the rank's function.
@@ -311,9 +312,57 @@ def mp_rank_main(spec, rank):
     return 0
 
 
+# -- the ranks of the sequence-parallel op tests ----------------------------------
+
+
+def sp_rank_main(spec, rank):
+    """Rank ``rank`` of a sequence-parallel group over the world: for each
+    case ``(name, schedule, causal, use_flash)``, the output of this rank's
+    sequence chunk of the global q, k, v and the chunk's gradients of
+    ``sum(out ** 2)``; and whether Ulysses refuses heads that do not divide
+    by the group."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    import ray_shuffling_data_loader_tpu_torch as port
+
+    torch.set_num_threads(1)
+    world = spec["world"]
+    port.init_data_parallel(rank, world, "gloo", spec["init_method"])
+    group = dist.group.WORLD
+    data = np.load(spec["inputs"])
+    tl = data["q"].shape[1] // world
+    out = {}
+    for name, schedule, causal, use_flash in spec["sp_cases"]:
+        if schedule == "ring":
+            fn = port.make_ring_attention(group, causal=causal, use_flash=use_flash)
+        else:
+            fn = port.make_ulysses_attention(group, causal=causal, kv_chunk=spec["kv_chunk"], use_flash=use_flash)
+        q, k, v = (torch.from_numpy(data[x][:, rank * tl:(rank + 1) * tl]).requires_grad_(True) for x in "qkv")
+        result = fn(q, k, v)
+        (result ** 2).sum().backward()
+        out[f"{name}_out"] = result.detach().numpy()
+        for x, t in zip("qkv", (q, k, v)):
+            out[f"{name}_d{x}"] = t.grad.numpy()
+    if spec.get("ulysses_mismatch"):
+        q = torch.from_numpy(data["q"][:, rank * tl:(rank + 1) * tl])
+        try:
+            port.make_ulysses_attention(group)(q, q, q)
+            out["mismatch_error"] = np.asarray("")
+        except ValueError as e:
+            out["mismatch_error"] = np.asarray(str(e))
+    out["loaded_jax"] = np.asarray(sorted({m.split(".")[0] for m in sys.modules} & FORBIDDEN_TOP_LEVELS))
+    np.savez(os.path.join(spec["out_dir"], f"rank{rank}.npz"), **out)
+    dist.destroy_process_group()
+    return 0
+
+
 if __name__ == "__main__":
     with open(sys.argv[1]) as f:
         spec = json.load(f)
+    if "sp_cases" in spec:
+        sys.exit(sp_rank_main(spec, int(sys.argv[2])))
     if "model_parallelism" in spec:
         sys.exit(mp_rank_main(spec, int(sys.argv[2])))
     sys.exit(grad_rank_main(sys.argv[1], int(sys.argv[2])))
