@@ -110,6 +110,21 @@ Phases, each of which fails the script (non-zero exit) on any error:
    start-up and shutdown (seconds since spawn to imports, runtime joined,
    process groups, model built and sharded, optimizer made, step made,
    pool ready, first batch, last step, report written, teardown);
+   audit: the audit plane on the same dataset (``RSDL_AUDIT=1``, a spool
+   under ``build/audit/``, the session and its pool started after both):
+   (a) the DLRM slice of the slices phase, audited: every epoch's
+   verdict must be ``ok`` with map == reduce == delivered == consumed ==
+   10^6 rows, and K1 must launch once per step on its tensor-core route
+   (``launches_audit`` in the kernels line); (b) delivery only with
+   ``drop_last=False``: staged == delivered; (c) that run under
+   ``RSDL_JOURNAL``: one ``verdict`` per epoch in the journal, and
+   ``python -m ray_shuffling_data_loader_tpu_torch.replay`` on it must
+   exit 0 for every epoch; (d) ``drop-row`` armed in epoch 0 of two:
+   ``ok`` False with ``["delivered"]`` in epoch 0 alone, and under
+   ``RSDL_AUDIT_STRICT=1`` the run must raise ``AuditError``; (e) logs
+   the audited run's shuffle seconds, step median and stall share beside
+   the slices phase's unaudited run, the digest seconds of each side, the
+   spool's bytes and the seconds of the reconcile and the replay;
    plan: the read plane. The Quick-start shape (10^6 rows, 10 files, seed
    0) written with 20 row groups a file, so that at 8 reducers the plan
    compiler picks ``block:1``. Six 2-epoch DLRM runs (batch 65536, bf16,
@@ -1214,6 +1229,7 @@ def train_slice(torch, port, filenames, num_rows, model, label: str, collector=N
         "direct_per_epoch": direct_per_epoch,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "trial": trial,
+        "audit_reconcile_s": ds.dataset.shuffle_stats.get("audit_reconcile_s"),
     }
 
 
@@ -1251,6 +1267,202 @@ def phase_slices(torch, data_dir: str) -> dict:
         return {"dlrm": dlrm, "tabtransformer": tab, "filenames": filenames}
     finally:
         port.runtime.shutdown()
+
+
+AUDIT_KNOBS = ("RSDL_AUDIT", "RSDL_AUDIT_DIR", "RSDL_AUDIT_STRICT", "RSDL_AUDIT_KEY", "RSDL_JOURNAL", "RSDL_RESUME")
+
+
+class _Drain:
+    """A ``BatchConsumer`` that frees what it is given."""
+
+    def __init__(self, port):
+        self._store = port.runtime.get_context().store
+
+    def consume(self, rank, epoch, batches):
+        self._store.free(batches)
+
+    def producer_done(self, rank, epoch):
+        pass
+
+    def wait_until_ready(self, epoch):
+        pass
+
+    def wait_until_all_epochs_done(self):
+        pass
+
+
+def stall_share(run: dict) -> float:
+    return run["staging"]["stall_s"] / sum(run["epoch_s"])
+
+
+def start_pool(port) -> float:
+    """Start the session's worker pool and wait until every worker is up;
+    returns its start-up seconds. A run that finds its pool started pays
+    no start-up inside its first epoch, as the slices phase's first run
+    does not (its pool starts with the decoded-size estimate, before the
+    epochs)."""
+    pool = port.runtime.get_context().pool
+    while pool.ready_s is None:
+        time.sleep(0.01)
+    return pool.ready_s
+
+
+def phase_audit(torch, filenames, num_rows: int, unaudited: dict, work: str) -> dict:
+    """The audited main path on the slices' dataset (``RSDL_AUDIT=1``, the
+    spool under ``work``, the session started after both are set): (a) the
+    DLRM slice of :func:`train_slice`, whose every epoch must reconcile
+    ``ok`` with map == reduce == delivered == consumed == every row, and K1
+    once per step on its tensor-core route; (b) delivery only with
+    ``drop_last=False``, staged == delivered, (c) under ``RSDL_JOURNAL``: a
+    verdict per epoch journaled, and ``replay`` of the journal exits 0; (d)
+    ``drop-row`` armed in epoch 0 of two: ``ok`` False with ``["delivered"]``
+    in epoch 0 alone, and the same run under ``RSDL_AUDIT_STRICT=1`` raises
+    ``AuditError``; (e) logs the audited run's shuffle seconds, step median
+    and stall share beside ``unaudited`` (the slices phase's DLRM run), the
+    digest seconds of each side, the spool's bytes and the seconds of the
+    reconcile and the replay."""
+    import numpy as np
+
+    import ray_shuffling_data_loader_tpu_torch as port
+    import ray_shuffling_data_loader_tpu_torch.ops as ops
+    from ray_shuffling_data_loader_tpu_torch import shuffle as port_shuffle
+    from ray_shuffling_data_loader_tpu_torch.runtime import journal as jmod
+    from ray_shuffling_data_loader_tpu_torch.telemetry import audit
+
+    spool, jdir = os.path.join(work, "spool"), os.path.join(work, "journal")
+    feature_columns = [c for c in port.DATA_SPEC if c != port.LABEL_COLUMN]
+    out = {}
+
+    def verdicts_ok(label, verdicts, epochs):
+        for v in verdicts:
+            rows = {k: v.get(k) for k in ("rows_mapped", "rows_reduced", "rows_delivered", "rows_consumed")}
+            if v["ok"] is not True or v["mismatch"] or any(r not in (num_rows, None) for r in rows.values()):
+                raise AssertionError(f"[audit] {label}: epoch {v['epoch']} verdict {v}")
+        if [v["epoch"] for v in verdicts] != list(range(epochs)):
+            raise AssertionError(f"[audit] {label}: verdicts of epochs {[v['epoch'] for v in verdicts]}")
+
+    t_phase = time.perf_counter()
+    with environment({"RSDL_AUDIT": "1", "RSDL_AUDIT_DIR": spool}, clear=AUDIT_KNOBS):
+        audit.refresh_from_env()
+        audit.clear_faults()
+        port.runtime.init()
+        try:
+            log(f"[audit] worker pool up in {start_pool(port)!r} s, audited")
+            # (a) The audited main path.
+            run = train_slice(torch, port, filenames, num_rows, port.dlrm_for_data_spec(), "audit dlrm")
+            verdicts = audit.verdicts()
+            verdicts_ok("dlrm", verdicts, 2)
+            if any(v["rows_consumed"] != num_rows for v in verdicts):
+                raise AssertionError(f"[audit] dlrm: the consumed side is missing: {verdicts}")
+            n = run["launches"]
+            if (n["interaction_mma"] != run["steps"] or n["interaction"] != run["steps"]
+                    or any(v for k, v in n.items() if not k.startswith("interaction"))):
+                raise AssertionError(f"[audit] dlrm: launches {n} in {run['steps']} steps, want one K1 per step, "
+                                     "all on the tensor-core route")
+            digest_s = audit.digest_seconds()
+            spool_bytes = sum(os.path.getsize(os.path.join(spool, f)) for f in os.listdir(spool))
+            for v in verdicts:
+                log(f"[audit] dlrm epoch {v['epoch']}: ok, rows mapped {v['rows_mapped']} = reduced = delivered = "
+                    f"consumed, staged {v['rows_staged']} (drop_last); digest {v['delivered_digest']}, seq "
+                    f"{v['delivered_seq']}; adjacent pairs kept {v['adjacent_pair_retention']!r}, displacement "
+                    f"{v['mean_normalized_displacement']!r}, source entropy {v['source_entropy_mean']!r} "
+                    f"(min {v['source_entropy_min']!r}); plan {v['plan']}")
+            # The worker sides' digests, timed here on the same numbers of
+            # keys cut as they cut them: 10 files, 8 reducers.
+            keys = np.random.default_rng(0).permutation(num_rows).astype(np.int32)
+            worker_s = {}
+            for side, parts in (("map", len(filenames)), ("reduce", 8)):
+                t0 = time.perf_counter()
+                for part in np.array_split(keys, parts):
+                    audit.StreamDigest().update(part)
+                worker_s[side] = time.perf_counter() - t0
+            out["dlrm"] = {
+                "verdicts": verdicts, "launches": n, "steps": run["steps"], "step_ms_median": run["step_ms_median"],
+                "epoch_s": run["epoch_s"], "epoch_shuffle_s": run["delivery"]["epoch_shuffle_s"],
+                "stall_share": stall_share(run), "staging": run["staging"],
+                "digest_s_driver": digest_s, "digest_s_epoch_keys_timed_here": worker_s,
+                "spool_bytes": spool_bytes, "reconcile_s": run["audit_reconcile_s"],
+            }
+            log(f"[audit] (e) audited against unaudited DLRM slice: shuffle s per epoch "
+                f"{out['dlrm']['epoch_shuffle_s']!r} against {unaudited['delivery']['epoch_shuffle_s']!r}; step "
+                f"median {run['step_ms_median']!r} against {unaudited['step_ms_median']!r} ms; stall share "
+                f"{stall_share(run)!r} against {stall_share(unaudited)!r}; epochs {run['epoch_s']!r} against "
+                f"{unaudited['epoch_s']!r} s")
+            log(f"[audit] (e) digest s over the run in the trainer's process, per side: {digest_s}; the workers' "
+                f"sides of one epoch timed here on {num_rows} int32 keys: {worker_s}; spool {spool_bytes} B; reconcile "
+                f"{run['audit_reconcile_s']!r} s")
+
+            # (b) + (c) Delivery only, drop_last off, journaled; then replay.
+            with environment({"RSDL_JOURNAL": jdir}):
+                ds = port.DeviceShufflingDataset(
+                    filenames, num_epochs=2, num_trainers=1, batch_size=65536, rank=0,
+                    feature_columns=[*feature_columns, port.KEY_COLUMN], label_column=port.LABEL_COLUMN,
+                    num_reducers=8, seed=0, device="cuda", drop_last=False,
+                )
+                for epoch in range(2):
+                    ds.set_epoch(epoch)
+                    rows = sum(int(labels.shape[0]) for _, labels in ds)
+                    if rows != num_rows:
+                        raise AssertionError(f"[audit] delivery epoch {epoch}: {rows} rows staged")
+                ds.join()
+            verdicts = audit.verdicts()
+            verdicts_ok("delivery", verdicts, 2)
+            if any(v["rows_staged"] != v["rows_delivered"] for v in verdicts):
+                raise AssertionError(f"[audit] delivery: staged != delivered: {verdicts}")
+            journal = ds.dataset.shuffle_stats["journal"]
+            state = jmod.load_run(journal)
+            if sorted(state.verdicts) != [0, 1] or any(
+                    state.verdicts[e]["delivered_seq"] != verdicts[e]["delivered_seq"] for e in (0, 1)):
+                raise AssertionError(f"[audit] journal {journal}: verdicts {state.verdicts}")
+            log(f"[audit] (b) delivery, drop_last off: staged {[v['rows_staged'] for v in verdicts]} = delivered "
+                f"in both epochs; (c) journal holds a verdict per epoch")
+            env = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
+            report = os.path.join(work, "replay.json")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "ray_shuffling_data_loader_tpu_torch.replay", journal, "--workers", "8",
+                 "--json", report], capture_output=True, text=True, env=env, cwd=ROOT, timeout=300,
+            )
+            replay_s = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"[audit] replay exited {proc.returncode}: {proc.stdout[-2000:]} "
+                                     f"{proc.stderr[-2000:]}")
+            with open(report) as f:
+                replayed = json.load(f)
+            if sorted(replayed["epochs"]) != ["0", "1"] or not all(e["ok"] for e in replayed["epochs"].values()):
+                raise AssertionError(f"[audit] replay report: {replayed}")
+            log(f"[audit] (c) replay reproduced epochs {sorted(replayed['epochs'])} (exit 0) in {replay_s!r} s")
+            out["delivery"] = {"verdicts": verdicts, "replay_s": replay_s,
+                               "reconcile_s": ds.dataset.shuffle_stats["audit_reconcile_s"]}
+
+            # (d) The injected fault, then strict mode.
+            audit.inject_fault("drop-row", 0)
+            port_shuffle.shuffle(filenames, _Drain(port), 2, 8, 1, seed=0, narrow_to_32=True)
+            verdicts = audit.verdicts()
+            if ([v["ok"] for v in verdicts] != [False, True] or verdicts[0]["mismatch"] != ["delivered"]
+                    or verdicts[0]["rows_delivered"] != num_rows - 1):
+                raise AssertionError(f"[audit] drop-row in epoch 0: verdicts {verdicts}")
+            audit.inject_fault("drop-row", 0)
+            raised = None
+            with environment({"RSDL_AUDIT_STRICT": "1"}):
+                try:
+                    port_shuffle.shuffle(filenames, _Drain(port), 1, 8, 1, seed=0, narrow_to_32=True)
+                except audit.AuditError as exc:
+                    raised = exc
+            if raised is None:
+                raise AssertionError("[audit] strict mode did not raise AuditError on a dropped row")
+            log(f"[audit] (d) drop-row armed in epoch 0: ok {[v['ok'] for v in verdicts]}, mismatch "
+                f"{verdicts[0]['mismatch']} ({verdicts[0]['rows_delivered']} rows delivered); strict raised "
+                f"AuditError({raised})")
+            out["fault"] = {"verdicts": verdicts, "strict_raised": str(raised)}
+        finally:
+            audit.clear_faults()
+            port.runtime.shutdown()
+    audit.refresh_from_env()
+    audit.reset()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[audit] phase {out['wall_s']:.1f} s")
+    return out
 
 
 PLAN_ROW_GROUPS = 20  # at 8 reducers, >= 2R row groups a file: the planner's block:1
@@ -2259,6 +2471,13 @@ def main() -> int:
             filenames = slices.pop("filenames")
             delivery = phase_delivery(torch, filenames, NUM_ROWS)
             ranks = phase_ranks(filenames, smi)
+            audit_dir = os.path.join(ROOT, "build", "audit")
+            shutil.rmtree(audit_dir, ignore_errors=True)
+            os.makedirs(audit_dir)
+            try:
+                audited = phase_audit(torch, filenames, NUM_ROWS, slices["dlrm"], audit_dir)
+            finally:
+                shutil.rmtree(audit_dir, ignore_errors=True)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
         plan_dir = os.path.join(ROOT, "build", "plan_data")
@@ -2322,6 +2541,8 @@ def main() -> int:
                     res["launches"]["interaction"]["mma_launches"] for res in ranks["dp2_mp2"]["ranks"])
                 # and in the plan phase's six DLRM runs
                 entry["launches_plan"] = plan["launches"]["interaction_mma"]
+                # and in the audited DLRM run
+                entry["launches_audit"] = audited["dlrm"]["launches"]["interaction_mma"]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: a phase failed", file=sys.stderr)
@@ -2346,6 +2567,7 @@ def main() -> int:
                     "plan": plan,
                     "resident": resident,
                     "resume": resume,
+                    "audit": audited,
                     "parity_max_abs_diff": {label: err for label, (err, _) in parity.items()},
                 },
                 f, indent=1,

@@ -22,6 +22,7 @@ import importlib
 
 _EXPORTS = {
     "runtime": None,
+    "telemetry": None,  # ``telemetry.audit``: the exactly-once digests (RSDL_AUDIT)
     "BatchCursor": "checkpoint",
     "CheckpointManager": "checkpoint",
     "adam_state_dict_from_jax": "convert",

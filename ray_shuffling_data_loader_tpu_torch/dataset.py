@@ -12,6 +12,10 @@ A packed reducer output (whole batches already cut at the rank's batch
 grid, :func:`~.runtime.store.iter_packed_batches`) is yielded batch by
 batch as zero-copy views; only the plain head and tail of a reducer's
 interval go through the carry buffer.
+
+With the audit armed (``RSDL_AUDIT``), each rank digests every queue
+batch it reads back, before the re-cut: the consumed side of
+:mod:`.telemetry.audit`.
 """
 
 from __future__ import annotations
@@ -24,8 +28,14 @@ from typing import Any, Dict, Iterator, List, Optional
 from ray_shuffling_data_loader_tpu_torch import runtime
 from ray_shuffling_data_loader_tpu_torch.batch_queue import DEFAULT_QUEUE_NAME, BatchQueue
 from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch, ObjectRef
-from ray_shuffling_data_loader_tpu_torch.runtime.store import is_device_batch, iter_packed_batches
+from ray_shuffling_data_loader_tpu_torch.runtime.store import (
+    is_device_batch,
+    iter_packed_batches,
+    logical_columns,
+    rows_of,
+)
 from ray_shuffling_data_loader_tpu_torch.shuffle import BatchConsumer, shuffle
+from ray_shuffling_data_loader_tpu_torch.telemetry import audit as _audit
 
 # Default reducer share of the host's cores.
 REDUCER_CLUSTER_CORE_SHARE = 0.6
@@ -203,6 +213,7 @@ class ShufflingDataset:
         rebatch = CarryRebatcher(self._batch_size, self._skip_batches)
         self.get_batch_s = []
         self.rows_read = 0
+        consumed_rows = 0  # the audit's offset in this rank's consumed stream
         is_done = False
         while not is_done:
             t0 = time.perf_counter()
@@ -217,6 +228,12 @@ class ShufflingDataset:
                 # one fault per page inside the stager's copy.
                 cb = store.get_columns(ref, populate=True)
                 store.free(ref)  # the mapping outlives the unlink
+                if _audit.enabled():
+                    # What this rank read back through the queue and the
+                    # store: a row lost or repeated after the delivery
+                    # breaks delivered == consumed.
+                    _audit.record_consume(epoch, rank, logical_columns(cb), consumed_rows)
+                    consumed_rows += rows_of(cb)
                 if not is_device_batch(cb):
                     self.rows_read += cb.num_rows
                     yield from rebatch.feed(cb)

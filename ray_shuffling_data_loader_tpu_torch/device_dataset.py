@@ -29,6 +29,9 @@ DMA. Both kinds unpack on the device in the same way.
 Whether a spec is packed is decided once, from the spec: explicit non
 4-byte types or per-column shapes take per-column staging. A staging
 failure raises; there is no fallback from one path to another.
+
+With the audit armed (``RSDL_AUDIT``), the stager digests every batch it
+stages, carried or direct: the staged side of :mod:`.telemetry.audit`.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from ray_shuffling_data_loader_tpu_torch import native
 from ray_shuffling_data_loader_tpu_torch.dataset import ShufflingDataset
 from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch
 from ray_shuffling_data_loader_tpu_torch.shuffle import _narrow_column, device_direct_enabled
+from ray_shuffling_data_loader_tpu_torch.telemetry import audit as _audit
 from ray_shuffling_data_loader_tpu_torch.utils.device import DeviceLike, resolve_device
 
 _TORCH_OF_NUMPY = {
@@ -412,13 +416,24 @@ class DeviceShufflingDataset:
         epoch_start = time.perf_counter()
         phase = ["upstream"]
 
+        # The audit's staged side: each post-re-cut batch, recorded before
+        # the stager takes the next, so every record is in before the
+        # dataset's last acks let the driver reconcile.
+        audit_on = _audit.enabled()
+        epoch, rank = self._ds._epoch, self._ds._rank
+        staged_rows = 0
+
         def stager():
+            nonlocal staged_rows
             try:
                 for cb in self._ds:
                     if cancel.is_set():
                         # The consumer left early: drain without staging so
                         # the epoch's acks still flow.
                         continue
+                    if audit_on:
+                        _audit.record_staged(epoch, rank, cb, staged_rows)
+                        staged_rows += cb.num_rows
                     phase[0] = "staging"
                     t0 = time.perf_counter()
                     direct = cb.packed is not None and self._direct_ok(cb)

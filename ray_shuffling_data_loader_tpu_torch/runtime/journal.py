@@ -33,10 +33,17 @@ durable, so that a preempted driver resumes where it stopped.
 With ``RSDL_JOURNAL`` unset and no ``resume_from``, ``shuffle()`` never
 imports this module, writes no file and installs no handler.
 
+* **Audit** (``RSDL_AUDIT``, :mod:`..telemetry.audit`): a ``deliver``
+  record carries the rows the audit digested for its rank and the rank-0
+  sample keys taken so far (``rows``, ``sampled``), written after the
+  delivery's digests reached the spool; a resume seeds the audit's stream
+  offsets and sample count from them, and keeps the spool, so that its
+  digests continue the preempted run's. At the run's end one ``verdict``
+  record per epoch holds the reconcile's verdict, which ``replay`` holds
+  a re-run of the epoch to.
+
 The format is the JAX package's (its ``runtime/journal.py``), so that
-either package folds the other's journal. Its audit fields (``sampled``
-in a ``deliver`` record, ``verdict`` records) are folded and carried but
-never written here: the port has no audit plane yet.
+either package folds the other's journal.
 
 This module imports the standard library only.
 """
@@ -48,6 +55,7 @@ import logging
 import os
 import secrets
 import signal
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -527,8 +535,12 @@ def clear_suspend() -> None:
 
 
 def suspend_and_exit(journal: RunJournal) -> None:
-    """The end of the SIGTERM path: close the journal and leave with exit
-    code 0 without tearing down, since the store's segments are the
-    suspended window."""
+    """The end of the SIGTERM path: close the journal, drain the audit's
+    records to its spool (``os._exit`` runs no atexit hook), and leave
+    with exit code 0 without tearing down, since the store's segments are
+    the suspended window."""
     journal.close()
+    audit = sys.modules.get("ray_shuffling_data_loader_tpu_torch.telemetry.audit")
+    if audit is not None:
+        audit.safe_flush()
     os._exit(0)

@@ -341,6 +341,49 @@ def is_device_batch(cb: ColumnBatch) -> bool:
     return cb.layout is not None and cb.layout.get("kind") == DEVICE_BATCH_KIND and PACKED_COLUMN in cb
 
 
+class _LogicalColumns(Mapping):
+    """The logical columns of a whole packed segment, each built on first
+    access as one contiguous copy of its plane: the audit reads the key
+    column alone."""
+
+    def __init__(self, cb: ColumnBatch):
+        self._mat = cb[PACKED_COLUMN]
+        self._names = list(cb.layout["columns"])
+        self._dtypes = [np.dtype(d) for d in cb.layout["dtypes"]]
+        self._cache: Dict[str, np.ndarray] = {}
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        out = self._cache.get(name)
+        if out is None:
+            try:
+                i = self._names.index(name)
+            except ValueError:
+                raise KeyError(name) from None
+            out = self._cache[name] = self._mat[:, i, :].reshape(-1).view(self._dtypes[i])
+        return out
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._names)
+
+    def __len__(self) -> int:
+        return len(self._names)
+
+
+def logical_columns(cb: ColumnBatch) -> Mapping:
+    """Name -> 1-D logical column of any batch: a columnar batch's own
+    columns, or a packed segment's planes flattened on first access."""
+    return _LogicalColumns(cb) if is_device_batch(cb) else cb.columns
+
+
+def rows_of(cb: ColumnBatch) -> int:
+    """Logical rows of any batch: a packed segment's batches times the
+    batch size, or a columnar batch's rows."""
+    if is_device_batch(cb):
+        mat = cb[PACKED_COLUMN]
+        return int(mat.shape[0]) * int(mat.shape[2])
+    return cb.num_rows
+
+
 def iter_packed_batches(cb: ColumnBatch) -> Iterator[ColumnBatch]:
     """A packed segment's batches as :class:`ColumnBatch` views: each
     logical column is row ``i`` of the batch's block, bit-viewed back to its

@@ -19,6 +19,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import multiprocessing as mp
 import os
+import sys
 import threading
 import time
 import traceback
@@ -57,6 +58,14 @@ def _run_task(fn: Callable, args, kwargs):
         return fn(*args, **kwargs)
     except Exception as exc:
         raise TaskError(traceback.format_exc(), type(exc).__name__) from None
+    finally:
+        # The task-done spool barrier: the task's audit records are on the
+        # spool before its result, or its failure, can be seen (a no-op
+        # with the audit off). A worker whose tasks never loaded the audit
+        # module has nothing buffered.
+        audit = sys.modules.get("ray_shuffling_data_loader_tpu_torch.telemetry.audit")
+        if audit is not None:
+            audit.safe_flush()
 
 
 def wait(

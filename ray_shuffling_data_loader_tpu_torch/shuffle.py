@@ -83,6 +83,11 @@ results re-attached while their segments survive (else run again from
 the seed), the delivery cursor honoured. Off, the journal module is not
 even imported.
 
+**Audit** (``RSDL_AUDIT``, :mod:`.telemetry.audit`): each map, reduce
+and delivery digests the key column of its rows, and at the run's end
+``shuffle()`` reconciles the sides into one verdict per epoch, journaled
+when the journal is on. Off, each hook is one cached boolean.
+
 A ``stats_collector`` (a :class:`~.stats.TrialStatsCollector` actor's
 handle) hears, as the JAX package's does, each epoch's start and
 admission wait, each task's start and duration, and each reducer output
@@ -107,6 +112,7 @@ import numpy as np
 from ray_shuffling_data_loader_tpu_torch import native, runtime
 from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch, ObjectRef
 from ray_shuffling_data_loader_tpu_torch.runtime.store import DEVICE_BATCH_KIND, PACKED_COLUMN
+from ray_shuffling_data_loader_tpu_torch.telemetry import audit as _audit
 
 _INT32 = np.iinfo(np.int32)
 
@@ -260,6 +266,7 @@ def read_parquet_columns(
     use_threads: bool = False,
     row_groups: Optional[Sequence[int]] = None,
     rowgroup_threads: int = 1,
+    counted: bool = True,
 ) -> ColumnBatch:
     """Decode a local Parquet file to contiguous numpy columns.
 
@@ -273,28 +280,37 @@ def read_parquet_columns(
     the whole file's rows of those groups, as long as a column decodes to
     one dtype in every group. ``rowgroup_threads > 1``: decode them with
     :func:`_decode_rowgroups_parallel` (then ``use_threads`` is ignored).
-    Every read adds to :data:`_DECODE_COUNTS`."""
+    Every read adds to :data:`_DECODE_COUNTS`, but for ``counted=False``
+    (the audit's key-only side read, whose cost is the audit's).
+
+    With the audit armed, the audit key that :func:`_pushdown_columns`
+    appends may be missing from the file: it is left out, and the audit
+    warns and skips the file's digest. Any other missing name raises."""
     import pyarrow.parquet as pq
 
     pf = pq.ParquetFile(filename, memory_map=True)
     schema = pf.schema_arrow
     group_rows = [int(pf.metadata.row_group(g).num_rows) for g in range(pf.metadata.num_row_groups)]
     if columns is None and row_groups is None and rowgroup_threads <= 1:
-        _count_decode(schema, group_rows, range(len(group_rows)), None)
+        if counted:
+            _count_decode(schema, group_rows, range(len(group_rows)), None)
         table = pq.read_table(filename, use_threads=use_threads, memory_map=True)
         return ColumnBatch(_table_to_columns(table))
     proj = None if columns is None else list(columns)
     if proj is not None:
-        # The JAX package lets the audit key it appends be missing; the
-        # port has no audit plane yet, so every missing name raises.
         missing = [c for c in proj if c not in schema.names]
         if missing:
-            raise ValueError(f"projected columns not in {filename!r} schema: {missing}")
+            tolerated = {_audit.key_column_name()} if _audit.enabled() else set()
+            hard = [c for c in missing if c not in tolerated]
+            if hard:
+                raise ValueError(f"projected columns not in {filename!r} schema: {hard}")
+            proj = [c for c in proj if c in schema.names]
         if not proj:
             raise ValueError(f"projection selects no columns of {filename!r} (requested {list(columns)!r})")
     names = list(schema.names) if proj is None else proj
     sel = list(range(len(group_rows))) if row_groups is None else sorted(int(g) for g in row_groups)
-    _count_decode(schema, group_rows, sel, proj)
+    if counted:
+        _count_decode(schema, group_rows, sel, proj)
     cols = None
     if rowgroup_threads > 1 and sel:
         cols = _decode_rowgroups_parallel(filename, names, sel, rowgroup_threads)
@@ -567,6 +583,10 @@ def shuffle_map(
         if new_cache_ref is not None:
             store.free(new_cache_ref)  # no caller will learn of it
         raise
+    if _audit.enabled():
+        # The map side, with the rows this file sends each reducer from the
+        # scatter's own offsets: one pass over the key column.
+        _audit.record_map(epoch, file_index, batch.columns, per_reducer=np.diff(offsets))
     if stats_collector is not None:
         stats_collector.call_oneway("map_done", epoch, time.perf_counter() - start, end_read - start)
     return (refs, new_cache_ref) if publish_cache else refs
@@ -596,6 +616,11 @@ def shuffle_plan(
     end_read = time.perf_counter()
     assignment = _file_assignment(seed, epoch, file_index, n, num_reducers, filename, plan)
     order, offsets = native.group_order(assignment, num_reducers)
+    if _audit.enabled():
+        # The index schedule reads no column data; the map side of the
+        # digest reads the key column from the cached segment, with the
+        # plan's own counts.
+        _audit.record_map(epoch, file_index, store.get_columns(cache_ref).columns, per_reducer=np.diff(offsets))
     idx_dtype = np.int32 if n <= _INT32.max else np.int64
     pending = store.create_columns({"idx": ((n,), np.dtype(idx_dtype))})
     try:
@@ -685,6 +710,25 @@ class _PackedOutput:
         if self.tail is not None:
             yield self.h + self.m * self.B, self.total, self.tail.columns
 
+    def key_column(self, name: str) -> np.ndarray:
+        """The logical values of one column over head, body and tail (the
+        audit's input): the body's plane of it flattened in one copy."""
+        i = self.names.index(name)
+        pieces = []
+        if self.head is not None:
+            pieces.append(self.head.columns[name])
+        if self.m:
+            pieces.append(self.mat[:, i, :].reshape(-1).view(self.dtypes[i]))
+        if self.tail is not None:
+            pieces.append(self.tail.columns[name])
+        if not pieces:
+            return np.empty(0, self.dtypes[i])
+        return pieces[0] if len(pieces) == 1 else np.concatenate(pieces)
+
+    def record_audit(self, epoch: int, reduce_index: int) -> None:
+        key = _audit.key_column_name()
+        _audit.record_reduce(epoch, reduce_index, {key: self.key_column(key)} if key in self.names else {})
+
     def seal(self) -> List[ObjectRef]:
         """Publish head, body and tail (those present) in delivery order."""
         return [p.seal() for p in (self.head, self.body, self.tail) if p is not None]
@@ -735,12 +779,14 @@ def _gather(src, idx: np.ndarray, out: np.ndarray) -> None:
         native.take(src, idx, out=out)
 
 
-def _permuted_output(store, pack, template, source: Callable[[str], Any], perm: np.ndarray):
+def _permuted_output(store, pack, template, source: Callable[[str], Any], perm: np.ndarray, epoch: int,
+                     reduce_index: int):
     """Write ``source(name)[perm]`` for every column of ``template``
     (``source`` gives an array or the list of parts of one, see
     :func:`_gather`): into one columnar segment (returns its ref), or,
     when the reducer packs, into its head, body and tail (returns their
-    refs)."""
+    refs). With the audit armed, the output is digested before it is
+    published, as reducer ``reduce_index`` of ``epoch``."""
     total = len(perm)
     packed = _packed_output(store, pack, total, template)
     if packed is None:
@@ -748,6 +794,8 @@ def _permuted_output(store, pack, template, source: Callable[[str], Any], perm: 
         try:
             for k, dst in pending.columns.items():
                 _gather(source(k), perm, dst)
+            if _audit.enabled():
+                _audit.record_reduce(epoch, reduce_index, pending.columns)
             return pending.seal()
         finally:
             pending.abort()
@@ -757,6 +805,8 @@ def _permuted_output(store, pack, template, source: Callable[[str], Any], perm: 
             src = source(k)
             for lo, hi, views in chunks:
                 _gather(src, perm[lo:hi], views[k])
+        if _audit.enabled():
+            packed.record_audit(epoch, reduce_index)
         return packed.seal()
     finally:
         packed.abort()
@@ -781,7 +831,7 @@ def shuffle_reduce(
     # tools/torch_port_stage_profile.py).
     parts = [store.get_columns(r, populate=True) for r in part_refs]
     perm = _reduce_seed(seed, epoch, reduce_index).permutation(sum(p.num_rows for p in parts))
-    out = _permuted_output(store, pack, parts[0], lambda k: [p[k] for p in parts], perm)
+    out = _permuted_output(store, pack, parts[0], lambda k: [p[k] for p in parts], perm, epoch, reduce_index)
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_done", epoch, time.perf_counter() - start)
     return out
@@ -821,7 +871,7 @@ def shuffle_gather_reduce(
             native.take(cache[k], idx, out=compact[offsets[i] : offsets[i + 1]])
         return compact
 
-    out = _permuted_output(store, pack, template, source, perm)
+    out = _permuted_output(store, pack, template, source, perm, epoch, reduce_index)
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_done", epoch, time.perf_counter() - start)
     return out
@@ -871,11 +921,14 @@ def shuffle_selective_plan(
     seed: int,
     plan: Optional[Tuple[str, int]] = None,
     stats_collector=None,
+    narrow_to_32: bool = False,
 ) -> List[int]:
     """The selective schedule's map: the seeded draw over the footer's row
     count, with no data read and nothing written to the store. Returns
     each reducer's rows from this file, for the delivery offsets and the
-    packed outputs."""
+    packed outputs. With the audit armed it also decodes the audit key
+    column alone, for the map side of the digest (``narrow_to_32``: as the
+    reduce side narrows it)."""
     if stats_collector is not None:
         stats_collector.call_oneway("map_start", epoch)
     start = time.perf_counter()
@@ -883,6 +936,16 @@ def shuffle_selective_plan(
     end_read = time.perf_counter()
     assignment = _file_assignment(seed, epoch, file_index, n, num_reducers, filename, plan)
     counts = np.bincount(assignment, minlength=num_reducers)
+    if _audit.enabled():
+        try:
+            kb = read_parquet_columns(filename, columns=[_audit.key_column_name()], counted=False)
+            # Digest what the reduce side delivers: narrowing changes a
+            # float key's bits, and a map side digested wide would fail a
+            # correct strict run.
+            cols = {k: _narrow_column(k, v) if narrow_to_32 else v for k, v in kb.columns.items()}
+        except Exception:
+            cols = {}  # no key column: the audit warns once and skips
+        _audit.record_map(epoch, file_index, cols, per_reducer=counts)
     if stats_collector is not None:
         stats_collector.call_oneway("map_done", epoch, time.perf_counter() - start, end_read - start)
     return [int(c) for c in counts]
@@ -979,7 +1042,7 @@ def shuffle_selective_reduce(
                 native.take(v, pos, out=compact[k][lo:hi])
         del batch, cols
     compact = compact or {}
-    out = _permuted_output(store, pack, compact, compact.__getitem__, perm)
+    out = _permuted_output(store, pack, compact, compact.__getitem__, perm, epoch, reduce_index)
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_done", epoch, time.perf_counter() - start)
     return out
@@ -991,6 +1054,42 @@ def _ref_window_rows(ref) -> Optional[int]:
     if rows is None:
         return None
     return int(rows[1]) - int(rows[0])
+
+
+def _audit_deliver(store, out_refs: List[ObjectRef], epoch: int, reducer: int, rank: int,
+                   offsets: Dict[int, int]) -> List[ObjectRef]:
+    """The delivery side of the audit: digest each piece of one reducer's
+    output as it is about to reach the consumer, at the rank's running
+    offset (``offsets``, updated). Also where the ``drop-row`` fault
+    strikes: the last piece is republished, columnar, one row short, and
+    the returned refs replace the real output, so that the defect reaches
+    the consumer and must show at reconcile."""
+    from ray_shuffling_data_loader_tpu_torch.runtime.store import logical_columns, rows_of
+
+    out_refs = list(out_refs)
+    try:
+        if out_refs and _audit.take_fault("drop-row", epoch):
+            cb = store.get_columns(out_refs[-1])
+            nrows = rows_of(cb)
+            if nrows > 0:
+                cols = logical_columns(cb)
+                dropped = store.put_columns({k: np.asarray(cols[k])[: nrows - 1] for k in cols})
+                del cb, cols
+                store.free(out_refs[-1])
+                out_refs[-1] = dropped
+            else:
+                del cb
+        for ref in out_refs:
+            cb = store.get_columns(ref)
+            offset = offsets.get(rank, 0)
+            _audit.record_deliver(epoch, reducer, rank, logical_columns(cb), offset)
+            offsets[rank] = offset + rows_of(cb)
+            del cb
+    except Exception:
+        import logging
+
+        logging.getLogger(__name__).warning("audit: delivery digest failed", exc_info=True)
+    return out_refs
 
 
 def rank_of_reducers(num_reducers: int, num_trainers: int) -> np.ndarray:
@@ -1393,7 +1492,7 @@ def _pushdown_columns(device_layout: Optional[dict], columns: Optional[Sequence[
     ``true``): also, without one, the staging layout's columns (the
     operator says that nothing else reads the stream). An empty request
     decodes everything; the result keeps its order with repeats
-    dropped."""
+    dropped. With the audit armed, the audit key is appended."""
     mode = os.environ.get("RSDL_DECODE_PUSHDOWN", "auto").strip().lower()
     if mode in ("off", "0", "false"):
         return None
@@ -1407,8 +1506,8 @@ def _pushdown_columns(device_layout: Optional[dict], columns: Optional[Sequence[
             return None
     if not need:
         return None
-    # The JAX package appends the audit key here when its audit plane is
-    # armed; that waits for the port's audit plane.
+    if _audit.enabled() and _audit.key_column_name() not in need:
+        need = need + [_audit.key_column_name()]  # the digests keep folding
     seen: set = set()
     return [c for c in need if not (c in seen or seen.add(c))]
 
@@ -1749,7 +1848,7 @@ def shuffle_epoch(
             publish = False
         elif selective:
             fut = submit(shuffle_selective_plan, filename, file_index, num_reducers, epoch, seed, plan,
-                         stats_collector)
+                         stats_collector, narrow_to_32)
             publish = False
         else:
             cache_ref, publish = decode_cache.claim_or_wait(file_index)
@@ -1808,6 +1907,10 @@ def shuffle_epoch(
                 reduce_futs.append(submit(shuffle_reduce, r, epoch, seed, parts_r, pack_for[r], stats_collector))
         _count(stats, "reducers_skipped", cursor)
         delivered = cursor
+        # Each rank's rows delivered so far: the audit's stream offsets. A
+        # resume starts from the journaled rows, so that the epoch's seq
+        # digests fold on from where the preempted run stopped.
+        audit_offsets: Dict[int, int] = dict(est.rank_rows) if est is not None else {}
         for r in range(cursor, num_reducers):
             fut = reduce_futs[r]
             if jmod is not None and jmod.suspend_requested():
@@ -1835,13 +1938,27 @@ def shuffle_epoch(
                 if journal is not None:
                     journal.append("reduce", epoch=epoch, reducer=r, refs=[jmod.ref_to_json(x) for x in out])
             rank = int(rank_of[r])
+            offset_before = audit_offsets.get(rank, 0)
+            if _audit.enabled():
+                out = _audit_deliver(store, out, epoch, r, rank, audit_offsets)
             if consume_seq:
                 batch_consumer.consume(rank, epoch, out, seq=r)
             else:
                 batch_consumer.consume(rank, epoch, out)
             if journal is not None:
-                rows = sum(_ref_window_rows(ref) or 0 for ref in out)
-                journal.append("deliver", epoch=epoch, reducer=r, rank=rank, rows=int(rows), sampled=0)
+                if _audit.enabled():
+                    # Write-ahead: the digests are on the spool before the
+                    # cursor says delivered; a crash between the two
+                    # delivers this reducer again, which the reconcile's
+                    # dedup absorbs.
+                    _audit.safe_flush()
+                    rows, sampled = audit_offsets.get(rank, 0) - offset_before, _audit.sample_count(epoch)
+                else:
+                    rows, sampled = sum(_ref_window_rows(ref) or 0 for ref in out), 0
+                    # The offsets fold with the audit off too: a later
+                    # audited resume starts from them.
+                    audit_offsets[rank] = offset_before + rows
+                journal.append("deliver", epoch=epoch, reducer=r, rank=rank, rows=int(rows), sampled=int(sampled))
             if stats_collector is not None:
                 stats_collector.call_oneway("consume", rank, epoch, sum(ref.nbytes for ref in out))
             delivered = r + 1
@@ -1929,7 +2046,9 @@ def shuffle(
     (``shared_cache_hits``), under the plan compiler its terms
     (``plan_terms``) and the re-planner's changes (``plan_replans``), and
     on a journaled run its ``journal`` path and the ``resume`` counters
-    (stages re-attached and re-executed, epochs and reducers skipped).
+    (stages re-attached and re-executed, epochs and reducers skipped),
+    and with the audit armed the seconds of its reconcile
+    (``audit_reconcile_s``; the verdicts are :func:`.telemetry.audit.verdicts`).
 
     The plan (``RSDL_SHUFFLE_PLAN``) and the choice of host kernels
     (``RSDL_DISABLE_NATIVE``) are read here, once, and handed to every
@@ -2000,6 +2119,15 @@ def shuffle(
                     # A reducer that reached the queue between its publish and
                     # its journal record is then dropped on re-publish.
                     restore(cursors)
+        if _audit.enabled():
+            # Earlier runs' records would fold into this run's digests. A
+            # resume keeps the spool, whose records of the preempted run are
+            # this run's first half, and its rank-0 sample counts.
+            _audit.begin_run(carry=resume_state is not None)
+            if resume_state is not None:
+                for e, st in resume_state.epochs.items():
+                    if st.sampled:
+                        _audit.seed_sample_count(e, st.sampled)
         if cache_decoded is None:
             cache_decoded = _decode_cache_auto(filenames, num_epochs - start_epoch, narrow_to_32, columns)
         if stats is not None:
@@ -2065,6 +2193,20 @@ def shuffle(
                 jmod.end_run(journal, status="suspended")
                 raise jmod.RunSuspended(journal.path)
             batch_consumer.wait_until_all_epochs_done()
+            if _audit.enabled():
+                # Every stage task flushed its records before its result
+                # was seen (the task-done barrier) and the consumer acked
+                # every batch: every side is in.
+                t_audit = time.perf_counter()
+                verdicts = _audit.reconcile(
+                    range(start_epoch, num_epochs), stats_collector=stats_collector, plan_label=_label_of_plan(plan)
+                )
+                if stats is not None:
+                    stats["audit_reconcile_s"] = time.perf_counter() - t_audit
+                if journal is not None:
+                    # The verdicts are what a replay of an epoch is held to.
+                    for v in verdicts:
+                        journal.append("verdict", **v)
             if journal is not None:
                 if resume_state is not None:
                     _sweep_preempted(resume_state)

@@ -51,6 +51,34 @@ def test_no_forbidden_imports_in_sources():
     assert "ray_shuffling_data_loader_tpu_torch" not in FORBIDDEN
 
 
+# The audit plane runs in the pool's workers, which never load torch.
+AUDIT_PLANE = ("telemetry/__init__.py", "telemetry/_env.py", "telemetry/audit.py", "replay.py")
+
+
+def test_audit_plane_imports_no_torch():
+    scanned = {os.path.relpath(p, PORT_DIR) for p in _sources()}
+    for rel in AUDIT_PLANE:
+        assert rel in scanned
+        names = set(_imported_top_levels(os.path.join(PORT_DIR, rel)))
+        assert "torch" not in names and not names & FORBIDDEN, (rel, names)
+    script = textwrap.dedent(
+        f"""
+        import sys
+        sys.path.insert(0, {REPO!r})
+        from ray_shuffling_data_loader_tpu_torch import replay
+        from ray_shuffling_data_loader_tpu_torch.telemetry import audit
+        import ray_shuffling_data_loader_tpu_torch as port
+        assert port.telemetry.audit is audit
+        audit.StreamDigest().update([1, 2, 3], offset=0)
+        print("LOADED", sorted({{m.split(".")[0] for m in sys.modules}} & {{"torch", *{sorted(FORBIDDEN)!r}}}))
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_running_the_port_loads_no_jax(tmp_path):
     script = textwrap.dedent(
         f"""

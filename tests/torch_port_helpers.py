@@ -8,6 +8,7 @@ inside the rank's function.
 """
 
 import asyncio
+import contextlib
 import json
 import os
 import sys
@@ -356,6 +357,106 @@ def sp_rank_main(spec, rank):
     np.savez(os.path.join(spec["out_dir"], f"rank{rank}.npz"), **out)
     dist.destroy_process_group()
     return 0
+
+
+# -- both packages' audited sessions (the audit and replay tests) -------------------
+
+AUDIT_KNOBS = ("RSDL_AUDIT", "RSDL_AUDIT_DIR", "RSDL_AUDIT_STRICT", "RSDL_AUDIT_KEY", "RSDL_AUDIT_SAMPLE",
+               "RSDL_JOURNAL", "RSDL_RESUME", "RSDL_SHUFFLE_PLAN", "RSDL_INDEX_SHUFFLE", "RSDL_SELECTIVE_READS",
+               "RSDL_DECODE_PUSHDOWN", "RSDL_DEVICE_DIRECT", "RSDL_PLAN", "RSDL_FAULTS")
+
+
+class Drain:
+    """A consumer that frees what it is given; ``pieces``: the most refs one
+    reducer's delivery held (more than 1: a packed output)."""
+
+    def __init__(self, rt):
+        self.rt = rt
+        self.pieces = 0
+
+    def consume(self, rank, epoch, batches):
+        self.pieces = max(self.pieces, len(batches))
+        self.rt.get_context().store.free(batches)
+
+    def producer_done(self, rank, epoch):
+        pass
+
+    def wait_until_ready(self, epoch):
+        pass
+
+    def wait_until_all_epochs_done(self):
+        pass
+
+
+class AuditedSessions:
+    """Both packages' sessions, spawned with the audit on, each with a
+    spool of its own, over one generated dataset."""
+
+    def __init__(self, files, spools, shape):
+        self.files, self.spools, self.shape = files, spools, shape
+
+    def modules(self, pkg):
+        """``(runtime, shuffle function, audit module)`` of ``pkg``."""
+        import importlib
+
+        root = "ray_shuffling_data_loader_tpu" if pkg == "jax" else "ray_shuffling_data_loader_tpu_torch"
+        return tuple(importlib.import_module(f"{root}.{m}") for m in ("runtime", "shuffle", "telemetry.audit"))
+
+    @contextlib.contextmanager
+    def use(self, pkg):
+        """Point the audit at ``pkg``'s spool for the block (the driver
+        reads it at every flush; the workers took it at their spawn)."""
+        os.environ["RSDL_AUDIT_DIR"] = self.spools[pkg]
+        try:
+            yield
+        finally:
+            os.environ["RSDL_AUDIT_DIR"] = self.spools["port"]
+
+    def run(self, pkg, num_epochs=2, consumer=None, **kwargs):
+        """One shuffle of the dataset (``shape``'s reducers, trainers and
+        seed) into ``consumer`` (default: a :class:`Drain`); returns the
+        verdicts and the consumer."""
+        rt, shuffle, audit = self.modules(pkg)
+        consumer = consumer if consumer is not None else Drain(rt)
+        with self.use(pkg):
+            shuffle.shuffle(self.files, consumer, num_epochs, self.shape["reducers"], self.shape["trainers"],
+                            seed=self.shape["seed"], **kwargs)
+        return audit.verdicts(), consumer
+
+
+def audited_sessions(tmp_path_factory, rows, files, row_groups, reducers, trainers, seed):
+    """The body of a module fixture: :class:`AuditedSessions`, torn down
+    with the environment and both audit modules put back."""
+    from ray_shuffling_data_loader_tpu_torch.data_generation import generate_data
+
+    saved = {k: os.environ.pop(k, None) for k in AUDIT_KNOBS}
+    spools = {pkg: str(tmp_path_factory.mktemp(f"spool-{pkg}")) for pkg in ("jax", "port")}
+    shape = dict(reducers=reducers, trainers=trainers, seed=seed)
+    sessions = AuditedSessions(None, spools, shape)
+    os.environ["RSDL_AUDIT"] = "1"
+    for pkg in ("jax", "port"):
+        rt, _, audit = sessions.modules(pkg)
+        audit.refresh_from_env()
+        audit.clear_faults()
+        os.environ["RSDL_AUDIT_DIR"] = spools[pkg]
+        rt.init(num_workers=2)
+        rt.get_context().pool  # the workers spawn here, audited, with the package's spool
+    sessions.files, _ = generate_data(rows, files, row_groups, 0.0, str(tmp_path_factory.mktemp("data")), seed=seed)
+    try:
+        yield sessions
+    finally:
+        for pkg in ("port", "jax"):
+            sessions.modules(pkg)[0].shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for pkg in ("jax", "port"):
+            audit = sessions.modules(pkg)[2]
+            audit.reset()
+            audit.clear_faults()
+            audit.refresh_from_env()
 
 
 if __name__ == "__main__":
