@@ -125,6 +125,26 @@ Phases, each of which fails the script (non-zero exit) on any error:
    the audited run's shuffle seconds, step median and stall share beside
    the slices phase's unaudited run, the digest seconds of each side, the
    spool's bytes and the seconds of the reconcile and the replay;
+   cluster: the multi-host cluster plane on the same dataset, two hosts on
+   one machine, each with its own shared-memory and spill directories and
+   4 pool workers, one audit spool (``RSDL_AUDIT=1``). A head process
+   (this script with ``--cluster-head``) trains the DLRM slice (2 epochs,
+   deterministic algorithms, the same initial weights) on one host alone,
+   then on a cluster (``init_cluster``) that a second host joins with
+   ``python -m ray_shuffling_data_loader_tpu_torch.runtime.cluster join``:
+   the cluster's staged tensors (per-batch digests on the card) and losses
+   must equal the one host's bit for bit, both epochs reconcile ``ok`` with
+   10^6 rows mapped = reduced = delivered = consumed and the one host's
+   digests, both agents complete tasks, the store servers serve bytes to
+   the other host, the reduces take the overlapped path (``scatter``), and
+   K1 launch once a step on its tensor-core route (``launches_cluster``).
+   The same tensors again, delivery only, with
+   ``RSDL_REDUCE_FETCH_OVERLAP=off`` (no ``scatter``) and on a second
+   cluster with ``RSDL_TCP_ZEROCOPY=1 RSDL_TCP_STREAMS=4``; no segment may be
+   left in any host's directories. Logs each run's shuffle seconds per
+   epoch, step median and stall share beside the slices phase's, and the
+   loopback fetch's GB/s of a 256 MiB segment (pickled, zero-copy on 1
+   and 4 streams);
    plan: the read plane. The Quick-start shape (10^6 rows, 10 files, seed
    0) written with 20 row groups a file, so that at 8 reducers the plan
    compiler picks ``block:1``. Six 2-epoch DLRM runs (batch 65536, bf16,
@@ -241,6 +261,7 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_PROCESS = time.perf_counter()  # the script's start, before torch's import and the card's first use
 KERNEL_SOURCES = ("interaction", "flash_fwd", "flash_bwd", "interaction_mma", "flash_fwd_mma",
                   "flash_bwd_dkv_mma", "flash_bwd_dq_mma")
 CSRC = "ray_shuffling_data_loader_tpu_torch/ops/csrc/"
@@ -1465,6 +1486,333 @@ def phase_audit(torch, filenames, num_rows: int, unaudited: dict, work: str) -> 
     return out
 
 
+# (name, environment of both hosts): the cluster phase's two clusters, one
+# after the other. The transport's gates are read once per process, so each
+# setting needs hosts of its own.
+CLUSTER_CONFIGS = (("pickle", {}), ("zerocopy4", {"RSDL_TCP_ZEROCOPY": "1", "RSDL_TCP_STREAMS": "4"}))
+CLUSTER_WORKERS = 4  # each host's pool: the two hosts share the machine's cores
+FETCH_BENCH_BYTES = 256 << 20  # the loopback fetch's segment, about two reducer outputs of the slice
+
+
+def cluster_run(torch, port, filenames, label: str, model=None, init_state=None) -> dict:
+    """Two epochs of the slices' dataset through ``DeviceShufflingDataset``
+    (batch 65536, 8 reducers, seed 0): with ``model``, the DLRM trained from
+    ``init_state`` (a fresh Adam 1e-3), else delivery alone. Per batch a
+    digest of every staged tensor, ``key`` included, on the card; each
+    epoch's keys exactly once; the losses, K1's launches (counted from 0),
+    the step and epoch seconds, the stall, the shuffle's statistics and the
+    audit's verdicts."""
+    import numpy as np
+
+    import ray_shuffling_data_loader_tpu_torch.ops as ops
+    from ray_shuffling_data_loader_tpu_torch.telemetry import audit
+
+    batch_size = 65536
+    features = [c for c in port.DATA_SPEC if c != port.LABEL_COLUMN]
+    step = None
+    if model is not None:
+        model.load_state_dict(init_state)
+        step = port.make_train_step(model, port.make_optimizer(model))
+    ds = port.DeviceShufflingDataset(
+        filenames, num_epochs=2, num_trainers=1, batch_size=batch_size, rank=0,
+        feature_columns=[*features, port.KEY_COLUMN], label_column=port.LABEL_COLUMN, num_reducers=8, seed=0,
+        device="cuda",
+    )
+    reset_launches(ops)
+    digests, losses, step_s, epoch_s = [], [], [], []
+    for epoch in range(2):
+        ds.set_epoch(epoch)
+        keys = []
+        t_epoch = time.perf_counter()
+        for feats, labels in ds:
+            digests.append(batch_digest(torch, [*feats.values(), labels]))
+            keys.append(feats.pop(port.KEY_COLUMN))
+            if step is not None:
+                t0 = time.perf_counter()
+                losses.append(step(feats, labels)["loss"].item())
+                step_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t_epoch)
+        got = torch.cat(keys).cpu().numpy()
+        want = (NUM_ROWS // batch_size) * batch_size
+        if got.size != want or np.unique(got).size != want or got.min() < 0 or got.max() >= NUM_ROWS:
+            raise AssertionError(f"[cluster {label}] epoch {epoch}: {got.size} keys, {np.unique(got).size} distinct; "
+                                 f"want {want} in [0, {NUM_ROWS})")
+    launches = read_launches(ops)
+    ds.join()
+    stats, staging = ds.dataset.shuffle_stats, ds.stats.as_dict()
+    if losses and not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[cluster {label}] non-finite loss: {losses}")
+    run = {
+        "digests": torch.stack(digests).cpu().tolist(), "losses": losses, "launches": launches, "steps": len(losses),
+        "step_ms_median": statistics.median(step_s[1:]) * 1e3 if step_s else None, "epoch_s": epoch_s,
+        "epoch_shuffle_s": stats.get("epoch_shuffle_s"), "stall_s": staging["stall_s"],
+        "stall_share": staging["stall_s"] / sum(epoch_s), "native_calls": stats.get("native_calls"),
+        "plain_calls": stats.get("plain_calls"), "schedules": [s for _, s in ds.dataset.schedule_log],
+        "verdicts": audit.verdicts(),
+    }
+    log(f"[cluster {label}] {len(digests)} batches, {run['steps']} steps; schedules {run['schedules']}; shuffle s per "
+        f"epoch {run['epoch_shuffle_s']!r}; epochs {epoch_s!r} s; step median {run['step_ms_median']!r} ms; stall "
+        f"{run['stall_s']!r} s (share {run['stall_share']!r}); host kernel calls {run['native_calls']}; K1 "
+        f"{launches['interaction']} ({launches['interaction_mma']} mma)")
+    return run
+
+
+def cluster_fetch_bench(ctx, joined_shm: str) -> dict:
+    """The loopback fetch's GB/s (best of 3) of a ``FETCH_BENCH_BYTES``
+    segment of the joined host, into a buffer of the head's touched
+    beforehand: the pickled ``fetch``, the zero-copy ``fetch_vec`` on one
+    stream, and striped over 4."""
+    import concurrent.futures
+    import mmap
+
+    import numpy as np
+
+    from ray_shuffling_data_loader_tpu_torch.runtime import cluster as port_cluster
+    from ray_shuffling_data_loader_tpu_torch.runtime import store as port_store
+    from ray_shuffling_data_loader_tpu_torch.runtime.actor import ActorHandle
+
+    hosts = ctx.cluster.registry.call("hosts")
+    other = next(h for h in hosts if h != ctx.cluster.host_id)
+    # A segment of the joined host's session, written in its directory
+    # (one machine): its session's end reclaims it.
+    writer = port_store.ObjectStore(other.split(":", 1)[1], shm_dir=joined_shm)
+    writer.owner_address = tuple(hosts[other]["store"])
+    ref = writer.put_columns({"x": np.arange(FETCH_BENCH_BYTES // 4, dtype=np.int32)})
+    handle = ActorHandle(tuple(hosts[other]["store"]))
+    want = handle.call("fetch", ref.object_id, None)
+    dest = mmap.mmap(-1, len(want))
+    dest.write(bytes(len(want)))  # touched: the fetch writes into present pages
+    out = {"bytes": len(want)}
+    try:
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            for name in ("pickle", "streams_1", "streams_4"):
+                best = float("inf")
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    if name == "pickle":
+                        got = handle.call("fetch", ref.object_id, None)
+                    elif name == "streams_1":
+                        _, view = handle.call_vectored("fetch_vec", ref.object_id, None, into=lambda n: dest)
+                        view.release()
+                    else:
+                        port_cluster.fetch_vec_striped(handle, ref.object_id, None, lambda n: dest, 4, pool)
+                    best = min(best, time.perf_counter() - t0)
+                    if name != "pickle":
+                        got = dest[: len(want)]
+                    if got != want:
+                        raise AssertionError(f"[cluster] fetch bench {name}: bytes differ")
+                    del got
+                out[name] = {"s": best, "GB_s": len(want) / best / 1e9}
+    finally:
+        dest.close()
+        writer.free(ref)
+    log(f"[cluster] loopback fetch of {len(want)} B, best of 3: pickled {out['pickle']['GB_s']!r} GB/s, "
+        f"zero-copy 1 stream {out['streams_1']['GB_s']!r} GB/s, 4 streams {out['streams_4']['GB_s']!r} GB/s")
+    return out
+
+
+def cluster_hosts_state(ctx) -> dict:
+    """Per host: its agent's completed tasks and its store server's bytes
+    served to the other."""
+    from ray_shuffling_data_loader_tpu_torch.runtime.actor import ActorHandle
+
+    return {host: {"tasks": ActorHandle(tuple(info["agent"])).call("agent_stats")["completed"],
+                   "served_bytes": ActorHandle(tuple(info["store"])).call("fetch_stats")["bytes"]}
+            for host, info in ctx.cluster.registry.call("hosts").items()}
+
+
+def cluster_head(spec: dict) -> int:
+    """The ``[cluster]`` phase's head, a process of its own (a process holds
+    one session at a time): the deterministic DLRM slice on this host alone,
+    then for each of :data:`CLUSTER_CONFIGS` a cluster (``init_cluster``,
+    its address written for the joined host that the phase starts): the
+    DLRM slice on it from the same weights, delivery alone with
+    ``RSDL_REDUCE_FETCH_OVERLAP=off`` and the loopback fetch's rates (first
+    cluster), or delivery alone (second). Writes the runs to
+    ``spec["result"]``; the phase checks them."""
+    import torch
+
+    import ray_shuffling_data_loader_tpu_torch as port
+    from ray_shuffling_data_loader_tpu_torch.runtime import transport
+    from ray_shuffling_data_loader_tpu_torch.runtime.actor import ActorHandle
+
+    # CUDA's embedding backward is not deterministic: the runs' losses are
+    # held bit-equal under deterministic algorithms, as in the plan phase.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    files = spec["files"]
+    model = port.dlrm_for_data_spec()
+    init_state = copy.deepcopy(model.state_dict())
+    out = {}
+    with environment({"RSDL_AUDIT_DIR": spec["spool_single"]}):
+        port.runtime.init()
+        try:
+            log(f"[cluster] one host: worker pool up in {start_pool(port)!r} s")
+            out["single"] = cluster_run(torch, port, files, "single", model, init_state)
+        finally:
+            port.runtime.shutdown()
+    for name, env in CLUSTER_CONFIGS:
+        with environment({**env, "RSDL_AUDIT_DIR": spec["spool"]}):
+            transport.refresh_zerocopy_from_env()
+            transport.refresh_tcp_streams_from_env()
+            t0 = time.perf_counter()
+            ctx = port.runtime.init_cluster(advertise_host="127.0.0.1", num_workers=CLUSTER_WORKERS)
+            try:
+                addr = spec["addr"][name]
+                with open(addr + ".tmp", "w") as f:
+                    f.write(ctx.cluster.address)
+                os.replace(addr + ".tmp", addr)
+                deadline = time.monotonic() + 60
+                while len(port.runtime.cluster_hosts()) < 2:
+                    if time.monotonic() > deadline:
+                        raise RuntimeError(f"[cluster {name}] the second host did not join")
+                    time.sleep(0.05)
+                # Each agent's pool up before the epochs, as the one host's.
+                for info in ctx.cluster.registry.call("hosts").values():
+                    ActorHandle(tuple(info["agent"])).call("submit", os.getpid, (), {})
+                up_s = time.perf_counter() - t0
+                before = cluster_hosts_state(ctx)
+                if name == "pickle":
+                    run = cluster_run(torch, port, files, "cluster", model, init_state)
+                    after = cluster_hosts_state(ctx)
+                    with environment({"RSDL_REDUCE_FETCH_OVERLAP": "off"}):
+                        out["overlap_off"] = cluster_run(torch, port, files, "overlap_off")
+                    run["fetch_bench"] = cluster_fetch_bench(ctx, spec["joined_shm"][name])
+                else:
+                    run = cluster_run(torch, port, files, name)
+                    after = cluster_hosts_state(ctx)
+                run["hosts"] = {h: {k: after[h][k] - before[h][k] for k in after[h]} for h in after}
+                run["up_s"] = up_s
+                log(f"[cluster {name}] cluster of 2 hosts up in {up_s!r} s; per host during the run: {run['hosts']}")
+                out["cluster" if name == "pickle" else name] = run
+            finally:
+                port.runtime.shutdown()
+    with open(spec["result"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_cluster(torch, filenames, unaudited: dict, work: str) -> dict:
+    """The cluster plane on the slices' dataset: a head process
+    (:func:`cluster_head`) and, per cluster, a host joined with ``python -m
+    ...runtime.cluster join`` on the same machine, each host with its own
+    shared-memory and spill directories and both with one audit spool. The
+    cluster's DLRM run must stage the one host's tensors and train its
+    losses bit for bit, every epoch reconcile ``ok`` with every row mapped,
+    reduced, delivered and consumed, both agents run tasks, bytes cross
+    hosts, the reduces take the overlapped path, and K1 launch once a step
+    on its tensor-core route; delivery with the overlap off and over the
+    zero-copy plane striped on 4 streams must stage the same tensors; and
+    no segment may be left in any host's directories."""
+    t_phase = time.perf_counter()
+    tag = f"rsdl-cluster-{os.getpid()}"
+    dirs = {"head": {"RSDL_SHM_DIR": f"/dev/shm/{tag}-head", "RSDL_SPILL_DIR": os.path.join(work, "spill-head")}}
+    for name, _ in CLUSTER_CONFIGS:
+        dirs[name] = {"RSDL_SHM_DIR": f"/dev/shm/{tag}-{name}", "RSDL_SPILL_DIR": os.path.join(work, f"spill-{name}")}
+    spec = {
+        "files": filenames, "result": os.path.join(work, "result.json"),
+        "spool": os.path.join(work, "spool"), "spool_single": os.path.join(work, "spool-single"),
+        "addr": {name: os.path.join(work, f"address-{name}") for name, _ in CLUSTER_CONFIGS},
+        "joined_shm": {name: dirs[name]["RSDL_SHM_DIR"] for name, _ in CLUSTER_CONFIGS},
+    }
+    spec_path = os.path.join(work, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    base = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
+    base.update(RSDL_ADVERTISE_HOST="127.0.0.1", RSDL_AUDIT="1")
+    procs = {}
+    try:
+        procs["head"] = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--cluster-head",
+                                          spec_path], env={**base, **dirs["head"]}, cwd=ROOT)
+        for name, env in CLUSTER_CONFIGS:
+            deadline = time.monotonic() + 240
+            while not os.path.exists(spec["addr"][name]):
+                if procs["head"].poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(f"[cluster] the head exited ({procs['head'].poll()}) or timed out before "
+                                         f"the {name} cluster's address")
+                time.sleep(0.05)
+            with open(spec["addr"][name]) as f:
+                address = f.read()
+            with open(os.path.join(work, f"joined-{name}.log"), "w") as out_f:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "ray_shuffling_data_loader_tpu_torch.runtime.cluster", "join", address,
+                     "--num-workers", str(CLUSTER_WORKERS)],
+                    env={**base, **env, **dirs[name], "RSDL_AUDIT_DIR": spec["spool"]}, cwd=ROOT, stdout=out_f,
+                    stderr=subprocess.STDOUT)
+        for name, proc in procs.items():
+            # A joined host leaves once its head's registry is gone.
+            code = proc.wait(timeout=300 if name == "head" else 60)
+            if code != 0:
+                logs = {n: open(os.path.join(work, f"joined-{n}.log")).read()[-3000:] for n in procs if n != "head"}
+                raise AssertionError(f"[cluster] {name} exited {code}; joined hosts' logs: {logs}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(spec["result"]) as f:
+        res = json.load(f)
+    left = {d: os.listdir(d) for host in dirs.values() for d in host.values() if os.path.isdir(d) and os.listdir(d)}
+    for host in dirs.values():
+        shutil.rmtree(host["RSDL_SHM_DIR"], ignore_errors=True)
+    if left:
+        raise AssertionError(f"[cluster] segments left after shutdown: {left}")
+    single, run = res["single"], res["cluster"]
+    for label in ("single", "cluster"):
+        for v in res[label]["verdicts"]:
+            rows = [v[k] for k in ("rows_mapped", "rows_reduced", "rows_delivered", "rows_consumed")]
+            if v["ok"] is not True or v["mismatch"] or rows != [NUM_ROWS] * 4:
+                raise AssertionError(f"[cluster] {label}: epoch {v['epoch']} verdict {v}")
+        if [v["epoch"] for v in res[label]["verdicts"]] != [0, 1]:
+            raise AssertionError(f"[cluster] {label}: verdicts {res[label]['verdicts']}")
+    for got, want in zip(run["verdicts"], single["verdicts"]):
+        for key, value in want.items():
+            same = (abs(got[key] - value) <= 1e-12 if key.startswith("source_entropy") else got[key] == value)
+            if not same:
+                raise AssertionError(f"[cluster] verdict {key} of epoch {want['epoch']}: {got[key]!r} on the cluster, "
+                                     f"{value!r} on one host")
+    if run["digests"] != single["digests"]:
+        raise AssertionError("[cluster] the cluster staged other tensors than the one host")
+    if run["losses"] != single["losses"]:
+        diff = max(abs(a - b) for a, b in zip(run["losses"], single["losses"]))
+        raise AssertionError(f"[cluster] losses differ from the one host's by up to {diff!r}")
+    for label in ("overlap_off", "zerocopy4"):
+        if res[label]["digests"] != run["digests"]:
+            raise AssertionError(f"[cluster] {label}: other staged tensors than the cluster's DLRM run")
+    n = run["launches"]
+    if (n["interaction"] != run["steps"] or n["interaction_mma"] != run["steps"]
+            or any(v for k, v in n.items() if not k.startswith("interaction"))):
+        raise AssertionError(f"[cluster] launches {n} in {run['steps']} steps, want one K1 per step, all on the "
+                             "tensor-core route")
+    for label in ("cluster", "zerocopy4"):
+        hosts = res[label]["hosts"]
+        if len(hosts) != 2 or not all(h["tasks"] > 0 for h in hosts.values()):
+            raise AssertionError(f"[cluster] {label}: tasks per host {hosts}")
+        if not sum(h["served_bytes"] for h in hosts.values()):
+            raise AssertionError(f"[cluster] {label}: no byte crossed hosts: {hosts}")
+        if not res[label]["native_calls"]["scatter"]:
+            raise AssertionError(f"[cluster] {label}: no reduce took the overlapped path: {res[label]['native_calls']}")
+    if res["overlap_off"]["native_calls"]["scatter"]:
+        raise AssertionError(f"[cluster] overlap off still scattered: {res['overlap_off']['native_calls']}")
+    log(f"[cluster] the cluster staged the one host's {len(run['digests'])} batches and trained its "
+        f"{len(run['losses'])} losses bit for bit ({run['losses'][0]!r} -> {run['losses'][-1]!r}); both epochs ok, "
+        f"{NUM_ROWS} rows mapped = reduced = delivered = consumed; overlap off and zero-copy on 4 streams staged "
+        f"the same; no segment left")
+    log(f"[cluster] shuffle s per epoch: one host (deterministic) {single['epoch_shuffle_s']!r}, cluster "
+        f"{run['epoch_shuffle_s']!r}, overlap off {res['overlap_off']['epoch_shuffle_s']!r}, zero-copy 4 streams "
+        f"{res['zerocopy4']['epoch_shuffle_s']!r}; the slices phase's DLRM {unaudited['delivery']['epoch_shuffle_s']!r}")
+    log(f"[cluster] step median {run['step_ms_median']!r} ms (one host {single['step_ms_median']!r}, the slices "
+        f"phase's {unaudited['step_ms_median']!r}); stall share {run['stall_share']!r} (one host "
+        f"{single['stall_share']!r}, the slices phase's {stall_share(unaudited)!r}); bytes served per host "
+        f"{ {h: v['served_bytes'] for h, v in run['hosts'].items()} }")
+    for r in res.values():
+        r.pop("digests", None)
+    res["wall_s"] = time.perf_counter() - t_phase
+    res["launches"] = n
+    log(f"[cluster] phase {res['wall_s']:.1f} s")
+    return res
+
+
 PLAN_ROW_GROUPS = 20  # at 8 reducers, >= 2R row groups a file: the planner's block:1
 PLAN_KNOBS = ("RSDL_PLAN", "RSDL_SHUFFLE_PLAN", "RSDL_SELECTIVE_READS", "RSDL_DECODE_PUSHDOWN",
               "RSDL_DECODE_CACHE_SHARED", "RSDL_INDEX_SHUFFLE")
@@ -2438,6 +2786,8 @@ def main() -> int:
     # A rank of the sp phase's op group.
     parser.add_argument("--sp-op-rank", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--sp-spec", default=None, help=argparse.SUPPRESS)
+    # The cluster phase's head.
+    parser.add_argument("--cluster-head", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -2448,10 +2798,14 @@ def main() -> int:
     if args.sp_op_rank is not None:
         with open(args.sp_spec) as f:
             return sp_op_rank(json.load(f), args.sp_op_rank)
+    if args.cluster_head is not None:
+        with open(args.cluster_head) as f:
+            return cluster_head(json.load(f))
     sys.path.insert(0, ROOT)
     name = torch.cuda.get_device_name(0)
     smi = smi_name_and_limit()
-    log(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; start-up "
+        f"{time.perf_counter() - T_PROCESS:.1f} s")
     data_dir = os.path.join(ROOT, "build", "smoke_data")
     t_start = time.perf_counter()
     try:
@@ -2478,6 +2832,13 @@ def main() -> int:
                 audited = phase_audit(torch, filenames, NUM_ROWS, slices["dlrm"], audit_dir)
             finally:
                 shutil.rmtree(audit_dir, ignore_errors=True)
+            cluster_dir = os.path.join(ROOT, "build", "cluster")
+            shutil.rmtree(cluster_dir, ignore_errors=True)
+            os.makedirs(cluster_dir)
+            try:
+                cluster = phase_cluster(torch, filenames, slices["dlrm"], cluster_dir)
+            finally:
+                shutil.rmtree(cluster_dir, ignore_errors=True)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
         plan_dir = os.path.join(ROOT, "build", "plan_data")
@@ -2543,6 +2904,8 @@ def main() -> int:
                 entry["launches_plan"] = plan["launches"]["interaction_mma"]
                 # and in the audited DLRM run
                 entry["launches_audit"] = audited["dlrm"]["launches"]["interaction_mma"]
+                # and in the DLRM run on the two-host cluster
+                entry["launches_cluster"] = cluster["launches"]["interaction_mma"]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: a phase failed", file=sys.stderr)
@@ -2568,6 +2931,7 @@ def main() -> int:
                     "resident": resident,
                     "resume": resume,
                     "audit": audited,
+                    "cluster": cluster,
                     "parity_max_abs_diff": {label: err for label, (err, _) in parity.items()},
                 },
                 f, indent=1,

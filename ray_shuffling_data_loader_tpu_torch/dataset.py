@@ -223,6 +223,9 @@ class ShufflingDataset:
                 is_done = True
                 pending.pop()
             num_outstanding = len(pending)
+            # Pull the foreign refs of this get while the first is read
+            # (a no-op when every ref is local).
+            store.prefetch(pending)
             for ref in pending:
                 # Every row is read: fill the page tables in one call, not
                 # one fault per page inside the stager's copy.

@@ -3,6 +3,8 @@
 * :mod:`.store`: the shared-memory columnar object store (data plane).
 * :mod:`.tasks`: the spawned worker pool with futures (map and reduce).
 * :mod:`.actor`: named actors in their own processes (the batch queue).
+* :mod:`.transport`: their wire, on unix sockets and authenticated TCP.
+* :mod:`.cluster`: several hosts' sessions as one cluster.
 
 ``init()`` creates a *session*, a runtime directory holding the actor
 registry whose name prefixes every shared-memory segment, or joins an
@@ -13,12 +15,28 @@ pool and the actors it spawned, unlinks every segment and removes the
 directory. Named actors are scoped to the session: their records live in
 its directory.
 
+**Clusters.** :func:`init_cluster` makes this session a cluster's head:
+it mints ``$RSDL_CLUSTER_TOKEN``, starts the registry and this host's
+agent and store server on TCP, and ``ctx.cluster.address``
+(``tcp://host:port/<token>``) is what other hosts join with:
+``init(address="tcp://...")`` or ``python -m
+ray_shuffling_data_loader_tpu_torch.runtime.cluster join tcp://...``. A
+joined session's tasks go to every host (:attr:`RuntimeContext.scheduler`),
+its refs carry their owner, its named actors listen on TCP and are found
+through the registry, and the processes that join it by directory (its
+workers) read ``cluster.json`` there and get the same wiring.
+
 This package imports numpy only: the spawned workers load it.
 """
 
 from __future__ import annotations
 
 import atexit
+import json
+# Imported before any ``atexit.register(shutdown)``: its exit hook, which
+# joins the non-daemonic children (a cluster host's agent), then runs
+# after ours, which stops them.
+import multiprocessing.util  # noqa: F401
 import os
 import secrets
 import shutil
@@ -30,13 +48,15 @@ from .actor import ActorDiedError, ActorHandle, RemoteError
 from .actor import connect_actor as _connect_actor
 from .actor import resolve_actor as _resolve_actor
 from .actor import spawn_actor as _spawn_actor
-from .store import ColumnBatch, ObjectLostError, ObjectRef, ObjectStore, StoreFullError, StoreStats
+from .store import ColumnBatch, ObjectCorruptError, ObjectLostError, ObjectRef, ObjectStore, StoreFullError, StoreStats
 from .tasks import TaskError, TaskFuture, WorkerPool, wait
 
 _ENV_DIR = "RSDL_RUNTIME_DIR"
 # Marks a directory as a session of this package: the JAX package's
 # runtime names its sessions with the same variable.
 _MARKER = "torch-session"
+# A cluster member's wiring, for the processes that join its session.
+_CLUSTER_FILE = "cluster.json"
 
 
 class RuntimeContext:
@@ -49,6 +69,9 @@ class RuntimeContext:
         self._pool: Optional[WorkerPool] = None
         self._pool_lock = threading.Lock()
         self._owned_actors: List[ActorHandle] = []
+        self.cluster = None  # a ClusterClient once joined to a cluster
+        self._owns_cluster_services = False
+        self._owned_names: List[str] = []  # names registered cluster-wide
 
     @property
     def pool(self) -> WorkerPool:
@@ -64,7 +87,20 @@ class RuntimeContext:
                 self._pool = WorkerPool(self.num_workers, env={_ENV_DIR: self.runtime_dir})
             return self._pool
 
+    @property
+    def scheduler(self):
+        """Where the shuffle's tasks go: the cluster's scheduler when
+        joined to one, else :attr:`pool` (the same ``submit`` and
+        ``submit_local_to``)."""
+        return self.cluster.scheduler() if self.cluster is not None else self.pool
+
     def shutdown(self) -> None:
+        if self.cluster is not None:
+            for name in self._owned_names:
+                self.cluster.unregister_named_actor(name)
+            if self._owns_cluster_services:
+                self.cluster.leave()
+            self.cluster = None
         if self._pool is not None:
             self._pool.shutdown()
             self._pool = None
@@ -87,12 +123,76 @@ def _is_session(path: str) -> bool:
     return os.path.isfile(os.path.join(path, _MARKER))
 
 
+def _new_session_dir() -> str:
+    # Short: a unix socket path inside it is capped at ~107 bytes.
+    runtime_dir = os.path.join(tempfile.gettempdir(), f"rsdl-{secrets.token_hex(4)}")
+    os.makedirs(os.path.join(runtime_dir, "actors"))
+    open(os.path.join(runtime_dir, _MARKER), "w").close()
+    return runtime_dir
+
+
+def _attach_cluster_client(ctx: RuntimeContext, record: dict, owns: bool):
+    """Wire a :class:`.cluster.ClusterClient` from a ``cluster.json``
+    record into ``ctx``: the registry, agent and store server handles and
+    the store's hooks for foreign refs."""
+    from .cluster import ClusterClient
+
+    # Before the first TCP frame of a process that joined by directory.
+    if record.get("token") and not os.environ.get("RSDL_CLUSTER_TOKEN"):
+        os.environ["RSDL_CLUSTER_TOKEN"] = record["token"]
+    client = ClusterClient(
+        registry=ActorHandle(tuple(record["registry"])),
+        host_id=record["host_id"],
+        advertise_host=record["advertise"],
+        agent=ActorHandle(tuple(record["agent"])),
+        store_server=ActorHandle(tuple(record["store"])),
+        is_head=record.get("is_head", False),
+        registry_address=tuple(record["registry"])[1:],
+    )
+    ctx.cluster = client
+    ctx._owns_cluster_services = owns
+    ctx.store.owner_address = tuple(record["store"])
+    ctx.store.remote_fetch = client.fetch_remote
+    ctx.store.remote_fetch_into = client.fetch_remote_into
+    ctx.store.remote_free = client.free_remote
+    return client
+
+
+def _bootstrap_cluster_host(ctx: RuntimeContext, registry: ActorHandle, advertise: str, num_workers: int,
+                            is_head: bool) -> None:
+    """Start this host's agent and store server, register the host, and
+    write ``cluster.json`` so that the session's workers, which join it by
+    directory, stamp their refs with this host's store and fetch foreign
+    ones."""
+    from .cluster import start_host_services
+
+    agent, store_server = start_host_services(ctx.runtime_dir, num_workers, advertise)
+    ctx._owned_actors += [agent, store_server]
+    host_id = f"{advertise}:{ctx.session}"
+    registry.call("register_host", host_id, list(agent.address), list(store_server.address), num_workers)
+    record = {
+        "registry": list(registry.address),
+        "agent": list(agent.address),
+        "store": list(store_server.address),
+        "host_id": host_id,
+        "advertise": advertise,
+        "is_head": is_head,
+        "token": os.environ.get("RSDL_CLUSTER_TOKEN"),
+    }
+    with open(os.path.join(ctx.runtime_dir, _CLUSTER_FILE), "w") as f:
+        json.dump(record, f)
+    _attach_cluster_client(ctx, record, owns=True)
+
+
 def init(num_workers: Optional[int] = None, address: Optional[str] = None) -> RuntimeContext:
     """Create or join a session (a second call returns the first context).
 
     Args:
         num_workers: size of the worker pool (default: the host's cores).
-        address: the runtime directory of a session to join. Without it,
+        address: the runtime directory of a session to join, or
+            ``tcp://host:port/<token>``, a cluster's head to join as a
+            host: a new session of this process with its own agent and
+            store server (:mod:`.cluster`). Without it,
             ``$RSDL_RUNTIME_DIR`` names the session to join when it is a
             session of this package, and otherwise a new session is made.
     """
@@ -101,6 +201,24 @@ def init(num_workers: Optional[int] = None, address: Optional[str] = None) -> Ru
         if _context is not None:
             return _context
         num_workers = max(1, num_workers or os.cpu_count() or 1)
+        if address is not None and address.startswith("tcp://"):
+            from .cluster import default_advertise_host, parse_cluster_address
+
+            host, port, token = parse_cluster_address(address)
+            if token:  # before the first TCP frame
+                os.environ["RSDL_CLUSTER_TOKEN"] = token
+            ctx = RuntimeContext(_new_session_dir(), owner=True, num_workers=num_workers)
+            try:
+                registry = ActorHandle(("tcp", host, port))
+                registry.wait_ready()
+                _bootstrap_cluster_host(ctx, registry, default_advertise_host(), num_workers, is_head=False)
+            except BaseException:
+                # A half-joined session must not stand as this process's.
+                ctx.shutdown()
+                raise
+            _context = ctx
+            atexit.register(shutdown)
+            return ctx
         if address is not None:
             if not _is_session(address):
                 raise ValueError(f"no runtime session at {address!r}")
@@ -109,15 +227,53 @@ def init(num_workers: Optional[int] = None, address: Optional[str] = None) -> Ru
             address = env if env and _is_session(env) else None
         if address is not None:
             ctx = RuntimeContext(address, owner=False, num_workers=num_workers)
+            # A worker of a cluster host takes its host's wiring.
+            cluster_file = os.path.join(address, _CLUSTER_FILE)
+            if os.path.exists(cluster_file):
+                with open(cluster_file) as f:
+                    _attach_cluster_client(ctx, json.load(f), owns=False)
         else:
-            # Short: a unix socket path inside it is capped at ~107 bytes.
-            runtime_dir = os.path.join(tempfile.gettempdir(), f"rsdl-{secrets.token_hex(4)}")
-            os.makedirs(os.path.join(runtime_dir, "actors"))
-            open(os.path.join(runtime_dir, _MARKER), "w").close()
-            ctx = RuntimeContext(runtime_dir, owner=True, num_workers=num_workers)
+            ctx = RuntimeContext(_new_session_dir(), owner=True, num_workers=num_workers)
         _context = ctx
         atexit.register(shutdown)
         return ctx
+
+
+def init_cluster(
+    listen_host: str = "0.0.0.0",
+    listen_port: int = 0,
+    advertise_host: Optional[str] = None,
+    num_workers: Optional[int] = None,
+) -> RuntimeContext:
+    """Make a new session a cluster's head: the registry on
+    ``listen_host:listen_port`` (``0.0.0.0``: the advertised address; port
+    0: one the system picks) and this host's agent and store server.
+    ``RSDL_CLUSTER_TOKEN`` is minted first (when unset), so every TCP
+    endpoint, and every process spawned after, holds it. Other hosts join
+    with ``ctx.cluster.address``."""
+    global _context
+    from .cluster import ClusterRegistry, default_advertise_host
+
+    with _context_lock:
+        if _context is not None:
+            raise RuntimeError("runtime already initialized")
+        num_workers = max(1, num_workers or os.cpu_count() or 1)
+        ctx = RuntimeContext(_new_session_dir(), owner=True, num_workers=num_workers)
+        _context = ctx
+        atexit.register(shutdown)
+    try:
+        os.environ.setdefault("RSDL_CLUSTER_TOKEN", secrets.token_hex(16))
+        advertise = advertise_host or default_advertise_host()
+        bind_host = advertise if listen_host == "0.0.0.0" else listen_host
+        registry = _spawn_actor(ClusterRegistry, runtime_dir=ctx.runtime_dir, host=bind_host, port=listen_port)
+        ctx._owned_actors.append(registry)
+        _bootstrap_cluster_host(ctx, registry, advertise, num_workers, is_head=True)
+    except BaseException:
+        with _context_lock:
+            _context = None
+        ctx.shutdown()
+        raise
+    return ctx
 
 
 def is_initialized() -> bool:
@@ -148,27 +304,73 @@ def shutdown() -> None:
 
 
 def submit(fn: Callable, *args, **kwargs) -> TaskFuture:
-    """Run ``fn(*args, **kwargs)`` in the session's worker pool."""
-    return get_context().pool.submit(fn, *args, **kwargs)
+    """Run ``fn(*args, **kwargs)`` on the session's scheduler: the worker
+    pool, or in a cluster any host's."""
+    return get_context().scheduler.submit(fn, *args, **kwargs)
 
 
-def spawn_actor(cls, *args, name: Optional[str] = None, **kwargs) -> ActorHandle:
+def spawn_actor(cls, *args, name: Optional[str] = None, host_id: Optional[str] = None, **kwargs) -> ActorHandle:
     """Start an actor owned by this process (it stops at this process's
     :func:`shutdown`); a named one is found session-wide by
-    :func:`connect_actor`."""
+    :func:`connect_actor`. In a cluster the actor listens on TCP and a
+    name is registered cluster-wide; ``host_id`` (one of
+    :func:`cluster_hosts`) spawns it on that host, through its agent."""
     ctx = get_context()
+    if host_id is not None:
+        if ctx.cluster is None:
+            raise ValueError("host_id placement requires cluster mode")
+        if host_id != ctx.cluster.host_id:
+            hosts = ctx.cluster.registry.call("hosts")
+            info = hosts.get(host_id)
+            if info is None:
+                raise ValueError(f"unknown host_id {host_id!r}; cluster hosts: {sorted(hosts)}")
+            agent = ActorHandle(tuple(info["agent"]))
+            if not agent.ping(timeout=5.0):
+                raise ActorDiedError(f"host {host_id!r} agent unreachable (ping timeout)")
+            ready_s = float(os.environ.get("RSDL_SPAWN_READY_TIMEOUT_S", "120"))
+            address, _ = agent.call_with_timeout("spawn_named_actor", cls, list(args), kwargs, name,
+                                                 timeout=ready_s + 30.0)
+            # No pid: it is another host's, never to be signalled here.
+            handle = ActorHandle(tuple(address), pid=None, name=name)
+            ctx._owned_actors.append(handle)
+            if name is not None:
+                ctx.cluster.register_named_actor(name, handle, host_id=host_id)
+                ctx._owned_names.append(name)
+            return handle
+    if ctx.cluster is not None:
+        kwargs.setdefault("host", ctx.cluster.advertise_host)
     handle = _spawn_actor(cls, *args, name=name, runtime_dir=ctx.runtime_dir, **kwargs)
     ctx._owned_actors.append(handle)
+    if name is not None and ctx.cluster is not None:
+        ctx.cluster.register_named_actor(name, handle)
+        ctx._owned_names.append(name)
     return handle
 
 
+def cluster_hosts() -> list:
+    """The cluster's host ids, this host's first; empty outside a
+    cluster."""
+    ctx = get_context()
+    if ctx.cluster is None:
+        return []
+    own = ctx.cluster.host_id
+    return sorted(ctx.cluster.registry.call("hosts"), key=lambda h: (h != own, h))
+
+
 def connect_actor(name: str, num_retries: int = 5) -> ActorHandle:
-    """The session's live actor ``name``, retried with backoff."""
-    return _connect_actor(name, get_context().runtime_dir, num_retries=num_retries)
+    """The live actor ``name``, retried with backoff: from the session's
+    registry, else in a cluster the head's."""
+    ctx = get_context()
+    fallback = ctx.cluster.lookup_named_actor if ctx.cluster is not None else None
+    return _connect_actor(name, ctx.runtime_dir, num_retries=num_retries, fallback_resolver=fallback)
 
 
 def resolve_actor(name: str) -> Optional[ActorHandle]:
-    return _resolve_actor(name, get_context().runtime_dir)
+    ctx = get_context()
+    handle = _resolve_actor(name, ctx.runtime_dir)
+    if handle is None and ctx.cluster is not None:
+        handle = ctx.cluster.lookup_named_actor(name)
+    return handle
 
 
 def put_columns(columns) -> ObjectRef:
@@ -191,6 +393,7 @@ __all__ = [
     "ActorDiedError",
     "ActorHandle",
     "ColumnBatch",
+    "ObjectCorruptError",
     "ObjectLostError",
     "ObjectRef",
     "ObjectStore",
@@ -201,12 +404,14 @@ __all__ = [
     "TaskError",
     "TaskFuture",
     "WorkerPool",
+    "cluster_hosts",
     "connect_actor",
     "ensure_initialized",
     "free",
     "get_context",
     "get_columns",
     "init",
+    "init_cluster",
     "is_initialized",
     "put_columns",
     "resolve_actor",

@@ -1,17 +1,21 @@
 """Named actors: one object served from its own spawned process.
 
 ``spawn_actor(cls, *args, name=..)`` starts a spawned process that builds
-``cls(*args)`` and serves its methods on a unix socket under the session
-directory with an asyncio server. Every request runs as its own loop task
-and ``async def`` methods are awaited there, so a call blocked in an
-``await`` (a queue ``get``) never stalls another caller's ``put``: the
-concurrency model of an async actor. A named actor writes a record
+``cls(*args)`` and serves its methods with an asyncio server: on a unix
+socket under the session directory, or with ``host=`` on TCP (the
+multi-host control plane, :mod:`.cluster`). Every request runs as its own
+loop task and ``async def`` methods are awaited there, so a call blocked
+in an ``await`` (a queue ``get``) never stalls another caller's ``put``:
+the concurrency model of an async actor. A named actor writes a record
 (address and pid) into the session's registry directory;
 :func:`connect_actor` resolves it with backoff, from any process of the
-session.
+session, and in a cluster also through the head's registry.
 
-Frames are length-prefixed pickles. Clients hold one blocking connection
-per calling thread; ``call_oneway`` sends and does not wait for a reply.
+Frames are :mod:`.transport`'s. Clients hold one blocking connection per
+calling thread; ``call_oneway`` sends and does not wait for a reply. A
+method may return a :class:`~.transport.OutOfBand`: its bulk buffers then
+follow the reply's pickled header raw, sent from an executor thread, and
+:meth:`ActorHandle.call_vectored` lands them in a buffer of the caller's.
 
 This module imports the standard library only.
 """
@@ -22,24 +26,23 @@ import asyncio
 import json
 import multiprocessing as mp
 import os
-import pickle
 import secrets
 import signal
 import socket
-import struct
 import threading
 import time
 import traceback
-from typing import Optional, Tuple
+import weakref
+from typing import Optional
 
+from . import transport
 from .retry import call_policy, connect_policy
-
-Address = Tuple[str, str]  # ("unix", socket path)
-_LEN = struct.Struct("<Q")
+from .transport import Address
 
 
 class ActorDiedError(Exception):
-    """The actor's process cannot be reached (exited, or never started)."""
+    """The actor's process cannot be reached (exited, never started, or
+    its connection broke mid-call)."""
 
 
 class RemoteError(Exception):
@@ -65,54 +68,19 @@ def _pid_alive(pid: int) -> bool:
     return True
 
 
-# -- framing ----------------------------------------------------------------
-
-
-def _dumps(obj) -> bytes:
-    payload = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
-    return _LEN.pack(len(payload)) + payload
-
-
-async def _read_frame(reader: asyncio.StreamReader):
-    (length,) = _LEN.unpack(await reader.readexactly(_LEN.size))
-    return pickle.loads(await reader.readexactly(length))
-
-
-class _Connection:
-    """A blocking framed connection."""
-
-    def __init__(self, address: Address, timeout: Optional[float] = None):
-        self.sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
-        if timeout is not None:
-            self.sock.settimeout(timeout)  # covers connect() too
-        try:
-            self.sock.connect(address[1])
-        except BaseException:
-            self.sock.close()
-            raise
-
-    def send(self, obj) -> None:
-        self.sock.sendall(_dumps(obj))
-
-    def recv(self):
-        (length,) = _LEN.unpack(self._recv_exact(_LEN.size))
-        return pickle.loads(self._recv_exact(length))
-
-    def _recv_exact(self, n: int) -> bytes:
-        chunks = []
-        while n:
-            chunk = self.sock.recv(min(n, 1 << 20))
-            if not chunk:
-                raise ConnectionError("connection closed by peer")
-            chunks.append(chunk)
-            n -= len(chunk)
-        return b"".join(chunks)
-
-    def close(self) -> None:
-        try:
-            self.sock.close()
-        except OSError:
-            pass
+def _sendmsg_on_fd(fd: int, frames) -> None:
+    """:func:`transport.sendmsg_all` on a duplicate of the connection's
+    descriptor. The event loop hands out its sockets as
+    ``asyncio.trsock.TransportSocket``, which has no ``sendmsg`` (Python
+    3.12), so the send goes through a socket object of its own over the
+    same open file; the duplicate shares the loop's non-blocking mode,
+    which the send's poll handles, and closing it leaves the loop's
+    descriptor open."""
+    raw = socket.socket(fileno=os.dup(fd))
+    try:
+        transport.sendmsg_all(raw, frames)
+    finally:
+        raw.close()
 
 
 # -- server side ------------------------------------------------------------
@@ -127,26 +95,72 @@ class _ActorHost:
         self._shutdown: Optional[asyncio.Event] = None
         self._server = None
         self._tasks: set = set()  # the loop holds tasks weakly
+        # One reply lock per connection: an OutOfBand payload is written
+        # by an executor thread on the raw descriptor, so every reply on
+        # that connection, and its close, waits for it (a close mid-send
+        # would free the descriptor under the thread).
+        self._write_locks: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+    def _writer_lock(self, writer) -> asyncio.Lock:
+        lock = self._write_locks.get(writer)
+        if lock is None:
+            lock = self._write_locks[writer] = asyncio.Lock()
+        return lock
+
+    async def _send_out_of_band(self, writer, req_id, oob: transport.OutOfBand) -> None:
+        """A vectored reply whose payload an executor thread sends straight
+        on the connection (``sendmsg`` releases the GIL, so concurrent
+        stripes of a striped fetch go out on several cores). Only once the
+        transport's own buffer is empty: raw bytes must not overtake bytes
+        the loop still holds."""
+        sock = writer.get_extra_info("socket")
+        if sock is None:
+            transport.write_frame_vectored(writer, (req_id, "okv", oob.meta), oob.buffers)
+            await writer.drain()
+            return
+        frames = transport.vectored_frames((req_id, "okv", oob.meta), oob.buffers)
+        tr = writer.transport
+        spins = 0
+        deadline = time.monotonic() + 120.0
+        while tr.get_write_buffer_size() > 0:
+            if tr.is_closing():
+                raise ConnectionError("connection closed mid-reply")
+            if time.monotonic() > deadline:
+                raise ConnectionError("peer stalled a buffered reply > 120s")
+            await asyncio.sleep(0 if spins < 16 else 0.001)
+            spins += 1
+        await asyncio.get_running_loop().run_in_executor(None, _sendmsg_on_fd, sock.fileno(), frames)
 
     async def _handle_client(self, reader, writer):
-        lock = asyncio.Lock()  # replies on one connection never interleave
         try:
             while True:
                 try:
-                    req_id, method, args, kwargs, oneway = await _read_frame(reader)
+                    frame = await transport.read_frame(reader)
                 except (asyncio.IncompleteReadError, ConnectionError):
                     break
+                # A 5-tuple, or 6 with the caller's trace context (always
+                # None from the port, which has no tracing plane).
+                req_id, method, args, kwargs, oneway = frame[:5]
                 # Each request is its own task: a blocked get on this
                 # connection must not hold up the requests behind it.
                 task = asyncio.get_running_loop().create_task(
-                    self._dispatch(writer, lock, req_id, method, args, kwargs, oneway)
+                    self._dispatch(writer, req_id, method, args, kwargs, oneway)
                 )
                 self._tasks.add(task)
                 task.add_done_callback(self._tasks.discard)
         finally:
-            writer.close()
+            async with self._writer_lock(writer):
+                try:
+                    writer.close()
+                except Exception:
+                    pass
 
-    async def _dispatch(self, writer, lock, req_id, method, args, kwargs, oneway):
+    async def _reply(self, writer, frame) -> None:
+        async with self._writer_lock(writer):
+            transport.write_frame(writer, frame)
+            await writer.drain()
+
+    async def _dispatch(self, writer, req_id, method, args, kwargs, oneway):
         try:
             if method == "__ping__":
                 result = "pong"
@@ -157,31 +171,59 @@ class _ActorHost:
                 result = getattr(self.instance, method)(*args, **kwargs)
                 if asyncio.iscoroutine(result):
                     result = await result
-            reply = (req_id, "ok", result)
+            if oneway:
+                return
+            if isinstance(result, transport.OutOfBand):
+                try:
+                    async with self._writer_lock(writer):
+                        await self._send_out_of_band(writer, req_id, result)
+                except Exception:
+                    # Part of the frame may be on the wire: the connection's
+                    # framing is gone, so close it and let the caller fail
+                    # into its ActorDiedError instead of reading garbage.
+                    try:
+                        writer.close()
+                    except Exception:
+                        pass
+                return
+            await self._reply(writer, (req_id, "ok", result))
         except Exception as exc:  # noqa: BLE001 -- the caller re-raises it
-            reply = (req_id, "err", (exc, traceback.format_exc()))
-        if oneway:
-            return
-        try:
-            frame = _dumps(reply)
-        except Exception:  # the exception did not pickle: send its text
-            frame = _dumps((req_id, "err", (None, reply[2][1] if reply[1] == "err" else traceback.format_exc())))
-        async with lock:
+            if oneway:
+                return
+            tb = traceback.format_exc()
             try:
-                writer.write(frame)
-                await writer.drain()
-            except ConnectionError:
-                pass
+                await self._reply(writer, (req_id, "err", (exc, tb)))
+            except Exception:
+                # The exception did not pickle: send its text.
+                try:
+                    await self._reply(writer, (req_id, "err", (None, tb)))
+                except Exception:
+                    pass
 
     async def start(self):
+        """Bind the server; a TCP port 0 becomes the port the system chose.
+        Then the instance's ``setup()``, if it has one."""
         self._shutdown = asyncio.Event()
-        self._server = await asyncio.start_unix_server(self._handle_client, path=self.address[1])
+        self._server = await transport.start_server(self.address, self._handle_client)
+        if self.address[0] == "tcp" and self.address[2] == 0:
+            self.address = ("tcp", self.address[1], self._server.sockets[0].getsockname()[1])
+        setup = getattr(self.instance, "setup", None)
+        if setup is not None:
+            result = setup()
+            if asyncio.iscoroutine(result):
+                await result
 
     async def wait_shutdown(self):
         await self._shutdown.wait()
         # Not ``async with``: its wait_closed() would wait for every
         # client to hang up. Open connections die with the loop.
         self._server.close()
+        # The instance's ``teardown()`` (a host agent stops its pool).
+        teardown = getattr(self.instance, "teardown", None)
+        if teardown is not None:
+            result = teardown()
+            if asyncio.iscoroutine(result):
+                await result
 
 
 def _actor_main(cls, args, kwargs, address: Address, registry_path, ready_q, watch_parent: int):
@@ -189,7 +231,8 @@ def _actor_main(cls, args, kwargs, address: Address, registry_path, ready_q, wat
 
     def _watch():
         # Daemonic children die with a parent that exits cleanly, not with
-        # one that was killed.
+        # one that was killed; a non-daemonic one (a host agent, which
+        # spawns its own pool) not even then.
         while True:
             time.sleep(1.0)
             if not _pid_alive(watch_parent):
@@ -209,6 +252,7 @@ def _actor_main(cls, args, kwargs, address: Address, registry_path, ready_q, wat
             with open(tmp, "w") as f:
                 json.dump({"address": list(host.address), "pid": os.getpid()}, f)
             os.replace(tmp, registry_path)
+        # The bound address travels back: a TCP port 0 became a real one.
         ready_q.put(("ok", list(host.address)))
         await host.wait_shutdown()
 
@@ -217,7 +261,8 @@ def _actor_main(cls, args, kwargs, address: Address, registry_path, ready_q, wat
     except KeyboardInterrupt:
         pass
     finally:
-        for path in (registry_path, address[1]):
+        paths = [registry_path] + ([address[1]] if address[0] == "unix" else [])
+        for path in paths:
             if path is not None:
                 try:
                     os.unlink(path)
@@ -230,7 +275,8 @@ def _actor_main(cls, args, kwargs, address: Address, registry_path, ready_q, wat
 
 class ActorHandle:
     """Client proxy: ``call`` blocks for the result, ``call_oneway`` does
-    not wait. Picklable: handles travel inside task arguments."""
+    not wait, ``call_vectored`` takes an out-of-band reply. Picklable:
+    handles travel inside task arguments."""
 
     def __init__(self, address: Address, pid: Optional[int] = None, name: Optional[str] = None):
         self.address = tuple(address)
@@ -254,37 +300,99 @@ class ActorHandle:
             self._req_counter += 1
             return self._req_counter
 
-    def _send(self, req_id, method, args, kwargs, oneway) -> _Connection:
+    def _conn(self) -> transport.Connection:
+        conn = getattr(self._local, "conn", None)
+        if conn is None:
+            try:
+                conn = transport.Connection(self.address)
+            except OSError as e:  # ConnectionError and FileNotFoundError too
+                raise ActorDiedError(f"cannot connect to actor {self._label()}: {e}") from e
+            self._local.conn = conn
+        return conn
+
+    def _send_with_retry(self, req_id, method, args, kwargs, oneway) -> transport.Connection:
         """Send one request frame on this thread's connection, retrying a
         refused connect or a reset send (the request never ran then, so a
-        retry cannot run it twice)."""
+        retry cannot run it twice). A failure after the frame went out is
+        the caller's: the method may have run."""
         policy = call_policy()
         last: Optional[Exception] = None
         for attempt, handle in policy.attempts():
             try:
-                conn = getattr(self._local, "conn", None)
-                if conn is None:
-                    conn = self._local.conn = _Connection(self.address)
-                conn.send((req_id, method, args, kwargs, oneway))
+                conn = self._conn()
+                conn.send((req_id, method, args, kwargs, oneway, None))
                 return conn
-            except OSError as e:  # ConnectionError and FileNotFoundError too
+            except (ActorDiedError, OSError) as e:
                 self._local.conn = None
                 last = e
                 if attempt < policy.max_attempts:
                     handle.backoff()
-        raise ActorDiedError(f"cannot reach actor {self._label()}: {last}") from last
+        raise ActorDiedError(
+            f"cannot reach actor {self._label()} after {policy.max_attempts} attempts: {last}"
+        ) from last
 
     def call(self, method: str, *args, **kwargs):
+        # ``into`` is this client's: a remote keyword of that name fails
+        # loudly (a duplicate keyword) instead of being taken for it.
+        return self.call_vectored(method, *args, into=None, **kwargs)[0]
+
+    def call_oneway(self, method: str, *args, **kwargs) -> None:
+        self._send_with_retry(self._next_id(), method, args, kwargs, True)
+
+    def call_vectored(self, method: str, *args, into=None, **kwargs):
+        """Call a method whose reply may be an out-of-band frame. Returns
+        ``(meta, payload_view)``, the payload landed in the buffer
+        ``into(total_bytes)`` returns, or ``(result, None)`` for a plain
+        reply. An allocator with a truthy ``wants_meta`` is called
+        ``into(total_bytes, meta)``: a striped fetch places its window by
+        the stripe range in the meta."""
         req_id = self._next_id()
-        conn = self._send(req_id, method, args, kwargs, False)
+        if into is not None and getattr(into, "wants_meta", False):
+            user_into = into
+
+            def _shim(total, frame):
+                # frame is the whole (req_id, status, meta) reply.
+                return user_into(total, frame[2])
+
+            _shim.wants_meta = True
+            into = _shim
+        conn = self._send_with_retry(req_id, method, args, kwargs, False)
         try:
             while True:
-                resp_id, status, payload = conn.recv()
+                frame, payload = conn.recv_frame(into=into)
+                resp_id, status, meta = frame
                 if resp_id == req_id:
                     break
         except OSError as e:
             self._local.conn = None
             raise ActorDiedError(f"actor {self._label()} died mid-call: {e}") from e
+        if status == "okv":
+            return meta, payload
+        if status == "ok":
+            return meta, None
+        exc, tb = meta
+        if isinstance(exc, Exception):
+            raise exc
+        raise RemoteError(f"remote call {method} failed:\n{tb}")
+
+    def call_with_timeout(self, method: str, *args, timeout: float = 30.0, **kwargs):
+        """One call on a connection of its own with a timeout: control
+        calls that must not hang on a half-dead host. A timeout or a
+        broken connection raises :class:`ActorDiedError`."""
+        try:
+            conn = transport.Connection(self.address, timeout=timeout)
+        except OSError as e:
+            raise ActorDiedError(f"actor {self._label()} unreachable: {e}") from e
+        try:
+            conn.send((0, method, args, kwargs, False, None))
+            while True:
+                resp_id, status, payload = conn.recv()
+                if resp_id == 0:
+                    break
+        except OSError as e:
+            raise ActorDiedError(f"actor {self._label()} did not answer {method} within {timeout}s: {e}") from e
+        finally:
+            conn.close()
         if status == "ok":
             return payload
         exc, tb = payload
@@ -292,18 +400,15 @@ class ActorHandle:
             raise exc
         raise RemoteError(f"remote call {method} failed:\n{tb}")
 
-    def call_oneway(self, method: str, *args, **kwargs) -> None:
-        self._send(self._next_id(), method, args, kwargs, True)
-
     def ping(self, timeout: Optional[float] = None) -> bool:
         """On its own connection with a timeout: a wedged actor answers
         False instead of hanging the caller."""
         try:
-            conn = _Connection(self.address, timeout=timeout)
+            conn = transport.Connection(self.address, timeout=timeout)
         except OSError:
             return False
         try:
-            conn.send((0, "__ping__", (), {}, False))
+            conn.send((0, "__ping__", (), {}, False, None))
             _, status, payload = conn.recv()
             return status == "ok" and payload == "pong"
         except Exception:
@@ -328,7 +433,8 @@ class ActorHandle:
 
     def terminate(self, force: bool = False, grace_period_s: float = 5.0) -> None:
         """Ask the actor to stop; after ``grace_period_s`` (or at once with
-        ``force``) kill its process."""
+        ``force``) kill its process. A handle without a pid (an actor on
+        another host) is only asked."""
         if not force:
             try:
                 self.call("__terminate__")
@@ -350,12 +456,28 @@ class ActorHandle:
 # -- spawning and discovery -------------------------------------------------
 
 
-def spawn_actor(cls, *args, name: Optional[str] = None, runtime_dir: str, **kwargs) -> ActorHandle:
+def spawn_actor(
+    cls,
+    *args,
+    name: Optional[str] = None,
+    runtime_dir: str,
+    host: Optional[str] = None,
+    port: int = 0,
+    daemon: bool = True,
+    **kwargs,
+) -> ActorHandle:
     """Start ``cls(*args, **kwargs)`` in a spawned process and return a
-    handle once it serves. A name held by a live actor raises
-    ``ValueError``; the record of a dead one is reclaimed."""
+    handle once it serves: on TCP at ``host`` (port 0: one the system
+    picks) when given, else on a unix socket in ``runtime_dir``.
+    ``daemon=False`` is for an actor that spawns processes itself (a
+    daemonic process may not); it still exits when its parent does. A
+    name held by a live actor raises ``ValueError``; the record of a dead
+    one is reclaimed."""
     os.makedirs(_registry_dir(runtime_dir), exist_ok=True)
-    address: Address = ("unix", os.path.join(runtime_dir, f"a-{secrets.token_hex(4)}.sock"))
+    if host is not None:
+        address: Address = ("tcp", host, port)
+    else:
+        address = ("unix", os.path.join(runtime_dir, f"a-{secrets.token_hex(4)}.sock"))
     registry_path = _registry_path(runtime_dir, name) if name is not None else None
     if registry_path is not None and os.path.exists(registry_path):
         stale = resolve_actor(name, runtime_dir)
@@ -370,7 +492,7 @@ def spawn_actor(cls, *args, name: Optional[str] = None, runtime_dir: str, **kwar
     proc = ctx.Process(
         target=_actor_main,
         args=(cls, args, kwargs, address, registry_path, ready_q, os.getpid()),
-        daemon=True,
+        daemon=daemon,
     )
     proc.start()
     deadline = time.monotonic() + float(os.environ.get("RSDL_SPAWN_READY_TIMEOUT_S", "120"))
@@ -405,12 +527,16 @@ def resolve_actor(name: str, runtime_dir: str) -> Optional[ActorHandle]:
     return ActorHandle(tuple(record["address"]), pid=record.get("pid"), name=name)
 
 
-def connect_actor(name: str, runtime_dir: str, num_retries: int = 5) -> ActorHandle:
+def connect_actor(name: str, runtime_dir: str, num_retries: int = 5, fallback_resolver=None) -> ActorHandle:
     """A live named actor, retried with capped, jittered backoff while it
-    is not registered or does not answer."""
+    is not registered or does not answer. ``fallback_resolver(name)`` is
+    asked when the session's registry has no record (in a cluster: the
+    head's registry)."""
     policy = connect_policy(num_retries)
     for attempt, handle in policy.attempts():
         actor = resolve_actor(name, runtime_dir)
+        if actor is None and fallback_resolver is not None:
+            actor = fallback_resolver(name)
         if actor is not None and actor.ping(timeout=5.0):
             return actor
         if attempt < policy.max_attempts:

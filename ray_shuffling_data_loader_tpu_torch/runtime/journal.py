@@ -104,6 +104,8 @@ def _sync_enabled() -> bool:
 
 def ref_to_json(ref) -> dict:
     out: Dict[str, Any] = {"id": ref.object_id, "nbytes": int(ref.nbytes), "session": ref.session}
+    if ref.owner is not None:
+        out["owner"] = list(ref.owner)
     if ref.rows is not None:
         out["rows"] = [int(ref.rows[0]), int(ref.rows[1])]
     return out
@@ -116,6 +118,7 @@ def ref_from_json(d: dict):
         object_id=str(d["id"]),
         nbytes=int(d.get("nbytes", 0)),
         session=str(d.get("session", "")),
+        owner=tuple(d["owner"]) if d.get("owner") else None,
         rows=tuple(d["rows"]) if d.get("rows") else None,
     )
 

@@ -29,7 +29,20 @@ columns as their bit patterns; :func:`iter_packed_batches` cuts it into
 per-batch views whose ``.packed`` block is copied to the device in one
 piece.
 
-This module imports numpy only: the spawned task workers load it.
+**Foreign refs.** In a cluster (:mod:`.cluster`) every ref carries its
+``owner``, the store server of the host that made it. A reader whose own
+directories lack a foreign ref's segment pulls just the ref's window from
+the owner once, into a cache segment of its own session
+(``<session>-cache-<id>[+w<lo>-<hi>]``), and maps that; :meth:`ObjectStore.
+prefetch` starts such pulls on background threads, :meth:`ObjectStore.
+drop_cache` drops a cache and keeps the owner's copy, and
+:meth:`ObjectStore.free` of a foreign ref drops the cache and frees the
+owner's copy. With ``RSDL_TCP_ZEROCOPY`` the bytes land straight in the
+cache's mapping (:func:`serialize_columns_vectored` on the owner's side),
+striped over ``RSDL_TCP_STREAMS`` connections.
+
+This module imports numpy and the standard library only: the spawned task
+workers load it.
 """
 
 from __future__ import annotations
@@ -40,12 +53,15 @@ import mmap
 import os
 import secrets
 import struct
+import threading
 import time
 from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import transport as _transport
 
 _MAGIC = b"RSDL1\x00"
 _ALIGN = 64
@@ -92,7 +108,9 @@ def _default_capacity_bytes(shm_dir: str) -> Optional[int]:
 
 def fetch_window_depth(default: int = 8) -> int:
     """``RSDL_FETCH_WINDOW_DEPTH``: how many input windows a reduce keeps
-    in flight (at least 1), else ``default`` when unset or malformed."""
+    in flight (at least 1), else ``default`` when unset or malformed. The
+    overlapped reduce defaults to 4 (it also bounds the windows cached at
+    once), the delivery's prefetch to 8."""
     env = os.environ.get("RSDL_FETCH_WINDOW_DEPTH")
     if not env:
         return default
@@ -100,6 +118,50 @@ def fetch_window_depth(default: int = 8) -> int:
         return max(1, int(env))
     except ValueError:
         return default
+
+
+class GrowingThreadPool:
+    """A thread pool that widens on demand: the store's prefetch pool and
+    the cluster client's stripe pool take the width of their widest
+    caller. It grows by replacement; a replaced pool is retired, not shut
+    down, so a submit racing the growth still runs."""
+
+    def __init__(self, thread_name_prefix: str):
+        self._prefix = thread_name_prefix
+        self._lock = threading.Lock()
+        self._pool = None
+        self._retired: list = []
+        self.width = 0
+
+    def ensure(self, width: int) -> "GrowingThreadPool":
+        """At least ``width`` threads wide; returns self."""
+        import concurrent.futures
+
+        with self._lock:
+            if self._pool is None or width > self.width:
+                if self._pool is not None:
+                    self._retired.append(self._pool)
+                self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=width,
+                                                                   thread_name_prefix=self._prefix)
+                self.width = width
+        return self
+
+    def submit(self, fn, *args, **kwargs):
+        with self._lock:
+            if self._pool is None:
+                raise RuntimeError("GrowingThreadPool: ensure() not called")
+            pool = self._pool
+        return pool.submit(fn, *args, **kwargs)
+
+    def shutdown(self, wait: bool = False) -> None:
+        with self._lock:
+            pools, self._retired = list(self._retired), []
+            if self._pool is not None:
+                pools.append(self._pool)
+                self._pool = None
+            self.width = 0
+        for pool in pools:
+            pool.shutdown(wait=wait)
 
 
 def _align(n: int) -> int:
@@ -140,6 +202,14 @@ class ObjectLostError(FileNotFoundError):
         return (type(self), (self.object_id, self._detail))
 
 
+class ObjectCorruptError(ObjectLostError):
+    """A segment exists but is not one (bad magic): recovered like a lost
+    one."""
+
+    def __init__(self, object_id: str, detail: str = "corrupt payload"):
+        super().__init__(object_id, detail)
+
+
 class StoreFullError(OSError):
     """The shared-memory directory has no room for a new segment."""
 
@@ -163,14 +233,17 @@ def free_bytes(path: str) -> int:
 
 @dataclass(frozen=True)
 class ObjectRef:
-    """A small picklable handle to a segment. ``rows`` restricts it to a
-    half-open row window: several refs may hardlink one segment (the map
-    stage publishes its per-reducer partitions so), each ref owning its own
-    link; the pages are reclaimed when the last link is freed."""
+    """A small picklable handle to a segment. ``owner``: in a cluster, the
+    store server of the host that made it (None on one host). ``rows``
+    restricts it to a half-open row window: several refs may hardlink one
+    segment (the map stage publishes its per-reducer partitions so), each
+    ref owning its own link; the pages are reclaimed when the last link is
+    freed."""
 
     object_id: str
     nbytes: int
     session: str = ""
+    owner: Optional[Tuple] = None
     rows: Optional[Tuple[int, int]] = None
 
 
@@ -256,7 +329,7 @@ class PendingColumns:
         assert not self._published, "already published"
         os.rename(self._tmp, self._path)
         self._published = True
-        return ObjectRef(self.object_id, self.nbytes, self._store.session)
+        return ObjectRef(self.object_id, self.nbytes, self._store.session, owner=self._store.owner_address)
 
     def publish_slices(self, windows: Sequence[Tuple[int, int]]) -> List[ObjectRef]:
         assert not self._published, "already published"
@@ -266,7 +339,8 @@ class PendingColumns:
             for start, stop in windows:
                 link_id = self._store._new_object_id()
                 os.link(self._tmp, os.path.join(seg_dir, link_id))
-                refs.append(ObjectRef(link_id, self.nbytes, self._store.session, (int(start), int(stop))))
+                refs.append(ObjectRef(link_id, self.nbytes, self._store.session, owner=self._store.owner_address,
+                                      rows=(int(start), int(stop))))
         except BaseException:
             for ref in refs:  # no caller ever sees these links
                 try:
@@ -315,11 +389,11 @@ def map_segment_file(path: str, object_id: str = "?", populate: bool = False) ->
     return ColumnBatch(cols, _keepalive=mm, layout=meta.get("layout"))
 
 
-def serialize_columns(columns: Mapping[str, np.ndarray]) -> bytes:
-    """The segment format of ``columns`` as bytes: what
-    :func:`map_segment_file` reads back."""
+def serialize_columns(columns: Mapping[str, np.ndarray], layout: Optional[dict] = None) -> bytes:
+    """The segment format of ``columns`` (stamped with ``layout``) as
+    bytes: what :func:`map_segment_file` reads back."""
     cols = {k: np.ascontiguousarray(v) for k, v in columns.items()}
-    meta, meta_blob, payload_start, total = _plan_layout({k: (v.shape, v.dtype) for k, v in cols.items()})
+    meta, meta_blob, payload_start, total = _plan_layout({k: (v.shape, v.dtype) for k, v in cols.items()}, layout)
     out = bytearray(total)
     out[: _HEADER.size] = _HEADER.pack(_MAGIC, len(meta_blob))
     out[_HEADER.size : _HEADER.size + len(meta_blob)] = meta_blob
@@ -328,6 +402,35 @@ def serialize_columns(columns: Mapping[str, np.ndarray]) -> bytes:
         start = payload_start + m["offset"]
         view[start : start + arr.nbytes] = arr.reshape(-1).view(np.uint8)
     return bytes(out)
+
+
+_PAD64 = bytes(_ALIGN)
+
+
+def serialize_columns_vectored(columns: Mapping[str, np.ndarray], layout: Optional[dict] = None) -> Tuple[int, List]:
+    """``(total_bytes, buffers)``: :func:`serialize_columns`'s bytes as a
+    scatter-gather list, without building them. The buffers are a header,
+    the columns' own views and the alignment pads between them (each under
+    64 bytes); the caller keeps the columns' mapping alive until they are
+    sent."""
+    cols = {k: (v if v.flags.c_contiguous else np.ascontiguousarray(v)) for k, v in columns.items()}
+    meta, meta_blob, payload_start, total = _plan_layout({k: (v.shape, v.dtype) for k, v in cols.items()}, layout)
+    head = bytearray(payload_start)
+    head[: _HEADER.size] = _HEADER.pack(_MAGIC, len(meta_blob))
+    head[_HEADER.size : _HEADER.size + len(meta_blob)] = meta_blob
+    bufs: List = [head]
+    pos = payload_start
+    for m, arr in zip(meta, cols.values()):
+        target = payload_start + m["offset"]
+        if target > pos:
+            bufs.append(_PAD64[: target - pos])
+            pos = target
+        if arr.nbytes:
+            bufs.append(memoryview(arr).cast("B"))
+            pos += arr.nbytes
+    if total > pos:
+        bufs.append(_PAD64[: total - pos])
+    return total, bufs
 
 
 # -- packed segments ------------------------------------------------------------
@@ -435,6 +538,21 @@ class ObjectStore:
         self._scan_bytes = 0
         self._scan_adjust = 0
         self._scan_at = float("-inf")
+        # The cluster's hooks (runtime.init when joined): refs made here
+        # carry ``owner_address``; a foreign ref's bytes come through
+        # ``remote_fetch(ref) -> bytes`` or, with the zero-copy plane,
+        # ``remote_fetch_into(ref, alloc)``; ``remote_free(ref)`` frees
+        # the owner's copy.
+        self.owner_address: Optional[Tuple] = None
+        self.remote_fetch = None
+        self.remote_fetch_into = None
+        self.remote_free = None
+        self._foreign: set = set()  # cache names this process fetched
+        self._prefetch_pool = GrowingThreadPool("store-prefetch")
+        # Cache names freed or dropped in this process: a prefetch landing
+        # after that discards its copy instead of orphaning it. Cleared
+        # when it outgrows any window a prefetch could still be in flight.
+        self._freed_caches: set = set()
 
     def _new_object_id(self) -> str:
         return f"{self.session}-{secrets.token_hex(8)}"
@@ -557,22 +675,186 @@ class ObjectStore:
         finally:
             pending.abort()
 
+    def put_bytes(self, data: bytes) -> ObjectRef:
+        return self.put_columns({"__bytes__": np.frombuffer(data, np.uint8)})
+
     # -- read path ----------------------------------------------------------
 
     def get_columns(self, ref: ObjectRef, populate: bool = False) -> ColumnBatch:
         """Zero-copy views of a ref's segment (its row window, if any),
-        mapped populated if asked (:func:`map_segment_file`). A missing
-        segment raises :class:`ObjectLostError`."""
+        mapped populated if asked (:func:`map_segment_file`). A foreign ref
+        whose segment is not in this host's directories is pulled from its
+        owner once (just its window) into a cache segment, which later
+        reads map. A missing segment raises :class:`ObjectLostError`, one
+        that is not a segment :class:`ObjectCorruptError`."""
         path = self._find_segment(ref.object_id)
+        rows = ref.rows
+        if path is None and self.is_foreign(ref):
+            cache = self._find_cache(ref)
+            if cache is None:
+                cache = self._cache_path(ref)
+                self._materialize_remote(ref, cache)
+            path, rows = cache, None  # the cache holds just the window
         try:
             if path is None:
                 raise FileNotFoundError(ref.object_id)
             batch = map_segment_file(path, ref.object_id, populate)
         except FileNotFoundError:
             raise ObjectLostError(ref.object_id, "no segment") from None
-        if ref.rows is not None:
-            batch = batch.slice(*ref.rows)
+        except ValueError as exc:
+            raise ObjectCorruptError(ref.object_id, str(exc)) from exc
+        if rows is not None:
+            batch = batch.slice(*rows)
         return batch
+
+    def get_bytes(self, ref: ObjectRef) -> bytes:
+        return self.get_columns(ref)["__bytes__"].tobytes()
+
+    # -- foreign refs ---------------------------------------------------------
+
+    def is_foreign(self, ref: ObjectRef) -> bool:
+        """Was the ref made on another host of the cluster?"""
+        return ref.owner is not None and tuple(ref.owner) != self.owner_address and self.remote_fetch is not None
+
+    def needs_fetch(self, ref: ObjectRef) -> bool:
+        """Would reading the ref now pull bytes from another host: foreign,
+        not cached here, and its segment not in this host's directories
+        (two sessions sharing one shm directory map each other's)? The
+        overlapped reduce's ``auto`` asks this."""
+        return self.is_foreign(ref) and self._find_cache(ref) is None and self._find_segment(ref.object_id) is None
+
+    def _cache_name(self, ref: ObjectRef) -> str:
+        # The READER session's prefix: every process of the session names
+        # a cache alike, and the session's cleanup sweeps it.
+        name = f"{self.session}-cache-{ref.object_id}"
+        if ref.rows is not None:
+            name = f"{name}+w{ref.rows[0]}-{ref.rows[1]}"
+        return name
+
+    def _cache_path(self, ref: ObjectRef) -> str:
+        """Where a new cache goes, by the budget (``ref.nbytes``, the whole
+        segment's size, errs high for a window)."""
+        return os.path.join(self._placement_dir(ref.nbytes), self._cache_name(ref))
+
+    def _find_cache(self, ref: ObjectRef) -> Optional[str]:
+        name = self._cache_name(ref)
+        for directory in (self.shm_dir, self.spill_dir):
+            path = os.path.join(directory, name)
+            if os.path.exists(path):
+                return path
+        return None
+
+    def prefetch(self, refs, max_parallel: Optional[int] = None) -> List:
+        """Start pulling the foreign refs among ``refs`` that need it into
+        their caches on background threads (``max_parallel`` at once,
+        default :func:`fetch_window_depth` of 8); returns the futures at
+        once. The pool widens to the widest caller. A prefetch asked for
+        a ref supersedes its freed mark. Errors are dropped here: the
+        reading ``get_columns`` fetches again and raises."""
+        foreign = [
+            r for r in refs
+            if isinstance(r, ObjectRef) and self.is_foreign(r) and self._find_cache(r) is None
+            and self._find_segment(r.object_id) is None
+        ]
+        if not foreign:
+            return []
+        for ref in foreign:
+            self._freed_caches.discard(self._cache_name(ref))
+        if max_parallel is None:
+            max_parallel = fetch_window_depth(default=8)
+        pool = self._prefetch_pool.ensure(max_parallel)
+
+        def _pull(ref: ObjectRef) -> None:
+            name = self._cache_name(ref)
+            if name in self._freed_caches or self._find_cache(ref) is not None:
+                return
+            try:
+                self._materialize_remote(ref, self._cache_path(ref))
+            except Exception:
+                return
+            if name in self._freed_caches:
+                # Freed while in flight: reclaim the orphaned copy.
+                cache = self._find_cache(ref)
+                if cache is not None:
+                    try:
+                        os.unlink(cache)
+                    except FileNotFoundError:
+                        pass
+                self._foreign.discard(name)
+
+        return [pool.submit(_pull, r) for r in foreign]
+
+    def _materialize_remote(self, ref: ObjectRef, path: str) -> None:
+        """Pull a foreign ref's window from its owner and publish it at
+        ``path``: with ``RSDL_TCP_ZEROCOPY``, landed by ``recv_into`` in
+        the mapped destination (striped with ``RSDL_TCP_STREAMS``), else
+        as one bytes reply written out. Racing readers each write a tmp
+        file of their own; the renames publish the same bytes."""
+        tmp = f"{path}.fetch-{os.getpid()}-{secrets.token_hex(4)}"
+        if self.remote_fetch_into is not None and _transport.zerocopy_enabled():
+            holder: Dict[str, mmap.mmap] = {}
+
+            def _alloc(n: int):
+                fd = os.open(tmp, os.O_CREAT | os.O_EXCL | os.O_RDWR, 0o600)
+                try:
+                    os.ftruncate(fd, max(n, 1))
+                    # Populated: the socket then writes into present pages
+                    # instead of faulting each one in.
+                    flags = mmap.MAP_SHARED | getattr(mmap, "MAP_POPULATE", 0)
+                    mm = mmap.mmap(fd, max(n, 1), flags=flags)
+                finally:
+                    os.close(fd)
+                holder["mm"] = mm
+                return mm
+
+            try:
+                self.remote_fetch_into(ref, _alloc)
+            except BaseException:
+                try:
+                    os.unlink(tmp)
+                except FileNotFoundError:
+                    pass
+                raise
+            finally:
+                mm = holder.pop("mm", None)
+                if mm is not None:
+                    try:
+                        mm.close()
+                    except BufferError:
+                        # A view still exported must not replace the fetch's
+                        # own error; the mapping closes when it goes.
+                        pass
+        else:
+            data = self.remote_fetch(ref)
+            with open(tmp, "wb") as f:
+                f.write(data)
+        os.rename(tmp, path)
+        self._foreign.add(os.path.basename(path))
+
+    def _forget_cache(self, ref: ObjectRef) -> None:
+        """Mark ``ref``'s cache freed (a late prefetch discards its copy)
+        and unlink it."""
+        if len(self._freed_caches) > 8192:
+            self._freed_caches.clear()
+        name = self._cache_name(ref)
+        self._freed_caches.add(name)
+        cache = self._find_cache(ref)
+        if cache is not None:
+            try:
+                os.unlink(cache)
+            except FileNotFoundError:
+                pass
+        self._foreign.discard(name)
+
+    def drop_cache(self, refs) -> None:
+        """Unlink this host's fetched copies of the foreign refs among
+        ``refs``; the owners' segments stay, so the task that read them
+        can run again (unlike :meth:`free`)."""
+        if isinstance(refs, ObjectRef):
+            refs = [refs]
+        for ref in refs:
+            if self.is_foreign(ref):
+                self._forget_cache(ref)
 
     def exists(self, ref: ObjectRef) -> bool:
         """Is the ref's segment still published? A ref of another session
@@ -581,11 +863,17 @@ class ObjectStore:
         return self._find_segment(ref.object_id) is not None
 
     def free(self, refs) -> None:
-        """Unlink each ref's link. Mapped views stay valid until they are
-        dropped; a segment's pages go with its last link."""
+        """Unlink each ref's link; of a foreign ref, the cache here and the
+        owner's link (through ``remote_free``). Mapped views stay valid
+        until they are dropped; a segment's pages go with its last link."""
         if isinstance(refs, ObjectRef):
             refs = [refs]
         for ref in refs:
+            if self.is_foreign(ref):
+                self._forget_cache(ref)
+                if self.remote_free is not None:
+                    self.remote_free(ref)
+                continue
             path = self._find_segment(ref.object_id)
             if path is not None:
                 try:
@@ -624,3 +912,5 @@ class ObjectStore:
         if session in adopted and self._sessions_file is not None:
             with open(self._sessions_file, "w") as f:
                 f.writelines(s + "\n" for s in adopted if s != session)
+        if session == self.session:
+            self._foreign.clear()

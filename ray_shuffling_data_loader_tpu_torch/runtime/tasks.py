@@ -111,5 +111,11 @@ class WorkerPool:
     def submit(self, fn: Callable, *args, **kwargs) -> TaskFuture:
         return self._executor.submit(_run_task, fn, args, kwargs)
 
+    def submit_local_to(self, refs, fn: Callable, *args, **kwargs) -> TaskFuture:
+        """The cluster scheduler's locality submit
+        (:meth:`.cluster.ClusterScheduler.submit_local_to`) on one host:
+        every ref is local, so ``refs`` changes nothing."""
+        return self.submit(fn, *args, **kwargs)
+
     def shutdown(self) -> None:
         self._executor.shutdown(wait=True, cancel_futures=True)

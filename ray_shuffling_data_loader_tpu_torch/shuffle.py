@@ -12,11 +12,23 @@ For every epoch (the *mapreduce* schedule):
   (``np.array_split``) and each rank receives its reducers' outputs in
   reducer order.
 
-Maps and reduces run in the session's spawned worker pool. A map writes
-its grouped rows into one shared-memory store segment and returns one
-row-window ref per reducer; a reduce reads its windows by ref and writes
-its permuted rows into a segment of its own, whose ref the shuffle hands
-to the rank's consumer. Bulk data never passes through a pipe.
+Maps and reduces run in the session's spawned worker pool, or in a
+cluster on every host's (:attr:`.runtime.RuntimeContext.scheduler`; a
+reduce, and a map over a cached decode, on the host that holds most of
+its input). A map writes its grouped rows into one shared-memory store
+segment and returns one row-window ref per reducer; a reduce reads its
+windows by ref and writes its permuted rows into a segment of its own,
+whose ref the shuffle hands to the rank's consumer. Bulk data never
+passes through a pipe.
+
+**Overlapped reduce** (``RSDL_REDUCE_FETCH_OVERLAP=auto|on|off``, resolved
+by the epoch's driver and handed to every reduce): a reduce whose windows
+live on other hosts inverts its permutation once and scatters each
+window into its output as it arrives, while the next
+``fetch_window_depth`` windows are being fetched
+(:func:`_overlapped_reduce`); ``auto`` engages only when some window
+would be fetched, so one host keeps the fused gather. The same bits
+either way.
 
 Three defaults change how, never what, an epoch delivers:
 
@@ -710,6 +722,47 @@ class _PackedOutput:
         if self.tail is not None:
             yield self.h + self.m * self.B, self.total, self.tail.columns
 
+    def scatter(self, dest: np.ndarray, cols) -> None:
+        """Place rows of ``cols`` at output positions ``dest`` (a slice of
+        the inverted permutation, so distinct) in head, body and tail: the
+        overlapped reduce's write, by :func:`.native.scatter`. A body row
+        ``r`` of column ``i`` lies at ``(r // B) * (n_cols * B) + i * B +
+        r % B`` of the flat packed body: one position array serves every
+        column through a view that starts at ``i * B``."""
+        B = self.B
+        body_lo, body_hi = self.h, self.h + self.m * B
+
+        def _sub(name, sel):
+            src = cols[name]
+            return src if sel is None else src[sel]
+
+        if self.head is not None:
+            mask = dest < body_lo
+            if mask.any():
+                sel = None if mask.all() else mask
+                idx = dest if sel is None else dest[sel]
+                for n in self.names:
+                    native.scatter(_sub(n, sel), idx, self.head.columns[n])
+        if self.m:
+            mask = (dest >= body_lo) & (dest < body_hi)
+            if mask.any():
+                sel = None if mask.all() else mask
+                rel = (dest if sel is None else dest[sel]) - body_lo
+                pos = (rel // B) * (self.ncols * B) + rel % B
+                flat = self.mat.reshape(-1)
+                for i, n in enumerate(self.names):
+                    src = _sub(n, sel)
+                    if src.dtype != np.int32:
+                        src = src.view(np.int32)
+                    native.scatter(src, pos, flat[i * B:])
+        if self.tail is not None:
+            mask = dest >= body_hi
+            if mask.any():
+                sel = None if mask.all() else mask
+                idx = (dest if sel is None else dest[sel]) - body_hi
+                for n in self.names:
+                    native.scatter(_sub(n, sel), idx, self.tail.columns[n])
+
     def key_column(self, name: str) -> np.ndarray:
         """The logical values of one column over head, body and tail (the
         audit's input): the body's plane of it flattened in one copy."""
@@ -812,26 +865,125 @@ def _permuted_output(store, pack, template, source: Callable[[str], Any], perm: 
         packed.abort()
 
 
+def _fetch_window_depth(knobs: Optional[dict] = None) -> int:
+    """The windows the overlapped reduce keeps in flight ahead of its
+    scatter: the planner's ``fetch_window_depth`` when the task was given
+    one, else ``RSDL_FETCH_WINDOW_DEPTH``, default 4 (it also bounds the
+    windows cached at once)."""
+    if knobs and knobs.get("fetch_window_depth") is not None:
+        return max(1, int(knobs["fetch_window_depth"]))
+    from ray_shuffling_data_loader_tpu_torch.runtime.store import fetch_window_depth
+
+    return fetch_window_depth(default=4)
+
+
+def reduce_fetch_overlap_mode() -> str:
+    """``RSDL_REDUCE_FETCH_OVERLAP``: ``on``, ``off`` or ``auto`` (the
+    default, and any other value)."""
+    mode = os.environ.get("RSDL_REDUCE_FETCH_OVERLAP", "auto").strip().lower()
+    if mode in ("on", "1", "true"):
+        return "on"
+    if mode in ("off", "0", "false"):
+        return "off"
+    return "auto"
+
+
+def _overlapped_reduce(store, part_refs: Sequence[ObjectRef], counts: List[int], reduce_index: int, epoch: int,
+                       seed: int, pack=None, knobs: Optional[dict] = None):
+    """The reduce with its fetches overlapped: windows ``i + 1 .. i +
+    depth`` are fetched (the store's prefetch threads) while window ``i``
+    is placed. The permutation is inverted once (``inv[perm] = arange``,
+    by :func:`.native.scatter`), so window ``i``'s rows land at
+    ``out[inv[off_i:off_i+1]]``: ``out[j] = concat[perm[j]]``, the fused
+    path's bits. The read-ahead slides: once window ``i`` is mapped its
+    cache is dropped (the mapping keeps its pages until it is placed) and
+    window ``i + depth`` is asked for, so at most ``depth`` windows are
+    cached at once. Returns the output's ref(s), as :func:`shuffle_reduce`."""
+    depth = _fetch_window_depth(knobs)
+    store.prefetch(part_refs[:depth], max_parallel=depth)
+    dst_off = np.zeros(len(counts) + 1, dtype=np.int64)
+    np.cumsum(counts, out=dst_off[1:])
+    total = int(dst_off[-1])
+    perm = _reduce_seed(seed, epoch, reduce_index).permutation(total)
+    inv = np.empty(total, dtype=np.int64)
+    native.scatter(np.arange(total, dtype=np.int64), perm, inv)
+    pending = packed = None
+    allocated = False
+    try:
+        for i, ref in enumerate(part_refs):
+            part = store.get_columns(ref, populate=True)
+            store.drop_cache([ref])
+            if i + depth < len(part_refs):
+                store.prefetch([part_refs[i + depth]])
+            if not allocated:
+                allocated = True
+                packed = _packed_output(store, pack, total, part)
+                if packed is None:
+                    pending = store.create_columns({k: ((total, *v.shape[1:]), v.dtype) for k, v in part.items()})
+            lo, hi = int(dst_off[i]), int(dst_off[i + 1])
+            if hi > lo:
+                dest = inv[lo:hi]
+                if packed is not None:
+                    packed.scatter(dest, part)
+                else:
+                    for k, dst in pending.columns.items():
+                        native.scatter(part[k], dest, dst)
+            del part
+        if pending is None and packed is None:
+            pending = store.create_columns({})
+        if packed is not None:
+            if _audit.enabled():
+                packed.record_audit(epoch, reduce_index)
+            return packed.seal()
+        if _audit.enabled():
+            _audit.record_reduce(epoch, reduce_index, pending.columns)
+        return pending.seal()
+    finally:
+        if pending is not None:
+            pending.abort()  # a no-op after the seal
+        if packed is not None:
+            packed.abort()
+
+
 def shuffle_reduce(
-    reduce_index: int, epoch: int, seed: int, part_refs: Sequence[ObjectRef], pack=None, stats_collector=None
+    reduce_index: int, epoch: int, seed: int, part_refs: Sequence[ObjectRef], pack=None, stats_collector=None,
+    knobs: Optional[dict] = None, overlap: Optional[str] = None,
 ) -> Union[ObjectRef, List[ObjectRef]]:
     """Permute this reducer's partitions, in file order, straight into the
     store: one fused concat and gather per column
     (:func:`.native.take_multi`), with no concatenated copy. Returns the
     output's ref, or with ``pack = (rank-stream start, layout)`` its head,
     body and tail refs (:class:`_PackedOutput`). The inputs stay: the
-    epoch frees them once the result has landed."""
+    epoch frees them once the result has landed; this host's fetched
+    copies of foreign ones are dropped, failed or not.
+
+    ``overlap``: the driver's ``RSDL_REDUCE_FETCH_OVERLAP`` (None: this
+    process's); ``on``, or ``auto`` when some window would be fetched from
+    another host, takes :func:`_overlapped_reduce` (window refs only).
+    ``knobs``: the planner's, for its ``fetch_window_depth``."""
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_start", epoch)
     start = time.perf_counter()
     store = runtime.ensure_initialized().store
-    # Mapped populated: the gather reads its partitions in a random order,
-    # and first touches of pages in a random order cost more than filling
-    # the page tables in one call (measured on the host of an H100 machine,
-    # tools/torch_port_stage_profile.py).
-    parts = [store.get_columns(r, populate=True) for r in part_refs]
-    perm = _reduce_seed(seed, epoch, reduce_index).permutation(sum(p.num_rows for p in parts))
-    out = _permuted_output(store, pack, parts[0], lambda k: [p[k] for p in parts], perm, epoch, reduce_index)
+    mode = overlap or reduce_fetch_overlap_mode()
+    counts = [_ref_window_rows(r) for r in part_refs]
+    parts: list = []
+    try:
+        if (mode != "off" and all(c is not None for c in counts)
+                and (mode == "on" or any(store.needs_fetch(r) for r in part_refs))):
+            out = _overlapped_reduce(store, part_refs, counts, reduce_index, epoch, seed, pack, knobs)
+        else:
+            # Mapped populated: the gather reads its partitions in a random
+            # order, and first touches of pages in a random order cost more
+            # than filling the page tables in one call (measured on the host
+            # of an H100 machine, tools/torch_port_stage_profile.py).
+            parts = [store.get_columns(r, populate=True) for r in part_refs]
+            perm = _reduce_seed(seed, epoch, reduce_index).permutation(sum(p.num_rows for p in parts))
+            out = _permuted_output(store, pack, parts[0], lambda k: [p[k] for p in parts], perm, epoch,
+                                   reduce_index)
+    finally:
+        del parts  # the mappings go before their caches
+        store.drop_cache(list(part_refs))
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_done", epoch, time.perf_counter() - start)
     return out
@@ -855,23 +1007,29 @@ def shuffle_gather_reduce(
         stats_collector.call_oneway("reduce_start", epoch)
     start = time.perf_counter()
     store = runtime.ensure_initialized().store
-    caches = [store.get_columns(r) for r in cache_refs]
-    idx_parts = [store.get_columns(r)["idx"] for r in idx_refs]
-    offsets = np.zeros(len(idx_parts) + 1, dtype=np.int64)
-    np.cumsum([len(ix) for ix in idx_parts], out=offsets[1:])
-    total = int(offsets[-1])
-    perm = _reduce_seed(seed, epoch, reduce_index).permutation(total)
-    template = caches[0]
+    try:
+        caches = [store.get_columns(r) for r in cache_refs]
+        idx_parts = [store.get_columns(r)["idx"] for r in idx_refs]
+        offsets = np.zeros(len(idx_parts) + 1, dtype=np.int64)
+        np.cumsum([len(ix) for ix in idx_parts], out=offsets[1:])
+        total = int(offsets[-1])
+        perm = _reduce_seed(seed, epoch, reduce_index).permutation(total)
+        template = caches[0]
 
-    def source(k: str) -> np.ndarray:
-        # One near-sequential take per file (its windows ascend), then the
-        # permutation runs over this compact 1/R of the data.
-        compact = np.empty((total, *template[k].shape[1:]), template[k].dtype)
-        for i, (idx, cache) in enumerate(zip(idx_parts, caches)):
-            native.take(cache[k], idx, out=compact[offsets[i] : offsets[i + 1]])
-        return compact
+        def source(k: str) -> np.ndarray:
+            # One near-sequential take per file (its windows ascend), then
+            # the permutation runs over this compact 1/R of the data.
+            compact = np.empty((total, *template[k].shape[1:]), template[k].dtype)
+            for i, (idx, cache) in enumerate(zip(idx_parts, caches)):
+                native.take(cache[k], idx, out=compact[offsets[i] : offsets[i + 1]])
+            return compact
 
-    out = _permuted_output(store, pack, template, source, perm, epoch, reduce_index)
+        out = _permuted_output(store, pack, template, source, perm, epoch, reduce_index)
+    finally:
+        # Only the index windows' fetched copies go: the file caches serve
+        # every epoch.
+        caches = idx_parts = None
+        store.drop_cache(list(idx_refs))
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_done", epoch, time.perf_counter() - start)
     return out
@@ -1406,7 +1564,7 @@ def _est_decoded_bytes(filenames: List[str], narrow_to_32: bool, columns: Option
         if key in _PROBE_CACHE:
             return _PROBE_CACHE[key]
     try:
-        per_row, total_rows = runtime.get_context().pool.submit(
+        per_row, total_rows = runtime.get_context().scheduler.submit(
             _dataset_stats_task, list(filenames), narrow_to_32, None if columns is None else list(columns)
         ).result()
         est = per_row * total_rows * 1.15
@@ -1680,6 +1838,17 @@ class _StageTally:
             self.stats["decode_bytes_pruned"] = self.stats.get("decode_bytes_pruned", 0) + decode["bytes_pruned"]
 
 
+class _LocalTo:
+    """A scheduler whose ``submit`` is its locality submit for ``refs``:
+    the task goes to the host that holds most of them."""
+
+    def __init__(self, pool, refs: Sequence[ObjectRef]):
+        self._pool, self._refs = pool, refs
+
+    def submit(self, fn: Callable, *args, **kwargs):
+        return self._pool.submit_local_to(self._refs, fn, *args, **kwargs)
+
+
 def _submit_stage(pool, tally: _StageTally, native_on: bool, knobs: Optional[dict], fn: Callable, *args) -> cf.Future:
     """Submit ``fn(*args)`` through :func:`_run_stage`; the returned future
     resolves to ``fn``'s result, and its counts go to ``tally``."""
@@ -1719,7 +1888,7 @@ def shuffle_epoch(
     columns: Optional[Sequence[str]] = None,
     knobs: Optional[dict] = None,
 ) -> bool:
-    """One epoch's maps and reduces in the session's worker pool; each
+    """One epoch's maps and reduces on the session's scheduler; each
     reducer's output refs go to its rank in reducer order, then every rank
     gets its end-of-epoch signal. The epoch takes the index schedule when
     every file's cache is hot and :func:`_index_schedule_allowed` agrees,
@@ -1751,15 +1920,17 @@ def shuffle_epoch(
     if stats_collector is not None:
         stats_collector.call_oneway("epoch_start", epoch)
     ctx = runtime.ensure_initialized()
-    store, pool = ctx.store, ctx.pool
+    store, pool = ctx.store, ctx.scheduler
     if plan is None:
         plan = shuffle_plan_spec()
     if native_on is None:
         native_on = native.enabled()
+    overlap = reduce_fetch_overlap_mode()
     tally = _StageTally(stats, epoch)
 
-    def submit(fn, *args):
-        return _submit_stage(pool, tally, native_on, knobs, fn, *args)
+    def submit(fn, *args, local_to=None):
+        target = pool if local_to is None else _LocalTo(pool, local_to)
+        return _submit_stage(target, tally, native_on, knobs, fn, *args)
 
     if decode_cache is None:
         decode_cache = _DecodeCache(enabled=False)
@@ -1843,7 +2014,7 @@ def shuffle_epoch(
         if schedule == "index":
             fut = submit(
                 shuffle_plan, file_index, num_reducers, epoch, seed, cache_refs[file_index], stats_collector,
-                filename, plan,
+                filename, plan, local_to=[cache_refs[file_index]],
             )
             publish = False
         elif selective:
@@ -1855,6 +2026,7 @@ def shuffle_epoch(
             fut = submit(
                 shuffle_map, filename, file_index, num_reducers, epoch, seed, narrow_to_32, cache_ref, publish,
                 stats_collector, plan, columns, knobs, len(filenames),
+                local_to=[cache_ref] if cache_ref is not None else None,
             )
             if publish:
                 decode_cache.register(file_index, fut)
@@ -1896,7 +2068,8 @@ def shuffle_epoch(
                     attached_reduces.add(r)
             elif schedule == "index":
                 reduce_futs.append(submit(
-                    shuffle_gather_reduce, r, epoch, seed, parts_r, cache_refs, pack_for[r], stats_collector
+                    shuffle_gather_reduce, r, epoch, seed, parts_r, cache_refs, pack_for[r], stats_collector,
+                    local_to=parts_r,
                 ))
             elif selective:
                 reduce_futs.append(submit(
@@ -1904,7 +2077,8 @@ def shuffle_epoch(
                     pack_for[r], plan, stats_collector, columns, knobs,
                 ))
             else:
-                reduce_futs.append(submit(shuffle_reduce, r, epoch, seed, parts_r, pack_for[r], stats_collector))
+                reduce_futs.append(submit(shuffle_reduce, r, epoch, seed, parts_r, pack_for[r], stats_collector, knobs,
+                                          overlap, local_to=parts_r))
         _count(stats, "reducers_skipped", cursor)
         delivered = cursor
         # Each rank's rows delivered so far: the audit's stream offsets. A

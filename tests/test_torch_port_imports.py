@@ -223,3 +223,49 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     assert port.example_features(model, 4, device="cpu")[model.columns[0]].device.type == "cpu"
 
+
+
+# The cluster plane runs in the host agents, the store servers and their
+# workers, which never load torch.
+CLUSTER_PLANE = ("runtime/__init__.py", "runtime/transport.py", "runtime/actor.py", "runtime/cluster.py",
+                 "runtime/store.py", "runtime/tasks.py", "runtime/retry.py", "runtime/journal.py", "shuffle.py",
+                 "dataset.py", "batch_queue.py")
+
+
+def test_cluster_plane_imports_no_torch(tmp_path):
+    """The cluster plane's sources import no torch, no JAX and nothing of
+    the JAX package; a cluster's head, its agent and a task on the
+    agent's worker load none of them either."""
+    scanned = {os.path.relpath(p, PORT_DIR) for p in _sources()}
+    for rel in CLUSTER_PLANE:
+        assert rel in scanned
+        names = set(_imported_top_levels(os.path.join(PORT_DIR, rel)))
+        assert "torch" not in names and not names & FORBIDDEN, (rel, names)
+    script = textwrap.dedent(
+        f"""
+        import sys
+        sys.path.insert(0, {REPO!r})
+        sys.path.insert(0, {os.path.join(REPO, "tests")!r})
+
+        def main():
+            from ray_shuffling_data_loader_tpu_torch import runtime
+            from ray_shuffling_data_loader_tpu_torch.runtime import cluster, transport  # noqa: F401
+            import torch_port_helpers
+
+            ctx = runtime.init_cluster(advertise_host="127.0.0.1", num_workers=1)
+            worker = runtime.submit(torch_port_helpers.loaded_modules).result(timeout=60)
+            runtime.shutdown()
+            bad = {{"torch", *{sorted(FORBIDDEN)!r}}}
+            print("LOADED", sorted({{m.split(".")[0] for m in sys.modules}} & bad),
+                  sorted({{m.split(".")[0] for m in worker}} & bad))
+
+        if __name__ == "__main__":
+            main()
+        """
+    )
+    path = tmp_path / "cluster_drive.py"
+    path.write_text(script)
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA", "RSDL_"))}
+    out = subprocess.run([sys.executable, str(path)], capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED [] []" in out.stdout, out.stdout

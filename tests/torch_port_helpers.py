@@ -46,6 +46,20 @@ class Mailbox:
         raise KeyError("no such thing")
 
 
+class Blob:
+    """An actor whose ``get`` replies out of band: ``n`` int64s after a
+    pickled header."""
+
+    def get(self, n):
+        from ray_shuffling_data_loader_tpu_torch.runtime.transport import OutOfBand
+
+        data = np.arange(n, dtype=np.int64)
+        return OutOfBand({"n": n}, [b"head:", data], keepalive=data)
+
+    def echo(self, x):
+        return x
+
+
 # -- the trainer rank of the gradient tests ------------------------------------
 
 SMALL_DLRM = dict(embed_dim=8, top_mlp=(32, 16), vocab_cap=1000)
@@ -459,9 +473,100 @@ def audited_sessions(tmp_path_factory, rows, files, row_groups, reducers, traine
             audit.refresh_from_env()
 
 
+# -- the two-host run of the cluster tests ----------------------------------------------
+
+
+def _rank_keys(ds, num_epochs):
+    """Every epoch's ``key`` column as this rank iterated it, joined."""
+    out = {}
+    for epoch in range(num_epochs):
+        ds.set_epoch(epoch)
+        out[f"epoch{epoch}"] = np.concatenate([np.asarray(b["key"]) for b in ds])
+    return out
+
+
+def cluster_rank_main(spec):
+    """Rank 1 of the cluster tests' dataset, in a process of its own that
+    joins its host's session by directory (``RSDL_RUNTIME_DIR``): it finds
+    rank 0's queue through the registry and pulls the reducer outputs of
+    the other host; writes its keys to ``spec["rank1_out"]``."""
+    from ray_shuffling_data_loader_tpu_torch import runtime
+    from ray_shuffling_data_loader_tpu_torch.dataset import ShufflingDataset
+
+    runtime.init()
+    ds = ShufflingDataset(spec["files"], spec["epochs"], 2, spec["batch_size"], 1, num_reducers=spec["reducers"],
+                          seed=spec["seed"], queue_name=spec["queue"])
+    np.savez(spec["rank1_out"], **_rank_keys(ds, spec["epochs"]))
+    runtime.shutdown()
+    return 0
+
+
+def cluster_head_main(spec):
+    """Rank 0 and the shuffle's driver of the cluster tests: a cluster's
+    head (``spec["mode"] == "cluster"``: waits for the joined host, whose
+    session runs rank 1) or one host alone (``"single"``: rank 1 joins this
+    session). Writes rank 0's keys, the audit's verdicts, each agent's
+    tasks, each store server's bytes served and the shuffle's host-kernel
+    calls."""
+    import subprocess
+    import tempfile
+    import time
+
+    from ray_shuffling_data_loader_tpu_torch import runtime
+    from ray_shuffling_data_loader_tpu_torch.dataset import ShufflingDataset
+    from ray_shuffling_data_loader_tpu_torch.runtime.actor import ActorHandle
+    from ray_shuffling_data_loader_tpu_torch.telemetry import audit
+
+    cluster = spec["mode"] == "cluster"
+    if cluster:
+        ctx = runtime.init_cluster(advertise_host="127.0.0.1", num_workers=2)
+        with open(spec["addr_file"] + ".tmp", "w") as f:
+            f.write(ctx.cluster.address)
+        os.rename(spec["addr_file"] + ".tmp", spec["addr_file"])
+        deadline = time.time() + 60
+        while len(runtime.cluster_hosts()) < 2:
+            if time.time() > deadline:
+                raise RuntimeError("the second host never joined")
+            time.sleep(0.1)
+        other = runtime.cluster_hosts()[1]
+        rank1_env = {"RSDL_RUNTIME_DIR": os.path.join(tempfile.gettempdir(), other.split(":", 1)[1]),
+                     "RSDL_SHM_DIR": spec["rank1_shm"], "RSDL_SPILL_DIR": spec["rank1_spill"]}
+    else:
+        ctx = runtime.init(num_workers=2)
+        rank1_env = {"RSDL_RUNTIME_DIR": ctx.runtime_dir}
+    ds = ShufflingDataset(spec["files"], spec["epochs"], 2, spec["batch_size"], 0, num_reducers=spec["reducers"],
+                          seed=spec["seed"], queue_name=spec["queue"])
+    rank1 = subprocess.Popen([sys.executable, os.path.abspath(__file__), spec["spec_path"], "rank1"],
+                             env={**os.environ, **rank1_env})
+    keys = _rank_keys(ds, spec["epochs"])
+    ds.join()
+    if rank1.wait(timeout=120) != 0:
+        raise RuntimeError(f"rank 1 exited {rank1.returncode}")
+    out = {"verdicts": audit.verdicts(), "native_calls": ds.shuffle_stats.get("native_calls"), "agents": {},
+           "served": {}}
+    if cluster:
+        for host, info in ctx.cluster.registry.call("hosts").items():
+            out["agents"][host] = ActorHandle(tuple(info["agent"])).call("agent_stats")["completed"]
+            out["served"][host] = ActorHandle(tuple(info["store"])).call("fetch_stats")["bytes"]
+        out["queue_in_registry"] = ctx.cluster.lookup_named_actor(spec["queue"]) is not None
+        # Placement: an actor spawned on the joined host runs in its session.
+        from ray_shuffling_data_loader_tpu_torch.runtime.cluster import PlacementProbe
+
+        probe = runtime.spawn_actor(PlacementProbe, host_id=other, name="placement-probe")
+        out["probe"] = {"runtime_dir": probe.call("info")["runtime_dir"], "want": rank1_env["RSDL_RUNTIME_DIR"],
+                        "named": runtime.resolve_actor("placement-probe").address == probe.address}
+    np.savez(spec["rank0_out"], **keys)
+    with open(spec["result"], "w") as f:
+        json.dump(out, f)
+    runtime.shutdown()
+    return 0
+
+
 if __name__ == "__main__":
     with open(sys.argv[1]) as f:
         spec = json.load(f)
+    if spec.get("cluster_test"):
+        sys.exit(cluster_rank_main(spec) if sys.argv[2] == "rank1" else cluster_head_main(spec))
     if "sp_cases" in spec:
         sys.exit(sp_rank_main(spec, int(sys.argv[2])))
     if "model_parallelism" in spec:
