@@ -2,6 +2,7 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out result.json]
+    python3 chip_smoke.py --pool-ready <checkout root>   # only the worker pool's start-up, 3 times
 
 Phases, each of which fails the script (non-zero exit) on any error:
 
@@ -145,6 +146,32 @@ Phases, each of which fails the script (non-zero exit) on any error:
    epoch, step median and stall share beside the slices phase's, and the
    loopback fetch's GB/s of a 256 MiB segment (pickled, zero-copy on 1
    and 4 streams);
+   faults: the fault plane and stage recovery on the same dataset, in a
+   head process of its own (this script with ``--faults-head``), held to
+   the cluster phase's one-host run (audited, deterministic, the same
+   initial weights) as its reference. (a) The recovered run: the DLRM
+   slice for 2 epochs over 2 pool workers under one seeded schedule
+   (``FAULTS_SPEC``: a crashed map entry and a crashed reduce exit in each
+   epoch, a reduce's worker killed, a worker's store read lost, a
+   driver's send to the queue actor reset), a budget of 8 attempts,
+   strict audit, journaled: its staged tensors and losses must equal the
+   reference's bit for bit, both epochs reconcile ``ok`` with 10^6 rows
+   mapped = reduced = delivered = consumed and the reference's
+   ``delivered_seq``, every kind must have fired (both crashes in both
+   epochs), ``stats`` must show retries of maps and reduces and maps
+   re-made from lineage, and K1 launch once a step on its tensor-core
+   route (``launches_faults``); (b) ``replay`` of its journal must exit 0
+   for both epochs with the schedule re-armed; (c) the poison
+   (``task.map:crash-entry:1.0``, 3 attempts): the trainer's loop must
+   raise ``StageFailedError`` (map, epoch 0, 3 attempts) within 60 s with
+   the stager's pinned ring and side stream released; (d) failover: a
+   head and a joined host (4 workers each), the joined host's process
+   group SIGKILLed once epoch 0's maps are journaled (its epoch-0 reduces
+   wait 8 s at entry, so none publishes first): the run must finish on
+   the head with the reference's tensors and losses, both verdicts ``ok``,
+   the host evicted and its maps re-made. No segment may be left in the
+   surviving directories. Logs each run's shuffle seconds per epoch, step
+   median and stall share beside the reference's;
    plan: the read plane. The Quick-start shape (10^6 rows, 10 files, seed
    0) written with 20 row groups a file, so that at 8 reducers the plan
    compiler picks ``block:1``. Six 2-epoch DLRM runs (batch 65536, bf16,
@@ -1494,14 +1521,15 @@ CLUSTER_WORKERS = 4  # each host's pool: the two hosts share the machine's cores
 FETCH_BENCH_BYTES = 256 << 20  # the loopback fetch's segment, about two reducer outputs of the slice
 
 
-def cluster_run(torch, port, filenames, label: str, model=None, init_state=None) -> dict:
+def cluster_run(torch, port, filenames, label: str, model=None, init_state=None, tag: str = "cluster") -> dict:
     """Two epochs of the slices' dataset through ``DeviceShufflingDataset``
     (batch 65536, 8 reducers, seed 0): with ``model``, the DLRM trained from
     ``init_state`` (a fresh Adam 1e-3), else delivery alone. Per batch a
     digest of every staged tensor, ``key`` included, on the card; each
     epoch's keys exactly once; the losses, K1's launches (counted from 0),
     the step and epoch seconds, the stall, the shuffle's statistics and the
-    audit's verdicts."""
+    audit's verdicts; its recoveries (``stage_retries``, ``rematerialized``,
+    ``recovery_log``) and journal. ``tag`` heads its log lines."""
     import numpy as np
 
     import ray_shuffling_data_loader_tpu_torch.ops as ops
@@ -1536,22 +1564,23 @@ def cluster_run(torch, port, filenames, label: str, model=None, init_state=None)
         got = torch.cat(keys).cpu().numpy()
         want = (NUM_ROWS // batch_size) * batch_size
         if got.size != want or np.unique(got).size != want or got.min() < 0 or got.max() >= NUM_ROWS:
-            raise AssertionError(f"[cluster {label}] epoch {epoch}: {got.size} keys, {np.unique(got).size} distinct; "
+            raise AssertionError(f"[{tag} {label}] epoch {epoch}: {got.size} keys, {np.unique(got).size} distinct; "
                                  f"want {want} in [0, {NUM_ROWS})")
     launches = read_launches(ops)
     ds.join()
     stats, staging = ds.dataset.shuffle_stats, ds.stats.as_dict()
     if losses and not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"[cluster {label}] non-finite loss: {losses}")
+        raise AssertionError(f"[{tag} {label}] non-finite loss: {losses}")
     run = {
         "digests": torch.stack(digests).cpu().tolist(), "losses": losses, "launches": launches, "steps": len(losses),
         "step_ms_median": statistics.median(step_s[1:]) * 1e3 if step_s else None, "epoch_s": epoch_s,
         "epoch_shuffle_s": stats.get("epoch_shuffle_s"), "stall_s": staging["stall_s"],
         "stall_share": staging["stall_s"] / sum(epoch_s), "native_calls": stats.get("native_calls"),
         "plain_calls": stats.get("plain_calls"), "schedules": [s for _, s in ds.dataset.schedule_log],
-        "verdicts": audit.verdicts(),
+        "verdicts": audit.verdicts(), "journal": stats.get("journal"),
+        "recovery": {k: stats.get(k) for k in ("stage_retries", "rematerialized", "recovery_log")},
     }
-    log(f"[cluster {label}] {len(digests)} batches, {run['steps']} steps; schedules {run['schedules']}; shuffle s per "
+    log(f"[{tag} {label}] {len(digests)} batches, {run['steps']} steps; schedules {run['schedules']}; shuffle s per "
         f"epoch {run['epoch_shuffle_s']!r}; epochs {epoch_s!r} s; step median {run['step_ms_median']!r} ms; stall "
         f"{run['stall_s']!r} s (share {run['stall_share']!r}); host kernel calls {run['native_calls']}; K1 "
         f"{launches['interaction']} ({launches['interaction_mma']} mma)")
@@ -1805,11 +1834,361 @@ def phase_cluster(torch, filenames, unaudited: dict, work: str) -> dict:
         f"phase's {unaudited['step_ms_median']!r}); stall share {run['stall_share']!r} (one host "
         f"{single['stall_share']!r}, the slices phase's {stall_share(unaudited)!r}); bytes served per host "
         f"{ {h: v['served_bytes'] for h, v in run['hosts'].items()} }")
-    for r in res.values():
-        r.pop("digests", None)
+    for label, r in res.items():
+        if label != "single":  # the fault phase's reference
+            r.pop("digests", None)
     res["wall_s"] = time.perf_counter() - t_phase
     res["launches"] = n
     log(f"[cluster] phase {res['wall_s']:.1f} s")
+    return res
+
+
+# The fault phase's recovered run: one seeded schedule over 2 pool workers
+# (each rule fires at most once a process, so a task's retries meet at most
+# as many unspent rules as there are workers), a crashed map entry and a
+# crashed reduce exit in each epoch, a worker killed in a reduce, a lost
+# store object on a worker and a reset of a driver's send to the queue
+# actor. The seed puts the kill at a worker's twelfth invocation of the
+# reduce site and the lost object at its seventeenth read: a worker started
+# in place of a dead one does work before any rule can fire on it again.
+# A task's retries can still meet a fresh worker's rules one after another
+# (the driver retries one task at a time): a task took up to 5 attempts in
+# CPU rehearsals of this schedule at 20,000 rows, hence a budget of 8.
+FAULTS_SPEC = ("task.map/task:crash-entry:1@0x1,task.map/task:crash-entry:1@1x1,"
+               "task.reduce/task:crash-exit:1@0x1,task.reduce/task:crash-exit:1@1x1,"
+               "task.reduce/task:kill:0.3x1,store.get/task:lost:0.1x1,transport.send/driver:reset:0.05x1")
+FAULTS_SEED = 60
+FAULTS_WORKERS = 2
+FAULTS_ATTEMPTS = 8
+POISON_SPEC = "task.map:crash-entry:1.0"
+POISON_BOUND_S = 60.0
+FAULTS_KNOBS = ("RSDL_FAULTS", "RSDL_FAULTS_SEED", "RSDL_FAULTS_DELAY_S", "RSDL_STAGE_MAX_ATTEMPTS", "RSDL_JOURNAL",
+                "RSDL_INDEX_SHUFFLE", "RSDL_AUDIT_STRICT")
+# The failover run's joined host: every epoch-0 reduce there waits this long
+# at its entry, so that the host dies after epoch 0's maps and before any of
+# its reduces publishes.
+FAILOVER_DELAY_S = "8"
+
+
+def _left(dirs) -> dict:
+    return {d: sorted(os.listdir(d)) for d in dirs if os.path.isdir(d) and os.listdir(d)}
+
+
+def _journal_maps(directory: str, epoch: int) -> int:
+    """The ``map`` records of ``epoch`` in the run journal under
+    ``directory`` (0 before it exists)."""
+    import glob
+
+    n = 0
+    for path in glob.glob(os.path.join(directory, "run-*.ndjson")):
+        with open(path) as f:
+            for line in f:
+                if '"kind": "map"' in line and json.loads(line).get("epoch") == epoch:
+                    n += 1
+    return n
+
+
+def faults_head(spec: dict) -> int:
+    """The ``[faults]`` phase's runs, in a process of their own (its shm and
+    spill directories are the phase's): (1) the recovered run, journaled;
+    (2) ``replay`` of its journal; (3) the poison; (4) failover: a cluster
+    whose joined host is SIGKILLed after epoch 0's maps. Every training run
+    starts from the DLRM's seeded weights under deterministic algorithms,
+    as the ``[cluster]`` phase's one-host run, the reference. Writes the
+    results to ``spec["result"]``; the phase checks them."""
+    import signal
+    import threading
+
+    import torch
+
+    import ray_shuffling_data_loader_tpu_torch as port
+    from ray_shuffling_data_loader_tpu_torch.runtime import faults
+    from ray_shuffling_data_loader_tpu_torch.runtime.actor import ActorHandle
+    from ray_shuffling_data_loader_tpu_torch.shuffle import StageFailedError
+    from ray_shuffling_data_loader_tpu_torch.telemetry import audit
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    files, dirs = spec["files"], [os.environ["RSDL_SHM_DIR"], os.environ["RSDL_SPILL_DIR"]]
+    model = port.dlrm_for_data_spec()
+    init_state = copy.deepcopy(model.state_dict())
+    out = {}
+
+    def armed(schedule: str, seed: int, **extra):
+        env = {"RSDL_AUDIT_DIR": spec["spool"], "RSDL_AUDIT_STRICT": "1", **extra}
+        if schedule:
+            env.update(RSDL_FAULTS=schedule, RSDL_FAULTS_SEED=str(seed))
+        return environment(env, clear=FAULTS_KNOBS)
+
+    # (1) The recovered run: the schedule armed before the session starts.
+    with armed(FAULTS_SPEC, FAULTS_SEED, RSDL_STAGE_MAX_ATTEMPTS=str(FAULTS_ATTEMPTS), RSDL_INDEX_SHUFFLE="off",
+               RSDL_JOURNAL=spec["journal"]):
+        audit.refresh_from_env()
+        faults.refresh_from_env()
+        ctx = port.runtime.init(num_workers=FAULTS_WORKERS)
+        try:
+            log(f"[faults] recovered: worker pool up in {start_pool(port)!r} s; schedule {FAULTS_SPEC} seed "
+                f"{FAULTS_SEED}, {FAULTS_ATTEMPTS} attempts")
+            run = cluster_run(torch, port, files, "recovered", model, init_state, tag="faults")
+            run["driver_fired"] = {f"{s}:{k}": n for (s, k), n in faults.fired_counts().items()}
+            run["pool_deaths"] = ctx.pool.deaths
+        finally:
+            port.runtime.shutdown()
+    faults.refresh_from_env()
+    run["left"] = _left(dirs)
+    out["recovered"] = run
+
+    # (2) Replay of the recovered run's journal, with the schedule re-armed.
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
+    env.update({k: os.environ[k] for k in ("RSDL_SHM_DIR", "RSDL_SPILL_DIR")})
+    # The journal records the schedule, not the budget it was recovered in.
+    env["RSDL_STAGE_MAX_ATTEMPTS"] = str(FAULTS_ATTEMPTS)
+    report = os.path.join(spec["work"], "replay.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_shuffling_data_loader_tpu_torch.replay", run["journal"], "--workers",
+         str(FAULTS_WORKERS), "--json", report], capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    out["replay"] = {"code": proc.returncode, "s": time.perf_counter() - t0, "stderr": proc.stderr[-3000:]}
+    if proc.returncode == 0:
+        with open(report) as f:
+            out["replay"]["report"] = json.load(f)
+    log(f"[faults] replay exited {proc.returncode} in {out['replay']['s']!r} s")
+
+    # (3) The poison: every map attempt crashes.
+    with armed(POISON_SPEC, 3, RSDL_STAGE_MAX_ATTEMPTS="3"):
+        audit.refresh_from_env()
+        faults.refresh_from_env()
+        port.runtime.init(num_workers=FAULTS_WORKERS)
+        poison = {}
+        try:
+            start_pool(port)
+            features = [c for c in port.DATA_SPEC if c != port.LABEL_COLUMN]
+            ds = port.DeviceShufflingDataset(files, num_epochs=2, num_trainers=1, batch_size=65536, rank=0,
+                                             feature_columns=features, label_column=port.LABEL_COLUMN,
+                                             num_reducers=8, seed=0, device="cuda")
+            ds.set_epoch(0)
+            t0 = time.perf_counter()
+            try:
+                poison["batches"] = sum(1 for _ in ds)
+            except StageFailedError as exc:
+                poison.update(raised=type(exc).__name__, stage=exc.stage, epoch=exc.epoch, attempts=exc.attempts)
+            poison["s"] = time.perf_counter() - t0
+            poison["released"] = ds._copy_stream is None and all(b is None for b in ds._pinned)
+        finally:
+            port.runtime.shutdown()
+    faults.refresh_from_env()
+    poison["left"] = _left(dirs)
+    out["poison"] = poison
+    log(f"[faults] poison: {poison}")
+
+    # (4) Failover: a head and a joined host; the joined host (its agent,
+    # store server and workers) SIGKILLed once epoch 0's maps are journaled.
+    joined_dirs = [spec["joined_shm"], spec["joined_spill"]]
+    with armed("", 0, RSDL_JOURNAL=spec["journal_failover"]):
+        audit.refresh_from_env()
+        faults.refresh_from_env()
+        ctx = port.runtime.init_cluster(advertise_host="127.0.0.1", num_workers=CLUSTER_WORKERS)
+        joined = None
+        try:
+            joined_env = {k: v for k, v in os.environ.items() if k not in FAULTS_KNOBS}
+            joined_env.update(RSDL_SHM_DIR=joined_dirs[0], RSDL_SPILL_DIR=joined_dirs[1],
+                              RSDL_FAULTS="task.reduce/task:delay:1@0", RSDL_FAULTS_DELAY_S=FAILOVER_DELAY_S)
+            with open(os.path.join(spec["work"], "joined.log"), "w") as logf:
+                joined = subprocess.Popen(
+                    [sys.executable, "-m", "ray_shuffling_data_loader_tpu_torch.runtime.cluster", "join",
+                     ctx.cluster.address, "--num-workers", str(CLUSTER_WORKERS)],
+                    env=joined_env, cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT, start_new_session=True)
+            deadline = time.monotonic() + 60
+            while len(port.runtime.cluster_hosts()) < 2:
+                if time.monotonic() > deadline or joined.poll() is not None:
+                    raise RuntimeError("[faults] the second host did not join")
+                time.sleep(0.05)
+            for info in ctx.cluster.registry.call("hosts").values():
+                ActorHandle(tuple(info["agent"])).call("submit", os.getpid, (), {})
+            killed = {}
+
+            def kill_after_maps():
+                while _journal_maps(spec["journal_failover"], 0) < len(files):
+                    if joined.poll() is not None:
+                        return
+                    time.sleep(0.01)
+                os.killpg(joined.pid, signal.SIGKILL)
+                killed["at"] = time.perf_counter()
+
+            killer = threading.Thread(target=kill_after_maps, daemon=True)
+            killer.start()
+            t0 = time.perf_counter()
+            run = cluster_run(torch, port, files, "failover", model, init_state, tag="faults")
+            killer.join(timeout=5)
+            run["killed_after_s"] = killed["at"] - t0 if "at" in killed else None
+            run["hosts_after"] = port.runtime.cluster_hosts()
+            run["agents_after"] = len(ctx.cluster.scheduler().agent_addresses)
+        finally:
+            port.runtime.shutdown()
+            if joined is not None and joined.poll() is None:
+                os.killpg(joined.pid, signal.SIGKILL)
+            if joined is not None:
+                joined.wait(timeout=30)
+    faults.refresh_from_env()
+    run["left"] = _left(dirs)
+    # The dead host's directories hold what it made before it died.
+    run["dead_host_left"] = sum(len(v) for v in _left(joined_dirs).values())
+    out["failover"] = run
+    with open(spec["result"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def pool_ready(root: str, repeats: int = 3) -> int:
+    """Print the start-up (``WorkerPool.ready_s``: spawn until every worker
+    reported in) of ``repeats`` fresh 8-worker pools of the checkout at
+    ``root``, one after the other, as ``POOL <root> ready_s [...]``."""
+    sys.path.insert(0, os.path.abspath(root))
+    from ray_shuffling_data_loader_tpu_torch.runtime.tasks import WorkerPool
+
+    ready = []
+    for _ in range(repeats):
+        pool = WorkerPool(8)
+        try:
+            deadline = time.monotonic() + 120
+            while pool.ready_s is None and time.monotonic() < deadline:
+                time.sleep(0.005)
+            ready.append(pool.ready_s)
+        finally:
+            pool.shutdown()
+    print(f"POOL {root} ready_s {ready!r}")
+    return 0 if all(r is not None for r in ready) else 1
+
+
+def phase_faults(torch, filenames, reference: dict, work: str) -> dict:
+    """The fault plane on the slices' dataset, in a head process
+    (:func:`faults_head`) with its own shm and spill directories and one
+    audit spool. Held against ``reference`` (the ``[cluster]`` phase's
+    audited, deterministic one-host DLRM run): the recovered run and the
+    failover run must stage its tensors and train its losses bit for bit,
+    each epoch reconcile ``ok`` with every row mapped, reduced, delivered
+    and consumed; the recovered run's schedule must have fired each kind
+    (map crashes and reduce crashes in both epochs, a worker's death, a lost
+    object re-made from lineage, the driver's reset) and K1 launch once a
+    step on its tensor-core route; ``replay`` of its journal must exit 0
+    with the schedule re-armed; the poison must raise ``StageFailedError``
+    (map, epoch 0, 3 attempts) within ``POISON_BOUND_S`` with the stager's
+    pinned ring and side stream released; failover must evict the dead
+    host and re-make its segments; no segment may be left."""
+    t_phase = time.perf_counter()
+    tag = f"rsdl-faults-{os.getpid()}"
+    dirs = {"RSDL_SHM_DIR": f"/dev/shm/{tag}-head", "RSDL_SPILL_DIR": os.path.join(work, "spill-head")}
+    spec = {
+        "files": filenames, "work": work, "result": os.path.join(work, "result.json"),
+        "spool": os.path.join(work, "spool"), "journal": os.path.join(work, "journal"),
+        "journal_failover": os.path.join(work, "journal-failover"),
+        "joined_shm": f"/dev/shm/{tag}-joined", "joined_spill": os.path.join(work, "spill-joined"),
+    }
+    spec_path = os.path.join(work, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
+    env.update(dirs, RSDL_ADVERTISE_HOST="127.0.0.1", RSDL_AUDIT="1")
+    head = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--faults-head", spec_path],
+                            env=env, cwd=ROOT)
+    try:
+        code = head.wait(timeout=600)
+    finally:
+        if head.poll() is None:
+            head.kill()
+            head.wait()
+        for d in (dirs["RSDL_SHM_DIR"], spec["joined_shm"]):
+            shutil.rmtree(d, ignore_errors=True)
+    if code != 0:
+        raise AssertionError(f"[faults] the head exited {code}")
+    with open(spec["result"]) as f:
+        res = json.load(f)
+
+    def same_as_reference(label: str) -> None:
+        run = res[label]
+        for v in run["verdicts"]:
+            rows = [v[k] for k in ("rows_mapped", "rows_reduced", "rows_delivered", "rows_consumed")]
+            if v["ok"] is not True or v["mismatch"] or rows != [NUM_ROWS] * 4:
+                raise AssertionError(f"[faults] {label}: epoch {v['epoch']} verdict {v}")
+        if [v["epoch"] for v in run["verdicts"]] != [0, 1]:
+            raise AssertionError(f"[faults] {label}: verdicts {run['verdicts']}")
+        for got, want in zip(run["verdicts"], reference["verdicts"]):
+            if got["delivered_seq"] != want["delivered_seq"]:
+                raise AssertionError(f"[faults] {label}: epoch {want['epoch']} delivered_seq {got['delivered_seq']} "
+                                     f"against the reference's {want['delivered_seq']}")
+        if run["digests"] != reference["digests"]:
+            raise AssertionError(f"[faults] {label}: other staged tensors than the reference's")
+        if run["losses"] != reference["losses"]:
+            diff = max(abs(a - b) for a, b in zip(run["losses"], reference["losses"]))
+            raise AssertionError(f"[faults] {label}: losses differ from the reference's by up to {diff!r}")
+        n = run["launches"]
+        if (n["interaction"] != run["steps"] or n["interaction_mma"] != run["steps"]
+                or any(v for k, v in n.items() if not k.startswith("interaction"))):
+            raise AssertionError(f"[faults] {label}: launches {n} in {run['steps']} steps")
+        if run["left"]:
+            raise AssertionError(f"[faults] {label}: segments left after shutdown: {run['left']}")
+
+    rec = res["recovered"]
+    same_as_reference("recovered")
+    log_ = rec["recovery"]["recovery_log"] or []
+    kinds = {}
+    for e in log_:
+        kinds.setdefault((e["epoch"], e["stage"], e.get("error")), 0)
+        kinds[(e["epoch"], e["stage"], e.get("error"))] += 1
+    for epoch in (0, 1):
+        for stage in ("map", "reduce"):
+            if not kinds.get((epoch, stage, "FaultInjected")):
+                raise AssertionError(f"[faults] recovered: no crashed {stage} in epoch {epoch}: {kinds}")
+    deaths = sum(v for k, v in kinds.items() if k[2] == "WorkerDied")
+    lost = sum(v for k, v in kinds.items() if k[2] == "ObjectLostError")
+    remade = (rec["recovery"]["rematerialized"] or {}).get("map", 0)
+    if not deaths or rec["pool_deaths"] < 1:
+        raise AssertionError(f"[faults] recovered: no worker died in a reduce: {kinds}, deaths {rec['pool_deaths']}")
+    if not lost or not remade:
+        raise AssertionError(f"[faults] recovered: no object lost and re-made: {kinds}, {rec['recovery']}")
+    if rec["driver_fired"].get("transport.send:reset") != 1:
+        raise AssertionError(f"[faults] recovered: the driver's reset did not fire: {rec['driver_fired']}")
+    retries = rec["recovery"]["stage_retries"]
+    log(f"[faults] recovered: the reference's {len(rec['digests'])} staged batches and {len(rec['losses'])} losses "
+        f"bit for bit; both epochs ok at {NUM_ROWS} rows; retries {retries}, re-made {rec['recovery']['rematerialized']}"
+        f", by (epoch, stage, error) {kinds}; workers died {rec['pool_deaths']}; driver {rec['driver_fired']}")
+    log(f"[faults] recovered against the reference: shuffle s per epoch {rec['epoch_shuffle_s']!r} against "
+        f"{reference['epoch_shuffle_s']!r}; step median {rec['step_ms_median']!r} against "
+        f"{reference['step_ms_median']!r} ms; stall share {rec['stall_share']!r} against {reference['stall_share']!r}")
+
+    rep = res["replay"]
+    if rep["code"] != 0:
+        raise AssertionError(f"[faults] replay exited {rep['code']}: {rep['stderr']}")
+    report = rep["report"]
+    if (sorted(report["epochs"]) != ["0", "1"] or not all(e["ok"] for e in report["epochs"].values())
+            or report["faults"]["spec"] != FAULTS_SPEC or report["faults"]["seed"] != str(FAULTS_SEED)):
+        raise AssertionError(f"[faults] replay report: {report}")
+    log(f"[faults] replay: both epochs reproduced (exit 0) under the re-armed schedule in {rep['s']!r} s; the "
+        f"replay's driver fired {report['faults']['fired']}")
+
+    poison = res["poison"]
+    if (poison.get("raised"), poison.get("stage"), poison.get("epoch"), poison.get("attempts")) != (
+            "StageFailedError", "map", 0, 3):
+        raise AssertionError(f"[faults] poison: {poison}")
+    if poison["s"] > POISON_BOUND_S or not poison["released"] or poison["left"]:
+        raise AssertionError(f"[faults] poison: {poison}")
+    log(f"[faults] poison: StageFailedError(map, epoch 0, 3 attempts) reached the trainer in {poison['s']!r} s "
+        f"(bound {POISON_BOUND_S}); pinned ring and side stream released; no segment left")
+
+    fo = res["failover"]
+    same_as_reference("failover")
+    fo_remade = (fo["recovery"]["rematerialized"] or {}).get("map", 0)
+    if fo["killed_after_s"] is None or len(fo["hosts_after"]) != 1 or fo["agents_after"] != 1 or not fo_remade:
+        raise AssertionError(f"[faults] failover: killed after {fo['killed_after_s']} s, hosts after "
+                             f"{fo['hosts_after']}, agents {fo['agents_after']}, recovery {fo['recovery']}")
+    log(f"[faults] failover: joined host SIGKILLed {fo['killed_after_s']!r} s into the run, after epoch 0's maps; "
+        f"evicted (hosts after: {fo['hosts_after']}); {fo_remade} maps re-made from lineage, retries "
+        f"{fo['recovery']['stage_retries']}; the reference's tensors and losses bit for bit; shuffle s per epoch "
+        f"{fo['epoch_shuffle_s']!r}; the dead host left {fo['dead_host_left']} segments in its own directories")
+    for r in (rec, fo):
+        r.pop("digests", None)
+    res["launches"] = rec["launches"]
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"[faults] phase {res['wall_s']:.1f} s")
     return res
 
 
@@ -2788,6 +3167,10 @@ def main() -> int:
     parser.add_argument("--sp-spec", default=None, help=argparse.SUPPRESS)
     # The cluster phase's head.
     parser.add_argument("--cluster-head", default=None, help=argparse.SUPPRESS)
+    # The fault phase's head.
+    parser.add_argument("--faults-head", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--pool-ready", default=None, metavar="ROOT",
+                        help="only time fresh 8-worker pools of the checkout at ROOT (its ready_s) and exit")
     args = parser.parse_args()
 
     import torch
@@ -2801,6 +3184,11 @@ def main() -> int:
     if args.cluster_head is not None:
         with open(args.cluster_head) as f:
             return cluster_head(json.load(f))
+    if args.faults_head is not None:
+        with open(args.faults_head) as f:
+            return faults_head(json.load(f))
+    if args.pool_ready is not None:
+        return pool_ready(args.pool_ready)
     sys.path.insert(0, ROOT)
     name = torch.cuda.get_device_name(0)
     smi = smi_name_and_limit()
@@ -2839,6 +3227,13 @@ def main() -> int:
                 cluster = phase_cluster(torch, filenames, slices["dlrm"], cluster_dir)
             finally:
                 shutil.rmtree(cluster_dir, ignore_errors=True)
+            faults_dir = os.path.join(ROOT, "build", "faults")
+            shutil.rmtree(faults_dir, ignore_errors=True)
+            os.makedirs(faults_dir)
+            try:
+                faults = phase_faults(torch, filenames, cluster["single"], faults_dir)
+            finally:
+                shutil.rmtree(faults_dir, ignore_errors=True)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
         plan_dir = os.path.join(ROOT, "build", "plan_data")
@@ -2906,6 +3301,8 @@ def main() -> int:
                 entry["launches_audit"] = audited["dlrm"]["launches"]["interaction_mma"]
                 # and in the DLRM run on the two-host cluster
                 entry["launches_cluster"] = cluster["launches"]["interaction_mma"]
+                # and in the DLRM run recovered through the fault schedule
+                entry["launches_faults"] = faults["launches"]["interaction_mma"]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: a phase failed", file=sys.stderr)
@@ -2932,6 +3329,7 @@ def main() -> int:
                     "resume": resume,
                     "audit": audited,
                     "cluster": cluster,
+                    "faults": faults,
                     "parity_max_abs_diff": {label: err for label, (err, _) in parity.items()},
                 },
                 f, indent=1,

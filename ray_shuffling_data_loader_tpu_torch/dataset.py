@@ -148,6 +148,7 @@ class ShufflingDataset:
         self._last_epoch: Optional[int] = None
         self._skip_batches = 0
         self._error: Optional[BaseException] = None
+        self._failed_epoch: Optional[int] = None  # whose end the failing shuffle sent
         self._thread: Optional[threading.Thread] = None
         # Rank 0: the shuffle's stats (see ``shuffle``) and each epoch's
         # schedule.
@@ -164,7 +165,7 @@ class ShufflingDataset:
             return
         self._batch_queue = BatchQueue(num_epochs, num_trainers, max_concurrent_epochs, name=queue_name)
         self._batch_queue.ready()
-        consumer = BatchConsumerQueue(self._batch_queue)
+        consumer = BatchConsumerQueue(self._batch_queue, on_failure=self._fail)
 
         def _drive():
             try:
@@ -179,10 +180,14 @@ class ShufflingDataset:
                 # queue again, and its name is free for the next dataset.
                 self._batch_queue.shutdown()
             except Exception as exc:  # raised on the consumer side
-                self._error = exc
+                self._fail(exc)
                 # Unblock every rank waiting on an epoch that will not come:
-                # the epochs before the failing one are fully signalled.
-                for epoch in range(self.shuffle_stats.get("epoch", start_epoch), num_epochs):
+                # the epochs before the failing one are fully signalled, and
+                # a failing epoch signals its own end.
+                first = self.shuffle_stats.get("epoch", start_epoch)
+                if self._failed_epoch is not None:
+                    first = self._failed_epoch + 1
+                for epoch in range(first, num_epochs):
                     for r in range(num_trainers):
                         self._batch_queue.producer_done(r, epoch)
 
@@ -276,16 +281,33 @@ class ShufflingDataset:
                 raise TimeoutError("the shuffle thread is still running")
         self._raise_if_failed()
 
+    def _fail(self, exc: BaseException, epoch: Optional[int] = None) -> None:
+        """Keep the shuffle's first error for the consumer side. A failing
+        ``epoch`` hands it over before it ends the ranks' epoch, so that
+        rank 0 raises it instead of ending the epoch short."""
+        if self._error is None:
+            self._error = exc
+        if epoch is not None:
+            self._failed_epoch = epoch
+
     def _raise_if_failed(self) -> None:
+        """Raise the shuffle's own error (a ``StageFailedError`` for a
+        poison task), as the JAX package's dataset does."""
         if self._error is not None:
-            raise RuntimeError("the shuffle driver failed") from self._error
+            raise self._error
 
 
 class BatchConsumerQueue(BatchConsumer):
-    """The shuffle's consumer interface over a :class:`BatchQueue`."""
+    """The shuffle's consumer interface over a :class:`BatchQueue`.
+    ``on_failure`` hears a failing epoch's error."""
 
-    def __init__(self, batch_queue: BatchQueue):
+    def __init__(self, batch_queue: BatchQueue, on_failure=None):
         self._batch_queue = batch_queue
+        self._on_failure = on_failure
+
+    def producer_failed(self, epoch: int, exc: BaseException) -> None:
+        if self._on_failure is not None:
+            self._on_failure(exc, epoch)
 
     def consume(self, rank: int, epoch: int, batches: List[ObjectRef], seq: Optional[int] = None) -> None:
         if self._batch_queue.put_batch(rank, epoch, batches, seq=seq) is False:

@@ -381,11 +381,24 @@ class DeviceShufflingDataset:
         self.stats.bytes_staged += host.numel() * 4
         return _Staged(dict(zip(spec.feature_columns, rows[:-1])), rows[-1], dev, event)
 
+    def _release_staging(self) -> None:
+        """After a failed epoch (the shuffle's error, raised to the
+        consumer): wait for the side stream's copies, then drop the pinned
+        ring and the stream. A later epoch makes them again."""
+        if not self._cuda or self._copy_stream is None:
+            return
+        self._copy_stream.synchronize()
+        self._copy_stream = None
+        self._pinned = [None] * self._prefetch_depth
+        self._pinned_events = [None] * self._prefetch_depth
+
     def _to_device(self, host: List[torch.Tensor]):
         """Start the copies on the side stream; returns the device tensors
         and the event that marks their completion."""
         if not self._cuda:
             return host, None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device=self.device)
         with torch.cuda.stream(self._copy_stream):
             dev = [t.to(self.device, non_blocking=True) for t in host]
             event = torch.cuda.Event()
@@ -504,4 +517,5 @@ class DeviceShufflingDataset:
                     time.sleep(0.01)
             thread.join()
             if error:
+                self._release_staging()
                 raise error[0]

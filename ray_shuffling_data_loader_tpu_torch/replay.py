@@ -19,9 +19,10 @@ Usage::
 ``--epoch`` defaults to every epoch with a verdict. The journal must be
 of a completed run: a suspended run's journal has no verdict and exits
 2; resume it first. A journal whose identity records a fault schedule
-(``RSDL_FAULTS``) exits 2 as well: the port has no fault plane yet, and
-a replay without the recorded faults would not be the recorded run.
-The replay never journals and never resumes. It reads journals of
+(``RSDL_FAULTS``, ``RSDL_FAULTS_SEED``) is replayed under that schedule,
+armed again before the replay's session starts (and both cleared when
+none was recorded): the recovered run delivered the fault-free stream,
+and so must its replay. The replay never journals and never resumes. It reads journals of
 either package: the format is the JAX package's (``tools/replay.py``).
 """
 
@@ -72,6 +73,11 @@ def _arm_recorded_env(identity: dict) -> None:
     """Set every knob that decides the stream to its recorded value, and
     make the replay a read-only re-run with a spool of its own."""
     os.environ["RSDL_SHUFFLE_PLAN"] = identity.get("plan") or "rowwise"
+    for key, value in (("RSDL_FAULTS", identity.get("faults")), ("RSDL_FAULTS_SEED", identity.get("faults_seed"))):
+        if value:
+            os.environ[key] = str(value)
+        else:
+            os.environ.pop(key, None)
     for key in ("RSDL_JOURNAL", "RSDL_RESUME", "RSDL_AUDIT_STRICT"):
         os.environ.pop(key, None)
     os.environ["RSDL_AUDIT"] = "1"
@@ -98,19 +104,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     else:
         epochs = sorted(state.verdicts)
     identity = state.identity
-    if identity.get("faults"):
-        _die(f"journal {state.path!r} records a fault schedule (RSDL_FAULTS={identity.get('faults')!r}): the port "
-             "has no fault plane to re-arm it, and a replay without it is not the recorded run")
     missing = [f for f in identity.get("filenames", []) if "://" not in f and not os.path.exists(f)]
     if missing:
         _die(f"recorded input files are gone: {missing[:3]}")
     _arm_recorded_env(identity)
 
     from ray_shuffling_data_loader_tpu_torch import runtime
+    from ray_shuffling_data_loader_tpu_torch.runtime import faults
     from ray_shuffling_data_loader_tpu_torch.shuffle import BatchConsumer, shuffle
     from ray_shuffling_data_loader_tpu_torch.telemetry import audit
 
     audit.refresh_from_env()
+    faults.refresh_from_env()
     device_layout = None
     if identity.get("device_batch"):
         device_layout = {"batch": int(identity["device_batch"]), "columns": list(identity.get("device_columns") or [])}
@@ -128,7 +133,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         def wait_until_all_epochs_done(self):
             pass
 
-    report = {"journal": state.path, "run_id": state.run_id, "epochs": {}, "ok": True}
+    report = {"journal": state.path, "run_id": state.run_id, "epochs": {}, "ok": True,
+              "faults": {"spec": os.environ.get("RSDL_FAULTS"), "seed": os.environ.get("RSDL_FAULTS_SEED")}}
     spool = audit.spool_dir()
     runtime.init(num_workers=args.workers)
     try:
@@ -153,6 +159,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             }
             report["ok"] = report["ok"] and ok
     finally:
+        # What fired in this process (the driver's sites); the workers'
+        # fires end with them.
+        report["faults"]["fired"] = {f"{site}:{kind}": n for (site, kind), n in sorted(faults.fired_counts().items())}
         runtime.shutdown()
         shutil.rmtree(spool, ignore_errors=True)
     out = json.dumps(report, indent=2)

@@ -5,6 +5,8 @@
 * :mod:`.actor`: named actors in their own processes (the batch queue).
 * :mod:`.transport`: their wire, on unix sockets and authenticated TCP.
 * :mod:`.cluster`: several hosts' sessions as one cluster.
+* :mod:`.faults`: seeded fault injection (``RSDL_FAULTS``), loaded at its
+  first use as ``runtime.faults``.
 
 ``init()`` creates a *session*, a runtime directory holding the actor
 registry whose name prefixes every shared-memory segment, or joins an
@@ -387,6 +389,15 @@ def free(refs) -> None:
 
 def store_stats() -> StoreStats:
     return get_context().store.store_stats()
+
+
+def __getattr__(name):
+    # ``runtime.faults`` is imported at its first use, not with the package.
+    if name == "faults":
+        import importlib
+
+        return importlib.import_module(f"{__name__}.faults")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 __all__ = [

@@ -168,6 +168,12 @@ class _ActorHost:
                 result = None
                 self._shutdown.set()
             else:
+                faults = transport.faults()
+                if faults.enabled():
+                    # Liveness faults: ``kill`` ends the process at once,
+                    # ``wedge`` blocks the event loop, so that pings go
+                    # unanswered too.
+                    faults.fire(f"actor.{type(self.instance).__name__}")
                 result = getattr(self.instance, method)(*args, **kwargs)
                 if asyncio.iscoroutine(result):
                     result = await result
@@ -239,6 +245,7 @@ def _actor_main(cls, args, kwargs, address: Address, registry_path, ready_q, wat
                 os._exit(0)
 
     threading.Thread(target=_watch, daemon=True).start()
+    transport.faults().set_role("actor")
     try:
         host = _ActorHost(cls(*args, **kwargs), address)
     except Exception:
@@ -323,6 +330,11 @@ class ActorHandle:
                 conn.send((req_id, method, args, kwargs, oneway, None))
                 return conn
             except (ActorDiedError, OSError) as e:
+                # A reset connection (a fault of ``transport.send`` among
+                # them) is closed and dialled again.
+                conn = getattr(self._local, "conn", None)
+                if conn is not None:
+                    conn.close()
                 self._local.conn = None
                 last = e
                 if attempt < policy.max_attempts:

@@ -25,7 +25,10 @@ The head is ``runtime.init_cluster(...)``; another host joins with
 
 Only :class:`~.store.ObjectRef` handles, stamped with their owner's store
 address, cross the control plane; bulk bytes move host to host once, on
-first use.
+first use. A host that dies takes its segments with it: a fetch from an
+owner that does not answer raises :class:`~.store.ObjectLostError` with
+the object's id, which the shuffle re-makes from its lineage, and the
+scheduler moves the dead agent's tasks to the others.
 
 The JAX package's cluster plane also counts agent evictions and task
 failovers (``recovery.agent_evictions``, ``recovery.task_failover``) and
@@ -47,7 +50,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from . import transport
 from .actor import ActorDiedError, ActorHandle, spawn_actor
-from .store import GrowingThreadPool, ObjectRef
+from .store import GrowingThreadPool, ObjectLostError, ObjectRef
 
 
 def parse_cluster_address(address: str) -> Tuple[str, int, Optional[str]]:
@@ -753,6 +756,7 @@ class ClusterClient:
         self._total_workers = 1
         self._peer_stores: Dict[Tuple, ActorHandle] = {}
         self._peer_lock = threading.Lock()
+        self._dead_stores: set = set()  # owners that stopped answering
         # Stripes 1..n-1 of striped fetches; each thread keeps one
         # connection per peer.
         self._stripe_pool = GrowingThreadPool("store-stripe")
@@ -769,8 +773,30 @@ class ClusterClient:
                 handle = self._peer_stores[address] = ActorHandle(address)
             return handle
 
+    def _owner_lost(self, ref: ObjectRef, exc: Exception) -> ObjectLostError:
+        """A fetch could not reach the owner: the object is lost to this
+        reader (and the owner marked dead when a ping fails too)."""
+        self.owner_alive(ref.owner)
+        return ObjectLostError(ref.object_id, f"owner {_addr_str(ref.owner)} unreachable: {exc}")
+
+    def owner_alive(self, owner) -> bool:
+        """Does the store server at ``owner`` answer (a short ping; an
+        owner seen dead stays dead)?"""
+        owner = tuple(owner)
+        with self._peer_lock:
+            if owner in self._dead_stores:
+                return False
+        if self._peer_store(owner).ping(timeout=2.0):
+            return True
+        with self._peer_lock:
+            self._dead_stores.add(owner)
+        return False
+
     def fetch_remote(self, ref: ObjectRef) -> bytes:
-        return self._peer_store(ref.owner).call("fetch", ref.object_id, ref.rows)
+        try:
+            return self._peer_store(ref.owner).call("fetch", ref.object_id, ref.rows)
+        except ActorDiedError as exc:
+            raise self._owner_lost(ref, exc) from exc
 
     def _stripe_executor(self, streams: int):
         # Four concurrent windows' extra stripes, at most 16 threads.
@@ -781,11 +807,15 @@ class ClusterClient:
         whose payload lands by ``recv_into`` in ``alloc(total)``, striped
         over ``RSDL_TCP_STREAMS`` connections when that is above 1."""
         streams = transport.tcp_streams()
-        if streams > 1:
-            fetch_vec_striped(self._peer_store(ref.owner), ref.object_id, ref.rows, alloc, streams,
-                              self._stripe_executor(streams))
-            return
-        meta, payload = self._peer_store(ref.owner).call_vectored("fetch_vec", ref.object_id, ref.rows, into=alloc)
+        try:
+            if streams > 1:
+                fetch_vec_striped(self._peer_store(ref.owner), ref.object_id, ref.rows, alloc, streams,
+                                  self._stripe_executor(streams))
+                return
+            meta, payload = self._peer_store(ref.owner).call_vectored("fetch_vec", ref.object_id, ref.rows,
+                                                                      into=alloc)
+        except ActorDiedError as exc:
+            raise self._owner_lost(ref, exc) from exc
         if payload is None:  # a plain reply: land it through the allocator
             view = memoryview(alloc(len(meta))).cast("B")
             view[: len(meta)] = meta
@@ -793,6 +823,9 @@ class ClusterClient:
             payload.release()
 
     def free_remote(self, ref: ObjectRef) -> None:
+        with self._peer_lock:
+            if tuple(ref.owner) in self._dead_stores:
+                return  # its segments went with it
         try:
             self._peer_store(ref.owner).call_oneway("free", ref.object_id)
         except ActorDiedError:

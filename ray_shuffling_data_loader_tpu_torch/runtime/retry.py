@@ -1,6 +1,7 @@
-"""The retry policies of the actor layer: bounded exponential backoff with
-jitter, so that N trainer ranks dialling one queue actor spread out
-instead of retrying in lockstep.
+"""The runtime's retry policies: bounded exponential backoff with jitter,
+so that N trainer ranks dialling one queue actor spread out instead of
+retrying in lockstep, and the shuffle's stage tasks re-execute a bounded
+number of times (:func:`stage_policy`).
 
 This module imports the standard library only.
 """
@@ -32,9 +33,11 @@ class RetryPolicy:
         d = min(self.max_delay_s, self.base_delay_s * self.multiplier ** max(0, attempt - 1))
         return d * (1.0 - self.jitter) + random.random() * self.jitter * d
 
-    def attempts(self) -> Iterator[Tuple[int, "_Attempt"]]:
-        """``(attempt, handle)`` pairs; after a failure call
-        ``handle.backoff()`` to sleep before the next attempt."""
+    def attempts(self, site: str = "") -> Iterator[Tuple[int, "_Attempt"]]:
+        """``(attempt, handle)`` pairs, attempts numbered from 1; after a
+        failure call ``handle.backoff()`` to sleep before the next attempt.
+        ``site`` names the caller (the JAX package's retry counter's label;
+        the port has no metrics plane yet)."""
         deadline = None if self.deadline_s is None else time.monotonic() + self.deadline_s
         for attempt in range(1, self.max_attempts + 1):
             yield attempt, _Attempt(self, attempt, deadline)
@@ -56,6 +59,13 @@ class _Attempt:
             d = min(d, max(0.0, self._deadline - time.monotonic()))
         if d > 0:
             time.sleep(d)
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
 
 
 def _env_float(name: str, default: float) -> float:
@@ -86,9 +96,23 @@ def call_policy() -> RetryPolicy:
     global _CALL_POLICY
     if _CALL_POLICY is None:
         _CALL_POLICY = RetryPolicy(
-            max_attempts=int(_env_float("RSDL_CALL_RETRIES", 3)),
+            max_attempts=_env_int("RSDL_CALL_RETRIES", 3),
             base_delay_s=0.05,
             max_delay_s=0.5,
             deadline_s=_env_float("RSDL_CALL_DEADLINE_S", 10.0),
         )
     return _CALL_POLICY
+
+
+def refresh_policies() -> None:
+    """Forget the cached policies; the next use reads the environment."""
+    global _CALL_POLICY
+    _CALL_POLICY = None
+
+
+def stage_policy() -> RetryPolicy:
+    """A shuffle stage task's re-execution budget:
+    ``$RSDL_STAGE_MAX_ATTEMPTS`` attempts (default 3, the first included)
+    from 0.05 s, capped at 1 s. A task that fails every attempt fails its
+    epoch with ``StageFailedError``. Read at every epoch."""
+    return RetryPolicy(max_attempts=_env_int("RSDL_STAGE_MAX_ATTEMPTS", 3), base_delay_s=0.05, max_delay_s=1.0)

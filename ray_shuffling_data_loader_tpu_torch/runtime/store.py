@@ -553,6 +553,10 @@ class ObjectStore:
         # after that discards its copy instead of orphaning it. Cleared
         # when it outgrows any window a prefetch could still be in flight.
         self._freed_caches: set = set()
+        # Cache names a prefetch is pulling now -> its future: a reader of
+        # the same window waits for it instead of fetching it again.
+        self._pulling: Dict[str, object] = {}
+        self._pulling_lock = threading.Lock()
 
     def _new_object_id(self) -> str:
         return f"{self.session}-{secrets.token_hex(8)}"
@@ -634,6 +638,9 @@ class ObjectStore:
         ``layout``) and return its writable views. The pages are reserved up
         front: a segment that does not fit raises :class:`StoreFullError`
         here, not a bus error when a view is written."""
+        faults = _transport.faults()
+        if faults.enabled():
+            faults.fire("store.put")
         meta, meta_blob, payload_start, total = _plan_layout(spec, layout)
         object_id = self._new_object_id()
         directory = self._placement_dir(total)
@@ -685,11 +692,27 @@ class ObjectStore:
         mapped populated if asked (:func:`map_segment_file`). A foreign ref
         whose segment is not in this host's directories is pulled from its
         owner once (just its window) into a cache segment, which later
-        reads map. A missing segment raises :class:`ObjectLostError`, one
-        that is not a segment :class:`ObjectCorruptError`."""
+        reads map. A missing segment, or a foreign one whose owner cannot be
+        reached, raises :class:`ObjectLostError`, one that is not a segment
+        :class:`ObjectCorruptError`; both carry the object's id, which the
+        shuffle's lineage re-makes. The ``store.get`` fault site fires
+        ``lost`` and ``corrupt`` here."""
+        faults = _transport.faults()
+        if faults.enabled():
+            kind = faults.should_fire("store.get")
+            if kind == "lost":
+                raise ObjectLostError(ref.object_id, "injected fault")
+            if kind == "corrupt":
+                raise ObjectCorruptError(ref.object_id, "injected fault")
         path = self._find_segment(ref.object_id)
         rows = ref.rows
         if path is None and self.is_foreign(ref):
+            with self._pulling_lock:
+                pull = self._pulling.get(self._cache_name(ref))
+            if pull is not None:
+                import concurrent.futures
+
+                concurrent.futures.wait([pull])
             cache = self._find_cache(ref)
             if cache is None:
                 cache = self._cache_path(ref)
@@ -765,6 +788,14 @@ class ObjectStore:
         pool = self._prefetch_pool.ensure(max_parallel)
 
         def _pull(ref: ObjectRef) -> None:
+            try:
+                _pull_once(ref)
+            finally:
+                # Under the lock: the submitter registers this pull first.
+                with self._pulling_lock:
+                    self._pulling.pop(self._cache_name(ref), None)
+
+        def _pull_once(ref: ObjectRef) -> None:
             name = self._cache_name(ref)
             if name in self._freed_caches or self._find_cache(ref) is not None:
                 return
@@ -782,7 +813,14 @@ class ObjectStore:
                         pass
                 self._foreign.discard(name)
 
-        return [pool.submit(_pull, r) for r in foreign]
+        futures = []
+        with self._pulling_lock:
+            for ref in foreign:
+                name = self._cache_name(ref)
+                if name not in self._pulling:
+                    self._pulling[name] = pool.submit(_pull, ref)
+                    futures.append(self._pulling[name])
+        return futures
 
     def _materialize_remote(self, ref: ObjectRef, path: str) -> None:
         """Pull a foreign ref's window from its owner and publish it at

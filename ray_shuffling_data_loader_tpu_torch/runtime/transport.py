@@ -21,9 +21,9 @@ file). ``RSDL_TCP_ZEROCOPY`` (default off) turns the store's fetches onto
 them, and ``RSDL_TCP_STREAMS`` (1 to 16, default 1) stripes each such
 fetch over that many connections.
 
-The JAX package's transport also fires its fault-injection sites here
-(``transport.send``, ``transport.recv``); the port has no fault plane
-yet, so those sites are left out.
+The fault sites ``transport.send`` (before a frame is sent: the peer saw
+nothing, so a retry is safe) and ``transport.recv`` fire here
+(:mod:`.faults`).
 
 This module imports the standard library only.
 """
@@ -239,6 +239,14 @@ loads = pickle.loads
 # -- sync client side -------------------------------------------------------
 
 
+def faults():
+    """The fault plane (:mod:`.faults`), imported at the first site that
+    asks, not with this module."""
+    from . import faults as plane
+
+    return plane
+
+
 class Connection:
     """A blocking framed connection (one per calling thread)."""
 
@@ -277,6 +285,8 @@ class Connection:
             self.sock.settimeout(timeout)
 
     def send(self, obj: Any) -> None:
+        if faults().enabled():
+            faults().fire("transport.send")
         payload = dumps(obj)
         self.sock.sendall(_LEN.pack(len(payload)) + payload)
 
@@ -291,6 +301,8 @@ class Connection:
         send side is the client->server half of the same framing —
         covered by the transport tests and reserved for a zero-copy put
         path."""
+        if faults().enabled():
+            faults().fire("transport.send")
         sendmsg_all(self.sock, vectored_frames(obj, buffers))
 
     def recv(self) -> Any:
@@ -308,6 +320,8 @@ class Connection:
         instead — the striped fetch plane needs the reply's stripe
         byte-range (carried in the header object) to hand back the right
         window of the shared destination mapping."""
+        if faults().enabled():
+            faults().fire("transport.recv")
         header = self._recv_exact(_LEN.size)
         (length,) = _LEN.unpack(header)
         if not length & _VEC_FLAG:

@@ -88,6 +88,20 @@ selects their plain numpy versions, bit for bit the same); each task
 returns its calls of each, and
 ``shuffle(stats=)`` sums them (``native_calls``, ``plain_calls``).
 
+**Stage recovery.** Every stage task may run up to
+``RSDL_STAGE_MAX_ATTEMPTS`` times (:func:`.runtime.retry.stage_policy`,
+default 3): a map, plan or reduce that fails (a crash, a worker that died,
+a lost input) runs again with the same seeds and knobs, so its output is
+the same bit for bit. A reduce whose input window is lost re-runs the map
+that made it (the epoch's lineage; when a host died, every map of that
+host feeding the reduce at once), the index schedule decodes a lost cache
+segment again, and the selective schedule, whose inputs are the Parquet
+files, resubmits. A task that fails every attempt fails its epoch with
+:class:`StageFailedError`, after every rank got its end of the epoch.
+The fault plane (:mod:`.runtime.faults`) fires ``task.map`` and
+``task.reduce`` at each stage task's entry and exit and
+``queue.producer`` before each delivery.
+
 **Journal** (``RSDL_JOURNAL`` or ``shuffle(resume_from=)``,
 :mod:`.runtime.journal`): the run's epoch window is journaled at the
 barriers, and a later run resumes it: completed epochs skipped, stage
@@ -122,16 +136,36 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from ray_shuffling_data_loader_tpu_torch import native, runtime
-from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch, ObjectRef
+from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch, ObjectRef, TaskError
+from ray_shuffling_data_loader_tpu_torch.runtime.retry import stage_policy
 from ray_shuffling_data_loader_tpu_torch.runtime.store import DEVICE_BATCH_KIND, PACKED_COLUMN
 from ray_shuffling_data_loader_tpu_torch.telemetry import audit as _audit
 
 _INT32 = np.iinfo(np.int32)
 
 
+class StageFailedError(TaskError):
+    """A stage task failed every attempt of its budget
+    (``RSDL_STAGE_MAX_ATTEMPTS``, default 3): what a poison task ends in,
+    raised out of :func:`shuffle` and to the trainer iterating the
+    dataset. ``stage`` is ``"map"``, ``"reduce"`` or
+    ``"map-rematerialize"``."""
+
+    def __init__(self, stage: str, epoch: int, attempts: int, message: str):
+        super().__init__(message, error_type="StageFailedError")
+        self.stage = stage
+        self.epoch = epoch
+        self.attempts = attempts
+
+    def __reduce__(self):
+        return (StageFailedError, (self.stage, self.epoch, self.attempts, self.args[0] if self.args else ""))
+
+
 class BatchConsumer:
     """What the shuffle delivers to: each reducer's output refs, in
-    reducer order per rank, and the end of each rank's epoch."""
+    reducer order per rank, and the end of each rank's epoch. A consumer
+    may also define ``producer_failed(epoch, exc)``: a failing epoch calls
+    it before it ends every rank's epoch."""
 
     def consume(self, rank: int, epoch: int, batches: List[ObjectRef]) -> None:
         """Take one reducer's output refs (one columnar segment, or a
@@ -534,6 +568,22 @@ def _knob_decode_threads(knobs: Optional[dict], stage_tasks: int) -> int:
     return decode_rowgroup_threads(stage_tasks)
 
 
+def _stage_fault(stage: str, epoch: int, point: str, published: Sequence[Optional[ObjectRef]] = ()) -> None:
+    """The ``task.map`` / ``task.reduce`` fault site at a stage task's entry
+    or exit (:mod:`.runtime.faults`). An exit fault frees what the attempt
+    published: its retry publishes the same rows again."""
+    faults = runtime.faults
+    if not faults.enabled():
+        return
+    try:
+        faults.fire(f"task.{stage}", epoch=epoch, point=point)
+    except BaseException:
+        published = [r for r in published if r is not None]
+        if published:
+            runtime.get_context().store.free(published)
+        raise
+
+
 def shuffle_map(
     filename: str,
     file_index: int,
@@ -563,6 +613,7 @@ def shuffle_map(
     columns once to a segment of their own and return ``(refs,
     cache_ref)``; a publish that does not fit returns a None cache ref,
     and the file is decoded again in later epochs."""
+    _stage_fault("map", epoch, "entry")
     if stats_collector is not None:
         stats_collector.call_oneway("map_start", epoch)
     start = time.perf_counter()
@@ -601,6 +652,7 @@ def shuffle_map(
         _audit.record_map(epoch, file_index, batch.columns, per_reducer=np.diff(offsets))
     if stats_collector is not None:
         stats_collector.call_oneway("map_done", epoch, time.perf_counter() - start, end_read - start)
+    _stage_fault("map", epoch, "exit", [*refs, new_cache_ref])
     return (refs, new_cache_ref) if publish_cache else refs
 
 
@@ -620,6 +672,7 @@ def shuffle_plan(
     cached file, in file order, the rows the materialized map's partition
     would hold. Column data is not read. ``filename``: the file's path, for
     the footer a block plan reads; ``plan`` as for :func:`shuffle_map`."""
+    _stage_fault("map", epoch, "entry")
     if stats_collector is not None:
         stats_collector.call_oneway("map_start", epoch)
     start = time.perf_counter()
@@ -644,6 +697,7 @@ def shuffle_plan(
         pending.abort()
     if stats_collector is not None:
         stats_collector.call_oneway("map_done", epoch, time.perf_counter() - start, end_read - start)
+    _stage_fault("map", epoch, "exit", refs)
     return refs
 
 
@@ -961,6 +1015,7 @@ def shuffle_reduce(
     process's); ``on``, or ``auto`` when some window would be fetched from
     another host, takes :func:`_overlapped_reduce` (window refs only).
     ``knobs``: the planner's, for its ``fetch_window_depth``."""
+    _stage_fault("reduce", epoch, "entry")
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_start", epoch)
     start = time.perf_counter()
@@ -986,6 +1041,7 @@ def shuffle_reduce(
         store.drop_cache(list(part_refs))
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_done", epoch, time.perf_counter() - start)
+    _stage_fault("reduce", epoch, "exit", out if isinstance(out, list) else [out])
     return out
 
 
@@ -1003,6 +1059,7 @@ def shuffle_gather_reduce(
     (each file's index window, ascending, in file order), so the output is
     the materialized reducer's, bit for bit. Returns as
     :func:`shuffle_reduce` does."""
+    _stage_fault("reduce", epoch, "entry")
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_start", epoch)
     start = time.perf_counter()
@@ -1032,6 +1089,7 @@ def shuffle_gather_reduce(
         store.drop_cache(list(idx_refs))
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_done", epoch, time.perf_counter() - start)
+    _stage_fault("reduce", epoch, "exit", out if isinstance(out, list) else [out])
     return out
 
 
@@ -1087,6 +1145,7 @@ def shuffle_selective_plan(
     packed outputs. With the audit armed it also decodes the audit key
     column alone, for the map side of the digest (``narrow_to_32``: as the
     reduce side narrows it)."""
+    _stage_fault("map", epoch, "entry")
     if stats_collector is not None:
         stats_collector.call_oneway("map_start", epoch)
     start = time.perf_counter()
@@ -1106,6 +1165,7 @@ def shuffle_selective_plan(
         _audit.record_map(epoch, file_index, cols, per_reducer=counts)
     if stats_collector is not None:
         stats_collector.call_oneway("map_done", epoch, time.perf_counter() - start, end_read - start)
+    _stage_fault("map", epoch, "exit")
     return [int(c) for c in counts]
 
 
@@ -1167,6 +1227,7 @@ def shuffle_selective_reduce(
     for bit, with nothing of the epoch in the store but the outputs.
     A column whose dtype depends on the selection (Arrow decodes an int64
     group with nulls as float64) raises."""
+    _stage_fault("reduce", epoch, "entry")
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_start", epoch)
     start = time.perf_counter()
@@ -1203,6 +1264,7 @@ def shuffle_selective_reduce(
     out = _permuted_output(store, pack, compact, compact.__getitem__, perm, epoch, reduce_index)
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_done", epoch, time.perf_counter() - start)
+    _stage_fault("reduce", epoch, "exit", out if isinstance(out, list) else [out])
     return out
 
 
@@ -1767,6 +1829,22 @@ def _count(stats: Optional[Dict[str, Any]], key: str, n: int = 1) -> None:
         counters[key] = counters.get(key, 0) + n
 
 
+def _count_recovery(stats: Optional[Dict[str, Any]], epoch: int, key: str, stage: str, task: int,
+                    exc: Optional[TaskError] = None) -> None:
+    """Count a recovery in the run's ``stats``: ``stage_retries`` or
+    ``rematerialized`` by stage, and one ``recovery_log`` entry (epoch,
+    what, stage, the file or reducer, and a retry's error type:
+    ``FaultInjected``, ``ObjectLostError``, ``WorkerDied``, ...)."""
+    if stats is None:
+        return
+    counters = stats.setdefault(key, {})
+    counters[stage] = counters.get(stage, 0) + 1
+    entry = {"epoch": epoch, "what": key, "stage": stage, "task": task}
+    if exc is not None:
+        entry["error"] = exc.error_type or type(exc).__name__
+    stats.setdefault("recovery_log", []).append(entry)
+
+
 def _accepts_seq(consumer: BatchConsumer) -> bool:
     """Does the consumer take a reducer's ``seq`` (idempotent delivery)?"""
     import inspect
@@ -1999,9 +2077,175 @@ def shuffle_epoch(
         _count(stats, "maps_reattached")
         return [int(c) for c in counts]
 
-    def free_inputs(r: int) -> None:
-        if not selective:
-            store.free([parts[r] for parts in partitions])
+    # -- stage recovery ---------------------------------------------------------
+    # Every stage task has a bounded re-execution budget (stage_policy). A
+    # reduce that lost an input re-runs the map that made it (the lineage);
+    # the index schedule's lost decode-cache segment is decoded again; a
+    # task that fails every attempt fails the epoch with StageFailedError.
+    policy = stage_policy()
+
+    def resubmit_map(i: int, publish: bool = False):
+        """A fresh attempt of map ``i``. A materialized map decodes from
+        Parquet, never from a cache segment (which may be what was lost),
+        and publishes again when the failed attempt was the file's
+        publisher; the index schedule plans over the file's current
+        cache segment."""
+        if schedule == "index":
+            return submit(shuffle_plan, i, num_reducers, epoch, seed, cache_refs[i], stats_collector, filenames[i],
+                          plan, local_to=[cache_refs[i]])
+        if selective:
+            return submit(shuffle_selective_plan, filenames[i], i, num_reducers, epoch, seed, plan, stats_collector,
+                          narrow_to_32)
+        return submit(shuffle_map, filenames[i], i, num_reducers, epoch, seed, narrow_to_32, None, publish,
+                      stats_collector, plan, columns, knobs, len(filenames))
+
+    def settle_map(i: int, fut, again: Callable, stage: str, what: str):
+        """A map task's result, its attempts bounded by the budget:
+        ``again()`` submits the next attempt after a failure."""
+        for attempt, backoff in policy.attempts(site="stage.map"):
+            try:
+                return fut.result()
+            except TaskError as exc:
+                if attempt >= policy.max_attempts:
+                    raise StageFailedError(stage, epoch, attempt,
+                                           f"{what} failed after {attempt} attempts:\n{exc}") from exc
+                _count_recovery(stats, epoch, "stage_retries", "map", i, exc)
+                backoff.backoff()
+                recover_lost_cache(exc.lost_object_id)
+                fut = again()
+        raise AssertionError("unreachable: the stage budget has no attempt")
+
+    def regenerate_cache(j: int) -> None:
+        """The index schedule lost file ``j``'s decode-cache segment: decode
+        it again and publish it, for this epoch's retries and for later
+        epochs."""
+        _count_recovery(stats, epoch, "rematerialized", "decode-cache", j)
+
+        def again():
+            return submit(shuffle_map, filenames[j], j, num_reducers, epoch, seed, narrow_to_32, None, True,
+                          stats_collector, plan, columns, knobs, len(filenames))
+
+        part_refs, new_cache = settle_map(j, again(), again, "map-rematerialize",
+                                          f"decode-cache regeneration of file {j}")
+        if new_cache is None:
+            raise StageFailedError("map-rematerialize", epoch, 1,
+                                   f"decode-cache regeneration for file {j} published nothing (store full?)")
+        # The index schedule takes no partitions; what is left of the lost
+        # segment goes too.
+        store.free([*part_refs, cache_refs[j]])
+        cache_refs[j] = new_cache
+        decode_cache.register(j, _Resolved((None, new_cache)))
+
+    def recover_lost_cache(lost: Optional[str]) -> None:
+        if lost is not None and schedule == "index":
+            for j, ref in enumerate(cache_refs):
+                if ref.object_id == lost:
+                    regenerate_cache(j)
+                    return
+
+    def await_map(i: int, fut, publish: bool):
+        """Map ``i``'s result, re-executed on failure up to the budget:
+        ``(partitions, cache ref or None)``."""
+
+        def again():
+            fut = map_futs[i] = resubmit_map(i, publish)
+            if publish:
+                # Later epochs wait on the new publisher.
+                decode_cache.register(i, fut)
+            return fut
+
+        out = settle_map(i, fut, again, "map", f"map task for file {i}")
+        return (out[0], out[1]) if publish else (out, None)
+
+    # Lineage: the map (file) that made each partition window. A window a
+    # re-run map made for a reducer that did not take it waits in ``remade``
+    # until that reducer lands, or the epoch ends.
+    lineage: Dict[str, int] = {}
+    remade: Dict[int, List[Optional[ObjectRef]]] = {}
+    landed = set()  # reducers whose inputs were freed
+
+    def owner_lost(ref: ObjectRef) -> bool:
+        """Is ``ref``'s owner another host that no longer answers?"""
+        owner = getattr(ref, "owner", None)
+        cluster = runtime.get_context().cluster
+        if owner is None or cluster is None or tuple(owner) == store.owner_address:
+            return False
+        return not cluster.owner_alive(owner)
+
+    def rematerialize(r: int, refs_r: List[ObjectRef], lost: str) -> None:
+        """Lineage re-execution for reducer ``r``: re-run the map that made
+        the lost window (and, when its host died, every map of that host
+        that feeds ``r``, all at once) and swap the new windows into
+        ``refs_r``. The lost originals are freed at once."""
+        files = [lineage[lost]]
+        if owner_lost(refs_r[files[0]]):
+            dead = tuple(refs_r[files[0]].owner)
+            files += [k for k, ref in enumerate(refs_r)
+                      if k != files[0] and ref.owner is not None and tuple(ref.owner) == dead]
+        runs = {j: resubmit_map(j) for j in files if remade.get(j, [None] * num_reducers)[r] is None}
+        for j, fut in runs.items():
+            _count_recovery(stats, epoch, "rematerialized", "map", j)
+            new = list(settle_map(j, fut, lambda j=j: resubmit_map(j), "map-rematerialize",
+                                  f"lineage re-execution of file {j}"))
+            stale = remade.get(j) or []
+            # Windows of reducers that landed already are of no use.
+            for k in landed:
+                stale.append(new[k])
+                new[k] = None
+            store.free([w for w in stale if w is not None])
+            remade[j] = new
+        for j in files:
+            window, remade[j][r] = remade[j][r], None
+            store.free([refs_r[j]])
+            lineage[window.object_id] = j
+            refs_r[j] = window
+
+    def free_inputs(r: int, refs_r: Optional[List[ObjectRef]] = None) -> None:
+        """Reducer ``r`` landed: free its windows, the originals and the
+        re-made ones."""
+        landed.add(r)
+        if selective:
+            return
+        refs = [parts[r] for parts in partitions] + list(refs_r or [])
+        for windows in remade.values():
+            if windows[r] is not None:
+                refs.append(windows[r])
+                windows[r] = None
+        store.free(list({ref.object_id: ref for ref in refs}.values()))
+
+    def submit_reduce(r: int, refs_r: Optional[List[ObjectRef]]):
+        if schedule == "index":
+            return submit(shuffle_gather_reduce, r, epoch, seed, refs_r, cache_refs, pack_for[r], stats_collector,
+                          local_to=refs_r)
+        if selective:
+            return submit(shuffle_selective_reduce, r, epoch, seed, list(filenames), num_reducers, narrow_to_32,
+                          pack_for[r], plan, stats_collector, columns, knobs)
+        return submit(shuffle_reduce, r, epoch, seed, refs_r, pack_for[r], stats_collector, knobs, overlap,
+                      local_to=refs_r)
+
+    def await_reduce(r: int):
+        """Reducer ``r``'s output, re-executed on failure up to the budget:
+        a lost input is re-made from its lineage first (the selective
+        schedule's inputs are Parquet files: a plain resubmit), a lost
+        cache segment decoded again; returns the output and the inputs it
+        read."""
+        refs_r = None if selective else [parts[r] for parts in partitions]
+        for attempt, backoff in policy.attempts(site="stage.reduce"):
+            try:
+                return reduce_futs[r].result(), refs_r
+            except TaskError as exc:
+                if attempt >= policy.max_attempts:
+                    raise StageFailedError("reduce", epoch, attempt,
+                                           f"reduce task {r} failed after {attempt} attempts:\n{exc}") from exc
+                _count_recovery(stats, epoch, "stage_retries", "reduce", r, exc)
+                backoff.backoff()
+                lost = exc.lost_object_id
+                if lost is not None and lost in lineage and not selective:
+                    rematerialize(r, refs_r, lost)
+                else:
+                    recover_lost_cache(lost)
+                reduce_futs[r] = submit_reduce(r, refs_r)
+        raise AssertionError("unreachable: the stage budget has no attempt")
 
     map_futs, publishing, attached_maps = [], [], set()
     for file_index, filename in enumerate(filenames):
@@ -2035,19 +2279,20 @@ def shuffle_epoch(
     # Per file: one window ref per reducer, or a selective map's counts.
     partitions: list = []
     reduce_futs: list = []
+    pack_for: list = []
     delivered = 0
     completed = True
     try:
         for i, (fut, publish) in enumerate(zip(map_futs, publishing)):
-            out = fut.result()
-            partitions.append(out[0] if publish else out)
+            parts_i, cache_ref = await_map(i, fut, publish)
+            partitions.append(parts_i)
+            if not selective:
+                lineage.update((ref.object_id, i) for ref in parts_i)
             if journal is not None and i not in attached_maps:
-                if selective:
-                    rec = {"counts": list(partitions[-1])}
-                else:
-                    rec = {"refs": [jmod.ref_to_json(x) for x in partitions[-1]]}
-                if publish and out[1] is not None:
-                    rec["cache_ref"] = jmod.ref_to_json(out[1])
+                # The task-done barrier: only the attempt that succeeded.
+                rec = {"counts": list(parts_i)} if selective else {"refs": [jmod.ref_to_json(x) for x in parts_i]}
+                if cache_ref is not None:
+                    rec["cache_ref"] = jmod.ref_to_json(cache_ref)
                 journal.append("map", epoch=epoch, file=i, **rec)
         sample()
         rank_of = rank_of_reducers(num_reducers, num_trainers)
@@ -2058,7 +2303,6 @@ def shuffle_epoch(
             pack_for = _pack_starts(partitions, rank_of, device_layout)
         attached_reduces = set()
         for r in range(num_reducers):
-            parts_r = None if selective else [parts[r] for parts in partitions]
             refs = attached(est.reduces.get(r), "reduce") if est is not None and r >= cursor else None
             if r < cursor or refs is not None:
                 # Delivered already, or its output survived: the inputs go.
@@ -2066,19 +2310,8 @@ def shuffle_epoch(
                 reduce_futs.append(None if r < cursor else _Resolved(refs))
                 if refs is not None:
                     attached_reduces.add(r)
-            elif schedule == "index":
-                reduce_futs.append(submit(
-                    shuffle_gather_reduce, r, epoch, seed, parts_r, cache_refs, pack_for[r], stats_collector,
-                    local_to=parts_r,
-                ))
-            elif selective:
-                reduce_futs.append(submit(
-                    shuffle_selective_reduce, r, epoch, seed, list(filenames), num_reducers, narrow_to_32,
-                    pack_for[r], plan, stats_collector, columns, knobs,
-                ))
             else:
-                reduce_futs.append(submit(shuffle_reduce, r, epoch, seed, parts_r, pack_for[r], stats_collector, knobs,
-                                          overlap, local_to=parts_r))
+                reduce_futs.append(submit_reduce(r, None if selective else [parts[r] for parts in partitions]))
         _count(stats, "reducers_skipped", cursor)
         delivered = cursor
         # Each rank's rows delivered so far: the audit's stream offsets. A
@@ -2086,7 +2319,6 @@ def shuffle_epoch(
         # digests fold on from where the preempted run stopped.
         audit_offsets: Dict[int, int] = dict(est.rank_rows) if est is not None else {}
         for r in range(cursor, num_reducers):
-            fut = reduce_futs[r]
             if jmod is not None and jmod.suspend_requested():
                 # The reducer just delivered was the quiesce window: journal
                 # the outputs of the reduces still running, so that the
@@ -2104,13 +2336,16 @@ def shuffle_epoch(
                 delivered = num_reducers
                 completed = False
                 break
-            out = fut.result()
+            out, refs_r = await_reduce(r)
             out = out if isinstance(out, list) else [out]
             sample()
             if r not in attached_reduces:
-                free_inputs(r)
+                free_inputs(r, refs_r)
                 if journal is not None:
                     journal.append("reduce", epoch=epoch, reducer=r, refs=[jmod.ref_to_json(x) for x in out])
+            if runtime.faults.enabled():
+                # A stalled (or killed) delivery thread.
+                runtime.faults.fire("queue.producer", epoch=epoch)
             rank = int(rank_of[r])
             offset_before = audit_offsets.get(rank, 0)
             if _audit.enabled():
@@ -2136,7 +2371,18 @@ def shuffle_epoch(
             if stats_collector is not None:
                 stats_collector.call_oneway("consume", rank, epoch, sum(ref.nbytes for ref in out))
             delivered = r + 1
-    except BaseException:
+    except BaseException as exc:
+        # Every rank gets its end of the epoch, failed or not, so that no
+        # consumer waits for batches that will not come; a consumer that
+        # can hold the error hears it first.
+        failed = getattr(batch_consumer, "producer_failed", None)
+        if failed is not None:
+            failed(epoch, exc)
+        for rank in range(num_trainers):
+            try:
+                batch_consumer.producer_done(rank, epoch)
+            except Exception:
+                pass
         for fut in reduce_futs[delivered:]:
             if fut is not None and not isinstance(fut, _Resolved):
                 _reclaim(store, fut)
@@ -2148,6 +2394,7 @@ def shuffle_epoch(
         if not selective:
             for parts in partitions:
                 store.free(parts)
+            store.free([w for windows in remade.values() for w in windows if w is not None])
     for rank in range(num_trainers):
         batch_consumer.producer_done(rank, epoch)
     if journal is not None and completed:
@@ -2222,7 +2469,9 @@ def shuffle(
     on a journaled run its ``journal`` path and the ``resume`` counters
     (stages re-attached and re-executed, epochs and reducers skipped),
     and with the audit armed the seconds of its reconcile
-    (``audit_reconcile_s``; the verdicts are :func:`.telemetry.audit.verdicts`).
+    (``audit_reconcile_s``; the verdicts are :func:`.telemetry.audit.verdicts`);
+    its recoveries: ``stage_retries`` and ``rematerialized`` by stage, and
+    the ``recovery_log`` (:func:`_count_recovery`).
 
     The plan (``RSDL_SHUFFLE_PLAN``) and the choice of host kernels
     (``RSDL_DISABLE_NATIVE``) are read here, once, and handed to every

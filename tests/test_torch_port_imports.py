@@ -269,3 +269,52 @@ def test_cluster_plane_imports_no_torch(tmp_path):
     out = subprocess.run([sys.executable, str(path)], capture_output=True, text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
     assert "LOADED [] []" in out.stdout, out.stdout
+
+
+# The fault plane and the pool run in the workers, which never load torch.
+FAULT_PLANE = ("runtime/faults.py", "runtime/retry.py", "runtime/tasks.py", "shuffle.py")
+
+
+def test_fault_plane_imports_no_torch(tmp_path):
+    """The fault plane's sources import no torch, no JAX and nothing of the
+    JAX package; a shuffle recovered through an armed schedule loads none
+    of them in the driver or in the workers, and ``shuffle.StageFailedError``
+    comes from the port."""
+    scanned = {os.path.relpath(p, PORT_DIR) for p in _sources()}
+    for rel in FAULT_PLANE:
+        assert rel in scanned
+        names = set(_imported_top_levels(os.path.join(PORT_DIR, rel)))
+        assert "torch" not in names and not names & FORBIDDEN, (rel, names)
+    script = textwrap.dedent(
+        f"""
+        import os, sys
+        sys.path.insert(0, {REPO!r})
+        sys.path.insert(0, {os.path.join(REPO, "tests")!r})
+        os.environ["RSDL_FAULTS"] = "task.map/task:crash-entry:1x1,task.reduce/task:crash-exit:1x1"
+
+        def main():
+            from ray_shuffling_data_loader_tpu_torch import data_generation, runtime, shuffle
+            import torch_port_helpers
+
+            runtime.init(num_workers=2)
+            files, _ = data_generation.generate_data(800, 2, 1, 0.0, {str(tmp_path)!r})
+            stats = {{}}
+            shuffle.shuffle(files, torch_port_helpers.Drain(runtime), 1, 2, 1, stats=stats)
+            assert stats["stage_retries"]["map"] >= 1 and stats["stage_retries"]["reduce"] >= 1, stats
+            worker = runtime.submit(torch_port_helpers.loaded_modules).result(timeout=60)
+            assert issubclass(shuffle.StageFailedError, runtime.TaskError)
+            runtime.shutdown()
+            bad = {{"torch", *{sorted(FORBIDDEN)!r}}}
+            print("LOADED", sorted({{m.split(".")[0] for m in sys.modules}} & bad),
+                  sorted({{m.split(".")[0] for m in worker}} & bad))
+
+        if __name__ == "__main__":
+            main()
+        """
+    )
+    path = tmp_path / "faults_drive.py"
+    path.write_text(script)
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA", "RSDL_"))}
+    out = subprocess.run([sys.executable, str(path)], capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED [] []" in out.stdout, out.stdout

@@ -228,6 +228,41 @@ def _caches(directory):
     return sorted(n for n in os.listdir(directory) if "-cache-" in n and ".fetch-" not in n)
 
 
+def test_a_read_waits_for_the_prefetch_of_its_window(tmp_path):
+    """A reader that asks for a window while a prefetch of it is in flight
+    waits for that pull instead of fetching it again (slow pulls under
+    load fetched a window twice and overran the read-ahead's bound)."""
+    owner = _Owner(tmp_path, port_store, port_cluster, "w")
+    reader = port_store.ObjectStore("rdr", shm_dir=str(tmp_path / "reader"))
+    owner.wire(reader)
+    calls = []
+    fetch = owner.fetch
+
+    def counted(ref):
+        calls.append(ref.object_id)
+        return fetch(ref)
+
+    reader.remote_fetch = counted
+    ref = owner.store.put_columns({"v": np.arange(1000, dtype=np.int64)})
+    owner.gate = threading.Event()
+    try:
+        (pull,) = reader.prefetch([ref])
+        got = []
+        read = threading.Thread(target=lambda: got.append(reader.get_columns(ref)["v"].copy()))
+        read.start()
+        read.join(0.3)
+        assert read.is_alive()  # waiting on the pull, not fetching
+        owner.gate.set()
+        read.join(30)
+        assert not read.is_alive() and pull.done()
+        assert np.array_equal(got[0], np.arange(1000)) and calls == [ref.object_id]
+        assert reader.prefetch([ref]) == []  # cached: nothing to pull
+    finally:
+        owner.gate.set()
+        reader.cleanup()
+        owner.store.cleanup()
+
+
 @pytest.mark.parametrize("depth", [1, 2, 4])
 def test_foreign_windows_overlap_bounded(files, tmp_path, depth):
     """Windows of another store: the overlapped reduce fetches each once,

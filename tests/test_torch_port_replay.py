@@ -2,8 +2,9 @@
 package: an audited, journaled run writes the JAX package's ``verdict``
 and ``deliver`` records; a run suspended and resumed reconciles as an
 uninterrupted one; the port's ``replay`` reproduces its own journal and
-the JAX package's, and refuses a tampered verdict, a suspended run and a
-recorded fault schedule with the JAX tool's exit codes;
+the JAX package's, re-arms a recorded fault schedule (and clears one the
+run did not record), and refuses a tampered verdict and a suspended run
+with the JAX tool's exit codes, as it exits on an unparseable schedule;
 ``tools/audit_report.py`` reads the port's summary and trial CSV.
 
 Verdict digests and row counts are compared exactly; the source entropies
@@ -76,11 +77,16 @@ def journals(both, tmp_path_factory):
     return out
 
 
-def _replay(path, *args):
+def _replay(path, *args, env_extra=None, jax_tool=False):
     env = {k: v for k, v in os.environ.items() if not k.startswith(("RSDL_", "JAX", "XLA"))}
     env["PYTHONPATH"] = REPO
-    return subprocess.run([sys.executable, "-m", "ray_shuffling_data_loader_tpu_torch.replay", path, *args],
-                          capture_output=True, text=True, timeout=CHILD_DEADLINE_S, env=env, cwd=REPO)
+    env.update(env_extra or {})
+    if jax_tool:
+        env["JAX_PLATFORMS"] = "cpu"
+    cmd = ([os.path.join(REPO, "tools", "replay.py")] if jax_tool
+           else ["-m", "ray_shuffling_data_loader_tpu_torch.replay"])
+    return subprocess.run([sys.executable, *cmd, path, *args], capture_output=True, text=True,
+                          timeout=CHILD_DEADLINE_S, env=env, cwd=REPO)
 
 
 def test_journaled_run_writes_the_jax_packages_audit_records(journals):
@@ -139,15 +145,50 @@ def test_replay_exits_1_on_a_tampered_verdict(journals, tmp_path):
     assert list(report["epochs"]["1"]["diverged"]) == ["delivered_seq"]
 
 
-def test_replay_refuses_a_recorded_fault_schedule(journals, tmp_path):
+# A map crash in every worker's first map (recovered by the stage budget)
+# and a delay on the replay's own delivery loop, where it can be counted.
+RECORDED_FAULTS = "task.map/task:crash-entry:1x1,queue.producer/driver:delay:1x2"
+
+
+def test_replay_rearms_a_recorded_fault_schedule(journals, tmp_path):
+    def edit(rec):
+        if rec.get("kind") == "run":
+            rec["identity"]["faults"], rec["identity"]["faults_seed"] = RECORDED_FAULTS, "7"
+        return rec
+
+    report = tmp_path / "report.json"
+    out = _replay(_rewrite(journals["port"], tmp_path / "run-faults.ndjson", edit), "--json", str(report))
+    assert out.returncode == 0, out.stdout + out.stderr
+    got = json.loads(report.read_text())
+    assert got["faults"] == {"spec": RECORDED_FAULTS, "seed": "7", "fired": {"queue.producer:delay": 2}}
+    assert sorted(got["epochs"]) == ["0", "1"]
+    assert all(e["ok"] and e["diverged"] == {} for e in got["epochs"].values())
+
+
+def test_replay_clears_a_schedule_the_run_did_not_record(journals, tmp_path):
+    # A poison in the replay's environment would fail every map: the
+    # recorded run had none, so the replay runs none.
+    report = tmp_path / "report.json"
+    out = _replay(journals["port"], "--epoch", "0", "--json", str(report),
+                  env_extra={"RSDL_FAULTS": "task.map:crash-entry:1.0", "RSDL_FAULTS_SEED": "3"})
+    assert out.returncode == 0, out.stdout + out.stderr
+    # The seed is the recorded one (the run's environment may have held one).
+    recorded_seed = jmod.load_run(journals["port"]).identity.get("faults_seed")
+    assert json.loads(report.read_text())["faults"] == {"spec": None, "seed": recorded_seed, "fired": {}}
+
+
+def test_an_unparseable_recorded_schedule_exits_as_the_jax_tool(journals, tmp_path):
     def edit(rec):
         if rec.get("kind") == "run":
             rec["identity"]["faults"] = "task.map:crash@epoch=0"
         return rec
 
-    out = _replay(_rewrite(journals["port"], tmp_path / "run-faults.ndjson", edit))
-    assert out.returncode == 2
-    assert "fault plane" in out.stderr
+    path = _rewrite(journals["port"], tmp_path / "run-bad-faults.ndjson", edit)
+    port = _replay(path, "--epoch", "1")
+    jax = _replay(path, "--epoch", "1", jax_tool=True)
+    # Both tools disarm a schedule that does not parse (their workers must
+    # not fail over a typo) and replay the epoch fault-free.
+    assert port.returncode == jax.returncode == 0, (port.stderr[-2000:], jax.stderr[-2000:])
 
 
 class _Suspending(helpers.Drain):

@@ -30,6 +30,45 @@ def square(x):
     return x * x
 
 
+def sleep_then(x, seconds):
+    """``x`` after ``seconds``: a task that is still running when its
+    neighbour dies."""
+    import time
+
+    time.sleep(seconds)
+    return x
+
+
+def die():
+    """The worker running this task is killed by SIGKILL."""
+    import signal
+
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def fire_fault(site):
+    """Fire ``site`` of the port's fault plane in the worker (role
+    ``task``); returns the worker's pid when nothing fired."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import faults
+
+    faults.fire(site)
+    return os.getpid()
+
+
+def fault_role():
+    from ray_shuffling_data_loader_tpu_torch.runtime import faults
+
+    return faults.role()
+
+
+def raise_lost(pkg, object_id):
+    """Raise ``pkg``'s ``ObjectLostError`` for ``object_id``."""
+    import importlib
+
+    root = "ray_shuffling_data_loader_tpu" if pkg == "jax" else "ray_shuffling_data_loader_tpu_torch"
+    raise importlib.import_module(f"{root}.runtime.store").ObjectLostError(object_id)
+
+
 class Mailbox:
     """An actor with one asyncio queue: ``get`` blocks until a ``put``."""
 
