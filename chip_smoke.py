@@ -172,6 +172,30 @@ Phases, each of which fails the script (non-zero exit) on any error:
    the host evicted and its maps re-made. No segment may be left in the
    surviving directories. Logs each run's shuffle seconds per epoch, step
    median and stall share beside the reference's;
+   telemetry: the metrics and trace planes on the same dataset, in a head
+   process of its own (this script with ``--telemetry-head``) started with
+   ``RSDL_METRICS=1``, ``RSDL_TRACE=1`` and the trace, metrics and event
+   spools under ``build/telemetry/``. The metered run: the DLRM slice (2
+   epochs, deterministic algorithms, the same initial weights) with one
+   seeded ``task.map:crash`` rule armed in epoch 1 (``TELEMETRY_FAULTS``,
+   budget 8); its staged tensors and losses must equal the cluster phase's
+   one-host run (unmetered) bit for bit, K1 launch once a step on its
+   tensor-core route (``launches_telemetry``); the aggregated spools must
+   count 20 map tasks (a crash at entry counts none), 16 reduce tasks,
+   at least 2 x 10^6 rows mapped and reduced, 30 ``h2d.batches``, both
+   stall causes and the map and reduce stages' phase times;
+   ``recovery.stage_retries{stage=map}`` must equal the run's
+   ``stats["stage_retries"]``, ``faults.injected`` count at least one, the
+   event log hold one ``stage.retry`` per retry and one ``epoch.done`` per
+   epoch; the exported trace must load as JSON and hold both epochs'
+   ``map`` and ``reduce`` spans from worker pids, ``epoch:admission`` from
+   the head's, ``actor:new_epoch`` with the caller's epoch and
+   ``stage:h2d`` of both epochs; the Prometheus text over the spool must
+   parse line by line and ``metrics.dump_json`` hold ``queue.depth.total``
+   in its final values and a sample. Then delivery only with the planes
+   off, on, off, on. Logs the shuffle seconds per epoch of each, the
+   metered run's step median and stall share beside the slices phase's,
+   the trace's events, each spool's bytes and the phase's seconds;
    plan: the read plane. The Quick-start shape (10^6 rows, 10 files, seed
    0) written with 20 row groups a file, so that at 8 reducers the plan
    compiler picks ``block:1``. Six 2-epoch DLRM runs (batch 65536, bf16,
@@ -2212,6 +2236,218 @@ PLAN_PAIRS = (("planned_cache", "hand_cache"), ("planned_nocache", "hand_nocache
 NARROW_PROJECTION = ["key", "labels"] + [f"embeddings_name{i}" for i in range(8)]
 
 
+# The metered run's fault schedule: one map crash in epoch 1 in each pool
+# worker that takes an epoch-1 map (seeded; the budget of 8 rides out a
+# retry that meets another worker's unspent rule).
+TELEMETRY_FAULTS = "task.map:crash:1@1x1"
+TELEMETRY_SEED = 16
+TELEMETRY_ATTEMPTS = 8
+PLANE_VARS = ("RSDL_METRICS", "RSDL_TRACE", "RSDL_TRACE_DIR", "RSDL_METRICS_DIR", "RSDL_EVENTS_DIR")
+PROM_SAMPLE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*"(,[a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*")*\})? '
+    r'(-?[0-9]+(\.[0-9]*)?([eE][-+]?[0-9]+)?|NaN|[-+]Inf)$'
+)
+
+
+def _planes(port, env: dict, clear=PLANE_VARS):
+    """The metrics and trace planes as ``env`` says, each cached flag of
+    this process read again and its buffers dropped."""
+    from ray_shuffling_data_loader_tpu_torch import telemetry
+    from ray_shuffling_data_loader_tpu_torch.telemetry import events, metrics
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(environment(env, clear=clear))
+    for mod in (telemetry, metrics):
+        mod.refresh_from_env()
+    telemetry.reset_state()
+    metrics.reset()
+    events.reset()
+    return stack
+
+
+def _spool_bytes(directory: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(directory) for f in fs)
+
+
+def telemetry_head(spec: dict) -> int:
+    """The ``[telemetry]`` phase's runs, in a process of their own started
+    with the planes on: the metered DLRM run with its checks, then delivery
+    only with the planes off, on, off, on. Raises on a failed check (the
+    phase then fails); writes the results to ``spec["result"]``."""
+    import torch
+
+    import ray_shuffling_data_loader_tpu_torch as port
+    from ray_shuffling_data_loader_tpu_torch import telemetry
+    from ray_shuffling_data_loader_tpu_torch.runtime import faults
+    from ray_shuffling_data_loader_tpu_torch.stats import ObjectStoreStatsCollector
+    from ray_shuffling_data_loader_tpu_torch.telemetry import events, export, metrics
+
+    t_phase = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    files, work, ref = spec["files"], spec["work"], spec["reference"]
+    model = port.dlrm_for_data_spec()
+    init_state = copy.deepcopy(model.state_dict())
+    out = {}
+
+    # (1) The metered run, the fault rule armed before the session starts.
+    with environment({"RSDL_FAULTS": TELEMETRY_FAULTS, "RSDL_FAULTS_SEED": str(TELEMETRY_SEED),
+                      "RSDL_STAGE_MAX_ATTEMPTS": str(TELEMETRY_ATTEMPTS)}):
+        faults.refresh_from_env()
+        port.runtime.init()
+        try:
+            log(f"[telemetry] worker pool up in {start_pool(port)!r} s; metrics and trace on; schedule "
+                f"{TELEMETRY_FAULTS} seed {TELEMETRY_SEED}, {TELEMETRY_ATTEMPTS} attempts")
+            with ObjectStoreStatsCollector(sample_period_s=1.0):
+                run = cluster_run(torch, port, files, "metered", model, init_state, tag="telemetry")
+            dump_path = metrics.dump_json(os.path.join(work, "metrics.json"))
+            typed = export.aggregate_typed()
+            flat = export.flatten(typed)
+            prom = export.prometheus_text()
+            logged = events.load()
+        finally:
+            port.runtime.shutdown()
+    faults.refresh_from_env()
+    trace_path = telemetry.trace_export(os.path.join(work, "trace.json"))
+    with open(trace_path) as f:
+        trace = json.load(f)["traceEvents"]
+    with open(dump_path) as f:
+        dump = json.load(f)
+
+    # Same training: the unmetered one-host run's tensors and losses.
+    if run["digests"] != ref["digests"] or run["losses"] != ref["losses"]:
+        bad = [i for i, (a, b) in enumerate(zip(run["digests"], ref["digests"])) if a != b]
+        raise AssertionError(f"[telemetry] metered run differs from the unmetered one: batches {bad[:5]}, losses "
+                             f"{run['losses'][:3]} against {ref['losses'][:3]}")
+    n = run["launches"]
+    if n["interaction_mma"] != run["steps"] or n["interaction"] != run["steps"] or run["steps"] != 30:
+        raise AssertionError(f"[telemetry] launches {n} in {run['steps']} steps: want 30 K1, all tensor-core")
+    # The counters, over every process's spool.
+    retries = run["recovery"]["stage_retries"] or {}
+    want = {"shuffle.map_tasks": 20.0, "shuffle.reduce_tasks": 16.0, "h2d.batches": 30.0}
+    got = {k: flat.get(k) for k in want}
+    if got != want:
+        raise AssertionError(f"[telemetry] counters {got}, want {want}")
+    for key in ("shuffle.map_rows", "shuffle.reduce_rows"):
+        if flat.get(key, 0.0) < 2 * NUM_ROWS:
+            raise AssertionError(f"[telemetry] {key} {flat.get(key)} < {2 * NUM_ROWS}")
+    for cause in ("upstream", "staging"):
+        if metrics.format_key("stall_seconds", {"cause": cause}) not in flat:
+            raise AssertionError(f"[telemetry] no stall_seconds{{cause={cause}}}")
+    phase_stages = {k.split("stage=")[1].split("}")[0] for k in typed if k.startswith("shuffle.phase_seconds{")}
+    if not {"map", "reduce"} <= phase_stages:
+        raise AssertionError(f"[telemetry] phase times of the stages {sorted(phase_stages)}")
+    # Recovery: the counters equal the run's stats, the events one a retry.
+    metered_retries = export.labeled_sum(flat, "recovery.stage_retries")[1]
+    injected = export.labeled_sum(flat, "faults.injected")
+    kinds = {k: sum(1 for e in logged if e["kind"] == k) for k in ("stage.retry", "epoch.done", "recovery")}
+    if (not retries.get("map") or metered_retries.get("{stage=map}") != float(retries["map"])
+            or sum(metered_retries.values()) != float(sum(retries.values())) or injected[0] < 1
+            or kinds["stage.retry"] != sum(retries.values()) or kinds["epoch.done"] != 2):
+        raise AssertionError(f"[telemetry] recovery: stats {retries}, counters {metered_retries}, injected "
+                             f"{injected}, events {kinds}")
+    # The trace.
+    head_pid = os.getpid()
+    spans = [e for e in trace if e.get("ph") == "X"]
+
+    def epochs(name, pids=None):
+        return {e["args"].get("epoch") for e in spans if e["name"] == name and (pids is None or pids(e["pid"]))}
+
+    checks = {
+        "map": epochs("map", lambda p: p != head_pid), "reduce": epochs("reduce", lambda p: p != head_pid),
+        "epoch:admission": epochs("epoch:admission", lambda p: p == head_pid),
+        "actor:new_epoch": epochs("actor:new_epoch", lambda p: p != head_pid), "stage:h2d": epochs("stage:h2d"),
+    }
+    if any(not {0, 1} <= got for got in checks.values()):
+        raise AssertionError(f"[telemetry] trace: epochs of each span {checks}")
+    # The Prometheus text and the dump.
+    bad = [ln for ln in prom.splitlines() if not ln.startswith(("# HELP ", "# TYPE ", "# Prometheus"))
+           and not PROM_SAMPLE.match(ln)]
+    if bad or not prom.endswith("\n"):
+        raise AssertionError(f"[telemetry] Prometheus lines that do not parse: {bad[:5]}")
+    if "queue.depth.total" not in dump["final"] or not any("queue.depth.total" in x["values"]
+                                                          for x in dump["samples"]):
+        raise AssertionError(f"[telemetry] dump: final {sorted(dump['final'])[:20]}, {len(dump['samples'])} samples")
+    spools = {plane: _spool_bytes(os.environ[var])
+              for plane, var in (("trace", "RSDL_TRACE_DIR"), ("metrics", "RSDL_METRICS_DIR"),
+                                 ("events", "RSDL_EVENTS_DIR"))}
+    out["metered"] = {
+        **{k: run[k] for k in ("losses", "launches", "steps", "step_ms_median", "epoch_s", "epoch_shuffle_s",
+                               "stall_s", "stall_share", "recovery")},
+        "counters": {k: flat.get(k) for k in ("shuffle.map_tasks", "shuffle.map_rows", "shuffle.reduce_tasks",
+                                              "shuffle.reduce_rows", "h2d.batches", "h2d.bytes")},
+        "stage_retries": metered_retries, "faults_injected": injected[1], "events": kinds,
+        "trace_events": len(trace), "spool_bytes": spools, "samples": len(dump["samples"]),
+        "prometheus_lines": len(prom.splitlines()),
+    }
+    log(f"[telemetry] metered: tensors and {len(run['losses'])} losses equal the unmetered run's; K1 "
+        f"{n['interaction_mma']} of {run['steps']} steps on the tensor-core route; counters "
+        f"{out['metered']['counters']}; stage retries {metered_retries} = stats {retries}; faults.injected "
+        f"{injected[1]}; events {kinds}")
+    log(f"[telemetry] trace: {len(trace)} events, span epochs {checks}; spool bytes {spools}; Prometheus "
+        f"{out['metered']['prometheus_lines']} lines parse; {len(dump['samples'])} samples")
+
+    # (2) The cost: delivery only, the planes off, on, off, on.
+    out["cost"] = []
+    for i, on in enumerate((False, True, False, True)):
+        spool = os.path.join(work, f"cost-{i}")
+        env = {"RSDL_METRICS": "1", "RSDL_TRACE": "1", "RSDL_TRACE_DIR": os.path.join(spool, "trace"),
+               "RSDL_METRICS_DIR": os.path.join(spool, "metrics"),
+               "RSDL_EVENTS_DIR": os.path.join(spool, "events")} if on else {}
+        with _planes(port, env):
+            port.runtime.init()
+            try:
+                pool_s = start_pool(port)
+                cost = cluster_run(torch, port, files, f"cost-{'on' if on else 'off'}-{i}", tag="telemetry")
+            finally:
+                port.runtime.shutdown()
+        if cost["digests"] != ref["digests"]:
+            raise AssertionError(f"[telemetry] cost run {i}: staged tensors differ from the reference's")
+        out["cost"].append({"on": on, "epoch_shuffle_s": cost["epoch_shuffle_s"], "epoch_s": cost["epoch_s"],
+                            "pool_s": pool_s})
+    log("[telemetry] cost, shuffle s per epoch (delivery only): " + "; ".join(
+        f"{'on' if c['on'] else 'off'} {c['epoch_shuffle_s']!r}" for c in out["cost"]))
+    out["wall_s"] = time.perf_counter() - t_phase
+    with open(spec["result"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_telemetry(torch, filenames, reference: dict, unmetered: dict, work: str) -> dict:
+    """The ``[telemetry]`` phase: :func:`telemetry_head` in a process of its
+    own, started with the planes on and the spools under ``work``.
+    ``reference``: the cluster phase's deterministic one-host DLRM run;
+    ``unmetered``: the slices phase's DLRM run, logged beside."""
+    t_phase = time.perf_counter()
+    spec = {"files": filenames, "work": work, "result": os.path.join(work, "result.json"),
+            "reference": {"digests": reference["digests"], "losses": reference["losses"]}}
+    spec_path = os.path.join(work, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
+    env.update(RSDL_METRICS="1", RSDL_TRACE="1", RSDL_TRACE_DIR=os.path.join(work, "trace"),
+               RSDL_METRICS_DIR=os.path.join(work, "metrics"), RSDL_EVENTS_DIR=os.path.join(work, "events"))
+    head = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--telemetry-head", spec_path],
+                            env=env, cwd=ROOT)
+    try:
+        code = head.wait(timeout=600)
+    finally:
+        if head.poll() is None:
+            head.kill()
+            head.wait()
+    if code != 0:
+        raise AssertionError(f"[telemetry] the head exited {code}")
+    with open(spec["result"]) as f:
+        res = json.load(f)
+    metered = res["metered"]
+    log(f"[telemetry] metered against unmetered DLRM slice: shuffle s per epoch {metered['epoch_shuffle_s']!r} "
+        f"against {unmetered['delivery']['epoch_shuffle_s']!r}; step median {metered['step_ms_median']!r} against "
+        f"{unmetered['step_ms_median']!r} ms; stall share {metered['stall_share']!r} against "
+        f"{stall_share(unmetered)!r}; epochs {metered['epoch_s']!r} against {unmetered['epoch_s']!r} s")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[telemetry] phase {res['phase_s']:.1f} s (head {res['wall_s']:.1f} s)")
+    return res
+
+
 def read_plane_line(label: str, stats: dict, schedules) -> dict:
     """Log and return what a run's read plane did: the plan and its terms,
     the projection, each epoch's schedule and shuffle seconds, the row
@@ -3169,6 +3405,8 @@ def main() -> int:
     parser.add_argument("--cluster-head", default=None, help=argparse.SUPPRESS)
     # The fault phase's head.
     parser.add_argument("--faults-head", default=None, help=argparse.SUPPRESS)
+    # The telemetry phase's head.
+    parser.add_argument("--telemetry-head", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--pool-ready", default=None, metavar="ROOT",
                         help="only time fresh 8-worker pools of the checkout at ROOT (its ready_s) and exit")
     args = parser.parse_args()
@@ -3187,6 +3425,9 @@ def main() -> int:
     if args.faults_head is not None:
         with open(args.faults_head) as f:
             return faults_head(json.load(f))
+    if args.telemetry_head is not None:
+        with open(args.telemetry_head) as f:
+            return telemetry_head(json.load(f))
     if args.pool_ready is not None:
         return pool_ready(args.pool_ready)
     sys.path.insert(0, ROOT)
@@ -3234,6 +3475,13 @@ def main() -> int:
                 faults = phase_faults(torch, filenames, cluster["single"], faults_dir)
             finally:
                 shutil.rmtree(faults_dir, ignore_errors=True)
+            telemetry_dir = os.path.join(ROOT, "build", "telemetry")
+            shutil.rmtree(telemetry_dir, ignore_errors=True)
+            os.makedirs(telemetry_dir)
+            try:
+                telemetry = phase_telemetry(torch, filenames, cluster["single"], slices["dlrm"], telemetry_dir)
+            finally:
+                shutil.rmtree(telemetry_dir, ignore_errors=True)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
         plan_dir = os.path.join(ROOT, "build", "plan_data")
@@ -3303,6 +3551,8 @@ def main() -> int:
                 entry["launches_cluster"] = cluster["launches"]["interaction_mma"]
                 # and in the DLRM run recovered through the fault schedule
                 entry["launches_faults"] = faults["launches"]["interaction_mma"]
+                # and in the metered DLRM run of the metrics and trace planes
+                entry["launches_telemetry"] = telemetry["metered"]["launches"]["interaction_mma"]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: a phase failed", file=sys.stderr)
@@ -3330,6 +3580,7 @@ def main() -> int:
                     "audit": audited,
                     "cluster": cluster,
                     "faults": faults,
+                    "telemetry": telemetry,
                     "parity_max_abs_diff": {label: err for label, (err, _) in parity.items()},
                 },
                 f, indent=1,

@@ -12,8 +12,9 @@ arguments, so a planned run and the same knobs set by hand run alike.
 
 :func:`replan` changes the terms that may change mid-run
 (:data:`~..runtime.plan.MUTABLE_TERMS`) between epochs, from live
-signals (:func:`_live_signals`). The port has no telemetry plane yet, so
-there are none, and the re-planner holds.
+signals (:func:`_live_signals`). Those signals come from the capacity,
+critical-path and time-series planes, which the port does not have yet,
+so there are none, and the re-planner holds.
 
 ``shuffle()`` reads ``RSDL_PLAN`` before it imports this module.
 """
@@ -321,4 +322,11 @@ def replan(rplan: ResolvedPlan, *, epoch: int) -> List[Dict[str, Any]]:
             mutate("decode_rowgroup_threads", min(cores, threads * 2),
                    "map(decode)-dominant epoch: grant decode more of the idle cores")
     rplan.replans += len(changes)
+    if changes:
+        from ray_shuffling_data_loader_tpu_torch import telemetry
+
+        for change in changes:
+            telemetry.emit_event("plan.replanned", epoch=epoch, term=change["term"], before=str(change["before"]),
+                                 after=str(change["after"]), reason=change["reason"])
+            telemetry.metrics.safe_inc("plan.replans", term=change["term"])
     return changes

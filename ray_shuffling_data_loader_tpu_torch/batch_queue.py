@@ -23,6 +23,12 @@ resumed producer never hands a trainer the same rows twice. A resumed
 producer seeds the cursors from its journal
 (:meth:`BatchQueue.restore_delivery_cursors`).
 
+With ``RSDL_METRICS`` on, the creating process registers the actor's
+depths as a metrics source (``queue.depth{epoch,rank}``,
+``queue.depth.total``); :meth:`BatchQueue.shutdown` drops it and keeps
+the last depths as gauges. A consumer that finds its producer dead emits
+``producer.died``.
+
 This module imports the standard library and the runtime only.
 """
 
@@ -33,8 +39,9 @@ import collections
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
-from ray_shuffling_data_loader_tpu_torch import runtime
+from ray_shuffling_data_loader_tpu_torch import runtime, telemetry
 from ray_shuffling_data_loader_tpu_torch.runtime import ActorDiedError
+from ray_shuffling_data_loader_tpu_torch.telemetry import metrics as _metrics
 
 DEFAULT_QUEUE_NAME = "BatchQueue"
 
@@ -61,6 +68,13 @@ class ProducerDiedError(Exception):
 
     def __reduce__(self):
         return (ProducerDiedError, (self.epoch, self.rank))
+
+
+def _producer_died(epoch: int, rank: int) -> ProducerDiedError:
+    """The consumer side detects a dead producer: the ``producer.died``
+    event, and the error to raise."""
+    telemetry.emit_event("producer.died", epoch=epoch, rank=rank)
+    return ProducerDiedError(epoch, rank)
 
 
 def _liveness_interval_s() -> float:
@@ -198,6 +212,19 @@ class _QueueActor:
             "depths": {f"{e}/{r}": q.qsize() for e in self.curr_epochs for r, q in enumerate(self.queues[e])},
         }
 
+    def metrics_snapshot(self) -> Dict[str, float]:
+        """The depths in the metrics vocabulary, for the driver's sampler
+        (a registered source): one ``queue.depth{epoch,rank}`` per queue of
+        the epochs in flight, and the totals."""
+        out: Dict[str, float] = {}
+        for epoch in self.curr_epochs:
+            for rank, q in enumerate(self.queues[epoch]):
+                out[_metrics.format_key("queue.depth", {"epoch": epoch, "rank": rank})] = float(q.qsize())
+        out["queue.depth.total"] = float(sum(q.qsize() for qs in self.queues for q in qs))
+        out["queue.items_enqueued.total"] = float(self._items_enqueued)
+        out["queue.republish_dropped.total"] = float(self._republish_dropped)
+        return out
+
 
 def _pid_alive(pid: int) -> bool:
     try:
@@ -225,6 +252,7 @@ class BatchQueue:
         connect_retries: int = 5,
     ) -> None:
         runtime.ensure_initialized()
+        self._metrics_source: Optional[str] = None
         if connect:
             if name is None:
                 raise ValueError("connect=True needs the queue's name")
@@ -234,12 +262,19 @@ class BatchQueue:
                 _QueueActor, max_concurrent_epochs, num_epochs, num_trainers, maxsize, name=name
             )
             self.actor.call("register_producer", os.getpid())
+            if _metrics.enabled():
+                # The sampler pulls the actor's live depths into every
+                # global snapshot; the source drops when the actor dies.
+                actor = self.actor
+                self._metrics_source = f"batch_queue:{name or DEFAULT_QUEUE_NAME}-{id(self)}"
+                _metrics.register_source(self._metrics_source, lambda: actor.call("metrics_snapshot"))
 
     def __getstate__(self):
         return {"actor": self.actor}
 
     def __setstate__(self, state):
         self.actor = state["actor"]
+        self._metrics_source = None
 
     def ready(self) -> None:
         self.actor.wait_ready()
@@ -293,11 +328,23 @@ class BatchQueue:
                     return self.actor.call("get_batch", rank, epoch, interval)
                 except Empty:
                     if not self.actor.call("producer_alive", epoch):
-                        raise ProducerDiedError(epoch, rank) from None
+                        raise _producer_died(epoch, rank) from None
         except ActorDiedError as exc:
             raise ProducerDiedError(epoch, rank) from exc
 
     def shutdown(self, force: bool = False, grace_period_s: float = 5.0) -> None:
+        if self._metrics_source is not None:
+            _metrics.unregister_source(self._metrics_source)
+            self._metrics_source = None
+            if not force:
+                # The dataset shuts its queue once the last epoch is acked,
+                # before a run's final snapshot: the last depths stay as
+                # gauges of this process.
+                try:
+                    for key, value in self.actor.call("metrics_snapshot").items():
+                        _metrics.registry.gauge(key).set(value)
+                except Exception:
+                    pass
         if self.actor is not None:
             self.actor.terminate(force=force, grace_period_s=grace_period_s)
         self.actor = None

@@ -25,7 +25,7 @@ import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional
 
-from ray_shuffling_data_loader_tpu_torch import runtime
+from ray_shuffling_data_loader_tpu_torch import runtime, telemetry
 from ray_shuffling_data_loader_tpu_torch.batch_queue import DEFAULT_QUEUE_NAME, BatchQueue
 from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch, ObjectRef
 from ray_shuffling_data_loader_tpu_torch.runtime.store import (
@@ -216,6 +216,22 @@ class ShufflingDataset:
         epoch, rank = self._epoch, self._rank
         store = runtime.get_context().store
         rebatch = CarryRebatcher(self._batch_size, self._skip_batches)
+        # The carry re-cut's own cost (the "rebatch" phase of stage
+        # "staging"); a shared no-op while telemetry is off.
+        prof = telemetry.stage_profiler("staging", epoch=epoch, rank=rank)
+
+        def recut(cb):
+            # Only the rebatcher's slicing is timed: the consumer runs
+            # between the next() calls, outside the phase.
+            feed = rebatch.feed(cb)
+            while True:
+                with prof.phase("rebatch"):
+                    try:
+                        out = next(feed)
+                    except StopIteration:
+                        return
+                yield out
+
         self.get_batch_s = []
         self.rows_read = 0
         consumed_rows = 0  # the audit's offset in this rank's consumed stream
@@ -244,7 +260,7 @@ class ShufflingDataset:
                     consumed_rows += rows_of(cb)
                 if not is_device_batch(cb):
                     self.rows_read += cb.num_rows
-                    yield from rebatch.feed(cb)
+                    yield from recut(cb)
                 elif cb.layout.get("batch") == self._batch_size and (rebatch.buf is None or rebatch.buf.num_rows == 0):
                     # Whole batches cut at this rank's grid: the carry is
                     # empty whenever one arrives, by construction.
@@ -258,7 +274,7 @@ class ShufflingDataset:
                     # Misaligned with this consumer: re-cut like any rows.
                     for pb in iter_packed_batches(cb):
                         self.rows_read += pb.num_rows
-                        yield from rebatch.feed(pb)
+                        yield from recut(pb)
                 del cb
             if num_outstanding:
                 self._batch_queue.task_done(rank, epoch, num_outstanding)

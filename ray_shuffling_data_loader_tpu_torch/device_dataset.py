@@ -32,6 +32,15 @@ failure raises; there is no fallback from one path to another.
 
 With the audit armed (``RSDL_AUDIT``), the stager digests every batch it
 stages, carried or direct: the staged side of :mod:`.telemetry.audit`.
+
+With metrics on (``RSDL_METRICS``) the stager counts ``h2d.batches``,
+``h2d.bytes`` and ``h2d.dispatch_seconds`` (``h2d.direct_*`` for direct
+batches), times its ``pack`` and ``device_put`` phases (stage
+``staging``), and the consumer's waits count into
+``stall_seconds{cause=upstream|staging}``; with tracing on, each staged
+batch is a ``stage:h2d`` span and each wait a ``stall`` span. As the
+port has no fallback between staging paths, the JAX package's
+``h2d.packed_fallback`` and ``staging.fallback`` have no site here.
 """
 
 from __future__ import annotations
@@ -45,11 +54,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ray_shuffling_data_loader_tpu_torch import native
+from ray_shuffling_data_loader_tpu_torch import native, telemetry
 from ray_shuffling_data_loader_tpu_torch.dataset import ShufflingDataset
 from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch
 from ray_shuffling_data_loader_tpu_torch.shuffle import _narrow_column, device_direct_enabled
 from ray_shuffling_data_loader_tpu_torch.telemetry import audit as _audit
+from ray_shuffling_data_loader_tpu_torch.telemetry import metrics as _metrics
 from ray_shuffling_data_loader_tpu_torch.utils.device import DeviceLike, resolve_device
 
 _TORCH_OF_NUMPY = {
@@ -348,32 +358,47 @@ class DeviceShufflingDataset:
         columns are converted and packed one by one (an unpacked spec:
         copied column by column)."""
         spec = self._spec
+        prof = telemetry.stage_profiler("staging")
+        # The phases are the JAX stager's: a direct batch is one
+        # ``device_put`` (here its copy into the pinned buffer and the
+        # copy's start); a carried one ``pack``s its columns, then packs
+        # them into one buffer, then starts the copy.
         if direct:
             block = cb.packed[: len(spec.feature_columns) + 1]
-            host, slot = self._packed_host_buffer(*block.shape)
-            np.copyto(host.numpy(), block)
+            with prof.phase("device_put", nbytes=block.nbytes):
+                host, slot = self._packed_host_buffer(*block.shape)
+                np.copyto(host.numpy(), block)
+                dev, event = self._to_device([host])
             dtypes = [_TORCH_OF_NUMPY[np.dtype(d)] for d in cb.layout["dtypes"][: len(block)]]
         else:
-            cols = [
-                self._host_column(name, cb[name], dtype, shape)
-                for name, dtype, shape in zip(
-                    spec.feature_columns, spec.feature_types, spec.feature_shapes
+            with prof.phase("pack") as ph:
+                cols = [
+                    self._host_column(name, cb[name], dtype, shape)
+                    for name, dtype, shape in zip(
+                        spec.feature_columns, spec.feature_types, spec.feature_shapes
+                    )
+                ]
+                cols.append(
+                    self._host_column(spec.label_column, cb[spec.label_column], spec.label_type, spec.label_shape)
                 )
-            ]
-            cols.append(
-                self._host_column(spec.label_column, cb[spec.label_column], spec.label_type, spec.label_shape)
-            )
+                ph.add_bytes(sum(c.nbytes for c in cols))
             dtypes = [_TORCH_OF_NUMPY[c.dtype] for c in cols]
             if not self._packed:
                 # Store-backed columns are read-only views of a mapped segment.
-                dev, event = self._to_device([torch.from_numpy(np.require(c, requirements=("C", "W"))) for c in cols])
+                with prof.phase("device_put"):
+                    dev, event = self._to_device(
+                        [torch.from_numpy(np.require(c, requirements=("C", "W"))) for c in cols]
+                    )
                 self.stats.bytes_staged += sum(c.nbytes for c in cols)
                 return _Staged(dict(zip(spec.feature_columns, dev[:-1])), dev[-1], dev, event)
-            host, slot = self._packed_host_buffer(len(cols), cb.num_rows)
-            host_np = host.numpy()
-            for i, c in enumerate(cols):
-                host_np[i] = c.view(np.int32)
-        dev, event = self._to_device([host])
+            with prof.phase("pack") as ph:
+                host, slot = self._packed_host_buffer(len(cols), cb.num_rows)
+                host_np = host.numpy()
+                for i, c in enumerate(cols):
+                    host_np[i] = c.view(np.int32)
+                ph.add_bytes(host.numel() * 4)
+            with prof.phase("device_put", nbytes=host.numel() * 4):
+                dev, event = self._to_device([host])
         if slot >= 0:
             self._pinned_events[slot] = event
         packed = dev[0]
@@ -428,6 +453,14 @@ class DeviceShufflingDataset:
         error: List[BaseException] = []
         epoch_start = time.perf_counter()
         phase = ["upstream"]
+        metered = _metrics.enabled()
+        if metered:
+            # Resolved up front: a run with no stall reports 0.0, not a
+            # missing key.
+            reg = _metrics.registry
+            stall_counter = {cause: reg.counter("stall_seconds", cause=cause) for cause in ("upstream", "staging")}
+            h2d_bytes, h2d_batches = reg.counter("h2d.bytes"), reg.counter("h2d.batches")
+            h2d_dispatch = reg.histogram("h2d.dispatch_seconds")
 
         # The audit's staged side: each post-re-cut batch, recorded before
         # the stager takes the next, so every record is in before the
@@ -449,9 +482,20 @@ class DeviceShufflingDataset:
                         staged_rows += cb.num_rows
                     phase[0] = "staging"
                     t0 = time.perf_counter()
+                    bytes0 = self.stats.bytes_staged
                     direct = cb.packed is not None and self._direct_ok(cb)
-                    item = self._stage(cb, direct)
+                    with telemetry.span("stage:h2d", cat="staging", epoch=epoch, batch=self.stats.batches_staged,
+                                        rows=cb.num_rows):
+                        item = self._stage(cb, direct)
                     dt = time.perf_counter() - t0
+                    if metered:
+                        nbytes = float(self.stats.bytes_staged - bytes0)
+                        h2d_bytes.inc(nbytes)
+                        h2d_batches.inc()
+                        h2d_dispatch.observe(dt)
+                        if direct:
+                            _metrics.safe_inc("h2d.direct_bytes", nbytes)
+                            _metrics.safe_inc("h2d.direct_batches")
                     self.stats.put_dispatch_s += dt
                     self.stats.batches_staged += 1
                     if direct:
@@ -501,6 +545,11 @@ class DeviceShufflingDataset:
                         self.stats.stall_staging_s += waited
                     else:
                         self.stats.stall_upstream_s += waited
+                    if telemetry.traced():
+                        telemetry.record_span("stall", time.time() - waited, waited, cat="staging", epoch=epoch,
+                                              cause=phase_at_wait)
+                    if metered:
+                        stall_counter[phase_at_wait].inc(waited)
                 if item is sentinel:
                     break
                 self._hand_over(item)

@@ -28,6 +28,11 @@ its refs carry their owner, its named actors listen on TCP and are found
 through the registry, and the processes that join it by directory (its
 workers) read ``cluster.json`` there and get the same wiring.
 
+**Telemetry.** With ``RSDL_METRICS`` on, a new session points the metrics
+and event spools at ``<runtime_dir>/metrics`` and ``/events`` unless
+``RSDL_METRICS_DIR`` and ``RSDL_EVENTS_DIR`` name others; :func:`shutdown`
+spools this process's last metrics snapshot while the directory exists.
+
 This package imports numpy only: the spawned workers load it.
 """
 
@@ -45,6 +50,8 @@ import shutil
 import tempfile
 import threading
 from typing import Callable, List, Optional
+
+from ray_shuffling_data_loader_tpu_torch.telemetry import metrics as _metrics
 
 from .actor import ActorDiedError, ActorHandle, RemoteError
 from .actor import connect_actor as _connect_actor
@@ -74,6 +81,7 @@ class RuntimeContext:
         self.cluster = None  # a ClusterClient once joined to a cluster
         self._owns_cluster_services = False
         self._owned_names: List[str] = []  # names registered cluster-wide
+        self._spool_env = _arm_spools(runtime_dir)
 
     @property
     def pool(self) -> WorkerPool:
@@ -112,9 +120,37 @@ class RuntimeContext:
             except Exception:
                 pass
         self._owned_actors.clear()
+        # This process's last metrics snapshot, while the session's spool
+        # directory still exists (a rank leaving the session included).
+        if _metrics.enabled():
+            try:
+                from ray_shuffling_data_loader_tpu_torch.telemetry import export
+
+                export.safe_flush()
+            except Exception:
+                pass
+        for key in self._spool_env:
+            os.environ.pop(key, None)
         if self.owner:
             self.store.cleanup()
             shutil.rmtree(self.runtime_dir, ignore_errors=True)
+
+
+def _arm_spools(runtime_dir: str) -> List[str]:
+    """With metrics on, point the metrics and event spools at the session
+    (``<runtime_dir>/metrics``, ``/events``) where ``RSDL_METRICS_DIR`` and
+    ``RSDL_EVENTS_DIR`` are unset, so the pool, the actors and this
+    process spool to one place (the port's processes do not all carry
+    ``RSDL_RUNTIME_DIR``). Returns the variables it set, which the
+    session's end unsets."""
+    if not _metrics.enabled():
+        return []
+    armed = []
+    for key, sub in (("RSDL_METRICS_DIR", "metrics"), ("RSDL_EVENTS_DIR", "events")):
+        if not os.environ.get(key):
+            os.environ[key] = os.path.join(runtime_dir, sub)
+            armed.append(key)
+    return armed
 
 
 _context: Optional[RuntimeContext] = None

@@ -16,6 +16,9 @@ calling thread; ``call_oneway`` sends and does not wait for a reply. A
 method may return a :class:`~.transport.OutOfBand`: its bulk buffers then
 follow the reply's pickled header raw, sent from an executor thread, and
 :meth:`ActorHandle.call_vectored` lands them in a buffer of the caller's.
+Every request carries the caller's trace context (:func:`.telemetry.outbound`,
+None while its planes are off); the host runs the dispatch in it under an
+``actor:<method>`` span and spools its metrics after each dispatch.
 
 This module imports the standard library only.
 """
@@ -23,17 +26,21 @@ This module imports the standard library only.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import multiprocessing as mp
 import os
 import secrets
 import signal
 import socket
+import sys
 import threading
 import time
 import traceback
 import weakref
 from typing import Optional
+
+from ray_shuffling_data_loader_tpu_torch import telemetry
 
 from . import transport
 from .retry import call_policy, connect_policy
@@ -83,6 +90,50 @@ def _sendmsg_on_fd(fd: int, frames) -> None:
         raw.close()
 
 
+# -- telemetry ----------------------------------------------------------------
+
+
+def _flush_telemetry_spools(maybe: bool = False) -> None:
+    """The actor host's spool barrier, after a dispatch and at exit: the
+    trace buffer when its module is loaded (never loaded, nothing
+    buffered), the metrics snapshot only with metrics on (``maybe``: at
+    most once a second). Imports nothing while every plane is off."""
+    mod = sys.modules.get("ray_shuffling_data_loader_tpu_torch.telemetry.trace")
+    if mod is not None:
+        mod.safe_flush()
+    if telemetry.metrics.enabled():
+        if maybe:
+            telemetry.export.maybe_flush()
+        else:
+            telemetry.export.safe_flush()
+
+
+# Virtual thread ids for traced dispatches: concurrent dispatches run on
+# the one event-loop thread, so their spans overlap without nesting, which
+# one Chrome-trace track cannot draw. Each traced dispatch in flight
+# borrows an id from a free list (tracks = peak concurrency).
+_VTID_BASE = 1 << 20
+_vtid_lock = threading.Lock()
+_vtid_free: list = []
+_vtid_high = 0
+
+
+def _acquire_vtid() -> int:
+    global _vtid_high
+    with _vtid_lock:
+        if _vtid_free:
+            return _vtid_free.pop()
+        _vtid_high += 1
+        tid = _VTID_BASE + _vtid_high
+    telemetry.name_thread_track(tid, f"dispatch-{tid - _VTID_BASE}")
+    return tid
+
+
+def _release_vtid(tid: int) -> None:
+    with _vtid_lock:
+        _vtid_free.append(tid)
+
+
 # -- server side ------------------------------------------------------------
 
 
@@ -95,6 +146,7 @@ class _ActorHost:
         self._shutdown: Optional[asyncio.Event] = None
         self._server = None
         self._tasks: set = set()  # the loop holds tasks weakly
+        self._inflight = 0
         # One reply lock per connection: an OutOfBand payload is written
         # by an executor thread on the raw descriptor, so every reply on
         # that connection, and its close, waits for it (a close mid-send
@@ -138,13 +190,14 @@ class _ActorHost:
                     frame = await transport.read_frame(reader)
                 except (asyncio.IncompleteReadError, ConnectionError):
                     break
-                # A 5-tuple, or 6 with the caller's trace context (always
-                # None from the port, which has no tracing plane).
+                # A 5-tuple, or 6 with the caller's trace context (None
+                # while the caller's telemetry planes are off).
                 req_id, method, args, kwargs, oneway = frame[:5]
+                trace_ctx = frame[5] if len(frame) > 5 else None
                 # Each request is its own task: a blocked get on this
                 # connection must not hold up the requests behind it.
                 task = asyncio.get_running_loop().create_task(
-                    self._dispatch(writer, req_id, method, args, kwargs, oneway)
+                    self._dispatch(writer, req_id, method, args, kwargs, oneway, trace_ctx)
                 )
                 self._tasks.add(task)
                 task.add_done_callback(self._tasks.discard)
@@ -160,7 +213,18 @@ class _ActorHost:
             transport.write_frame(writer, frame)
             await writer.drain()
 
-    async def _dispatch(self, writer, req_id, method, args, kwargs, oneway):
+    async def _dispatch(self, writer, req_id, method, args, kwargs, oneway, trace_ctx=None):
+        self._inflight += 1
+        try:
+            await self._run_dispatch(writer, req_id, method, args, kwargs, oneway, trace_ctx)
+        finally:
+            # After each dispatch the metrics snapshot spools (at most once
+            # a second); at quiescence the trace buffer drains too.
+            self._inflight -= 1
+            if telemetry.metrics.enabled() or self._inflight == 0:
+                _flush_telemetry_spools(maybe=True)
+
+    async def _run_dispatch(self, writer, req_id, method, args, kwargs, oneway, trace_ctx):
         try:
             if method == "__ping__":
                 result = "pong"
@@ -174,9 +238,24 @@ class _ActorHost:
                     # ``wedge`` blocks the event loop, so that pings go
                     # unanswered too.
                     faults.fire(f"actor.{type(self.instance).__name__}")
-                result = getattr(self.instance, method)(*args, **kwargs)
-                if asyncio.iscoroutine(result):
-                    result = await result
+                # With a caller's context, the dispatch runs in it under an
+                # ``actor:<method>`` span, awaits included (how long
+                # new_epoch waited for admission), on a virtual track of
+                # its own. Each dispatch is its own task with its own
+                # contextvars, so a context held across an await does not
+                # leak into another dispatch.
+                fn = getattr(self.instance, method)
+                vtid = _acquire_vtid() if trace_ctx is not None else None
+                try:
+                    with telemetry.propagated_span(
+                        f"actor:{method}", trace_ctx, cat="actor", tid=vtid
+                    ) if vtid is not None else contextlib.nullcontext():
+                        result = fn(*args, **kwargs)
+                        if asyncio.iscoroutine(result):
+                            result = await result
+                finally:
+                    if vtid is not None:
+                        _release_vtid(vtid)
             if oneway:
                 return
             if isinstance(result, transport.OutOfBand):
@@ -246,6 +325,8 @@ def _actor_main(cls, args, kwargs, address: Address, registry_path, ready_q, wat
 
     threading.Thread(target=_watch, daemon=True).start()
     transport.faults().set_role("actor")
+    if telemetry.traced():
+        telemetry.set_process_name(f"actor:{cls.__name__}-{os.getpid()}")
     try:
         host = _ActorHost(cls(*args, **kwargs), address)
     except Exception:
@@ -268,6 +349,9 @@ def _actor_main(cls, args, kwargs, address: Address, registry_path, ready_q, wat
     except KeyboardInterrupt:
         pass
     finally:
+        # A graceful terminate ends here: this host's spans and final
+        # metrics snapshot reach their spools before it exits.
+        _flush_telemetry_spools()
         paths = [registry_path] + ([address[1]] if address[0] == "unix" else [])
         for path in paths:
             if path is not None:
@@ -324,10 +408,10 @@ class ActorHandle:
         the caller's: the method may have run."""
         policy = call_policy()
         last: Optional[Exception] = None
-        for attempt, handle in policy.attempts():
+        for attempt, handle in policy.attempts(site="actor.send"):
             try:
                 conn = self._conn()
-                conn.send((req_id, method, args, kwargs, oneway, None))
+                conn.send((req_id, method, args, kwargs, oneway, telemetry.outbound()))
                 return conn
             except (ActorDiedError, OSError) as e:
                 # A reset connection (a fault of ``transport.send`` among
@@ -338,7 +422,7 @@ class ActorHandle:
                 self._local.conn = None
                 last = e
                 if attempt < policy.max_attempts:
-                    handle.backoff()
+                    handle.backoff(str(e))
         raise ActorDiedError(
             f"cannot reach actor {self._label()} after {policy.max_attempts} attempts: {last}"
         ) from last
@@ -396,7 +480,7 @@ class ActorHandle:
         except OSError as e:
             raise ActorDiedError(f"actor {self._label()} unreachable: {e}") from e
         try:
-            conn.send((0, method, args, kwargs, False, None))
+            conn.send((0, method, args, kwargs, False, telemetry.outbound()))
             while True:
                 resp_id, status, payload = conn.recv()
                 if resp_id == 0:
@@ -545,12 +629,12 @@ def connect_actor(name: str, runtime_dir: str, num_retries: int = 5, fallback_re
     asked when the session's registry has no record (in a cluster: the
     head's registry)."""
     policy = connect_policy(num_retries)
-    for attempt, handle in policy.attempts():
+    for attempt, handle in policy.attempts(site="connect_actor"):
         actor = resolve_actor(name, runtime_dir)
         if actor is None and fallback_resolver is not None:
             actor = fallback_resolver(name)
         if actor is not None and actor.ping(timeout=5.0):
             return actor
         if attempt < policy.max_attempts:
-            handle.backoff()
+            handle.backoff(f"no live actor registered as {name!r}")
     raise ValueError(f"Unable to connect to actor {name!r} after {num_retries} retries")

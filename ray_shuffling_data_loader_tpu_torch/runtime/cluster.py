@@ -30,10 +30,11 @@ owner that does not answer raises :class:`~.store.ObjectLostError` with
 the object's id, which the shuffle re-makes from its lineage, and the
 scheduler moves the dead agent's tasks to the others.
 
-The JAX package's cluster plane also counts agent evictions and task
-failovers (``recovery.agent_evictions``, ``recovery.task_failover``) and
-events on its metrics plane, and carries its tracing context into every
-agent call; the port has neither plane yet, so those hooks are left out.
+Agent evictions and task failovers count into ``recovery.agent_evictions``
+and ``recovery.task_failover`` (with the ``agent.evicted`` and
+``task.failover`` events), and a submit retried on a live agent into
+``recovery.retries{site=agent.submit}``. The submitter's trace context
+rides every agent call into the task's worker.
 
 This module imports the standard library only (numpy through
 :mod:`.store`): the host agents and their workers load it.
@@ -47,6 +48,8 @@ import socket
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from ray_shuffling_data_loader_tpu_torch import telemetry
 
 from . import transport
 from .actor import ActorDiedError, ActorHandle, spawn_actor
@@ -646,6 +649,8 @@ class ClusterScheduler:
         if not removed:
             # Tasks racing to drop one dead agent: the callback fires once.
             return
+        telemetry.metrics.safe_inc("recovery.agent_evictions")
+        telemetry.emit_event("agent.evicted", agent=str(getattr(agent, "address", None)))
         if self.on_agent_dead is not None:
             try:
                 self.on_agent_dead(agent)
@@ -664,6 +669,7 @@ class ClusterScheduler:
             for ping_timeout in (5.0, 10.0, 20.0):
                 if agent.ping(timeout=ping_timeout):
                     try:
+                        telemetry.metrics.safe_inc("recovery.retries", site="agent.submit")
                         return True, agent.call("submit", fn, args, kwargs)
                     except ActorDiedError:
                         pass
@@ -673,17 +679,22 @@ class ClusterScheduler:
         finally:
             self._inflight_adjust(agent.address, -1)
 
-    def _run(self, fn, args, kwargs):
+    def _run(self, fn, args, kwargs, trace_ctx=None):
         # At most one attempt per agent: each failure drops one, and an
-        # empty rotation raises.
-        while True:
-            agent = self._next_agent()
-            ok, result = self._submit_once(agent, fn, args, kwargs)
-            if ok:
-                return result
+        # empty rotation raises. ``trace_ctx`` is the submitter's context,
+        # re-entered on this executor thread so the agent call carries it.
+        with telemetry.scope(**(trace_ctx or {})):
+            while True:
+                agent = self._next_agent()
+                ok, result = self._submit_once(agent, fn, args, kwargs)
+                if ok:
+                    return result
+                telemetry.metrics.safe_inc("recovery.task_failover")
+                telemetry.emit_event("task.failover", fn=getattr(fn, "__name__", "task"),
+                                     agent=str(getattr(agent, "address", None)))
 
     def submit(self, fn: Callable, *args, **kwargs) -> ClusterTaskFuture:
-        return ClusterTaskFuture(self._executor.submit(self._run, fn, args, kwargs))
+        return ClusterTaskFuture(self._executor.submit(self._run, fn, args, kwargs, telemetry.outbound()))
 
     def _locality_agent(self, refs) -> Optional[ActorHandle]:
         """The live, undrained agent of the host owning the most of
@@ -713,19 +724,22 @@ class ClusterScheduler:
             live = {a.address for a in self._agents}
         return agent if agent.address in live else None
 
-    def _run_preferring(self, preferred, fn, args, kwargs):
-        if preferred is not None:
-            ok, result = self._submit_once(preferred, fn, args, kwargs)
-            if ok:
-                return result
-        return self._run(fn, args, kwargs)
+    def _run_preferring(self, preferred, fn, args, kwargs, trace_ctx=None):
+        with telemetry.scope(**(trace_ctx or {})):
+            if preferred is not None:
+                ok, result = self._submit_once(preferred, fn, args, kwargs)
+                if ok:
+                    return result
+            return self._run(fn, args, kwargs)
 
     def submit_local_to(self, refs, fn: Callable, *args, **kwargs) -> ClusterTaskFuture:
         """Run the task on the host that holds most of ``refs`` (a reduce
         beside its partitions: round-robin would ship about (N-1)/N of
         their bytes across hosts), else round-robin."""
         preferred = self._locality_agent(refs)
-        return ClusterTaskFuture(self._executor.submit(self._run_preferring, preferred, fn, args, kwargs))
+        return ClusterTaskFuture(
+            self._executor.submit(self._run_preferring, preferred, fn, args, kwargs, telemetry.outbound())
+        )
 
     def shutdown(self, cancel: bool = True) -> None:
         # cancel=False: a membership rebuild retires this scheduler, and

@@ -31,7 +31,8 @@ decision for decision: a fixed seed replays the same schedule in each
 process. Which worker runs which task is not fixed, so two runs under one
 schedule are held to what they deliver, not to which task failed.
 
-With ``RSDL_FAULTS`` unset a site costs one cached boolean
+Every fire counts into ``faults.injected{site,kind}`` while metrics are
+on. With ``RSDL_FAULTS`` unset a site costs one cached boolean
 (:func:`enabled`). This module imports the standard library only.
 """
 
@@ -241,8 +242,20 @@ def should_fire(site: str, epoch: Optional[int] = None, point: Optional[str] = N
             rule.fired += 1
             _fired[(site, kind)] = _fired.get((site, kind), 0) + 1
         logger.warning("faults: injecting %s at %s (epoch=%s, pid=%d, role=%s)", kind, site, epoch, os.getpid(), _role)
+        _count_fired(site, kind)
         return kind
     return None
+
+
+def _count_fired(site: str, kind: str) -> None:
+    """``faults.injected{site,kind}`` (a cached boolean while metrics are
+    off; never raises)."""
+    try:
+        from ray_shuffling_data_loader_tpu_torch.telemetry import metrics
+
+        metrics.safe_inc("faults.injected", site=site, kind=kind)
+    except Exception:
+        pass
 
 
 def _env_seconds(name: str, default: float) -> float:

@@ -394,6 +394,7 @@ class RunJournal:
         self._f = open(path, "a")
         self._sync = _sync_enabled()
         self._closed = False
+        self.resume_pending = False  # a resume that has not delivered yet
 
     def append(self, kind: str, **fields: Any) -> None:
         rec = {"kind": kind, "ts": time.time(), **fields}
@@ -538,12 +539,29 @@ def clear_suspend() -> None:
 
 
 def suspend_and_exit(journal: RunJournal) -> None:
-    """The end of the SIGTERM path: close the journal, drain the audit's
-    records to its spool (``os._exit`` runs no atexit hook), and leave
+    """The end of the SIGTERM path: close the journal, drain the loaded
+    telemetry spools (``os._exit`` runs no atexit hook), and leave
     with exit code 0 without tearing down, since the store's segments are
     the suspended window."""
     journal.close()
-    audit = sys.modules.get("ray_shuffling_data_loader_tpu_torch.telemetry.audit")
-    if audit is not None:
-        audit.safe_flush()
+    for name in ("audit", "trace", "export", "events"):
+        mod = sys.modules.get(f"ray_shuffling_data_loader_tpu_torch.telemetry.{name}")
+        if mod is not None:
+            try:
+                mod.safe_flush()
+            except Exception:
+                pass
     os._exit(0)
+
+
+def set_resume_in_progress(active: bool) -> None:
+    """The ``recovery.resume_in_progress`` gauge: 1 from a resume's start
+    until the resumed run delivers its first reducer. A cached boolean
+    while metrics are off; never raises."""
+    try:
+        from ray_shuffling_data_loader_tpu_torch.telemetry import metrics
+
+        if metrics.enabled():
+            metrics.registry.gauge("recovery.resume_in_progress").set(1.0 if active else 0.0)
+    except Exception:
+        pass

@@ -1,7 +1,9 @@
 """The runtime's retry policies: bounded exponential backoff with jitter,
 so that N trainer ranks dialling one queue actor spread out instead of
 retrying in lockstep, and the shuffle's stage tasks re-execute a bounded
-number of times (:func:`stage_policy`).
+number of times (:func:`stage_policy`). Each backoff counts into
+``recovery.retries{site}`` and marks a ``recovery:retry`` instant on the
+trace.
 
 This module imports the standard library only.
 """
@@ -36,24 +38,40 @@ class RetryPolicy:
     def attempts(self, site: str = "") -> Iterator[Tuple[int, "_Attempt"]]:
         """``(attempt, handle)`` pairs, attempts numbered from 1; after a
         failure call ``handle.backoff()`` to sleep before the next attempt.
-        ``site`` names the caller (the JAX package's retry counter's label;
-        the port has no metrics plane yet)."""
+        ``site`` names the caller: each backoff adds to
+        ``recovery.retries{site}`` and marks a ``recovery:retry`` instant."""
         deadline = None if self.deadline_s is None else time.monotonic() + self.deadline_s
         for attempt in range(1, self.max_attempts + 1):
-            yield attempt, _Attempt(self, attempt, deadline)
+            yield attempt, _Attempt(self, attempt, deadline, site)
             if deadline is not None and time.monotonic() >= deadline:
                 return
 
 
-class _Attempt:
-    __slots__ = ("_policy", "_attempt", "_deadline")
+def _observe_retry(site: str, attempt: int, error: str) -> None:
+    """``recovery.retries{site}`` and a ``recovery:retry`` instant, each
+    a cached boolean while its telemetry half is off. Never raises into
+    the retry loop."""
+    try:
+        from ray_shuffling_data_loader_tpu_torch import telemetry
 
-    def __init__(self, policy: RetryPolicy, attempt: int, deadline: Optional[float]):
+        telemetry.metrics.safe_inc("recovery.retries", site=site)
+        if telemetry.traced():
+            telemetry.instant("recovery:retry", cat="recovery", site=site, attempt=attempt, error=error[:200])
+    except Exception:
+        pass
+
+
+class _Attempt:
+    __slots__ = ("_policy", "_attempt", "_deadline", "_site")
+
+    def __init__(self, policy: RetryPolicy, attempt: int, deadline: Optional[float], site: str = ""):
         self._policy = policy
         self._attempt = attempt
         self._deadline = deadline
+        self._site = site
 
-    def backoff(self) -> None:
+    def backoff(self, error: str = "") -> None:
+        _observe_retry(self._site, self._attempt, error)
         d = self._policy.delay(self._attempt)
         if self._deadline is not None:
             d = min(d, max(0.0, self._deadline - time.monotonic()))

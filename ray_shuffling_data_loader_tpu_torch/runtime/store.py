@@ -41,6 +41,10 @@ owner's copy. With ``RSDL_TCP_ZEROCOPY`` the bytes land straight in the
 cache's mapping (:func:`serialize_columns_vectored` on the owner's side),
 striped over ``RSDL_TCP_STREAMS`` connections.
 
+With metrics on, a spill counts into ``store.spill_bytes_total`` (and the
+``store.spill`` event), and each foreign window pulled into
+``store.fetch_window_seconds`` and ``store.fetch_window_bytes``.
+
 This module imports numpy and the standard library only: the spawned task
 workers load it.
 """
@@ -60,6 +64,8 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ray_shuffling_data_loader_tpu_torch.telemetry import metrics as _metrics
 
 from . import transport as _transport
 
@@ -104,6 +110,40 @@ def _default_capacity_bytes(shm_dir: str) -> Optional[int]:
     except OSError:
         return None
     return int(st.f_blocks * st.f_frsize * frac)
+
+
+_SPILL_EVENT_INTERVAL_S = 5.0
+_spill_lock = threading.Lock()
+_spill_event_last = float("-inf")
+_spill_pending_bytes = 0
+_spill_pending_events = 0
+
+
+def _note_spill(nbytes: int) -> None:
+    """A segment placed on disk: ``store.spill_bytes_total`` counts every
+    byte, and at most one ``store.spill`` event per 5 s per process
+    carries the bytes of the spills it folded (``events_folded``), so the
+    event log still sums to the total. Cached booleans while metrics are
+    off; never raises."""
+    global _spill_event_last, _spill_pending_bytes, _spill_pending_events
+    if not _metrics.enabled():
+        return
+    _metrics.safe_inc("store.spill_bytes_total", float(nbytes))
+    now = time.monotonic()
+    with _spill_lock:
+        _spill_pending_bytes += int(nbytes)
+        _spill_pending_events += 1
+        if now - _spill_event_last < _SPILL_EVENT_INTERVAL_S:
+            return
+        _spill_event_last = now
+        pending, _spill_pending_bytes = _spill_pending_bytes, 0
+        folded, _spill_pending_events = _spill_pending_events, 0
+    try:
+        from ray_shuffling_data_loader_tpu_torch import telemetry
+
+        telemetry.emit_event("store.spill", nbytes=int(pending), events_folded=int(folded))
+    except Exception:
+        pass
 
 
 def fetch_window_depth(default: int = 8) -> int:
@@ -617,6 +657,7 @@ class ObjectStore:
         the session stays within its budget, else the spill directory."""
         if self.capacity_bytes is not None and nbytes + self._shm_session_bytes() > self.capacity_bytes:
             os.makedirs(self.spill_dir, exist_ok=True)
+            _note_spill(nbytes)
             return self.spill_dir
         self._scan_adjust += nbytes
         return self.shm_dir
@@ -828,11 +869,16 @@ class ObjectStore:
         the mapped destination (striped with ``RSDL_TCP_STREAMS``), else
         as one bytes reply written out. Racing readers each write a tmp
         file of their own; the renames publish the same bytes."""
+        t0 = time.perf_counter() if _metrics.enabled() else None
         tmp = f"{path}.fetch-{os.getpid()}-{secrets.token_hex(4)}"
-        if self.remote_fetch_into is not None and _transport.zerocopy_enabled():
+        zerocopy = self.remote_fetch_into is not None and _transport.zerocopy_enabled()
+        nbytes = 0
+        if zerocopy:
             holder: Dict[str, mmap.mmap] = {}
 
             def _alloc(n: int):
+                nonlocal nbytes
+                nbytes = n
                 fd = os.open(tmp, os.O_CREAT | os.O_EXCL | os.O_RDWR, 0o600)
                 try:
                     os.ftruncate(fd, max(n, 1))
@@ -864,10 +910,23 @@ class ObjectStore:
                         pass
         else:
             data = self.remote_fetch(ref)
+            nbytes = len(data)
             with open(tmp, "wb") as f:
                 f.write(data)
         os.rename(tmp, path)
         self._foreign.add(os.path.basename(path))
+        if t0 is not None:
+            # One window's latency and bytes, labelled with the framing
+            # that served it and its striped streams (1 without zero-copy).
+            try:
+                zc = "1" if zerocopy else "0"
+                streams = str(_transport.tcp_streams()) if zerocopy else "1"
+                _metrics.registry.histogram("store.fetch_window_seconds", zerocopy=zc, streams=streams).observe(
+                    time.perf_counter() - t0
+                )
+                _metrics.registry.counter("store.fetch_window_bytes", zerocopy=zc, streams=streams).inc(float(nbytes))
+            except Exception:
+                pass
 
     def _forget_cache(self, ref: ObjectRef) -> None:
         """Mark ``ref``'s cache freed (a late prefetch discards its copy)

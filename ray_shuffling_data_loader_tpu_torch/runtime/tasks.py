@@ -18,6 +18,11 @@ starts a worker in its place, and reaps workers that left cleanly
 (:meth:`WorkerPool.retire_workers`). So a dead worker costs its task, and
 the pool goes on serving.
 
+Each task carries its submitter's trace context (:func:`_outbound_ctx`),
+and its worker runs it under a ``task:<name>`` span in that context
+while a telemetry plane is on. Before a worker reports a task done it
+flushes the telemetry spools (:func:`_flush_telemetry_spools`).
+
 This module imports the standard library only.
 """
 
@@ -54,20 +59,56 @@ class TaskError(Exception):
         return (TaskError, (self.args[0] if self.args else "", self.error_type, self.lost_object_id))
 
 
-def _flush_audit() -> None:
-    """The task-done spool barrier: a task's audit records are on the spool
-    before its result, or its failure, can be seen (a no-op with the audit
-    off; a worker whose tasks never loaded the module has nothing)."""
-    audit = sys.modules.get("ray_shuffling_data_loader_tpu_torch.telemetry.audit")
-    if audit is not None:
-        audit.safe_flush()
+_TELEMETRY = "ray_shuffling_data_loader_tpu_torch.telemetry"
+
+
+def _outbound_ctx():
+    """The submitter's trace context, pickled beside the task, or None
+    with no import when nothing can have produced one (the telemetry
+    facade decides; see :func:`.telemetry.outbound`)."""
+    from ray_shuffling_data_loader_tpu_torch import telemetry
+
+    return telemetry.outbound()
+
+
+def _flush_telemetry_spools() -> None:
+    """The task-done spool barrier: a task's trace events, audit records,
+    metrics snapshot and events are on their spools before its result, or
+    its failure, can be seen. Trace and audit flush through
+    ``sys.modules`` (a module never loaded has nothing buffered); export
+    and events only with metrics on, so the disabled path imports
+    nothing."""
+    for name in ("trace", "audit"):
+        mod = sys.modules.get(f"{_TELEMETRY}.{name}")
+        if mod is not None:
+            mod.safe_flush()
+    from ray_shuffling_data_loader_tpu_torch.telemetry import metrics
+
+    if metrics.enabled():
+        try:
+            from ray_shuffling_data_loader_tpu_torch.telemetry import events, export
+
+            export.safe_flush()
+            events.safe_flush()
+        except Exception:
+            pass
 
 
 def _worker_main(task_q, result_q, env: Dict[str, str]) -> None:
     os.environ.update(env)
+    from ray_shuffling_data_loader_tpu_torch import telemetry
+    from ray_shuffling_data_loader_tpu_torch.telemetry import _env
+
     from . import faults
 
     faults.set_role("task")
+    pid = os.getpid()
+    # A spawned worker reads the flags from its environment; the trace
+    # module loads only when tracing is on.
+    trace_on = _env.read_flag("RSDL_TRACE")
+    if trace_on:
+        telemetry.set_process_name(f"task-worker-{pid}")
+    instrumented = trace_on or telemetry.metrics.enabled()
     parent = os.getppid()
 
     def watch_parent():
@@ -77,7 +118,6 @@ def _worker_main(task_q, result_q, env: Dict[str, str]) -> None:
         os._exit(0)
 
     threading.Thread(target=watch_parent, daemon=True).start()
-    pid = os.getpid()
     result_q.put(("up", pid))
     while True:
         item = task_q.get()
@@ -88,14 +128,21 @@ def _worker_main(task_q, result_q, env: Dict[str, str]) -> None:
         # worker that dies inside the task is known to have held it.
         result_q.put(("start", task_id, pid))
         try:
-            fn, args, kwargs = pickle.loads(blob)
-            out = pickle.dumps(fn(*args, **kwargs))
+            fn, args, kwargs, trace_ctx = pickle.loads(blob)
+            if instrumented or trace_ctx is not None:
+                # Re-enter the submitter's context: the task's spans and
+                # events carry its (trial, epoch, schedule).
+                with telemetry.propagated_span(f"task:{getattr(fn, '__name__', 'task')}", trace_ctx):
+                    result = fn(*args, **kwargs)
+            else:
+                result = fn(*args, **kwargs)
+            out = pickle.dumps(result)
             error = None
         except Exception as exc:
             out = None
             error = {"tb": traceback.format_exc(), "type": type(exc).__name__,
                      "lost": getattr(exc, "object_id", None)}
-        _flush_audit()
+        _flush_telemetry_spools()
         result_q.put(("done", task_id, out, error))
 
 
@@ -291,7 +338,7 @@ class WorkerPool:
             raise RuntimeError("worker pool is shut down")
         # Pickled here: an argument that does not pickle raises to the
         # caller, not in a feeder thread where it would be lost.
-        blob = pickle.dumps((fn, args, kwargs))
+        blob = pickle.dumps((fn, args, kwargs, _outbound_ctx()))
         fut: cf.Future = cf.Future()
         fut.set_running_or_notify_cancel()
         with self._lock:

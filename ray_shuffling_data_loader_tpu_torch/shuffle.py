@@ -114,6 +114,17 @@ and delivery digests the key column of its rows, and at the run's end
 ``shuffle()`` reconciles the sides into one verdict per epoch, journaled
 when the journal is on. Off, each hook is one cached boolean.
 
+**Metrics and trace** (``RSDL_METRICS``, ``RSDL_TRACE``,
+:mod:`.telemetry`): each stage task counts its tasks and rows
+(``shuffle.map_*``, ``shuffle.reduce_*``), times its phases
+(``shuffle.phase_seconds{phase,stage}``) and records its ``map`` or
+``reduce`` span; the driver runs each epoch in the ``(epoch, schedule)``
+trace context, with the ``epoch:admission``, ``deliver:wait-maps`` and
+``deliver`` spans, the ``trial.*``, ``epoch.*``, ``plan.*``,
+``stage.retry`` and ``recovery`` events, and the ``recovery.*`` counters.
+Off, each site is one cached boolean, and the driver imports none of the
+trace, export, events or phases modules.
+
 A ``stats_collector`` (a :class:`~.stats.TrialStatsCollector` actor's
 handle) hears, as the JAX package's does, each epoch's start and
 admission wait, each task's start and duration, and each reducer output
@@ -128,6 +139,7 @@ This module imports numpy and pyarrow only: the workers load it.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import os
 import threading
 import time
@@ -135,11 +147,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from ray_shuffling_data_loader_tpu_torch import native, runtime
+from ray_shuffling_data_loader_tpu_torch import native, runtime, telemetry
 from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch, ObjectRef, TaskError
 from ray_shuffling_data_loader_tpu_torch.runtime.retry import stage_policy
 from ray_shuffling_data_loader_tpu_torch.runtime.store import DEVICE_BATCH_KIND, PACKED_COLUMN
 from ray_shuffling_data_loader_tpu_torch.telemetry import audit as _audit
+from ray_shuffling_data_loader_tpu_torch.telemetry import metrics as _metrics
 
 _INT32 = np.iinfo(np.int32)
 
@@ -313,6 +326,8 @@ def read_parquet_columns(
     row_groups: Optional[Sequence[int]] = None,
     rowgroup_threads: int = 1,
     counted: bool = True,
+    prof=None,
+    metric_labels: Optional[Dict[str, str]] = None,
 ) -> ColumnBatch:
     """Decode a local Parquet file to contiguous numpy columns.
 
@@ -329,19 +344,32 @@ def read_parquet_columns(
     Every read adds to :data:`_DECODE_COUNTS`, but for ``counted=False``
     (the audit's key-only side read, whose cost is the audit's).
 
+    ``prof``: the task's :func:`.telemetry.phases.stage_profiler` (None: a
+    ``decode`` one), which times ``decode:io`` (open and footer) and
+    ``decode:arrow``. ``metric_labels``: the caller's ``{schedule, plan}``
+    on ``shuffle.decode_rowgroups`` and the pruned counters, as the JAX
+    package labels them; the whole-file read counts neither, as there.
+
     With the audit armed, the audit key that :func:`_pushdown_columns`
     appends may be missing from the file: it is left out, and the audit
     warns and skips the file's digest. Any other missing name raises."""
     import pyarrow.parquet as pq
 
-    pf = pq.ParquetFile(filename, memory_map=True)
-    schema = pf.schema_arrow
-    group_rows = [int(pf.metadata.row_group(g).num_rows) for g in range(pf.metadata.num_row_groups)]
-    if columns is None and row_groups is None and rowgroup_threads <= 1:
+    if prof is None:
+        prof = telemetry.stage_profiler("decode")
+    simple = columns is None and row_groups is None and rowgroup_threads <= 1
+    with contextlib.nullcontext() if simple else prof.phase("decode:io"):
+        pf = pq.ParquetFile(filename, memory_map=True)
+        schema = pf.schema_arrow
+        group_rows = [int(pf.metadata.row_group(g).num_rows) for g in range(pf.metadata.num_row_groups)]
+    if simple:
         if counted:
             _count_decode(schema, group_rows, range(len(group_rows)), None)
-        table = pq.read_table(filename, use_threads=use_threads, memory_map=True)
-        return ColumnBatch(_table_to_columns(table))
+        with prof.phase("decode:arrow") as ph:
+            table = pq.read_table(filename, use_threads=use_threads, memory_map=True)
+            cols = _table_to_columns(table)
+            ph.add_bytes(sum(v.nbytes for v in cols.values()))
+        return ColumnBatch(cols)
     proj = None if columns is None else list(columns)
     if proj is not None:
         missing = [c for c in proj if c not in schema.names]
@@ -356,20 +384,41 @@ def read_parquet_columns(
     names = list(schema.names) if proj is None else proj
     sel = list(range(len(group_rows))) if row_groups is None else sorted(int(g) for g in row_groups)
     if counted:
+        before = _DECODE_COUNTS["bytes_pruned"]
         _count_decode(schema, group_rows, sel, proj)
-    cols = None
-    if rowgroup_threads > 1 and sel:
-        cols = _decode_rowgroups_parallel(filename, names, sel, rowgroup_threads)
-    if cols is None:
-        if sel:
-            cols = _table_to_columns(pf.read_row_groups(sel, columns=names, use_threads=use_threads))
-        else:
-            # No group selected: empty columns of the schema's dtypes.
-            cols = {}
-            for name in names:
-                dt = _np_dtype_of(schema.field(name))
-                cols[name] = np.empty(0, dt if dt is not None else np.int64)
+        _note_pruned(group_rows, sel, _DECODE_COUNTS["bytes_pruned"] - before, metric_labels)
+    _metrics.safe_inc("shuffle.decode_rowgroups", float(len(sel)), **(metric_labels or {}))
+    with prof.phase("decode:arrow") as ph:
+        cols = None
+        if rowgroup_threads > 1 and sel:
+            cols = _decode_rowgroups_parallel(filename, names, sel, rowgroup_threads)
+        if cols is None:
+            if sel:
+                cols = _table_to_columns(pf.read_row_groups(sel, columns=names, use_threads=use_threads))
+            else:
+                # No group selected: empty columns of the schema's dtypes.
+                cols = {}
+                for name in names:
+                    dt = _np_dtype_of(schema.field(name))
+                    cols[name] = np.empty(0, dt if dt is not None else np.int64)
+        ph.add_bytes(sum(v.nbytes for v in cols.values()))
     return ColumnBatch(cols)
+
+
+def _note_pruned(group_rows: Sequence[int], sel: Sequence[int], bytes_pruned: int,
+                 labels: Optional[Dict[str, str]]) -> None:
+    """``shuffle.decode_rows_pruned`` and ``shuffle.decode_bytes_pruned``
+    (each only when positive, labelled with the caller's ``{schedule,
+    plan}``): the rows a selection skipped and the decoded bytes both
+    prunes avoided, as :func:`_count_decode` counts them."""
+    if not _metrics.enabled():
+        return
+    labels = labels or {}
+    rows_pruned = int(sum(group_rows)) - int(sum(group_rows[g] for g in sel))
+    if rows_pruned > 0:
+        _metrics.safe_inc("shuffle.decode_rows_pruned", float(rows_pruned), **labels)
+    if bytes_pruned > 0:
+        _metrics.safe_inc("shuffle.decode_bytes_pruned", float(bytes_pruned), **labels)
 
 
 def _arrow_decode_threads(stage_tasks: int) -> bool:
@@ -617,29 +666,41 @@ def shuffle_map(
     if stats_collector is not None:
         stats_collector.call_oneway("map_start", epoch)
     start = time.perf_counter()
+    wall0 = time.time()
     store = runtime.ensure_initialized().store
+    prof = telemetry.stage_profiler("map", epoch=epoch, file=file_index)
+    if plan is None:
+        plan = shuffle_plan_spec()
     new_cache_ref = None
     if cache_ref is not None:
-        batch = store.get_columns(cache_ref)
+        with prof.phase("window-fetch") as ph:
+            batch = store.get_columns(cache_ref)
+            ph.add_bytes(batch.nbytes)
     else:
         batch = read_parquet_columns(filename, columns=columns,
-                                     rowgroup_threads=_knob_decode_threads(knobs, stage_tasks))
+                                     rowgroup_threads=_knob_decode_threads(knobs, stage_tasks), prof=prof,
+                                     metric_labels={"schedule": "mapreduce", "plan": _label_of_plan(plan)})
         if narrow_to_32:
-            batch = ColumnBatch({k: _narrow_column(k, v) for k, v in batch.columns.items()})
+            with prof.phase("decode:narrow", nbytes=batch.nbytes):
+                batch = ColumnBatch({k: _narrow_column(k, v) for k, v in batch.columns.items()})
         if publish_cache:
-            try:
-                new_cache_ref = store.put_columns(batch.columns)
-            except OSError:
-                new_cache_ref = None
+            with prof.phase("cache-publish", nbytes=batch.nbytes):
+                try:
+                    new_cache_ref = store.put_columns(batch.columns)
+                except OSError:
+                    new_cache_ref = None
     end_read = time.perf_counter()
-    assignment = _file_assignment(seed, epoch, file_index, batch.num_rows, num_reducers, filename, plan)
+    n = batch.num_rows
+    assignment = _file_assignment(seed, epoch, file_index, n, num_reducers, filename, plan)
     try:
         pending = store.create_columns({k: (v.shape, v.dtype) for k, v in batch.columns.items()})
         try:
-            _, offsets = native.group_rows_multi(batch.columns, assignment, num_reducers, out=pending.columns)
-            refs = pending.publish_slices(
-                [(int(offsets[r]), int(offsets[r + 1])) for r in range(num_reducers)]
-            )
+            with prof.phase("partition-scatter", nbytes=batch.nbytes):
+                _, offsets = native.group_rows_multi(batch.columns, assignment, num_reducers, out=pending.columns)
+            with prof.phase("publish"):
+                refs = pending.publish_slices(
+                    [(int(offsets[r]), int(offsets[r + 1])) for r in range(num_reducers)]
+                )
         finally:
             pending.abort()  # reclaims the segment if anything above raised
     except BaseException:
@@ -650,8 +711,16 @@ def shuffle_map(
         # The map side, with the rows this file sends each reducer from the
         # scatter's own offsets: one pass over the key column.
         _audit.record_map(epoch, file_index, batch.columns, per_reducer=np.diff(offsets))
+    _metrics.safe_inc("shuffle.map_tasks")
+    _metrics.safe_inc("shuffle.map_rows", float(n))
+    duration = time.perf_counter() - start
+    # Retroactive spans on the worker's timeline: the whole map and its read.
+    if telemetry.traced():
+        telemetry.record_span("map:read", wall0, end_read - start, cat="shuffle", epoch=epoch, file=file_index,
+                              cached=cache_ref is not None)
+        telemetry.record_span("map", wall0, duration, cat="shuffle", epoch=epoch, file=file_index, rows=n)
     if stats_collector is not None:
-        stats_collector.call_oneway("map_done", epoch, time.perf_counter() - start, end_read - start)
+        stats_collector.call_oneway("map_done", epoch, duration, end_read - start)
     _stage_fault("map", epoch, "exit", [*refs, new_cache_ref])
     return (refs, new_cache_ref) if publish_cache else refs
 
@@ -676,11 +745,14 @@ def shuffle_plan(
     if stats_collector is not None:
         stats_collector.call_oneway("map_start", epoch)
     start = time.perf_counter()
+    wall0 = time.time()
     store = runtime.ensure_initialized().store
+    prof = telemetry.stage_profiler("plan", epoch=epoch, file=file_index)
     n = store.get_columns(cache_ref).num_rows
     end_read = time.perf_counter()
-    assignment = _file_assignment(seed, epoch, file_index, n, num_reducers, filename, plan)
-    order, offsets = native.group_order(assignment, num_reducers)
+    with prof.phase("plan", nbytes=8 * n):
+        assignment = _file_assignment(seed, epoch, file_index, n, num_reducers, filename, plan)
+        order, offsets = native.group_order(assignment, num_reducers)
     if _audit.enabled():
         # The index schedule reads no column data; the map side of the
         # digest reads the key column from the cached segment, with the
@@ -689,14 +761,21 @@ def shuffle_plan(
     idx_dtype = np.int32 if n <= _INT32.max else np.int64
     pending = store.create_columns({"idx": ((n,), np.dtype(idx_dtype))})
     try:
-        np.copyto(pending.columns["idx"], order, casting="same_kind")
-        refs = pending.publish_slices(
-            [(int(offsets[r]), int(offsets[r + 1])) for r in range(num_reducers)]
-        )
+        with prof.phase("publish", nbytes=n * np.dtype(idx_dtype).itemsize):
+            np.copyto(pending.columns["idx"], order, casting="same_kind")
+            refs = pending.publish_slices(
+                [(int(offsets[r]), int(offsets[r + 1])) for r in range(num_reducers)]
+            )
     finally:
         pending.abort()
+    _metrics.safe_inc("shuffle.map_tasks")
+    _metrics.safe_inc("shuffle.map_rows", float(n))
+    duration = time.perf_counter() - start
+    if telemetry.traced():
+        telemetry.record_span("map", wall0, duration, cat="shuffle", epoch=epoch, file=file_index, rows=n,
+                              schedule="index")
     if stats_collector is not None:
-        stats_collector.call_oneway("map_done", epoch, time.perf_counter() - start, end_read - start)
+        stats_collector.call_oneway("map_done", epoch, duration, end_read - start)
     _stage_fault("map", epoch, "exit", refs)
     return refs
 
@@ -887,34 +966,43 @@ def _gather(src, idx: np.ndarray, out: np.ndarray) -> None:
 
 
 def _permuted_output(store, pack, template, source: Callable[[str], Any], perm: np.ndarray, epoch: int,
-                     reduce_index: int):
+                     reduce_index: int, prof):
     """Write ``source(name)[perm]`` for every column of ``template``
     (``source`` gives an array or the list of parts of one, see
     :func:`_gather`): into one columnar segment (returns its ref), or,
     when the reducer packs, into its head, body and tail (returns their
     refs). With the audit armed, the output is digested before it is
-    published, as reducer ``reduce_index`` of ``epoch``."""
+    published, as reducer ``reduce_index`` of ``epoch``. ``prof``: the
+    task's stage profiler (the ``gather`` and ``publish`` phases)."""
     total = len(perm)
     packed = _packed_output(store, pack, total, template)
     if packed is None:
         pending = store.create_columns({k: ((total, *v.shape[1:]), v.dtype) for k, v in template.items()})
         try:
-            for k, dst in pending.columns.items():
-                _gather(source(k), perm, dst)
+            with prof.phase("gather") as ph:
+                for k, dst in pending.columns.items():
+                    _gather(source(k), perm, dst)
+                ph.add_bytes(2 * sum(v.nbytes for v in pending.columns.values()))
             if _audit.enabled():
                 _audit.record_reduce(epoch, reduce_index, pending.columns)
-            return pending.seal()
+            with prof.phase("publish"):
+                return pending.seal()
         finally:
             pending.abort()
     try:
         chunks = list(packed.chunks())
-        for k in packed.names:
-            src = source(k)
-            for lo, hi, views in chunks:
-                _gather(src, perm[lo:hi], views[k])
+        with prof.phase("gather") as ph:
+            moved = 0
+            for k in packed.names:
+                src = source(k)
+                for lo, hi, views in chunks:
+                    _gather(src, perm[lo:hi], views[k])
+                    moved += views[k].nbytes
+            ph.add_bytes(2 * moved)
         if _audit.enabled():
             packed.record_audit(epoch, reduce_index)
-        return packed.seal()
+        with prof.phase("publish"):
+            return packed.seal()
     finally:
         packed.abort()
 
@@ -943,7 +1031,7 @@ def reduce_fetch_overlap_mode() -> str:
 
 
 def _overlapped_reduce(store, part_refs: Sequence[ObjectRef], counts: List[int], reduce_index: int, epoch: int,
-                       seed: int, pack=None, knobs: Optional[dict] = None):
+                       seed: int, pack, knobs: Optional[dict], prof):
     """The reduce with its fetches overlapped: windows ``i + 1 .. i +
     depth`` are fetched (the store's prefetch threads) while window ``i``
     is placed. The permutation is inverted once (``inv[perm] = arange``,
@@ -952,20 +1040,24 @@ def _overlapped_reduce(store, part_refs: Sequence[ObjectRef], counts: List[int],
     path's bits. The read-ahead slides: once window ``i`` is mapped its
     cache is dropped (the mapping keeps its pages until it is placed) and
     window ``i + depth`` is asked for, so at most ``depth`` windows are
-    cached at once. Returns the output's ref(s), as :func:`shuffle_reduce`."""
+    cached at once. Returns the output's ref(s), as :func:`shuffle_reduce`.
+    ``prof``: the reduce's stage profiler."""
     depth = _fetch_window_depth(knobs)
     store.prefetch(part_refs[:depth], max_parallel=depth)
     dst_off = np.zeros(len(counts) + 1, dtype=np.int64)
     np.cumsum(counts, out=dst_off[1:])
     total = int(dst_off[-1])
-    perm = _reduce_seed(seed, epoch, reduce_index).permutation(total)
-    inv = np.empty(total, dtype=np.int64)
-    native.scatter(np.arange(total, dtype=np.int64), perm, inv)
+    with prof.phase("permute", nbytes=8 * total):
+        perm = _reduce_seed(seed, epoch, reduce_index).permutation(total)
+        inv = np.empty(total, dtype=np.int64)
+        native.scatter(np.arange(total, dtype=np.int64), perm, inv)
     pending = packed = None
     allocated = False
     try:
         for i, ref in enumerate(part_refs):
-            part = store.get_columns(ref, populate=True)
+            with prof.phase("window-fetch") as ph:
+                part = store.get_columns(ref, populate=True)
+                ph.add_bytes(part.nbytes)
             store.drop_cache([ref])
             if i + depth < len(part_refs):
                 store.prefetch([part_refs[i + depth]])
@@ -976,22 +1068,25 @@ def _overlapped_reduce(store, part_refs: Sequence[ObjectRef], counts: List[int],
                     pending = store.create_columns({k: ((total, *v.shape[1:]), v.dtype) for k, v in part.items()})
             lo, hi = int(dst_off[i]), int(dst_off[i + 1])
             if hi > lo:
-                dest = inv[lo:hi]
-                if packed is not None:
-                    packed.scatter(dest, part)
-                else:
-                    for k, dst in pending.columns.items():
-                        native.scatter(part[k], dest, dst)
+                with prof.phase("gather", nbytes=2 * part.nbytes):
+                    dest = inv[lo:hi]
+                    if packed is not None:
+                        packed.scatter(dest, part)
+                    else:
+                        for k, dst in pending.columns.items():
+                            native.scatter(part[k], dest, dst)
             del part
         if pending is None and packed is None:
             pending = store.create_columns({})
         if packed is not None:
             if _audit.enabled():
                 packed.record_audit(epoch, reduce_index)
-            return packed.seal()
+            with prof.phase("publish"):
+                return packed.seal()
         if _audit.enabled():
             _audit.record_reduce(epoch, reduce_index, pending.columns)
-        return pending.seal()
+        with prof.phase("publish"):
+            return pending.seal()
     finally:
         if pending is not None:
             pending.abort()  # a no-op after the seal
@@ -1019,30 +1114,48 @@ def shuffle_reduce(
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_start", epoch)
     start = time.perf_counter()
+    wall0 = time.time()
     store = runtime.ensure_initialized().store
+    prof = telemetry.stage_profiler("reduce", epoch=epoch, reducer=reduce_index)
     mode = overlap or reduce_fetch_overlap_mode()
     counts = [_ref_window_rows(r) for r in part_refs]
     parts: list = []
     try:
         if (mode != "off" and all(c is not None for c in counts)
                 and (mode == "on" or any(store.needs_fetch(r) for r in part_refs))):
-            out = _overlapped_reduce(store, part_refs, counts, reduce_index, epoch, seed, pack, knobs)
+            out = _overlapped_reduce(store, part_refs, counts, reduce_index, epoch, seed, pack, knobs, prof)
+            total = sum(counts)
         else:
             # Mapped populated: the gather reads its partitions in a random
             # order, and first touches of pages in a random order cost more
             # than filling the page tables in one call (measured on the host
             # of an H100 machine, tools/torch_port_stage_profile.py).
-            parts = [store.get_columns(r, populate=True) for r in part_refs]
-            perm = _reduce_seed(seed, epoch, reduce_index).permutation(sum(p.num_rows for p in parts))
+            with prof.phase("window-fetch") as ph:
+                parts = [store.get_columns(r, populate=True) for r in part_refs]
+                ph.add_bytes(sum(p.nbytes for p in parts))
+            total = sum(p.num_rows for p in parts)
+            with prof.phase("permute", nbytes=8 * total):
+                perm = _reduce_seed(seed, epoch, reduce_index).permutation(total)
             out = _permuted_output(store, pack, parts[0], lambda k: [p[k] for p in parts], perm, epoch,
-                                   reduce_index)
+                                   reduce_index, prof)
     finally:
         del parts  # the mappings go before their caches
         store.drop_cache(list(part_refs))
+    _count_reduce(wall0, start, total, epoch, reduce_index, "mapreduce")
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_done", epoch, time.perf_counter() - start)
     _stage_fault("reduce", epoch, "exit", out if isinstance(out, list) else [out])
     return out
+
+
+def _count_reduce(wall0: float, start: float, rows: int, epoch: int, reduce_index: int, schedule: str) -> None:
+    """A reduce's ``shuffle.reduce_tasks`` and ``shuffle.reduce_rows``, and
+    its retroactive ``reduce`` span on the worker's timeline."""
+    _metrics.safe_inc("shuffle.reduce_tasks")
+    _metrics.safe_inc("shuffle.reduce_rows", float(rows))
+    if telemetry.traced():
+        telemetry.record_span("reduce", wall0, time.perf_counter() - start, cat="shuffle", epoch=epoch,
+                              reducer=reduce_index, schedule=schedule)
 
 
 def shuffle_gather_reduce(
@@ -1063,14 +1176,19 @@ def shuffle_gather_reduce(
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_start", epoch)
     start = time.perf_counter()
+    wall0 = time.time()
     store = runtime.ensure_initialized().store
+    prof = telemetry.stage_profiler("gather-reduce", epoch=epoch, reducer=reduce_index)
     try:
-        caches = [store.get_columns(r) for r in cache_refs]
-        idx_parts = [store.get_columns(r)["idx"] for r in idx_refs]
+        with prof.phase("window-fetch") as ph:
+            caches = [store.get_columns(r) for r in cache_refs]
+            idx_parts = [store.get_columns(r)["idx"] for r in idx_refs]
+            ph.add_bytes(sum(ix.nbytes for ix in idx_parts))
         offsets = np.zeros(len(idx_parts) + 1, dtype=np.int64)
         np.cumsum([len(ix) for ix in idx_parts], out=offsets[1:])
         total = int(offsets[-1])
-        perm = _reduce_seed(seed, epoch, reduce_index).permutation(total)
+        with prof.phase("permute", nbytes=8 * total):
+            perm = _reduce_seed(seed, epoch, reduce_index).permutation(total)
         template = caches[0]
 
         def source(k: str) -> np.ndarray:
@@ -1081,12 +1199,13 @@ def shuffle_gather_reduce(
                 native.take(cache[k], idx, out=compact[offsets[i] : offsets[i + 1]])
             return compact
 
-        out = _permuted_output(store, pack, template, source, perm, epoch, reduce_index)
+        out = _permuted_output(store, pack, template, source, perm, epoch, reduce_index, prof)
     finally:
         # Only the index windows' fetched copies go: the file caches serve
         # every epoch.
         caches = idx_parts = None
         store.drop_cache(list(idx_refs))
+    _count_reduce(wall0, start, total, epoch, reduce_index, "index")
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_done", epoch, time.perf_counter() - start)
     _stage_fault("reduce", epoch, "exit", out if isinstance(out, list) else [out])
@@ -1149,13 +1268,21 @@ def shuffle_selective_plan(
     if stats_collector is not None:
         stats_collector.call_oneway("map_start", epoch)
     start = time.perf_counter()
-    n = sum(file_row_group_sizes(filename))
+    wall0 = time.time()
+    prof = telemetry.stage_profiler("plan", epoch=epoch, file=file_index)
+    if plan is None:
+        plan = shuffle_plan_spec()
+    with prof.phase("decode:io"):
+        n = sum(file_row_group_sizes(filename))
     end_read = time.perf_counter()
-    assignment = _file_assignment(seed, epoch, file_index, n, num_reducers, filename, plan)
-    counts = np.bincount(assignment, minlength=num_reducers)
+    with prof.phase("plan", nbytes=8 * n):
+        assignment = _file_assignment(seed, epoch, file_index, n, num_reducers, filename, plan)
+        counts = np.bincount(assignment, minlength=num_reducers)
     if _audit.enabled():
         try:
-            kb = read_parquet_columns(filename, columns=[_audit.key_column_name()], counted=False)
+            # The key-only side read is the audit's cost: labelled so.
+            kb = read_parquet_columns(filename, columns=[_audit.key_column_name()], counted=False, prof=prof,
+                                      metric_labels={"schedule": "audit-key", "plan": _label_of_plan(plan)})
             # Digest what the reduce side delivers: narrowing changes a
             # float key's bits, and a map side digested wide would fail a
             # correct strict run.
@@ -1163,8 +1290,14 @@ def shuffle_selective_plan(
         except Exception:
             cols = {}  # no key column: the audit warns once and skips
         _audit.record_map(epoch, file_index, cols, per_reducer=counts)
+    _metrics.safe_inc("shuffle.map_tasks")
+    _metrics.safe_inc("shuffle.map_rows", float(n))
+    duration = time.perf_counter() - start
+    if telemetry.traced():
+        telemetry.record_span("map", wall0, duration, cat="shuffle", epoch=epoch, file=file_index, rows=n,
+                              schedule="selective")
     if stats_collector is not None:
-        stats_collector.call_oneway("map_done", epoch, time.perf_counter() - start, end_read - start)
+        stats_collector.call_oneway("map_done", epoch, duration, end_read - start)
     _stage_fault("map", epoch, "exit")
     return [int(c) for c in counts]
 
@@ -1231,21 +1364,34 @@ def shuffle_selective_reduce(
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_start", epoch)
     start = time.perf_counter()
+    wall0 = time.time()
     store = runtime.ensure_initialized().store
-    selections = [
-        selective_file_selection(f, i, reduce_index, num_reducers, epoch, seed, plan) for i, f in enumerate(filenames)
-    ]
+    prof = telemetry.stage_profiler("selective-reduce", epoch=epoch, reducer=reduce_index)
+    if plan is None:
+        plan = shuffle_plan_spec()
+    labels = {"schedule": "selective", "plan": _label_of_plan(plan)}
+    with prof.phase("plan"):
+        selections = [
+            selective_file_selection(f, i, reduce_index, num_reducers, epoch, seed, plan)
+            for i, f in enumerate(filenames)
+        ]
     dst_off = np.zeros(len(selections) + 1, dtype=np.int64)
     np.cumsum([len(pos) for _, pos in selections], out=dst_off[1:])
     total = int(dst_off[-1])
-    perm = _reduce_seed(seed, epoch, reduce_index).permutation(total)
+    with prof.phase("permute", nbytes=8 * total):
+        perm = _reduce_seed(seed, epoch, reduce_index).permutation(total)
     threads = _knob_decode_threads(knobs, num_reducers)
     compact: Optional[Dict[str, np.ndarray]] = None
     for i, (fname, (gsel, pos)) in enumerate(zip(filenames, selections)):
         groups = [int(g) for g in gsel]
-        batch = read_parquet_columns(fname, columns=columns, row_groups=groups, rowgroup_threads=threads)
+        batch = read_parquet_columns(fname, columns=columns, row_groups=groups, rowgroup_threads=threads, prof=prof,
+                                     metric_labels=labels)
         _DECODED_ROWGROUPS.extend((i, g) for g in groups)
-        cols = {k: _narrow_column(k, v) for k, v in batch.columns.items()} if narrow_to_32 else batch.columns
+        if narrow_to_32:
+            with prof.phase("decode:narrow", nbytes=batch.nbytes):
+                cols = {k: _narrow_column(k, v) for k, v in batch.columns.items()}
+        else:
+            cols = batch.columns
         if compact is None:
             compact = {k: np.empty((total, *v.shape[1:]), v.dtype) for k, v in cols.items()}
         for k, v in cols.items():
@@ -1257,11 +1403,14 @@ def shuffle_selective_reduce(
                 )
         lo, hi = int(dst_off[i]), int(dst_off[i + 1])
         if hi > lo:
-            for k, v in cols.items():
-                native.take(v, pos, out=compact[k][lo:hi])
+            with prof.phase("gather") as ph:
+                for k, v in cols.items():
+                    native.take(v, pos, out=compact[k][lo:hi])
+                ph.add_bytes(2 * sum(compact[k][lo:hi].nbytes for k in compact))
         del batch, cols
     compact = compact or {}
-    out = _permuted_output(store, pack, compact, compact.__getitem__, perm, epoch, reduce_index)
+    out = _permuted_output(store, pack, compact, compact.__getitem__, perm, epoch, reduce_index, prof)
+    _count_reduce(wall0, start, total, epoch, reduce_index, "selective")
     if stats_collector is not None:
         stats_collector.call_oneway("reduce_done", epoch, time.perf_counter() - start)
     _stage_fault("reduce", epoch, "exit", out if isinstance(out, list) else [out])
@@ -1803,7 +1952,10 @@ def _sweep_preempted(resume_state) -> None:
     for session in _preempted_sessions(resume_state):
         store.cleanup(session=session, keep=spare)
     if resume_state.identity.get("session") == store.session:
-        store.free([jmod.ref_from_json(d) for d in _journaled_ref_dicts(resume_state) if d["id"] not in spare])
+        stale = [jmod.ref_from_json(d) for d in _journaled_ref_dicts(resume_state) if d["id"] not in spare]
+        store.free(stale)
+        if stale:
+            _metrics.safe_inc("recovery.superseded_refs_freed", len(stale))
 
 
 def _seed_decode_cache(decode_cache: "_DecodeCache", resume_state) -> None:
@@ -1820,6 +1972,7 @@ def _seed_decode_cache(decode_cache: "_DecodeCache", resume_state) -> None:
                     best[int(i)] = ref
     for i, ref in best.items():
         decode_cache.register(i, _Resolved((None, ref)))
+        _metrics.safe_inc("recovery.resume_refs_reattached", stage="decode-cache")
 
 
 def _count(stats: Optional[Dict[str, Any]], key: str, n: int = 1) -> None:
@@ -1834,7 +1987,10 @@ def _count_recovery(stats: Optional[Dict[str, Any]], epoch: int, key: str, stage
     """Count a recovery in the run's ``stats``: ``stage_retries`` or
     ``rematerialized`` by stage, and one ``recovery_log`` entry (epoch,
     what, stage, the file or reducer, and a retry's error type:
-    ``FaultInjected``, ``ObjectLostError``, ``WorkerDied``, ...)."""
+    ``FaultInjected``, ``ObjectLostError``, ``WorkerDied``, ...). With
+    metrics on, also ``recovery.<key>{stage}`` and a ``recovery`` event."""
+    _metrics.safe_inc(f"recovery.{key}", stage=stage)
+    telemetry.emit_event("recovery", counter=f"recovery.{key}", stage=stage)
     if stats is None:
         return
     counters = stats.setdefault(key, {})
@@ -1886,6 +2042,20 @@ def _run_stage(fn: Callable, native_on: bool, knobs: Optional[dict], args: tuple
     return out, {**native.counts_since(before), "rowgroups": decoded, "decode": dict(_DECODE_COUNTS)}
 
 
+class _StageTask:
+    """:func:`_run_stage` of one stage function, as the pool runs it: named
+    after that function, so that the pool's in-flight list and the
+    worker's ``task:<name>`` span name the stage (``task:shuffle_map``),
+    as the JAX package's do."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.__name__ = fn.__name__
+
+    def __call__(self, native_on: bool, knobs: Optional[dict], args: tuple):
+        return _run_stage(self.fn, native_on, knobs, args)
+
+
 class _StageTally:
     """Sums the counts of an epoch's stage tasks into the run's
     ``stats``: ``native_calls`` and ``plain_calls`` per host kernel; per
@@ -1930,7 +2100,7 @@ class _LocalTo:
 def _submit_stage(pool, tally: _StageTally, native_on: bool, knobs: Optional[dict], fn: Callable, *args) -> cf.Future:
     """Submit ``fn(*args)`` through :func:`_run_stage`; the returned future
     resolves to ``fn``'s result, and its counts go to ``tally``."""
-    inner = pool.submit(_run_stage, fn, native_on, knobs, args)
+    inner = pool.submit(_StageTask(fn), native_on, knobs, args)
     outer: cf.Future = cf.Future()
 
     def done(f):
@@ -2039,13 +2209,16 @@ def shuffle_epoch(
     cursor = est.delivered if est is not None else 0
     if journal is not None:
         journal.append("epoch", epoch=epoch, schedule=schedule)
+    telemetry.emit_event("epoch.start", epoch=epoch, schedule=schedule, files=len(filenames), reducers=num_reducers)
     if est is not None and cursor >= num_reducers:
         # Delivered whole before the preemption: no map, no reduce.
         _count(stats, "epochs_skipped")
+        _metrics.safe_inc("recovery.resume_epochs_skipped")
         for rank in range(num_trainers):
             batch_consumer.producer_done(rank, epoch)
         if journal is not None:
             journal.append("epoch-done", epoch=epoch)
+        telemetry.emit_event("epoch.done", epoch=epoch, _flush=True)
         return True
     consume_seq = journal is not None and _accepts_seq(batch_consumer)
 
@@ -2061,8 +2234,11 @@ def shuffle_epoch(
         refs = _journaled_refs(journaled)
         if refs is None or (expect is not None and len(refs) != expect):
             _count(stats, f"{stage}s_reexecuted")
+            if refs is None:
+                _metrics.safe_inc("recovery.resume_reexecuted", stage=stage)
             return None
         _count(stats, f"{stage}s_reattached")
+        _metrics.safe_inc(f"recovery.resume_{stage}_skipped")
         return refs
 
     def attached_map(file_index: int):
@@ -2075,6 +2251,7 @@ def shuffle_epoch(
         if counts is None or len(counts) != num_reducers:
             return None
         _count(stats, "maps_reattached")
+        _metrics.safe_inc("recovery.resume_map_skipped")
         return [int(c) for c in counts]
 
     # -- stage recovery ---------------------------------------------------------
@@ -2110,7 +2287,9 @@ def shuffle_epoch(
                     raise StageFailedError(stage, epoch, attempt,
                                            f"{what} failed after {attempt} attempts:\n{exc}") from exc
                 _count_recovery(stats, epoch, "stage_retries", "map", i, exc)
-                backoff.backoff()
+                telemetry.emit_event("stage.retry", stage="map", epoch=epoch, attempt=attempt, file=i,
+                                     error=f"{exc.error_type or type(exc).__name__}")
+                backoff.backoff(str(exc))
                 recover_lost_cache(exc.lost_object_id)
                 fut = again()
         raise AssertionError("unreachable: the stage budget has no attempt")
@@ -2120,6 +2299,8 @@ def shuffle_epoch(
         it again and publish it, for this epoch's retries and for later
         epochs."""
         _count_recovery(stats, epoch, "rematerialized", "decode-cache", j)
+        if telemetry.traced():
+            telemetry.instant("recovery:rematerialize", cat="recovery", file=j, cache=True)
 
         def again():
             return submit(shuffle_map, filenames[j], j, num_reducers, epoch, seed, narrow_to_32, None, True,
@@ -2185,6 +2366,8 @@ def shuffle_epoch(
         runs = {j: resubmit_map(j) for j in files if remade.get(j, [None] * num_reducers)[r] is None}
         for j, fut in runs.items():
             _count_recovery(stats, epoch, "rematerialized", "map", j)
+            if telemetry.traced():
+                telemetry.instant("recovery:rematerialize", cat="recovery", file=j, reducer=r)
             new = list(settle_map(j, fut, lambda j=j: resubmit_map(j), "map-rematerialize",
                                   f"lineage re-execution of file {j}"))
             stale = remade.get(j) or []
@@ -2238,7 +2421,9 @@ def shuffle_epoch(
                     raise StageFailedError("reduce", epoch, attempt,
                                            f"reduce task {r} failed after {attempt} attempts:\n{exc}") from exc
                 _count_recovery(stats, epoch, "stage_retries", "reduce", r, exc)
-                backoff.backoff()
+                telemetry.emit_event("stage.retry", stage="reduce", epoch=epoch, attempt=attempt, reducer=r,
+                                     error=f"{exc.error_type or type(exc).__name__}")
+                backoff.backoff(str(exc))
                 lost = exc.lost_object_id
                 if lost is not None and lost in lineage and not selective:
                     rematerialize(r, refs_r, lost)
@@ -2247,158 +2432,175 @@ def shuffle_epoch(
                 reduce_futs[r] = submit_reduce(r, refs_r)
         raise AssertionError("unreachable: the stage budget has no attempt")
 
-    map_futs, publishing, attached_maps = [], [], set()
-    for file_index, filename in enumerate(filenames):
-        result = attached_map(file_index)
-        if result is not None:
-            map_futs.append(_Resolved(result))
-            publishing.append(False)
-            attached_maps.add(file_index)
-            continue
-        if schedule == "index":
-            fut = submit(
-                shuffle_plan, file_index, num_reducers, epoch, seed, cache_refs[file_index], stats_collector,
-                filename, plan, local_to=[cache_refs[file_index]],
-            )
-            publish = False
-        elif selective:
-            fut = submit(shuffle_selective_plan, filename, file_index, num_reducers, epoch, seed, plan,
-                         stats_collector, narrow_to_32)
-            publish = False
-        else:
-            cache_ref, publish = decode_cache.claim_or_wait(file_index)
-            fut = submit(
-                shuffle_map, filename, file_index, num_reducers, epoch, seed, narrow_to_32, cache_ref, publish,
-                stats_collector, plan, columns, knobs, len(filenames),
-                local_to=[cache_ref] if cache_ref is not None else None,
-            )
-            if publish:
-                decode_cache.register(file_index, fut)
-        map_futs.append(fut)
-        publishing.append(publish)
-    # Per file: one window ref per reducer, or a selective map's counts.
-    partitions: list = []
-    reduce_futs: list = []
-    pack_for: list = []
-    delivered = 0
-    completed = True
     try:
-        for i, (fut, publish) in enumerate(zip(map_futs, publishing)):
-            parts_i, cache_ref = await_map(i, fut, publish)
-            partitions.append(parts_i)
-            if not selective:
-                lineage.update((ref.object_id, i) for ref in parts_i)
-            if journal is not None and i not in attached_maps:
-                # The task-done barrier: only the attempt that succeeded.
-                rec = {"counts": list(parts_i)} if selective else {"refs": [jmod.ref_to_json(x) for x in parts_i]}
-                if cache_ref is not None:
-                    rec["cache_ref"] = jmod.ref_to_json(cache_ref)
-                journal.append("map", epoch=epoch, file=i, **rec)
-        sample()
-        rank_of = rank_of_reducers(num_reducers, num_trainers)
-        if selective:
-            totals = np.sum(np.asarray(partitions, dtype=np.int64).reshape(len(filenames), num_reducers), axis=0)
-            pack_for = _pack_starts_from_totals(totals, rank_of, device_layout)
-        else:
-            pack_for = _pack_starts(partitions, rank_of, device_layout)
-        attached_reduces = set()
-        for r in range(num_reducers):
-            refs = attached(est.reduces.get(r), "reduce") if est is not None and r >= cursor else None
-            if r < cursor or refs is not None:
-                # Delivered already, or its output survived: the inputs go.
-                free_inputs(r)
-                reduce_futs.append(None if r < cursor else _Resolved(refs))
-                if refs is not None:
-                    attached_reduces.add(r)
-            else:
-                reduce_futs.append(submit_reduce(r, None if selective else [parts[r] for parts in partitions]))
-        _count(stats, "reducers_skipped", cursor)
-        delivered = cursor
-        # Each rank's rows delivered so far: the audit's stream offsets. A
-        # resume starts from the journaled rows, so that the epoch's seq
-        # digests fold on from where the preempted run stopped.
-        audit_offsets: Dict[int, int] = dict(est.rank_rows) if est is not None else {}
-        for r in range(cursor, num_reducers):
-            if jmod is not None and jmod.suspend_requested():
-                # The reducer just delivered was the quiesce window: journal
-                # the outputs of the reduces still running, so that the
-                # resume re-attaches them, and stop here.
-                deadline = time.monotonic() + 60.0
-                for r2 in range(r, num_reducers):
-                    if r2 in attached_reduces:
-                        continue
-                    try:
-                        out2 = reduce_futs[r2].result(timeout=max(0.0, deadline - time.monotonic()))
-                    except Exception:
-                        continue
-                    out2 = out2 if isinstance(out2, list) else [out2]
-                    journal.append("reduce", epoch=epoch, reducer=r2, refs=[jmod.ref_to_json(x) for x in out2])
-                delivered = num_reducers
-                completed = False
-                break
-            out, refs_r = await_reduce(r)
-            out = out if isinstance(out, list) else [out]
-            sample()
-            if r not in attached_reduces:
-                free_inputs(r, refs_r)
-                if journal is not None:
-                    journal.append("reduce", epoch=epoch, reducer=r, refs=[jmod.ref_to_json(x) for x in out])
-            if runtime.faults.enabled():
-                # A stalled (or killed) delivery thread.
-                runtime.faults.fire("queue.producer", epoch=epoch)
-            rank = int(rank_of[r])
-            offset_before = audit_offsets.get(rank, 0)
-            if _audit.enabled():
-                out = _audit_deliver(store, out, epoch, r, rank, audit_offsets)
-            if consume_seq:
-                batch_consumer.consume(rank, epoch, out, seq=r)
-            else:
-                batch_consumer.consume(rank, epoch, out)
-            if journal is not None:
-                if _audit.enabled():
-                    # Write-ahead: the digests are on the spool before the
-                    # cursor says delivered; a crash between the two
-                    # delivers this reducer again, which the reconcile's
-                    # dedup absorbs.
-                    _audit.safe_flush()
-                    rows, sampled = audit_offsets.get(rank, 0) - offset_before, _audit.sample_count(epoch)
+        with telemetry.scope(epoch=epoch, schedule=schedule):
+            map_futs, publishing, attached_maps = [], [], set()
+            for file_index, filename in enumerate(filenames):
+                result = attached_map(file_index)
+                if result is not None:
+                    map_futs.append(_Resolved(result))
+                    publishing.append(False)
+                    attached_maps.add(file_index)
+                    continue
+                if schedule == "index":
+                    fut = submit(
+                        shuffle_plan, file_index, num_reducers, epoch, seed, cache_refs[file_index], stats_collector,
+                        filename, plan, local_to=[cache_refs[file_index]],
+                    )
+                    publish = False
+                elif selective:
+                    fut = submit(shuffle_selective_plan, filename, file_index, num_reducers, epoch, seed, plan,
+                                 stats_collector, narrow_to_32)
+                    publish = False
                 else:
-                    rows, sampled = sum(_ref_window_rows(ref) or 0 for ref in out), 0
-                    # The offsets fold with the audit off too: a later
-                    # audited resume starts from them.
-                    audit_offsets[rank] = offset_before + rows
-                journal.append("deliver", epoch=epoch, reducer=r, rank=rank, rows=int(rows), sampled=int(sampled))
-            if stats_collector is not None:
-                stats_collector.call_oneway("consume", rank, epoch, sum(ref.nbytes for ref in out))
-            delivered = r + 1
-    except BaseException as exc:
-        # Every rank gets its end of the epoch, failed or not, so that no
-        # consumer waits for batches that will not come; a consumer that
-        # can hold the error hears it first.
-        failed = getattr(batch_consumer, "producer_failed", None)
-        if failed is not None:
-            failed(epoch, exc)
-        for rank in range(num_trainers):
+                    cache_ref, publish = decode_cache.claim_or_wait(file_index)
+                    fut = submit(
+                        shuffle_map, filename, file_index, num_reducers, epoch, seed, narrow_to_32, cache_ref, publish,
+                        stats_collector, plan, columns, knobs, len(filenames),
+                        local_to=[cache_ref] if cache_ref is not None else None,
+                    )
+                    if publish:
+                        decode_cache.register(file_index, fut)
+                map_futs.append(fut)
+                publishing.append(publish)
+            # Per file: one window ref per reducer, or a selective map's counts.
+            partitions: list = []
+            reduce_futs: list = []
+            pack_for: list = []
+            delivered = 0
+            completed = True
             try:
+                with telemetry.span("deliver:wait-maps", cat="shuffle"):
+                    for i, (fut, publish) in enumerate(zip(map_futs, publishing)):
+                        parts_i, cache_ref = await_map(i, fut, publish)
+                        partitions.append(parts_i)
+                        if not selective:
+                            lineage.update((ref.object_id, i) for ref in parts_i)
+                        if journal is not None and i not in attached_maps:
+                            # The task-done barrier: only the attempt that succeeded.
+                            rec = ({"counts": list(parts_i)} if selective
+                                   else {"refs": [jmod.ref_to_json(x) for x in parts_i]})
+                            if cache_ref is not None:
+                                rec["cache_ref"] = jmod.ref_to_json(cache_ref)
+                            journal.append("map", epoch=epoch, file=i, **rec)
+                sample()
+                rank_of = rank_of_reducers(num_reducers, num_trainers)
+                if selective:
+                    totals = np.sum(np.asarray(partitions, dtype=np.int64).reshape(len(filenames), num_reducers),
+                                    axis=0)
+                    pack_for = _pack_starts_from_totals(totals, rank_of, device_layout)
+                else:
+                    pack_for = _pack_starts(partitions, rank_of, device_layout)
+                attached_reduces = set()
+                for r in range(num_reducers):
+                    refs = attached(est.reduces.get(r), "reduce") if est is not None and r >= cursor else None
+                    if r < cursor or refs is not None:
+                        # Delivered already, or its output survived: the inputs go.
+                        free_inputs(r)
+                        reduce_futs.append(None if r < cursor else _Resolved(refs))
+                        if refs is not None:
+                            attached_reduces.add(r)
+                    else:
+                        reduce_futs.append(submit_reduce(r, None if selective else [parts[r] for parts in partitions]))
+                _count(stats, "reducers_skipped", cursor)
+                delivered = cursor
+                # Each rank's rows delivered so far: the audit's stream offsets. A
+                # resume starts from the journaled rows, so that the epoch's seq
+                # digests fold on from where the preempted run stopped.
+                audit_offsets: Dict[int, int] = dict(est.rank_rows) if est is not None else {}
+                for r in range(cursor, num_reducers):
+                    if jmod is not None and jmod.suspend_requested():
+                        # The reducer just delivered was the quiesce window: journal
+                        # the outputs of the reduces still running, so that the
+                        # resume re-attaches them, and stop here.
+                        deadline = time.monotonic() + 60.0
+                        for r2 in range(r, num_reducers):
+                            if r2 in attached_reduces:
+                                continue
+                            try:
+                                out2 = reduce_futs[r2].result(timeout=max(0.0, deadline - time.monotonic()))
+                            except Exception:
+                                continue
+                            out2 = out2 if isinstance(out2, list) else [out2]
+                            journal.append("reduce", epoch=epoch, reducer=r2, refs=[jmod.ref_to_json(x) for x in out2])
+                        delivered = num_reducers
+                        completed = False
+                        break
+                    out, refs_r = await_reduce(r)
+                    out = out if isinstance(out, list) else [out]
+                    sample()
+                    if r not in attached_reduces:
+                        free_inputs(r, refs_r)
+                        if journal is not None:
+                            journal.append("reduce", epoch=epoch, reducer=r, refs=[jmod.ref_to_json(x) for x in out])
+                    if runtime.faults.enabled():
+                        # A stalled (or killed) delivery thread.
+                        runtime.faults.fire("queue.producer", epoch=epoch)
+                    rank = int(rank_of[r])
+                    offset_before = audit_offsets.get(rank, 0)
+                    if _audit.enabled():
+                        out = _audit_deliver(store, out, epoch, r, rank, audit_offsets)
+                    with telemetry.span("deliver", cat="queue", rank=rank, reducer=r):
+                        if consume_seq:
+                            batch_consumer.consume(rank, epoch, out, seq=r)
+                        else:
+                            batch_consumer.consume(rank, epoch, out)
+                    if journal is not None and journal.resume_pending:
+                        # The resumed run's first delivery.
+                        journal.resume_pending = False
+                        jmod.set_resume_in_progress(False)
+                    if journal is not None:
+                        if _audit.enabled():
+                            # Write-ahead: the digests are on the spool before the
+                            # cursor says delivered; a crash between the two
+                            # delivers this reducer again, which the reconcile's
+                            # dedup absorbs.
+                            _audit.safe_flush()
+                            rows, sampled = audit_offsets.get(rank, 0) - offset_before, _audit.sample_count(epoch)
+                        else:
+                            rows, sampled = sum(_ref_window_rows(ref) or 0 for ref in out), 0
+                            # The offsets fold with the audit off too: a later
+                            # audited resume starts from them.
+                            audit_offsets[rank] = offset_before + rows
+                        journal.append("deliver", epoch=epoch, reducer=r, rank=rank, rows=int(rows),
+                                       sampled=int(sampled))
+                    if stats_collector is not None:
+                        stats_collector.call_oneway("consume", rank, epoch, sum(ref.nbytes for ref in out))
+                    delivered = r + 1
+            except BaseException as exc:
+                    # Every rank gets its end of the epoch, failed or not, so that no
+                # consumer waits for batches that will not come; a consumer that
+                # can hold the error hears it first.
+                failed = getattr(batch_consumer, "producer_failed", None)
+                if failed is not None:
+                    failed(epoch, exc)
+                for rank in range(num_trainers):
+                    try:
+                        batch_consumer.producer_done(rank, epoch)
+                    except Exception:
+                        pass
+                for fut in reduce_futs[delivered:]:
+                    if fut is not None and not isinstance(fut, _Resolved):
+                        _reclaim(store, fut)
+                if not selective:  # a selective map publishes nothing
+                    for fut, publish in zip(map_futs[len(partitions):], publishing[len(partitions):]):
+                        _reclaim(store, fut, unwrap=publish)  # its cache segment is the decode cache's
+                raise
+            finally:
+                if not selective:
+                    for parts in partitions:
+                        store.free(parts)
+                    store.free([w for windows in remade.values() for w in windows if w is not None])
+            for rank in range(num_trainers):
                 batch_consumer.producer_done(rank, epoch)
-            except Exception:
-                pass
-        for fut in reduce_futs[delivered:]:
-            if fut is not None and not isinstance(fut, _Resolved):
-                _reclaim(store, fut)
-        if not selective:  # a selective map publishes nothing
-            for fut, publish in zip(map_futs[len(partitions):], publishing[len(partitions):]):
-                _reclaim(store, fut, unwrap=publish)  # its cache segment is the decode cache's
+            if journal is not None and completed:
+                journal.append("epoch-done", epoch=epoch)
+    except BaseException as exc:
+        # Outside the epoch's context, as the JAX package emits it.
+        telemetry.emit_event("epoch.failed", _flush=True, epoch=epoch, error=f"{type(exc).__name__}: {exc}"[:200])
         raise
-    finally:
-        if not selective:
-            for parts in partitions:
-                store.free(parts)
-            store.free([w for windows in remade.values() for w in windows if w is not None])
-    for rank in range(num_trainers):
-        batch_consumer.producer_done(rank, epoch)
-    if journal is not None and completed:
-        journal.append("epoch-done", epoch=epoch)
+    if completed:
+        telemetry.emit_event("epoch.done", epoch=epoch, _flush=True)
     return completed
 
 
@@ -2488,6 +2690,8 @@ def shuffle(
         native.ensure_built()
     start = time.perf_counter()
     filenames = list(filenames)
+    telemetry.emit_event("trial.start", epochs=num_epochs, files=len(filenames), reducers=num_reducers,
+                         trainers=num_trainers, start_epoch=start_epoch)
     device_layout = _device_layout_allowed(device_layout)
     rplan = planner = task_knobs = None
     if _plan_enabled():
@@ -2505,6 +2709,8 @@ def shuffle(
             columns = list(rplan.projection)
         task_knobs = rplan.task_knobs()
         plan_state.set_current(rplan)
+        telemetry.emit_event("plan.chosen", plan=_label_of_plan(plan), terms=rplan.terms_dict())
+        _metrics.safe_inc("plan.compiled", plan=_label_of_plan(plan))
         if stats is not None:
             stats["plan_terms"] = rplan.terms_dict()
             stats["plan_replans"] = []
@@ -2532,6 +2738,11 @@ def shuffle(
                 stats["journal"] = journal.path
                 stats["resume"] = {"from_run": resume_state.run_id if resume_state else None, "mode": resume_mode}
             if resume_state is not None:
+                journal.resume_pending = True
+                jmod.set_resume_in_progress(True)
+                _metrics.safe_inc("recovery.resume_runs")
+                telemetry.emit_event("run.resumed", _flush=True, run_id=journal.run_id, from_run=resume_state.run_id,
+                                     mode=resume_mode, epochs_with_progress=len(resume_state.epochs))
                 _adopt_preempted(resume_state)
                 restore = getattr(batch_consumer, "restore_delivery_cursors", None)
                 cursors = {
@@ -2580,7 +2791,8 @@ def shuffle(
                     if stats is not None:
                         stats["epoch"] = epoch
                     throttle_start = time.perf_counter()
-                    batch_consumer.wait_until_ready(epoch)
+                    with telemetry.scope(epoch=epoch), telemetry.span("epoch:admission", cat="queue"):
+                        batch_consumer.wait_until_ready(epoch)
                     t0 = time.perf_counter()
                     if stats_collector is not None:
                         stats_collector.call_oneway("epoch_throttle", epoch, t0 - throttle_start)
@@ -2592,6 +2804,8 @@ def shuffle(
                                 stats["plan_replans"].extend({"epoch": epoch, **c} for c in changes)
                                 stats["plan_terms"] = rplan.terms_dict()
                     est = resume_state.epochs.get(epoch) if resume_state is not None else None
+                    if est is not None:
+                        _metrics.safe_inc("recovery.resumed_epochs")
                     completed = shuffle_epoch(
                         epoch, filenames, batch_consumer, num_reducers, num_trainers, seed,
                         narrow_to_32=narrow_to_32, decode_cache=decode_cache, schedule_log=schedule_log,
@@ -2611,6 +2825,10 @@ def shuffle(
                     decode_cache.free_all()
             if suspended:
                 journal.append("suspended")
+                telemetry.emit_event("run.suspended", _flush=True, run_id=journal.run_id, journal=journal.path)
+                _metrics.safe_inc("recovery.suspended_runs")
+                # No resume is in progress once the run is suspended.
+                jmod.set_resume_in_progress(False)
                 if jmod.suspend_should_exit():
                     jmod.suspend_and_exit(journal)  # exits 0
                 jmod.end_run(journal, status="suspended")
@@ -2633,14 +2851,19 @@ def shuffle(
             if journal is not None:
                 if resume_state is not None:
                     _sweep_preempted(resume_state)
+                jmod.set_resume_in_progress(False)
                 jmod.end_run(journal)
         except BaseException as exc:
             if journal is not None and not isinstance(exc, jmod.RunSuspended):
+                jmod.set_resume_in_progress(False)
                 jmod.end_run(journal, status="failed")  # stays resumable
+            if not (jmod is not None and isinstance(exc, jmod.RunSuspended)):
+                telemetry.emit_event("trial.failed", _flush=True, error=f"{type(exc).__name__}: {exc}"[:200])
             raise
     finally:
         _clear_plan_state()
     duration = time.perf_counter() - start
+    telemetry.emit_event("trial.done", duration_s=round(duration, 3), _flush=True)
     if stats_collector is not None:
         stats_collector.call_oneway("trial_done", duration)
     return duration

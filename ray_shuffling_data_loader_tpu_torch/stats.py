@@ -8,10 +8,13 @@ loaders report to; a store-utilization sampler thread; and
 :func:`process_stats`, which writes the trial, epoch and consumer-timeline
 CSVs.
 
-Two parts of the JAX package's plane are not here: the live-metrics
-sampling (the collector keeps its ``metrics_sample`` hook and the trial
-keeps its ``metrics_samples`` series, which nothing here fills), and
-remote ``stats_dir`` URIs: the CSVs go to a local directory.
+With ``RSDL_METRICS`` on, the store sampler is also the live-metrics
+sampler: every period it sets the ``store.*`` gauges, takes
+:func:`.telemetry.metrics.global_snapshot`, records it in the timeline,
+forwards it to the collector (``metrics_sample``, kept in the trial's
+``metrics_samples``), spools the driver's registry and logs the progress
+line. Remote ``stats_dir`` URIs are not ported: the CSVs go to a local
+directory.
 
 This module imports numpy only: the collector runs as an actor, and the
 shuffle's workers call it.
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import asyncio
 import csv
+import logging
 import os
 import threading
 import time
@@ -29,6 +33,8 @@ from dataclasses import dataclass, field
 from typing import Any, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 # The most samples a sampled series keeps (the JAX package's
 # ``telemetry.metrics.MAX_TIMELINE_SAMPLES``).
@@ -413,7 +419,8 @@ class ObjectStoreStatsCollector:
     """Context manager that samples the session's store (objects, bytes,
     spilled bytes) on a daemon thread every ``sample_period_s`` and reports
     each sample to the collector actor (or only keeps it in ``samples``
-    when ``collector`` is None)."""
+    when ``collector`` is None); with metrics on, also the live-metrics
+    sample (:meth:`_sample_metrics`)."""
 
     def __init__(self, collector=None, sample_period_s: float = 5.0):
         self._collector = collector
@@ -422,9 +429,29 @@ class ObjectStoreStatsCollector:
         self._thread: Optional[threading.Thread] = None
         self.samples: List[StoreSample] = []
 
+    def _sample_metrics(self, sample: StoreSample) -> None:
+        from ray_shuffling_data_loader_tpu_torch.telemetry import export, metrics
+
+        reg = metrics.registry
+        reg.gauge("store.shm_bytes").set(sample.total_bytes - sample.spill_bytes)
+        reg.gauge("store.spill_bytes").set(sample.spill_bytes)
+        reg.gauge("store.objects").set(sample.num_objects)
+        snap = metrics.global_snapshot()
+        metrics.record_sample(snap, ts=sample.timestamp)
+        if self._collector is not None:
+            try:
+                self._collector.call_oneway("metrics_sample", sample.timestamp, snap)
+            except Exception:
+                pass
+        # The driver's registry spools each period, for the cross-process
+        # aggregate.
+        export.maybe_flush()
+        logger.info(metrics.progress_line(snap))
+
     def _loop(self):
         from ray_shuffling_data_loader_tpu_torch import runtime
         from ray_shuffling_data_loader_tpu_torch.runtime import ActorDiedError
+        from ray_shuffling_data_loader_tpu_torch.telemetry import metrics
 
         while not self._stop.wait(self._period):
             try:
@@ -443,6 +470,11 @@ class ObjectStoreStatsCollector:
                     self._collector.call_oneway("store_sample", sample.num_objects, sample.total_bytes, sample.spill_bytes)
                 except ActorDiedError:
                     pass  # the collector went away; keep sampling locally
+            if metrics.enabled():
+                try:
+                    self._sample_metrics(sample)
+                except Exception:
+                    pass  # telemetry never sinks the sampler
 
     def __enter__(self):
         self._thread = threading.Thread(target=self._loop, name="store-stats", daemon=True)

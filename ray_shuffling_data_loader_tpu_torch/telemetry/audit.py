@@ -76,13 +76,25 @@ _verdicts: List[dict] = []
 _sample_counts: Dict[Tuple, int] = {}  # (job, epoch) -> sample keys taken
 _faults: Dict[Tuple[str, int], int] = {}
 _side_seconds: Dict[str, float] = {}  # side -> seconds this process spent digesting
+_emitted_epochs: set = set()  # (job, epoch) pairs whose metrics were emitted
 _atexit_registered = False
 _warned_no_key = False
 
 
 def _ambient_job() -> Optional[str]:
-    # The JAX package reads the service plane's job from its trace context; the port has no trace plane yet.
-    return None
+    """The job of the ambient trace context, read through ``sys.modules``:
+    None (no import, no field) in a process that never entered a context
+    carrying one."""
+    import sys
+
+    trace = sys.modules.get("ray_shuffling_data_loader_tpu_torch.telemetry.trace")
+    if trace is None:
+        return None
+    try:
+        job = trace.current_context().get("job")
+    except Exception:
+        return None
+    return None if job is None else str(job)
 
 
 class AuditError(AssertionError):
@@ -424,6 +436,7 @@ def reset(clear_spool: bool = False) -> None:
         _verdicts.clear()
         _sample_counts.clear()
         _side_seconds.clear()
+        _emitted_epochs.clear()
     if clear_spool:
         directory = spool_dir()
         if directory and os.path.isdir(directory):
@@ -447,6 +460,7 @@ def begin_run(carry: bool = False, job: Optional[str] = None) -> None:
     if job is not None:
         # The JAX package clears a sole tenant's spool; proving that takes the service plane, not ported yet.
         with _lock:
+            _emitted_epochs.difference_update({k for k in _emitted_epochs if k[0] == job})
             for k in [k for k in _sample_counts if k[0] == job]:
                 del _sample_counts[k]
         return
@@ -571,8 +585,34 @@ def _entropy(map_recs: Sequence[dict]) -> Dict[str, Optional[float]]:
 
 
 def _emit_metrics(verdict: dict) -> None:
-    # The JAX package feeds the verdict to its audit.* metric series; the port has no metrics plane yet.
-    return None
+    """Fold one epoch's verdict into the ``audit.*`` series, once per
+    ``(job, epoch)`` and only with metrics on. A job label rides only
+    job-scoped runs; the quality gauges carry the run's plan."""
+    from ray_shuffling_data_loader_tpu_torch.telemetry import metrics
+
+    if not metrics.enabled():
+        return
+    epoch = verdict["epoch"]
+    job = verdict.get("job")
+    with _lock:
+        if (job, epoch) in _emitted_epochs:
+            return
+        _emitted_epochs.add((job, epoch))
+    jl: Dict[str, Any] = {"job": job} if job is not None else {}
+    reg = metrics.registry
+    reg.counter("audit.rows_mapped", **jl).inc(verdict["rows_mapped"])
+    reg.counter("audit.rows_reduced", **jl).inc(verdict["rows_reduced"])
+    reg.counter("audit.rows_delivered", **jl).inc(verdict["rows_delivered"])
+    mism = reg.counter("audit.digest_mismatch", **jl)  # 0.0 on a clean run, not a missing key
+    if verdict["ok"] is False:
+        mism.inc()
+    reg.gauge("audit.epoch_ok", epoch=epoch, **jl).set(1.0 if verdict["ok"] else 0.0)
+    plan = verdict.get("plan") or "unknown"
+    for name in ("adjacent_pair_retention", "mean_normalized_displacement", "source_entropy_mean",
+                 "source_entropy_min"):
+        value = verdict.get(name)
+        if value is not None:
+            reg.gauge(f"audit.{name}", epoch=epoch, plan=plan, **jl).set(value)
 
 
 def reconcile(

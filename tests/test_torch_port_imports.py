@@ -318,3 +318,42 @@ def test_fault_plane_imports_no_torch(tmp_path):
     out = subprocess.run([sys.executable, str(path)], capture_output=True, text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
     assert "LOADED [] []" in out.stdout, out.stdout
+
+
+# The metrics and trace planes: the standard library only, as the JAX
+# package's, so that the pool's workers load them without torch or numpy.
+METRICS_TRACE_PLANES = ("metrics", "trace", "export", "events", "phases")
+
+
+@pytest.mark.parametrize("name", METRICS_TRACE_PLANES)
+def test_metrics_and_trace_planes_import_the_standard_library_only(name):
+    path = os.path.join(PORT_DIR, "telemetry", f"{name}.py")
+    assert path in set(_sources())
+    names = set(_imported_top_levels(path))
+    assert names <= set(sys.stdlib_module_names) | {"ray_shuffling_data_loader_tpu_torch"}, names
+    assert not names & FORBIDDEN
+
+
+def test_metrics_and_trace_planes_load_no_torch_numpy_or_jax(tmp_path):
+    script = textwrap.dedent(
+        f"""
+        import os, sys
+        sys.path.insert(0, {REPO!r})
+        os.environ.update(RSDL_METRICS="1", RSDL_TRACE="1", RSDL_TRACE_DIR={str(tmp_path / "trace")!r},
+                          RSDL_METRICS_DIR={str(tmp_path / "metrics")!r}, RSDL_EVENTS_DIR={str(tmp_path / "events")!r})
+        from ray_shuffling_data_loader_tpu_torch import telemetry
+        from ray_shuffling_data_loader_tpu_torch.telemetry import events, export, metrics, phases, trace
+        heavy = {{"torch", "numpy", *{sorted(FORBIDDEN)!r}}}
+        print("IMPORTED", sorted({{m.split(".")[0] for m in sys.modules}} & heavy))
+        with telemetry.context(epoch=1), telemetry.trace_span("s"):
+            with phases.stage_profiler("map").phase("decode:io"):
+                metrics.safe_inc("c", 1.0)
+        export.flush()
+        trace.flush()
+        print("RAN", sorted({{m.split(".")[0] for m in sys.modules}} & {{"torch", *{sorted(FORBIDDEN)!r}}}))
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA", "RSDL_"))}
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "IMPORTED []" in out.stdout and "RAN []" in out.stdout, out.stdout

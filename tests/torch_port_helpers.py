@@ -61,6 +61,33 @@ def fault_role():
     return faults.role()
 
 
+def probe_task(tag):
+    """The trace context live in a pool worker, inside a span of its own."""
+    from ray_shuffling_data_loader_tpu_torch import telemetry
+
+    with telemetry.trace_span("probe:task-inner", tag=tag):
+        return dict(telemetry.current_context())
+
+
+class ProbeActor:
+    """The trace context live inside an actor's method, in a span of its own."""
+
+    def work(self, tag):
+        from ray_shuffling_data_loader_tpu_torch import telemetry
+
+        with telemetry.trace_span("probe:inner", tag=tag):
+            return dict(telemetry.current_context())
+
+
+def emitting_task(payload):
+    """Emits an event in a pool worker and does not flush it: the task-done
+    path must."""
+    from ray_shuffling_data_loader_tpu_torch import telemetry
+
+    telemetry.emit_event("test.worker_event", payload=payload)
+    return payload * 2
+
+
 def raise_lost(pkg, object_id):
     """Raise ``pkg``'s ``ObjectLostError`` for ``object_id``."""
     import importlib
