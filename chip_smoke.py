@@ -172,10 +172,11 @@ Phases, each of which fails the script (non-zero exit) on any error:
    the host evicted and its maps re-made. No segment may be left in the
    surviving directories. Logs each run's shuffle seconds per epoch, step
    median and stall share beside the reference's;
-   telemetry: the metrics and trace planes on the same dataset, in a head
-   process of its own (this script with ``--telemetry-head``) started with
-   ``RSDL_METRICS=1``, ``RSDL_TRACE=1`` and the trace, metrics and event
-   spools under ``build/telemetry/``. The metered run: the DLRM slice (2
+   telemetry: the telemetry planes on the same dataset, in a head process
+   of its own (this script with ``--telemetry-head``) started with every
+   plane on (:func:`_planes_env`: ``RSDL_METRICS=1``, ``RSDL_TRACE=1``,
+   ``RSDL_TS=1``, ``RSDL_PROFILE=1``, ``RSDL_RUN_LEDGER``) and the spools
+   under ``build/telemetry/``. The metered run: the DLRM slice (2
    epochs, deterministic algorithms, the same initial weights) with one
    seeded ``task.map:crash`` rule armed in epoch 1 (``TELEMETRY_FAULTS``,
    budget 8); its staged tensors and losses must equal the cluster phase's
@@ -192,10 +193,27 @@ Phases, each of which fails the script (non-zero exit) on any error:
    the head's, ``actor:new_epoch`` with the caller's epoch and
    ``stage:h2d`` of both epochs; the Prometheus text over the spool must
    parse line by line and ``metrics.dump_json`` hold ``queue.depth.total``
-   in its final values and a sample. Then delivery only with the planes
-   off, on, off, on. Logs the shuffle seconds per epoch of each, the
-   metered run's step median and stall share beside the slices phase's,
-   the trace's events, each spool's bytes and the phase's seconds;
+   in its final values and a sample. The head also arms the time series
+   (``RSDL_TS``, every ``TS_PERIOD_S``), the profiler (``RSDL_PROFILE``)
+   and the run ledger, and the metered run the shared decode cache; at
+   its end (:func:`decision_checks`) the task records must count the map
+   and reduce counters and none be wedged, the critical path hold one row
+   an epoch and the registry's stalls by cause, the capacity ledger's
+   resident bytes by tier equal the store's to the byte (the cache tier
+   the shared cache's segments), every epoch have a high watermark, the
+   planner's live signals equal ``capacity.view()`` and
+   ``critical.analyze()``, the time series hold a sample a second of the
+   run, no negative rate and a persisted file equal to its ring, the
+   profiles come from the driver and the workers with ``map`` or
+   ``reduce`` and ``staging`` stacks, and the run ledger hold one
+   ``done`` record with its sections. Then delivery only over 3 epochs
+   under ``RSDL_PLAN=auto`` with every plane on, and with metrics off (no
+   signal, no re-plan): the staged tensors must be the same. Then delivery
+   only with every plane off and on, in turns, 3 each. Logs the shuffle
+   seconds per epoch of each, the metered run's step median and stall
+   share beside the slices and cluster phases', the trace's events, each
+   spool's bytes, the re-plans, a profiler tick's and a time-series
+   refresh's cost and the phase's seconds;
    plan: the read plane. The Quick-start shape (10^6 rows, 10 files, seed
    0) written with 20 row groups a file, so that at 8 reducers the plan
    compiler picks ``block:1``. Six 2-epoch DLRM runs (batch 65536, bf16,
@@ -308,6 +326,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -1545,15 +1564,17 @@ CLUSTER_WORKERS = 4  # each host's pool: the two hosts share the machine's cores
 FETCH_BENCH_BYTES = 256 << 20  # the loopback fetch's segment, about two reducer outputs of the slice
 
 
-def cluster_run(torch, port, filenames, label: str, model=None, init_state=None, tag: str = "cluster") -> dict:
-    """Two epochs of the slices' dataset through ``DeviceShufflingDataset``
+def cluster_run(torch, port, filenames, label: str, model=None, init_state=None, tag: str = "cluster",
+                epochs: int = 2) -> dict:
+    """``epochs`` epochs of the slices' dataset through ``DeviceShufflingDataset``
     (batch 65536, 8 reducers, seed 0): with ``model``, the DLRM trained from
     ``init_state`` (a fresh Adam 1e-3), else delivery alone. Per batch a
     digest of every staged tensor, ``key`` included, on the card; each
     epoch's keys exactly once; the losses, K1's launches (counted from 0),
     the step and epoch seconds, the stall, the shuffle's statistics and the
     audit's verdicts; its recoveries (``stage_retries``, ``rematerialized``,
-    ``recovery_log``) and journal. ``tag`` heads its log lines."""
+    ``recovery_log``), journal and plan compiler's terms and re-plans.
+    ``tag`` heads its log lines."""
     import numpy as np
 
     import ray_shuffling_data_loader_tpu_torch.ops as ops
@@ -1566,13 +1587,13 @@ def cluster_run(torch, port, filenames, label: str, model=None, init_state=None,
         model.load_state_dict(init_state)
         step = port.make_train_step(model, port.make_optimizer(model))
     ds = port.DeviceShufflingDataset(
-        filenames, num_epochs=2, num_trainers=1, batch_size=batch_size, rank=0,
+        filenames, num_epochs=epochs, num_trainers=1, batch_size=batch_size, rank=0,
         feature_columns=[*features, port.KEY_COLUMN], label_column=port.LABEL_COLUMN, num_reducers=8, seed=0,
         device="cuda",
     )
     reset_launches(ops)
     digests, losses, step_s, epoch_s = [], [], [], []
-    for epoch in range(2):
+    for epoch in range(epochs):
         ds.set_epoch(epoch)
         keys = []
         t_epoch = time.perf_counter()
@@ -1603,6 +1624,7 @@ def cluster_run(torch, port, filenames, label: str, model=None, init_state=None,
         "plain_calls": stats.get("plain_calls"), "schedules": [s for _, s in ds.dataset.schedule_log],
         "verdicts": audit.verdicts(), "journal": stats.get("journal"),
         "recovery": {k: stats.get(k) for k in ("stage_retries", "rematerialized", "recovery_log")},
+        "plan_terms": stats.get("plan_terms"), "plan_replans": stats.get("plan_replans"),
     }
     log(f"[{tag} {label}] {len(digests)} batches, {run['steps']} steps; schedules {run['schedules']}; shuffle s per "
         f"epoch {run['epoch_shuffle_s']!r}; epochs {epoch_s!r} s; step median {run['step_ms_median']!r} ms; stall "
@@ -2242,26 +2264,41 @@ NARROW_PROJECTION = ["key", "labels"] + [f"embeddings_name{i}" for i in range(8)
 TELEMETRY_FAULTS = "task.map:crash:1@1x1"
 TELEMETRY_SEED = 16
 TELEMETRY_ATTEMPTS = 8
-PLANE_VARS = ("RSDL_METRICS", "RSDL_TRACE", "RSDL_TRACE_DIR", "RSDL_METRICS_DIR", "RSDL_EVENTS_DIR")
+PLANE_VARS = ("RSDL_METRICS", "RSDL_TRACE", "RSDL_TRACE_DIR", "RSDL_METRICS_DIR", "RSDL_EVENTS_DIR", "RSDL_TS",
+              "RSDL_TS_PERIOD_S", "RSDL_PROFILE", "RSDL_PROFILE_DIR", "RSDL_RUN_LEDGER", "RSDL_PLAN")
+# The temporal and decision planes as the metered run arms them: the time
+# series every half second, the profiler at its default 67 Hz.
+TS_PERIOD_S = "0.5"
 PROM_SAMPLE = re.compile(
     r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*"(,[a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*")*\})? '
     r'(-?[0-9]+(\.[0-9]*)?([eE][-+]?[0-9]+)?|NaN|[-+]Inf)$'
 )
+MAP_STAGES = ("map", "plan")
+REDUCE_STAGES = ("reduce", "gather-reduce", "selective-reduce")
+
+
+def _planes_env(spool: str) -> dict:
+    """Every plane on, spooling under ``spool``."""
+    return {"RSDL_METRICS": "1", "RSDL_TRACE": "1", "RSDL_TRACE_DIR": os.path.join(spool, "trace"),
+            "RSDL_METRICS_DIR": os.path.join(spool, "metrics"), "RSDL_EVENTS_DIR": os.path.join(spool, "events"),
+            "RSDL_TS": "1", "RSDL_TS_PERIOD_S": TS_PERIOD_S, "RSDL_PROFILE": "1",
+            "RSDL_PROFILE_DIR": os.path.join(spool, "profiles"), "RSDL_RUN_LEDGER": os.path.join(spool, "runs.ndjson")}
 
 
 def _planes(port, env: dict, clear=PLANE_VARS):
-    """The metrics and trace planes as ``env`` says, each cached flag of
-    this process read again and its buffers dropped."""
+    """The planes as ``env`` says, each cached flag of this process read
+    again and its buffers and views dropped."""
     from ray_shuffling_data_loader_tpu_torch import telemetry
-    from ray_shuffling_data_loader_tpu_torch.telemetry import events, metrics
+    from ray_shuffling_data_loader_tpu_torch.telemetry import (capacity, critical, events, metrics, phases, profiler,
+                                                               stragglers, timeseries)
 
     stack = contextlib.ExitStack()
     stack.enter_context(environment(env, clear=clear))
-    for mod in (telemetry, metrics):
+    for mod in (telemetry, metrics, phases, profiler):
         mod.refresh_from_env()
     telemetry.reset_state()
-    metrics.reset()
-    events.reset()
+    for mod in (metrics, events, stragglers, capacity, critical, timeseries, profiler):
+        mod.reset()
     return stack
 
 
@@ -2269,15 +2306,134 @@ def _spool_bytes(directory: str) -> int:
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(directory) for f in fs)
 
 
+def decision_checks(port, flat: dict, t_run: tuple, work: str) -> dict:
+    """The temporal and decision planes at the metered run's end, before
+    the session shuts down: task records against the task counters, the
+    critical path of each epoch and the stalls against the registry, the
+    capacity ledger against the store to the byte, the time series, the
+    profiles, the run ledger's record and the planner's live signals.
+    Raises on a failed check; returns what it read."""
+    from ray_shuffling_data_loader_tpu_torch import shuffle
+    from ray_shuffling_data_loader_tpu_torch.analysis import planner
+    from ray_shuffling_data_loader_tpu_torch.telemetry import (capacity, critical, export, profiler, runledger,
+                                                               stragglers, timeseries)
+
+    out = {}
+    # Stragglers: one record a returned stage task; a crash at entry none.
+    ana = stragglers.analyze()
+    counts = {stage: st["count"] for stage, st in ana["stages"].items()}
+    maps, reduces = sum(counts.get(s, 0) for s in MAP_STAGES), sum(counts.get(s, 0) for s in REDUCE_STAGES)
+    if (maps, reduces) != (flat.get("shuffle.map_tasks"), flat.get("shuffle.reduce_tasks")) or ana["wedged"]:
+        raise AssertionError(f"[telemetry] task records {counts} (map {maps}, reduce {reduces}) against counters "
+                             f"{flat.get('shuffle.map_tasks')} / {flat.get('shuffle.reduce_tasks')}; wedged "
+                             f"{ana['wedged']}")
+    out["stragglers"] = {"counts": counts, "skew": {s: st["skew_ratio"] for s, st in ana["stages"].items()},
+                         "median_s": {s: st["median_s"] for s, st in ana["stages"].items()},
+                         "flagged": ana["flagged_total"]}
+    # The critical path: a row an epoch, on a stage that ran in it; the
+    # stalls by cause are the registry's.
+    crit = critical.analyze()
+    rows = {r["epoch"]: r for r in crit["epochs"]}
+    stall = {}
+    for key, value in flat.items():
+        if key.startswith("stall_seconds{"):
+            labels = dict(part.partition("=")[::2] for part in key[len("stall_seconds{"):-1].split(","))
+            stall[labels["cause"]] = stall.get(labels["cause"], 0.0) + value
+    if (sorted(rows) != [0, 1] or any(r["critical_path"] not in MAP_STAGES + REDUCE_STAGES for r in rows.values())
+            or crit["stall_by_cause"] != stall):
+        raise AssertionError(f"[telemetry] critical: rows {[(e, r['critical_path']) for e, r in rows.items()]}, "
+                             f"stalls {crit['stall_by_cause']} against the registry's {stall}")
+    out["critical"] = {"paths": {e: r["critical_path"] for e, r in rows.items()},
+                       "sole_share": {e: r["sole_share"] for e, r in rows.items()}, "stall_by_cause": stall,
+                       "run": crit["run_critical_path"]}
+    # Capacity: the fold by tier against the store, to the byte; the cache
+    # tier holds the shared decode cache's segments.
+    folded, stats = capacity.ledger(), port.runtime.store_stats()
+    totals = folded["totals"]
+    resident = {t: c["resident_bytes"] for t, c in totals.items()}
+    cached = shuffle._shared_cache_spared()
+    if (resident["shm"] + resident["cache"] != stats.total_bytes - stats.spill_bytes
+            or resident["spill"] != stats.spill_bytes or totals["cache"]["segments"] != len(cached)
+            or not cached or resident["cache"] != stats.total_bytes
+            or any(folded["epochs"].get(str(e), {}).get("shm", {}).get("hwm_bytes", 0) <= 0 for e in range(2))):
+        raise AssertionError(f"[telemetry] capacity: fold {resident} ({totals['cache']['segments']} cache segments, "
+                             f"{len(cached)} shared) against the store {stats}; epochs {folded['epochs']}")
+    out["capacity"] = {"resident": resident, "store": {"objects": stats.num_objects, "bytes": stats.total_bytes},
+                       "hwm_bytes": {e: {t: c["hwm_bytes"] for t, c in tiers.items()}
+                                     for e, tiers in folded["epochs"].items()},
+                       "ops": folded["ops"]}
+    # The planner's live signals are those views' at this moment.
+    signals, view, now_crit = planner._live_signals(), capacity.view(), critical.analyze()
+    if (signals.get("shm_used_frac") != view.get("shm_used_frac") or signals.get("shm_used_frac") is None
+            or signals.get("critical_path") != now_crit["current"].get("critical_path")
+            or signals.get("critical_path") is None):
+        raise AssertionError(f"[telemetry] live signals {signals} against view {view.get('shm_used_frac')} and "
+                             f"critical {now_crit['current']}")
+    out["live_signals"] = signals
+    # The time series: a sample a second of the run or more, no rate below
+    # 0, and the persisted file equal to the ring once the sampler stops.
+    timeseries.stop()
+    ring = timeseries.samples()
+    in_run = [x for x in ring if t_run[0] <= x["ts"] <= t_run[1]]
+    negative = [k for x in ring for k, e in x["metrics"].items() if e.get("rate", 0.0) < 0]
+    if len(in_run) < int(t_run[1] - t_run[0]) or negative or timeseries.load_persisted() != json.loads(
+            json.dumps(ring)):
+        raise AssertionError(f"[telemetry] time series: {len(in_run)} samples in {t_run[1] - t_run[0]:.1f} s, "
+                             f"negative rates {negative[:5]}, persisted {len(timeseries.load_persisted())} "
+                             f"against {len(ring)}")
+    out["timeseries"] = {"samples": len(ring), "in_run": len(in_run), "run_s": t_run[1] - t_run[0]}
+    # The profiles: the driver's and a task worker's, stage-tagged stacks.
+    records = profiler.load_records()
+    roles = sorted({r["source"]["role"] for r in records})
+    digest = profiler.digest()
+    stages = set((digest or {}).get("stages") or {})
+    if not {"driver", "task"} <= set(roles) or "staging" not in stages or not {"map", "reduce"} & stages:
+        raise AssertionError(f"[telemetry] profiles of {roles}; digest stages {sorted(stages)}")
+    snap = profiler.snapshot()
+    out["profiler"] = {"roles": roles, "sources": digest["sources"], "stages": digest["stages"],
+                       "top": digest["top"][:8], "driver_samples": snap["samples"],
+                       "driver_hz": snap["samples"] / (time.time() - snap["t0"]),
+                       "spool_bytes": _spool_bytes(profiler.spool_dir())}
+    # The run ledger: one done record with its sections.
+    records = runledger.read()
+    rec = records[0] if len(records) == 1 else {}
+    if (rec.get("status") != "done" or [r.get("state") for r in rec.get("epochs", [])] != ["done", "done"]
+            or not rec.get("critical", {}).get("epochs") or not rec.get("capacity", {}).get("shm_resident_bytes")
+            or not rec.get("profile")):
+        raise AssertionError(f"[telemetry] run ledger: {len(records)} records, {sorted(rec)}: "
+                             f"{ {k: rec.get(k) for k in ('status', 'epochs', 'critical', 'capacity')} }")
+    out["run_ledger"] = {k: rec[k] for k in ("status", "duration_s", "epochs", "critical", "capacity",
+                                             "stall_by_cause")}
+    out["run_ledger"]["bytes"] = os.path.getsize(runledger.ledger_path())
+    # What a tick costs here: the profiler's fold of every thread, and the
+    # time series' refresh of the derived gauges with its sample.
+    n = 200
+    t0 = time.perf_counter()
+    for _ in range(n):
+        profiler._tick()
+    out["profiler"]["tick_us"] = (time.perf_counter() - t0) / n * 1e6
+    out["profiler"]["threads"] = threading.active_count()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        stragglers.publish_metrics()
+        capacity.publish_metrics()
+        critical.publish_metrics()
+        export.aggregate_typed(per_source=True)
+    out["timeseries"]["tick_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    return out
+
+
 def telemetry_head(spec: dict) -> int:
     """The ``[telemetry]`` phase's runs, in a process of their own started
-    with the planes on: the metered DLRM run with its checks, then delivery
-    only with the planes off, on, off, on. Raises on a failed check (the
-    phase then fails); writes the results to ``spec["result"]``."""
+    with every plane on: the metered DLRM run with its checks; delivery
+    only under the plan compiler, with the planes on and with metrics off;
+    then delivery only with the planes off and on, in turns. Raises on a
+    failed check (the phase then fails); writes the results to
+    ``spec["result"]``."""
     import torch
 
     import ray_shuffling_data_loader_tpu_torch as port
-    from ray_shuffling_data_loader_tpu_torch import telemetry
+    from ray_shuffling_data_loader_tpu_torch import shuffle, telemetry
     from ray_shuffling_data_loader_tpu_torch.runtime import faults
     from ray_shuffling_data_loader_tpu_torch.stats import ObjectStoreStatsCollector
     from ray_shuffling_data_loader_tpu_torch.telemetry import events, export, metrics
@@ -2289,21 +2445,28 @@ def telemetry_head(spec: dict) -> int:
     init_state = copy.deepcopy(model.state_dict())
     out = {}
 
-    # (1) The metered run, the fault rule armed before the session starts.
+    # (1) The metered run, the fault rule armed before the session starts;
+    # the shared decode cache on, so that its segments outlive the run in
+    # the capacity ledger's cache tier.
     with environment({"RSDL_FAULTS": TELEMETRY_FAULTS, "RSDL_FAULTS_SEED": str(TELEMETRY_SEED),
-                      "RSDL_STAGE_MAX_ATTEMPTS": str(TELEMETRY_ATTEMPTS)}):
+                      "RSDL_STAGE_MAX_ATTEMPTS": str(TELEMETRY_ATTEMPTS), "RSDL_DECODE_CACHE_SHARED": "on"}):
         faults.refresh_from_env()
         port.runtime.init()
         try:
-            log(f"[telemetry] worker pool up in {start_pool(port)!r} s; metrics and trace on; schedule "
-                f"{TELEMETRY_FAULTS} seed {TELEMETRY_SEED}, {TELEMETRY_ATTEMPTS} attempts")
+            log(f"[telemetry] worker pool up in {start_pool(port)!r} s; every plane on (time series every "
+                f"{TS_PERIOD_S} s, profiler); schedule {TELEMETRY_FAULTS} seed {TELEMETRY_SEED}, "
+                f"{TELEMETRY_ATTEMPTS} attempts")
             with ObjectStoreStatsCollector(sample_period_s=1.0):
+                t0 = time.time()
                 run = cluster_run(torch, port, files, "metered", model, init_state, tag="telemetry")
+                t_run = (t0, time.time())
             dump_path = metrics.dump_json(os.path.join(work, "metrics.json"))
             typed = export.aggregate_typed()
             flat = export.flatten(typed)
             prom = export.prometheus_text()
             logged = events.load()
+            out["decision"] = decision_checks(port, flat, t_run, work)
+            shuffle.shared_decode_cache_clear(free=True)
         finally:
             port.runtime.shutdown()
     faults.refresh_from_env()
@@ -2369,31 +2532,67 @@ def telemetry_head(spec: dict) -> int:
         raise AssertionError(f"[telemetry] dump: final {sorted(dump['final'])[:20]}, {len(dump['samples'])} samples")
     spools = {plane: _spool_bytes(os.environ[var])
               for plane, var in (("trace", "RSDL_TRACE_DIR"), ("metrics", "RSDL_METRICS_DIR"),
-                                 ("events", "RSDL_EVENTS_DIR"))}
+                                 ("events", "RSDL_EVENTS_DIR"), ("profiles", "RSDL_PROFILE_DIR"))}
     out["metered"] = {
         **{k: run[k] for k in ("losses", "launches", "steps", "step_ms_median", "epoch_s", "epoch_shuffle_s",
-                               "stall_s", "stall_share", "recovery")},
+                               "stall_s", "stall_share", "recovery", "schedules")},
         "counters": {k: flat.get(k) for k in ("shuffle.map_tasks", "shuffle.map_rows", "shuffle.reduce_tasks",
                                               "shuffle.reduce_rows", "h2d.batches", "h2d.bytes")},
         "stage_retries": metered_retries, "faults_injected": injected[1], "events": kinds,
         "trace_events": len(trace), "spool_bytes": spools, "samples": len(dump["samples"]),
         "prometheus_lines": len(prom.splitlines()),
     }
+    dec = out["decision"]
     log(f"[telemetry] metered: tensors and {len(run['losses'])} losses equal the unmetered run's; K1 "
-        f"{n['interaction_mma']} of {run['steps']} steps on the tensor-core route; counters "
-        f"{out['metered']['counters']}; stage retries {metered_retries} = stats {retries}; faults.injected "
+        f"{n['interaction_mma']} of {run['steps']} steps on the tensor-core route; schedules {run['schedules']}; "
+        f"counters {out['metered']['counters']}; stage retries {metered_retries} = stats {retries}; faults.injected "
         f"{injected[1]}; events {kinds}")
     log(f"[telemetry] trace: {len(trace)} events, span epochs {checks}; spool bytes {spools}; Prometheus "
         f"{out['metered']['prometheus_lines']} lines parse; {len(dump['samples'])} samples")
+    log(f"[telemetry] stragglers: task records {dec['stragglers']['counts']} = the counters; median s "
+        f"{dec['stragglers']['median_s']}; skew {dec['stragglers']['skew']}; flagged {dec['stragglers']['flagged']}; "
+        f"none wedged")
+    log(f"[telemetry] critical path by epoch {dec['critical']['paths']} (run {dec['critical']['run']}), sole shares "
+        f"{dec['critical']['sole_share']}; stalls by cause {dec['critical']['stall_by_cause']} = the registry's")
+    log(f"[telemetry] capacity at the run's end: fold {dec['capacity']['resident']} B = the store's "
+        f"{dec['capacity']['store']}; high watermarks {dec['capacity']['hwm_bytes']}; {dec['capacity']['ops']} ops; "
+        f"live signals {dec['live_signals']} = capacity.view() and critical.analyze()")
+    log(f"[telemetry] time series: {dec['timeseries']['in_run']} samples in the run's "
+        f"{dec['timeseries']['run_s']:.1f} s ({dec['timeseries']['samples']} in all), no negative rate, persisted = "
+        f"ring; a tick's refresh and aggregate {dec['timeseries']['tick_ms']:.3f} ms")
+    log(f"[telemetry] profiler: roles {dec['profiler']['roles']}, {dec['profiler']['sources']} sources, stages "
+        f"{dec['profiler']['stages']}; driver {dec['profiler']['driver_samples']} samples at "
+        f"{dec['profiler']['driver_hz']:.1f} Hz, a tick {dec['profiler']['tick_us']:.1f} us over "
+        f"{dec['profiler']['threads']} threads; top {dec['profiler']['top'][:4]}")
+    log(f"[telemetry] run ledger: {dec['run_ledger']}")
 
-    # (2) The cost: delivery only, the planes off, on, off, on.
-    out["cost"] = []
-    for i, on in enumerate((False, True, False, True)):
-        spool = os.path.join(work, f"cost-{i}")
-        env = {"RSDL_METRICS": "1", "RSDL_TRACE": "1", "RSDL_TRACE_DIR": os.path.join(spool, "trace"),
-               "RSDL_METRICS_DIR": os.path.join(spool, "metrics"),
-               "RSDL_EVENTS_DIR": os.path.join(spool, "events")} if on else {}
+    # (2) Re-planning on live signals: delivery only, 3 epochs under the
+    # plan compiler, the planes on, then metrics off (no signal, no
+    # re-plan); the staged tensors must be the same.
+    out["replan"] = {}
+    for label, on in (("planes-on", True), ("metrics-off", False)):
+        env = {**(_planes_env(os.path.join(work, "replan")) if on else {}), "RSDL_PLAN": "auto"}
         with _planes(port, env):
+            port.runtime.init()
+            try:
+                start_pool(port)
+                r = cluster_run(torch, port, files, f"replan-{label}", tag="telemetry", epochs=3)
+            finally:
+                port.runtime.shutdown()
+        out["replan"][label] = {"digests": r["digests"], "plan_replans": r["plan_replans"],
+                                "plan_terms": {k: v["value"] for k, v in (r["plan_terms"] or {}).items()},
+                                "epoch_shuffle_s": r["epoch_shuffle_s"]}
+    on_run, off_run = out["replan"]["planes-on"], out["replan"]["metrics-off"]
+    if on_run.pop("digests") != off_run.pop("digests") or off_run["plan_replans"]:
+        raise AssertionError(f"[telemetry] re-planned delivery differs from the unplanned-signal one, or replanned "
+                             f"without signals: {off_run['plan_replans']}")
+    log(f"[telemetry] re-planning: 3 epochs under RSDL_PLAN=auto bit-identical with the planes on and metrics off; "
+        f"plan_replans on {on_run['plan_replans']}, off {off_run['plan_replans']}; terms {on_run['plan_terms']}")
+
+    # (3) The cost: delivery only, every plane off and on, in turns.
+    out["cost"] = []
+    for i, on in enumerate((False, True) * 3):
+        with _planes(port, _planes_env(os.path.join(work, f"cost-{i}")) if on else {}):
             port.runtime.init()
             try:
                 pool_s = start_pool(port)
@@ -2414,7 +2613,7 @@ def telemetry_head(spec: dict) -> int:
 
 def phase_telemetry(torch, filenames, reference: dict, unmetered: dict, work: str) -> dict:
     """The ``[telemetry]`` phase: :func:`telemetry_head` in a process of its
-    own, started with the planes on and the spools under ``work``.
+    own, started with every plane on and the spools under ``work``.
     ``reference``: the cluster phase's deterministic one-host DLRM run;
     ``unmetered``: the slices phase's DLRM run, logged beside."""
     t_phase = time.perf_counter()
@@ -2424,8 +2623,7 @@ def phase_telemetry(torch, filenames, reference: dict, unmetered: dict, work: st
     with open(spec_path, "w") as f:
         json.dump(spec, f)
     env = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
-    env.update(RSDL_METRICS="1", RSDL_TRACE="1", RSDL_TRACE_DIR=os.path.join(work, "trace"),
-               RSDL_METRICS_DIR=os.path.join(work, "metrics"), RSDL_EVENTS_DIR=os.path.join(work, "events"))
+    env.update(_planes_env(work))
     head = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--telemetry-head", spec_path],
                             env=env, cwd=ROOT)
     try:
@@ -2440,9 +2638,11 @@ def phase_telemetry(torch, filenames, reference: dict, unmetered: dict, work: st
         res = json.load(f)
     metered = res["metered"]
     log(f"[telemetry] metered against unmetered DLRM slice: shuffle s per epoch {metered['epoch_shuffle_s']!r} "
-        f"against {unmetered['delivery']['epoch_shuffle_s']!r}; step median {metered['step_ms_median']!r} against "
-        f"{unmetered['step_ms_median']!r} ms; stall share {metered['stall_share']!r} against "
-        f"{stall_share(unmetered)!r}; epochs {metered['epoch_s']!r} against {unmetered['epoch_s']!r} s")
+        f"against {unmetered['delivery']['epoch_shuffle_s']!r} (the cluster phase's one-host run: "
+        f"{reference['epoch_shuffle_s']!r}); step median {metered['step_ms_median']!r} against "
+        f"{unmetered['step_ms_median']!r} ms (cluster one host {reference['step_ms_median']!r}); stall share "
+        f"{metered['stall_share']!r} against {stall_share(unmetered)!r}; epochs {metered['epoch_s']!r} against "
+        f"{unmetered['epoch_s']!r} s")
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"[telemetry] phase {res['phase_s']:.1f} s (head {res['wall_s']:.1f} s)")
     return res

@@ -12,9 +12,10 @@ arguments, so a planned run and the same knobs set by hand run alike.
 
 :func:`replan` changes the terms that may change mid-run
 (:data:`~..runtime.plan.MUTABLE_TERMS`) between epochs, from live
-signals (:func:`_live_signals`). Those signals come from the capacity,
-critical-path and time-series planes, which the port does not have yet,
-so there are none, and the re-planner holds.
+signals (:func:`_live_signals`): the capacity ledger's
+``shm_used_frac`` and the current epoch's critical path and stalls, from
+whichever of those planes a metered run loaded. Without them the
+re-planner holds.
 
 ``shuffle()`` reads ``RSDL_PLAN`` before it imports this module.
 """
@@ -22,6 +23,7 @@ so there are none, and the re-planner holds.
 from __future__ import annotations
 
 import os
+import sys
 from typing import Any, Dict, List, Optional, Sequence
 
 from ray_shuffling_data_loader_tpu_torch import shuffle as sh
@@ -265,13 +267,43 @@ def compile_plan(
 
 
 def _live_signals() -> Dict[str, Any]:
-    """The live signals the re-planner reads: the store's shared-memory
-    share in use (``shm_used_frac``), the epoch's critical path
-    (``critical_path``: ``map`` or ``reduce``) and its stalls by cause.
-    They come from telemetry planes (capacity, critical path, time
-    series) that the port does not have yet: empty, and the re-planner
-    holds."""
-    return {}
+    """The live signals the re-planner reads, from the telemetry planes
+    already loaded (``sys.modules`` only: the re-planner never loads a
+    dark plane): the store's shared-memory share in use
+    (``shm_used_frac``, :func:`..telemetry.capacity.view`), the current
+    epoch's critical path and sole-active shares and the stalls by cause
+    (:func:`..telemetry.critical.analyze`), and the time series' rates
+    where it has any. A plane that is not loaded adds nothing; with none,
+    the re-planner holds."""
+    out: Dict[str, Any] = {}
+    pkg = "ray_shuffling_data_loader_tpu_torch."
+    capacity = sys.modules.get(pkg + "telemetry.capacity")
+    if capacity is not None:
+        try:
+            out["shm_used_frac"] = (capacity.view() or {}).get("shm_used_frac")
+        except Exception:
+            pass
+    critical = sys.modules.get(pkg + "telemetry.critical")
+    if critical is not None:
+        try:
+            analysis = critical.analyze()
+            current = analysis.get("current") or {}
+            out["critical_path"] = current.get("critical_path")
+            out["sole_share"] = current.get("sole_share")
+            stalls = analysis.get("stall_by_cause") or {}
+            if stalls:
+                out["stall_by_cause"] = stalls
+        except Exception:
+            pass
+    timeseries = sys.modules.get(pkg + "telemetry.timeseries")
+    if timeseries is not None:
+        try:
+            rates = getattr(timeseries, "rates", None)
+            if callable(rates):
+                out["rates"] = rates()
+        except Exception:
+            pass
+    return out
 
 
 def replan(rplan: ResolvedPlan, *, epoch: int) -> List[Dict[str, Any]]:

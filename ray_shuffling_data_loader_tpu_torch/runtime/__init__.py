@@ -30,8 +30,14 @@ workers) read ``cluster.json`` there and get the same wiring.
 
 **Telemetry.** With ``RSDL_METRICS`` on, a new session points the metrics
 and event spools at ``<runtime_dir>/metrics`` and ``/events`` unless
-``RSDL_METRICS_DIR`` and ``RSDL_EVENTS_DIR`` name others; :func:`shutdown`
-spools this process's last metrics snapshot while the directory exists.
+``RSDL_METRICS_DIR`` and ``RSDL_EVENTS_DIR`` name others, and with
+``RSDL_PROFILE`` set the profiles at ``<runtime_dir>/profiles`` unless
+``RSDL_PROFILE_DIR`` names another. Every process that starts or joins a
+session starts the sampling profiler under ``RSDL_PROFILE``; the owner
+starts the time-series sampler with metrics on and ``RSDL_TS`` (or
+``RSDL_OBS_PORT``) set (:func:`_start_planes`). :func:`shutdown` stops
+both and spools this process's last metrics snapshot and profile while
+the directory exists.
 
 This package imports numpy only: the spawned workers load it.
 """
@@ -47,10 +53,12 @@ import multiprocessing.util  # noqa: F401
 import os
 import secrets
 import shutil
+import sys
 import tempfile
 import threading
 from typing import Callable, List, Optional
 
+from ray_shuffling_data_loader_tpu_torch.telemetry import _env
 from ray_shuffling_data_loader_tpu_torch.telemetry import metrics as _metrics
 
 from .actor import ActorDiedError, ActorHandle, RemoteError
@@ -105,6 +113,13 @@ class RuntimeContext:
         return self.cluster.scheduler() if self.cluster is not None else self.pool
 
     def shutdown(self) -> None:
+        if self.owner:
+            # The sampler reads the spools: it stops before they go.
+            # Through sys.modules: a session that never sampled imports
+            # nothing here.
+            ts = sys.modules.get("ray_shuffling_data_loader_tpu_torch.telemetry.timeseries")
+            if ts is not None:
+                ts.stop()
         if self.cluster is not None:
             for name in self._owned_names:
                 self.cluster.unregister_named_actor(name)
@@ -129,6 +144,10 @@ class RuntimeContext:
                 export.safe_flush()
             except Exception:
                 pass
+        # The profiler stops and spools its last aggregate, the same way.
+        prof = sys.modules.get("ray_shuffling_data_loader_tpu_torch.telemetry.profiler")
+        if prof is not None:
+            prof.stop()
         for key in self._spool_env:
             os.environ.pop(key, None)
         if self.owner:
@@ -137,20 +156,51 @@ class RuntimeContext:
 
 
 def _arm_spools(runtime_dir: str) -> List[str]:
-    """With metrics on, point the metrics and event spools at the session
-    (``<runtime_dir>/metrics``, ``/events``) where ``RSDL_METRICS_DIR`` and
-    ``RSDL_EVENTS_DIR`` are unset, so the pool, the actors and this
-    process spool to one place (the port's processes do not all carry
+    """Point the armed planes' spools at the session where their variables
+    are unset: with metrics on, the metrics and event spools
+    (``<runtime_dir>/metrics``, ``/events``); with ``RSDL_PROFILE`` set,
+    the profiles (``<runtime_dir>/profiles``). So the pool, the actors and
+    this process spool to one place (the port's processes do not all carry
     ``RSDL_RUNTIME_DIR``). Returns the variables it set, which the
     session's end unsets."""
-    if not _metrics.enabled():
-        return []
+    spools = []
+    if _metrics.enabled():
+        spools += [("RSDL_METRICS_DIR", "metrics"), ("RSDL_EVENTS_DIR", "events")]
+    if _env.read_flag("RSDL_PROFILE"):
+        spools.append(("RSDL_PROFILE_DIR", "profiles"))
     armed = []
-    for key, sub in (("RSDL_METRICS_DIR", "metrics"), ("RSDL_EVENTS_DIR", "events")):
+    for key, sub in spools:
         if not os.environ.get(key):
             os.environ[key] = os.path.join(runtime_dir, sub)
             armed.append(key)
     return armed
+
+
+def _start_planes(ctx: RuntimeContext) -> None:
+    """Start the session's samplers, each gated on its variable before its
+    import: the profiler in every process that starts or joins a session
+    (``RSDL_PROFILE``), the time series on the owner only, with metrics on
+    and ``RSDL_OBS_PORT`` or ``RSDL_TS`` set. A failed start is logged,
+    never raised."""
+    import logging
+
+    if _env.read_flag("RSDL_PROFILE"):
+        try:
+            from ray_shuffling_data_loader_tpu_torch.telemetry import profiler
+
+            profiler.start()
+        except Exception:
+            logging.getLogger(__name__).warning("profiler start failed", exc_info=True)
+    if not ctx.owner or not _metrics.enabled():
+        return
+    if os.environ.get("RSDL_OBS_PORT") or os.environ.get("RSDL_TS"):
+        try:
+            from ray_shuffling_data_loader_tpu_torch.telemetry import timeseries
+
+            if os.environ.get("RSDL_OBS_PORT") or timeseries.forced_on():
+                timeseries.start()
+        except Exception:
+            logging.getLogger(__name__).warning("time-series sampler start failed", exc_info=True)
 
 
 _context: Optional[RuntimeContext] = None
@@ -256,6 +306,7 @@ def init(num_workers: Optional[int] = None, address: Optional[str] = None) -> Ru
                 raise
             _context = ctx
             atexit.register(shutdown)
+            _start_planes(ctx)
             return ctx
         if address is not None:
             if not _is_session(address):
@@ -274,6 +325,7 @@ def init(num_workers: Optional[int] = None, address: Optional[str] = None) -> Ru
             ctx = RuntimeContext(_new_session_dir(), owner=True, num_workers=num_workers)
         _context = ctx
         atexit.register(shutdown)
+        _start_planes(ctx)
         return ctx
 
 
@@ -306,6 +358,7 @@ def init_cluster(
         registry = _spawn_actor(ClusterRegistry, runtime_dir=ctx.runtime_dir, host=bind_host, port=listen_port)
         ctx._owned_actors.append(registry)
         _bootstrap_cluster_host(ctx, registry, advertise, num_workers, is_head=True)
+        _start_planes(ctx)
     except BaseException:
         with _context_lock:
             _context = None

@@ -41,6 +41,7 @@ import weakref
 from typing import Optional
 
 from ray_shuffling_data_loader_tpu_torch import telemetry
+from ray_shuffling_data_loader_tpu_torch.telemetry import _env
 
 from . import transport
 from .retry import call_policy, connect_policy
@@ -97,10 +98,12 @@ def _flush_telemetry_spools(maybe: bool = False) -> None:
     """The actor host's spool barrier, after a dispatch and at exit: the
     trace buffer when its module is loaded (never loaded, nothing
     buffered), the metrics snapshot only with metrics on (``maybe``: at
-    most once a second). Imports nothing while every plane is off."""
-    mod = sys.modules.get("ray_shuffling_data_loader_tpu_torch.telemetry.trace")
-    if mod is not None:
-        mod.safe_flush()
+    most once a second), and at exit the profile (its sampler spools it
+    once a second meanwhile). Imports nothing while every plane is off."""
+    for name in ("trace",) if maybe else ("trace", "profiler"):
+        mod = sys.modules.get(f"ray_shuffling_data_loader_tpu_torch.telemetry.{name}")
+        if mod is not None:
+            mod.safe_flush()
     if telemetry.metrics.enabled():
         if maybe:
             telemetry.export.maybe_flush()
@@ -325,6 +328,13 @@ def _actor_main(cls, args, kwargs, address: Address, registry_path, ready_q, wat
 
     threading.Thread(target=_watch, daemon=True).start()
     transport.faults().set_role("actor")
+    if _env.read_flag("RSDL_PROFILE"):
+        try:
+            from ray_shuffling_data_loader_tpu_torch.telemetry import profiler
+
+            profiler.start()
+        except Exception:
+            pass
     if telemetry.traced():
         telemetry.set_process_name(f"actor:{cls.__name__}-{os.getpid()}")
     try:

@@ -544,7 +544,7 @@ def suspend_and_exit(journal: RunJournal) -> None:
     with exit code 0 without tearing down, since the store's segments are
     the suspended window."""
     journal.close()
-    for name in ("audit", "trace", "export", "events"):
+    for name in ("audit", "trace", "export", "events", "capacity", "stragglers"):
         mod = sys.modules.get(f"ray_shuffling_data_loader_tpu_torch.telemetry.{name}")
         if mod is not None:
             try:

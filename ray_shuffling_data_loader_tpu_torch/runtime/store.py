@@ -43,7 +43,10 @@ striped over ``RSDL_TCP_STREAMS`` connections.
 
 With metrics on, a spill counts into ``store.spill_bytes_total`` (and the
 ``store.spill`` event), and each foreign window pulled into
-``store.fetch_window_seconds`` and ``store.fetch_window_bytes``.
+``store.fetch_window_seconds`` and ``store.fetch_window_bytes``; every
+publish, fetch, free, clean-up and read records an op in the capacity
+ledger (:mod:`..telemetry.capacity`), with the shared decode cache's
+segments under its ``cache`` tier.
 
 This module imports numpy and the standard library only: the spawned task
 workers load it.
@@ -72,6 +75,33 @@ from . import transport as _transport
 _MAGIC = b"RSDL1\x00"
 _ALIGN = 64
 _HEADER = struct.Struct("<6sI")  # magic, meta length
+
+
+def _ledger_note(op: str, object_id: str, nbytes: int = 0, tier: Optional[str] = None, ids=None) -> None:
+    """One op for the capacity ledger (:mod:`..telemetry.capacity`): with
+    metrics off, one cached boolean, and the module is never imported;
+    never raises."""
+    if not _metrics.enabled():
+        return
+    try:
+        from ray_shuffling_data_loader_tpu_torch.telemetry import capacity
+
+        capacity.note(op, object_id, nbytes=nbytes, tier=tier, ids=ids)
+    except Exception:
+        pass
+
+
+def _ledger_touch(object_id: str) -> None:
+    """A read's stamp for the capacity ledger (rate-limited per id there);
+    one cached boolean with metrics off."""
+    if not _metrics.enabled():
+        return
+    try:
+        from ray_shuffling_data_loader_tpu_torch.telemetry import capacity
+
+        capacity.touch(object_id)
+    except Exception:
+        pass
 
 
 def _default_shm_dir() -> str:
@@ -353,9 +383,12 @@ class PendingColumns:
     """An allocated, unpublished segment with writable column views, from
     :meth:`ObjectStore.create_columns`. Fill the views, then :meth:`seal`
     (one ref) or :meth:`publish_slices` (one hardlinked ref per row
-    window); :meth:`abort` reclaims it and is a no-op after a publish."""
+    window); :meth:`abort` reclaims it and is a no-op after a publish.
+    A publish records a ``create`` in the capacity ledger under
+    ``ledger_tier`` (None: the tier the segment lies on)."""
 
-    def __init__(self, store: "ObjectStore", object_id: str, tmp_path: str, path: str, nbytes: int, mm, views):
+    def __init__(self, store: "ObjectStore", object_id: str, tmp_path: str, path: str, nbytes: int, mm, views,
+                 ledger_tier: Optional[str] = None):
         self._store = store
         self.object_id = object_id
         self._tmp = tmp_path
@@ -364,11 +397,13 @@ class PendingColumns:
         self._mm = mm
         self.columns: Dict[str, np.ndarray] = views
         self._published = False
+        self._ledger_tier = ledger_tier
 
     def seal(self) -> ObjectRef:
         assert not self._published, "already published"
         os.rename(self._tmp, self._path)
         self._published = True
+        _ledger_note("create", self.object_id, self.nbytes, self._ledger_tier or self._store.tier_of(self._path))
         return ObjectRef(self.object_id, self.nbytes, self._store.session, owner=self._store.owner_address)
 
     def publish_slices(self, windows: Sequence[Tuple[int, int]]) -> List[ObjectRef]:
@@ -390,6 +425,10 @@ class PendingColumns:
             raise
         os.unlink(self._tmp)
         self._published = True
+        # One segment with every link: its bytes stay resident until the
+        # last link goes, as the file system counts them.
+        _ledger_note("create", self.object_id, self.nbytes, self._ledger_tier or self._store.tier_of(self._tmp),
+                     ids=[r.object_id for r in refs])
         return refs
 
     def abort(self) -> None:
@@ -662,6 +701,11 @@ class ObjectStore:
         self._scan_adjust += nbytes
         return self.shm_dir
 
+    def tier_of(self, path: str) -> str:
+        """The capacity ledger's tier of a segment path: ``spill`` in the
+        spill directory, else ``shm``."""
+        return "spill" if os.path.dirname(path) == self.spill_dir else "shm"
+
     def _find_segment(self, object_id: str) -> Optional[str]:
         """A published link's path, in the shm directory or the spill one."""
         for directory in (self.shm_dir, self.spill_dir):
@@ -673,12 +717,15 @@ class ObjectStore:
     # -- write path ---------------------------------------------------------
 
     def create_columns(
-        self, spec: Mapping[str, Tuple[Tuple[int, ...], np.dtype]], layout: Optional[dict] = None
+        self, spec: Mapping[str, Tuple[Tuple[int, ...], np.dtype]], layout: Optional[dict] = None,
+        ledger_tier: Optional[str] = None,
     ) -> PendingColumns:
         """Allocate a segment for ``{name: (shape, dtype)}`` (stamped with
         ``layout``) and return its writable views. The pages are reserved up
         front: a segment that does not fit raises :class:`StoreFullError`
-        here, not a bus error when a view is written."""
+        here, not a bus error when a view is written. ``ledger_tier``: the
+        capacity ledger's tier of its publish (``cache`` for the shared
+        decode cache), not where it lies."""
         faults = _transport.faults()
         if faults.enabled():
             faults.fire("store.put")
@@ -710,12 +757,13 @@ class ObjectStore:
             ).reshape(m["shape"])
             for m in meta
         }
-        return PendingColumns(self, object_id, tmp, path, total, mm, views)
+        return PendingColumns(self, object_id, tmp, path, total, mm, views, ledger_tier=ledger_tier)
 
-    def put_columns(self, columns: Mapping[str, np.ndarray]) -> ObjectRef:
-        """Write a columnar batch as one segment; returns its ref."""
+    def put_columns(self, columns: Mapping[str, np.ndarray], ledger_tier: Optional[str] = None) -> ObjectRef:
+        """Write a columnar batch as one segment; returns its ref.
+        ``ledger_tier``: as :meth:`create_columns`'."""
         cols = {k: np.ascontiguousarray(v) for k, v in columns.items()}
-        pending = self.create_columns({k: (v.shape, v.dtype) for k, v in cols.items()})
+        pending = self.create_columns({k: (v.shape, v.dtype) for k, v in cols.items()}, ledger_tier=ledger_tier)
         try:
             for k, v in cols.items():
                 pending.columns[k][...] = v
@@ -767,6 +815,13 @@ class ObjectStore:
             raise ObjectLostError(ref.object_id, "no segment") from None
         except ValueError as exc:
             raise ObjectCorruptError(ref.object_id, str(exc)) from exc
+        # The capacity ledger's last read of the segment: the ref's own id
+        # (a foreign read warms the owner's segment) and, where it differs,
+        # the cache segment's here.
+        _ledger_touch(ref.object_id)
+        base = os.path.basename(path)
+        if base != ref.object_id:
+            _ledger_touch(base)
         if rows is not None:
             batch = batch.slice(*rows)
         return batch
@@ -852,6 +907,7 @@ class ObjectStore:
                         os.unlink(cache)
                     except FileNotFoundError:
                         pass
+                    _ledger_note("delete", name)
                 self._foreign.discard(name)
 
         futures = []
@@ -915,6 +971,7 @@ class ObjectStore:
                 f.write(data)
         os.rename(tmp, path)
         self._foreign.add(os.path.basename(path))
+        _ledger_note("fetch", os.path.basename(path), nbytes, self.tier_of(path))
         if t0 is not None:
             # One window's latency and bytes, labelled with the framing
             # that served it and its striped streams (1 without zero-copy).
@@ -941,6 +998,7 @@ class ObjectStore:
                 os.unlink(cache)
             except FileNotFoundError:
                 pass
+            _ledger_note("delete", name)
         self._foreign.discard(name)
 
     def drop_cache(self, refs) -> None:
@@ -977,6 +1035,7 @@ class ObjectStore:
                     os.unlink(path)
                 except FileNotFoundError:
                     pass
+                _ledger_note("delete", ref.object_id)
 
     def store_stats(self) -> StoreStats:
         stats = StoreStats()
@@ -995,8 +1054,12 @@ class ObjectStore:
         """Unlink every segment of ``session`` (default: this one) in both
         directories, unfinished ones included, except the object ids in
         ``keep``. Sweeping an adopted session ends its adoption."""
+        own = session is None or session == self.session
         session = self.session if session is None else session
         keep = set(keep)
+        if own and not keep:
+            # The capacity ledger's blanket op: everything live goes.
+            _ledger_note("cleanup", session)
         for directory in (self.shm_dir, self.spill_dir):
             for name, _ in list(self._session_files(directory, unfinished=True, sessions=[session])):
                 if name in keep:
@@ -1005,6 +1068,10 @@ class ObjectStore:
                     os.unlink(os.path.join(directory, name))
                 except FileNotFoundError:
                     pass
+                if not own or keep:
+                    # One delete a name: sweeping another session leaves
+                    # this one's fold alone, and a kept segment stays live.
+                    _ledger_note("delete", name)
         adopted = self.adopted_sessions()
         if session in adopted and self._sessions_file is not None:
             with open(self._sessions_file, "w") as f:

@@ -20,8 +20,12 @@ the pool goes on serving.
 
 Each task carries its submitter's trace context (:func:`_outbound_ctx`),
 and its worker runs it under a ``task:<name>`` span in that context
-while a telemetry plane is on. Before a worker reports a task done it
-flushes the telemetry spools (:func:`_flush_telemetry_spools`).
+while a telemetry plane is on. With metrics on, a task that returns
+leaves a duration record for the straggler view (:func:`_record_task_done`),
+and the pool feeds its in-flight tasks to it (:meth:`WorkerPool.in_flight`).
+Before a worker reports a task done it flushes the telemetry spools
+(:func:`_flush_telemetry_spools`). With ``RSDL_PROFILE`` set, each worker
+runs the sampling profiler.
 
 This module imports the standard library only.
 """
@@ -71,14 +75,32 @@ def _outbound_ctx():
     return telemetry.outbound()
 
 
+def _record_task_done(fn, duration_s: float, trace_ctx) -> None:
+    """One returned task's duration record for the straggler view, with
+    the epoch and job of the context it ran in. Checks metrics before the
+    import, so the disabled path never loads the stragglers module; never
+    raises."""
+    from ray_shuffling_data_loader_tpu_torch.telemetry import metrics
+
+    if not metrics.enabled():
+        return
+    try:
+        from ray_shuffling_data_loader_tpu_torch.telemetry import stragglers
+
+        ctx = trace_ctx or {}
+        stragglers.record_task(getattr(fn, "__name__", "task"), duration_s, epoch=ctx.get("epoch"), job=ctx.get("job"))
+    except Exception:
+        pass
+
+
 def _flush_telemetry_spools() -> None:
     """The task-done spool barrier: a task's trace events, audit records,
-    metrics snapshot and events are on their spools before its result, or
-    its failure, can be seen. Trace and audit flush through
-    ``sys.modules`` (a module never loaded has nothing buffered); export
-    and events only with metrics on, so the disabled path imports
-    nothing."""
-    for name in ("trace", "audit"):
+    profile, metrics snapshot, events, duration record and capacity-ledger
+    ops are on their spools before its result, or its failure, can be
+    seen. Trace, audit and the profiler flush through ``sys.modules`` (a
+    module never loaded has nothing buffered); the rest only with metrics
+    on, so the disabled path imports nothing."""
+    for name in ("trace", "audit", "profiler"):
         mod = sys.modules.get(f"{_TELEMETRY}.{name}")
         if mod is not None:
             mod.safe_flush()
@@ -86,10 +108,12 @@ def _flush_telemetry_spools() -> None:
 
     if metrics.enabled():
         try:
-            from ray_shuffling_data_loader_tpu_torch.telemetry import events, export
+            from ray_shuffling_data_loader_tpu_torch.telemetry import capacity, events, export, stragglers
 
             export.safe_flush()
             events.safe_flush()
+            stragglers.safe_flush()
+            capacity.safe_flush()
         except Exception:
             pass
 
@@ -109,6 +133,13 @@ def _worker_main(task_q, result_q, env: Dict[str, str]) -> None:
     if trace_on:
         telemetry.set_process_name(f"task-worker-{pid}")
     instrumented = trace_on or telemetry.metrics.enabled()
+    if _env.read_flag("RSDL_PROFILE"):
+        try:
+            from ray_shuffling_data_loader_tpu_torch.telemetry import profiler
+
+            profiler.start()
+        except Exception:
+            pass
     parent = os.getppid()
 
     def watch_parent():
@@ -129,6 +160,7 @@ def _worker_main(task_q, result_q, env: Dict[str, str]) -> None:
         result_q.put(("start", task_id, pid))
         try:
             fn, args, kwargs, trace_ctx = pickle.loads(blob)
+            t0 = time.perf_counter()
             if instrumented or trace_ctx is not None:
                 # Re-enter the submitter's context: the task's spans and
                 # events carry its (trial, epoch, schedule).
@@ -136,6 +168,7 @@ def _worker_main(task_q, result_q, env: Dict[str, str]) -> None:
                     result = fn(*args, **kwargs)
             else:
                 result = fn(*args, **kwargs)
+            _record_task_done(fn, time.perf_counter() - t0, trace_ctx)
             out = pickle.dumps(result)
             error = None
         except Exception as exc:
@@ -194,6 +227,18 @@ class WorkerPool:
         self._collector.start()
         self._watchdog = threading.Thread(target=self._watch, name="pool-watchdog", daemon=True)
         self._watchdog.start()
+        # The straggler view's wedged-task feed: which task started when,
+        # on which worker. Checks metrics before the import.
+        self._inflight_name = f"pool-{id(self)}"
+        from ray_shuffling_data_loader_tpu_torch.telemetry import metrics
+
+        if metrics.enabled():
+            try:
+                from ray_shuffling_data_loader_tpu_torch.telemetry import stragglers
+
+                stragglers.register_inflight_provider(self._inflight_name, self.in_flight)
+            except Exception:
+                pass
 
     @property
     def num_workers(self) -> int:
@@ -361,6 +406,11 @@ class WorkerPool:
                 return
             self._closed = True
             procs = list(self._procs)
+        # Through sys.modules: a pool that never registered does not
+        # import the straggler module to unregister.
+        stragglers = sys.modules.get(f"{_TELEMETRY}.stragglers")
+        if stragglers is not None:
+            stragglers.unregister_inflight_provider(self._inflight_name)
         for _ in procs:
             self._task_q.put(None)
         for p in procs:

@@ -589,6 +589,78 @@ def _plan_enabled() -> bool:
     return (os.environ.get("RSDL_PLAN") or "").strip().lower() in ("auto", "on", "1", "true")
 
 
+# -- the live trial status ----------------------------------------------------
+# The driver's view of the running (or last) trial: its shape, and each
+# epoch's state, schedule and reducers delivered. The critical-path view
+# reads its in-flight epochs, the run ledger its shape. A handful of
+# updates an epoch, so it stays on.
+
+_live_lock = threading.Lock()
+_live: Dict[str, Any] = {}
+
+
+def live_status() -> dict:
+    """A JSON-safe snapshot of the current (or last) trial: ``running``,
+    ``started_ts``, ``num_epochs``, ``num_files``, ``num_reducers``,
+    ``num_trainers``, ``start_epoch``, each epoch's ``state`` (``pending``,
+    ``waiting-admission``, ``admitted``, ``running``, ``done``, ``failed``
+    or ``suspended``), ``schedule`` and ``delivered_reducers``, and the
+    ``in_flight_epochs`` (neither done nor failed); ``ended_ts`` and
+    ``error`` once it ended. The JAX package's single-job shape."""
+    with _live_lock:
+        if not _live:
+            return {"epochs": {}, "in_flight_epochs": []}
+        out = {k: v for k, v in _live.items() if k != "epochs"}
+        out["epochs"] = {str(e): dict(st) for e, st in _live["epochs"].items()}
+    out["running"] = bool(out.get("running"))
+    out["in_flight_epochs"] = sorted(
+        int(e) for e, st in out["epochs"].items() if st.get("state") not in ("done", "failed"))
+    return out
+
+
+def _status_begin_trial(num_epochs: int, num_files: int, num_reducers: int, num_trainers: int,
+                        start_epoch: int) -> None:
+    with _live_lock:
+        _live.clear()
+        _live.update(running=True, job="_default", started_ts=time.time(), num_epochs=num_epochs,
+                     num_files=num_files, num_reducers=num_reducers, num_trainers=num_trainers,
+                     start_epoch=start_epoch, epochs={})
+
+
+def _status_epoch(epoch: int, delivered_inc: int = 0, **kv) -> None:
+    with _live_lock:
+        st = _live.setdefault("epochs", {}).setdefault(int(epoch), {"state": "pending", "delivered_reducers": 0})
+        if delivered_inc:
+            st["delivered_reducers"] = st.get("delivered_reducers", 0) + delivered_inc
+        st.update(kv)
+
+
+def _status_end_trial(error: Optional[str] = None) -> None:
+    with _live_lock:
+        _live.setdefault("epochs", {})
+        _live["running"] = False
+        _live["ended_ts"] = time.time()
+        if error is not None:
+            _live["error"] = error[:300]
+
+
+def _ledger_record(status: str, duration_s: Optional[float] = None, error: Optional[str] = None, plan=None,
+                   audit_verdicts=None) -> None:
+    """Append the run's record to the run ledger (:mod:`.telemetry.runledger`).
+    Reads ``RSDL_RUN_LEDGER`` before the import; a ledger that fails never
+    changes the run's outcome (this runs on the failure paths too)."""
+    if not os.environ.get("RSDL_RUN_LEDGER"):
+        return
+    try:
+        from ray_shuffling_data_loader_tpu_torch.telemetry import runledger
+
+        runledger.record_run(status, duration_s=duration_s, error=error,
+                             plan_label=_label_of_plan(plan) if plan is not None else None,
+                             audit_verdicts=audit_verdicts)
+    except Exception:
+        pass
+
+
 def _clear_plan_state() -> None:
     """Unregister the finished run's plan, if the plan module is loaded
     (never the reason it loads)."""
@@ -686,7 +758,10 @@ def shuffle_map(
         if publish_cache:
             with prof.phase("cache-publish", nbytes=batch.nbytes):
                 try:
-                    new_cache_ref = store.put_columns(batch.columns)
+                    # The shared tier's segments account under the
+                    # capacity ledger's "cache" tier.
+                    new_cache_ref = store.put_columns(
+                        batch.columns, ledger_tier="cache" if shared_decode_cache_enabled() else None)
                 except OSError:
                     new_cache_ref = None
     end_read = time.perf_counter()
@@ -2207,6 +2282,7 @@ def shuffle_epoch(
         pruned.schedule, pruned.delivered, pruned.rank_rows = schedule, est.delivered, dict(est.rank_rows)
         est = pruned
     cursor = est.delivered if est is not None else 0
+    _status_epoch(epoch, state="running", schedule=schedule, delivered_reducers=cursor)
     if journal is not None:
         journal.append("epoch", epoch=epoch, schedule=schedule)
     telemetry.emit_event("epoch.start", epoch=epoch, schedule=schedule, files=len(filenames), reducers=num_reducers)
@@ -2218,6 +2294,7 @@ def shuffle_epoch(
             batch_consumer.producer_done(rank, epoch)
         if journal is not None:
             journal.append("epoch-done", epoch=epoch)
+        _status_epoch(epoch, state="done")
         telemetry.emit_event("epoch.done", epoch=epoch, _flush=True)
         return True
     consume_seq = journal is not None and _accepts_seq(batch_consumer)
@@ -2545,6 +2622,7 @@ def shuffle_epoch(
                             batch_consumer.consume(rank, epoch, out, seq=r)
                         else:
                             batch_consumer.consume(rank, epoch, out)
+                    _status_epoch(epoch, delivered_inc=1)
                     if journal is not None and journal.resume_pending:
                         # The resumed run's first delivery.
                         journal.resume_pending = False
@@ -2596,9 +2674,11 @@ def shuffle_epoch(
             if journal is not None and completed:
                 journal.append("epoch-done", epoch=epoch)
     except BaseException as exc:
+        _status_epoch(epoch, state="failed")
         # Outside the epoch's context, as the JAX package emits it.
         telemetry.emit_event("epoch.failed", _flush=True, epoch=epoch, error=f"{type(exc).__name__}: {exc}"[:200])
         raise
+    _status_epoch(epoch, state="done" if completed else "suspended")
     if completed:
         telemetry.emit_event("epoch.done", epoch=epoch, _flush=True)
     return completed
@@ -2690,6 +2770,7 @@ def shuffle(
         native.ensure_built()
     start = time.perf_counter()
     filenames = list(filenames)
+    _status_begin_trial(num_epochs, len(filenames), num_reducers, num_trainers, start_epoch)
     telemetry.emit_event("trial.start", epochs=num_epochs, files=len(filenames), reducers=num_reducers,
                          trainers=num_trainers, start_epoch=start_epoch)
     device_layout = _device_layout_allowed(device_layout)
@@ -2717,7 +2798,7 @@ def shuffle(
     columns = _pushdown_columns(device_layout, columns)
     # Imported only when asked for: with RSDL_JOURNAL unset and no
     # resume_from the journal module never loads and no handler is set.
-    jmod = journal = resume_state = None
+    jmod = journal = resume_state = audit_verdicts = None
     try:
         if resume_from is not None or os.environ.get("RSDL_JOURNAL"):
             from ray_shuffling_data_loader_tpu_torch.runtime import journal as jmod
@@ -2791,8 +2872,10 @@ def shuffle(
                     if stats is not None:
                         stats["epoch"] = epoch
                     throttle_start = time.perf_counter()
+                    _status_epoch(epoch, state="waiting-admission")
                     with telemetry.scope(epoch=epoch), telemetry.span("epoch:admission", cat="queue"):
                         batch_consumer.wait_until_ready(epoch)
+                    _status_epoch(epoch, state="admitted")
                     t0 = time.perf_counter()
                     if stats_collector is not None:
                         stats_collector.call_oneway("epoch_throttle", epoch, t0 - throttle_start)
@@ -2827,6 +2910,9 @@ def shuffle(
                 journal.append("suspended")
                 telemetry.emit_event("run.suspended", _flush=True, run_id=journal.run_id, journal=journal.path)
                 _metrics.safe_inc("recovery.suspended_runs")
+                _status_end_trial(error="suspended")
+                # Before a suspend that exits the process.
+                _ledger_record("suspended", duration_s=time.perf_counter() - start, plan=plan)
                 # No resume is in progress once the run is suspended.
                 jmod.set_resume_in_progress(False)
                 if jmod.suspend_should_exit():
@@ -2839,7 +2925,7 @@ def shuffle(
                 # was seen (the task-done barrier) and the consumer acked
                 # every batch: every side is in.
                 t_audit = time.perf_counter()
-                verdicts = _audit.reconcile(
+                audit_verdicts = verdicts = _audit.reconcile(
                     range(start_epoch, num_epochs), stats_collector=stats_collector, plan_label=_label_of_plan(plan)
                 )
                 if stats is not None:
@@ -2858,12 +2944,18 @@ def shuffle(
                 jmod.set_resume_in_progress(False)
                 jmod.end_run(journal, status="failed")  # stays resumable
             if not (jmod is not None and isinstance(exc, jmod.RunSuspended)):
+                _status_end_trial(error=f"{type(exc).__name__}: {exc}")
                 telemetry.emit_event("trial.failed", _flush=True, error=f"{type(exc).__name__}: {exc}"[:200])
+                _ledger_record("failed", duration_s=time.perf_counter() - start, error=f"{type(exc).__name__}: {exc}",
+                               plan=plan, audit_verdicts=audit_verdicts)
             raise
+        _status_end_trial()
+        duration = time.perf_counter() - start
+        telemetry.emit_event("trial.done", duration_s=round(duration, 3), _flush=True)
+        # While the plan's terms are still registered: the record holds them.
+        _ledger_record("done", duration_s=duration, plan=plan, audit_verdicts=audit_verdicts)
     finally:
         _clear_plan_state()
-    duration = time.perf_counter() - start
-    telemetry.emit_event("trial.done", duration_s=round(duration, 3), _flush=True)
     if stats_collector is not None:
         stats_collector.call_oneway("trial_done", duration)
     return duration

@@ -10,11 +10,19 @@
 * :mod:`.events`: the NDJSON event log (:func:`emit_event`);
 * :mod:`.phases`: the per-phase cost inside a stage task;
 * :mod:`.audit` (``RSDL_AUDIT``): the exactly-once digests of every side
-  of the shuffle.
+  of the shuffle;
+* :mod:`.stragglers`, :mod:`.critical`, :mod:`.capacity` (with
+  ``RSDL_METRICS``): task records and the straggler view, the critical
+  path of each epoch, the store's capacity ledger;
+* :mod:`.timeseries` (``RSDL_TS``, or ``RSDL_OBS_PORT``, with metrics):
+  the sampled history of the registry;
+* :mod:`.profiler` (``RSDL_PROFILE``): a sampling profiler in every
+  process;
+* :mod:`.runledger` (``RSDL_RUN_LEDGER``): one record per finished run.
 
 Every plane but metrics resolves on first touch (PEP 562). A run with
-every flag unset imports none of trace, export, events or phases on the
-driver or on the task-done path: wiring sites check :func:`metrics.enabled`
+every flag unset imports none of the others on the driver or on the
+task-done path: wiring sites check :func:`metrics.enabled`
 or ``sys.modules`` before any import. A worker's data path may import
 :mod:`.phases` once, then pays one cached boolean per site.
 
@@ -66,7 +74,21 @@ _TRACE_NAMES = frozenset(
 
 # Submodules resolved as attributes on first touch; the import system then
 # binds each onto the package, and __getattr__ is not asked again.
-_LAZY_SUBMODULES = frozenset(("audit", "trace", "export", "events", "phases"))
+_LAZY_SUBMODULES = frozenset(
+    (
+        "audit",
+        "trace",
+        "export",
+        "events",
+        "phases",
+        "stragglers",
+        "critical",
+        "capacity",
+        "timeseries",
+        "profiler",
+        "runledger",
+    )
+)
 
 
 def __getattr__(name):

@@ -461,11 +461,11 @@ def test_a_caching_map_that_fails_frees_its_cache_segment(files, monkeypatch):
     create = store.create_columns
     calls = []
 
-    def second_does_not_fit(spec, layout=None):
+    def second_does_not_fit(spec, layout=None, **kwargs):
         calls.append(spec)
         if len(calls) == 2:
             raise port_store.StoreFullError(store.shm_dir, 1, 0)
-        return create(spec, layout)
+        return create(spec, layout, **kwargs)
 
     monkeypatch.setattr(store, "create_columns", second_does_not_fit)
     with pytest.raises(port_store.StoreFullError):

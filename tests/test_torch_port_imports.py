@@ -4,6 +4,7 @@ device is CUDA, never a silent CPU fallback."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -357,3 +358,83 @@ def test_metrics_and_trace_planes_load_no_torch_numpy_or_jax(tmp_path):
     out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
     assert "IMPORTED []" in out.stdout and "RAN []" in out.stdout, out.stdout
+
+
+# The temporal and decision planes, the profiler, the run ledger and the
+# knob registry: the standard library only, as the JAX package's.
+DECISION_PLANES = ("telemetry/stragglers", "telemetry/critical", "telemetry/capacity", "telemetry/timeseries",
+                   "telemetry/profiler", "telemetry/runledger", "analysis/knob_registry")
+
+
+@pytest.mark.parametrize("name", DECISION_PLANES)
+def test_decision_planes_import_the_standard_library_only(name):
+    path = os.path.join(PORT_DIR, f"{name}.py")
+    assert path in set(_sources())
+    names = set(_imported_top_levels(path))
+    assert names <= set(sys.stdlib_module_names) | {"ray_shuffling_data_loader_tpu_torch"}, names
+    assert not names & FORBIDDEN
+
+
+def test_decision_planes_load_no_torch_numpy_or_jax(tmp_path):
+    script = textwrap.dedent(
+        f"""
+        import os, sys
+        sys.path.insert(0, {REPO!r})
+        os.environ.update(RSDL_METRICS="1", RSDL_PROFILE="1", RSDL_METRICS_DIR={str(tmp_path / "metrics")!r},
+                          RSDL_PROFILE_DIR={str(tmp_path / "profiles")!r},
+                          RSDL_RUN_LEDGER={str(tmp_path / "runs.ndjson")!r})
+        from ray_shuffling_data_loader_tpu_torch.analysis import knob_registry
+        from ray_shuffling_data_loader_tpu_torch.telemetry import (capacity, critical, profiler, runledger,
+                                                                   stragglers, timeseries)
+        heavy = {{"torch", "numpy", *{sorted(FORBIDDEN)!r}}}
+        print("IMPORTED", sorted({{m.split(".")[0] for m in sys.modules}} & heavy))
+        stragglers.record_task("shuffle_map", 0.1, epoch=0)
+        capacity.note("create", "x", nbytes=8, tier="shm", epoch=0)
+        profiler._tick()
+        timeseries.sample_now()
+        critical.analyze(), capacity.view(), stragglers.analyze()
+        runledger.record_run("done", duration_s=1.0)
+        # The spools' source identity reads the fault plane's role, whose
+        # package loads numpy: as the metrics planes' does.
+        print("RAN", sorted({{m.split(".")[0] for m in sys.modules}} & (heavy - {{"numpy"}})), len(runledger.read()))
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA", "RSDL_"))}
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "IMPORTED []" in out.stdout and "RAN [] 1" in out.stdout, out.stdout
+
+
+def _environment_reads(path):
+    """The ``RSDL_*`` names a source file mentions in a string, its
+    environment reads among them."""
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            yield from re.findall(r"\bRSDL_[A-Z0-9_]+", node.value)
+
+
+# Variables the port reads and the JAX package does not: none so far.
+PORT_ONLY_KNOBS = set()
+
+
+def test_knob_registry_names_the_jax_package_s_knobs_and_every_port_read():
+    """The port's registry is the JAX package's, knob for knob, plus
+    :data:`PORT_ONLY_KNOBS`; every ``RSDL_*`` name in the port's sources
+    is in it; its planned knobs are the planner's terms'."""
+    from ray_shuffling_data_loader_tpu.analysis.knob_registry import KNOBS as JAX_KNOBS
+    from ray_shuffling_data_loader_tpu_torch.analysis import knob_registry
+
+    names = [k.name for k in knob_registry.KNOBS]
+    assert len(names) == len(set(names))
+    assert set(names) == {k.name for k in JAX_KNOBS} | PORT_ONLY_KNOBS
+    assert [k for k in knob_registry.KNOBS if k.name not in PORT_ONLY_KNOBS] == [
+        knob_registry.Knob(**{f: getattr(k, f) for f in ("name", "kind", "default", "scope", "help", "prefix",
+                                                          "planned")}) for k in JAX_KNOBS]
+    read = {name for path in _sources() if path.startswith(PORT_DIR) for name in _environment_reads(path)}
+    unknown = {n for n in read if knob_registry.REGISTRY.lookup(n) is None
+               and knob_registry.REGISTRY.lookup(n, is_prefix=True) is None}
+    assert not unknown, unknown
+    from ray_shuffling_data_loader_tpu_torch.analysis import planner
+
+    assert set(planner.TERM_KNOBS.values()) == {k.name for k in knob_registry.KNOBS if k.planned}

@@ -201,8 +201,12 @@ def test_replan_matches_jax(wide, narrow, monkeypatch, signals, cache_friendly, 
             assert got.replans == 0
 
 
-def test_port_replan_holds_without_telemetry(wide):
-    """The port has no telemetry plane: no live signal, and no change."""
+def test_port_replan_holds_without_telemetry(wide, monkeypatch):
+    """With no telemetry plane loaded there is no live signal, and no
+    change. The planes are taken out of ``sys.modules`` here: another test
+    of this process may have loaded them."""
+    for name in ("capacity", "critical", "timeseries"):
+        monkeypatch.delitem(sys.modules, f"ray_shuffling_data_loader_tpu_torch.telemetry.{name}", raising=False)
     assert planner._live_signals() == {}
     rplan = planner.compile_plan(wide, num_reducers=2)
     assert planner.replan(rplan, epoch=1) == [] and rplan.replans == 0

@@ -21,8 +21,12 @@ its own and its cached flags refreshed in between (both read the same
   reducers, 2 epochs, ``device="cpu"``): the same key stream, metric keys
   and kinds, deterministic counters, span multiset and event kinds;
 * the gate: with every plane off a fresh interpreter's delivery run
-  imports none of the trace, export, events and phases modules, in the
-  driver or in a worker; with ``RSDL_METRICS=1`` both load them.
+  imports none of the plane modules (trace, export, events, phases, the
+  straggler, critical-path, capacity, time-series, profiler and run-ledger
+  planes, and the knob registry), in the driver or in a worker, and runs
+  no sampler thread; with ``RSDL_METRICS=1`` both load the metrics and
+  trace planes, the task records and the capacity ledger; with every gate
+  on, every plane loads and the run leaves one ledger record.
 
 Comparisons are exact unless a tolerance is stated."""
 
@@ -631,7 +635,10 @@ sys.path.insert(0, {tests!r})
 import ray_shuffling_data_loader_tpu_torch as port
 import torch_port_helpers
 
-PLANES = [f"ray_shuffling_data_loader_tpu_torch.telemetry.{{m}}" for m in ("trace", "export", "events", "phases")]
+PLANES = [f"ray_shuffling_data_loader_tpu_torch.telemetry.{{m}}"
+          for m in ("trace", "export", "events", "phases", "stragglers", "critical", "capacity", "timeseries",
+                    "profiler", "runledger")] + ["ray_shuffling_data_loader_tpu_torch.analysis.knob_registry"]
+SAMPLERS = ("rsdl-profiler", "rsdl-ts-sampler")
 
 if __name__ == "__main__":
     port.runtime.init(num_workers=2)
@@ -645,9 +652,11 @@ if __name__ == "__main__":
     ds.join(timeout=60)
     assert batches == 16, batches
     worker = port.runtime.get_context().pool.submit(torch_port_helpers.loaded_modules).result(timeout=60)
+    import threading
+    samplers = sorted(t.name for t in threading.enumerate() if t.name in SAMPLERS)
     port.runtime.shutdown()  # the task-done and shutdown paths ran too
     print("LOADED", json.dumps({{"driver": [m for m in PLANES if m in sys.modules],
-                                "worker": [m for m in PLANES if m in worker]}}))
+                                "worker": [m for m in PLANES if m in worker], "samplers": samplers}}))
 """
 
 
@@ -656,19 +665,43 @@ def _gate_run(tmp_path, **env):
     path.write_text(GATE_SCRIPT.format(repo=REPO, tests=TESTS, data=str(tmp_path / "data")))
     base = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA", "RSDL_"))}
     out = subprocess.run([sys.executable, str(path)], capture_output=True, text=True, timeout=120,
-                         env={**base, **env})
+                         env={**base, **env}, cwd=str(tmp_path))
     assert out.returncode == 0, out.stderr
     (line,) = [ln for ln in out.stdout.splitlines() if ln.startswith("LOADED ")]
-    loaded = json.loads(line[len("LOADED "):])
-    return loaded["driver"], loaded["worker"]
+    return json.loads(line[len("LOADED "):])
+
+
+def _planes(*names):
+    return [f"ray_shuffling_data_loader_tpu_torch.{'analysis' if n == 'knob_registry' else 'telemetry'}.{n}"
+            for n in names]
 
 
 def test_planes_off_import_nothing(tmp_path):
-    driver, worker = _gate_run(tmp_path)
-    assert driver == [] and worker == []
+    """Every gate unset: no plane module, the knob registry included, in
+    the driver or a worker, no sampler thread, no ledger file."""
+    loaded = _gate_run(tmp_path)
+    assert loaded == {"driver": [], "worker": [], "samplers": []}
+    assert not (tmp_path / "runs").exists()
 
 
 def test_planes_on_load_in_driver_and_worker(tmp_path):
-    driver, worker = _gate_run(tmp_path, RSDL_METRICS="1")
-    every = [f"ray_shuffling_data_loader_tpu_torch.telemetry.{m}" for m in ("trace", "export", "events", "phases")]
-    assert driver == every and worker == every
+    """Metrics on: the task records and the capacity ledger load with the
+    metrics and trace planes, in the driver and a worker; the critical
+    path, the time series, the profiler and the run ledger stay dark."""
+    loaded = _gate_run(tmp_path, RSDL_METRICS="1")
+    every = _planes("trace", "export", "events", "phases", "stragglers", "capacity")
+    assert loaded == {"driver": every, "worker": every, "samplers": []}
+
+
+def test_every_gate_on_loads_every_plane(tmp_path):
+    """``RSDL_TS``, ``RSDL_PROFILE`` and ``RSDL_RUN_LEDGER`` too: the driver
+    runs both samplers and loads every plane (the tick loads the critical
+    path, the ledger the knob registry); a worker profiles as well."""
+    loaded = _gate_run(tmp_path, RSDL_METRICS="1", RSDL_TS="1", RSDL_TS_PERIOD_S="0.1", RSDL_PROFILE="1",
+                       RSDL_RUN_LEDGER=str(tmp_path / "runs.ndjson"))
+    assert loaded["driver"] == _planes("trace", "export", "events", "phases", "stragglers", "critical", "capacity",
+                                       "timeseries", "profiler", "runledger", "knob_registry")
+    assert loaded["worker"] == _planes("trace", "export", "events", "phases", "stragglers", "capacity", "profiler")
+    assert loaded["samplers"] == ["rsdl-profiler", "rsdl-ts-sampler"]
+    with open(tmp_path / "runs.ndjson") as f:
+        assert [json.loads(line)["status"] for line in f] == ["done"]

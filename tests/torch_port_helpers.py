@@ -39,6 +39,19 @@ def sleep_then(x, seconds):
     return x
 
 
+def sleep_in_phase(stage, seconds):
+    """Sleep ``seconds`` inside a ``stage`` phase of the port's phase
+    registry (what the sampling profiler tags a stack with); returns the
+    worker's pid."""
+    import time
+
+    from ray_shuffling_data_loader_tpu_torch import telemetry
+
+    with telemetry.stage_profiler(stage, epoch=5).phase("nap"):
+        time.sleep(seconds)
+    return os.getpid()
+
+
 def die():
     """The worker running this task is killed by SIGKILL."""
     import signal
