@@ -86,7 +86,7 @@ Phases, each of which fails the script (non-zero exit) on any error:
    the carry concatenated) and of the consumer's mapping of a segment;
 4. ranks: data-parallel DLRM training with one process per trainer rank
    (``multirank``) on the same dataset, all ranks on ``cuda:0``: 2 ranks
-   over ``gloo`` with ``DistributedDataParallel`` (mean) for 2 epochs; 3
+   over ``gloo`` with ``DistributedDataParallel`` (mean) for 1 epoch; 3
    ranks over ``gloo`` with ``make_psum_train_step`` (Adasum, bf16 on the
    wire) for 1 epoch; 1 rank over ``nccl`` with ``make_psum_train_step``
    (mean, bf16 on the wire) for 3 steps; and ``dp2_mp2``: 4 ranks over
@@ -209,11 +209,39 @@ Phases, each of which fails the script (non-zero exit) on any error:
    ``done`` record with its sections. Then delivery only over 3 epochs
    under ``RSDL_PLAN=auto`` with every plane on, and with metrics off (no
    signal, no re-plan): the staged tensors must be the same. Then delivery
-   only with every plane off and on, in turns, 3 each. Logs the shuffle
+   only with every plane off, then on. Logs the shuffle
    seconds per epoch of each, the metered run's step median and stall
    share beside the slices and cluster phases', the trace's events, each
    spool's bytes, the re-plans, a profiler tick's and a time-series
    refresh's cost and the phase's seconds;
+   obs: the SLO engine, the relay and the obs server on the same dataset,
+   two hosts on one machine as in the cluster phase (a head, this script
+   with ``--obs-head``, and a host joined with the ``join`` CLI, 4 pool
+   workers each), each session owner with its own runtime directory,
+   shared-memory and spill directories and audit spool; both with
+   ``RSDL_METRICS=1``, ``RSDL_AUDIT=1``, ``RSDL_PROFILE=1`` and
+   ``RSDL_RELAY=auto``, the head serving ``RSDL_OBS_PORT`` (the time series
+   every ``TS_PERIOD_S``) with one user SLO rule (``OBS_RULE``:
+   ``shuffle.map_rows > 0``). The deterministic DLRM slice on the cluster
+   while a thread scrapes ``/metrics``, ``/healthz``, ``/status`` and
+   ``/alerts`` about once a second: its staged tensors and losses must
+   equal the cluster phase's one-host run bit for bit and K1 launch once a
+   step on its tensor-core route (``launches_obs``); at the head, both
+   epochs reconcile ``ok`` (the joined host's map and reduce records come
+   only through the relay), the aggregate holds both hosts' sources and
+   counts 20 map and 16 reduce tasks, 30 ``h2d.batches`` and 2 x 10^6 rows
+   mapped and reduced, the joined host's task records number its agent's
+   tasks, the relay's sink shows the joined host fresh with bytes shipped
+   and none dropped; ``/metrics`` must parse with ``rsdl_up 1`` and
+   ``rsdl_obs_build_info`` of version 0.1.0, ``/healthz`` show the relay
+   and both hosts' sources, ``/status`` the shuffle's epochs in flight,
+   the queue's depths and 2 agents, ``/alerts`` the user rule firing and
+   ``wedged_worker``, ``audit_mismatch`` and ``capacity_near_limit`` quiet,
+   the run ledger count the user rule once, and ``/stragglers``,
+   ``/capacity``, ``/critical``, ``/timeseries``, ``/events``,
+   ``/profile`` and ``/jobs`` answer JSON. Logs the scrape ms per route,
+   the relay's ships and bytes, and the step median and shuffle seconds
+   against the cluster phase's two-host run;
    plan: the read plane. The Quick-start shape (10^6 rows, 10 files, seed
    0) written with 20 row groups a file, so that at 8 reducers the plan
    compiler picks ``block:1``. Six 2-epoch DLRM runs (batch 65536, bf16,
@@ -293,7 +321,7 @@ Phases, each of which fails the script (non-zero exit) on any error:
    restarted, on the Quick-start dataset (10^6 rows, 10 files, seed 0)
    with the full-width DLRM (bf16, Adam 1e-3), batch 65536 (15 batches an
    epoch), 2 epochs, ``--loader mapreduce``, ``RSDL_JOURNAL`` set and a
-   checkpoint every 4 steps. A control run goes uninterrupted; a victim,
+   checkpoint every 8 steps. A control run goes uninterrupted; a victim,
    in a session of its own, SIGKILLs its own process group (this script's
    child code wraps its train step) after step 10, its last checkpoint
    at step 8; the resume (``RSDL_RESUME=redeliver``) must train steps 9
@@ -307,7 +335,8 @@ Phases, each of which fails the script (non-zero exit) on any error:
    re-executed, and the steps replayed.
 
 Every launch count is set to 0 just before a path is driven and read just
-after; in the ranks phase, by each rank in its own process. Prints a ``{"kernels": [...]}`` line, the card's name and power
+after; in the ranks phase, by each rank in its own process. Logs each
+phase's wall seconds at the end. Prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero, with no result, when no CUDA device is present.
 """
@@ -323,6 +352,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -2427,7 +2457,7 @@ def telemetry_head(spec: dict) -> int:
     """The ``[telemetry]`` phase's runs, in a process of their own started
     with every plane on: the metered DLRM run with its checks; delivery
     only under the plan compiler, with the planes on and with metrics off;
-    then delivery only with the planes off and on, in turns. Raises on a
+    then delivery only with the planes off, then on. Raises on a
     failed check (the phase then fails); writes the results to
     ``spec["result"]``."""
     import torch
@@ -2589,9 +2619,9 @@ def telemetry_head(spec: dict) -> int:
     log(f"[telemetry] re-planning: 3 epochs under RSDL_PLAN=auto bit-identical with the planes on and metrics off; "
         f"plan_replans on {on_run['plan_replans']}, off {off_run['plan_replans']}; terms {on_run['plan_terms']}")
 
-    # (3) The cost: delivery only, every plane off and on, in turns.
+    # (3) The cost: delivery only, every plane off, then on.
     out["cost"] = []
-    for i, on in enumerate((False, True) * 3):
+    for i, on in enumerate((False, True)):
         with _planes(port, _planes_env(os.path.join(work, f"cost-{i}")) if on else {}):
             port.runtime.init()
             try:
@@ -2645,6 +2675,307 @@ def phase_telemetry(torch, filenames, reference: dict, unmetered: dict, work: st
         f"{unmetered['epoch_s']!r} s")
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"[telemetry] phase {res['phase_s']:.1f} s (head {res['wall_s']:.1f} s)")
+    return res
+
+
+# The obs phase: the SLO engine, the relay and the obs server on a two-host
+# cluster whose session owners each keep their own spools. One user rule
+# that must fire while maps run; the default pack's that must not.
+OBS_RULE = {"name": "map_rows_flowing", "kind": "threshold", "metric": "shuffle.map_rows", "op": ">", "value": 0}
+OBS_QUIET = ("wedged_worker", "audit_mismatch", "capacity_near_limit")
+OBS_WORKERS = 4
+OBS_LIVE_ROUTES = ("/metrics", "/healthz", "/status", "/alerts")
+OBS_JSON_ROUTES = ("/healthz", "/status", "/alerts", "/stragglers", "/capacity", "/critical",
+                   "/timeseries?name=shuffle.map_rows", "/events?limit=50", "/profile?top=5", "/jobs")
+
+
+def _obs_get(port_num: int, route: str):
+    """``(status, body, client seconds)`` of one GET on the obs server."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port_num}{route}", timeout=30) as resp:
+        body = resp.read().decode()
+        return resp.status, body, time.perf_counter() - t0
+
+
+def _obs_scraper(port_num: int, stop: threading.Event, scrapes: list) -> None:
+    """Scrape the live routes about once a second until ``stop``; keeps each
+    scrape's status, seconds and, for ``/status``, the providers' epochs and
+    depths, for ``/metrics`` the server's own scrape seconds."""
+    while True:
+        for route in OBS_LIVE_ROUTES:
+            try:
+                code, body, secs = _obs_get(port_num, route)
+            except Exception as exc:  # a failed scrape is a failed check
+                scrapes.append({"route": route, "error": repr(exc)})
+                continue
+            rec = {"route": route, "code": code, "s": secs}
+            if route == "/status":
+                providers = json.loads(body)["providers"]
+                rec["shuffle_in_flight"] = (providers.get("shuffle") or {}).get("in_flight_epochs")
+                rec["queue"] = {k: (providers.get("batch_queue") or {}).get(k) for k in ("in_flight_epochs", "depths")}
+            elif route == "/metrics":
+                rec["server_s"] = float(re.search(r"^rsdl_obs_scrape_duration_seconds (\S+)$", body, re.M).group(1))
+            scrapes.append(rec)
+        if stop.wait(1.0):
+            return
+
+
+def obs_head(spec: dict) -> int:
+    """The ``[obs]`` phase's head, a process of its own started with the
+    planes, the relay and ``RSDL_OBS_PORT`` set: a cluster (``init_cluster``)
+    that a host joins, the deterministic DLRM slice on it while a thread
+    scrapes the server, then the checks that read the head's spools, views
+    and pages. Raises on a failed check; writes what it read to
+    ``spec["result"]``."""
+    import torch
+
+    import ray_shuffling_data_loader_tpu_torch as port
+    from ray_shuffling_data_loader_tpu_torch.runtime.actor import ActorHandle
+    from ray_shuffling_data_loader_tpu_torch.telemetry import audit, export, relay, runledger, slo
+
+    t_phase = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    files, port_num = spec["files"], spec["obs_port"]
+    model = port.dlrm_for_data_spec()
+    init_state = copy.deepcopy(model.state_dict())
+    out = {}
+    t0 = time.perf_counter()
+    ctx = port.runtime.init_cluster(advertise_host="127.0.0.1", num_workers=OBS_WORKERS)
+    try:
+        with open(spec["addr"] + ".tmp", "w") as f:
+            f.write(ctx.cluster.address)
+        os.replace(spec["addr"] + ".tmp", spec["addr"])
+        deadline = time.monotonic() + 60
+        while len(port.runtime.cluster_hosts()) < 2:
+            if time.monotonic() > deadline:
+                raise RuntimeError("[obs] the second host did not join")
+            time.sleep(0.05)
+        hosts = ctx.cluster.registry.call("hosts")
+        for info in hosts.values():  # each agent's pool up before the epochs
+            ActorHandle(tuple(info["agent"])).call("submit", os.getpid, (), {})
+        other = next(h for h in hosts if h != ctx.cluster.host_id)
+        out["up_s"] = time.perf_counter() - t0
+        stop, scrapes = threading.Event(), []
+        scraper = threading.Thread(target=_obs_scraper, args=(port_num, stop, scrapes), daemon=True)
+        scraper.start()
+        try:
+            run = cluster_run(torch, port, files, "two hosts, split spools", model, init_state, tag="obs")
+        finally:
+            stop.set()
+            scraper.join(timeout=30)
+        # (1) The run: the one host's tensors and losses, K1 once a step.
+        ref = spec["reference"]
+        if run["digests"] != ref["digests"] or run["losses"] != ref["losses"]:
+            bad = [i for i, (a, b) in enumerate(zip(run["digests"], ref["digests"])) if a != b]
+            raise AssertionError(f"[obs] the run differs from the one host's: batches {bad[:5]}, losses "
+                                 f"{run['losses'][:3]} against {ref['losses'][:3]}")
+        n = run["launches"]
+        if n["interaction_mma"] != run["steps"] or n["interaction"] != run["steps"] or run["steps"] != 30:
+            raise AssertionError(f"[obs] launches {n} in {run['steps']} steps: want 30 K1, all tensor-core")
+        # (2) The audit at the head: the joined host's map and reduce records
+        # reach its spool only through the relay (its own audit directory is
+        # another). Waits for the last ships, as a reader of the head would.
+        marker = relay._safe_host(other)
+        spool = audit.spool_dir()
+        t_wait, verdicts = time.perf_counter(), []
+        while time.perf_counter() - t_wait < 45:
+            remote = [f for f in os.listdir(spool) if f.startswith(f"audit-{marker}-")]
+            verdicts = audit.reconcile(range(2)) if remote else []
+            if len(verdicts) == 2 and all(v.get("ok") is True for v in verdicts):
+                break
+            time.sleep(0.25)
+        for v in verdicts:
+            rows = [v[k] for k in ("rows_mapped", "rows_reduced", "rows_delivered", "rows_consumed")]
+            if v["ok"] is not True or v["mismatch"] or rows != [NUM_ROWS] * 4:
+                raise AssertionError(f"[obs] epoch {v['epoch']} verdict {v}")
+        if [v["epoch"] for v in verdicts] != [0, 1] or not remote:
+            raise AssertionError(f"[obs] verdicts {verdicts}; the joined host's audit files at the head {remote}")
+        out["audit"] = {"wait_s": time.perf_counter() - t_wait, "remote_files": len(remote),
+                        "in_run_ok": [v.get("ok") for v in run["verdicts"]],
+                        "rows": {k: verdicts[0][k] for k in ("rows_mapped", "rows_reduced", "rows_delivered")}}
+        # (3) The aggregate: both hosts' sources, the counters the run's.
+        records = export.load_records()
+        sources = {str((r.get("source") or {}).get("host")) for r in records}
+        relayed = [r for r in records if (r.get("source") or {}).get("relayed")]
+        flat = export.aggregate()
+        want = {"shuffle.map_tasks": 20.0, "shuffle.reduce_tasks": 16.0, "h2d.batches": 30.0,
+                "shuffle.map_rows": 2.0 * NUM_ROWS, "shuffle.reduce_rows": 2.0 * NUM_ROWS}
+        got = {k: flat.get(k) for k in want}
+        if other not in sources or len(sources) < 2 or not relayed or got != want:
+            raise AssertionError(f"[obs] aggregate: sources {sorted(sources)}, {len(relayed)} relayed; counters "
+                                 f"{got}, want {want}")
+        # (4) The joined host's task records: one per task its agent ran.
+        task_dir = os.path.join(export.spool_dir(), "tasks")
+        remote_records = sum(1 for f in os.listdir(task_dir) if f.startswith(f"tasks-{marker}-")
+                             for line in open(os.path.join(task_dir, f)) if line.strip())
+        completed = ActorHandle(tuple(hosts[other]["agent"])).call("agent_stats")["completed"]
+        if remote_records != completed or not completed:
+            raise AssertionError(f"[obs] the joined host's task records {remote_records}, its agent ran {completed}")
+        # (5) The relay's sink: the joined host fresh, bytes shipped, none dropped.
+        section = relay.status_section()
+        host_rec = section["hosts"].get(other) or {}
+        dropped = flat.get("relay.dropped_bytes_total", 0.0)
+        if section["role"] != "sink" or host_rec.get("stale") is not False or not host_rec.get("bytes") or dropped:
+            raise AssertionError(f"[obs] relay section {section}; dropped {dropped}")
+        out["relay"] = {"ships": host_rec["ships"], "bytes": host_rec["bytes"], "skew_s": host_rec["skew_s"],
+                        "dropped_bytes": dropped, "lag_bytes": flat.get("relay.lag_bytes")}
+        # (6) The pages, once more after the run.
+        pages, secs = {}, {}
+        code, text, secs["/metrics"] = _obs_get(port_num, "/metrics")
+        bad = [ln for ln in text.splitlines()
+               if not ln.startswith(("# HELP ", "# TYPE ", "# Prometheus")) and not PROM_SAMPLE.match(ln)]
+        if (code != 200 or bad or "\nrsdl_up 1\n" not in text
+                or not re.search(r'^rsdl_obs_build_info\{version="0\.1\.0",', text, re.M)):
+            raise AssertionError(f"[obs] /metrics: {code}, lines that do not parse {bad[:5]}")
+        for route in OBS_JSON_ROUTES:
+            code, body, secs[route] = _obs_get(port_num, route)
+            if code != 200:
+                raise AssertionError(f"[obs] {route}: {code}")
+            pages[route] = json.loads(body)
+        code, flame, secs["/profile/flame"] = _obs_get(port_num, "/profile/flame")
+        if code != 200 or "<html" not in flame.lower():
+            raise AssertionError(f"[obs] /profile/flame: {code}")
+        health = pages["/healthz"]
+        hz_hosts = {s["host"] for s in health["sources"]}
+        if (health.get("relay", {}).get("role") != "sink" or other not in health["relay"]["hosts"]
+                or other not in hz_hosts or len(hz_hosts) < 2):
+            raise AssertionError(f"[obs] /healthz: relay {health.get('relay')}, source hosts {sorted(hz_hosts)}")
+        agents = pages["/status"]["cluster"]["agents"]
+        if len(agents) != 2:
+            raise AssertionError(f"[obs] /status cluster section: {pages['/status']['cluster']}")
+        live = [s for s in scrapes if s["route"] == "/status"]
+        in_flight = [s for s in live if s.get("shuffle_in_flight")]
+        queued = [s for s in live if (s.get("queue") or {}).get("depths") is not None]
+        failed = [s for s in scrapes if "error" in s or s.get("code") != 200]
+        if failed or not in_flight or not queued:
+            raise AssertionError(f"[obs] live scrapes: {len(failed)} failed ({failed[:3]}), {len(live)} of /status, "
+                                 f"an epoch of the shuffle in flight in {len(in_flight)}, queue depths in {len(queued)}")
+        alerts = {r["name"]: r for r in pages["/alerts"]["rules"] if r.get("job") is None}
+        loud = [name for name in OBS_QUIET if alerts[name]["active"]]
+        ledger = runledger.read()
+        fired = (ledger[-1].get("alerts_fired") or {}) if ledger else {}
+        if (not alerts[OBS_RULE["name"]]["active"] or loud or fired.get(OBS_RULE["name"]) != 1
+                or slo.fired_counts().get(OBS_RULE["name"]) != 1):
+            raise AssertionError(f"[obs] alerts: {OBS_RULE['name']} {alerts[OBS_RULE['name']]}, firing among the "
+                                 f"quiet {loud}; the run ledger's alerts_fired {fired}")
+        scrape = {}
+        for s in scrapes:
+            if "s" in s:
+                scrape.setdefault(s["route"], []).append(s["s"])
+        out["scrape"] = {
+            "live": {r: {"n": len(v), "median_ms": statistics.median(v) * 1e3, "max_ms": max(v) * 1e3}
+                     for r, v in scrape.items()},
+            "server_metrics_s": [s["server_s"] for s in scrapes if "server_s" in s],
+            "after_run_ms": {r: s * 1e3 for r, s in secs.items()},
+        }
+        out["run"] = {k: run[k] for k in ("losses", "launches", "steps", "step_ms_median", "epoch_s",
+                                          "epoch_shuffle_s", "stall_s", "stall_share", "schedules")}
+        out["counters"] = got
+        out["remote_task_records"] = remote_records
+        out["sources"] = sorted(sources)
+        out["alerts"] = {"active": pages["/alerts"]["active"], "fired": slo.fired_counts(), "ledger": fired}
+        out["live_status"] = {"scrapes": len(live), "in_flight": [s["shuffle_in_flight"] for s in in_flight],
+                              "queue_depths": [s["queue"]["depths"] for s in queued][:4]}
+    finally:
+        port.runtime.shutdown()
+    out["wall_s"] = time.perf_counter() - t_phase
+    with open(spec["result"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_obs(torch, filenames, cluster: dict, work: str) -> dict:
+    """The ``[obs]`` phase: :func:`obs_head` and a host joined with ``python
+    -m ...runtime.cluster join``, 4 workers each, on one machine. Each
+    session owner keeps its own runtime directory, shared-memory and spill
+    directories and audit spool; both run with metrics, the audit, the
+    profiler and the relay on, and the head serves ``RSDL_OBS_PORT`` with
+    the time series every ``TS_PERIOD_S`` and :data:`OBS_RULE` added to the
+    SLO rules. ``cluster``: the cluster phase's results (its one-host run is
+    the reference; its two-host run, when there is one, is logged beside)."""
+    t_phase = time.perf_counter()
+    tag = f"rsdl-obs-{os.getpid()}"
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    obs_port = probe.getsockname()[1]
+    probe.close()
+    single = cluster["single"]
+    spec = {"files": filenames, "result": os.path.join(work, "result.json"), "addr": os.path.join(work, "address"),
+            "obs_port": obs_port, "reference": {"digests": single["digests"], "losses": single["losses"]}}
+    spec_path = os.path.join(work, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    base = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
+    base.update(RSDL_ADVERTISE_HOST="127.0.0.1", RSDL_METRICS="1", RSDL_AUDIT="1", RSDL_PROFILE="1",
+                RSDL_RELAY="auto", RSDL_TS_PERIOD_S=TS_PERIOD_S, RSDL_SLO_RULES=json.dumps([OBS_RULE]))
+    envs = {}
+    for name in ("head", "joined"):
+        os.makedirs(os.path.join(work, f"audit-{name}"))
+        envs[name] = {**base, "RSDL_SHM_DIR": f"/dev/shm/{tag}-{name}",
+                      "RSDL_SPILL_DIR": os.path.join(work, f"spill-{name}"),
+                      "RSDL_AUDIT_DIR": os.path.join(work, f"audit-{name}")}
+    envs["head"].update(RSDL_OBS_PORT=str(obs_port), RSDL_RUN_LEDGER=os.path.join(work, "runs.ndjson"))
+    procs = {}
+    try:
+        procs["head"] = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--obs-head",
+                                          spec_path], env=envs["head"], cwd=ROOT)
+        deadline = time.monotonic() + 240
+        while not os.path.exists(spec["addr"]):
+            if procs["head"].poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"[obs] the head exited ({procs['head'].poll()}) or timed out before its address")
+            time.sleep(0.05)
+        with open(spec["addr"]) as f:
+            address = f.read()
+        with open(os.path.join(work, "joined.log"), "w") as out_f:
+            procs["joined"] = subprocess.Popen(
+                [sys.executable, "-m", "ray_shuffling_data_loader_tpu_torch.runtime.cluster", "join", address,
+                 "--num-workers", str(OBS_WORKERS)], env=envs["joined"], cwd=ROOT, stdout=out_f,
+                stderr=subprocess.STDOUT)
+        for name, proc in procs.items():
+            code = proc.wait(timeout=300 if name == "head" else 60)
+            if code != 0:
+                raise AssertionError(f"[obs] {name} exited {code}; the joined host's log: "
+                                     f"{open(os.path.join(work, 'joined.log')).read()[-3000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for env in envs.values():
+            shutil.rmtree(env["RSDL_SHM_DIR"], ignore_errors=True)
+    with open(spec["result"]) as f:
+        res = json.load(f)
+    run, two = res["run"], cluster.get("cluster")
+    smi = smi_name_and_limit()
+    log(f"[obs] two hosts with split spools: the one host's {run['steps']} losses and staged tensors bit for bit; "
+        f"K1 {run['launches']['interaction_mma']} of {run['steps']} steps on the tensor-core route; both epochs ok at "
+        f"the head ({res['audit']['remote_files']} audit files of the joined host relayed, ok "
+        f"{res['audit']['wait_s']:.2f} s after the run; in-run verdicts ok {res['audit']['in_run_ok']}); counters "
+        f"{res['counters']} over sources "
+        f"{res['sources']}; {res['remote_task_records']} task records of the joined host = its agent's tasks")
+    log(f"[obs] relay: {res['relay']['ships']} ships, {res['relay']['bytes']} B from the joined host, dropped "
+        f"{res['relay']['dropped_bytes']} B, lag {res['relay']['lag_bytes']} B, clock skew {res['relay']['skew_s']} s "
+        f"({smi})")
+    log(f"[obs] alerts: active {res['alerts']['active']}, fired {res['alerts']['fired']}, the run ledger's "
+        f"alerts_fired {res['alerts']['ledger']}; {res['live_status']['scrapes']} live /status scrapes, the "
+        f"shuffle's epochs in flight in them {res['live_status']['in_flight']}, the queue's first depths "
+        f"{res['live_status']['queue_depths']}")
+    server_s = res["scrape"]["server_metrics_s"]
+    log(f"[obs] scrape ms per route during the run (client, median and max of n): "
+        + "; ".join(f"{r} {v['median_ms']:.2f} / {v['max_ms']:.2f} (n {v['n']})"
+                    for r, v in res["scrape"]["live"].items())
+        + f"; rsdl_obs_scrape_duration_seconds median {statistics.median(server_s) if server_s else None!r}, max "
+        f"{max(server_s) if server_s else None!r}; after the run: "
+        + "; ".join(f"{r} {ms:.2f}" for r, ms in res["scrape"]["after_run_ms"].items()) + f" ({smi})")
+    if two is not None:
+        log(f"[obs] step median {run['step_ms_median']!r} ms against the cluster phase's two hosts "
+            f"{two['step_ms_median']!r} ms; shuffle s per epoch {run['epoch_shuffle_s']!r} against "
+            f"{two['epoch_shuffle_s']!r}; stall share {run['stall_share']!r} against {two['stall_share']!r} ({smi})")
+    res["launches"] = run["launches"]
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[obs] phase {res['phase_s']:.1f} s (head {res['wall_s']:.1f} s, cluster up {res['up_s']:.1f} s; {smi})")
     return res
 
 
@@ -2866,7 +3197,7 @@ def phase_plan(torch, data_dir: str) -> dict:
 
 # (label, multirank arguments): the four runs of the ranks phase.
 RANK_RUNS = (
-    ("ddp_mean_2", ["--num-trainers", "2", "--backend", "gloo", "--step", "ddp", "--epochs", "2"]),
+    ("ddp_mean_2", ["--num-trainers", "2", "--backend", "gloo", "--step", "ddp", "--epochs", "1"]),
     ("adasum_bf16_3", ["--num-trainers", "3", "--backend", "gloo", "--step", "psum", "--grad-reduce", "adasum",
                        "--grad-dtype", "bfloat16", "--epochs", "1"]),
     ("nccl_1", ["--num-trainers", "1", "--backend", "nccl", "--step", "psum", "--grad-dtype", "bfloat16", "--epochs", "1",
@@ -3217,7 +3548,7 @@ if __name__ == "__main__":
 
     sys.exit(train_dlrm.main(sys.argv[1:]))
 """
-RESUME_BATCH, RESUME_EPOCHS, RESUME_EVERY, RESUME_KILL = 65536, 2, 4, 10
+RESUME_BATCH, RESUME_EPOCHS, RESUME_EVERY, RESUME_KILL = 65536, 2, 8, 10
 RESUME_LOSS_TOL = 1e-5  # PERF.md's bound: the embedding backward's atomics
 
 
@@ -3595,6 +3926,19 @@ def phase_sp(torch, work: str, smi: str) -> dict:
     return out
 
 
+# Each phase's wall seconds, as main() ran them.
+WALLS: dict = {}
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its wall seconds kept under ``name`` in :data:`WALLS`."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        WALLS[name] = time.perf_counter() - t0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON here")
@@ -3607,6 +3951,8 @@ def main() -> int:
     parser.add_argument("--faults-head", default=None, help=argparse.SUPPRESS)
     # The telemetry phase's head.
     parser.add_argument("--telemetry-head", default=None, help=argparse.SUPPRESS)
+    # The obs phase's head.
+    parser.add_argument("--obs-head", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--pool-ready", default=None, metavar="ROOT",
                         help="only time fresh 8-worker pools of the checkout at ROOT (its ready_s) and exit")
     args = parser.parse_args()
@@ -3628,6 +3974,9 @@ def main() -> int:
     if args.telemetry_head is not None:
         with open(args.telemetry_head) as f:
             return telemetry_head(json.load(f))
+    if args.obs_head is not None:
+        with open(args.obs_head) as f:
+            return obs_head(json.load(f))
     if args.pool_ready is not None:
         return pool_ready(args.pool_ready)
     sys.path.insert(0, ROOT)
@@ -3638,62 +3987,70 @@ def main() -> int:
     data_dir = os.path.join(ROOT, "build", "smoke_data")
     t_start = time.perf_counter()
     try:
-        phase_build()
-        host = phase_native()
+        timed("build", phase_build)
+        host = timed("native", phase_native)
         # The plain versions' fp32 products must not round their inputs to TF32.
         torch.backends.cuda.matmul.allow_tf32 = False
         rate, rate_src, measured = memory_rate(torch, name)
         log(f"[kernel] bounds use {rate:.4g} B/s ({rate_src}); measured copy rate {measured:.4g} B/s")
-        kernels = phase_interaction(torch, rate, rate_src)
-        flash_entries, flash = phase_flash(torch, rate)
+        kernels = timed("interaction", phase_interaction, torch, rate, rate_src)
+        flash_entries, flash = timed("flash", phase_flash, torch, rate)
         kernels += flash_entries
         log(f"[kernel] done at {time.perf_counter() - t_start:.1f} s")
         shutil.rmtree(data_dir, ignore_errors=True)
         try:
-            slices = phase_slices(torch, data_dir)
+            slices = timed("slices", phase_slices, torch, data_dir)
             filenames = slices.pop("filenames")
-            delivery = phase_delivery(torch, filenames, NUM_ROWS)
-            ranks = phase_ranks(filenames, smi)
+            delivery = timed("delivery", phase_delivery, torch, filenames, NUM_ROWS)
+            ranks = timed("ranks", phase_ranks, filenames, smi)
             audit_dir = os.path.join(ROOT, "build", "audit")
             shutil.rmtree(audit_dir, ignore_errors=True)
             os.makedirs(audit_dir)
             try:
-                audited = phase_audit(torch, filenames, NUM_ROWS, slices["dlrm"], audit_dir)
+                audited = timed("audit", phase_audit, torch, filenames, NUM_ROWS, slices["dlrm"], audit_dir)
             finally:
                 shutil.rmtree(audit_dir, ignore_errors=True)
             cluster_dir = os.path.join(ROOT, "build", "cluster")
             shutil.rmtree(cluster_dir, ignore_errors=True)
             os.makedirs(cluster_dir)
             try:
-                cluster = phase_cluster(torch, filenames, slices["dlrm"], cluster_dir)
+                cluster = timed("cluster", phase_cluster, torch, filenames, slices["dlrm"], cluster_dir)
             finally:
                 shutil.rmtree(cluster_dir, ignore_errors=True)
             faults_dir = os.path.join(ROOT, "build", "faults")
             shutil.rmtree(faults_dir, ignore_errors=True)
             os.makedirs(faults_dir)
             try:
-                faults = phase_faults(torch, filenames, cluster["single"], faults_dir)
+                faults = timed("faults", phase_faults, torch, filenames, cluster["single"], faults_dir)
             finally:
                 shutil.rmtree(faults_dir, ignore_errors=True)
             telemetry_dir = os.path.join(ROOT, "build", "telemetry")
             shutil.rmtree(telemetry_dir, ignore_errors=True)
             os.makedirs(telemetry_dir)
             try:
-                telemetry = phase_telemetry(torch, filenames, cluster["single"], slices["dlrm"], telemetry_dir)
+                telemetry = timed("telemetry", phase_telemetry, torch, filenames, cluster["single"], slices["dlrm"],
+                                  telemetry_dir)
             finally:
                 shutil.rmtree(telemetry_dir, ignore_errors=True)
+            obs_dir = os.path.join(ROOT, "build", "obs")
+            shutil.rmtree(obs_dir, ignore_errors=True)
+            os.makedirs(obs_dir)
+            try:
+                obs = timed("obs", phase_obs, torch, filenames, cluster, obs_dir)
+            finally:
+                shutil.rmtree(obs_dir, ignore_errors=True)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
         plan_dir = os.path.join(ROOT, "build", "plan_data")
         shutil.rmtree(plan_dir, ignore_errors=True)
         try:
-            plan = phase_plan(torch, plan_dir)
+            plan = timed("plan", phase_plan, torch, plan_dir)
         finally:
             shutil.rmtree(plan_dir, ignore_errors=True)
         resident_dir = os.path.join(ROOT, "build", "resident_data")
         shutil.rmtree(resident_dir, ignore_errors=True)
         try:
-            resident = phase_resident(torch, resident_dir, smi)
+            resident = timed("resident", phase_resident, torch, resident_dir, smi)
         finally:
             shutil.rmtree(resident_dir, ignore_errors=True)
         trials = [slices["dlrm"].pop("trial"), resident.pop("trial")]
@@ -3708,15 +4065,15 @@ def main() -> int:
         shutil.rmtree(resume_dir, ignore_errors=True)
         os.makedirs(resume_dir)
         try:
-            resume = phase_resume(torch, resume_dir, smi)
+            resume = timed("resume", phase_resume, torch, resume_dir, smi)
         finally:
             shutil.rmtree(resume_dir, ignore_errors=True)
-        lm = phase_lm(torch)
+        lm = timed("lm", phase_lm, torch)
         sp_dir = os.path.join(ROOT, "build", "sp")
         shutil.rmtree(sp_dir, ignore_errors=True)
         os.makedirs(sp_dir)
         try:
-            sp = phase_sp(torch, sp_dir, smi)
+            sp = timed("sp", phase_sp, torch, sp_dir, smi)
         finally:
             shutil.rmtree(sp_dir, ignore_errors=True)
         parity = {
@@ -3753,16 +4110,21 @@ def main() -> int:
                 entry["launches_faults"] = faults["launches"]["interaction_mma"]
                 # and in the metered DLRM run of the metrics and trace planes
                 entry["launches_telemetry"] = telemetry["metered"]["launches"]["interaction_mma"]
+                # and in the DLRM run on two hosts with split spools under the
+                # SLO engine, the relay and the obs server
+                entry["launches_obs"] = obs["launches"]["interaction_mma"]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: a phase failed", file=sys.stderr)
         return 1
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s; phase walls (s): "
+        + ", ".join(f"{name} {secs:.1f}" for name, secs in WALLS.items()))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(
                 {
                     "device": smi,
+                    "walls": WALLS,
                     "kernels": kernels,
                     "flash": flash,
                     "slices": {
@@ -3781,6 +4143,7 @@ def main() -> int:
                     "cluster": cluster,
                     "faults": faults,
                     "telemetry": telemetry,
+                    "obs": obs,
                     "parity_max_abs_diff": {label: err for label, (err, _) in parity.items()},
                 },
                 f, indent=1,

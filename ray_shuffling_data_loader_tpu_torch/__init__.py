@@ -20,6 +20,8 @@ this package for :mod:`.runtime` and :mod:`.shuffle` and never load
 
 import importlib
 
+__version__ = "0.1.0"
+
 _EXPORTS = {
     "runtime": None,
     "telemetry": None,  # ``telemetry.audit``: the exactly-once digests (RSDL_AUDIT)

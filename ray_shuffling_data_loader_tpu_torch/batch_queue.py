@@ -268,6 +268,18 @@ class BatchQueue:
                 actor = self.actor
                 self._metrics_source = f"batch_queue:{name or DEFAULT_QUEUE_NAME}-{id(self)}"
                 _metrics.register_source(self._metrics_source, lambda: actor.call("metrics_snapshot"))
+            if os.environ.get("RSDL_OBS_PORT"):
+                # The queue's window on the obs server's /status, asked on a
+                # short timeout: a wedged actor slows one scrape and does not
+                # hang the server's thread.
+                try:
+                    from ray_shuffling_data_loader_tpu_torch.telemetry import obs_server
+
+                    status_actor = self.actor
+                    obs_server.register_status_provider(
+                        "batch_queue", lambda: status_actor.call_with_timeout("status_snapshot", timeout=2.0))
+                except Exception:
+                    pass
 
     def __getstate__(self):
         return {"actor": self.actor}
@@ -333,6 +345,13 @@ class BatchQueue:
             raise ProducerDiedError(epoch, rank) from exc
 
     def shutdown(self, force: bool = False, grace_period_s: float = 5.0) -> None:
+        if os.environ.get("RSDL_OBS_PORT"):
+            try:
+                from ray_shuffling_data_loader_tpu_torch.telemetry import obs_server
+
+                obs_server.unregister_status_provider("batch_queue")
+            except Exception:
+                pass
         if self._metrics_source is not None:
             _metrics.unregister_source(self._metrics_source)
             self._metrics_source = None

@@ -34,10 +34,14 @@ and event spools at ``<runtime_dir>/metrics`` and ``/events`` unless
 ``RSDL_PROFILE`` set the profiles at ``<runtime_dir>/profiles`` unless
 ``RSDL_PROFILE_DIR`` names another. Every process that starts or joins a
 session starts the sampling profiler under ``RSDL_PROFILE``; the owner
-starts the time-series sampler with metrics on and ``RSDL_TS`` (or
-``RSDL_OBS_PORT``) set (:func:`_start_planes`). :func:`shutdown` stops
-both and spools this process's last metrics snapshot and profile while
-the directory exists.
+starts the obs server on ``RSDL_OBS_PORT``, the time-series sampler (and
+the SLO engine its tick evaluates) with metrics on and ``RSDL_TS`` (or
+``RSDL_OBS_PORT``) set, and the relay under ``RSDL_RELAY``: the sink on a
+cluster's head, the shipper on another host, with ``RSDL_RUNTIME_DIR``
+exported so that every process of the session can wake it
+(:func:`_start_planes`). :func:`shutdown` stops them, spools this
+process's last metrics snapshot and profile and lets the shipper ship
+once more while the directory exists.
 
 This package imports numpy only: the spawned workers load it.
 """
@@ -114,12 +118,14 @@ class RuntimeContext:
 
     def shutdown(self) -> None:
         if self.owner:
-            # The sampler reads the spools: it stops before they go.
-            # Through sys.modules: a session that never sampled imports
-            # nothing here.
-            ts = sys.modules.get("ray_shuffling_data_loader_tpu_torch.telemetry.timeseries")
-            if ts is not None:
-                ts.stop()
+            # The obs server and the sampler read the spools: they stop
+            # before the spools go (the server's port is free for the next
+            # session). Through sys.modules: a session that never served or
+            # sampled imports nothing here.
+            for name in ("obs_server", "timeseries"):
+                mod = sys.modules.get(f"ray_shuffling_data_loader_tpu_torch.telemetry.{name}")
+                if mod is not None:
+                    mod.stop()
         if self.cluster is not None:
             for name in self._owned_names:
                 self.cluster.unregister_named_actor(name)
@@ -148,6 +154,12 @@ class RuntimeContext:
         prof = sys.modules.get("ray_shuffling_data_loader_tpu_torch.telemetry.profiler")
         if prof is not None:
             prof.stop()
+        # The relay stops after the pool's and the actors' last flushes and
+        # this process's: the shipper's last ship carries them to the head
+        # while the spools exist. Through sys.modules, as above.
+        relay = sys.modules.get("ray_shuffling_data_loader_tpu_torch.telemetry.relay")
+        if relay is not None:
+            relay.stop()
         for key in self._spool_env:
             os.environ.pop(key, None)
         if self.owner:
@@ -161,8 +173,11 @@ def _arm_spools(runtime_dir: str) -> List[str]:
     (``<runtime_dir>/metrics``, ``/events``); with ``RSDL_PROFILE`` set,
     the profiles (``<runtime_dir>/profiles``). So the pool, the actors and
     this process spool to one place (the port's processes do not all carry
-    ``RSDL_RUNTIME_DIR``). Returns the variables it set, which the
-    session's end unsets."""
+    ``RSDL_RUNTIME_DIR``). With the relay on (``RSDL_RELAY``), also
+    ``RSDL_RUNTIME_DIR`` itself, this session's even where another was
+    inherited: every process the session starts then finds the relay's
+    wake file (:func:`.telemetry.relay.kick`). Returns the variables it
+    set, which the session's end unsets."""
     spools = []
     if _metrics.enabled():
         spools += [("RSDL_METRICS_DIR", "metrics"), ("RSDL_EVENTS_DIR", "events")]
@@ -173,15 +188,21 @@ def _arm_spools(runtime_dir: str) -> List[str]:
         if not os.environ.get(key):
             os.environ[key] = os.path.join(runtime_dir, sub)
             armed.append(key)
+    if _env.relay_armed() and os.environ.get(_ENV_DIR) != runtime_dir:
+        os.environ[_ENV_DIR] = runtime_dir
+        armed.append(_ENV_DIR)
     return armed
 
 
 def _start_planes(ctx: RuntimeContext) -> None:
-    """Start the session's samplers, each gated on its variable before its
+    """Start the session's planes, each gated on its variable before its
     import: the profiler in every process that starts or joins a session
-    (``RSDL_PROFILE``), the time series on the owner only, with metrics on
-    and ``RSDL_OBS_PORT`` or ``RSDL_TS`` set. A failed start is logged,
-    never raised."""
+    (``RSDL_PROFILE``); on the owner only, the obs server
+    (``RSDL_OBS_PORT``), the time series with metrics on and
+    ``RSDL_OBS_PORT`` or ``RSDL_TS`` set (and the SLO engine that its tick
+    evaluates), and the relay (``RSDL_RELAY``: the sink on a cluster's
+    head, the shipper on another host). A failed start is logged, never
+    raised."""
     import logging
 
     if _env.read_flag("RSDL_PROFILE"):
@@ -191,16 +212,33 @@ def _start_planes(ctx: RuntimeContext) -> None:
             profiler.start()
         except Exception:
             logging.getLogger(__name__).warning("profiler start failed", exc_info=True)
-    if not ctx.owner or not _metrics.enabled():
+    if not ctx.owner:
         return
-    if os.environ.get("RSDL_OBS_PORT") or os.environ.get("RSDL_TS"):
+    if os.environ.get("RSDL_OBS_PORT"):
+        try:
+            from ray_shuffling_data_loader_tpu_torch.telemetry import obs_server
+
+            obs_server.maybe_start()
+        except Exception:
+            logging.getLogger(__name__).warning("obs server start failed", exc_info=True)
+    if _metrics.enabled() and (os.environ.get("RSDL_OBS_PORT") or os.environ.get("RSDL_TS")):
         try:
             from ray_shuffling_data_loader_tpu_torch.telemetry import timeseries
 
             if os.environ.get("RSDL_OBS_PORT") or timeseries.forced_on():
+                # The tick finds the engine through sys.modules.
+                from ray_shuffling_data_loader_tpu_torch.telemetry import slo  # noqa: F401
+
                 timeseries.start()
         except Exception:
             logging.getLogger(__name__).warning("time-series sampler start failed", exc_info=True)
+    if _env.relay_armed():
+        try:
+            from ray_shuffling_data_loader_tpu_torch.telemetry import relay
+
+            relay.maybe_start(ctx)
+        except Exception:
+            logging.getLogger(__name__).warning("relay start failed", exc_info=True)
 
 
 _context: Optional[RuntimeContext] = None

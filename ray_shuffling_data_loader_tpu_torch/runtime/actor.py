@@ -99,7 +99,8 @@ def _flush_telemetry_spools(maybe: bool = False) -> None:
     trace buffer when its module is loaded (never loaded, nothing
     buffered), the metrics snapshot only with metrics on (``maybe``: at
     most once a second), and at exit the profile (its sampler spools it
-    once a second meanwhile). Imports nothing while every plane is off."""
+    once a second meanwhile); then the relay's kick, which wakes this
+    host's shipper. Imports nothing while every plane is off."""
     for name in ("trace",) if maybe else ("trace", "profiler"):
         mod = sys.modules.get(f"ray_shuffling_data_loader_tpu_torch.telemetry.{name}")
         if mod is not None:
@@ -109,6 +110,13 @@ def _flush_telemetry_spools(maybe: bool = False) -> None:
             telemetry.export.maybe_flush()
         else:
             telemetry.export.safe_flush()
+    if _env.relay_armed():
+        try:
+            from ray_shuffling_data_loader_tpu_torch.telemetry import relay
+
+            relay.kick()
+        except Exception:
+            pass
 
 
 # Virtual thread ids for traced dispatches: concurrent dispatches run on

@@ -47,6 +47,7 @@ import os
 import socket
 import threading
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ray_shuffling_data_loader_tpu_torch import telemetry
@@ -495,6 +496,7 @@ _membership_lock = threading.Lock()
 _draining_addrs: set = set()
 _retired_addrs: List[str] = []
 _RETIRED_CAP = 64
+_live_scheduler = None  # a weakref to the newest scheduler, for /status
 
 
 def _addr_str(address) -> str:
@@ -505,10 +507,25 @@ def _addr_str(address) -> str:
 
 
 def reset_membership() -> None:
-    """Forget drained and retired agents."""
+    """Forget drained and retired agents and the newest scheduler."""
+    global _live_scheduler
     with _membership_lock:
         _draining_addrs.clear()
         del _retired_addrs[:]
+        _live_scheduler = None
+
+
+def membership_section() -> Dict[str, Any]:
+    """The ``cluster`` section of the obs server's ``/status``: the newest
+    scheduler's agents (address, draining, tasks in flight), the draining
+    addresses and the recently retired agents. The scheduler is held by a
+    weak reference: the server keeps none alive."""
+    sched = _live_scheduler() if _live_scheduler is not None else None
+    with _membership_lock:
+        draining = {_addr_str(a) for a in _draining_addrs}
+        retired = list(_retired_addrs)
+    agents = sched.agent_rows() if sched is not None else []
+    return {"agents": agents, "draining": sorted(draining), "retired": retired}
 
 
 class ClusterScheduler:
@@ -547,6 +564,9 @@ class ClusterScheduler:
         # queue in order.
         self._executor = concurrent.futures.ThreadPoolExecutor(max_workers=max_inflight,
                                                                 thread_name_prefix="cluster-sched")
+        global _live_scheduler
+        with _membership_lock:
+            _live_scheduler = weakref.ref(self)
 
     @property
     def agent_addresses(self) -> set:

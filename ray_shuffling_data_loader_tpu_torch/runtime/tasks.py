@@ -99,7 +99,7 @@ def _flush_telemetry_spools() -> None:
     ops are on their spools before its result, or its failure, can be
     seen. Trace, audit and the profiler flush through ``sys.modules`` (a
     module never loaded has nothing buffered); the rest only with metrics
-    on, so the disabled path imports nothing."""
+    on, so the disabled path imports nothing. Then the relay's kick."""
     for name in ("trace", "audit", "profiler"):
         mod = sys.modules.get(f"{_TELEMETRY}.{name}")
         if mod is not None:
@@ -114,6 +114,17 @@ def _flush_telemetry_spools() -> None:
             events.safe_flush()
             stragglers.safe_flush()
             capacity.safe_flush()
+        except Exception:
+            pass
+    # Wake this host's relay shipper, so that a joined host's records reach
+    # the head at this barrier. RSDL_RELAY is read before the import.
+    from ray_shuffling_data_loader_tpu_torch.telemetry import _env
+
+    if _env.relay_armed():
+        try:
+            from ray_shuffling_data_loader_tpu_torch.telemetry import relay
+
+            relay.kick()
         except Exception:
             pass
 

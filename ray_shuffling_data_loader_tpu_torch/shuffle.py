@@ -2773,6 +2773,15 @@ def shuffle(
     _status_begin_trial(num_epochs, len(filenames), num_reducers, num_trainers, start_epoch)
     telemetry.emit_event("trial.start", epochs=num_epochs, files=len(filenames), reducers=num_reducers,
                          trainers=num_trainers, start_epoch=start_epoch)
+    if os.environ.get("RSDL_OBS_PORT"):
+        # The live trial on the obs server's /status; imported only when
+        # the server is configured.
+        try:
+            from ray_shuffling_data_loader_tpu_torch.telemetry import obs_server
+
+            obs_server.register_status_provider("shuffle", live_status)
+        except Exception:
+            pass
     device_layout = _device_layout_allowed(device_layout)
     rplan = planner = task_knobs = None
     if _plan_enabled():

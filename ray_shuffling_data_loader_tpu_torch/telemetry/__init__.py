@@ -18,7 +18,11 @@
   the sampled history of the registry;
 * :mod:`.profiler` (``RSDL_PROFILE``): a sampling profiler in every
   process;
-* :mod:`.runledger` (``RSDL_RUN_LEDGER``): one record per finished run.
+* :mod:`.runledger` (``RSDL_RUN_LEDGER``): one record per finished run;
+* :mod:`.slo` (with the time series): declarative alert rules;
+* :mod:`.obs_server` (``RSDL_OBS_PORT``): the live HTTP endpoint;
+* :mod:`.relay` (``RSDL_RELAY``): every host's spools shipped to the
+  cluster's head.
 
 Every plane but metrics resolves on first touch (PEP 562). A run with
 every flag unset imports none of the others on the driver or on the
@@ -87,6 +91,8 @@ _LAZY_SUBMODULES = frozenset(
         "timeseries",
         "profiler",
         "runledger",
+        "slo",
+        "obs_server",
     )
 )
 

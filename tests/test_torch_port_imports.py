@@ -360,6 +360,44 @@ def test_metrics_and_trace_planes_load_no_torch_numpy_or_jax(tmp_path):
     assert "IMPORTED []" in out.stdout and "RAN []" in out.stdout, out.stdout
 
 
+# The SLO engine, the obs server and the relay: the standard library only,
+# as the JAX package's; used, they load no torch and nothing of JAX.
+OBS_PLANES = ("telemetry/slo", "telemetry/obs_server", "telemetry/relay")
+
+
+@pytest.mark.parametrize("name", OBS_PLANES)
+def test_obs_planes_import_the_standard_library_only(name):
+    path = os.path.join(PORT_DIR, f"{name}.py")
+    assert path in set(_sources())
+    names = set(_imported_top_levels(path))
+    assert names <= set(sys.stdlib_module_names) | {"ray_shuffling_data_loader_tpu_torch"}, names
+    assert not names & FORBIDDEN
+
+
+def test_obs_planes_load_no_torch_or_jax(tmp_path):
+    script = textwrap.dedent(
+        f"""
+        import json, os, sys, urllib.request
+        sys.path.insert(0, {REPO!r})
+        os.environ.update(RSDL_METRICS="1", RSDL_METRICS_DIR={str(tmp_path / "metrics")!r})
+        from ray_shuffling_data_loader_tpu_torch.telemetry import obs_server, relay, slo
+        slo.evaluate()
+        port = obs_server.start(0)
+        for route in ("/metrics", "/status", "/healthz", "/alerts", "/jobs"):
+            urllib.request.urlopen(f"http://127.0.0.1:{{port}}{{route}}", timeout=10).read()
+        obs_server.stop()
+        dirs = {{k: os.path.join({str(tmp_path)!r}, k) for k in relay._KINDS}}
+        relay.RelaySink(dirs=dirs).ship("h:1", [])
+        heavy = {{"torch", *{sorted(FORBIDDEN)!r}}}
+        print("LOADED", sorted({{m.split(".")[0] for m in sys.modules}} & heavy))
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA", "RSDL_"))}
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 # The temporal and decision planes, the profiler, the run ledger and the
 # knob registry: the standard library only, as the JAX package's.
 DECISION_PLANES = ("telemetry/stragglers", "telemetry/critical", "telemetry/capacity", "telemetry/timeseries",

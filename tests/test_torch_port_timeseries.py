@@ -190,6 +190,9 @@ def test_tick_refreshes_derived_gauges_and_reads_slo_from_sys_modules(env, monke
     from ray_shuffling_data_loader_tpu_torch.telemetry import capacity, metrics, stragglers, timeseries
 
     slo_name = "ray_shuffling_data_loader_tpu_torch.telemetry.slo"
+    # An earlier test of this process may have loaded the engine: the tick
+    # is held to one where it is not loaded.
+    monkeypatch.delitem(sys.modules, slo_name, raising=False)
     assert slo_name not in sys.modules
     stragglers.record_task("shuffle_map", 0.5, epoch=0)
     stragglers.record_task("shuffle_reduce", 0.25, epoch=0)
