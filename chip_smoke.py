@@ -242,6 +242,36 @@ Phases, each of which fails the script (non-zero exit) on any error:
    ``/profile`` and ``/jobs`` answer JSON. Logs the scrape ms per route,
    the relay's ships and bytes, and the step median and shuffle seconds
    against the cluster phase's two-host run;
+   elastic: the elastic control plane on the same dataset, two hosts on
+   one machine as in the obs phase (a head, this script with
+   ``--elastic-head``, and a host joined with the ``join`` CLI, 4 pool
+   workers each, each with its own shared-memory and spill directories,
+   one audit spool), both with ``RSDL_METRICS=1``, ``RSDL_AUDIT=1`` and
+   ``RSDL_AUDIT_STRICT=1``; the head with ``RSDL_ELASTIC=on`` and the loop's
+   knobs (``ELASTIC_ENV``: a tick every 0.2 s, a drop age of 0.5 s) and
+   ``RSDL_STORE_CAPACITY_BYTES`` at ``ELASTIC_BUDGET_SHARE`` of the cluster
+   phase's one-host peak. The deterministic DLRM slice with the decode
+   cache on; in epoch 1, once epoch 0 has left the fence, the loop must
+   evict on its own reading (``evict.demote`` or ``evict.drop``), then the
+   operator (a thread of the head) drains the joined host
+   (``drain_host``: ``drained``, its live segments re-homed into the
+   head's store with ``transition`` records, ``scale.drain_done``, the
+   host retired in ``membership_section()``, the drain's age back at 0)
+   and stops it; the loop scales up once (``RSDL_ELASTIC_UP_THRESHOLD=0``;
+   by hand, logged, if no live verdict named a shuffle stage by the
+   drain). The run's staged tensors and losses must equal the cluster
+   phase's one-host run bit for bit, both epochs reconcile ``ok`` with
+   10^6 rows mapped = reduced = delivered = consumed, K1 launch once a
+   step on its tensor-core route (``launches_elastic``), ``summary()`` show
+   a scale event, one drain and evicted bytes, the gauges
+   ``elastic.shm_headroom_frac`` and ``elastic.workers`` be published, the
+   capacity ledger's resident bytes by tier equal the store's at the run's
+   end and fall to 0 after the clean-up, and no segment be left in either
+   host's directories. Logs the budget and the peaks, the head's residency
+   over the run, the bytes and segments demoted and dropped, the drain's
+   seconds, the re-homed bytes and their GB/s, and the step median,
+   stall share and shuffle seconds against the cluster phase's two-host
+   run;
    plan: the read plane. The Quick-start shape (10^6 rows, 10 files, seed
    0) written with 20 row groups a file, so that at 8 reducers the plan
    compiler picks ``block:1``. Six 2-epoch DLRM runs (batch 65536, bf16,
@@ -321,7 +351,10 @@ Phases, each of which fails the script (non-zero exit) on any error:
    restarted, on the Quick-start dataset (10^6 rows, 10 files, seed 0)
    with the full-width DLRM (bf16, Adam 1e-3), batch 65536 (15 batches an
    epoch), 2 epochs, ``--loader mapreduce``, ``RSDL_JOURNAL`` set and a
-   checkpoint every 8 steps. A control run goes uninterrupted; a victim,
+   checkpoint every 8 steps. The runs go in two rounds, the runs of a
+   round side by side on the card, each with its own shm directory and
+   journal: the control and both victims, then both resumes. A control
+   run goes uninterrupted (its shm directory empty after it); a victim,
    in a session of its own, SIGKILLs its own process group (this script's
    child code wraps its train step) after step 10, its last checkpoint
    at step 8; the resume (``RSDL_RESUME=redeliver``) must train steps 9
@@ -1595,7 +1628,7 @@ FETCH_BENCH_BYTES = 256 << 20  # the loopback fetch's segment, about two reducer
 
 
 def cluster_run(torch, port, filenames, label: str, model=None, init_state=None, tag: str = "cluster",
-                epochs: int = 2) -> dict:
+                epochs: int = 2, cache_decoded=None) -> dict:
     """``epochs`` epochs of the slices' dataset through ``DeviceShufflingDataset``
     (batch 65536, 8 reducers, seed 0): with ``model``, the DLRM trained from
     ``init_state`` (a fresh Adam 1e-3), else delivery alone. Per batch a
@@ -1604,7 +1637,8 @@ def cluster_run(torch, port, filenames, label: str, model=None, init_state=None,
     the step and epoch seconds, the stall, the shuffle's statistics and the
     audit's verdicts; its recoveries (``stage_retries``, ``rematerialized``,
     ``recovery_log``), journal and plan compiler's terms and re-plans.
-    ``tag`` heads its log lines."""
+    ``tag`` heads its log lines; ``cache_decoded`` goes to the dataset (None:
+    the shuffle's policy)."""
     import numpy as np
 
     import ray_shuffling_data_loader_tpu_torch.ops as ops
@@ -1619,7 +1653,7 @@ def cluster_run(torch, port, filenames, label: str, model=None, init_state=None,
     ds = port.DeviceShufflingDataset(
         filenames, num_epochs=epochs, num_trainers=1, batch_size=batch_size, rank=0,
         feature_columns=[*features, port.KEY_COLUMN], label_column=port.LABEL_COLUMN, num_reducers=8, seed=0,
-        device="cuda",
+        device="cuda", cache_decoded=cache_decoded,
     )
     reset_launches(ops)
     digests, losses, step_s, epoch_s = [], [], [], []
@@ -1655,6 +1689,7 @@ def cluster_run(torch, port, filenames, label: str, model=None, init_state=None,
         "verdicts": audit.verdicts(), "journal": stats.get("journal"),
         "recovery": {k: stats.get(k) for k in ("stage_retries", "rematerialized", "recovery_log")},
         "plan_terms": stats.get("plan_terms"), "plan_replans": stats.get("plan_replans"),
+        "store_peak_bytes": stats.get("store_peak_bytes"), "cache_decoded": stats.get("cache_decoded"),
     }
     log(f"[{tag} {label}] {len(digests)} batches, {run['steps']} steps; schedules {run['schedules']}; shuffle s per "
         f"epoch {run['epoch_shuffle_s']!r}; epochs {epoch_s!r} s; step median {run['step_ms_median']!r} ms; stall "
@@ -2979,6 +3014,360 @@ def phase_obs(torch, filenames, cluster: dict, work: str) -> dict:
     return res
 
 
+# The elastic phase: the control loop on a two-host cluster under a store
+# budget the run's peak passes. The head's budget is this share of the
+# cluster phase's one-host peak (store_stats, sampled by the shuffle): the
+# head's own peak was 0.40-0.50 of it (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md section 5), so placement fills shm to about the budget, over the
+# high watermark, and spills the rest.
+ELASTIC_WORKERS = 4
+ELASTIC_BUDGET_SHARE = 0.4
+# The loop's knobs: a tick every 0.2 s (an epoch of the two-host run
+# shuffles in about a second once the cache is hot); any live verdict on a
+# shuffle stage scales up, once (the cooldown outlasts the run) and never
+# down (the one drain is the operator's); an eviction pass at most every
+# 0.5 s, and a spilled segment untouched for 0.5 s dropped (never a
+# delivered batch: epoch 0's last batches still wait in the queue when it
+# leaves the fence).
+ELASTIC_ENV = {"RSDL_ELASTIC": "on", "RSDL_ELASTIC_PERIOD_S": "0.2", "RSDL_ELASTIC_UP_THRESHOLD": "0",
+               "RSDL_ELASTIC_DOWN_THRESHOLD": "-1", "RSDL_ELASTIC_COOLDOWN_S": "3600", "RSDL_EVICT_COOLDOWN_S": "0.5",
+               "RSDL_EVICT_DROP_AGE_S": "0.5", "RSDL_DRAIN_DEADLINE_S": "60"}
+ELASTIC_EVICT_WAIT_REDUCERS = 1  # the operator drains once the loop evicted, or epoch 1 delivered this many
+
+
+def _elastic_operator(spec: dict, ctl, other: str, hosts: dict, op: dict) -> None:
+    """The operator's side of the elastic phase, on a thread of the head:
+    once epoch 0 has left the fence and epoch 1 runs, wait for the loop's
+    own eviction (until epoch 1 delivered ``ELASTIC_EVICT_WAIT_REDUCERS``
+    reducers), scale up by hand if the loop has not, drain the joined host,
+    then stop it (SIGINT to its ``join`` process) and take it out of the
+    registry again should its heartbeat have put it back."""
+    import signal
+
+    from ray_shuffling_data_loader_tpu_torch import shuffle as port_shuffle
+    from ray_shuffling_data_loader_tpu_torch.runtime import cluster as port_cluster
+    from ray_shuffling_data_loader_tpu_torch.runtime.actor import ActorHandle
+    from ray_shuffling_data_loader_tpu_torch.telemetry import metrics
+
+    def epoch(e):
+        return (port_shuffle.live_status().get("epochs") or {}).get(str(e)) or {}
+
+    try:
+        deadline = time.monotonic() + 600
+        while not (epoch(0).get("state") == "done" and 0 not in port_shuffle.protected_epochs()):
+            if time.monotonic() > deadline:
+                raise TimeoutError("epoch 0 never left the fence")
+            time.sleep(0.005)
+        op["epoch0_done_ts"] = time.time()
+        while ctl.evicted_bytes == 0:
+            e1 = epoch(1)
+            if e1.get("delivered_reducers", 0) >= ELASTIC_EVICT_WAIT_REDUCERS or e1.get("state") in ("done", "failed"):
+                break
+            time.sleep(0.005)
+        op["evicted_before_drain"] = ctl.evicted_bytes
+        if ctl.scale_events == 0:
+            op["scale_up_forced"] = ctl._scale_up(reason="operator: no live verdict on a shuffle stage yet")
+        op["epoch1_at_drain"] = epoch(1)
+        t0 = time.perf_counter()
+        op["outcome"] = ctl.drain_host(ActorHandle(tuple(hosts[other]["agent"])), host_id=other)
+        op["drain_s"] = time.perf_counter() - t0
+        op["drain_age_after"] = metrics.registry.snapshot().get("elastic.drain_age_seconds")
+        op["membership"] = port_cluster.membership_section()
+        with open(spec["joined_pid"]) as f:
+            os.kill(int(f.read()), signal.SIGINT)
+        store = ActorHandle(tuple(hosts[other]["store"]))
+        t_stop = time.monotonic()
+        while store.ping(timeout=1.0) and time.monotonic() - t_stop < 60:
+            time.sleep(0.1)
+        op["joined_stopped_s"] = time.monotonic() - t_stop
+        ctl._unregister_host(other, tuple(hosts[other]["agent"]))
+    except BaseException as exc:  # the head checks op["error"]
+        op["error"] = f"{type(exc).__name__}: {exc}"
+
+
+def elastic_head(spec: dict) -> int:
+    """The ``[elastic]`` phase's head, a process of its own started with
+    metrics, the strict audit, the elastic loop (:data:`ELASTIC_ENV`) and the
+    store's budget: a cluster (``init_cluster``) that a host joins, the
+    deterministic DLRM slice on it (the decode cache on) while the operator
+    thread (:func:`_elastic_operator`) drains the joined host in epoch 1,
+    then the checks that read the head's ledger, events, gauges and store.
+    Raises on a failed check; writes what it read to ``spec["result"]``."""
+    import torch
+
+    import ray_shuffling_data_loader_tpu_torch as port
+    from ray_shuffling_data_loader_tpu_torch.runtime.actor import ActorHandle
+    from ray_shuffling_data_loader_tpu_torch.telemetry import capacity, events, metrics
+
+    t_phase = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    files = spec["files"]
+    model = port.dlrm_for_data_spec()
+    init_state = copy.deepcopy(model.state_dict())
+    out = {}
+    t0 = time.perf_counter()
+    ctx = port.runtime.init_cluster(advertise_host="127.0.0.1", num_workers=ELASTIC_WORKERS)
+    try:
+        elastic = sys.modules.get("ray_shuffling_data_loader_tpu_torch.runtime.elastic")
+        if elastic is None or not elastic.running() or elastic.controller() is None:
+            raise AssertionError("[elastic] the session did not start the elastic loop")
+        ctl = elastic.controller()
+        with open(spec["addr"] + ".tmp", "w") as f:
+            f.write(ctx.cluster.address)
+        os.replace(spec["addr"] + ".tmp", spec["addr"])
+        deadline = time.monotonic() + 60
+        while len(port.runtime.cluster_hosts()) < 2:
+            if time.monotonic() > deadline:
+                raise RuntimeError("[elastic] the second host did not join")
+            time.sleep(0.05)
+        hosts = ctx.cluster.registry.call("hosts")
+        for info in hosts.values():  # each agent's pool up before the epochs
+            ActorHandle(tuple(info["agent"])).call("submit", os.getpid, (), {})
+        other = next(h for h in hosts if h != ctx.cluster.host_id)
+        joined_session = other.rpartition(":")[2]
+        out["up_s"] = time.perf_counter() - t0
+        # The re-home timed on the controller itself.
+        rehome, inner = {}, ctl._rehome_segments
+
+        def timed_rehome(agent, store_handle=None):
+            t = time.perf_counter()
+            rehome["bytes"] = inner(agent, store_handle=store_handle)
+            rehome["s"] = time.perf_counter() - t
+            return rehome["bytes"]
+
+        ctl._rehome_segments = timed_rehome
+        # The head's residency a tenth of a second apart: the store's, and
+        # the ledger's shm and spill, beside the epochs' states.
+        timeline, stop = [], threading.Event()
+
+        def sample():
+            from ray_shuffling_data_loader_tpu_torch import shuffle as port_shuffle
+
+            while not stop.wait(0.1):
+                st, view = ctx.store.store_stats(), capacity.ledger()
+                epochs = port_shuffle.live_status().get("epochs") or {}
+                timeline.append((time.time(), st.total_bytes - st.spill_bytes, st.spill_bytes,
+                                 capacity.shm_resident_bytes(view["totals"]),
+                                 view["totals"]["spill"]["resident_bytes"],
+                                 {e: s.get("state") for e, s in epochs.items()}))
+
+        op = {}
+        operator = threading.Thread(target=_elastic_operator, args=(spec, ctl, other, hosts, op), daemon=True)
+        sampler = threading.Thread(target=sample, daemon=True)
+        operator.start()
+        sampler.start()
+        try:
+            run = cluster_run(torch, port, files, "two hosts, elastic", model, init_state, tag="elastic",
+                              cache_decoded=True)
+        finally:
+            operator.join(timeout=120)
+            stop.set()
+            sampler.join(timeout=10)
+        budget = ctx.store.capacity_bytes
+        peak = max(t[1] for t in timeline) if timeline else None
+        ledger_peak = max(t[3] for t in timeline) if timeline else None
+        log(f"[elastic] budget {budget} B (the one-host peak {spec['reference']['store_peak_bytes']} B x "
+            f"{ELASTIC_BUDGET_SHARE}); the head's shm peak {peak} B by the store, {ledger_peak} B by the ledger "
+            f"(high watermark {ctl.evict_high} x budget = {ctl.evict_high * budget:.0f} B); run's store_peak_bytes "
+            f"{run['store_peak_bytes']}; the operator: {op}")
+        if timeline:  # every half second and at each change of the epochs' states
+            t_first, shown, last = timeline[0][0], [], None
+            for i, (ts, shm, spill, l_shm, l_spill, states) in enumerate(timeline):
+                if i % 5 == 0 or states != last:
+                    shown.append(f"{ts - t_first:.1f}s {shm / 1e6:.1f}/{l_shm / 1e6:.1f}/{spill / 1e6:.1f}/"
+                                 f"{l_spill / 1e6:.1f} {''.join(f'{e}{(st or '?')[0]}' for e, st in states.items())}")
+                last = states
+            log("[elastic] the head's MB on shm (store/ledger) and spill (store/ledger), epochs' states: "
+                + "; ".join(shown))
+        if operator.is_alive() or "error" in op:
+            raise AssertionError(f"[elastic] the operator: {op}")
+        # (1) The run: the one host's tensors and losses, K1 once a step.
+        ref = spec["reference"]
+        if run["digests"] != ref["digests"] or run["losses"] != ref["losses"]:
+            bad = [i for i, (a, b) in enumerate(zip(run["digests"], ref["digests"])) if a != b]
+            raise AssertionError(f"[elastic] the run differs from the one host's: batches {bad[:5]}, losses "
+                                 f"{run['losses'][:3]} against {ref['losses'][:3]}")
+        n = run["launches"]
+        if n["interaction_mma"] != run["steps"] or n["interaction"] != run["steps"] or run["steps"] != 30:
+            raise AssertionError(f"[elastic] launches {n} in {run['steps']} steps: want 30 K1, all tensor-core")
+        for v in run["verdicts"]:
+            rows = [v[k] for k in ("rows_mapped", "rows_reduced", "rows_delivered", "rows_consumed")]
+            if v["ok"] is not True or v["mismatch"] or rows != [NUM_ROWS] * 4:
+                raise AssertionError(f"[elastic] epoch {v['epoch']} verdict {v}")
+        if [v["epoch"] for v in run["verdicts"]] != [0, 1]:
+            raise AssertionError(f"[elastic] verdicts {run['verdicts']}")
+        # (2) The loop's own eviction, in epoch 1 after epoch 0 left the fence.
+        # Both rungs fire; what was dropped and read again was re-made
+        # from its lineage (the run's tensors and verdicts say so).
+        evicts = [r for r in events.load() if r.get("kind") in ("evict.demote", "evict.drop")]
+        late = [r for r in evicts if r["ts"] >= op["epoch0_done_ts"]]
+        if not late or not any(r["kind"] == "evict.drop" for r in evicts):
+            raise AssertionError(f"[elastic] the loop's evictions after epoch 0 left the fence: {evicts}")
+        unlost = [e for e in run["recovery"]["recovery_log"] or [] if e.get("error", "ObjectLostError")
+                  != "ObjectLostError"]
+        if unlost:
+            raise AssertionError(f"[elastic] recoveries for other causes than a lost segment: {unlost}")
+        # (3) The drain: handed over, re-homed with transition records, the
+        # host retired, the drain's age back at 0.
+        transitions = [r for r in capacity.load_records()
+                       if r["op"] == "transition" and r["id"].startswith(f"{joined_session}-")]
+        done = [r for r in events.load() if r.get("kind") == "scale.drain_done"]
+        agent_str = ":".join(str(p) for p in hosts[other]["agent"])
+        if (op["outcome"] != "drained" or not transitions or not rehome.get("bytes") or len(done) != 1
+                or agent_str not in op["membership"]["retired"] or op["drain_age_after"] != 0.0):
+            raise AssertionError(f"[elastic] drain: {op}; re-home {rehome}; {len(transitions)} transitions; "
+                                 f"drain_done {done}")
+        # (4) The scale-up, the totals and the gauges.
+        ups = [r for r in events.load() if r.get("kind") == "scale.up"]
+        summary = elastic.summary()
+        snap = metrics.registry.snapshot()
+        gauges = {k: snap.get(k) for k in ("elastic.shm_headroom_frac", "elastic.workers")}
+        if (not ups or summary["scale_events"] < 1 or summary["drains"] != 1 or not summary["evicted_gb"] > 0
+                or None in gauges.values()):
+            raise AssertionError(f"[elastic] scale-ups {ups}; summary {summary}; gauges {gauges}")
+        # (5) The ledger equals the store, by tier, at the run's end (the
+        # owners' deletes of frees from the other host land within a
+        # dispatch), and is 0 after the clean-up.
+        t_wait = time.perf_counter()
+        while True:
+            st, totals = ctx.store.store_stats(), capacity.ledger()["totals"]
+            ledger_tiers = (capacity.shm_resident_bytes(totals), totals["spill"]["resident_bytes"])
+            store_tiers = (st.total_bytes - st.spill_bytes, st.spill_bytes)
+            if ledger_tiers == store_tiers or time.perf_counter() - t_wait > 15:
+                break
+            time.sleep(0.1)
+        if ledger_tiers != store_tiers:
+            raise AssertionError(f"[elastic] at the run's end the ledger holds {ledger_tiers} B (shm, spill), the "
+                                 f"store {store_tiers} B")
+        ctx.store.cleanup()
+        folded = capacity.ledger()
+        after = (capacity.shm_resident_bytes(folded["totals"]), folded["totals"]["spill"]["resident_bytes"],
+                 folded["live_segments"])
+        if after != (0, 0, 0):
+            raise AssertionError(f"[elastic] after the clean-up the ledger holds {after}")
+        demoted = [r for r in evicts if r["kind"] == "evict.demote"]
+        dropped = [r for r in evicts if r["kind"] == "evict.drop"]
+        out.update(
+            budget=budget, peak_store=peak, peak_ledger=ledger_peak, reference_peak=ref["store_peak_bytes"],
+            demoted={"bytes": sum(r["nbytes"] for r in demoted), "segments": sum(r["segments"] for r in demoted),
+                     "events": len(demoted)},
+            dropped={"bytes": sum(r["nbytes"] for r in dropped), "segments": sum(r["segments"] for r in dropped),
+                     "events": len(dropped)},
+            first_evict_after_epoch0_s=min(r["ts"] for r in late) - op["epoch0_done_ts"],
+            drain={"outcome": op["outcome"], "s": op["drain_s"], "waited_s": done[0]["waited_s"],
+                   "rehome_bytes": rehome["bytes"], "rehome_s": rehome["s"],
+                   "rehome_GB_s": rehome["bytes"] / rehome["s"] / 1e9, "transitions": len(transitions),
+                   "evicted_before": op["evicted_before_drain"], "epoch1_at_drain": op["epoch1_at_drain"],
+                   "joined_stopped_s": op["joined_stopped_s"]},
+            scale_up={"events": len(ups), "forced": op.get("scale_up_forced"),
+                      "reasons": [r.get("reason") for r in ups]},
+            summary=summary, gauges=gauges, ledger_end=ledger_tiers,
+            recovery=run["recovery"], schedules=run["schedules"], cache_decoded=run["cache_decoded"],
+            run={k: run[k] for k in ("losses", "launches", "steps", "step_ms_median", "epoch_s", "epoch_shuffle_s",
+                                     "stall_s", "stall_share")})
+    finally:
+        port.runtime.shutdown()
+    out["wall_s"] = time.perf_counter() - t_phase
+    with open(spec["result"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_elastic(torch, filenames, cluster: dict, work: str) -> dict:
+    """The ``[elastic]`` phase: :func:`elastic_head` and a host joined with
+    ``python -m ...runtime.cluster join``, 4 workers each, on one machine,
+    each with its own shared-memory and spill directories, one audit spool;
+    both with metrics and the strict audit, the head with the elastic loop
+    and a store budget of :data:`ELASTIC_BUDGET_SHARE` of the cluster
+    phase's one-host peak. ``cluster``: the cluster phase's results (its
+    one-host run is the reference; its two-host run, when there is one, is
+    logged beside). No segment may be left in either host's directories."""
+    t_phase = time.perf_counter()
+    tag = f"rsdl-elastic-{os.getpid()}"
+    single = cluster["single"]
+    budget = int(single["store_peak_bytes"] * ELASTIC_BUDGET_SHARE)
+    spec = {"files": filenames, "result": os.path.join(work, "result.json"), "addr": os.path.join(work, "address"),
+            "joined_pid": os.path.join(work, "joined.pid"),
+            "reference": {"digests": single["digests"], "losses": single["losses"],
+                          "store_peak_bytes": single["store_peak_bytes"]}}
+    spec_path = os.path.join(work, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    base = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
+    base.update(RSDL_ADVERTISE_HOST="127.0.0.1", RSDL_METRICS="1", RSDL_AUDIT="1", RSDL_AUDIT_STRICT="1",
+                RSDL_AUDIT_DIR=os.path.join(work, "audit"))
+    envs, dirs = {}, []
+    for name in ("head", "joined"):
+        envs[name] = {**base, "RSDL_SHM_DIR": f"/dev/shm/{tag}-{name}",
+                      "RSDL_SPILL_DIR": os.path.join(work, f"spill-{name}")}
+        dirs += [envs[name]["RSDL_SHM_DIR"], envs[name]["RSDL_SPILL_DIR"]]
+    envs["head"].update(ELASTIC_ENV, RSDL_STORE_CAPACITY_BYTES=str(budget))
+    procs = {}
+    try:
+        procs["head"] = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--elastic-head",
+                                          spec_path], env=envs["head"], cwd=ROOT)
+        deadline = time.monotonic() + 240
+        while not os.path.exists(spec["addr"]):
+            if procs["head"].poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"[elastic] the head exited ({procs['head'].poll()}) or timed out before its "
+                                     "address")
+            time.sleep(0.05)
+        with open(spec["addr"]) as f:
+            address = f.read()
+        with open(os.path.join(work, "joined.log"), "w") as out_f:
+            procs["joined"] = subprocess.Popen(
+                [sys.executable, "-m", "ray_shuffling_data_loader_tpu_torch.runtime.cluster", "join", address,
+                 "--num-workers", str(ELASTIC_WORKERS)], env=envs["joined"], cwd=ROOT, stdout=out_f,
+                stderr=subprocess.STDOUT)
+        with open(spec["joined_pid"] + ".tmp", "w") as f:
+            f.write(str(procs["joined"].pid))
+        os.replace(spec["joined_pid"] + ".tmp", spec["joined_pid"])
+        codes = {name: proc.wait(timeout=300 if name == "head" else 120) for name, proc in procs.items()}
+        # The drained host leaves on the operator's SIGINT: its session ends
+        # in the join command's clean-up, which the interrupt then ends.
+        if codes["head"] != 0 or codes["joined"] not in (0, -2, 130):
+            raise AssertionError(f"[elastic] exit codes {codes}; the joined host's log: "
+                                 f"{open(os.path.join(work, 'joined.log')).read()[-3000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        left = {d: os.listdir(d) for d in dirs if os.path.isdir(d) and os.listdir(d)}
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    if left:
+        raise AssertionError(f"[elastic] segments left after shutdown: { {d: v[:5] for d, v in left.items()} }")
+    with open(spec["result"]) as f:
+        res = json.load(f)
+    run, two, smi = res["run"], cluster.get("cluster"), smi_name_and_limit()
+    dr = res["drain"]
+    log(f"[elastic] two hosts, the loop on: the one host's {run['steps']} losses and staged tensors bit for bit; K1 "
+        f"{run['launches']['interaction_mma']} of {run['steps']} steps on the tensor-core route; both epochs ok "
+        f"under strict audit; schedules {res['schedules']}, decode cache {res['cache_decoded']}; recoveries "
+        f"{res['recovery']}; no segment left")
+    log(f"[elastic] budget {res['budget']} B = {ELASTIC_BUDGET_SHARE} x the one-host peak {res['reference_peak']} B; "
+        f"the head's shm peak {res['peak_store']} B (store), {res['peak_ledger']} B (ledger); demoted "
+        f"{res['demoted']['bytes']} B in {res['demoted']['segments']} segments ({res['demoted']['events']} passes), "
+        f"dropped {res['dropped']['bytes']} B in {res['dropped']['segments']} segments; the first eviction "
+        f"{res['first_evict_after_epoch0_s']:.3f} s after epoch 0 left the fence ({smi})")
+    log(f"[elastic] drain: {dr['outcome']} in {dr['s']:.3f} s (drain_done waited_s {dr['waited_s']}), re-homed "
+        f"{dr['rehome_bytes']} B in {dr['rehome_s']:.3f} s = {dr['rehome_GB_s']:.3f} GB/s with {dr['transitions']} "
+        f"transition records; evicted before it {dr['evicted_before']} B; epoch 1 at the drain {dr['epoch1_at_drain']}; "
+        f"the host stopped {dr['joined_stopped_s']:.2f} s after its SIGINT ({smi})")
+    log(f"[elastic] scale-ups {res['scale_up']}; summary {res['summary']}; gauges {res['gauges']}; the ledger "
+        f"equal to the store at the run's end {res['ledger_end']} B (shm, spill), 0 after the clean-up")
+    if two is not None:
+        log(f"[elastic] step median {run['step_ms_median']!r} ms against the cluster phase's two hosts "
+            f"{two['step_ms_median']!r} ms; shuffle s per epoch {run['epoch_shuffle_s']!r} against "
+            f"{two['epoch_shuffle_s']!r}; stall share {run['stall_share']!r} against {two['stall_share']!r} ({smi})")
+    res.pop("timeline", None)
+    res["launches"] = run["launches"]
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[elastic] phase {res['phase_s']:.1f} s (head {res['wall_s']:.1f} s, cluster up {res['up_s']:.1f} s; {smi})")
+    return res
+
+
 def read_plane_line(label: str, stats: dict, schedules) -> dict:
     """Log and return what a run's read plane did: the plan and its terms,
     the projection, each epoch's schedule and shuffle seconds, the row
@@ -3554,13 +3943,12 @@ RESUME_LOSS_TOL = 1e-5  # PERF.md's bound: the embedding backward's atomics
 
 def resume_run(work: str, shm: str, name: str, loader: str, kill_after: int = 0, checkpoint: bool = True,
                env_extra=None) -> dict:
-    """One trainer child in a session of its own: its exit code, RESULT,
-    records per step and the unix time it started."""
+    """One trainer child (``work/child.py``, :data:`RESUME_CHILD`) in a
+    session of its own: its exit code, RESULT, records per step and the unix
+    time it started."""
     import numpy as np
 
     script = os.path.join(work, "child.py")
-    with open(script, "w") as f:
-        f.write(RESUME_CHILD)
     record = os.path.join(work, f"rec-{name}")
     shutil.rmtree(record, ignore_errors=True)
     argv = [sys.executable, script, "--num-rows", str(NUM_ROWS), "--num-files", "10", "--num-row-groups-per-file",
@@ -3617,12 +4005,14 @@ def phase_resume(torch, work: str, smi: str) -> dict:
 def _phase_resume(torch, work: str, shm: str, smi: str) -> dict:
     import numpy as np
 
+    import ray_shuffling_data_loader_tpu_torch as port
+    from ray_shuffling_data_loader_tpu_torch.train_dlrm import get_data, parse_args
     from ray_shuffling_data_loader_tpu_torch.utils.prng import epoch_permutation
 
     per_epoch = NUM_ROWS // RESUME_BATCH
     total = per_epoch * RESUME_EPOCHS
     ckpt_step = RESUME_KILL // RESUME_EVERY * RESUME_EVERY
-    journal = {"RSDL_JOURNAL": os.path.join(work, "journal")}
+    loaders = ("mapreduce", "resident")
     out = {}
 
     def expect(cond, what, run=None):
@@ -3630,19 +4020,48 @@ def _phase_resume(torch, work: str, shm: str, smi: str) -> dict:
             tail = f"\n{run['stdout'][-3000:]}\n{run['stderr'][-3000:]}" if run else ""
             raise AssertionError(f"[resume] {what}{tail}")
 
-    control = resume_run(work, shm, "control", "mapreduce", checkpoint=False)
+    # The runs that do not depend on each other run side by side, two rounds
+    # instead of five runs one after the other (each trainer pays seconds of
+    # start-up): the control and both victims, then both resumes. Each keeps
+    # its own shm directory and journal; the dataset and the child script are
+    # written once first.
+    with open(os.path.join(work, "child.py"), "w") as f:
+        f.write(RESUME_CHILD)
+    get_data(parse_args(["--num-rows", str(NUM_ROWS), "--num-files", "10", "--num-row-groups-per-file", "5",
+                         "--seed", "0", "--data-dir", os.path.join(work, "data")]))
+    port.runtime.shutdown()  # the generation's session
+    shms = {name: os.path.join(shm, name) for name in ("control", *loaders)}
+    for d in shms.values():
+        os.makedirs(d)
+    journal = {loader: {"RSDL_JOURNAL": os.path.join(work, f"journal-{loader}")} for loader in loaders}
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        t_round = time.perf_counter()
+        first = {"control": pool.submit(resume_run, work, shms["control"], "control", "mapreduce", checkpoint=False)}
+        for loader in loaders:
+            first[loader] = pool.submit(resume_run, work, shms[loader], f"victim-{loader}", loader,
+                                        kill_after=RESUME_KILL, env_extra=journal[loader])
+        first = {k: f.result() for k, f in first.items()}
+        rounds_s = [time.perf_counter() - t_round]
+        t_round = time.perf_counter()
+        second = {loader: pool.submit(resume_run, work, shms[loader], f"resume-{loader}", loader,
+                                      env_extra={**journal[loader], "RSDL_RESUME": "redeliver"})
+                  for loader in loaders}
+        second = {k: f.result() for k, f in second.items()}
+        rounds_s.append(time.perf_counter() - t_round)
+    control = first["control"]
     expect(control["rc"] == 0 and sorted(control["steps"]) == list(range(1, total + 1)),
            f"control: exit {control['rc']}, steps {sorted(control['steps'])}", control)
     expect(all(math.isfinite(r["loss"]) for r in control["steps"].values()), "control: a loss is not finite")
     check_resumed_launches("control", control, total)
-    for loader in ("mapreduce", "resident"):
-        victim = resume_run(work, shm, f"victim-{loader}", loader, kill_after=RESUME_KILL, env_extra=journal)
+    left = sorted(os.listdir(shms["control"]))
+    expect(not left, f"control: segments left in its shm directory: {left[:5]} ({len(left)})")
+    for loader in loaders:
+        victim = first[loader]
         expect(victim["rc"] == -9, f"{loader} victim: exit {victim['rc']}, want SIGKILL", victim)
         # The child dies inside step RESUME_KILL, before recording it.
         expect(sorted(victim["steps"]) == list(range(1, RESUME_KILL)), f"{loader} victim: steps {sorted(victim['steps'])}")
         replayed = RESUME_KILL - ckpt_step
-        resumed = resume_run(work, shm, f"resume-{loader}", loader,
-                             env_extra={**journal, "RSDL_RESUME": "redeliver"})
+        resumed = second[loader]
         res = resumed["result"]
         expect(resumed["rc"] == 0 and res is not None, f"{loader} resume: exit {resumed['rc']}", resumed)
         expect(f"resuming from step {ckpt_step}" in resumed["stdout"], f"{loader} resume did not start at {ckpt_step}",
@@ -3670,11 +4089,11 @@ def _phase_resume(torch, work: str, shm: str, smi: str) -> dict:
         if loader == "mapreduce":
             expect(counters.get("mode") == "redeliver" and counters.get("from_run"), f"no journal resumed: {counters}")
             expect(reattached > 0, f"mapreduce resume re-attached no stage: {counters}")
-        left = sorted(os.listdir(shm))
+        left = sorted(os.listdir(shms[loader]))
         if loader == "mapreduce":
             expect(not left, f"mapreduce: segments left in the shm directory: {left[:5]} ({len(left)})")
         for name in left:  # the resident loader journals nothing: a killed run's leftovers are not swept
-            os.unlink(os.path.join(shm, name))
+            os.unlink(os.path.join(shms[loader], name))
         restart_s = res["first_batch_at"] - resumed["started"]
         ck = resumed["result"]["checkpoint_bytes"]
         log(f"[resume] {loader}: checkpoint {ck[0] if ck else None} B, save "
@@ -3695,9 +4114,11 @@ def _phase_resume(torch, work: str, shm: str, smi: str) -> dict:
         shutil.rmtree(os.path.join(work, f"ckpt-{loader}"), ignore_errors=True)
     out["control"] = {"k1_launches": control["result"]["interaction_launches"], "steps": total,
                       "first_batch_s": control["result"]["first_batch_s"], "startup_s": control["result"]["startup_s"]}
+    out["rounds_s"] = rounds_s
     log(f"[resume] control: {total} steps, K1 launches {control['result']['interaction_launches']}, start-up "
         f"{control['result']['startup_s']}; resumed key "
-        f"streams equal the control's (mapreduce) and epoch_permutation's (resident) bit for bit ({smi})")
+        f"streams equal the control's (mapreduce) and epoch_permutation's (resident) bit for bit; rounds (control "
+        f"and victims side by side, then the resumes) {rounds_s!r} s ({smi})")
     return out
 
 
@@ -3953,6 +4374,8 @@ def main() -> int:
     parser.add_argument("--telemetry-head", default=None, help=argparse.SUPPRESS)
     # The obs phase's head.
     parser.add_argument("--obs-head", default=None, help=argparse.SUPPRESS)
+    # The elastic phase's head.
+    parser.add_argument("--elastic-head", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--pool-ready", default=None, metavar="ROOT",
                         help="only time fresh 8-worker pools of the checkout at ROOT (its ready_s) and exit")
     args = parser.parse_args()
@@ -3977,6 +4400,9 @@ def main() -> int:
     if args.obs_head is not None:
         with open(args.obs_head) as f:
             return obs_head(json.load(f))
+    if args.elastic_head is not None:
+        with open(args.elastic_head) as f:
+            return elastic_head(json.load(f))
     if args.pool_ready is not None:
         return pool_ready(args.pool_ready)
     sys.path.insert(0, ROOT)
@@ -4039,6 +4465,13 @@ def main() -> int:
                 obs = timed("obs", phase_obs, torch, filenames, cluster, obs_dir)
             finally:
                 shutil.rmtree(obs_dir, ignore_errors=True)
+            elastic_dir = os.path.join(ROOT, "build", "elastic")
+            shutil.rmtree(elastic_dir, ignore_errors=True)
+            os.makedirs(elastic_dir)
+            try:
+                elastic = timed("elastic", phase_elastic, torch, filenames, cluster, elastic_dir)
+            finally:
+                shutil.rmtree(elastic_dir, ignore_errors=True)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
         plan_dir = os.path.join(ROOT, "build", "plan_data")
@@ -4113,6 +4546,9 @@ def main() -> int:
                 # and in the DLRM run on two hosts with split spools under the
                 # SLO engine, the relay and the obs server
                 entry["launches_obs"] = obs["launches"]["interaction_mma"]
+                # and in the DLRM run on two hosts under the elastic loop, a
+                # store budget and a drain
+                entry["launches_elastic"] = elastic["launches"]["interaction_mma"]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: a phase failed", file=sys.stderr)
@@ -4144,6 +4580,7 @@ def main() -> int:
                     "faults": faults,
                     "telemetry": telemetry,
                     "obs": obs,
+                    "elastic": elastic,
                     "parity_max_abs_diff": {label: err for label, (err, _) in parity.items()},
                 },
                 f, indent=1,

@@ -7,6 +7,8 @@
 * :mod:`.cluster`: several hosts' sessions as one cluster.
 * :mod:`.faults`: seeded fault injection (``RSDL_FAULTS``), loaded at its
   first use as ``runtime.faults``.
+* :mod:`.elastic`: the autoscaler, the graceful drain and the tiered
+  evictor (``RSDL_ELASTIC``), loaded only when asked for.
 
 ``init()`` creates a *session*, a runtime directory holding the actor
 registry whose name prefixes every shared-memory segment, or joins an
@@ -36,7 +38,8 @@ and event spools at ``<runtime_dir>/metrics`` and ``/events`` unless
 session starts the sampling profiler under ``RSDL_PROFILE``; the owner
 starts the obs server on ``RSDL_OBS_PORT``, the time-series sampler (and
 the SLO engine its tick evaluates) with metrics on and ``RSDL_TS`` (or
-``RSDL_OBS_PORT``) set, and the relay under ``RSDL_RELAY``: the sink on a
+``RSDL_OBS_PORT``) set, the elastic control loop (:mod:`.elastic`) under
+``RSDL_ELASTIC``, and the relay under ``RSDL_RELAY``: the sink on a
 cluster's head, the shipper on another host, with ``RSDL_RUNTIME_DIR``
 exported so that every process of the session can wake it
 (:func:`_start_planes`). :func:`shutdown` stops them, spools this
@@ -122,8 +125,10 @@ class RuntimeContext:
             # before the spools go (the server's port is free for the next
             # session). Through sys.modules: a session that never served or
             # sampled imports nothing here.
-            for name in ("obs_server", "timeseries"):
-                mod = sys.modules.get(f"ray_shuffling_data_loader_tpu_torch.telemetry.{name}")
+            # The elastic loop reads the ledger and moves segments: it stops
+            # before the pool and the segments go.
+            for name in ("telemetry.obs_server", "telemetry.timeseries", "runtime.elastic"):
+                mod = sys.modules.get(f"ray_shuffling_data_loader_tpu_torch.{name}")
                 if mod is not None:
                     mod.stop()
         if self.cluster is not None:
@@ -200,9 +205,9 @@ def _start_planes(ctx: RuntimeContext) -> None:
     (``RSDL_PROFILE``); on the owner only, the obs server
     (``RSDL_OBS_PORT``), the time series with metrics on and
     ``RSDL_OBS_PORT`` or ``RSDL_TS`` set (and the SLO engine that its tick
-    evaluates), and the relay (``RSDL_RELAY``: the sink on a cluster's
-    head, the shipper on another host). A failed start is logged, never
-    raised."""
+    evaluates), the elastic control loop (``RSDL_ELASTIC``, with metrics
+    on) and the relay (``RSDL_RELAY``: the sink on a cluster's head, the
+    shipper on another host). A failed start is logged, never raised."""
     import logging
 
     if _env.read_flag("RSDL_PROFILE"):
@@ -232,6 +237,15 @@ def _start_planes(ctx: RuntimeContext) -> None:
                 timeseries.start()
         except Exception:
             logging.getLogger(__name__).warning("time-series sampler start failed", exc_info=True)
+    # The elastic control plane (autoscaler, drain, evictor): with
+    # RSDL_ELASTIC unset, no import, no thread, no ledger transition.
+    if (os.environ.get("RSDL_ELASTIC") or "").strip().lower() not in ("", "off", "0", "false"):
+        try:
+            from . import elastic
+
+            elastic.maybe_start(ctx)
+        except Exception:
+            logging.getLogger(__name__).warning("elastic control loop start failed", exc_info=True)
     if _env.relay_armed():
         try:
             from ray_shuffling_data_loader_tpu_torch.telemetry import relay

@@ -101,7 +101,7 @@ def _flush_telemetry_spools(maybe: bool = False) -> None:
     most once a second), and at exit the profile (its sampler spools it
     once a second meanwhile); then the relay's kick, which wakes this
     host's shipper. Imports nothing while every plane is off."""
-    for name in ("trace",) if maybe else ("trace", "profiler"):
+    for name in ("trace", "capacity") if maybe else ("trace", "capacity", "profiler"):
         mod = sys.modules.get(f"ray_shuffling_data_loader_tpu_torch.telemetry.{name}")
         if mod is not None:
             mod.safe_flush()

@@ -273,13 +273,18 @@ class StoreServer:
         return {"count": self.served_count, "bytes": self.served_bytes}
 
     def free(self, object_id: str) -> None:
+        """Unlink a segment another host's reader freed; this host's
+        capacity ledger notes the ``delete``."""
+        from .store import _ledger_note
+
         try:
             path = self._path(object_id)
             for key in [k for k in self._map_cache if k[0] == path]:
                 self._map_cache.pop(key, None)
             os.unlink(path)
         except (FileNotFoundError, ValueError):
-            pass
+            return
+        _ledger_note("delete", object_id)
 
     def exists(self, object_id: str) -> bool:
         return os.path.exists(self._path(object_id))
@@ -287,19 +292,27 @@ class StoreServer:
     def list_segments(self, prefix: str) -> List[Tuple[str, int]]:
         """``(object_id, nbytes)`` of every published segment here whose
         id starts with ``prefix``."""
-        out: Dict[str, int] = {}
+        return [(name, size) for name, size, _ in self.list_segment_links(prefix)]
+
+    def list_segment_links(self, prefix: str) -> List[Tuple[str, int, int]]:
+        """``(object_id, nbytes, inode)`` of every published link here whose
+        id starts with ``prefix``: the links of one segment (the windows
+        ``publish_slices`` made) share its inode, so that a drain copies
+        the segment once."""
+        out: Dict[str, Tuple[int, int]] = {}
         for d in (self.shm_dir, self.spill_dir):
             try:
                 names = os.listdir(d)
             except FileNotFoundError:
                 continue
             for name in names:
-                if name.startswith(prefix) and not name.endswith(".tmp"):
+                if name.startswith(prefix) and not name.endswith(".tmp") and name not in out:
                     try:
-                        out.setdefault(name, os.path.getsize(os.path.join(d, name)))
+                        st = os.stat(os.path.join(d, name))
                     except OSError:
-                        pass
-        return sorted(out.items())
+                        continue
+                    out[name] = (st.st_size, st.st_ino)
+        return sorted((name, size, ino) for name, (size, ino) in out.items())
 
     def put_segment(self, object_id: str, data: bytes) -> bool:
         """Adopt a segment's bytes into this host's shm directory; an
@@ -600,6 +613,25 @@ class ClusterScheduler:
             self.width += share
         return True
 
+    def set_membership(self, agents: List[ActorHandle], store_to_agent: Dict[Tuple, ActorHandle], width: int) -> None:
+        """Take a new membership in place: an agent it lists joins (a handle
+        already here is kept, with its tasks in flight), one it does not
+        list leaves; a retired (drained) agent does not come back through a
+        registry read that still lists it. An epoch holds its scheduler
+        from its start, so the membership changes under it instead of a new
+        scheduler taking over (which would refuse that epoch's later
+        tasks)."""
+        with _membership_lock:
+            retired = set(_retired_addrs)
+        with self._lock:
+            have = {tuple(a.address): a for a in self._agents}
+            self._agents = [have.get(tuple(a.address), a) for a in agents if _addr_str(a.address) not in retired]
+            kept = {tuple(a.address) for a in self._agents}
+            self._store_to_agent = {tuple(k): have.get(tuple(v.address), v) for k, v in store_to_agent.items()}
+            for address in [a for a in self._added_widths if a not in kept]:
+                del self._added_widths[address]
+            self.width = max(1, int(width))
+
     def _find_agent(self, address) -> Optional[ActorHandle]:
         address = tuple(address)
         with self._lock:
@@ -762,8 +794,7 @@ class ClusterScheduler:
         )
 
     def shutdown(self, cancel: bool = True) -> None:
-        # cancel=False: a membership rebuild retires this scheduler, and
-        # the tasks already sent still finish.
+        # cancel=False: the tasks already sent still finish.
         self._executor.shutdown(wait=False, cancel_futures=cancel)
 
 
@@ -856,6 +887,13 @@ class ClusterClient:
         else:
             payload.release()
 
+    def retire_store(self, owner) -> None:
+        """A drained host's store server: its live segments were copied to
+        this host, so frees skip it and its refs read here or count as lost
+        (:meth:`.elastic.ElasticController.drain_host`)."""
+        with self._peer_lock:
+            self._dead_stores.add(tuple(owner))
+
     def free_remote(self, ref: ObjectRef) -> None:
         with self._peer_lock:
             if tuple(ref.owner) in self._dead_stores:
@@ -892,8 +930,9 @@ class ClusterClient:
 
     def scheduler(self) -> ClusterScheduler:
         """The cluster's scheduler. Membership is read again at most every
-        ``membership_refresh_s``; when it changed, a new scheduler takes
-        over and the old one's tasks finish."""
+        ``membership_refresh_s``; when it changed, the scheduler takes the
+        new membership in place (:meth:`ClusterScheduler.set_membership`):
+        an epoch that holds it goes on submitting, to the new hosts too."""
         now = time.monotonic()
         with self._scheduler_lock:
             if self._scheduler is not None and now - self._scheduler_read_ts <= self.membership_refresh_s:
@@ -901,9 +940,9 @@ class ClusterClient:
             agents, store_to_agent = self._read_agents()
             self._scheduler_read_ts = now
             if self._scheduler is not None:
-                if {a.address for a in agents} == self._scheduler.agent_addresses:
-                    return self._scheduler
-                self._scheduler.shutdown(cancel=False)
+                if {a.address for a in agents} != self._scheduler.agent_addresses:
+                    self._scheduler.set_membership(agents, store_to_agent, self._total_workers)
+                return self._scheduler
             self._scheduler = ClusterScheduler(agents, store_to_agent, width=self._total_workers)
             self._scheduler.on_agent_dead = self._evict_host
             return self._scheduler

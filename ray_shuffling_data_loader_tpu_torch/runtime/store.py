@@ -21,6 +21,13 @@ preempted session left behind (:meth:`ObjectStore.adopt_session`): they
 keep their old prefix and count towards the budget until they are swept
 (:meth:`ObjectStore.cleanup` with ``session=``).
 
+**Tier moves.** The elastic evictor (:mod:`.elastic`) moves a published
+segment, all its hardlinked names together, between the tiers:
+:meth:`ObjectStore.demote` to the spill directory, :meth:`ObjectStore.
+promote` back within the budget, and :meth:`ObjectStore.drop_segments`
+unlinks it for lineage to re-make. Each move notes a ``transition`` in the
+capacity ledger and counts ``store.tier_moved_bytes_total{tier}``.
+
 **Packed segments.** A segment may carry a layout descriptor in its meta.
 A reducer that knows the trainer's staging layout writes its whole
 batches as one column :data:`PACKED_COLUMN` of shape ``[n_batches, n_cols,
@@ -1018,9 +1025,11 @@ class ObjectStore:
         return self._find_segment(ref.object_id) is not None
 
     def free(self, refs) -> None:
-        """Unlink each ref's link; of a foreign ref, the cache here and the
-        owner's link (through ``remote_free``). Mapped views stay valid
-        until they are dropped; a segment's pages go with its last link."""
+        """Unlink each ref's link; of a foreign ref, also the cache here, the
+        owner's link (through ``remote_free``) and a copy of its segment in
+        this host's directories (re-homed by a drain). Mapped views stay
+        valid until they are dropped; a segment's pages go with its last
+        link."""
         if isinstance(refs, ObjectRef):
             refs = [refs]
         for ref in refs:
@@ -1028,7 +1037,7 @@ class ObjectStore:
                 self._forget_cache(ref)
                 if self.remote_free is not None:
                     self.remote_free(ref)
-                continue
+                # A copy a drain re-homed here goes with it (elastic.py).
             path = self._find_segment(ref.object_id)
             if path is not None:
                 try:
@@ -1036,6 +1045,123 @@ class ObjectStore:
                 except FileNotFoundError:
                     pass
                 _ledger_note("delete", ref.object_id)
+
+    # -- tier moves (the elastic evictor's actuators) ----------------------------
+
+    def _segment_links(self, ids) -> Dict[str, str]:
+        """``{name: path}`` of every link name of one segment that resolves
+        now (shm first, then spill)."""
+        if isinstance(ids, str):
+            ids = [ids]
+        out: Dict[str, str] = {}
+        for name in ids:
+            path = self._find_segment(name)
+            if path is not None:
+                out[name] = path
+        return out
+
+    def _move_tier(self, ids, dst_dir: str, tier: str) -> int:
+        """Move every link name of one segment to ``dst_dir``: copy the
+        inode once under a ``.tmp`` name, rename it to the first name,
+        hardlink the others to it, then unlink the sources. A reader racing
+        the move still maps the old inode (its mapping outlives the unlink)
+        or resolves the name again through :meth:`_find_segment`, which
+        looks in both tiers. A failed link rolls the whole move back.
+        Returns the bytes moved: 0 when the segment is gone or already lies
+        in ``dst_dir``."""
+        links = self._segment_links(ids)
+        if not links:
+            return 0
+        if os.path.dirname(next(iter(links.values()))) == dst_dir:
+            return 0
+        os.makedirs(dst_dir, exist_ok=True)
+        names = list(links)
+        primary = names[0]
+        # ".tmp": a crashed move leaves nothing that store_stats or a
+        # drain's list_segments would take for a published segment.
+        tmp = os.path.join(dst_dir, f"{primary}.move-{os.getpid()}-{secrets.token_hex(4)}.tmp")
+        try:
+            nbytes = os.path.getsize(links[primary])
+            with open(links[primary], "rb") as src, open(tmp, "wb") as dst:
+                import shutil
+
+                shutil.copyfileobj(src, dst, length=1 << 20)
+            os.rename(tmp, os.path.join(dst_dir, primary))
+        except OSError:
+            try:
+                os.unlink(tmp)
+            except FileNotFoundError:
+                pass
+            return 0
+        for i, name in enumerate(names[1:], start=1):
+            try:
+                os.link(os.path.join(dst_dir, primary), os.path.join(dst_dir, name))
+            except FileExistsError:
+                pass
+            except OSError:
+                for done in names[: i + 1]:
+                    try:
+                        os.unlink(os.path.join(dst_dir, done))
+                    except FileNotFoundError:
+                        pass
+                return 0
+        for path in links.values():
+            try:
+                os.unlink(path)
+            except FileNotFoundError:
+                pass
+        # The residency estimate between scans: a demotion frees budgeted
+        # shm at once, a promotion fills it (else a burst of promotes inside
+        # the scan window would each see the residency before the burst).
+        if tier == "spill":
+            self._scan_adjust -= nbytes
+        else:
+            self._scan_adjust += nbytes
+        _ledger_note("transition", primary, nbytes, tier)
+        _metrics.safe_inc("store.tier_moved_bytes_total", float(nbytes), tier=tier)
+        return nbytes
+
+    def demote(self, ids) -> int:
+        """Move one segment (every hardlinked name in ``ids``) from shm to
+        the spill directory, where it stays readable in place; the ledger
+        notes the ``transition``. Returns the bytes moved."""
+        return self._move_tier(ids, self.spill_dir, "spill")
+
+    def promote(self, ids) -> int:
+        """Move a spilled segment back to shm, only when it fits the
+        session's budget: a promote must not make the pressure the evictor
+        relieves. Returns the bytes moved."""
+        links = self._segment_links(ids)
+        if not links:
+            return 0
+        try:
+            nbytes = os.path.getsize(next(iter(links.values())))
+        except OSError:
+            return 0
+        if self.capacity_bytes is not None and nbytes + self._shm_session_bytes() > self.capacity_bytes:
+            return 0
+        return self._move_tier(ids, self.shm_dir, "shm")
+
+    def drop_segments(self, ids) -> int:
+        """Unlink one segment (every link name) from whichever tier holds
+        it, noting a ``delete`` for each name: a later read raises
+        :class:`ObjectLostError`, which the shuffle's lineage re-makes.
+        Returns the bytes dropped."""
+        links = self._segment_links(ids)
+        if not links:
+            return 0
+        nbytes = 0
+        try:
+            nbytes = os.path.getsize(next(iter(links.values())))
+        except OSError:
+            pass
+        for name, path in links.items():
+            try:
+                os.unlink(path)
+            except FileNotFoundError:
+                pass
+            _ledger_note("delete", name)
+        return nbytes
 
     def store_stats(self) -> StoreStats:
         stats = StoreStats()

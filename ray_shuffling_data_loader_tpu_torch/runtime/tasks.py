@@ -256,6 +256,12 @@ class WorkerPool:
         with self._lock:
             return len(self._procs)
 
+    @property
+    def width(self) -> int:
+        """The workers, as a cluster scheduler names its capacity (the
+        elastic controller reads either)."""
+        return self.num_workers
+
     def _spawn(self, n: int) -> None:
         procs = [self._ctx.Process(target=_worker_main, args=(self._task_q, self._result_q, self._env), daemon=True)
                  for _ in range(n)]

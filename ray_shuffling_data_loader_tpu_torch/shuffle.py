@@ -597,6 +597,8 @@ def _plan_enabled() -> bool:
 
 _live_lock = threading.Lock()
 _live: Dict[str, Any] = {}
+# The object ids of the trial's delivered batches (see delivered_ids).
+_delivered: set = set()
 
 
 def live_status() -> dict:
@@ -618,9 +620,39 @@ def live_status() -> dict:
     return out
 
 
+def protected_epochs() -> set:
+    """The eviction fence: the epochs still in flight (admitted, not yet
+    delivered and consumed), whose segments the elastic evictor may neither
+    demote nor drop. It reads :func:`live_status`, so the fence and the obs
+    plane's ``/status`` agree; where the status carries several jobs, it is
+    the union of the running jobs' windows. Between trials it is empty:
+    whatever is still resident is cold and re-made from lineage, and an
+    ended trial's epochs (a failed run's stay ``running``) must not stay
+    fenced."""
+    status = live_status()
+    if not status.get("running"):
+        return set()
+    fenced = set(status.get("in_flight_epochs") or [])
+    for job in (status.get("jobs") or {}).values():
+        if job.get("running"):
+            fenced.update(job.get("in_flight_epochs") or [])
+    return fenced
+
+
+def delivered_ids() -> set:
+    """The object ids of the batches this trial delivered (every link of a
+    reducer's output). Once in a consumer's hands a batch has no lineage:
+    the elastic evictor may demote one (it stays readable) but never drops
+    one. The fence (:func:`protected_epochs`) ends at an epoch's delivery,
+    and its last batches may still wait in the queue then."""
+    with _live_lock:
+        return set(_delivered)
+
+
 def _status_begin_trial(num_epochs: int, num_files: int, num_reducers: int, num_trainers: int,
                         start_epoch: int) -> None:
     with _live_lock:
+        _delivered.clear()
         _live.clear()
         _live.update(running=True, job="_default", started_ts=time.time(), num_epochs=num_epochs,
                      num_files=num_files, num_reducers=num_reducers, num_trainers=num_trainers,
@@ -2617,6 +2649,8 @@ def shuffle_epoch(
                     offset_before = audit_offsets.get(rank, 0)
                     if _audit.enabled():
                         out = _audit_deliver(store, out, epoch, r, rank, audit_offsets)
+                    with _live_lock:
+                        _delivered.update(ref.object_id for ref in out if isinstance(ref, ObjectRef))
                     with telemetry.span("deliver", cat="queue", rank=rank, reducer=r):
                         if consume_seq:
                             batch_consumer.consume(rank, epoch, out, seq=r)

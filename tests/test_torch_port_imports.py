@@ -360,9 +360,10 @@ def test_metrics_and_trace_planes_load_no_torch_numpy_or_jax(tmp_path):
     assert "IMPORTED []" in out.stdout and "RAN []" in out.stdout, out.stdout
 
 
-# The SLO engine, the obs server and the relay: the standard library only,
-# as the JAX package's; used, they load no torch and nothing of JAX.
-OBS_PLANES = ("telemetry/slo", "telemetry/obs_server", "telemetry/relay")
+# The SLO engine, the obs server, the relay and the elastic control plane:
+# the standard library only, as the JAX package's; used, they load no torch
+# and nothing of JAX.
+OBS_PLANES = ("telemetry/slo", "telemetry/obs_server", "telemetry/relay", "runtime/elastic")
 
 
 @pytest.mark.parametrize("name", OBS_PLANES)
@@ -375,6 +376,8 @@ def test_obs_planes_import_the_standard_library_only(name):
 
 
 def test_obs_planes_load_no_torch_or_jax(tmp_path):
+    # One tick of the elastic controller too: its signals, gauges and
+    # evictor over a store of its own.
     script = textwrap.dedent(
         f"""
         import json, os, sys, urllib.request
@@ -388,6 +391,12 @@ def test_obs_planes_load_no_torch_or_jax(tmp_path):
         obs_server.stop()
         dirs = {{k: os.path.join({str(tmp_path)!r}, k) for k in relay._KINDS}}
         relay.RelaySink(dirs=dirs).ship("h:1", [])
+        import types
+        from ray_shuffling_data_loader_tpu_torch.runtime import elastic
+        from ray_shuffling_data_loader_tpu_torch.runtime.store import ObjectStore
+        store = ObjectStore("gate", shm_dir={str(tmp_path / "shm")!r})
+        elastic.ElasticController(types.SimpleNamespace(store=store, scheduler=types.SimpleNamespace(width=1),
+                                                        cluster=None, session="gate", runtime_dir=None)).tick()
         heavy = {{"torch", *{sorted(FORBIDDEN)!r}}}
         print("LOADED", sorted({{m.split(".")[0] for m in sys.modules}} & heavy))
         """
