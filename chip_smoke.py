@@ -95,7 +95,10 @@ Phases, each of which fails the script (non-zero exit) on any error:
    sharded by rows over each model group (and nothing else), whose lead
    reads the batch and broadcasts it to its peer; batch 65536 per data
    index, 8 reducers in rank 0's spawned worker pool, the full-width DLRM
-   in bf16. Ranks step until the last one runs out (a rank whose shard is
+   in bf16. The four runs go in two rounds, ``ddp_mean_2`` beside
+   ``adasum_bf16_3``, then ``nccl_1`` beside ``dp2_mp2``, each run a
+   process of this script (``--ranks-run``), so that their step times are
+   those of two runs sharing the card. Ranks step until the last one runs out (a rank whose shard is
    done steps on its last batch with its loss weighted 0). In each run
    every epoch must deliver each key at most once across the leads and
    each lead exactly its full batches, all trained by every rank of its
@@ -272,6 +275,33 @@ Phases, each of which fails the script (non-zero exit) on any error:
    seconds, the re-homed bytes and their GB/s, and the step median,
    stall share and shuffle seconds against the cluster phase's two-host
    run;
+   service: the multi-job shuffle service on the same dataset, a head
+   process (this script with ``--service-head``) with its own
+   shared-memory and spill directories and one audit spool, started with
+   ``SERVICE_ENV``: ``RSDL_SERVICE=auto``, metrics, the strict audit, and
+   admission made to act (a watermark of 0.0001 of a 4 GiB store budget,
+   a bound of 1 s). First a service-off solo run of seed 1 (the
+   reference); then one session of 8 workers where two tenants register,
+   dlrm-a (weight 2, seed 0, from the cluster phase's one-host initial
+   state) and dlrm-b (weight 1, seed 1), each training the full-width DLRM
+   for 2 epochs on its own thread inside its ``job_context`` through a
+   ``DeviceShufflingDataset`` of one logical queue name, the decode cache
+   on, both started at once and dlrm-b's epoch 0 held before its
+   admission until dlrm-a's epoch 1 is admitted (the registry then holds
+   every file dlrm-a decoded, and the two windows reach the fair share
+   together). dlrm-a's staged tensors and losses must equal the cluster
+   phase's one-host run bit for bit and dlrm-b's its reference's, K1
+   launch once a step of both on its tensor-core route
+   (``launches_service``: 60), each job's epochs reconcile ``ok`` with
+   10^6 rows consumed, the two queue actors be named ``<name>--<job_id>``,
+   dlrm-b's epoch 0 decode no row group with cache hits of its own, the
+   fair share throttle, each job release tasks while the other has some
+   queued or in flight, admission wait, both jobs be tracked, running at
+   once and in the snapshot, and at the end no job be live, no claim be left and no
+   segment be left. Logs the releases per job (while the other had tasks
+   queued, or queued or in flight), the admission seconds, and each
+   tenant's step median, stall share and shuffle seconds against the
+   cluster phase's one-host run;
    plan: the read plane. The Quick-start shape (10^6 rows, 10 files, seed
    0) written with 20 row groups a file, so that at 8 reducers the plan
    compiler picks ``block:1``. Six 2-epoch DLRM runs (batch 65536, bf16,
@@ -1628,20 +1658,20 @@ FETCH_BENCH_BYTES = 256 << 20  # the loopback fetch's segment, about two reducer
 
 
 def cluster_run(torch, port, filenames, label: str, model=None, init_state=None, tag: str = "cluster",
-                epochs: int = 2, cache_decoded=None) -> dict:
+                epochs: int = 2, cache_decoded=None, seed: int = 0, queue_name: str = "BatchQueue") -> dict:
     """``epochs`` epochs of the slices' dataset through ``DeviceShufflingDataset``
-    (batch 65536, 8 reducers, seed 0): with ``model``, the DLRM trained from
+    (batch 65536, 8 reducers, ``seed``): with ``model``, the DLRM trained from
     ``init_state`` (a fresh Adam 1e-3), else delivery alone. Per batch a
     digest of every staged tensor, ``key`` included, on the card; each
-    epoch's keys exactly once; the losses, K1's launches (counted from 0),
-    the step and epoch seconds, the stall, the shuffle's statistics and the
-    audit's verdicts; its recoveries (``stage_retries``, ``rematerialized``,
-    ``recovery_log``), journal and plan compiler's terms and re-plans.
-    ``tag`` heads its log lines; ``cache_decoded`` goes to the dataset (None:
-    the shuffle's policy)."""
+    epoch's keys exactly once; the losses, the step and epoch seconds, the
+    stall, the shuffle's statistics and the audit's verdicts; its
+    recoveries (``stage_retries``, ``rematerialized``, ``recovery_log``),
+    journal and plan compiler's terms and re-plans; the queue actor's name.
+    K1's launches are the caller's to count. ``tag`` heads its log lines;
+    ``cache_decoded`` goes to the dataset (None: the shuffle's policy), and
+    so does ``queue_name``."""
     import numpy as np
 
-    import ray_shuffling_data_loader_tpu_torch.ops as ops
     from ray_shuffling_data_loader_tpu_torch.telemetry import audit
 
     batch_size = 65536
@@ -1652,10 +1682,10 @@ def cluster_run(torch, port, filenames, label: str, model=None, init_state=None,
         step = port.make_train_step(model, port.make_optimizer(model))
     ds = port.DeviceShufflingDataset(
         filenames, num_epochs=epochs, num_trainers=1, batch_size=batch_size, rank=0,
-        feature_columns=[*features, port.KEY_COLUMN], label_column=port.LABEL_COLUMN, num_reducers=8, seed=0,
-        device="cuda", cache_decoded=cache_decoded,
+        feature_columns=[*features, port.KEY_COLUMN], label_column=port.LABEL_COLUMN, num_reducers=8, seed=seed,
+        device="cuda", cache_decoded=cache_decoded, queue_name=queue_name,
     )
-    reset_launches(ops)
+    queue = ds.dataset._batch_queue.actor.name  # the handle goes at the join
     digests, losses, step_s, epoch_s = [], [], [], []
     for epoch in range(epochs):
         ds.set_epoch(epoch)
@@ -1675,13 +1705,12 @@ def cluster_run(torch, port, filenames, label: str, model=None, init_state=None,
         if got.size != want or np.unique(got).size != want or got.min() < 0 or got.max() >= NUM_ROWS:
             raise AssertionError(f"[{tag} {label}] epoch {epoch}: {got.size} keys, {np.unique(got).size} distinct; "
                                  f"want {want} in [0, {NUM_ROWS})")
-    launches = read_launches(ops)
     ds.join()
     stats, staging = ds.dataset.shuffle_stats, ds.stats.as_dict()
     if losses and not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"[{tag} {label}] non-finite loss: {losses}")
     run = {
-        "digests": torch.stack(digests).cpu().tolist(), "losses": losses, "launches": launches, "steps": len(losses),
+        "digests": torch.stack(digests).cpu().tolist(), "losses": losses, "steps": len(losses),
         "step_ms_median": statistics.median(step_s[1:]) * 1e3 if step_s else None, "epoch_s": epoch_s,
         "epoch_shuffle_s": stats.get("epoch_shuffle_s"), "stall_s": staging["stall_s"],
         "stall_share": staging["stall_s"] / sum(epoch_s), "native_calls": stats.get("native_calls"),
@@ -1690,11 +1719,12 @@ def cluster_run(torch, port, filenames, label: str, model=None, init_state=None,
         "recovery": {k: stats.get(k) for k in ("stage_retries", "rematerialized", "recovery_log")},
         "plan_terms": stats.get("plan_terms"), "plan_replans": stats.get("plan_replans"),
         "store_peak_bytes": stats.get("store_peak_bytes"), "cache_decoded": stats.get("cache_decoded"),
+        "decode_rowgroups": stats.get("decode_rowgroups"), "shared_cache_hits": stats.get("shared_cache_hits"),
+        "queue": queue,
     }
     log(f"[{tag} {label}] {len(digests)} batches, {run['steps']} steps; schedules {run['schedules']}; shuffle s per "
         f"epoch {run['epoch_shuffle_s']!r}; epochs {epoch_s!r} s; step median {run['step_ms_median']!r} ms; stall "
-        f"{run['stall_s']!r} s (share {run['stall_share']!r}); host kernel calls {run['native_calls']}; K1 "
-        f"{launches['interaction']} ({launches['interaction_mma']} mma)")
+        f"{run['stall_s']!r} s (share {run['stall_share']!r}); host kernel calls {run['native_calls']}")
     return run
 
 
@@ -1774,6 +1804,7 @@ def cluster_head(spec: dict) -> int:
     import torch
 
     import ray_shuffling_data_loader_tpu_torch as port
+    import ray_shuffling_data_loader_tpu_torch.ops as ops
     from ray_shuffling_data_loader_tpu_torch.runtime import transport
     from ray_shuffling_data_loader_tpu_torch.runtime.actor import ActorHandle
 
@@ -1813,7 +1844,9 @@ def cluster_head(spec: dict) -> int:
                 up_s = time.perf_counter() - t0
                 before = cluster_hosts_state(ctx)
                 if name == "pickle":
+                    reset_launches(ops)
                     run = cluster_run(torch, port, files, "cluster", model, init_state)
+                    run["launches"] = read_launches(ops)
                     after = cluster_hosts_state(ctx)
                     with environment({"RSDL_REDUCE_FETCH_OVERLAP": "off"}):
                         out["overlap_off"] = cluster_run(torch, port, files, "overlap_off")
@@ -2013,6 +2046,7 @@ def faults_head(spec: dict) -> int:
     import torch
 
     import ray_shuffling_data_loader_tpu_torch as port
+    import ray_shuffling_data_loader_tpu_torch.ops as ops
     from ray_shuffling_data_loader_tpu_torch.runtime import faults
     from ray_shuffling_data_loader_tpu_torch.runtime.actor import ActorHandle
     from ray_shuffling_data_loader_tpu_torch.shuffle import StageFailedError
@@ -2039,7 +2073,9 @@ def faults_head(spec: dict) -> int:
         try:
             log(f"[faults] recovered: worker pool up in {start_pool(port)!r} s; schedule {FAULTS_SPEC} seed "
                 f"{FAULTS_SEED}, {FAULTS_ATTEMPTS} attempts")
+            reset_launches(ops)
             run = cluster_run(torch, port, files, "recovered", model, init_state, tag="faults")
+            run["launches"] = read_launches(ops)
             run["driver_fired"] = {f"{s}:{k}": n for (s, k), n in faults.fired_counts().items()}
             run["pool_deaths"] = ctx.pool.deaths
         finally:
@@ -2128,7 +2164,9 @@ def faults_head(spec: dict) -> int:
             killer = threading.Thread(target=kill_after_maps, daemon=True)
             killer.start()
             t0 = time.perf_counter()
+            reset_launches(ops)
             run = cluster_run(torch, port, files, "failover", model, init_state, tag="faults")
+            run["launches"] = read_launches(ops)
             killer.join(timeout=5)
             run["killed_after_s"] = killed["at"] - t0 if "at" in killed else None
             run["hosts_after"] = port.runtime.cluster_hosts()
@@ -2498,6 +2536,7 @@ def telemetry_head(spec: dict) -> int:
     import torch
 
     import ray_shuffling_data_loader_tpu_torch as port
+    import ray_shuffling_data_loader_tpu_torch.ops as ops
     from ray_shuffling_data_loader_tpu_torch import shuffle, telemetry
     from ray_shuffling_data_loader_tpu_torch.runtime import faults
     from ray_shuffling_data_loader_tpu_torch.stats import ObjectStoreStatsCollector
@@ -2523,7 +2562,9 @@ def telemetry_head(spec: dict) -> int:
                 f"{TELEMETRY_ATTEMPTS} attempts")
             with ObjectStoreStatsCollector(sample_period_s=1.0):
                 t0 = time.time()
+                reset_launches(ops)
                 run = cluster_run(torch, port, files, "metered", model, init_state, tag="telemetry")
+                run["launches"] = read_launches(ops)
                 t_run = (t0, time.time())
             dump_path = metrics.dump_json(os.path.join(work, "metrics.json"))
             typed = export.aggregate_typed()
@@ -2767,6 +2808,7 @@ def obs_head(spec: dict) -> int:
     import torch
 
     import ray_shuffling_data_loader_tpu_torch as port
+    import ray_shuffling_data_loader_tpu_torch.ops as ops
     from ray_shuffling_data_loader_tpu_torch.runtime.actor import ActorHandle
     from ray_shuffling_data_loader_tpu_torch.telemetry import audit, export, relay, runledger, slo
 
@@ -2796,7 +2838,9 @@ def obs_head(spec: dict) -> int:
         scraper = threading.Thread(target=_obs_scraper, args=(port_num, stop, scrapes), daemon=True)
         scraper.start()
         try:
+            reset_launches(ops)
             run = cluster_run(torch, port, files, "two hosts, split spools", model, init_state, tag="obs")
+            run["launches"] = read_launches(ops)
         finally:
             stop.set()
             scraper.join(timeout=30)
@@ -3096,6 +3140,7 @@ def elastic_head(spec: dict) -> int:
     import torch
 
     import ray_shuffling_data_loader_tpu_torch as port
+    import ray_shuffling_data_loader_tpu_torch.ops as ops
     from ray_shuffling_data_loader_tpu_torch.runtime.actor import ActorHandle
     from ray_shuffling_data_loader_tpu_torch.telemetry import capacity, events, metrics
 
@@ -3157,8 +3202,10 @@ def elastic_head(spec: dict) -> int:
         operator.start()
         sampler.start()
         try:
+            reset_launches(ops)
             run = cluster_run(torch, port, files, "two hosts, elastic", model, init_state, tag="elastic",
                               cache_decoded=True)
+            run["launches"] = read_launches(ops)
         finally:
             operator.join(timeout=120)
             stop.set()
@@ -3365,6 +3412,271 @@ def phase_elastic(torch, filenames, cluster: dict, work: str) -> dict:
     res["launches"] = run["launches"]
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"[elastic] phase {res['phase_s']:.1f} s (head {res['wall_s']:.1f} s, cluster up {res['up_s']:.1f} s; {smi})")
+    return res
+
+
+# The service phase: two tenants' DLRM trainers through one session of the
+# multi-job service, each on its own thread of the head. Admission is made
+# to act: a watermark of 0.0001 of a 4 GiB store budget (the decode cache
+# alone holds about 2 % of it), a bound of 1 s. The card's host has about a
+# terabyte of shm, of which the run's few hundred MB round to the watermark.
+SERVICE_WORKERS = 8
+SERVICE_ENV = {"RSDL_SERVICE": "auto", "RSDL_METRICS": "1", "RSDL_AUDIT": "1", "RSDL_AUDIT_STRICT": "1",
+               "RSDL_SERVICE_ADMIT_FRAC": "0.0001", "RSDL_SERVICE_ADMIT_TIMEOUT_S": "1",
+               "RSDL_STORE_CAPACITY_BYTES": str(4 << 30)}
+# (name, weight, seed): dlrm-a trains the cluster phase's one-host run,
+# dlrm-b its seed-1 run. Both start at once; dlrm-b's first window is held
+# at its admission until dlrm-a's second is admitted (the registry then
+# holds every file dlrm-a decoded), so that the two windows submit together.
+SERVICE_TENANTS = (("dlrm-a", 2.0, 0), ("dlrm-b", 1.0, 1))
+SERVICE_QUEUE = "rsdl-service-queue"  # one logical queue name for both tenants
+
+
+def service_head(spec: dict) -> int:
+    """The ``[service]`` phase's head, a process of its own started with
+    :data:`SERVICE_ENV` (its first model is the cluster phase's initial
+    state): the service-off solo run of dlrm-b's seed (the reference), then
+    one session of :data:`SERVICE_WORKERS` workers where both tenants of
+    :data:`SERVICE_TENANTS` register and each trains on its own thread
+    inside its ``job_context`` with the decode cache on. dlrm-b's epoch 0
+    waits, before its admission, for dlrm-a's epoch 1 to be admitted: its
+    maps then find dlrm-a's decoded files in the registry, and its window
+    and dlrm-a's second reach the fair share together. (Started only when
+    the registry fills, dlrm-b would bring up its queue actor and stager
+    after dlrm-a's reduces end, and admission holds each tenant's second
+    window 1 s while the other's runs: no two windows would meet.) Counts K1 over both tenants, logs
+    each release of the fair share with the queues it left, and polls the
+    live status while they run. Writes what it read to ``spec["result"]``;
+    the phase checks it."""
+    import torch
+
+    import ray_shuffling_data_loader_tpu_torch as port
+    import ray_shuffling_data_loader_tpu_torch.ops as ops
+    from ray_shuffling_data_loader_tpu_torch import shuffle as shuffle_mod
+    from ray_shuffling_data_loader_tpu_torch.runtime import service
+    from ray_shuffling_data_loader_tpu_torch.telemetry import audit, metrics, trace
+
+    t_head = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    files = spec["files"]
+    models = [port.dlrm_for_data_spec() for _ in SERVICE_TENANTS]
+    init_state = copy.deepcopy(models[0].state_dict())
+    out = {"params": sum(p.numel() for p in models[0].parameters())}
+    t0 = time.perf_counter()
+    with environment({"RSDL_AUDIT_DIR": spec["spool_ref"]}, clear=("RSDL_SERVICE",)):
+        trace.refresh_from_env()
+        port.runtime.init(num_workers=SERVICE_WORKERS)
+        try:
+            start_pool(port)
+            out["reference"] = cluster_run(torch, port, files, "solo seed 1", models[1], init_state, tag="service",
+                                           seed=1, cache_decoded=True)
+        finally:
+            port.runtime.shutdown()
+    out["reference_s"] = time.perf_counter() - t0
+    trace.refresh_from_env()
+    metrics.registry.clear()
+    t0 = time.perf_counter()
+    ctx = port.runtime.init(num_workers=SERVICE_WORKERS)
+    try:
+        out["pool_up_s"] = start_pool(port)
+        sched = ctx.scheduler
+        if not isinstance(sched, service.FairShareScheduler):
+            raise AssertionError(f"[service] the session's scheduler is {type(sched).__name__}, not the fair share")
+        # Each release of the fair share: its job, and the jobs with tasks
+        # queued and in flight then.
+        releases, pool, submit = [], ctx.pool, ctx.pool.submit
+
+        def counted_submit(fn, *args, **kwargs):
+            job = trace.current_context().get("job")
+            if job is not None:
+                releases.append((job, set(sched.queue_depths()), set(sched.inflight())))
+            return submit(fn, *args, **kwargs)
+
+        pool.submit = counted_submit
+        jobs = {name: service.register_job(name=name, weight=w) for name, w, _ in SERVICE_TENANTS}
+        runs, errors = {}, {}
+        first, second = (jobs[name].job_id for name, _, _ in SERVICE_TENANTS)
+        # dlrm-b's first window waits for dlrm-a's second: each admission,
+        # its start and end from the tenants' first thread.
+        admit, second_window, admissions = service.admit_epoch, threading.Event(), []
+
+        def paced_admit(job, epoch, in_flight):
+            t0 = time.perf_counter()
+            if job.job_id == second and epoch == 0 and not second_window.wait(300):
+                raise RuntimeError("dlrm-a's epoch 1 was never admitted")
+            held = time.perf_counter() - t0
+            waited = admit(job, epoch, in_flight)
+            if job.job_id == first and epoch == 1:
+                second_window.set()
+            admissions.append({"job": job.job_id, "epoch": epoch, "at_s": t0 - t_run, "held_s": held,
+                               "waited_s": waited})
+            return waited
+
+        def tenant(name: str, seed: int, model) -> None:
+            try:
+                with service.job_context(jobs[name]):
+                    runs[name] = cluster_run(torch, port, files, name, model, init_state, tag="service", seed=seed,
+                                             cache_decoded=True, queue_name=SERVICE_QUEUE)
+            except BaseException as exc:
+                errors[name] = f"{type(exc).__name__}: {exc}"
+                second_window.set()  # a failed dlrm-a holds dlrm-b no longer
+
+        service.admit_epoch = paced_admit
+        reset_launches(ops)
+        threads = [threading.Thread(target=tenant, args=(name, seed, model), name=f"tenant-{name}")
+                   for (name, _, seed), model in zip(SERVICE_TENANTS, models)]
+        t_run = time.perf_counter()
+        for t in threads:
+            t.start()
+        both_running = set()
+        while any(t.is_alive() for t in threads):
+            running = {j for j, st in (shuffle_mod.live_status().get("jobs") or {}).items() if st.get("running")}
+            if len(running) > len(both_running):
+                both_running = running
+            time.sleep(0.05)
+        for t in threads:
+            t.join()
+        out["run_s"] = time.perf_counter() - t_run
+        out["launches"] = read_launches(ops)
+        service.admit_epoch = admit
+        out["admissions"] = admissions
+        if errors:
+            raise AssertionError(f"[service] tenants failed: {errors}")
+        ids = {name: job.job_id for name, job in jobs.items()}
+        out["ids"], out["both_running"] = ids, sorted(both_running)
+        out["queues"] = {name: run["queue"] for name, run in runs.items()}
+        out["tracked"] = sorted((shuffle_mod.live_status().get("jobs") or {}))
+        out["snapshot"] = [r["job_id"] for r in service.jobs_snapshot()]
+        out["verdicts"] = {name: audit.reconcile(range(2), job=jid) for name, jid in ids.items()}
+        out["claims_live"] = len(service.claimed_cache_ids())
+        for job in jobs.values():
+            service.end_job(job)
+        out["claims_after"] = sorted(service.claimed_cache_ids())
+        out["live_after"] = service.live_jobs_count()
+        snap = metrics.registry.snapshot()
+        out["metrics"] = {k: v for k, v in snap.items() if k.startswith("service.")}
+        # Releases while the other tenant had tasks queued (the share by
+        # weight), and while it had tasks queued or in flight.
+        queued = [job for job, q, _ in releases if q - {job}]
+        active = [job for job, q, f in releases if (q | f) - {job}]
+        out["releases"] = {"total": {j: sum(1 for r, _, _ in releases if r == j) for j in ids.values()},
+                           "both_backlogged": {j: queued.count(j) for j in ids.values()},
+                           "both_active": {j: active.count(j) for j in ids.values()}}
+        out["runs"] = runs
+    finally:
+        port.runtime.shutdown()
+    out["session_s"] = time.perf_counter() - t0
+    out["wall_s"] = time.perf_counter() - t_head
+    with open(spec["result"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_service(torch, filenames, cluster: dict, work: str) -> dict:
+    """The ``[service]`` phase: :func:`service_head` with its own shared
+    memory and spill directories and one audit spool (strict), then the
+    checks: each tenant's staged tensors and losses bit for bit its solo
+    reference (dlrm-a: the cluster phase's one-host run; dlrm-b: the
+    service-off seed-1 run), K1 once a step of both on its tensor-core
+    route, per-job verdicts ``ok``, two queue actors scoped to their jobs,
+    dlrm-b's epoch 0 decoded from no row group with cache hits of its own,
+    the fair share throttled, admission acted, both jobs tracked and in
+    the snapshot, both shuffles running at once with releases of each job
+    while the other had tasks queued or in flight, and at the end no job
+    live, no claim, no segment left."""
+    t_phase = time.perf_counter()
+    tag = f"rsdl-service-{os.getpid()}"
+    single, smi = cluster["single"], smi_name_and_limit()
+    spec = {"files": filenames, "result": os.path.join(work, "result.json"), "spool_ref": os.path.join(work, "ref")}
+    spec_path = os.path.join(work, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
+    env.update(SERVICE_ENV, RSDL_AUDIT_DIR=os.path.join(work, "audit"), RSDL_SHM_DIR=f"/dev/shm/{tag}",
+               RSDL_SPILL_DIR=os.path.join(work, "spill"))
+    dirs = [env["RSDL_SHM_DIR"], env["RSDL_SPILL_DIR"]]
+    proc = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--service-head", spec_path],
+                            env=env, cwd=ROOT)
+    try:
+        code = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        left = {d: os.listdir(d) for d in dirs if os.path.isdir(d) and os.listdir(d)}
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    if code != 0:
+        raise AssertionError(f"[service] the head exited {code}")
+    if left:
+        raise AssertionError(f"[service] segments left after shutdown: { {d: v[:5] for d, v in left.items()} }")
+    with open(spec["result"]) as f:
+        res = json.load(f)
+    runs, ids, ref = res["runs"], res["ids"], res["reference"]
+    a, b = (runs[name] for name, _, _ in SERVICE_TENANTS)
+    if (a["digests"], a["losses"]) != (single["digests"], single["losses"]):
+        raise AssertionError("[service] dlrm-a staged or trained other than the cluster phase's one-host run")
+    if (b["digests"], b["losses"]) != (ref["digests"], ref["losses"]):
+        raise AssertionError("[service] dlrm-b staged or trained other than its service-off solo run")
+    if ref["digests"] == single["digests"]:
+        raise AssertionError("[service] the seed-1 reference staged the seed-0 stream")
+    n, steps = res["launches"], a["steps"] + b["steps"]
+    if (n["interaction"] != steps or n["interaction_mma"] != steps or steps != 2 * single["steps"]
+            or any(v for k, v in n.items() if not k.startswith("interaction"))):
+        raise AssertionError(f"[service] launches {n} in {steps} steps of both tenants, want one K1 per step, all on "
+                             "the tensor-core route")
+    for name, verdicts in res["verdicts"].items():
+        if [v["epoch"] for v in verdicts] != [0, 1] or not all(v["ok"] is True and v["job"] == ids[name]
+                                                               and v["rows_consumed"] == NUM_ROWS for v in verdicts):
+            raise AssertionError(f"[service] {name}: verdicts {verdicts}")
+    queues = res["queues"]
+    if len(set(queues.values())) != 2 or any(queues[n_] != f"{SERVICE_QUEUE}--{ids[n_]}" for n_ in ids):
+        raise AssertionError(f"[service] queue actors {queues} for jobs {ids}")
+    rowgroups_b0 = (b["decode_rowgroups"] or {}).get("0", 0)
+    hits_b = res["metrics"].get(f"service.cache_hits{{job={ids['dlrm-b']}}}", 0)
+    if rowgroups_b0 != 0 or not hits_b > 0:
+        raise AssertionError(f"[service] dlrm-b's epoch 0 decoded {rowgroups_b0} row groups, cache hits {hits_b}")
+    m = res["metrics"]
+    throttled = m.get("service.tasks_throttled", 0)
+    timeouts = sum(v for k, v in m.items() if k.startswith("service.admission_timeouts"))
+    waits = sum(v for k, v in m.items() if k.startswith("service.admission_wait_seconds") and k.endswith("_count"))
+    wait_s = sum(v for k, v in m.items() if k.startswith("service.admission_wait_seconds") and k.endswith("_sum"))
+    if not throttled > 0:
+        raise AssertionError(f"[service] the fair share never throttled: {m}")
+    if not (timeouts >= 1 or waits >= 1):
+        raise AssertionError(f"[service] admission never acted: {m}")
+    if not (set(ids.values()) <= set(res["tracked"]) and set(ids.values()) <= set(res["snapshot"])):
+        raise AssertionError(f"[service] tracked {res['tracked']}, snapshot {res['snapshot']}; jobs {ids}")
+    rel = res["releases"]
+    if set(res["both_running"]) != set(ids.values()) or not all(rel["both_active"].get(j, 0) > 0 for j in ids.values()):
+        raise AssertionError(f"[service] the tenants never shared the pool: shuffles running at once "
+                             f"{res['both_running']}, releases while the other had tasks queued or in flight "
+                             f"{rel['both_active']}; admissions {res['admissions']}")
+    if res["claims_after"] or res["live_after"] != 0:
+        raise AssertionError(f"[service] after both ended: claims {res['claims_after']}, live jobs {res['live_after']}")
+    log(f"[service] two tenants in one session ({res['params']} parameters each, 8 workers): dlrm-a (weight 2) "
+        f"trained the cluster phase's one-host {a['steps']} losses and staged tensors bit for bit, dlrm-b (weight 1) "
+        f"its service-off seed-1 run's; K1 {n['interaction_mma']} of {steps} steps on the tensor-core route; every "
+        f"epoch ok per job under strict audit; queues {sorted(queues.values())}; dlrm-b's epoch 0 decoded "
+        f"{rowgroups_b0} row groups ({hits_b:.0f} cache hits; schedules {b['schedules']}); {res['claims_live']} "
+        f"claimed segments while live, none after; no job live, no segment left")
+    log(f"[service] fair share: {throttled:.0f} throttled pumps; releases per job {rel['total']}, while the other "
+        f"had tasks queued {rel['both_backlogged']} (weights 2:1), queued or in flight {rel['both_active']}; "
+        f"admission waited {waits:.0f} times, {wait_s!r} s in all, {timeouts:.0f} timeouts; shuffles running at once "
+        f"{res['both_running']} ({smi})")
+    log(f"[service] admissions (s since the tenants started; dlrm-b's epoch 0 held for dlrm-a's epoch 1): "
+        + "; ".join(f"{a['job']} epoch {a['epoch']} at {a['at_s']:.3f}, held {a['held_s']:.3f}, waited "
+                    f"{a['waited_s']:.3f}" for a in res["admissions"]))
+    for name, run in (("dlrm-a", a), ("dlrm-b", b)):
+        log(f"[service] {name}: step median {run['step_ms_median']!r} ms, stall share {run['stall_share']!r}, shuffle "
+            f"s per epoch {run['epoch_shuffle_s']!r}, schedules {run['schedules']}; the cluster phase's one host: "
+            f"{single['step_ms_median']!r} ms, {single['stall_share']!r}, {single['epoch_shuffle_s']!r} ({smi})")
+    for run in (a, b, ref):
+        run.pop("digests", None)
+    res["launches_service"] = n["interaction_mma"]
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[service] phase {res['phase_s']:.1f} s (head {res['wall_s']:.1f} s: the reference {res['reference_s']:.1f} "
+        f"s, the two tenants {res['run_s']:.1f} s; {smi})")
     return res
 
 
@@ -3603,23 +3915,64 @@ STARTUP_MARKS = ("imports", "runtime", "groups", "model", "optimizer", "step_mad
                  "last_step", "reported", "teardown")
 
 
-def phase_ranks(filenames, smi: str) -> dict:
-    """The multi-rank runs; each rank's numbers on lines of their own."""
+# The ranks phase's runs in two rounds, the two runs of a round side by side,
+# each in a process of its own (a process holds one session).
+RANK_ROUNDS = (("ddp_mean_2", "adasum_bf16_3"), ("nccl_1", "dp2_mp2"))
+
+
+def ranks_run(spec: dict) -> int:
+    """One run of the ranks phase in a process of its own:
+    ``multirank.run`` with ``spec["argv"]`` over ``spec["files"]``, its
+    result and wall seconds written to ``spec["result"]``."""
     from ray_shuffling_data_loader_tpu_torch import multirank
 
+    t0 = time.perf_counter()
+    out = multirank.run(multirank.parse_args(spec["argv"]), filenames=spec["files"])
+    out["wall_s"] = time.perf_counter() - t0
+    with open(spec["result"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_ranks(filenames, smi: str, work: str) -> dict:
+    """The multi-rank runs, in :data:`RANK_ROUNDS`; each rank's numbers on
+    lines of their own. Side by side, two runs share the card and the host's
+    cores: their step medians do not compare with runs made one at a time."""
     t_phase = time.perf_counter()
+    argvs = dict(RANK_RUNS)
+    outs = {}
+    for round_labels in RANK_ROUNDS:
+        t_round = time.perf_counter()
+        procs = {}
+        try:
+            for label in round_labels:
+                spec = {"files": filenames, "result": os.path.join(work, f"{label}.json"), "argv": [
+                    *argvs[label], "--batch-size", "65536", "--num-rows", str(NUM_ROWS), "--num-reducers", "8",
+                    "--seed", "0", "--timeout", "300"]}
+                spec_path = os.path.join(work, f"{label}-spec.json")
+                with open(spec_path, "w") as f:
+                    json.dump(spec, f)
+                env = {k: v for k, v in os.environ.items() if k != "RSDL_RUNTIME_DIR"}
+                procs[label] = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--ranks-run",
+                                                 spec_path], env=env, cwd=ROOT)
+            codes = {label: proc.wait(timeout=420) for label, proc in procs.items()}
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if any(codes.values()):
+            raise AssertionError(f"[ranks] round {round_labels}: exit codes {codes}")
+        for label in round_labels:
+            with open(os.path.join(work, f"{label}.json")) as f:
+                outs[label] = json.load(f)
+        log(f"[ranks] round {' + '.join(round_labels)} side by side: {time.perf_counter() - t_round:.1f} s ({smi})")
     runs = {}
-    for label, argv in RANK_RUNS:
-        args = multirank.parse_args([
-            *argv, "--batch-size", "65536", "--num-rows", str(NUM_ROWS), "--num-reducers", "8", "--seed", "0",
-            "--timeout", "300",
-        ])
-        t0 = time.perf_counter()
-        out = multirank.run(args, filenames=filenames)
-        wall = time.perf_counter() - t0
+    for label, _ in RANK_RUNS:
+        out, wall = outs[label], outs[label]["wall_s"]
         if out["returncode"] != 0:
             raise AssertionError(f"[ranks] {label}: exit code {out['returncode']}: {out['problems']}")
-        want_sharded = SHARDED_AT_MP2 if args.model_parallelism == 2 else []
+        want_sharded = SHARDED_AT_MP2 if out["spec"]["model_parallelism"] == 2 else []
         for res in out["ranks"]:
             n = res["launches"]
             if (n["interaction"]["launches"] != res["steps"] or n["interaction"]["mma_launches"] != res["steps"]
@@ -4376,6 +4729,10 @@ def main() -> int:
     parser.add_argument("--obs-head", default=None, help=argparse.SUPPRESS)
     # The elastic phase's head.
     parser.add_argument("--elastic-head", default=None, help=argparse.SUPPRESS)
+    # A run of the ranks phase.
+    parser.add_argument("--ranks-run", default=None, help=argparse.SUPPRESS)
+    # The service phase's head.
+    parser.add_argument("--service-head", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--pool-ready", default=None, metavar="ROOT",
                         help="only time fresh 8-worker pools of the checkout at ROOT (its ready_s) and exit")
     args = parser.parse_args()
@@ -4403,6 +4760,12 @@ def main() -> int:
     if args.elastic_head is not None:
         with open(args.elastic_head) as f:
             return elastic_head(json.load(f))
+    if args.service_head is not None:
+        with open(args.service_head) as f:
+            return service_head(json.load(f))
+    if args.ranks_run is not None:
+        with open(args.ranks_run) as f:
+            return ranks_run(json.load(f))
     if args.pool_ready is not None:
         return pool_ready(args.pool_ready)
     sys.path.insert(0, ROOT)
@@ -4428,7 +4791,13 @@ def main() -> int:
             slices = timed("slices", phase_slices, torch, data_dir)
             filenames = slices.pop("filenames")
             delivery = timed("delivery", phase_delivery, torch, filenames, NUM_ROWS)
-            ranks = timed("ranks", phase_ranks, filenames, smi)
+            ranks_dir = os.path.join(ROOT, "build", "ranks")
+            shutil.rmtree(ranks_dir, ignore_errors=True)
+            os.makedirs(ranks_dir)
+            try:
+                ranks = timed("ranks", phase_ranks, filenames, smi, ranks_dir)
+            finally:
+                shutil.rmtree(ranks_dir, ignore_errors=True)
             audit_dir = os.path.join(ROOT, "build", "audit")
             shutil.rmtree(audit_dir, ignore_errors=True)
             os.makedirs(audit_dir)
@@ -4472,6 +4841,13 @@ def main() -> int:
                 elastic = timed("elastic", phase_elastic, torch, filenames, cluster, elastic_dir)
             finally:
                 shutil.rmtree(elastic_dir, ignore_errors=True)
+            service_dir = os.path.join(ROOT, "build", "service")
+            shutil.rmtree(service_dir, ignore_errors=True)
+            os.makedirs(service_dir)
+            try:
+                service = timed("service", phase_service, torch, filenames, cluster, service_dir)
+            finally:
+                shutil.rmtree(service_dir, ignore_errors=True)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
         plan_dir = os.path.join(ROOT, "build", "plan_data")
@@ -4549,6 +4925,9 @@ def main() -> int:
                 # and in the DLRM run on two hosts under the elastic loop, a
                 # store budget and a drain
                 entry["launches_elastic"] = elastic["launches"]["interaction_mma"]
+                # and in the two tenants' DLRM runs through the multi-job
+                # service
+                entry["launches_service"] = service["launches_service"]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: a phase failed", file=sys.stderr)
@@ -4581,6 +4960,7 @@ def main() -> int:
                     "telemetry": telemetry,
                     "obs": obs,
                     "elastic": elastic,
+                    "service": service,
                     "parity_max_abs_diff": {label: err for label, (err, _) in parity.items()},
                 },
                 f, indent=1,

@@ -1,7 +1,9 @@
 """The shuffling dataset: exact-size host batches of every epoch's shuffle.
 
 Rank 0 spawns the named batch queue actor, registering itself as its
-producer, and runs the multi-epoch shuffle on a daemon thread. Every other
+producer, and runs the multi-epoch shuffle on a daemon thread, in the
+caller's job of the multi-job service when there is one (the queue's name
+is then scoped to it). Every other
 rank, in the same process or in any other process of the session,
 connects to the queue by name with retry. Each rank maps its reducer
 outputs from the shared-memory store (zero copy), re-cuts them into
@@ -163,12 +165,24 @@ class ShufflingDataset:
                 num_epochs, num_trainers, max_concurrent_epochs, name=queue_name, connect=True
             )
             return
+        # The caller's job of the multi-job service (RSDL_SERVICE, read
+        # before the import), for the driver thread below: the queue's scoped
+        # name made here and the shuffle's job must agree. Never one
+        # registered here: the ranks elsewhere could not learn its id.
+        service_job = None
+        if os.environ.get("RSDL_SERVICE"):
+            from ray_shuffling_data_loader_tpu_torch.runtime import service
+
+            if service.enabled():
+                service_job = service.current_job()
         self._batch_queue = BatchQueue(num_epochs, num_trainers, max_concurrent_epochs, name=queue_name)
         self._batch_queue.ready()
         consumer = BatchConsumerQueue(self._batch_queue, on_failure=self._fail)
 
         def _drive():
             try:
+                if service_job is not None:
+                    service.set_current_job(service_job)
                 shuffle(
                     filenames, consumer, num_epochs, num_reducers,
                     num_trainers, seed=seed, start_epoch=start_epoch,

@@ -526,7 +526,19 @@ class DeviceShufflingDataset:
                             except queue.Empty:
                                 pass
 
-        thread = threading.Thread(target=stager, name="device-stager", daemon=True)
+        # The caller's job of the multi-job service rides into the stager,
+        # which reads and stages for it: its consumed and staged digests are
+        # the job's (the trace context does not cross threads).
+        job = _audit._ambient_job()
+
+        def run_stager():
+            if job is None:
+                stager()
+            else:
+                with telemetry.context(job=job):
+                    stager()
+
+        thread = threading.Thread(target=run_stager, name="device-stager", daemon=True)
         thread.start()
         try:
             first = True

@@ -9,6 +9,10 @@
   first use as ``runtime.faults``.
 * :mod:`.elastic`: the autoscaler, the graceful drain and the tiered
   evictor (``RSDL_ELASTIC``), loaded only when asked for.
+* :mod:`.service`: the multi-job shuffle service (``RSDL_SERVICE``): jobs,
+  fair share, epoch admission and the content-keyed decode cache, loaded
+  only when asked for. Under it, named actors are scoped to the ambient
+  job (:func:`spawn_actor`, :func:`connect_actor`, :func:`resolve_actor`).
 
 ``init()`` creates a *session*, a runtime directory holding the actor
 registry whose name prefixes every shared-memory segment, or joins an
@@ -116,8 +120,15 @@ class RuntimeContext:
     def scheduler(self):
         """Where the shuffle's tasks go: the cluster's scheduler when
         joined to one, else :attr:`pool` (the same ``submit`` and
-        ``submit_local_to``)."""
-        return self.cluster.scheduler() if self.cluster is not None else self.pool
+        ``submit_local_to``). Under the multi-job service
+        (``RSDL_SERVICE``, read before the import) it is wrapped for fair
+        share across jobs (:func:`.service.wrap_scheduler`)."""
+        base = self.cluster.scheduler() if self.cluster is not None else self.pool
+        if os.environ.get("RSDL_SERVICE"):
+            from .service import wrap_scheduler
+
+            return wrap_scheduler(base)
+        return base
 
     def shutdown(self) -> None:
         if self.owner:
@@ -127,7 +138,8 @@ class RuntimeContext:
             # sampled imports nothing here.
             # The elastic loop reads the ledger and moves segments: it stops
             # before the pool and the segments go.
-            for name in ("telemetry.obs_server", "telemetry.timeseries", "runtime.elastic"):
+            # The service's fair-share wrappers hold the pool: they go too.
+            for name in ("telemetry.obs_server", "telemetry.timeseries", "runtime.elastic", "runtime.service"):
                 mod = sys.modules.get(f"ray_shuffling_data_loader_tpu_torch.{name}")
                 if mod is not None:
                     mod.stop()
@@ -446,6 +458,17 @@ def shutdown() -> None:
 # -- the session's services -------------------------------------------------
 
 
+def _scoped_actor_name(name: Optional[str]) -> Optional[str]:
+    """``name`` scoped to the ambient job under the multi-job service
+    (:func:`.service.scoped_name`): two jobs that name one queue get two
+    actors. ``RSDL_SERVICE`` is read before the import."""
+    if name is None or not os.environ.get("RSDL_SERVICE"):
+        return name
+    from .service import scoped_name
+
+    return scoped_name(name)
+
+
 def submit(fn: Callable, *args, **kwargs) -> TaskFuture:
     """Run ``fn(*args, **kwargs)`` on the session's scheduler: the worker
     pool, or in a cluster any host's."""
@@ -459,6 +482,7 @@ def spawn_actor(cls, *args, name: Optional[str] = None, host_id: Optional[str] =
     name is registered cluster-wide; ``host_id`` (one of
     :func:`cluster_hosts`) spawns it on that host, through its agent."""
     ctx = get_context()
+    name = _scoped_actor_name(name)
     if host_id is not None:
         if ctx.cluster is None:
             raise ValueError("host_id placement requires cluster mode")
@@ -504,12 +528,14 @@ def connect_actor(name: str, num_retries: int = 5) -> ActorHandle:
     """The live actor ``name``, retried with backoff: from the session's
     registry, else in a cluster the head's."""
     ctx = get_context()
+    name = _scoped_actor_name(name)
     fallback = ctx.cluster.lookup_named_actor if ctx.cluster is not None else None
     return _connect_actor(name, ctx.runtime_dir, num_retries=num_retries, fallback_resolver=fallback)
 
 
 def resolve_actor(name: str) -> Optional[ActorHandle]:
     ctx = get_context()
+    name = _scoped_actor_name(name)
     handle = _resolve_actor(name, ctx.runtime_dir)
     if handle is None and ctx.cluster is not None:
         handle = ctx.cluster.lookup_named_actor(name)

@@ -589,8 +589,7 @@ class ElasticController:
         claimed: set = set()
         if tier == "cache" and os.environ.get("RSDL_SERVICE"):
             # The multi-job service's claims: a segment a live job reads is
-            # in use across jobs. Until the service is here the import
-            # fails and nothing is claimed.
+            # in use across jobs.
             try:
                 from ray_shuffling_data_loader_tpu_torch.runtime.service import claimed_cache_ids
 

@@ -137,10 +137,14 @@ def run_identity(
     plan: str,
     columns: Optional[List[str]],
     device_layout: Optional[dict],
+    job: Optional[str] = None,
 ) -> dict:
     """What determines the delivered stream (validated on resume: a
     mismatch refuses, like ``BatchCursor.validate``), plus where the run
-    happened (informational, for re-attach)."""
+    happened (informational, for re-attach). ``job``: the multi-job
+    service's job name (stable across restarts, unlike its id), validated:
+    two same-shaped jobs in one journal directory each find their own
+    run."""
     from ray_shuffling_data_loader_tpu_torch import runtime
 
     def _abs(f: str) -> str:
@@ -162,6 +166,8 @@ def run_identity(
         "faults": os.environ.get("RSDL_FAULTS") or None,
         "faults_seed": os.environ.get("RSDL_FAULTS_SEED") or None,
     }
+    if job is not None:
+        identity["job"] = str(job)
     if runtime.is_initialized():
         ctx = runtime.get_context()
         identity["session"] = ctx.session

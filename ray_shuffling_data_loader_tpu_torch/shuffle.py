@@ -140,6 +140,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import contextlib
+import logging
 import os
 import threading
 import time
@@ -590,15 +591,25 @@ def _plan_enabled() -> bool:
 
 
 # -- the live trial status ----------------------------------------------------
-# The driver's view of the running (or last) trial: its shape, and each
-# epoch's state, schedule and reducers delivered. The critical-path view
-# reads its in-flight epochs, the run ledger its shape. A handful of
-# updates an epoch, so it stays on.
+# The driver's view of the running (or last) trials: each one's shape, and
+# each epoch's state, schedule and reducers delivered. The critical-path
+# view reads its in-flight epochs, the run ledger its shape. It is keyed by
+# the multi-job service's job: concurrent ``shuffle()`` calls each own an
+# entry, and the eviction fence is the union of the running jobs' windows.
+# A run outside a job has the one entry "_default" and the JAX package's
+# single-job shape. A handful of updates an epoch, so it stays on.
 
 _live_lock = threading.Lock()
-_live: Dict[str, Any] = {}
-# The object ids of the trial's delivered batches (see delivered_ids).
-_delivered: set = set()
+_DEFAULT_JOB_KEY = "_default"
+_live_jobs: Dict[str, Dict[str, Any]] = {}
+# Each tracked job's delivered batches (object ids; see delivered_ids).
+_delivered: Dict[str, set] = {}
+_MAX_ENDED_JOBS = 8  # ended entries kept for /status's history
+
+
+def _in_flight_of(status: Dict[str, Any]) -> List[int]:
+    return sorted(int(e) for e, st in (status.get("epochs") or {}).items()
+                  if st.get("state") not in ("done", "failed"))
 
 
 def live_status() -> dict:
@@ -608,15 +619,27 @@ def live_status() -> dict:
     ``waiting-admission``, ``admitted``, ``running``, ``done``, ``failed``
     or ``suspended``), ``schedule`` and ``delivered_reducers``, and the
     ``in_flight_epochs`` (neither done nor failed); ``ended_ts`` and
-    ``error`` once it ended. The JAX package's single-job shape."""
+    ``error`` once it ended. With jobs of the multi-job service, the top
+    level is the newest running job's, ``running`` is whether any job
+    runs, ``in_flight_epochs`` is the union over the running jobs, and
+    ``jobs`` holds each tracked job's view. The JAX package's shape."""
     with _live_lock:
-        if not _live:
-            return {"epochs": {}, "in_flight_epochs": []}
-        out = {k: v for k, v in _live.items() if k != "epochs"}
-        out["epochs"] = {str(e): dict(st) for e, st in _live["epochs"].items()}
-    out["running"] = bool(out.get("running"))
-    out["in_flight_epochs"] = sorted(
-        int(e) for e, st in out["epochs"].items() if st.get("state") not in ("done", "failed"))
+        jobs: Dict[str, Dict[str, Any]] = {}
+        for key, st in _live_jobs.items():
+            top = {k: v for k, v in st.items() if k != "epochs"}
+            top["epochs"] = {str(e): dict(es) for e, es in (st.get("epochs") or {}).items()}
+            jobs[key] = top
+    if not jobs:
+        return {"epochs": {}, "in_flight_epochs": []}
+    running = [k for k, st in jobs.items() if st.get("running")]
+    primary = max(running or jobs, key=lambda k: float(jobs[k].get("started_ts") or 0.0))
+    out = dict(jobs[primary])
+    for st in jobs.values():
+        st["in_flight_epochs"] = _in_flight_of(st)
+    out["running"] = bool(running)
+    out["in_flight_epochs"] = sorted({e for key in (running or [primary]) for e in jobs[key]["in_flight_epochs"]})
+    if len(jobs) > 1 or primary != _DEFAULT_JOB_KEY:
+        out["jobs"] = jobs
     return out
 
 
@@ -624,60 +647,74 @@ def protected_epochs() -> set:
     """The eviction fence: the epochs still in flight (admitted, not yet
     delivered and consumed), whose segments the elastic evictor may neither
     demote nor drop. It reads :func:`live_status`, so the fence and the obs
-    plane's ``/status`` agree; where the status carries several jobs, it is
-    the union of the running jobs' windows. Between trials it is empty:
-    whatever is still resident is cold and re-made from lineage, and an
-    ended trial's epochs (a failed run's stay ``running``) must not stay
-    fenced."""
+    plane's ``/status`` agree; with several jobs it is the union of the
+    running jobs' windows. Between trials it is empty: whatever is still
+    resident is cold and re-made from lineage, and an ended trial's epochs
+    (a failed run's stay ``running``) must not stay fenced."""
     status = live_status()
     if not status.get("running"):
         return set()
-    fenced = set(status.get("in_flight_epochs") or [])
-    for job in (status.get("jobs") or {}).values():
-        if job.get("running"):
-            fenced.update(job.get("in_flight_epochs") or [])
-    return fenced
+    return set(status.get("in_flight_epochs") or [])
 
 
 def delivered_ids() -> set:
-    """The object ids of the batches this trial delivered (every link of a
-    reducer's output). Once in a consumer's hands a batch has no lineage:
-    the elastic evictor may demote one (it stays readable) but never drops
-    one. The fence (:func:`protected_epochs`) ends at an epoch's delivery,
-    and its last batches may still wait in the queue then."""
+    """The object ids of the batches the tracked trials delivered (every
+    link of a reducer's output), over every job: one job's start never
+    clears another's. Once in a consumer's hands a batch has no lineage: the
+    elastic evictor may demote one (it stays readable) but never drops one.
+    The fence (:func:`protected_epochs`) ends at an epoch's delivery, and
+    its last batches may still wait in the queue then."""
     with _live_lock:
-        return set(_delivered)
+        return set().union(*_delivered.values())
 
 
 def _status_begin_trial(num_epochs: int, num_files: int, num_reducers: int, num_trainers: int,
-                        start_epoch: int) -> None:
+                        start_epoch: int, job: Optional[str] = None) -> None:
+    key = job or _DEFAULT_JOB_KEY
     with _live_lock:
-        _delivered.clear()
-        _live.clear()
-        _live.update(running=True, job="_default", started_ts=time.time(), num_epochs=num_epochs,
-                     num_files=num_files, num_reducers=num_reducers, num_trainers=num_trainers,
-                     start_epoch=start_epoch, epochs={})
+        if job is None:
+            # A run outside a job owns the whole tracker.
+            _live_jobs.clear()
+            _delivered.clear()
+        else:
+            ended = sorted((k for k, st in _live_jobs.items() if not st.get("running")),
+                           key=lambda k: float(_live_jobs[k].get("ended_ts") or 0.0))
+            while len(ended) > _MAX_ENDED_JOBS:
+                old = ended.pop(0)
+                _live_jobs.pop(old, None)
+                _delivered.pop(old, None)
+        _live_jobs[key] = dict(running=True, job=key, started_ts=time.time(), num_epochs=num_epochs,
+                               num_files=num_files, num_reducers=num_reducers, num_trainers=num_trainers,
+                               start_epoch=start_epoch, epochs={})
+        _delivered[key] = set()
 
 
-def _status_epoch(epoch: int, delivered_inc: int = 0, **kv) -> None:
+def _status_epoch(epoch: int, delivered_inc: int = 0, job: Optional[str] = None, **kv) -> None:
     with _live_lock:
-        st = _live.setdefault("epochs", {}).setdefault(int(epoch), {"state": "pending", "delivered_reducers": 0})
+        status = _live_jobs.setdefault(job or _DEFAULT_JOB_KEY, {"epochs": {}})
+        st = status.setdefault("epochs", {}).setdefault(int(epoch), {"state": "pending", "delivered_reducers": 0})
         if delivered_inc:
             st["delivered_reducers"] = st.get("delivered_reducers", 0) + delivered_inc
         st.update(kv)
 
 
-def _status_end_trial(error: Optional[str] = None) -> None:
+def _status_delivered(refs, job: Optional[str] = None) -> None:
     with _live_lock:
-        _live.setdefault("epochs", {})
-        _live["running"] = False
-        _live["ended_ts"] = time.time()
+        _delivered.setdefault(job or _DEFAULT_JOB_KEY, set()).update(
+            ref.object_id for ref in refs if isinstance(ref, ObjectRef))
+
+
+def _status_end_trial(error: Optional[str] = None, job: Optional[str] = None) -> None:
+    with _live_lock:
+        status = _live_jobs.setdefault(job or _DEFAULT_JOB_KEY, {"epochs": {}})
+        status["running"] = False
+        status["ended_ts"] = time.time()
         if error is not None:
-            _live["error"] = error[:300]
+            status["error"] = error[:300]
 
 
 def _ledger_record(status: str, duration_s: Optional[float] = None, error: Optional[str] = None, plan=None,
-                   audit_verdicts=None) -> None:
+                   job_id: Optional[str] = None, audit_verdicts=None) -> None:
     """Append the run's record to the run ledger (:mod:`.telemetry.runledger`).
     Reads ``RSDL_RUN_LEDGER`` before the import; a ledger that fails never
     changes the run's outcome (this runs on the failure paths too)."""
@@ -687,7 +724,7 @@ def _ledger_record(status: str, duration_s: Optional[float] = None, error: Optio
         from ray_shuffling_data_loader_tpu_torch.telemetry import runledger
 
         runledger.record_run(status, duration_s=duration_s, error=error,
-                             plan_label=_label_of_plan(plan) if plan is not None else None,
+                             plan_label=_label_of_plan(plan) if plan is not None else None, job_id=job_id,
                              audit_verdicts=audit_verdicts)
     except Exception:
         pass
@@ -1621,10 +1658,17 @@ _SHARED_CACHE: Dict[tuple, ObjectRef] = {}
 
 def shared_decode_cache_enabled() -> bool:
     """``RSDL_DECODE_CACHE_SHARED``: ``on``, ``1``, ``true`` or ``auto``
-    arm the shared tier; anything else, and unset, leave it off. (The JAX
-    package also arms it under its multi-job service plane, which the port
-    does not have.)"""
-    return os.environ.get("RSDL_DECODE_CACHE_SHARED", "").strip().lower() in ("1", "on", "true", "auto")
+    arm the shared tier, ``off``, ``0``, ``false`` or ``no`` leave it off.
+    Unset, it is off, but on under the multi-job service (``RSDL_SERVICE``,
+    read before the import), whose jobs share decoded files."""
+    raw = os.environ.get("RSDL_DECODE_CACHE_SHARED", "").strip().lower()
+    if raw in ("1", "on", "true", "auto"):
+        return True
+    if raw in ("0", "off", "false", "no") or not os.environ.get("RSDL_SERVICE"):
+        return False
+    from ray_shuffling_data_loader_tpu_torch.runtime import service
+
+    return service.enabled()
 
 
 def _shared_cache_key(session: str, filename: str, columns: Optional[Sequence[str]], narrow: bool) -> tuple:
@@ -1663,13 +1707,21 @@ class _DecodeCache:
     shared tier: claims look in the process's registry first, and the
     resolved segments are promoted into it instead of freed.
     ``shared_hits`` counts the claims that found there a segment another
-    run published."""
+    run published.
 
-    def __init__(self, enabled: bool, shared_keys: Optional[List[tuple]] = None):
+    ``service_job`` (a job of the multi-job service) moves the shared tier
+    into the service's registry, keyed by content (``shared_keys`` are then
+    :func:`.runtime.service.cache_key` strings): a lookup claims the segment
+    for the job, which fences it from the evictor while the job lives, and
+    a publish is seen by every process of the session, so that a second job
+    over the same files reads them decoded from its first epoch."""
+
+    def __init__(self, enabled: bool, shared_keys: Optional[list] = None, service_job=None):
         self.enabled = enabled
         self._lock = threading.Lock()
         self._futs: dict = {}  # file index -> the publishing map's future
         self._shared_keys = shared_keys
+        self._service_job = service_job
         self.shared_hits = 0
 
     def _shared_get(self, index: int) -> Optional[ObjectRef]:
@@ -1678,6 +1730,10 @@ class _DecodeCache:
         if self._shared_keys is None:
             return None
         key = self._shared_keys[index]
+        if self._service_job is not None:
+            from ray_shuffling_data_loader_tpu_torch.runtime import service
+
+            return service.cache_lookup(key, job=self._service_job)
         with _SHARED_CACHE_LOCK:
             ref = _SHARED_CACHE.get(key)
         if ref is None:
@@ -1690,7 +1746,13 @@ class _DecodeCache:
         return None
 
     def _share(self, index: int, ref: Optional[ObjectRef]) -> None:
-        if self._shared_keys is not None and ref is not None:
+        if self._shared_keys is None or ref is None:
+            return
+        if self._service_job is not None:
+            from ray_shuffling_data_loader_tpu_torch.runtime import service
+
+            service.cache_publish(self._shared_keys[index], ref, job=self._service_job)
+        else:
             with _SHARED_CACHE_LOCK:
                 _SHARED_CACHE[self._shared_keys[index]] = ref
 
@@ -2242,6 +2304,7 @@ def shuffle_epoch(
     native_on: Optional[bool] = None,
     columns: Optional[Sequence[str]] = None,
     knobs: Optional[dict] = None,
+    job=None,
 ) -> bool:
     """One epoch's maps and reduces on the session's scheduler; each
     reducer's output refs go to its rank in reducer order, then every rank
@@ -2263,7 +2326,9 @@ def shuffle_epoch(
     decode projection (:func:`_pushdown_columns`; None: every column);
     ``knobs``: the plan compiler's task knobs (None: none), whose
     ``selective`` decides the schedule where ``RSDL_SELECTIVE_READS`` is
-    unset. All reach every task as arguments.
+    unset. All reach every task as arguments. ``job``: the multi-job
+    service's job this epoch runs for (None: none), which keys its live
+    status and its ``service.delivered_bytes``.
 
     ``journal`` (a :class:`~.runtime.journal.RunJournal`): append the
     epoch's barriers. ``est``: the epoch's journaled progress from a
@@ -2274,6 +2339,7 @@ def shuffle_epoch(
     running reduces journaled), else True."""
     if stats_collector is not None:
         stats_collector.call_oneway("epoch_start", epoch)
+    jid = job.job_id if job is not None else None
     ctx = runtime.ensure_initialized()
     store, pool = ctx.store, ctx.scheduler
     if plan is None:
@@ -2314,7 +2380,7 @@ def shuffle_epoch(
         pruned.schedule, pruned.delivered, pruned.rank_rows = schedule, est.delivered, dict(est.rank_rows)
         est = pruned
     cursor = est.delivered if est is not None else 0
-    _status_epoch(epoch, state="running", schedule=schedule, delivered_reducers=cursor)
+    _status_epoch(epoch, state="running", schedule=schedule, delivered_reducers=cursor, job=jid)
     if journal is not None:
         journal.append("epoch", epoch=epoch, schedule=schedule)
     telemetry.emit_event("epoch.start", epoch=epoch, schedule=schedule, files=len(filenames), reducers=num_reducers)
@@ -2326,7 +2392,7 @@ def shuffle_epoch(
             batch_consumer.producer_done(rank, epoch)
         if journal is not None:
             journal.append("epoch-done", epoch=epoch)
-        _status_epoch(epoch, state="done")
+        _status_epoch(epoch, state="done", job=jid)
         telemetry.emit_event("epoch.done", epoch=epoch, _flush=True)
         return True
     consume_seq = journal is not None and _accepts_seq(batch_consumer)
@@ -2445,6 +2511,12 @@ def shuffle_epoch(
             return fut
 
         out = settle_map(i, fut, again, "map", f"map task for file {i}")
+        if publish and out[1] is not None:
+            # Into the shared tier now, not at the run's end: a concurrent
+            # job of the multi-job service over the same files reads it
+            # mid-run. No-op without the shared tier; the first publisher's
+            # segment stays.
+            decode_cache._share(i, out[1])
         return (out[0], out[1]) if publish else (out, None)
 
     # Lineage: the map (file) that made each partition window. A window a
@@ -2649,14 +2721,17 @@ def shuffle_epoch(
                     offset_before = audit_offsets.get(rank, 0)
                     if _audit.enabled():
                         out = _audit_deliver(store, out, epoch, r, rank, audit_offsets)
-                    with _live_lock:
-                        _delivered.update(ref.object_id for ref in out if isinstance(ref, ObjectRef))
+                    _status_delivered(out, job=jid)
                     with telemetry.span("deliver", cat="queue", rank=rank, reducer=r):
                         if consume_seq:
                             batch_consumer.consume(rank, epoch, out, seq=r)
                         else:
                             batch_consumer.consume(rank, epoch, out)
-                    _status_epoch(epoch, delivered_inc=1)
+                    _status_epoch(epoch, delivered_inc=1, job=jid)
+                    if jid is not None:
+                        # The per-job delivery rate, in bytes: a whole-segment
+                        # output has no row window to count without a read.
+                        _metrics.safe_inc("service.delivered_bytes", float(sum(ref.nbytes for ref in out)), job=jid)
                     if journal is not None and journal.resume_pending:
                         # The resumed run's first delivery.
                         journal.resume_pending = False
@@ -2708,11 +2783,11 @@ def shuffle_epoch(
             if journal is not None and completed:
                 journal.append("epoch-done", epoch=epoch)
     except BaseException as exc:
-        _status_epoch(epoch, state="failed")
+        _status_epoch(epoch, state="failed", job=jid)
         # Outside the epoch's context, as the JAX package emits it.
         telemetry.emit_event("epoch.failed", _flush=True, epoch=epoch, error=f"{type(exc).__name__}: {exc}"[:200])
         raise
-    _status_epoch(epoch, state="done" if completed else "suspended")
+    _status_epoch(epoch, state="done" if completed else "suspended", job=jid)
     if completed:
         telemetry.emit_event("epoch.done", epoch=epoch, _flush=True)
     return completed
@@ -2797,14 +2872,72 @@ def shuffle(
     (:func:`.analysis.planner.compile_plan`) decides the knobs the
     environment leaves unset: the plan, the selective schedule, the
     projection and the tasks' threads; :func:`.analysis.planner.replan`
-    may change some between epochs."""
+    may change some between epochs.
+
+    Under the multi-job service (``RSDL_SERVICE``) the call runs as a job:
+    the ambient one (:func:`.runtime.service.job_context`), else one it
+    registers and ends on return. The job keys the live status, the audit's
+    digests, the journal's run identity (by name) and the ledger's
+    attribution; the stage tasks take their fair share of the pool beside
+    other jobs', each epoch after the first is admitted against the shared
+    shm budget, and the decode cache is shared with other jobs by content.
+    With ``RSDL_SERVICE`` unset none of this runs and the module is not
+    imported."""
+    service = job = None
+    own_job = False
+    if os.environ.get("RSDL_SERVICE"):
+        from ray_shuffling_data_loader_tpu_torch.runtime import service
+
+        if service.enabled():
+            job = service.current_job()
+            if job is None:
+                job = service.register_job()
+                own_job = True
+    try:
+        with service.job_context(job) if job is not None else contextlib.nullcontext():
+            return _shuffle_impl(
+                filenames, batch_consumer, num_epochs, num_reducers, num_trainers, seed=seed,
+                stats_collector=stats_collector, start_epoch=start_epoch, narrow_to_32=narrow_to_32,
+                cache_decoded=cache_decoded, schedule_log=schedule_log, device_layout=device_layout, columns=columns,
+                resume_from=resume_from, stats=stats, job=job,
+            )
+    finally:
+        if own_job:
+            service.end_job(job)
+
+
+def _shuffle_impl(
+    filenames: Sequence[str],
+    batch_consumer: BatchConsumer,
+    num_epochs: int,
+    num_reducers: int,
+    num_trainers: int,
+    seed: int = 0,
+    stats_collector=None,
+    start_epoch: int = 0,
+    narrow_to_32: bool = False,
+    cache_decoded: Optional[bool] = None,
+    schedule_log: Optional[list] = None,
+    device_layout: Optional[dict] = None,
+    columns: Optional[Sequence[str]] = None,
+    resume_from: Optional[str] = None,
+    stats: Optional[Dict[str, Any]] = None,
+    job=None,
+) -> float:
+    """:func:`shuffle`'s body; ``job``: the service's job, ambient already,
+    or None."""
+    jid = job.job_id if job is not None else None
+    # The jobs whose records the audit reconciles: this one, or under a
+    # journaled resume every attempt of the chain (a preempted attempt's
+    # records carry its own id).
+    audit_scope = jid
     plan = shuffle_plan_spec()
     native_on = native.enabled()
     if native_on:
         native.ensure_built()
     start = time.perf_counter()
     filenames = list(filenames)
-    _status_begin_trial(num_epochs, len(filenames), num_reducers, num_trainers, start_epoch)
+    _status_begin_trial(num_epochs, len(filenames), num_reducers, num_trainers, start_epoch, job=jid)
     telemetry.emit_event("trial.start", epochs=num_epochs, files=len(filenames), reducers=num_reducers,
                          trainers=num_trainers, start_epoch=start_epoch)
     if os.environ.get("RSDL_OBS_PORT"):
@@ -2846,11 +2979,27 @@ def shuffle(
         if resume_from is not None or os.environ.get("RSDL_JOURNAL"):
             from ray_shuffling_data_loader_tpu_torch.runtime import journal as jmod
 
+            if job is not None and job.name == "job":
+                # The journal tells tenants apart by job name (an id changes
+                # at every restart): two same-shaped tenants of the default
+                # name in one journal directory would share an identity.
+                logging.getLogger(__name__).warning(
+                    "journaled service run with the default job name 'job': concurrent same-shaped tenants in this "
+                    "journal dir would share a run identity; set RSDL_JOB_NAME (or register_job(name=...)) per "
+                    "tenant")
             identity = jmod.run_identity(
                 filenames, num_epochs, num_reducers, num_trainers, seed, start_epoch, narrow_to_32,
-                _label_of_plan(plan), columns, device_layout,
+                _label_of_plan(plan), columns, device_layout, job=job.name if job is not None else None,
             )
             resume_state, resume_mode = jmod.resolve_resume(resume_from, identity)
+            if jid is not None:
+                # The ids of the resume chain ride the identity (not
+                # validated), so that a twice-preempted run still folds its
+                # first attempt's records.
+                prev_jobs = [str(j) for j in (resume_state.identity.get("audit_jobs") or [])] if resume_state else []
+                identity["audit_jobs"] = prev_jobs + [jid]
+                if prev_jobs:
+                    audit_scope = identity["audit_jobs"]
             if not jmod.enabled() and resume_state is None:
                 jmod = None  # nothing to resume, nowhere to journal
         if jmod is not None:
@@ -2881,7 +3030,7 @@ def shuffle(
             # Earlier runs' records would fold into this run's digests. A
             # resume keeps the spool, whose records of the preempted run are
             # this run's first half, and its rank-0 sample counts.
-            _audit.begin_run(carry=resume_state is not None)
+            _audit.begin_run(carry=resume_state is not None, job=jid)
             if resume_state is not None:
                 for e, st in resume_state.epochs.items():
                     if st.sampled:
@@ -2895,14 +3044,24 @@ def shuffle(
             stats.setdefault("epoch_shuffle_s", [])
         shared_keys = None
         if cache_decoded and shared_decode_cache_enabled():
-            session = runtime.ensure_initialized().store.session
-            with _SHARED_CACHE_LOCK:
-                # Entries of another session are unreachable: their
-                # segments went with that session's clean-up.
-                for key in [k for k in _SHARED_CACHE if k[0] != session]:
-                    del _SHARED_CACHE[key]
-            shared_keys = [_shared_cache_key(session, f, columns, narrow_to_32) for f in filenames]
-        decode_cache = _DecodeCache(enabled=cache_decoded, shared_keys=shared_keys)
+            if job is not None:
+                # The service's content keys, in the session's registry:
+                # another job over the same files (in any process of the
+                # session) reads these segments, and its claims fence them
+                # from the evictor.
+                from ray_shuffling_data_loader_tpu_torch.runtime import service
+
+                shared_keys = [service.cache_key(f, columns, narrow_to_32) for f in filenames]
+            else:
+                session = runtime.ensure_initialized().store.session
+                with _SHARED_CACHE_LOCK:
+                    # Entries of another session are unreachable: their
+                    # segments went with that session's clean-up.
+                    for key in [k for k in _SHARED_CACHE if k[0] != session]:
+                        del _SHARED_CACHE[key]
+                shared_keys = [_shared_cache_key(session, f, columns, narrow_to_32) for f in filenames]
+        decode_cache = _DecodeCache(enabled=cache_decoded, shared_keys=shared_keys,
+                                    service_job=job if shared_keys is not None else None)
         if resume_state is not None and cache_decoded:
             _seed_decode_cache(decode_cache, resume_state)
         suspended = False
@@ -2915,10 +3074,20 @@ def shuffle(
                     if stats is not None:
                         stats["epoch"] = epoch
                     throttle_start = time.perf_counter()
-                    _status_epoch(epoch, state="waiting-admission")
+                    _status_epoch(epoch, state="waiting-admission", job=jid)
+                    if job is not None:
+                        # The service's admission: a new window waits while
+                        # the shared shm budget is over the watermark and
+                        # another job is live, bounded. The port runs its
+                        # epochs one after another, so the window still in
+                        # flight is the previous epoch's, its batches in the
+                        # consumer's queue: none before the run's first.
+                        from ray_shuffling_data_loader_tpu_torch.runtime import service
+
+                        service.admit_epoch(job, epoch, int(epoch > start_epoch))
                     with telemetry.scope(epoch=epoch), telemetry.span("epoch:admission", cat="queue"):
                         batch_consumer.wait_until_ready(epoch)
-                    _status_epoch(epoch, state="admitted")
+                    _status_epoch(epoch, state="admitted", job=jid)
                     t0 = time.perf_counter()
                     if stats_collector is not None:
                         stats_collector.call_oneway("epoch_throttle", epoch, t0 - throttle_start)
@@ -2937,6 +3106,7 @@ def shuffle(
                         narrow_to_32=narrow_to_32, decode_cache=decode_cache, schedule_log=schedule_log,
                         device_layout=device_layout, stats=stats, stats_collector=stats_collector,
                         journal=journal, est=est, plan=plan, native_on=native_on, columns=columns, knobs=task_knobs,
+                        job=job,
                     )
                     if stats is not None:
                         stats["shared_cache_hits"] = decode_cache.shared_hits
@@ -2953,9 +3123,9 @@ def shuffle(
                 journal.append("suspended")
                 telemetry.emit_event("run.suspended", _flush=True, run_id=journal.run_id, journal=journal.path)
                 _metrics.safe_inc("recovery.suspended_runs")
-                _status_end_trial(error="suspended")
+                _status_end_trial(error="suspended", job=jid)
                 # Before a suspend that exits the process.
-                _ledger_record("suspended", duration_s=time.perf_counter() - start, plan=plan)
+                _ledger_record("suspended", duration_s=time.perf_counter() - start, plan=plan, job_id=jid)
                 # No resume is in progress once the run is suspended.
                 jmod.set_resume_in_progress(False)
                 if jmod.suspend_should_exit():
@@ -2969,7 +3139,8 @@ def shuffle(
                 # every batch: every side is in.
                 t_audit = time.perf_counter()
                 audit_verdicts = verdicts = _audit.reconcile(
-                    range(start_epoch, num_epochs), stats_collector=stats_collector, plan_label=_label_of_plan(plan)
+                    range(start_epoch, num_epochs), stats_collector=stats_collector, plan_label=_label_of_plan(plan),
+                    job=audit_scope,
                 )
                 if stats is not None:
                     stats["audit_reconcile_s"] = time.perf_counter() - t_audit
@@ -2987,16 +3158,16 @@ def shuffle(
                 jmod.set_resume_in_progress(False)
                 jmod.end_run(journal, status="failed")  # stays resumable
             if not (jmod is not None and isinstance(exc, jmod.RunSuspended)):
-                _status_end_trial(error=f"{type(exc).__name__}: {exc}")
+                _status_end_trial(error=f"{type(exc).__name__}: {exc}", job=jid)
                 telemetry.emit_event("trial.failed", _flush=True, error=f"{type(exc).__name__}: {exc}"[:200])
                 _ledger_record("failed", duration_s=time.perf_counter() - start, error=f"{type(exc).__name__}: {exc}",
-                               plan=plan, audit_verdicts=audit_verdicts)
+                               plan=plan, job_id=jid, audit_verdicts=audit_verdicts)
             raise
-        _status_end_trial()
+        _status_end_trial(job=jid)
         duration = time.perf_counter() - start
         telemetry.emit_event("trial.done", duration_s=round(duration, 3), _flush=True)
         # While the plan's terms are still registered: the record holds them.
-        _ledger_record("done", duration_s=duration, plan=plan, audit_verdicts=audit_verdicts)
+        _ledger_record("done", duration_s=duration, plan=plan, job_id=jid, audit_verdicts=audit_verdicts)
     finally:
         _clear_plan_state()
     if stats_collector is not None:

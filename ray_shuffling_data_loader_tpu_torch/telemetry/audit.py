@@ -455,10 +455,23 @@ def begin_run(carry: bool = False, job: Optional[str] = None) -> None:
 
     ``carry`` (a journal resume): the spool stays, as the preempted run's
     records are the first half of this run's digests; the local state
-    resets. ``job``: a job-scoped run keeps every record, as the JAX
-    package does when it cannot prove that the job is the only tenant."""
+    resets. ``job`` (a job of the multi-job service): a concurrent tenant's
+    records share the buffer and the spool, so only this job's local state
+    resets (its records carry its id, and its reconcile folds only them);
+    but when the job is the session's only live one, the earlier jobs'
+    records are dead, and the full reset runs, so that a service running
+    its tenants one after another keeps a bounded spool."""
     if job is not None:
-        # The JAX package clears a sole tenant's spool; proving that takes the service plane, not ported yet.
+        if not carry:
+            try:
+                from ray_shuffling_data_loader_tpu_torch.runtime import service
+
+                # <= 1: the job itself registered before its run began.
+                if service.live_jobs_count() <= 1:
+                    reset(clear_spool=True)
+                    return
+            except Exception:
+                pass  # sole tenancy not proven: keep every record
         with _lock:
             _emitted_epochs.difference_update({k for k in _emitted_epochs if k[0] == job})
             for k in [k for k in _sample_counts if k[0] == job]:

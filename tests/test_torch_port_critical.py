@@ -40,7 +40,7 @@ def spool(monkeypatch, tmp_path):
     # No trial in either package's live tracker: the current epoch is then
     # the latest seen, whatever an earlier test of this process ran.
     monkeypatch.setattr(_mod("jax", "shuffle"), "_live_jobs", {})
-    monkeypatch.setattr(_mod("port", "shuffle"), "_live", {})
+    monkeypatch.setattr(_mod("port", "shuffle"), "_live_jobs", {})
 
     def refresh():
         for pkg in ROOTS:

@@ -545,8 +545,7 @@ def test_evictor_never_drops_a_delivered_batch(env, monkeypatch):
             pending = store.create_columns({"a": ((1000,), np.int32)})
             pending.columns["a"][...] = np.arange(1000, dtype=np.int32)
             batch = pending.publish_slices([(0, 500), (500, 1000)])
-        with shuffle._live_lock:
-            shuffle._delivered.update(r.object_id for r in batch)
+        shuffle._status_delivered(batch)
         shuffle._status_epoch(0, state="done")
         shuffle._status_epoch(1, state="running")
         assert shuffle.delivered_ids() == {r.object_id for r in batch}

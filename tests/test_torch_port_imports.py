@@ -360,10 +360,10 @@ def test_metrics_and_trace_planes_load_no_torch_numpy_or_jax(tmp_path):
     assert "IMPORTED []" in out.stdout and "RAN []" in out.stdout, out.stdout
 
 
-# The SLO engine, the obs server, the relay and the elastic control plane:
-# the standard library only, as the JAX package's; used, they load no torch
-# and nothing of JAX.
-OBS_PLANES = ("telemetry/slo", "telemetry/obs_server", "telemetry/relay", "runtime/elastic")
+# The SLO engine, the obs server, the relay, the elastic control plane and
+# the multi-job service: the standard library only, as the JAX package's;
+# used, they load no torch and nothing of JAX.
+OBS_PLANES = ("telemetry/slo", "telemetry/obs_server", "telemetry/relay", "runtime/elastic", "runtime/service")
 
 
 @pytest.mark.parametrize("name", OBS_PLANES)
@@ -377,7 +377,7 @@ def test_obs_planes_import_the_standard_library_only(name):
 
 def test_obs_planes_load_no_torch_or_jax(tmp_path):
     # One tick of the elastic controller too: its signals, gauges and
-    # evictor over a store of its own.
+    # evictor over a store of its own; and one job of the service, armed.
     script = textwrap.dedent(
         f"""
         import json, os, sys, urllib.request
@@ -397,6 +397,13 @@ def test_obs_planes_load_no_torch_or_jax(tmp_path):
         store = ObjectStore("gate", shm_dir={str(tmp_path / "shm")!r})
         elastic.ElasticController(types.SimpleNamespace(store=store, scheduler=types.SimpleNamespace(width=1),
                                                         cluster=None, session="gate", runtime_dir=None)).tick()
+        os.environ["RSDL_SERVICE"] = "auto"
+        from ray_shuffling_data_loader_tpu_torch.runtime import service
+        job = service.register_job(name="gate")
+        with service.job_context(job):
+            assert service.scoped_name("q") == "q--" + job.job_id
+        service.end_job(job)
+        assert service.live_jobs_count() == 0
         heavy = {{"torch", *{sorted(FORBIDDEN)!r}}}
         print("LOADED", sorted({{m.split(".")[0] for m in sys.modules}} & heavy))
         """

@@ -64,7 +64,7 @@ def env(monkeypatch, tmp_path):
         monkeypatch.setattr(_mod(pkg, "telemetry.obs_server"), "_providers", {})
         _reset(pkg)
     monkeypatch.setattr(_mod("jax", "shuffle"), "_live_jobs", {})
-    monkeypatch.setattr(_mod("port", "shuffle"), "_live", {})
+    monkeypatch.setattr(_mod("port", "shuffle"), "_live_jobs", {})
     yield tmp_path
     monkeypatch.undo()
     for pkg in ROOTS:

@@ -96,7 +96,7 @@ def _isolate(monkeypatch):
         for name in ("runtime.plan", "telemetry.slo", "runtime.service"):
             monkeypatch.delitem(sys.modules, f"{ROOTS[pkg]}.{name}", raising=False)
     monkeypatch.setattr(_mod("jax", "shuffle"), "_live_jobs", {})
-    monkeypatch.setattr(_mod("port", "shuffle"), "_live", {})
+    monkeypatch.setattr(_mod("port", "shuffle"), "_live_jobs", {})
 
 
 def test_record_sections_match_jax(clean, monkeypatch):
