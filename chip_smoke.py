@@ -52,7 +52,9 @@ Phases, each of which fails the script (non-zero exit) on any error:
    5 row groups each) and, for each of the full-width
    ``dlrm_for_data_spec()`` and ``transformer_for_data_spec()``, shuffle it
    for 2 epochs through ``DeviceShufflingDataset`` on ``cuda`` (batch
-   65536, 8 reducers) and train on every batch with Adam 1e-3. Each epoch
+   65536, 8 reducers) and train on every batch with Adam 1e-3 (the DLRM
+   under deterministic algorithms, its initial weights and its staged
+   tensors' per-batch digests kept for the uri phase). Each epoch
    must deliver every key at most once and exactly the full batches'
    worth, every loss must be finite, and over the path the interaction
    kernel must launch once per DLRM step, all on its tensor-core route,
@@ -84,6 +86,22 @@ Phases, each of which fails the script (non-zero exit) on any error:
    of the stager's thread: the median ms of one stage per kind of batch
    (direct; carried, still a view of a segment's mapping; carried, rows
    the carry concatenated) and of the consumer's mapping of a segment;
+   uri: the same path read and reported through ``file://`` URIs
+   (``utils.parquet_filesystem``: pyarrow's own filesystem, no fsspec):
+   the dataset written again with ``generate_data(...,
+   "file://<root>/build/uri_data")``, whose files must decode to the
+   same-index local files' columns (byte equality logged); the DLRM slice
+   over the URIs from the slices phase's initial weights, both runs under
+   deterministic algorithms, whose staged tensors (per-batch digests on
+   the card) and 30 losses must equal the slices phase's DLRM run's bit
+   for bit, with K1 once a step on its tensor-core route
+   (``launches_uri``); ``dataset_num_rows`` over the URIs 10^6, and a
+   resident staging of the URIs the local files' packed buffer and epoch-0
+   keys; ``process_stats`` of the URI run's trial to
+   ``file://<root>/build/uri_stats/uri`` the three CSVs with a local
+   write's headers and rows, and with ``overwrite_stats=False`` twice
+   their rows; fsspec never imported. Logs the maps' decode seconds per
+   epoch through the resolver beside the local run's;
 4. ranks: data-parallel DLRM training with one process per trainer rank
    (``multirank``) on the same dataset, all ranks on ``cuda:0``: 2 ranks
    over ``gloo`` with ``DistributedDataParallel`` (mean) for 1 epoch; 3
@@ -95,10 +113,10 @@ Phases, each of which fails the script (non-zero exit) on any error:
    sharded by rows over each model group (and nothing else), whose lead
    reads the batch and broadcasts it to its peer; batch 65536 per data
    index, 8 reducers in rank 0's spawned worker pool, the full-width DLRM
-   in bf16. The four runs go in two rounds, ``ddp_mean_2`` beside
-   ``adasum_bf16_3``, then ``nccl_1`` beside ``dp2_mp2``, each run a
-   process of this script (``--ranks-run``), so that their step times are
-   those of two runs sharing the card. Ranks step until the last one runs out (a rank whose shard is
+   in bf16. The four runs go side by side in one round, each run a
+   process of this script (``--ranks-run``) whose session has 4 pool
+   workers, so that their step times are those of four runs sharing the
+   card. Ranks step until the last one runs out (a rank whose shard is
    done steps on its last batch with its loss weighted 0). In each run
    every epoch must deliver each key at most once across the leads and
    each lead exactly its full batches, all trained by every rank of its
@@ -209,7 +227,16 @@ Phases, each of which fails the script (non-zero exit) on any error:
    run, no negative rate and a persisted file equal to its ring, the
    profiles come from the driver and the workers with ``map`` or
    ``reduce`` and ``staging`` stacks, and the run ledger hold one
-   ``done`` record with its sections. Then delivery only over 3 epochs
+   ``done`` record with its sections; the metered run is audited too, both
+   epochs ``ok`` at 10^6 rows delivered. After the head, the reporting
+   tools run over its artifacts as a user runs them (``python -m
+   ray_shuffling_data_loader_tpu_torch.<tool>``) and must exit 0 with the
+   run's own figures: ``epoch_report`` (trace, events, task records, time
+   series, capacity ledger, profiles) a critical path for both epochs,
+   every task record the head counted, a capacity row for both epochs,
+   the profiles' frames and the event log's retries; ``run_ledger list``
+   and ``show -1`` the head's one record; ``rsdl_prof top`` stacks from 2
+   or more processes; ``audit_report`` the run's verdicts. Then delivery only over 3 epochs
    under ``RSDL_PLAN=auto`` with every plane on, and with metrics off (no
    signal, no re-plan): the staged tensors must be the same. Then delivery
    only with every plane off, then on. Logs the shuffle
@@ -242,7 +269,11 @@ Phases, each of which fails the script (non-zero exit) on any error:
    ``wedged_worker``, ``audit_mismatch`` and ``capacity_near_limit`` quiet,
    the run ledger count the user rule once, and ``/stragglers``,
    ``/capacity``, ``/critical``, ``/timeseries``, ``/events``,
-   ``/profile`` and ``/jobs`` answer JSON. Logs the scrape ms per route,
+   ``/profile`` and ``/jobs`` answer JSON; ``python -m
+   ray_shuffling_data_loader_tpu_torch.rsdl_top --once --json``, with and
+   without ``--fleet``, must exit 0 with a frame of those pages (2
+   agents, the relay's sink and the joined host, the active alerts and
+   the jobs). Logs the scrape ms per route,
    the relay's ships and bytes, and the step median and shuffle seconds
    against the cluster phase's two-host run;
    elastic: the elastic control plane on the same dataset, two hosts on
@@ -251,11 +282,11 @@ Phases, each of which fails the script (non-zero exit) on any error:
    workers each, each with its own shared-memory and spill directories,
    one audit spool), both with ``RSDL_METRICS=1``, ``RSDL_AUDIT=1`` and
    ``RSDL_AUDIT_STRICT=1``; the head with ``RSDL_ELASTIC=on`` and the loop's
-   knobs (``ELASTIC_ENV``: a tick every 0.2 s, a drop age of 0.5 s) and
+   knobs (``ELASTIC_ENV``: a tick every 0.2 s, a drop age of 0) and
    ``RSDL_STORE_CAPACITY_BYTES`` at ``ELASTIC_BUDGET_SHARE`` of the cluster
    phase's one-host peak. The deterministic DLRM slice with the decode
    cache on; in epoch 1, once epoch 0 has left the fence, the loop must
-   evict on its own reading (``evict.demote`` or ``evict.drop``), then the
+   evict on its own reading (``evict.demote`` and ``evict.drop``), then the
    operator (a thread of the head) drains the joined host
    (``drain_host``: ``drained``, its live segments re-homed into the
    head's store with ``transition`` records, ``scale.drain_done``, the
@@ -378,12 +409,14 @@ Phases, each of which fails the script (non-zero exit) on any error:
    off;
 9. resume: the trainer (``python -m
    ray_shuffling_data_loader_tpu_torch.train_dlrm``) preempted and
-   restarted, on the Quick-start dataset (10^6 rows, 10 files, seed 0)
+   restarted (run after the service phase), on the slices' Quick-start
+   dataset (10^6 rows, 10 files, seed 0; the trainers reuse its files)
    with the full-width DLRM (bf16, Adam 1e-3), batch 65536 (15 batches an
    epoch), 2 epochs, ``--loader mapreduce``, ``RSDL_JOURNAL`` set and a
-   checkpoint every 8 steps. The runs go in two rounds, the runs of a
-   round side by side on the card, each with its own shm directory and
-   journal: the control and both victims, then both resumes. A control
+   checkpoint every 8 steps. The runs go side by side on the card, each
+   with its own shm directory, journal and 4 pool workers: the control
+   and both victims, and each resume as soon as its own victim is dead. A
+   control
    run goes uninterrupted (its shm directory empty after it); a victim,
    in a session of its own, SIGKILLs its own process group (this script's
    child code wraps its train step) after step 10, its last checkpoint
@@ -397,6 +430,9 @@ Phases, each of which fails the script (non-zero exit) on any error:
    seconds from the restart to its first batch, the stages re-attached and
    re-executed, and the steps replayed.
 
+The heads of the cluster, faults, telemetry, obs, elastic and service
+phases start while the phase before theirs runs (Python, torch, CUDA and
+the optimizer's imports), then wait for the spec their phase writes.
 Every launch count is set to 0 just before a path is driven and read just
 after; in the ranks phase, by each rank in its own process. Logs each
 phase's wall seconds at the end. Prints a ``{"kernels": [...]}`` line, the card's name and power
@@ -410,6 +446,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import copy
+import csv
 import json
 import math
 import os
@@ -592,7 +629,13 @@ def phase_build():
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        paths = dict(zip(KERNEL_SOURCES, pool.map(_build.build, KERNEL_SOURCES)))
+        built = pool.map(_build.build, KERNEL_SOURCES)
+        # While nvcc runs, what this process's first Adam would import (its
+        # builder threads import nothing of torch).
+        import torch._dynamo  # noqa: F401
+        import torch._inductor  # noqa: F401
+
+        paths = dict(zip(KERNEL_SOURCES, built))
     log(f"[build] {len(paths)} kernel libraries in {time.perf_counter() - t0:.2f} s (in parallel)")
     for name, path in paths.items():
         log(f"[build] {name}: {os.path.relpath(path, ROOT)}")
@@ -1225,6 +1268,76 @@ def environment(env: dict, clear=()):
                 os.environ[k] = v
 
 
+# The training phases' heads (processes of this script with ``--<name>-head``)
+# get their spec, environment included, through build/heads/<name>.json. The
+# main run starts each one while the phase before it runs (start_head_early):
+# its Python, torch, CUDA and the optimizer's imports, about 20 s a process
+# on the card's host, then overlap that phase, and it waits for the file.
+HEAD_DIR = os.path.join(ROOT, "build", "heads")
+HEAD_WAIT_S = 900  # an early head's longest wait for its phase
+_EARLY_HEADS: dict = {}
+
+
+def _head_argv(name: str) -> list:
+    spec_path = os.path.join(HEAD_DIR, f"{name}.json")
+    return [sys.executable, os.path.join(ROOT, "chip_smoke.py"), f"--{name}-head", spec_path]
+
+
+def start_head_early(name: str) -> None:
+    """Start phase ``name``'s head now, to wait for the spec its phase writes."""
+    os.makedirs(HEAD_DIR, exist_ok=True)
+    with contextlib.suppress(FileNotFoundError):
+        os.unlink(os.path.join(HEAD_DIR, f"{name}.json"))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
+    _EARLY_HEADS[name] = subprocess.Popen(_head_argv(name), env=env, cwd=ROOT)
+
+
+def stop_early_heads() -> None:
+    """Kill the early heads that no phase took."""
+    for proc in _EARLY_HEADS.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    _EARLY_HEADS.clear()
+
+
+def start_head(name: str, spec: dict, env: dict) -> subprocess.Popen:
+    """Phase ``name``'s head running ``spec`` in the environment ``env``: the
+    one started early, or a new process."""
+    proc = _EARLY_HEADS.pop(name, None)
+    if proc is None or proc.poll() is not None:
+        os.makedirs(HEAD_DIR, exist_ok=True)
+        proc = subprocess.Popen(_head_argv(name), env=env, cwd=ROOT)
+    path = os.path.join(HEAD_DIR, f"{name}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump({**spec, "env": env}, f)
+    os.replace(path + ".tmp", path)
+    return proc
+
+
+def run_head(fn, spec_path: str) -> int:
+    """A head's process: the optimizer's imports and CUDA first, then its spec
+    (waited for until its phase writes it, or the process that started it
+    is gone), whose environment replaces this process's before ``fn(spec)``
+    imports the port."""
+    import torch
+    import torch._dynamo  # noqa: F401
+    import torch._inductor  # noqa: F401
+
+    torch.cuda.init()
+    parent, deadline = os.getppid(), time.monotonic() + HEAD_WAIT_S
+    while not os.path.exists(spec_path):
+        if os.getppid() != parent or time.monotonic() > deadline:
+            print(f"chip_smoke: no spec at {spec_path}", file=sys.stderr)
+            return 3
+        time.sleep(0.05)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    os.environ.clear()
+    os.environ.update(spec.pop("env"))
+    return fn(spec)
+
+
 # (label, environment, cache_decoded): the delivery phase's runs. The first
 # four deliver the defaults' stream: the index schedule forced, everything
 # off, and the host kernels' plain numpy versions. The last two take the
@@ -1330,11 +1443,12 @@ def port_row_groups(filename: str) -> list:
     return port_shuffle.file_row_group_sizes(filename)
 
 
-def train_slice(torch, port, filenames, num_rows, model, label: str, collector=None) -> dict:
+def train_slice(torch, port, filenames, num_rows, model, label: str, collector=None, digests: bool = False) -> dict:
     """Two epochs of ``model`` on the shuffled dataset, with the launch
     counts set to 0 just before and read just after. ``collector``: a
     ``TrialStatsCollector`` actor that hears the run; its stats come back
-    as ``trial``."""
+    as ``trial``. ``digests``: also a digest of every staged tensor of
+    each batch, ``key`` included, computed on the card."""
     import numpy as np
 
     import ray_shuffling_data_loader_tpu_torch.ops as ops
@@ -1353,7 +1467,7 @@ def train_slice(torch, port, filenames, num_rows, model, label: str, collector=N
     torch.cuda.reset_peak_memory_stats()
     reset_launches(ops)
     steps, step_s, losses, epoch_s = 0, [], [], []
-    direct_per_epoch = []
+    direct_per_epoch, staged = [], []
     last = None
     for epoch in range(num_epochs):
         ds.set_epoch(epoch)
@@ -1361,6 +1475,8 @@ def train_slice(torch, port, filenames, num_rows, model, label: str, collector=N
         direct0 = ds.stats.batches_direct
         t_epoch = time.perf_counter()
         for features, labels in ds:
+            if digests:
+                staged.append(batch_digest(torch, [*features.values(), labels]))
             keys.append(features.pop(port.KEY_COLUMN))
             t0 = time.perf_counter()
             loss = step(features, labels)["loss"].item()
@@ -1414,6 +1530,7 @@ def train_slice(torch, port, filenames, num_rows, model, label: str, collector=N
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "trial": trial,
         "audit_reconcile_s": ds.dataset.shuffle_stats.get("audit_reconcile_s"),
+        "digests": torch.stack(staged).cpu().tolist() if staged else None,
     }
 
 
@@ -1432,7 +1549,16 @@ def phase_slices(torch, data_dir: str) -> dict:
             f"in {time.perf_counter() - t0:.2f} s")
         collector = port.runtime.spawn_actor(port.TrialStatsCollector, 2, len(filenames), 8, num_rows, 65536, 1,
                                              name="slice-dlrm-stats")
-        dlrm = train_slice(torch, port, filenames, num_rows, port.dlrm_for_data_spec(), "dlrm", collector)
+        model = port.dlrm_for_data_spec()
+        init_state = copy.deepcopy(model.state_dict())
+        # The URI phase trains this run again from the same weights and holds
+        # it bit for bit: CUDA's embedding backward is not deterministic.
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            dlrm = train_slice(torch, port, filenames, num_rows, model, "dlrm", collector, digests=True)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        dlrm["init_state"] = init_state
         n = dlrm["launches"]
         # bf16, (65536, 19, 32): the tensor-core route only.
         if (n["interaction"] != dlrm["steps"] or n["interaction_mma"] != dlrm["steps"]
@@ -1451,6 +1577,142 @@ def phase_slices(torch, data_dir: str) -> dict:
         return {"dlrm": dlrm, "tabtransformer": tab, "filenames": filenames}
     finally:
         port.runtime.shutdown()
+
+
+URI_CSVS = ("trial_stats.csv", "epoch_stats.csv", "consume_timeline.csv")
+
+
+def _csv_shape(path: str) -> tuple:
+    """``(header, data rows)`` of a CSV file."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], len(rows) - 1
+
+
+def phase_uri(torch, filenames, reference: dict, data_dir: str, stats_dir: str) -> dict:
+    """The DLRM main path with its Parquet and its stats behind ``file://``
+    URIs (pyarrow's own filesystem: no fsspec, no local path). The slices'
+    dataset written again to ``file://<data_dir>``: the same names under it,
+    each file the same columns as the same-index local file (whether the
+    bytes are equal too is logged). The DLRM slice over the URIs from
+    ``reference``'s initial weights (``reference``: the slices phase's
+    deterministic DLRM run), deterministic algorithms on: its staged
+    tensors and 30 losses must equal the reference's bit for bit and K1
+    launch once a step on its tensor-core route. ``dataset_num_rows`` over
+    the URIs must be 10^6, and a resident staging of the URIs must pack the
+    local files' buffer and deliver their epoch-0 keys. ``process_stats`` of
+    the URI run's trial to ``file://<stats_dir>/uri`` must write the three
+    CSVs with the headers and rows of a local write, and append with
+    ``overwrite_stats=False``. Logs the maps' decode seconds per epoch
+    through the resolver beside the reference's."""
+    import filecmp
+
+    import numpy as np
+
+    import ray_shuffling_data_loader_tpu_torch as port
+    from ray_shuffling_data_loader_tpu_torch import shuffle as port_shuffle
+    from ray_shuffling_data_loader_tpu_torch.resident import DeviceResidentShufflingDataset, dataset_num_rows
+
+    t_phase = time.perf_counter()
+    smi = smi_name_and_limit()
+    out = {}
+    # A URI's directory is its store's to have: made here, not by the writers.
+    os.makedirs(data_dir)
+    os.makedirs(os.path.join(stats_dir, "uri"))
+    port.runtime.init()
+    try:
+        # (1) Generation to a URI.
+        t0 = time.perf_counter()
+        uris, nbytes = port.generate_data(NUM_ROWS, 10, 5, 0.0, f"file://{data_dir}", seed=0)
+        out["generate_s"] = time.perf_counter() - t0
+        if uris != [f"file://{os.path.join(data_dir, os.path.basename(f))}" for f in filenames]:
+            raise AssertionError(f"[uri] generated {uris}")
+        t0 = time.perf_counter()
+        for u, f in zip(uris, filenames):
+            got, want = port_shuffle.read_parquet_columns(u), port_shuffle.read_parquet_columns(f)
+            if list(got.columns) != list(want.columns) or not all(
+                    np.array_equal(got.columns[k], want.columns[k]) for k in want.columns):
+                raise AssertionError(f"[uri] {u} decodes to other columns than {f}")
+        out["same_bytes"] = sum(filecmp.cmp(u[len("file://"):], f, shallow=False) for u, f in zip(uris, filenames))
+        log(f"[uri] generated {NUM_ROWS} rows ({nbytes} B) in {len(uris)} files under file://{data_dir} in "
+            f"{out['generate_s']!r} s; each decodes to the same-index local file's columns (both read in "
+            f"{time.perf_counter() - t0!r} s); bytes equal to the local file's: {out['same_bytes']} of {len(uris)}")
+
+        # (2) The DLRM slice over the URIs, from the reference's weights.
+        collector = port.runtime.spawn_actor(port.TrialStatsCollector, 2, len(uris), 8, NUM_ROWS, 65536, 1,
+                                             name="uri-dlrm-stats")
+        model = port.dlrm_for_data_spec()
+        model.load_state_dict(reference["init_state"])
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            run = train_slice(torch, port, uris, NUM_ROWS, model, "uri dlrm", collector, digests=True)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        n = run["launches"]
+        if (run["steps"] != 30 or n["interaction"] != run["steps"] or n["interaction_mma"] != run["steps"]
+                or any(v for k, v in n.items() if not k.startswith("interaction"))):
+            raise AssertionError(f"[uri] launches {n} in {run['steps']} steps: want 30 K1, all tensor-core")
+        if run["digests"] != reference["digests"] or run["losses"] != reference["losses"]:
+            bad = [i for i, (a, b) in enumerate(zip(run["digests"], reference["digests"])) if a != b]
+            raise AssertionError(f"[uri] the URI run differs from the local one: batches {bad[:5]}, losses "
+                                 f"{run['losses'][:3]} against {reference['losses'][:3]}")
+        decode = {label: [sum(e.map_read_durations) for e in r["trial"].epochs]
+                  for label, r in (("uri", run), ("local", reference))}
+        log(f"[uri] DLRM over file:// URIs: the local run's {len(run['digests'])} staged batches and "
+            f"{len(run['losses'])} losses bit for bit; K1 {n['interaction_mma']} of {run['steps']} steps on the "
+            f"tensor-core route")
+        log(f"[uri] the maps' decode s per epoch (summed over the maps) through the resolver {decode['uri']!r} "
+            f"against the slices phase's local paths {decode['local']!r}; shuffle s per epoch "
+            f"{run['delivery']['epoch_shuffle_s']!r} against {reference['delivery']['epoch_shuffle_s']!r}; step "
+            f"median {run['step_ms_median']!r} against {reference['step_ms_median']!r} ms ({smi})")
+
+        # (3) The resident loader's footer reads and range decodes.
+        if dataset_num_rows(uris) != NUM_ROWS:
+            raise AssertionError(f"[uri] dataset_num_rows over the URIs: {dataset_num_rows(uris)}")
+        features = [c for c in port.DATA_SPEC if c != port.LABEL_COLUMN]
+        staged = {}
+        for label, files in (("uri", uris), ("local", filenames)):
+            t0 = time.perf_counter()
+            ds = DeviceResidentShufflingDataset(files, 1, 65536, [port.KEY_COLUMN, *features], port.LABEL_COLUMN,
+                                                seed=0, device="cuda")
+            try:
+                stage_s = time.perf_counter() - t0
+                ds.set_epoch(0)
+                staged[label] = (ds._buf, torch.cat([f[port.KEY_COLUMN] for f, _ in ds]), stage_s)
+            finally:
+                ds.close()
+        if not torch.equal(staged["uri"][0], staged["local"][0]) or not torch.equal(staged["uri"][1],
+                                                                                    staged["local"][1]):
+            raise AssertionError("[uri] the resident staging of the URIs differs from the local files'")
+        log(f"[uri] resident: dataset_num_rows {NUM_ROWS}; the URIs' packed buffer {tuple(staged['uri'][0].shape)} "
+            f"and epoch-0 keys ({staged['uri'][1].numel()}) equal the local files'; staged in "
+            f"{staged['uri'][2]!r} s against {staged['local'][2]!r} s")
+
+        # (4) Stats to a URI: the local write's CSVs, and an append.
+        trial = run["trial"]
+        for overwrite in (True, False):
+            port.process_stats([trial], stats_dir=f"file://{stats_dir}/uri", overwrite_stats=overwrite)
+            port.process_stats([trial], stats_dir=os.path.join(stats_dir, "local"), overwrite_stats=overwrite)
+            shapes = {name: (_csv_shape(os.path.join(stats_dir, "uri", name)),
+                             _csv_shape(os.path.join(stats_dir, "local", name))) for name in URI_CSVS}
+            if any(a != b for a, b in shapes.values()):
+                raise AssertionError(f"[uri] stats: the URI's CSVs {shapes}")
+            out["stats_rows" if overwrite else "stats_rows_appended"] = {k: v[0][1] for k, v in shapes.items()}
+        if any(out["stats_rows_appended"][k] != 2 * out["stats_rows"][k] for k in URI_CSVS) or not all(
+                out["stats_rows"].values()):
+            raise AssertionError(f"[uri] stats rows {out['stats_rows']}, appended {out['stats_rows_appended']}")
+        if sys.modules.get("fsspec") is not None:
+            raise AssertionError("[uri] fsspec was imported on a path that needs none")
+        log(f"[uri] process_stats to file://{stats_dir}/uri: {', '.join(URI_CSVS)} with the local write's headers "
+            f"and rows {out['stats_rows']}, appended {out['stats_rows_appended']}; fsspec never imported")
+        out.update(launches=n, steps=run["steps"], step_ms_median=run["step_ms_median"], epoch_s=run["epoch_s"],
+                   epoch_shuffle_s=run["delivery"]["epoch_shuffle_s"], decode_s=decode,
+                   resident_stage_s={k: v[2] for k, v in staged.items()})
+    finally:
+        port.runtime.shutdown()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[uri] phase {out['wall_s']:.1f} s ({smi})")
+    return out
 
 
 AUDIT_KNOBS = ("RSDL_AUDIT", "RSDL_AUDIT_DIR", "RSDL_AUDIT_STRICT", "RSDL_AUDIT_KEY", "RSDL_JOURNAL", "RSDL_RESUME")
@@ -1888,15 +2150,11 @@ def phase_cluster(torch, filenames, unaudited: dict, work: str) -> dict:
         "addr": {name: os.path.join(work, f"address-{name}") for name, _ in CLUSTER_CONFIGS},
         "joined_shm": {name: dirs[name]["RSDL_SHM_DIR"] for name, _ in CLUSTER_CONFIGS},
     }
-    spec_path = os.path.join(work, "spec.json")
-    with open(spec_path, "w") as f:
-        json.dump(spec, f)
     base = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
     base.update(RSDL_ADVERTISE_HOST="127.0.0.1", RSDL_AUDIT="1")
     procs = {}
     try:
-        procs["head"] = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--cluster-head",
-                                          spec_path], env={**base, **dirs["head"]}, cwd=ROOT)
+        procs["head"] = start_head("cluster", spec, {**base, **dirs["head"]})
         for name, env in CLUSTER_CONFIGS:
             deadline = time.monotonic() + 240
             while not os.path.exists(spec["addr"][name]):
@@ -2232,13 +2490,9 @@ def phase_faults(torch, filenames, reference: dict, work: str) -> dict:
         "journal_failover": os.path.join(work, "journal-failover"),
         "joined_shm": f"/dev/shm/{tag}-joined", "joined_spill": os.path.join(work, "spill-joined"),
     }
-    spec_path = os.path.join(work, "spec.json")
-    with open(spec_path, "w") as f:
-        json.dump(spec, f)
     env = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
     env.update(dirs, RSDL_ADVERTISE_HOST="127.0.0.1", RSDL_AUDIT="1")
-    head = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--faults-head", spec_path],
-                            env=env, cwd=ROOT)
+    head = start_head("faults", spec, env)
     try:
         code = head.wait(timeout=600)
     finally:
@@ -2505,7 +2759,7 @@ def decision_checks(port, flat: dict, t_run: tuple, work: str) -> dict:
             or not rec.get("profile")):
         raise AssertionError(f"[telemetry] run ledger: {len(records)} records, {sorted(rec)}: "
                              f"{ {k: rec.get(k) for k in ('status', 'epochs', 'critical', 'capacity')} }")
-    out["run_ledger"] = {k: rec[k] for k in ("status", "duration_s", "epochs", "critical", "capacity",
+    out["run_ledger"] = {k: rec[k] for k in ("id", "status", "duration_s", "epochs", "critical", "capacity",
                                              "stall_by_cause")}
     out["run_ledger"]["bytes"] = os.path.getsize(runledger.ledger_path())
     # What a tick costs here: the profiler's fold of every thread, and the
@@ -2540,7 +2794,7 @@ def telemetry_head(spec: dict) -> int:
     from ray_shuffling_data_loader_tpu_torch import shuffle, telemetry
     from ray_shuffling_data_loader_tpu_torch.runtime import faults
     from ray_shuffling_data_loader_tpu_torch.stats import ObjectStoreStatsCollector
-    from ray_shuffling_data_loader_tpu_torch.telemetry import events, export, metrics
+    from ray_shuffling_data_loader_tpu_torch.telemetry import audit, events, export, metrics
 
     t_phase = time.perf_counter()
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -2551,10 +2805,12 @@ def telemetry_head(spec: dict) -> int:
 
     # (1) The metered run, the fault rule armed before the session starts;
     # the shared decode cache on, so that its segments outlive the run in
-    # the capacity ledger's cache tier.
+    # the capacity ledger's cache tier; audited, for the audit report.
     with environment({"RSDL_FAULTS": TELEMETRY_FAULTS, "RSDL_FAULTS_SEED": str(TELEMETRY_SEED),
-                      "RSDL_STAGE_MAX_ATTEMPTS": str(TELEMETRY_ATTEMPTS), "RSDL_DECODE_CACHE_SHARED": "on"}):
+                      "RSDL_STAGE_MAX_ATTEMPTS": str(TELEMETRY_ATTEMPTS), "RSDL_DECODE_CACHE_SHARED": "on",
+                      "RSDL_AUDIT": "1", "RSDL_AUDIT_DIR": os.path.join(work, "audit")}):
         faults.refresh_from_env()
+        audit.refresh_from_env()
         port.runtime.init()
         try:
             log(f"[telemetry] worker pool up in {start_pool(port)!r} s; every plane on (time series every "
@@ -2567,6 +2823,8 @@ def telemetry_head(spec: dict) -> int:
                 run["launches"] = read_launches(ops)
                 t_run = (t0, time.time())
             dump_path = metrics.dump_json(os.path.join(work, "metrics.json"))
+            with open(os.path.join(work, "audit.json"), "w") as f:
+                json.dump(audit.summary(), f)
             typed = export.aggregate_typed()
             flat = export.flatten(typed)
             prom = export.prometheus_text()
@@ -2576,6 +2834,7 @@ def telemetry_head(spec: dict) -> int:
         finally:
             port.runtime.shutdown()
     faults.refresh_from_env()
+    audit.refresh_from_env()
     trace_path = telemetry.trace_export(os.path.join(work, "trace.json"))
     with open(trace_path) as f:
         trace = json.load(f)["traceEvents"]
@@ -2590,6 +2849,8 @@ def telemetry_head(spec: dict) -> int:
     n = run["launches"]
     if n["interaction_mma"] != run["steps"] or n["interaction"] != run["steps"] or run["steps"] != 30:
         raise AssertionError(f"[telemetry] launches {n} in {run['steps']} steps: want 30 K1, all tensor-core")
+    if [(v["epoch"], v["ok"], v["rows_delivered"]) for v in run["verdicts"]] != [(e, True, NUM_ROWS) for e in (0, 1)]:
+        raise AssertionError(f"[telemetry] the metered run's audit: {run['verdicts']}")
     # The counters, over every process's spool.
     retries = run["recovery"]["stage_retries"] or {}
     want = {"shuffle.map_tasks": 20.0, "shuffle.reduce_tasks": 16.0, "h2d.batches": 30.0}
@@ -2647,6 +2908,7 @@ def telemetry_head(spec: dict) -> int:
         "stage_retries": metered_retries, "faults_injected": injected[1], "events": kinds,
         "trace_events": len(trace), "spool_bytes": spools, "samples": len(dump["samples"]),
         "prometheus_lines": len(prom.splitlines()),
+        "verdicts": [{k: v[k] for k in ("epoch", "ok", "rows_mapped", "rows_delivered")} for v in run["verdicts"]],
     }
     dec = out["decision"]
     log(f"[telemetry] metered: tensors and {len(run['losses'])} losses equal the unmetered run's; K1 "
@@ -2717,6 +2979,82 @@ def telemetry_head(spec: dict) -> int:
     return 0
 
 
+def run_tool(name: str, *args: str) -> tuple:
+    """``python -m ray_shuffling_data_loader_tpu_torch.<name> *args`` as a
+    user runs a reporting tool, with no ``RSDL_*`` variable set:
+    ``(exit code, stdout, stderr)``."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
+    proc = subprocess.run([sys.executable, "-m", f"ray_shuffling_data_loader_tpu_torch.{name}", *args],
+                          capture_output=True, text=True, timeout=120, env=env, cwd=ROOT)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def telemetry_tools(work: str, res: dict) -> dict:
+    """The four reporting tools over the metered run's artifacts under
+    ``work``, each of which must exit 0 with the run's own figures: the
+    epoch report (trace, events, task records, time series, capacity
+    ledger, profiles) a row per epoch, the critical path, every task record
+    the head counted, a capacity row for both epochs and the profiles'
+    frames; the run ledger one record, the head's; the profiler's
+    top table; the audit report the run's verdicts."""
+    out, secs = {}, {}
+
+    def tool(name, *args):
+        t0 = time.perf_counter()
+        code, stdout, stderr = run_tool(name, *args)
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        if code != 0:
+            raise AssertionError(f"[telemetry] {name} {' '.join(args)} exited {code}: {stderr[-2000:]}")
+        return stdout
+
+    metered, dec = res["metered"], res["decision"]
+    spool = lambda *p: os.path.join(work, *p)  # noqa: E731
+    report = json.loads(tool("epoch_report", "--trace", spool("trace.json"), "--events", spool("events"),
+                             "--task-records", spool("metrics", "tasks"), "--timeseries", spool("metrics"),
+                             "--capacity", spool("metrics"), "--profile", spool("profiles"), "--json"))
+    rows = {r["epoch"]: r for r in report["epochs"]}
+    tasks = sum(r["tasks"] for r in report.get("stragglers", []))
+    cap_epochs = {r["epoch"] for r in report.get("capacity", [])}
+    if (not {0, 1} <= set(rows) or any(not rows[e].get("critical_path") for e in (0, 1))
+            or not report["header"].get("critical_path") or tasks < sum(dec["stragglers"]["counts"].values())
+            or not {"0", "1"} <= cap_epochs or not report.get("profile", {}).get("top")
+            or report["header"]["events_by_kind"].get("stage.retry") != metered["events"]["stage.retry"]):
+        raise AssertionError(f"[telemetry] epoch_report: epochs {sorted(rows)}, header {report['header']}, "
+                             f"{tasks} task records against {dec['stragglers']['counts']}, capacity epochs "
+                             f"{sorted(cap_epochs)}, profile {report.get('profile')}")
+    out["epoch_report"] = {"critical_path": {e: rows[e]["critical_path"] for e in (0, 1)},
+                           "run_critical_path": report["header"]["critical_path"], "task_records": tasks,
+                           "capacity_rows": len(report["capacity"]), "profile_samples": report["profile"]["samples"]}
+    ledger = spool("runs.ndjson")
+    listed = tool("run_ledger", "--ledger", ledger, "list").strip().splitlines()
+    shown = json.loads(tool("run_ledger", "--ledger", ledger, "show", "-1"))
+    want = dec["run_ledger"]
+    if (len(listed) != 1 or want["id"] not in listed[0] or " done " not in listed[0] or shown["id"] != want["id"]
+            or shown["duration_s"] != want["duration_s"] or shown["status"] != "done"):
+        raise AssertionError(f"[telemetry] run_ledger: list {listed}; show {shown.get('id')} "
+                             f"{shown.get('status')} {shown.get('duration_s')}; the head's record {want['id']}")
+    out["run_ledger"] = {"records": len(listed), "id": shown["id"]}
+    top = json.loads(tool("rsdl_prof", "top", "--dir", spool("profiles"), "--json"))
+    if not top["top"] or not top["samples"] or top["sources"] < 2:
+        raise AssertionError(f"[telemetry] rsdl_prof top: {top}")
+    out["rsdl_prof"] = {"samples": top["samples"], "sources": top["sources"], "top": top["top"][0]["frame"]}
+    audited = json.loads(tool("audit_report", "--audit-json", spool("audit.json"), "--metrics",
+                              spool("metrics.json"), "--json"))
+    got = [{k: v.get(k) for k in ("epoch", "ok", "rows_mapped", "rows_delivered")} for v in audited["epochs"]]
+    if got != metered["verdicts"] or audited["header"].get("audit_ok") is not True:
+        raise AssertionError(f"[telemetry] audit_report: {got}, header {audited['header']}; the run's "
+                             f"{metered['verdicts']}")
+    out["audit_report"] = {"epochs": got}
+    out["seconds"] = secs
+    log(f"[telemetry] tools over the metered run's artifacts, each exit 0: epoch_report critical path "
+        f"{out['epoch_report']['critical_path']} (run {out['epoch_report']['run_critical_path']}), {tasks} task "
+        f"records (the head counted {sum(dec['stragglers']['counts'].values())}), {len(report['capacity'])} "
+        f"capacity rows, {report['profile']['samples']} profile samples; run_ledger one record, {shown['id']}; "
+        f"rsdl_prof top {out['rsdl_prof']}; audit_report {[(v['epoch'], v['ok']) for v in got]} = the run's "
+        f"verdicts; s per tool {secs}")
+    return out
+
+
 def phase_telemetry(torch, filenames, reference: dict, unmetered: dict, work: str) -> dict:
     """The ``[telemetry]`` phase: :func:`telemetry_head` in a process of its
     own, started with every plane on and the spools under ``work``.
@@ -2725,13 +3063,9 @@ def phase_telemetry(torch, filenames, reference: dict, unmetered: dict, work: st
     t_phase = time.perf_counter()
     spec = {"files": filenames, "work": work, "result": os.path.join(work, "result.json"),
             "reference": {"digests": reference["digests"], "losses": reference["losses"]}}
-    spec_path = os.path.join(work, "spec.json")
-    with open(spec_path, "w") as f:
-        json.dump(spec, f)
     env = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
     env.update(_planes_env(work))
-    head = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--telemetry-head", spec_path],
-                            env=env, cwd=ROOT)
+    head = start_head("telemetry", spec, env)
     try:
         code = head.wait(timeout=600)
     finally:
@@ -2749,6 +3083,7 @@ def phase_telemetry(torch, filenames, reference: dict, unmetered: dict, work: st
         f"{unmetered['step_ms_median']!r} ms (cluster one host {reference['step_ms_median']!r}); stall share "
         f"{metered['stall_share']!r} against {stall_share(unmetered)!r}; epochs {metered['epoch_s']!r} against "
         f"{unmetered['epoch_s']!r} s")
+    res["tools"] = telemetry_tools(work, res)
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"[telemetry] phase {res['phase_s']:.1f} s (head {res['wall_s']:.1f} s)")
     return res
@@ -2931,6 +3266,27 @@ def obs_head(spec: dict) -> int:
         if failed or not in_flight or not queued:
             raise AssertionError(f"[obs] live scrapes: {len(failed)} failed ({failed[:3]}), {len(live)} of /status, "
                                  f"an epoch of the shuffle in flight in {len(in_flight)}, queue depths in {len(queued)}")
+        # (7) rsdl_top over the live server, one frame as JSON, of the run
+        # and of the fleet: the pages the phase read.
+        out["rsdl_top"] = {}
+        for fleet in (False, True):
+            t0 = time.perf_counter()
+            code, stdout, stderr = run_tool("rsdl_top", "--url", f"http://127.0.0.1:{port_num}", "--once", "--json",
+                                            *(["--fleet"] if fleet else []))
+            if code != 0:
+                raise AssertionError(f"[obs] rsdl_top (fleet {fleet}) exited {code}: {stderr[-2000:]}")
+            frame = json.loads(stdout)
+            jobs = [j.get("job_id") for j in frame["jobs"].get("jobs", [])]
+            if (len(frame["status"]["cluster"]["agents"]) != 2 or frame["healthz"]["relay"]["role"] != "sink"
+                    or other not in frame["healthz"]["relay"]["hosts"]
+                    or frame["alerts"]["active"] != pages["/alerts"]["active"]
+                    or jobs != [j.get("job_id") for j in pages["/jobs"].get("jobs", [])]
+                    or frame["stragglers"]["tasks_total"] < pages["/stragglers"]["tasks_total"]):
+                raise AssertionError(f"[obs] rsdl_top (fleet {fleet}): agents {frame['status']['cluster']['agents']}, "
+                                     f"relay {frame['healthz'].get('relay')}, alerts {frame['alerts'].get('active')}, "
+                                     f"jobs {jobs}, tasks {frame['stragglers'].get('tasks_total')}")
+            out["rsdl_top"]["fleet" if fleet else "run"] = {"s": time.perf_counter() - t0, "jobs": jobs,
+                                                            "pages": sorted(frame)}
         alerts = {r["name"]: r for r in pages["/alerts"]["rules"] if r.get("job") is None}
         loud = [name for name in OBS_QUIET if alerts[name]["active"]]
         ledger = runledger.read()
@@ -2983,9 +3339,6 @@ def phase_obs(torch, filenames, cluster: dict, work: str) -> dict:
     single = cluster["single"]
     spec = {"files": filenames, "result": os.path.join(work, "result.json"), "addr": os.path.join(work, "address"),
             "obs_port": obs_port, "reference": {"digests": single["digests"], "losses": single["losses"]}}
-    spec_path = os.path.join(work, "spec.json")
-    with open(spec_path, "w") as f:
-        json.dump(spec, f)
     base = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
     base.update(RSDL_ADVERTISE_HOST="127.0.0.1", RSDL_METRICS="1", RSDL_AUDIT="1", RSDL_PROFILE="1",
                 RSDL_RELAY="auto", RSDL_TS_PERIOD_S=TS_PERIOD_S, RSDL_SLO_RULES=json.dumps([OBS_RULE]))
@@ -2998,8 +3351,7 @@ def phase_obs(torch, filenames, cluster: dict, work: str) -> dict:
     envs["head"].update(RSDL_OBS_PORT=str(obs_port), RSDL_RUN_LEDGER=os.path.join(work, "runs.ndjson"))
     procs = {}
     try:
-        procs["head"] = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--obs-head",
-                                          spec_path], env=envs["head"], cwd=ROOT)
+        procs["head"] = start_head("obs", spec, envs["head"])
         deadline = time.monotonic() + 240
         while not os.path.exists(spec["addr"]):
             if procs["head"].poll() is not None or time.monotonic() > deadline:
@@ -3041,6 +3393,8 @@ def phase_obs(torch, filenames, cluster: dict, work: str) -> dict:
         f"alerts_fired {res['alerts']['ledger']}; {res['live_status']['scrapes']} live /status scrapes, the "
         f"shuffle's epochs in flight in them {res['live_status']['in_flight']}, the queue's first depths "
         f"{res['live_status']['queue_depths']}")
+    log(f"[obs] rsdl_top --once --json over the live server, exit 0, its pages those read here: "
+        + "; ".join(f"{k} {v['s']:.2f} s, jobs {v['jobs']}" for k, v in res["rsdl_top"].items()))
     server_s = res["scrape"]["server_metrics_s"]
     log(f"[obs] scrape ms per route during the run (client, median and max of n): "
         + "; ".join(f"{r} {v['median_ms']:.2f} / {v['max_ms']:.2f} (n {v['n']})"
@@ -3070,12 +3424,15 @@ ELASTIC_BUDGET_SHARE = 0.4
 # shuffles in about a second once the cache is hot); any live verdict on a
 # shuffle stage scales up, once (the cooldown outlasts the run) and never
 # down (the one drain is the operator's); an eviction pass at most every
-# 0.5 s, and a spilled segment untouched for 0.5 s dropped (never a
-# delivered batch: epoch 0's last batches still wait in the queue when it
-# leaves the fence).
+# 0.5 s, and every spilled segment out of the fence dropped in a pass under
+# pressure, whatever its age (never a delivered batch: epoch 0's last
+# batches still wait in the queue when it leaves the fence). The drop age is
+# 0 because the pressure after the fence may come in one pass only, about
+# half a second after epoch 0's last reads: with an age of 0.5 s that pass
+# found no segment old enough on some machines, and no drop fired.
 ELASTIC_ENV = {"RSDL_ELASTIC": "on", "RSDL_ELASTIC_PERIOD_S": "0.2", "RSDL_ELASTIC_UP_THRESHOLD": "0",
                "RSDL_ELASTIC_DOWN_THRESHOLD": "-1", "RSDL_ELASTIC_COOLDOWN_S": "3600", "RSDL_EVICT_COOLDOWN_S": "0.5",
-               "RSDL_EVICT_DROP_AGE_S": "0.5", "RSDL_DRAIN_DEADLINE_S": "60"}
+               "RSDL_EVICT_DROP_AGE_S": "0", "RSDL_DRAIN_DEADLINE_S": "60"}
 ELASTIC_EVICT_WAIT_REDUCERS = 1  # the operator drains once the loop evicted, or epoch 1 delivered this many
 
 
@@ -3337,9 +3694,6 @@ def phase_elastic(torch, filenames, cluster: dict, work: str) -> dict:
             "joined_pid": os.path.join(work, "joined.pid"),
             "reference": {"digests": single["digests"], "losses": single["losses"],
                           "store_peak_bytes": single["store_peak_bytes"]}}
-    spec_path = os.path.join(work, "spec.json")
-    with open(spec_path, "w") as f:
-        json.dump(spec, f)
     base = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
     base.update(RSDL_ADVERTISE_HOST="127.0.0.1", RSDL_METRICS="1", RSDL_AUDIT="1", RSDL_AUDIT_STRICT="1",
                 RSDL_AUDIT_DIR=os.path.join(work, "audit"))
@@ -3351,8 +3705,7 @@ def phase_elastic(torch, filenames, cluster: dict, work: str) -> dict:
     envs["head"].update(ELASTIC_ENV, RSDL_STORE_CAPACITY_BYTES=str(budget))
     procs = {}
     try:
-        procs["head"] = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--elastic-head",
-                                          spec_path], env=envs["head"], cwd=ROOT)
+        procs["head"] = start_head("elastic", spec, envs["head"])
         deadline = time.monotonic() + 240
         while not os.path.exists(spec["addr"]):
             if procs["head"].poll() is not None or time.monotonic() > deadline:
@@ -3588,15 +3941,11 @@ def phase_service(torch, filenames, cluster: dict, work: str) -> dict:
     tag = f"rsdl-service-{os.getpid()}"
     single, smi = cluster["single"], smi_name_and_limit()
     spec = {"files": filenames, "result": os.path.join(work, "result.json"), "spool_ref": os.path.join(work, "ref")}
-    spec_path = os.path.join(work, "spec.json")
-    with open(spec_path, "w") as f:
-        json.dump(spec, f)
     env = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
     env.update(SERVICE_ENV, RSDL_AUDIT_DIR=os.path.join(work, "audit"), RSDL_SHM_DIR=f"/dev/shm/{tag}",
                RSDL_SPILL_DIR=os.path.join(work, "spill"))
     dirs = [env["RSDL_SHM_DIR"], env["RSDL_SPILL_DIR"]]
-    proc = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--service-head", spec_path],
-                            env=env, cwd=ROOT)
+    proc = start_head("service", spec, env)
     try:
         code = proc.wait(timeout=600)
     finally:
@@ -3915,9 +4264,11 @@ STARTUP_MARKS = ("imports", "runtime", "groups", "model", "optimizer", "step_mad
                  "last_step", "reported", "teardown")
 
 
-# The ranks phase's runs in two rounds, the two runs of a round side by side,
-# each in a process of its own (a process holds one session).
-RANK_ROUNDS = (("ddp_mean_2", "adasum_bf16_3"), ("nccl_1", "dp2_mp2"))
+# The ranks phase's runs in one round, side by side, each in a process of
+# its own (a process holds one session): a rank's start-up, not its steps,
+# is most of a run. Each run's session has RANK_WORKERS pool workers.
+RANK_ROUNDS = (("ddp_mean_2", "adasum_bf16_3", "nccl_1", "dp2_mp2"),)
+RANK_WORKERS = 4
 
 
 def ranks_run(spec: dict) -> int:
@@ -3948,7 +4299,7 @@ def phase_ranks(filenames, smi: str, work: str) -> dict:
             for label in round_labels:
                 spec = {"files": filenames, "result": os.path.join(work, f"{label}.json"), "argv": [
                     *argvs[label], "--batch-size", "65536", "--num-rows", str(NUM_ROWS), "--num-reducers", "8",
-                    "--seed", "0", "--timeout", "300"]}
+                    "--seed", "0", "--timeout", "300", "--num-workers", str(RANK_WORKERS)]}
                 spec_path = os.path.join(work, f"{label}-spec.json")
                 with open(spec_path, "w") as f:
                     json.dump(spec, f)
@@ -4294,6 +4645,10 @@ RESUME_BATCH, RESUME_EPOCHS, RESUME_EVERY, RESUME_KILL = 65536, 2, 8, 10
 RESUME_LOSS_TOL = 1e-5  # PERF.md's bound: the embedding backward's atomics
 
 
+# Pool workers of each trainer's session: up to three trainers run side by side.
+RESUME_WORKERS = 4
+
+
 def resume_run(work: str, shm: str, name: str, loader: str, kill_after: int = 0, checkpoint: bool = True,
                env_extra=None) -> dict:
     """One trainer child (``work/child.py``, :data:`RESUME_CHILD`) in a
@@ -4307,7 +4662,7 @@ def resume_run(work: str, shm: str, name: str, loader: str, kill_after: int = 0,
     argv = [sys.executable, script, "--num-rows", str(NUM_ROWS), "--num-files", "10", "--num-row-groups-per-file",
             "5", "--batch-size", str(RESUME_BATCH), "--epochs", str(RESUME_EPOCHS), "--num-reducers", "8",
             "--seed", "0", "--data-dir", os.path.join(work, "data"), "--loader", loader, "--device", "cuda",
-            "--checkpoint-every", str(RESUME_EVERY), "--record", record]
+            "--checkpoint-every", str(RESUME_EVERY), "--record", record, "--num-workers", str(RESUME_WORKERS)]
     if checkpoint:
         argv += ["--checkpoint-dir", os.path.join(work, f"ckpt-{loader}")]
     env = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
@@ -4343,22 +4698,22 @@ def check_resumed_launches(label: str, run: dict, steps: int) -> None:
                              "on the tensor-core route")
 
 
-def phase_resume(torch, work: str, smi: str) -> dict:
-    """The trainer preempted and resumed (docstring, phase 9)."""
+def phase_resume(torch, work: str, smi: str, filenames) -> dict:
+    """The trainer preempted and resumed (docstring, phase 9), on the
+    slices' dataset ``filenames``."""
     # A directory of its own on the shared-memory filesystem, so that what
     # the sessions leave there can be counted.
     shm = os.path.join("/dev/shm" if os.path.isdir("/dev/shm") else work, f"chip-smoke-resume-{os.getpid()}")
     os.makedirs(shm)
     try:
-        return _phase_resume(torch, work, shm, smi)
+        return _phase_resume(torch, work, shm, smi, filenames)
     finally:
         shutil.rmtree(shm, ignore_errors=True)
 
 
-def _phase_resume(torch, work: str, shm: str, smi: str) -> dict:
+def _phase_resume(torch, work: str, shm: str, smi: str, filenames) -> dict:
     import numpy as np
 
-    import ray_shuffling_data_loader_tpu_torch as port
     from ray_shuffling_data_loader_tpu_torch.train_dlrm import get_data, parse_args
     from ray_shuffling_data_loader_tpu_torch.utils.prng import epoch_permutation
 
@@ -4373,33 +4728,43 @@ def _phase_resume(torch, work: str, shm: str, smi: str) -> dict:
             tail = f"\n{run['stdout'][-3000:]}\n{run['stderr'][-3000:]}" if run else ""
             raise AssertionError(f"[resume] {what}{tail}")
 
-    # The runs that do not depend on each other run side by side, two rounds
-    # instead of five runs one after the other (each trainer pays seconds of
-    # start-up): the control and both victims, then both resumes. Each keeps
-    # its own shm directory and journal; the dataset and the child script are
-    # written once first.
+    # The runs that do not depend on each other run side by side (each
+    # trainer pays seconds of start-up): the control and both victims, and
+    # each resume as soon as its own victim is dead. Each keeps its own shm
+    # directory and journal; the dataset and the child script are written
+    # once first.
     with open(os.path.join(work, "child.py"), "w") as f:
         f.write(RESUME_CHILD)
-    get_data(parse_args(["--num-rows", str(NUM_ROWS), "--num-files", "10", "--num-row-groups-per-file", "5",
-                         "--seed", "0", "--data-dir", os.path.join(work, "data")]))
-    port.runtime.shutdown()  # the generation's session
+    # The trainers' data directory names the slices' files, which are this
+    # shape, in the manifest through which get_data reuses a dataset.
+    os.makedirs(os.path.join(work, "data"))
+    with open(os.path.join(work, "data", "manifest.json"), "w") as f:
+        json.dump({"shape": {"num_rows": NUM_ROWS, "num_files": 10, "row_groups": 5, "seed": 0},
+                   "files": [os.path.abspath(fn) for fn in filenames]}, f)
+    args = parse_args(["--num-rows", str(NUM_ROWS), "--num-files", "10", "--num-row-groups-per-file", "5",
+                       "--seed", "0", "--data-dir", os.path.join(work, "data")])
+    if get_data(args) != [os.path.abspath(fn) for fn in filenames]:
+        raise AssertionError("[resume] the trainers would not reuse the slices' dataset")
     shms = {name: os.path.join(shm, name) for name in ("control", *loaders)}
     for d in shms.values():
         os.makedirs(d)
     journal = {loader: {"RSDL_JOURNAL": os.path.join(work, f"journal-{loader}")} for loader in loaders}
+    def victim_then_resume(loader):
+        victim = resume_run(work, shms[loader], f"victim-{loader}", loader, kill_after=RESUME_KILL,
+                            env_extra=journal[loader])
+        t_victim = time.perf_counter() - t_round
+        return victim, t_victim, resume_run(work, shms[loader], f"resume-{loader}", loader,
+                                            env_extra={**journal[loader], "RSDL_RESUME": "redeliver"})
+
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
         t_round = time.perf_counter()
-        first = {"control": pool.submit(resume_run, work, shms["control"], "control", "mapreduce", checkpoint=False)}
-        for loader in loaders:
-            first[loader] = pool.submit(resume_run, work, shms[loader], f"victim-{loader}", loader,
-                                        kill_after=RESUME_KILL, env_extra=journal[loader])
-        first = {k: f.result() for k, f in first.items()}
+        control_fut = pool.submit(resume_run, work, shms["control"], "control", "mapreduce", checkpoint=False)
+        chains = {loader: pool.submit(victim_then_resume, loader) for loader in loaders}
+        first, second = {"control": control_fut.result()}, {}
         rounds_s = [time.perf_counter() - t_round]
-        t_round = time.perf_counter()
-        second = {loader: pool.submit(resume_run, work, shms[loader], f"resume-{loader}", loader,
-                                      env_extra={**journal[loader], "RSDL_RESUME": "redeliver"})
-                  for loader in loaders}
-        second = {k: f.result() for k, f in second.items()}
+        for loader, fut in chains.items():
+            first[loader], victim_s, second[loader] = fut.result()
+            rounds_s.append(victim_s)
         rounds_s.append(time.perf_counter() - t_round)
     control = first["control"]
     expect(control["rc"] == 0 and sorted(control["steps"]) == list(range(1, total + 1)),
@@ -4422,7 +4787,7 @@ def _phase_resume(torch, work: str, shm: str, smi: str) -> dict:
         want = list(range(ckpt_step + 1, total + 1))
         expect(sorted(resumed["steps"]) == want, f"{loader} resume: steps {sorted(resumed['steps'])}")
         check_resumed_launches(f"{loader} resume", resumed, len(want))
-        worst = 0.0
+        worst, perms = 0.0, {}
         for s in want:
             got = resumed["steps"][s]
             if loader == "mapreduce":
@@ -4431,7 +4796,9 @@ def _phase_resume(torch, work: str, shm: str, smi: str) -> dict:
                 worst = max(worst, abs(got["loss"] - ref["loss"]))
             else:
                 epoch, b = got["epoch"], got["batch"]
-                perm = epoch_permutation(0, epoch, NUM_ROWS, device="cpu").numpy()
+                if epoch not in perms:
+                    perms[epoch] = epoch_permutation(0, epoch, NUM_ROWS, device="cpu").numpy()
+                perm = perms[epoch]
                 expect(np.array_equal(got["keys"], perm[b * RESUME_BATCH:(b + 1) * RESUME_BATCH]),
                        f"resident step {s}: keys differ from epoch_permutation(0, {epoch})")
                 expect(math.isfinite(got["loss"]), f"resident step {s}: loss {got['loss']}")
@@ -4470,8 +4837,9 @@ def _phase_resume(torch, work: str, shm: str, smi: str) -> dict:
     out["rounds_s"] = rounds_s
     log(f"[resume] control: {total} steps, K1 launches {control['result']['interaction_launches']}, start-up "
         f"{control['result']['startup_s']}; resumed key "
-        f"streams equal the control's (mapreduce) and epoch_permutation's (resident) bit for bit; rounds (control "
-        f"and victims side by side, then the resumes) {rounds_s!r} s ({smi})")
+        f"streams equal the control's (mapreduce) and epoch_permutation's (resident) bit for bit; s from the start "
+        f"to the control's end, to each victim's death (mapreduce, resident; its resume starts then) and to the "
+        f"last resume's end {rounds_s!r} ({smi})")
     return out
 
 
@@ -4736,6 +5104,9 @@ def main() -> int:
     parser.add_argument("--pool-ready", default=None, metavar="ROOT",
                         help="only time fresh 8-worker pools of the checkout at ROOT (its ready_s) and exit")
     args = parser.parse_args()
+    if args.ranks_run is not None:  # a launcher: its ranks import torch, it need not
+        with open(args.ranks_run) as f:
+            return ranks_run(json.load(f))
 
     import torch
 
@@ -4745,27 +5116,11 @@ def main() -> int:
     if args.sp_op_rank is not None:
         with open(args.sp_spec) as f:
             return sp_op_rank(json.load(f), args.sp_op_rank)
-    if args.cluster_head is not None:
-        with open(args.cluster_head) as f:
-            return cluster_head(json.load(f))
-    if args.faults_head is not None:
-        with open(args.faults_head) as f:
-            return faults_head(json.load(f))
-    if args.telemetry_head is not None:
-        with open(args.telemetry_head) as f:
-            return telemetry_head(json.load(f))
-    if args.obs_head is not None:
-        with open(args.obs_head) as f:
-            return obs_head(json.load(f))
-    if args.elastic_head is not None:
-        with open(args.elastic_head) as f:
-            return elastic_head(json.load(f))
-    if args.service_head is not None:
-        with open(args.service_head) as f:
-            return service_head(json.load(f))
-    if args.ranks_run is not None:
-        with open(args.ranks_run) as f:
-            return ranks_run(json.load(f))
+    heads = {"cluster": cluster_head, "faults": faults_head, "telemetry": telemetry_head, "obs": obs_head,
+             "elastic": elastic_head, "service": service_head}
+    for head, fn in heads.items():
+        if getattr(args, f"{head}_head") is not None:
+            return run_head(fn, getattr(args, f"{head}_head"))
     if args.pool_ready is not None:
         return pool_ready(args.pool_ready)
     sys.path.insert(0, ROOT)
@@ -4791,6 +5146,14 @@ def main() -> int:
             slices = timed("slices", phase_slices, torch, data_dir)
             filenames = slices.pop("filenames")
             delivery = timed("delivery", phase_delivery, torch, filenames, NUM_ROWS)
+            uri_dirs = [os.path.join(ROOT, "build", d) for d in ("uri_data", "uri_stats")]
+            for d in uri_dirs:
+                shutil.rmtree(d, ignore_errors=True)
+            try:
+                uri = timed("uri", phase_uri, torch, filenames, slices["dlrm"], *uri_dirs)
+            finally:
+                for d in uri_dirs:
+                    shutil.rmtree(d, ignore_errors=True)
             ranks_dir = os.path.join(ROOT, "build", "ranks")
             shutil.rmtree(ranks_dir, ignore_errors=True)
             os.makedirs(ranks_dir)
@@ -4798,6 +5161,7 @@ def main() -> int:
                 ranks = timed("ranks", phase_ranks, filenames, smi, ranks_dir)
             finally:
                 shutil.rmtree(ranks_dir, ignore_errors=True)
+            start_head_early("cluster")
             audit_dir = os.path.join(ROOT, "build", "audit")
             shutil.rmtree(audit_dir, ignore_errors=True)
             os.makedirs(audit_dir)
@@ -4805,6 +5169,7 @@ def main() -> int:
                 audited = timed("audit", phase_audit, torch, filenames, NUM_ROWS, slices["dlrm"], audit_dir)
             finally:
                 shutil.rmtree(audit_dir, ignore_errors=True)
+            start_head_early("faults")
             cluster_dir = os.path.join(ROOT, "build", "cluster")
             shutil.rmtree(cluster_dir, ignore_errors=True)
             os.makedirs(cluster_dir)
@@ -4812,6 +5177,7 @@ def main() -> int:
                 cluster = timed("cluster", phase_cluster, torch, filenames, slices["dlrm"], cluster_dir)
             finally:
                 shutil.rmtree(cluster_dir, ignore_errors=True)
+            start_head_early("telemetry")
             faults_dir = os.path.join(ROOT, "build", "faults")
             shutil.rmtree(faults_dir, ignore_errors=True)
             os.makedirs(faults_dir)
@@ -4819,6 +5185,7 @@ def main() -> int:
                 faults = timed("faults", phase_faults, torch, filenames, cluster["single"], faults_dir)
             finally:
                 shutil.rmtree(faults_dir, ignore_errors=True)
+            start_head_early("obs")
             telemetry_dir = os.path.join(ROOT, "build", "telemetry")
             shutil.rmtree(telemetry_dir, ignore_errors=True)
             os.makedirs(telemetry_dir)
@@ -4827,6 +5194,7 @@ def main() -> int:
                                   telemetry_dir)
             finally:
                 shutil.rmtree(telemetry_dir, ignore_errors=True)
+            start_head_early("elastic")
             obs_dir = os.path.join(ROOT, "build", "obs")
             shutil.rmtree(obs_dir, ignore_errors=True)
             os.makedirs(obs_dir)
@@ -4834,6 +5202,7 @@ def main() -> int:
                 obs = timed("obs", phase_obs, torch, filenames, cluster, obs_dir)
             finally:
                 shutil.rmtree(obs_dir, ignore_errors=True)
+            start_head_early("service")
             elastic_dir = os.path.join(ROOT, "build", "elastic")
             shutil.rmtree(elastic_dir, ignore_errors=True)
             os.makedirs(elastic_dir)
@@ -4848,6 +5217,13 @@ def main() -> int:
                 service = timed("service", phase_service, torch, filenames, cluster, service_dir)
             finally:
                 shutil.rmtree(service_dir, ignore_errors=True)
+            resume_dir = os.path.join(ROOT, "build", "resume")
+            shutil.rmtree(resume_dir, ignore_errors=True)
+            os.makedirs(resume_dir)
+            try:
+                resume = timed("resume", phase_resume, torch, resume_dir, smi, filenames)
+            finally:
+                shutil.rmtree(resume_dir, ignore_errors=True)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
         plan_dir = os.path.join(ROOT, "build", "plan_data")
@@ -4870,13 +5246,6 @@ def main() -> int:
         summary = port.process_stats(trials, stats_dir=stats_dir)
         log(trial_line("slice dlrm", trials[0]))
         log(f"[stats] wrote {', '.join(sorted(os.listdir(stats_dir)))} under build/stats/: {summary}")
-        resume_dir = os.path.join(ROOT, "build", "resume")
-        shutil.rmtree(resume_dir, ignore_errors=True)
-        os.makedirs(resume_dir)
-        try:
-            resume = timed("resume", phase_resume, torch, resume_dir, smi)
-        finally:
-            shutil.rmtree(resume_dir, ignore_errors=True)
         lm = timed("lm", phase_lm, torch)
         sp_dir = os.path.join(ROOT, "build", "sp")
         shutil.rmtree(sp_dir, ignore_errors=True)
@@ -4928,10 +5297,15 @@ def main() -> int:
                 # and in the two tenants' DLRM runs through the multi-job
                 # service
                 entry["launches_service"] = service["launches_service"]
+                # and in the DLRM run over file:// URIs
+                entry["launches_uri"] = uri["launches"]["interaction_mma"]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: a phase failed", file=sys.stderr)
         return 1
+    finally:
+        stop_early_heads()
+        shutil.rmtree(HEAD_DIR, ignore_errors=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s; phase walls (s): "
         + ", ".join(f"{name} {secs:.1f}" for name, secs in WALLS.items()))
     if args.out:
@@ -4943,7 +5317,7 @@ def main() -> int:
                     "kernels": kernels,
                     "flash": flash,
                     "slices": {
-                        label: {k: v for k, v in sl.items() if k not in ("model", "batch")}
+                        label: {k: v for k, v in sl.items() if k not in ("model", "batch", "init_state")}
                         for label, sl in slices.items()
                     },
                     "lm": lm,
@@ -4961,6 +5335,7 @@ def main() -> int:
                     "obs": obs,
                     "elastic": elastic,
                     "service": service,
+                    "uri": uri,
                     "parity_max_abs_diff": {label: err for label, (err, _) in parity.items()},
                 },
                 f, indent=1,

@@ -76,8 +76,6 @@ def footer_stats(
     decoded bytes of a row (of ``columns`` when given, 8-byte columns
     counted as 4 when the run narrows) and the decoded-size estimate with
     its headroom. A footer that cannot be read leaves the figures None."""
-    import pyarrow.parquet as pq
-
     files = list(filenames)
     stride = max(1, len(files) // FOOTER_SAMPLE_CAP)
     sampled = files[::stride][:FOOTER_SAMPLE_CAP]
@@ -94,7 +92,7 @@ def footer_stats(
     rows_total = int(rows_sampled * (len(files) / max(1, len(sampled))))
     bytes_per_row: Optional[float] = None
     try:
-        schema = pq.ParquetFile(sampled[0], memory_map=True).schema_arrow
+        schema = sh._open_parquet_file(sampled[0])[0].schema_arrow
         want = {str(c) for c in columns} if columns else None
         width = 0
         for fld in schema:

@@ -4,7 +4,8 @@ A copy of the JAX package's generator with the same seeds, so the files it
 writes hold the same tables: 17 int64 embedding-index columns, 2 int64
 one-hot columns, a float64 ``labels`` column and a ``key`` row-id column
 (what the exactly-once checks read), snappy-compressed, with controllable
-row groups. Files are written on the runtime's task pool. Local paths only.
+row groups. Files are written on the runtime's task pool, to a local
+directory or a URI.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from ray_shuffling_data_loader_tpu_torch import runtime
+from ray_shuffling_data_loader_tpu_torch.utils import is_remote_path, parquet_filesystem
 
 # column name -> (low, high, dtype)
 DATA_SPEC = {
@@ -131,11 +133,17 @@ def generate_file(
     columns = {name: np.concatenate([g[name] for g in groups]) for name in groups[0]}
     data_size = sum(v.nbytes for v in columns.values())
     table = pa.table({k: pa.array(v) for k, v in columns.items()})
-    filename = os.path.join(data_dir, f"input_data_{file_index}.parquet.snappy")
-    if max_row_group_skew == 0.0:
-        pq.write_table(table, filename, compression="snappy", row_group_size=group_size)
+    if is_remote_path(data_dir):
+        # A URI: written through its filesystem, and the name keeps its scheme.
+        filename = f"{data_dir.rstrip('/')}/input_data_{file_index}.parquet.snappy"
+        fs, rel = parquet_filesystem(filename)
     else:
-        with pq.ParquetWriter(filename, table.schema, compression="snappy") as writer:
+        filename = rel = os.path.join(data_dir, f"input_data_{file_index}.parquet.snappy")
+        fs = None
+    if max_row_group_skew == 0.0:
+        pq.write_table(table, rel, compression="snappy", row_group_size=group_size, filesystem=fs)
+    else:
+        with pq.ParquetWriter(rel, table.schema, compression="snappy", filesystem=fs) as writer:
             at = 0
             for n in sizes:
                 writer.write_table(table.slice(at, n), row_group_size=n)
@@ -151,10 +159,13 @@ def generate_data(
     data_dir: str,
     seed: int = 0,
 ) -> Tuple[List[str], int]:
-    """Write the synthetic dataset, one pool task per file. Returns
-    ``(filenames, in-memory bytes)``."""
+    """Write the synthetic dataset, one pool task per file, under a local
+    directory (made if missing) or a URI (``file://``, ``s3://``, ...:
+    :func:`.utils.parquet_filesystem`; its directory is not made). Returns
+    ``(filenames, in-memory bytes)``; a URI's filenames keep its scheme."""
     ctx = runtime.ensure_initialized()
-    os.makedirs(data_dir, exist_ok=True)
+    if not is_remote_path(data_dir):
+        os.makedirs(data_dir, exist_ok=True)
     rows_per_file = max(1, num_rows // num_files)
     futures = [
         ctx.pool.submit(

@@ -43,7 +43,7 @@ import torch
 from ray_shuffling_data_loader_tpu_torch import runtime
 from ray_shuffling_data_loader_tpu_torch.device_dataset import _TORCH_OF_NUMPY, HostToDeviceStats
 from ray_shuffling_data_loader_tpu_torch.runtime import ActorDiedError
-from ray_shuffling_data_loader_tpu_torch.shuffle import _decode_narrow_to_store
+from ray_shuffling_data_loader_tpu_torch.shuffle import _decode_narrow_to_store, _open_parquet_file
 from ray_shuffling_data_loader_tpu_torch.utils.device import DeviceLike, resolve_device
 from ray_shuffling_data_loader_tpu_torch.utils.prng import epoch_permutation
 
@@ -58,10 +58,9 @@ FUSED_WARMUP_STEPS = 3
 
 
 def dataset_num_rows(filenames: Sequence[str]) -> int:
-    """Total rows of the Parquet files, from their footers (no decode)."""
-    import pyarrow.parquet as pq
-
-    return sum(pq.ParquetFile(f).metadata.num_rows for f in filenames)
+    """Total rows of the Parquet files, local paths or URIs, from their
+    footers (no decode)."""
+    return sum(_open_parquet_file(f)[0].metadata.num_rows for f in filenames)
 
 
 def packed_nbytes(num_rows: int, num_feature_columns: int) -> int:

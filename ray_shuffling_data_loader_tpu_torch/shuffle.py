@@ -154,6 +154,7 @@ from ray_shuffling_data_loader_tpu_torch.runtime.retry import stage_policy
 from ray_shuffling_data_loader_tpu_torch.runtime.store import DEVICE_BATCH_KIND, PACKED_COLUMN
 from ray_shuffling_data_loader_tpu_torch.telemetry import audit as _audit
 from ray_shuffling_data_loader_tpu_torch.telemetry import metrics as _metrics
+from ray_shuffling_data_loader_tpu_torch.utils import arrow_decode_threads, parquet_filesystem
 
 _INT32 = np.iinfo(np.int32)
 
@@ -218,6 +219,15 @@ _RG_META_LOCK = threading.Lock()
 _RG_META_CACHE: Dict[str, Tuple[int, ...]] = {}
 
 
+def _open_parquet_file(filename: str):
+    """``(ParquetFile, fs, rel)`` for a local path or a URI
+    (:func:`.utils.parquet_filesystem`); a local file is memory-mapped."""
+    import pyarrow.parquet as pq
+
+    fs, rel = parquet_filesystem(filename)
+    return pq.ParquetFile(rel, filesystem=fs, memory_map=fs is None), fs, rel
+
+
 def file_row_group_sizes(filename: str) -> List[int]:
     """Rows of each row group, from the Parquet footer, cached per
     process: the block plan reads every file's footer every epoch, and a
@@ -226,9 +236,8 @@ def file_row_group_sizes(filename: str) -> List[int]:
         hit = _RG_META_CACHE.get(filename)
     if hit is not None:
         return list(hit)
-    import pyarrow.parquet as pq
-
-    meta = pq.ParquetFile(filename, memory_map=True).metadata
+    pf, _, _ = _open_parquet_file(filename)
+    meta = pf.metadata
     sizes = tuple(int(meta.row_group(g).num_rows) for g in range(meta.num_row_groups))
     with _RG_META_LOCK:
         _RG_META_CACHE[filename] = sizes
@@ -265,8 +274,6 @@ def _decode_rowgroups_parallel(filename: str, names: List[str], sel: List[int], 
     columns needs no assembly across threads, which striping by row groups
     would. None for a file of one column (nothing to stripe) or when a
     thread failed; the caller then reads in one go."""
-    import pyarrow.parquet as pq
-
     if len(names) < 2:
         return None
     threads = min(threads, len(names))
@@ -276,7 +283,8 @@ def _decode_rowgroups_parallel(filename: str, names: List[str], sel: List[int], 
 
     def work(cols: List[str]) -> None:
         try:
-            table = pq.ParquetFile(filename, memory_map=True).read_row_groups(sel, columns=cols, use_threads=False)
+            pf, _, _ = _open_parquet_file(filename)
+            table = pf.read_row_groups(sel, columns=cols, use_threads=False)
             results.update(_table_to_columns(table))
         except BaseException as exc:
             errors.append(exc)
@@ -330,7 +338,8 @@ def read_parquet_columns(
     prof=None,
     metric_labels: Optional[Dict[str, str]] = None,
 ) -> ColumnBatch:
-    """Decode a local Parquet file to contiguous numpy columns.
+    """Decode a Parquet file, a local path or a URI
+    (:func:`.utils.parquet_filesystem`), to contiguous numpy columns.
 
     ``columns``: decode only these, in this order (None: all); a name the
     file lacks raises a ``ValueError``, and so does a projection that
@@ -360,14 +369,14 @@ def read_parquet_columns(
         prof = telemetry.stage_profiler("decode")
     simple = columns is None and row_groups is None and rowgroup_threads <= 1
     with contextlib.nullcontext() if simple else prof.phase("decode:io"):
-        pf = pq.ParquetFile(filename, memory_map=True)
+        pf, fs, rel = _open_parquet_file(filename)
         schema = pf.schema_arrow
         group_rows = [int(pf.metadata.row_group(g).num_rows) for g in range(pf.metadata.num_row_groups)]
     if simple:
         if counted:
             _count_decode(schema, group_rows, range(len(group_rows)), None)
         with prof.phase("decode:arrow") as ph:
-            table = pq.read_table(filename, use_threads=use_threads, memory_map=True)
+            table = pq.read_table(rel, use_threads=use_threads, memory_map=fs is None, filesystem=fs)
             cols = _table_to_columns(table)
             ph.add_bytes(sum(v.nbytes for v in cols.values()))
         return ColumnBatch(cols)
@@ -422,29 +431,13 @@ def _note_pruned(group_rows: Sequence[int], sel: Sequence[int], bytes_pruned: in
         _metrics.safe_inc("shuffle.decode_bytes_pruned", float(bytes_pruned), **labels)
 
 
-def _arrow_decode_threads(stage_tasks: int) -> bool:
-    """Should this worker's decode use Arrow's threads? Yes when the host
-    has at least twice as many cores as the stage runs decodes at once
-    (``min(stage_tasks, cores)``); Arrow's pool is then capped to this
-    decode's share of the cores. Decided in the worker, from its own
-    host's cores."""
-    cores = os.cpu_count() or 1
-    concurrent = min(max(1, stage_tasks), cores)
-    if cores < 2 * concurrent:
-        return False
-    import pyarrow as pa
-
-    pa.set_cpu_count(max(2, cores // concurrent))
-    return True
-
-
 def _decode_narrow_to_store(filename: str, columns: Sequence[str], stage_tasks: int = 0) -> ObjectRef:
     """Pool task of the device-resident loader's staging: decode
     ``columns`` of one file, narrow 64-bit columns to 32 bits and put them
     in the store. Returns the ref. ``stage_tasks``: the decodes the stage
     runs at once, from which the worker decides on Arrow's threads."""
     batch = read_parquet_columns(
-        filename, columns=columns, use_threads=stage_tasks > 0 and _arrow_decode_threads(stage_tasks)
+        filename, columns=columns, use_threads=stage_tasks > 0 and arrow_decode_threads(stage_tasks)
     )
     cols = {name: _narrow_column(name, batch.columns[name]) for name in columns}
     return runtime.ensure_initialized().store.put_columns(cols)
@@ -1911,9 +1904,7 @@ def _dataset_stats_task(
     row from the schema of the first file's first batch (after
     narrowing; of ``columns`` only, the run's projection, when given),
     rows from every file's footer."""
-    import pyarrow.parquet as pq
-
-    pf = pq.ParquetFile(filenames[0])
+    pf, _, _ = _open_parquet_file(filenames[0])
     per_row = 0.0
     wanted = None if columns is None else set(columns)
     for batch in pf.iter_batches(batch_size=1 << 16):
@@ -1927,7 +1918,7 @@ def _dataset_stats_task(
         break
     if per_row == 0.0:
         raise OSError(f"empty sample from {filenames[0]}")
-    total_rows = pf.metadata.num_rows + sum(pq.ParquetFile(f).metadata.num_rows for f in filenames[1:])
+    total_rows = pf.metadata.num_rows + sum(_open_parquet_file(f)[0].metadata.num_rows for f in filenames[1:])
     return per_row, int(total_rows)
 
 
@@ -2451,12 +2442,38 @@ def shuffle_epoch(
         return submit(shuffle_map, filenames[i], i, num_reducers, epoch, seed, narrow_to_32, None, publish,
                       stats_collector, plan, columns, knobs, len(filenames))
 
+    # Files whose decode-cache segment this epoch decoded again.
+    regenerated: set = set()
+
+    def settled(fut, again: Callable, stage: str, task: int):
+        """``fut``'s result. A failure on a decode-cache segment of the index
+        schedule whose file's segment was not yet decoded again this epoch
+        is its input's (the elastic evictor drops a pass's cold segments at
+        once): the segment is decoded again (:func:`recover_lost_cache`) and
+        ``again()`` runs the task once more, at no cost to its budget. Each
+        file earns that once an epoch, so these retries end. Any other
+        failure raises."""
+        while True:
+            try:
+                return fut.result()
+            except TaskError as exc:
+                lost = exc.lost_object_id
+                if schedule != "index" or lost is None or not any(
+                        ref.object_id == lost and j not in regenerated for j, ref in enumerate(cache_refs)):
+                    raise
+                _count_recovery(stats, epoch, "stage_retries", stage, task, exc)
+                telemetry.emit_event("stage.retry", stage=stage, epoch=epoch, attempt=0,
+                                     **{"reducer" if stage == "reduce" else "file": task},
+                                     error=f"{exc.error_type or type(exc).__name__}")
+                recover_lost_cache(lost)
+                fut = again()
+
     def settle_map(i: int, fut, again: Callable, stage: str, what: str):
         """A map task's result, its attempts bounded by the budget:
         ``again()`` submits the next attempt after a failure."""
         for attempt, backoff in policy.attempts(site="stage.map"):
             try:
-                return fut.result()
+                return settled(fut, again, "map", i)
             except TaskError as exc:
                 if attempt >= policy.max_attempts:
                     raise StageFailedError(stage, epoch, attempt,
@@ -2469,35 +2486,44 @@ def shuffle_epoch(
                 fut = again()
         raise AssertionError("unreachable: the stage budget has no attempt")
 
-    def regenerate_cache(j: int) -> None:
-        """The index schedule lost file ``j``'s decode-cache segment: decode
-        it again and publish it, for this epoch's retries and for later
-        epochs."""
-        _count_recovery(stats, epoch, "rematerialized", "decode-cache", j)
-        if telemetry.traced():
-            telemetry.instant("recovery:rematerialize", cat="recovery", file=j, cache=True)
+    def regenerate_cache(files: List[int]) -> None:
+        """The index schedule lost the decode-cache segments of ``files``:
+        decode them again, all at once, and publish them, for this epoch's
+        retries and for later epochs."""
 
-        def again():
+        def again(j):
             return submit(shuffle_map, filenames[j], j, num_reducers, epoch, seed, narrow_to_32, None, True,
                           stats_collector, plan, columns, knobs, len(filenames))
 
-        part_refs, new_cache = settle_map(j, again(), again, "map-rematerialize",
-                                          f"decode-cache regeneration of file {j}")
-        if new_cache is None:
-            raise StageFailedError("map-rematerialize", epoch, 1,
-                                   f"decode-cache regeneration for file {j} published nothing (store full?)")
-        # The index schedule takes no partitions; what is left of the lost
-        # segment goes too.
-        store.free([*part_refs, cache_refs[j]])
-        cache_refs[j] = new_cache
-        decode_cache.register(j, _Resolved((None, new_cache)))
+        runs = {j: again(j) for j in files}
+        for j, fut in runs.items():
+            _count_recovery(stats, epoch, "rematerialized", "decode-cache", j)
+            if telemetry.traced():
+                telemetry.instant("recovery:rematerialize", cat="recovery", file=j, cache=True)
+            part_refs, new_cache = settle_map(j, fut, lambda j=j: again(j), "map-rematerialize",
+                                              f"decode-cache regeneration of file {j}")
+            if new_cache is None:
+                raise StageFailedError("map-rematerialize", epoch, 1,
+                                       f"decode-cache regeneration for file {j} published nothing (store full?)")
+            # The index schedule takes no partitions; what is left of the lost
+            # segment goes too.
+            store.free([*part_refs, cache_refs[j]])
+            cache_refs[j] = new_cache
+            regenerated.add(j)
+            decode_cache.register(j, _Resolved((None, new_cache)))
 
     def recover_lost_cache(lost: Optional[str]) -> None:
-        if lost is not None and schedule == "index":
-            for j, ref in enumerate(cache_refs):
-                if ref.object_id == lost:
-                    regenerate_cache(j)
-                    return
+        """If ``lost`` is one of the index schedule's decode-cache segments,
+        decode it again, and with it every other of this host's cache
+        segments that is gone too: the elastic evictor drops a pass's cold
+        segments at once, and a task reads every file's."""
+        if lost is None or schedule != "index":
+            return
+        named = [j for j, ref in enumerate(cache_refs) if ref.object_id == lost]
+        if named:
+            gone = [j for j, ref in enumerate(cache_refs)
+                    if j not in named and not store.is_foreign(ref) and not store.exists(ref)]
+            regenerate_cache(named + gone)
 
     def await_map(i: int, fut, publish: bool):
         """Map ``i``'s result, re-executed on failure up to the budget:
@@ -2594,9 +2620,14 @@ def shuffle_epoch(
         cache segment decoded again; returns the output and the inputs it
         read."""
         refs_r = None if selective else [parts[r] for parts in partitions]
+
+        def again():
+            reduce_futs[r] = submit_reduce(r, refs_r)
+            return reduce_futs[r]
+
         for attempt, backoff in policy.attempts(site="stage.reduce"):
             try:
-                return reduce_futs[r].result(), refs_r
+                return settled(reduce_futs[r], again, "reduce", r), refs_r
             except TaskError as exc:
                 if attempt >= policy.max_attempts:
                     raise StageFailedError("reduce", epoch, attempt,
@@ -2610,7 +2641,7 @@ def shuffle_epoch(
                     rematerialize(r, refs_r, lost)
                 else:
                     recover_lost_cache(lost)
-                reduce_futs[r] = submit_reduce(r, refs_r)
+                again()
         raise AssertionError("unreachable: the stage budget has no attempt")
 
     try:

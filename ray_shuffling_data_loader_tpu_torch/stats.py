@@ -13,17 +13,19 @@ sampler: every period it sets the ``store.*`` gauges, takes
 :func:`.telemetry.metrics.global_snapshot`, records it in the timeline,
 forwards it to the collector (``metrics_sample``, kept in the trial's
 ``metrics_samples``), spools the driver's registry and logs the progress
-line. Remote ``stats_dir`` URIs are not ported: the CSVs go to a local
-directory.
+line. ``stats_dir`` may be a local directory or a URI
+(:func:`.utils.parquet_filesystem`: ``file://`` through pyarrow, other
+schemes through pyarrow's or fsspec's filesystems).
 
-This module imports numpy only: the collector runs as an actor, and the
-shuffle's workers call it.
+This module imports numpy (and pyarrow for a URI) only: the collector
+runs as an actor, and the shuffle's workers call it.
 """
 
 from __future__ import annotations
 
 import asyncio
 import csv
+import io
 import logging
 import os
 import threading
@@ -33,6 +35,8 @@ from dataclasses import dataclass, field
 from typing import Any, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
+
+from ray_shuffling_data_loader_tpu_torch.utils import is_remote_path, parquet_filesystem
 
 logger = logging.getLogger(__name__)
 
@@ -518,12 +522,35 @@ def _check_append_schema(header_line: str, rows: List[Dict], path: str) -> None:
 def _write_csv(path: str, rows: List[Dict], overwrite: bool) -> None:
     if not rows:
         return
+    if is_remote_path(path):
+        _write_csv_uri(path, rows, overwrite)
+        return
     write_header = overwrite or not os.path.exists(path)
     if not write_header:
         with open(path, newline="") as f:
             _check_append_schema(f.readline(), rows, path)
     with open(path, "w" if overwrite else "a", newline="") as f:
         _write_rows(f, rows, write_header)
+
+
+def _write_csv_uri(path: str, rows: List[Dict], overwrite: bool) -> None:
+    """:func:`_write_csv` to a URI. Object stores have no append: an append
+    reads the file, checks its header as a local append does, and writes it
+    back with the new rows (a trial's CSVs are small)."""
+    from pyarrow import fs as pafs
+
+    fs, rel = parquet_filesystem(path)
+    write_header = overwrite or fs.get_file_info(rel).type == pafs.FileType.NotFound
+    out = io.StringIO(newline="")
+    if not write_header:
+        with fs.open_input_stream(rel) as f:
+            existing = f.read().decode()
+        lines = existing.splitlines()
+        _check_append_schema(lines[0] if lines else "", rows, path)
+        out.write(existing)
+    _write_rows(out, rows, write_header)
+    with fs.open_output_stream(rel) as f:
+        f.write(out.getvalue().encode())
 
 
 def process_stats(
@@ -534,10 +561,12 @@ def process_stats(
     epoch_csv: str = "epoch_stats.csv",
     consume_csv: str = "consume_timeline.csv",
 ) -> Dict[str, float]:
-    """Write the trial, epoch and consumer-timeline CSVs under the local
-    directory ``stats_dir`` and return the summary across trials (mean and
-    standard deviation of the duration, mean throughputs)."""
-    os.makedirs(stats_dir, exist_ok=True)
+    """Write the trial, epoch and consumer-timeline CSVs under
+    ``stats_dir`` and return the summary across trials (mean and standard
+    deviation of the duration, mean throughputs). A local ``stats_dir`` is
+    made if missing; a URI's is not (object stores have no directories)."""
+    if not is_remote_path(stats_dir):
+        os.makedirs(stats_dir, exist_ok=True)
     trial_rows = [t.row() for t in all_trial_stats]
     epoch_rows = [e.row(t.trial) for t in all_trial_stats for e in t.epochs]
     consume_rows = [

@@ -6,7 +6,8 @@ and strict, and holds both to the JAX package's fault-free key stream for
 the seed (every key once, in the same delivery order) and to an ``ok``
 verdict. Cases: a crashed map, a crashed reduce (at its exit: the audit's
 dedup absorbs the attempt's records), a lost store object (lineage), a
-lost decode-cache segment under the index schedule, a transport reset, a
+lost decode-cache segment under the index schedule (and, the port alone,
+every one dropped at once), a transport reset, a
 dead-but-listed host agent, a poison map (``StageFailedError``, every
 rank's end of epoch delivered), a killed pool worker, the selective
 schedule's plain resubmit and a retried reduce under the overlapped
@@ -233,6 +234,51 @@ def test_recovers_a_lost_decode_cache_under_the_index_schedule(chaos, files, ref
             _held(consumer, audit.reconcile([0]), reference)
             cache.free_all()
             assert rt.store_stats().num_objects == 0
+
+
+def _port_index_epoch(chaos, files, reference, **env):
+    """One index-schedule epoch of the port over a decode cache published
+    beforehand: ``(stats, StageFailedError or None)``; a run that ends
+    delivered the reference's stream."""
+    with chaos("port", "", 0, RSDL_INDEX_SHUFFLE="on", **env) as (rt, ctx):
+        shuffle_mod = _mod("port", "shuffle")
+        audit = _mod("port", "telemetry.audit")
+        audit.begin_run()
+        cache = shuffle_mod._DecodeCache(enabled=True)
+        for i, fname in enumerate(files):
+            refs, cref = shuffle_mod.shuffle_map(fname, i, NUM_REDUCERS, epoch=0, seed=SEED, publish_cache=True)
+            ctx.store.free(refs)
+            cache.register(i, shuffle_mod._Resolved((None, cref)))
+        consumer, log, stats, error = Collecting(rt), [], {}, None
+        try:
+            shuffle_mod.shuffle_epoch(0, files, consumer, NUM_REDUCERS, 1, SEED, decode_cache=cache,
+                                      schedule_log=log, stats=stats)
+        except shuffle_mod.StageFailedError as exc:
+            error = exc
+        cache.free_all()
+        if error is None:
+            assert log == [(0, "index")]
+            _held(consumer, audit.reconcile([0]), reference)
+            assert rt.store_stats().num_objects == 0
+    return stats, error
+
+
+def test_recovers_every_decode_cache_segment_dropped_at_once(chaos, files, reference, monkeypatch, tmp_path):
+    """The elastic evictor drops every cold spilled segment of a pass at
+    once, and an index-schedule reduce reads every file's cache segment:
+    all four are lost between the plans and the reduces. The port decodes
+    every lost segment again at the first failure, and a task's failure on
+    a file's segment lost for the first time this epoch spends none of its
+    3 attempts. (The JAX package decodes one segment an attempt, so four
+    lost segments exhaust the budget: the port's deliberate difference.)"""
+    import torch_port_helpers as helpers
+
+    monkeypatch.setattr(_mod("port", "shuffle"), "shuffle_gather_reduce", helpers.dropping_gather_reduce)
+    stats, error = _port_index_epoch(chaos, files, reference, RSDL_TEST_DROP_MARKER=str(tmp_path / "dropped"))
+    assert error is None, error
+    assert (tmp_path / "dropped").exists()
+    assert stats["rematerialized"] == {"decode-cache": NUM_FILES}
+    assert set(_errors(stats, "reduce")) == {"ObjectLostError"}
 
 
 def test_rides_out_a_transport_reset(chaos, files, reference):

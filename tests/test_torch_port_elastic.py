@@ -529,6 +529,22 @@ def test_evictor_cache_tier_drops_first(env, monkeypatch):
     assert run["fold"]["totals"]["cache"]["resident_bytes"] == 0
 
 
+def test_evictor_one_pressured_pass_fires_both_rungs_at_drop_age_zero(env, monkeypatch):
+    """With a drop age of 0 one unforced pass under pressure demotes the
+    cold epoch's segments down to the low watermark and then drops them
+    from spill: both events come from the one pass, and the fenced epoch
+    stays on shm."""
+    script = [("put", "cold_a", 0, 25_000, "plain"), ("put", "cold_b", 0, 25_000, "plain"),
+              ("put", "hot", 1, 4096, "plain"), ("fence", {1}), ("evict", 0.0, False, False)]
+    run = _parity(env, monkeypatch, script, 230_000, RSDL_EVICT_DROP_AGE_S=0)
+    stats = run["out"][-1][1]
+    assert stats["demoted"] >= 1 and stats["dropped"] == stats["demoted"]
+    assert stats["dropped_bytes"] == stats["demoted_bytes"]
+    assert [e["kind"] for e in run["events"]] == ["evict.demote", "evict.drop"]
+    assert run["tiers"]["hot"] == ("shm", 1)
+    assert [op for op, _, _ in run["log"]] == ["demote"] * stats["demoted"] + ["drop_segments"] * stats["dropped"]
+
+
 def test_evictor_never_drops_a_delivered_batch(env, monkeypatch):
     """A delivered batch of an epoch out of the fence may be demoted (it
     stays readable) but no drop rung takes it, forced or not: the trainer

@@ -398,7 +398,7 @@ def test_every_variable_unset_loads_no_new_plane(tmp_path):
 # -- two hosts, a spool each -------------------------------------------------------------
 
 HEAD = r"""
-import json, os, sys, time, urllib.request
+import json, os, shutil, sys, time, urllib.request
 sys.path.insert(0, {repo!r})
 import ray_shuffling_data_loader_tpu_torch as port
 from ray_shuffling_data_loader_tpu_torch import runtime
@@ -463,6 +463,10 @@ def main():
         fail("/stragglers or /critical without the remote tasks")
     if len(get("/status")["cluster"]["agents"]) != 2:
         fail("membership")
+    # The federated task spool outlives the session, for the post-hoc report.
+    shutil.copytree(task_dir, {keep!r})
+    with open(os.path.join({keep!r}, "meta.json"), "w") as f:
+        json.dump({{"remote_lines": remote_lines}}, f)
     print(f"VERDICT: PASS remote task records {{remote_lines}}", flush=True)
     runtime.shutdown()
 
@@ -501,8 +505,9 @@ def test_two_hosts_with_a_spool_each(tmp_path):
     shared memory): the head's audit reconciles both epochs ``ok`` (the
     joined host's map and reduce records reach it only through the relay),
     the aggregate holds both hosts' sources, the joined host's task
-    records fold into ``/stragglers`` and ``/critical``, and ``/healthz``
-    shows it fresh."""
+    records fold into ``/stragglers`` and ``/critical``, ``/healthz``
+    shows it fresh, and the port's ``epoch_report`` over the kept task spool
+    folds them too, as the JAX tool does."""
     addr = str(tmp_path / "address")
     base = {k: v for k, v in os.environ.items() if not k.startswith(("RSDL_", "JAX", "XLA"))}
     common = dict(base, RSDL_ADVERTISE_HOST="127.0.0.1", RSDL_METRICS="1", RSDL_RELAY="auto", RSDL_AUDIT="1",
@@ -519,7 +524,8 @@ def test_two_hosts_with_a_spool_each(tmp_path):
                           RSDL_SHM_DIR=f"/dev/shm/rsdl-relay-test-{os.getpid()}-{name}",
                           RSDL_SPILL_DIR=str(tmp_path / f"spill-{name}"))
     envs["head"]["RSDL_OBS_PORT"] = str(obs_port)
-    scripts = {"head": HEAD.format(repo=REPO, addr=addr, data=str(tmp_path / "data")),
+    keep = str(tmp_path / "tasks-kept")
+    scripts = {"head": HEAD.format(repo=REPO, addr=addr, data=str(tmp_path / "data"), keep=keep),
                "joined": JOINED.format(repo=REPO, addr=addr)}
     logs = {}
     try:
@@ -545,3 +551,16 @@ def test_two_hosts_with_a_spool_each(tmp_path):
     out = {name: (tmp_path / f"{name}.log").read_text() for name in ("head", "joined")}
     assert "VERDICT: PASS" in out["head"], out
     assert procs["head"].returncode == 0 and procs["joined"].returncode == 0, out
+    # The post-hoc epoch report over the federated task spool folds the
+    # joined host's records too, as the JAX tool does on the same spool.
+    meta = json.loads(open(os.path.join(keep, "meta.json")).read())
+    reports = {}
+    for name, cmd in (("port", ["-m", "ray_shuffling_data_loader_tpu_torch.epoch_report"]),
+                      ("jax", [os.path.join(REPO, "tools", "epoch_report.py")])):
+        proc = subprocess.run([sys.executable, *cmd, "--task-records", keep, "--json"], capture_output=True,
+                              text=True, timeout=120, env=dict(base, PYTHONPATH=REPO), cwd=str(tmp_path))
+        assert proc.returncode == 0, proc.stderr
+        reports[name] = json.loads(proc.stdout)
+    assert reports["port"] == reports["jax"]
+    rows = reports["port"].get("stragglers") or []
+    assert rows and sum(int(r["tasks"]) for r in rows) >= meta["remote_lines"] > 0

@@ -1,9 +1,12 @@
 """The port's stats plane against the JAX package's: the same events give
 the same trial, epoch and consume rows and the same CSV headers; a port
-shuffle and the resident loader report to a collector actor."""
+shuffle and the resident loader report to a collector actor; the CSVs go
+to a local directory or a URI (``memory://`` against the JAX writer,
+``file://`` against the local write)."""
 
 import asyncio
 import csv
+import sys
 import time
 import uuid
 
@@ -196,3 +199,71 @@ def test_human_readable_big_num_matches_jax(num):
 @pytest.mark.parametrize("precision", [1, 3])
 def test_human_readable_size_matches_jax(num, precision):
     assert port_stats.human_readable_size(num, precision) == jax_stats.human_readable_size(num, precision)
+
+
+def _read_uri(uri):
+    import fsspec
+
+    with fsspec.open(uri, "r", newline="") as f:
+        return f.read()
+
+
+CSV_NAMES = ("trial_stats.csv", "epoch_stats.csv", "consume_timeline.csv")
+
+
+def test_process_stats_to_memory_uri_matches_jax():
+    """The same trial through either package's writer to ``memory://``
+    gives the same CSVs, byte for byte, and so does an append; a stale
+    header refuses the append in both."""
+    stats = _drive(port_stats, True)
+    run = uuid.uuid4().hex[:8]
+    dirs = {"port": f"memory://port-{run}/stats", "jax": f"memory://jax-{run}/stats"}
+    for mod, name in ((port_stats, "port"), (jax_stats, "jax")):
+        assert mod.process_stats([stats], stats_dir=dirs[name]).keys() == {
+            "num_trials", "duration_mean", "duration_std", "row_throughput_mean", "batch_throughput_mean"}
+    for fname in CSV_NAMES:
+        first = _read_uri(f"{dirs['port']}/{fname}")
+        assert first == _read_uri(f"{dirs['jax']}/{fname}") and first.count("\n") > 1, fname
+    for mod, name in ((port_stats, "port"), (jax_stats, "jax")):
+        mod.process_stats([stats], stats_dir=dirs[name], overwrite_stats=False)
+    for fname in CSV_NAMES:
+        appended = _read_uri(f"{dirs['port']}/{fname}")
+        assert appended == _read_uri(f"{dirs['jax']}/{fname}"), fname
+    assert _read_uri(f"{dirs['port']}/trial_stats.csv").count("\r\n") == 3  # the header, the row twice
+    import fsspec
+
+    for name in ("port", "jax"):
+        text = _read_uri(f"{dirs[name]}/trial_stats.csv")
+        header, rest = text.split("\r\n", 1)
+        with fsspec.open(f"{dirs[name]}/trial_stats.csv", "w", newline="") as f:
+            f.write(",".join(header.split(",")[:-2]) + "\r\n" + rest)
+    errors = {}
+    for mod, name in ((port_stats, "port"), (jax_stats, "jax")):
+        with pytest.raises(ValueError, match="does not match") as exc:
+            mod.process_stats([stats], stats_dir=dirs[name], overwrite_stats=False)
+        errors[name] = str(exc.value).replace(dirs[name], "<dir>")
+    assert errors["port"] == errors["jax"]
+
+
+def test_process_stats_to_file_uri_is_the_local_write(tmp_path, monkeypatch):
+    """``file://`` writes the local directory's CSVs byte for byte, and
+    appends as a local write does, with fsspec unimportable."""
+    stats = _drive(port_stats, False)
+    (tmp_path / "uri").mkdir()
+    monkeypatch.setitem(sys.modules, "fsspec", None)
+    for overwrite in (True, False):
+        port_stats.process_stats([stats], stats_dir=f"file://{tmp_path / 'uri'}", overwrite_stats=overwrite)
+        port_stats.process_stats([stats], stats_dir=str(tmp_path / "local"), overwrite_stats=overwrite)
+        for fname in CSV_NAMES:
+            assert (tmp_path / "uri" / fname).read_bytes() == (tmp_path / "local" / fname).read_bytes(), fname
+    with open(tmp_path / "uri" / "trial_stats.csv", newline="") as f:
+        assert len(list(csv.DictReader(f))) == 2
+
+
+def test_process_stats_makes_no_directory_for_a_uri(tmp_path):
+    """A URI's directory is the store's (object stores have none): the
+    writer makes none, and a missing local one behind ``file://`` raises
+    instead of being created."""
+    with pytest.raises(OSError):
+        port_stats.process_stats([_drive(port_stats, False)], stats_dir=f"file://{tmp_path / 'missing'}")
+    assert not (tmp_path / "missing").exists()

@@ -74,6 +74,23 @@ def fault_role():
     return faults.role()
 
 
+def dropping_gather_reduce(reduce_index, epoch, seed, refs, cache_refs, *rest):
+    """The port's ``shuffle_gather_reduce``, but the first call of a session
+    (the one that makes the marker file named by ``RSDL_TEST_DROP_MARKER``)
+    first drops every decode-cache segment it is given: what the elastic
+    evictor's drop rung does to cold spilled segments, all in one pass,
+    between the index schedule's plans and its reduces."""
+    from ray_shuffling_data_loader_tpu_torch import runtime, shuffle
+
+    try:
+        os.close(os.open(os.environ["RSDL_TEST_DROP_MARKER"], os.O_CREAT | os.O_EXCL))
+    except FileExistsError:
+        pass
+    else:
+        runtime.ensure_initialized().store.drop_segments([ref.object_id for ref in cache_refs])
+    return shuffle.shuffle_gather_reduce(reduce_index, epoch, seed, refs, cache_refs, *rest)
+
+
 def probe_task(tag):
     """The trace context live in a pool worker, inside a span of its own."""
     from ray_shuffling_data_loader_tpu_torch import telemetry
