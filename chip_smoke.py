@@ -12,6 +12,16 @@ Phases, each of which fails the script (non-zero exit) on any error:
    ``interaction_mma.cu``, ``flash_fwd_mma.cu``, ``flash_bwd_dkv_mma.cu``,
    ``flash_bwd_dq_mma.cu``; one ``nvcc`` each, all started together) into
    ``build/kernels/`` and log each kernel's registers and spills;
+   lint, beside the build's ``nvcc``: the port's static analysis
+   (``python -m ray_shuffling_data_loader_tpu_torch.rsdl_lint --json``)
+   over the tree as shipped must exit 0 with 0 active findings and the
+   reviewed count of suppressed ones, each with its reason; and the
+   runtime twin of its gate-integrity check, with CUDA present and every
+   ``RSDL_*`` unset: import the port's ``runtime``, ``runtime.actor``,
+   ``shuffle``, ``dataset`` and ``device_dataset``, touch the card, one
+   ``runtime.init``, submit and shutdown, and then none of
+   ``telemetry.trace``, ``telemetry.audit``, ``telemetry.export`` or
+   ``runtime.faults`` may be loaded; logs both one's seconds;
    native: build the shuffle's host kernels
    (``ray_shuffling_data_loader_tpu_torch/native/kernels.cc``, g++) and
    hold every entry point against its plain numpy version, bit for bit, at
@@ -651,6 +661,91 @@ def phase_build():
                 regs = re.search(r"Used (\d+) registers", line).group(1)
                 log(f"[build] {name}: {entry}: {regs} registers; {spills}")
                 entry = spills = None
+
+
+# The port's reviewed lint suppressions (tests/test_torch_port_lint.py pins
+# the same count): a new one is a reviewed change of this number.
+LINT_SUPPRESSED = 26
+# The runtime twin of gate-integrity: the core imports with CUDA present,
+# then no light gated plane may be loaded. A file, for the pool's spawn.
+GATE_PROBE = """\
+import json, os, sys
+for k in list(os.environ):
+    if k.startswith("RSDL_"):
+        del os.environ[k]
+
+
+def main():
+    import torch
+    from ray_shuffling_data_loader_tpu_torch import dataset, device_dataset, runtime, shuffle, telemetry  # noqa: F401
+    from ray_shuffling_data_loader_tpu_torch.runtime import actor  # noqa: F401
+
+    assert telemetry.outbound() is None
+    torch.ones(1, device="cuda").sum().item()
+    runtime.init(num_workers=1)
+    assert runtime.submit(len, [1, 2, 3]).result(timeout=120) == 3
+    runtime.shutdown()
+    gated = [m for m in sys.modules
+             if m.endswith((".telemetry.trace", ".telemetry.audit", ".telemetry.export", ".runtime.faults"))]
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "gated": gated}))
+
+
+if __name__ == "__main__":
+    main()
+"""
+GATE_PROBE_PATH = os.path.join(ROOT, "build", "gate_probe.py")
+
+
+def _seconds(fn, *args) -> tuple:
+    """``(fn(*args), its wall seconds)``."""
+    t0 = time.perf_counter()
+    return fn(*args), time.perf_counter() - t0
+
+
+def _run_gate_probe() -> subprocess.CompletedProcess:
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
+    env["PYTHONPATH"] = os.pathsep.join([ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
+    return subprocess.run([sys.executable, GATE_PROBE_PATH], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+
+
+def start_lint(pool) -> tuple:
+    """Start the port's lint (``--json``, as a user runs it) and the gate
+    probe in ``pool``, each in a process of its own with every ``RSDL_*``
+    unset, while the build runs."""
+    os.makedirs(os.path.dirname(GATE_PROBE_PATH), exist_ok=True)
+    with open(GATE_PROBE_PATH, "w") as f:
+        f.write(GATE_PROBE)
+    return pool.submit(_seconds, run_tool, "rsdl_lint", "--json"), pool.submit(_seconds, _run_gate_probe)
+
+
+def phase_lint(lint, probe) -> dict:
+    """Wait for :func:`start_lint`'s processes and check them."""
+    try:
+        ((rc, out, err), lint_s), (pres, probe_s) = lint.result(), probe.result()
+    finally:
+        with contextlib.suppress(FileNotFoundError):
+            os.unlink(GATE_PROBE_PATH)
+    if rc != 0:
+        raise AssertionError(f"[lint] rsdl_lint exited {rc}: {out[-3000:]}{err[-2000:]}")
+    payload = json.loads(out)
+    unreasoned = [f for f in payload["findings"] if not (f.get("suppressed") and f.get("suppress_reason"))]
+    if payload["counts"] != {"active": 0, "suppressed": LINT_SUPPRESSED} or unreasoned:
+        raise AssertionError(f"[lint] counts {payload['counts']}, want 0 active and {LINT_SUPPRESSED} suppressed; "
+                             f"without a reason: {unreasoned}")
+    if pres.returncode != 0:
+        raise AssertionError(f"[lint] gate probe exited {pres.returncode}: {pres.stdout[-2000:]}{pres.stderr[-3000:]}")
+    got = json.loads(pres.stdout.strip().splitlines()[-1])
+    if got["gated"]:
+        raise AssertionError(f"[lint] gate probe: gated planes loaded with every RSDL_* unset: {got['gated']}")
+    by_check: dict = {}
+    for f in payload["findings"]:
+        by_check[f["check"]] = by_check.get(f["check"], 0) + 1
+    log(f"[lint] rsdl_lint --json: exit 0, {payload['counts']['active']} active, "
+        f"{payload['counts']['suppressed']} suppressed {by_check}, {lint_s:.2f} s; gate probe on "
+        f"{got['device']}: core imports, runtime.init, submit, shutdown, no gated plane loaded, {probe_s:.2f} s")
+    return {"exit": rc, "counts": payload["counts"], "suppressed_by_check": by_check,
+            "lint_s": lint_s, "probe_s": probe_s, "probe_device": got["device"]}
 
 
 # The host kernels' shapes: the map of one Quick-start file (100,000 rows,
@@ -3037,6 +3132,8 @@ def telemetry_tools(work: str, res: dict) -> dict:
     top = json.loads(tool("rsdl_prof", "top", "--dir", spool("profiles"), "--json"))
     if not top["top"] or not top["samples"] or top["sources"] < 2:
         raise AssertionError(f"[telemetry] rsdl_prof top: {top}")
+    # rsdl-lint: disable=vocabulary-drift -- named after the profiler CLI
+    # module, rsdl_prof: a key of this phase's result, not a metric
     out["rsdl_prof"] = {"samples": top["samples"], "sources": top["sources"], "top": top["top"][0]["frame"]}
     audited = json.loads(tool("audit_report", "--audit-json", spool("audit.json"), "--metrics",
                               spool("metrics.json"), "--json"))
@@ -5131,7 +5228,10 @@ def main() -> int:
     data_dir = os.path.join(ROOT, "build", "smoke_data")
     t_start = time.perf_counter()
     try:
-        timed("build", phase_build)
+        with concurrent.futures.ThreadPoolExecutor(2) as lint_pool:
+            pending_lint = start_lint(lint_pool)
+            timed("build", phase_build)
+            lint = timed("lint", phase_lint, *pending_lint)
         host = timed("native", phase_native)
         # The plain versions' fp32 products must not round their inputs to TF32.
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -5323,6 +5423,7 @@ def main() -> int:
                     "lm": lm,
                     "sp": sp,
                     "native": host,
+                    "lint": lint,
                     "delivery": delivery,
                     "ranks": ranks,
                     "plan": plan,

@@ -287,3 +287,9 @@ class KnobRegistry:
 
 REGISTRY = KnobRegistry(KNOBS)
 
+
+
+def registry_for(project) -> KnobRegistry:
+    """The registry to lint ``project`` against: the one registry, for
+    the repo and for every fixture tree alike."""
+    return REGISTRY

@@ -37,7 +37,7 @@ from ray_shuffling_data_loader_tpu_torch.runtime.store import (
     rows_of,
 )
 from ray_shuffling_data_loader_tpu_torch.shuffle import BatchConsumer, shuffle
-from ray_shuffling_data_loader_tpu_torch.telemetry import audit as _audit
+from ray_shuffling_data_loader_tpu_torch.telemetry._env import audit_plane as _audit
 
 # Default reducer share of the host's cores.
 REDUCER_CLUSTER_CORE_SHARE = 0.6

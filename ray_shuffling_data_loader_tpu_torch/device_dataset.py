@@ -58,7 +58,7 @@ from ray_shuffling_data_loader_tpu_torch import native, telemetry
 from ray_shuffling_data_loader_tpu_torch.dataset import ShufflingDataset
 from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch
 from ray_shuffling_data_loader_tpu_torch.shuffle import _narrow_column, device_direct_enabled
-from ray_shuffling_data_loader_tpu_torch.telemetry import audit as _audit
+from ray_shuffling_data_loader_tpu_torch.telemetry._env import audit_plane as _audit
 from ray_shuffling_data_loader_tpu_torch.telemetry import metrics as _metrics
 from ray_shuffling_data_loader_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -529,7 +529,7 @@ class DeviceShufflingDataset:
         # The caller's job of the multi-job service rides into the stager,
         # which reads and stages for it: its consumed and staged digests are
         # the job's (the trace context does not cross threads).
-        job = _audit._ambient_job()
+        job = telemetry.ambient_job()
 
         def run_stager():
             if job is None:

@@ -490,8 +490,10 @@ def narrow(arr: np.ndarray, dtype, n_threads: Optional[int] = None) -> np.ndarra
     fn = None
     if arr.flags.c_contiguous:
         if arr.dtype == np.int64 and dtype == np.int32:
+            # rsdl-lint: disable=vocabulary-drift -- a C symbol of the built library, not a metric
             fn = "rsdl_cast_i64_i32"
         elif arr.dtype == np.float64 and dtype == np.float32:
+            # rsdl-lint: disable=vocabulary-drift -- a C symbol of the built library, not a metric
             fn = "rsdl_cast_f64_f32"
     lib = _native() if fn is not None else None
     if lib is None:

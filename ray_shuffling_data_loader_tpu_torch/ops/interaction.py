@@ -108,8 +108,10 @@ def interaction_kernel(stacked: torch.Tensor, route=None) -> torch.Tensor:
         raise ValueError("interaction_kernel needs a CUDA tensor")
     if not stacked.is_contiguous():
         raise ValueError("interaction_kernel needs a contiguous tensor")
+    # rsdl-lint: disable=vocabulary-drift -- C symbols of the kernel library,
+    # looked up by name: not Prometheus aliases, never on a scrape
     name, fn = ("interaction_mma", "rsdl_interaction_mma") if route == "mma" else (
-        "interaction", "rsdl_interaction_fwd")
+        "interaction", "rsdl_interaction_fwd")  # rsdl-lint: disable=vocabulary-drift -- a C symbol, not a metric
     lib = _library(name, fn)
     out = torch.empty((b, num_pairs(n)), dtype=stacked.dtype, device=stacked.device)
     if b == 0:

@@ -598,6 +598,10 @@ def spawn_actor(
         if stale is not None and stale.pid is not None and _pid_alive(stale.pid):
             raise ValueError(f"actor name {name!r} already registered")
         try:
+            # rsdl-lint: disable=barrier-order -- evicting a DEAD
+            # foreign actor's stale record, not self-deregistration:
+            # the dead holder's spools were flushed (or lost) with it,
+            # this process has nothing to flush on its behalf
             os.unlink(registry_path)
         except FileNotFoundError:
             pass

@@ -152,7 +152,7 @@ from ray_shuffling_data_loader_tpu_torch import native, runtime, telemetry
 from ray_shuffling_data_loader_tpu_torch.runtime import ColumnBatch, ObjectRef, TaskError
 from ray_shuffling_data_loader_tpu_torch.runtime.retry import stage_policy
 from ray_shuffling_data_loader_tpu_torch.runtime.store import DEVICE_BATCH_KIND, PACKED_COLUMN
-from ray_shuffling_data_loader_tpu_torch.telemetry import audit as _audit
+from ray_shuffling_data_loader_tpu_torch.telemetry._env import audit_plane as _audit
 from ray_shuffling_data_loader_tpu_torch.telemetry import metrics as _metrics
 from ray_shuffling_data_loader_tpu_torch.utils import arrow_decode_threads, parquet_filesystem
 
@@ -323,8 +323,13 @@ def _count_decode(schema, group_rows: Sequence[int], sel: Sequence[int], proj: O
             pruned_col_bytes += width
         else:
             proj_bytes += width
+    # rsdl-lint: disable=lock-discipline -- only the task thread counts:
+    # a pool worker's runtime.tasks._worker_main runs one stage at a time,
+    # and the rsdl-decode-rg threads decode but count nothing
     _DECODE_COUNTS["rowgroups"] += len(sel)
+    # rsdl-lint: disable=lock-discipline -- only the task thread counts
     _DECODE_COUNTS["bytes"] += sel_rows * proj_bytes
+    # rsdl-lint: disable=lock-discipline -- only the task thread counts
     _DECODE_COUNTS["bytes_pruned"] += total_rows * pruned_col_bytes + (total_rows - sel_rows) * proj_bytes
 
 
@@ -1523,6 +1528,8 @@ def shuffle_selective_reduce(
         groups = [int(g) for g in gsel]
         batch = read_parquet_columns(fname, columns=columns, row_groups=groups, rowgroup_threads=threads, prof=prof,
                                      metric_labels=labels)
+        # rsdl-lint: disable=lock-discipline -- only the task thread
+        # touches _DECODED_ROWGROUPS: the pool worker's task loop
         _DECODED_ROWGROUPS.extend((i, g) for g in groups)
         if narrow_to_32:
             with prof.phase("decode:narrow", nbytes=batch.nbytes):
@@ -2191,13 +2198,17 @@ def _run_stage(fn: Callable, native_on: bool, knobs: Optional[dict], args: tuple
     native.set_enabled(native_on)
     _apply_task_knobs(knobs)
     before = native.counts()
+    # rsdl-lint: disable=lock-discipline -- only the task thread: the
+    # pool worker's task loop runs its stages one at a time
     del _DECODED_ROWGROUPS[:]
+    # rsdl-lint: disable=lock-discipline -- only the task thread
     _DECODE_COUNTS.update(dict.fromkeys(_DECODE_COUNTS, 0))
     try:
         out = fn(*args)
     finally:
         native.set_enabled(None)
     decoded = list(_DECODED_ROWGROUPS)
+    # rsdl-lint: disable=lock-discipline -- only the task thread
     del _DECODED_ROWGROUPS[:]
     return out, {**native.counts_since(before), "rowgroups": decoded, "decode": dict(_DECODE_COUNTS)}
 

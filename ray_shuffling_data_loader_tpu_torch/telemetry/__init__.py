@@ -164,6 +164,20 @@ def outbound() -> Optional[Dict[str, Any]]:
     return trace.outbound_context()
 
 
+def ambient_job() -> Optional[str]:
+    """The job of the ambient trace context, read through ``sys.modules``:
+    None (no import, no field) in a process that never loaded the trace
+    module."""
+    mod = sys.modules.get(_TRACE_MODULE)
+    if mod is None:
+        return None
+    try:
+        job = mod.current_context().get("job")
+    except Exception:
+        return None
+    return None if job is None else str(job)
+
+
 class _NullScope:
     """The shared no-op of :func:`scope`, :func:`span` and
     :func:`stage_profiler` (and of its phases) while every plane is off."""

@@ -56,6 +56,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ray_shuffling_data_loader_tpu_torch.telemetry import _env
+from ray_shuffling_data_loader_tpu_torch.telemetry import ambient_job as _ambient_job
 
 logger = logging.getLogger(__name__)
 
@@ -68,8 +69,6 @@ ENV_AUDIT_STRICT = "RSDL_AUDIT_STRICT"
 DEFAULT_KEY_COLUMN = "key"
 DEFAULT_SAMPLE_KEYS = 4096
 
-_enabled: Optional[bool] = None  # None: not read from the environment yet
-
 _lock = threading.Lock()
 _records: List[dict] = []
 _verdicts: List[dict] = []
@@ -81,32 +80,14 @@ _atexit_registered = False
 _warned_no_key = False
 
 
-def _ambient_job() -> Optional[str]:
-    """The job of the ambient trace context, read through ``sys.modules``:
-    None (no import, no field) in a process that never entered a context
-    carrying one."""
-    import sys
-
-    trace = sys.modules.get("ray_shuffling_data_loader_tpu_torch.telemetry.trace")
-    if trace is None:
-        return None
-    try:
-        job = trace.current_context().get("job")
-    except Exception:
-        return None
-    return None if job is None else str(job)
-
-
 class AuditError(AssertionError):
     """A reconciliation failed under ``RSDL_AUDIT_STRICT``."""
 
 
 def enabled() -> bool:
-    """Is the audit on in this process? Read from the environment once."""
-    global _enabled
-    if _enabled is None:
-        _enabled = _env.read_flag(ENV_AUDIT)
-    return _enabled
+    """Is the audit on in this process? Read from the environment once,
+    into the flag that :data:`._env.audit_plane` checks."""
+    return _env.audit_enabled()
 
 
 def enable(spool_dir: Optional[str] = None) -> None:
@@ -115,26 +96,23 @@ def enable(spool_dir: Optional[str] = None) -> None:
     that the pool's workers inherit it. ``spool_dir``: where each process
     drains its records; without one, records stay in this process and a
     reconcile sees only them."""
-    global _enabled
     os.environ[ENV_AUDIT] = "1"
     if spool_dir:
         os.makedirs(spool_dir, exist_ok=True)
         os.environ[ENV_AUDIT_DIR] = spool_dir
-    _enabled = True
+    _env.audit_flag = True
     _register_atexit()
 
 
 def disable() -> None:
-    global _enabled
     os.environ.pop(ENV_AUDIT, None)
-    _enabled = False
+    _env.audit_flag = False
 
 
 def refresh_from_env() -> None:
     """Forget the cached state; the next :func:`enabled` reads the
     environment again."""
-    global _enabled
-    _enabled = None
+    _env.audit_flag = None
 
 
 def spool_dir() -> Optional[str]:

@@ -726,8 +726,9 @@ def publish_metrics(full: Optional[Dict[str, Any]] = None) -> None:
                 "capacity.oldest_age_seconds",
             ):
                 reg.gauge(name, epoch=epoch, tier=tier).set(0)
-        # Only the time series' tick thread calls this: the previous
-        # tick's pairs are its own.
+        # rsdl-lint: disable=lock-discipline -- publish_metrics runs
+        # only on the time series' sampler thread; _published_pairs is
+        # its private previous-tick snapshot
         _published_pairs = pairs
         global _published_job_pairs
         job_pairs = set()
@@ -763,6 +764,8 @@ def publish_metrics(full: Optional[Dict[str, Any]] = None) -> None:
             - {j for j, _t in job_pairs}
         ):
             reg.gauge("capacity.job_shm_frac", job=jid).set(0)
+        # rsdl-lint: disable=lock-discipline -- sampler-thread-private,
+        # same as _published_pairs above
         _published_job_pairs = job_pairs
         for tier in TIERS:
             tot = full.get("totals", {}).get(tier) or {}

@@ -135,8 +135,9 @@ class _Phase:
     def __enter__(self) -> "_Phase":
         ident = threading.get_ident()
         self._prev = _ACTIVE.get(ident)
-        # Keyed by this thread's own ident: no two threads touch one key,
-        # and a reader on another thread takes a dict() copy.
+        # rsdl-lint: disable=lock-discipline -- keyed by this thread's
+        # own ident: no two threads touch the same key, and the
+        # profiler's cross-thread read takes a dict() copy
         _ACTIVE[ident] = (self._prof.stage, self.name, self._prof.args)
         self._wall0 = time.time()
         self._t0 = time.perf_counter()
@@ -146,8 +147,12 @@ class _Phase:
         dur = time.perf_counter() - self._t0
         ident = threading.get_ident()
         if self._prev is None:
+            # rsdl-lint: disable=lock-discipline -- this thread's own
+            # ident key only (see __enter__)
             _ACTIVE.pop(ident, None)
         else:
+            # rsdl-lint: disable=lock-discipline -- this thread's own
+            # ident key only (see __enter__)
             _ACTIVE[ident] = self._prev  # nested phase: restore outer
         self._prof._record(self.name, self._wall0, dur, self.nbytes)
         return False

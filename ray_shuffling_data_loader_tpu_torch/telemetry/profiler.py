@@ -188,7 +188,8 @@ def _frame_name(code) -> str:
         if mod.endswith(".py"):
             mod = mod[:-3]
     name = f"{mod}:{code.co_name}"
-    # Racing writers store the same string.
+    # rsdl-lint: disable=lock-discipline -- idempotent memo cache: racing
+    # writers store the identical string; worst case one duplicate format
     _name_cache[key] = name
     return name
 

@@ -510,12 +510,6 @@ def _emit(kind: str, rule: Dict[str, Any], state: Dict[str, Any]) -> None:
         pass
 
 
-def _note(entry: Dict[str, Any]) -> None:
-    """Append one transition to the history (under ``_lock``)."""
-    _history.append(entry)
-    del _history[:-_HISTORY_CAP]
-
-
 def evaluate(now: Optional[float] = None) -> Dict[str, Any]:
     """One tick: every rule (a ``per_job`` one per live job) against the
     aggregate and the ring, each instance's ok -> pending -> firing ->
@@ -570,7 +564,8 @@ def evaluate(now: Optional[float] = None) -> Dict[str, Any]:
                         entry = {"ts": now, "rule": name, "event": "fired", "value": value}
                         if job is not None:
                             entry["job"] = job
-                        _note(entry)
+                        _history.append(entry)
+                        del _history[:-_HISTORY_CAP]
                         _emit("alert.fired", rule, state)
                         if reg is not None:
                             reg.counter("alert.fired_total", **labels).inc()
@@ -581,7 +576,8 @@ def evaluate(now: Optional[float] = None) -> Dict[str, Any]:
                     entry = {"ts": now, "rule": name, "event": "resolved", "value": value}
                     if job is not None:
                         entry["job"] = job
-                    _note(entry)
+                    _history.append(entry)
+                    del _history[:-_HISTORY_CAP]
                     _emit("alert.resolved", rule, state)
                 elif st == "pending":
                     state["state"] = "ok"
@@ -621,7 +617,8 @@ def _drop_stale_instances(seen_keys, now, reg) -> None:
             if state.get("job"):
                 entry["job"] = state["job"]
             with _lock:
-                _note(entry)
+                _history.append(entry)
+                del _history[:-_HISTORY_CAP]
             _emit("alert.resolved", by_name.get(rname, {"name": rname}), state)
         if reg is not None:
             try:

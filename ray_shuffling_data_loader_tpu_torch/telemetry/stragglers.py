@@ -428,6 +428,9 @@ def publish_metrics(analysis: Optional[Dict[str, Any]] = None) -> None:
             tag = (task.get("pid"), task.get("stage"))
             if tag in _wedged_seen:
                 continue  # one event per stuck task, not one per tick
+            # rsdl-lint: disable=lock-discipline -- publish_metrics runs
+            # only on the time series' sampler thread; _wedged_seen is
+            # its private episode-dedup state
             _wedged_seen.add(tag)
             from ray_shuffling_data_loader_tpu_torch import telemetry as _t
 

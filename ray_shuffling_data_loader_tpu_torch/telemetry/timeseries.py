@@ -118,9 +118,11 @@ def _delta(cur: float, prev: float) -> float:
     return cur - prev if cur >= prev else cur
 
 
-def _build_sample(
+def _build_sample_locked(
     typed: Dict[str, Dict[str, Any]], now: float, dt: Optional[float]
 ) -> dict:
+    """One sample of ``typed``, its rates derived against ``_prev``:
+    :func:`sample_now` calls it under ``_lock``."""
     metrics_out: Dict[str, Dict[str, Any]] = {}
     for key, entry in typed.items():
         kind = entry.get("kind")
@@ -130,7 +132,6 @@ def _build_sample(
             prev = _prev.get(key)
             if prev is not None and dt:
                 out["rate"] = max(0.0, _delta(value, prev["value"])) / dt
-            # Only the sampler thread builds samples: _prev is its own.
             _prev[key] = {"value": value}
             metrics_out[key] = out
         elif kind == "gauge":
@@ -181,7 +182,7 @@ def sample_now(now: Optional[float] = None) -> dict:
     typed = _export.aggregate_typed(per_source=True)
     with _lock:
         dt = None if _prev_ts is None else max(1e-9, now - _prev_ts)
-        sample = _build_sample(typed, now, dt)
+        sample = _build_sample_locked(typed, now, dt)
         _prev_ts = now
         _ring.append(sample)
         cap = capacity()
@@ -239,7 +240,9 @@ def _prom_name(base: str) -> str:
         cached = re.sub(r"[^a-zA-Z0-9_:]", "_", base)
         if not cached.startswith("rsdl_"):
             cached = "rsdl_" + cached
-        # Racing writers store the same string.
+        # rsdl-lint: disable=lock-discipline -- idempotent memo cache:
+        # racing writers store the identical sanitized string; worst
+        # case is one duplicate regex pass
         _PROM_CACHE[base] = cached
     return cached
 

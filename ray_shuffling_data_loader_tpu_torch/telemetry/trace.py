@@ -72,6 +72,8 @@ _tls = threading.local()  # span depth only (flush heuristic)
 # dispatches interleaved on the same thread. Plain threads see their own
 # (initially empty) context, matching the old thread-local semantics.
 _ctx_stack_var: "contextvars.ContextVar[Tuple[Dict[str, Any], ...]]" = (
+    # rsdl-lint: disable=vocabulary-drift -- contextvar debug name,
+    # not a Prometheus alias; never appears on a scrape
     contextvars.ContextVar("rsdl_trace_ctx", default=())
 )
 

@@ -459,6 +459,24 @@ def test_decision_planes_load_no_torch_numpy_or_jax(tmp_path):
     assert "IMPORTED []" in out.stdout and "RAN [] 1" in out.stdout, out.stdout
 
 
+# The static-analysis plane and its CLI: the standard library only, as the
+# JAX package's, so that the lint runs in a process that starts neither
+# torch nor CUDA.
+LINT_PLANE = ("analysis/__init__", "analysis/core", "analysis/project", "analysis/checkers/__init__",
+              "analysis/checkers/gates", "analysis/checkers/knobs", "analysis/checkers/vocab",
+              "analysis/checkers/determinism", "analysis/checkers/locks", "analysis/checkers/barriers",
+              "rsdl_lint")
+
+
+@pytest.mark.parametrize("name", LINT_PLANE)
+def test_lint_plane_imports_the_standard_library_only(name):
+    path = os.path.join(PORT_DIR, f"{name}.py")
+    assert path in set(_sources())
+    names = set(_imported_top_levels(path))
+    assert names <= set(sys.stdlib_module_names) | {"ray_shuffling_data_loader_tpu_torch"}, names
+    assert not names & FORBIDDEN
+
+
 def _environment_reads(path):
     """The ``RSDL_*`` names a source file mentions in a string, its
     environment reads among them."""
