@@ -35,7 +35,8 @@ Phases, each of which fails the script (non-zero exit) on any error:
    copy rate, and the schedule policy's probe with the kernels on and off;
 2. kernel: hold each kernel against its plain PyTorch version on the card:
    the interaction (K1) on its tensor-core route at the DLRM's ``(65536,
-   19, 32)`` bf16 and the resident phase's ``(250000, 19, 32)``, a batch
+   19, 32)`` bf16, the resident phase's ``(250000, 19, 32)``, the pod
+   phase's rank shard ``(16384, 19, 32)``, a batch
    ragged against its tile ``(1001, 19, 32)``,
    ``(500, 27, 16)``, ``(4096, 64, 64)`` and ``(8192, 27, 128)`` in bf16,
    and on its CUDA-core route at the DLRM's shape and a ragged ``(500, 27,
@@ -52,7 +53,7 @@ Phases, each of which fails the script (non-zero exit) on any error:
    shapes.
    Time every kernel beside its bound, its plain version and the PyTorch
    library call that computes the same, at the main paths' shapes (K1 also
-   at the resident phase's, logged), at the sp trainer's (a ring hop's
+   at the resident and the pod phases', logged), at the sp trainer's (a ring hop's
    ``[2, 128, 4, 16]``, causal and not, and Ulysses' ``[2, 512, 1, 16]``
    causal) and at ``[2, 4096, 8, 64]`` bf16, causal and not, K1 to K4 on
    both routes;
@@ -438,7 +439,34 @@ Phases, each of which fails the script (non-zero exit) on any error:
    ``--loader resident``, whose keys must be ``epoch_permutation``'s.
    Logs the checkpoint's bytes and save seconds, the restore seconds, the
    seconds from the restart to its first batch, the stages re-attached and
-   re-executed, and the steps replayed.
+   re-executed, and the steps replayed;
+10. pod: the pod trainer (``python -m ray_shuffling_data_loader_tpu_torch.pod
+   --simulate-pod 4 --loader resident --backend gloo``, run after the
+   resume phase) as four processes on ``cuda:0``, on the slices' dataset
+   (10^6 rows, 10 files, 5 row groups, seed 0; a manifest lets the
+   trainer reuse its files), the full-width ``dlrm_for_data_spec()``
+   (bf16, Adam 1e-3, one initial state from seed 0), global batch 65536
+   (16384 a rank, 15 full batches an epoch, 16,960 rows dropped), 2
+   epochs: epoch 0 through the iterator on the materialized schedule,
+   epoch 1 through the multi-process fused epoch, and the gather
+   schedule's epoch 0 delivered without training. Each rank stages its
+   span of 250,000 rows (the boundaries at 250,000 and 750,000 fall inside
+   a row group of files 2 and 7: the range decode). The ranks' shards
+   joined in data-index order must equal the one-process
+   ``DeviceResidentShufflingDataset``'s batches (same files and seed,
+   batch 65536) key for key on both schedules, each epoch deliver every
+   key at most once and exactly 983,040, every rank's pod-consistent
+   ``fits_device`` say yes and the schedule be the same on every rank, the
+   global loss at step 0 be within 1e-4 of a one-process eager DLRM's on
+   the same weights and global batches and every later loss within 1e-2
+   (the largest difference logged), the parameters be bit-identical on the
+   four ranks, and K1 launch once a step on every rank on its tensor-core
+   route (30 a rank, 120 in all: ``launches_pod``; the fused epoch's as
+   captured launches times replays). Logs the staging seconds and bytes
+   a rank, the materialized exchange's and the gather schedule's seconds
+   an epoch, the step median, the fused epoch's collectives' share, its
+   ms a batch against the eager loop's, spawn to first step and the
+   phase's wall.
 
 The heads of the cluster, faults, telemetry, obs, elastic and service
 phases start while the phase before theirs runs (Python, torch, CUDA and
@@ -479,11 +507,12 @@ JAX_FLASH = "ray_shuffling_data_loader_tpu/ops/flash_attention.py"
 
 MAIN_SHAPE = (65536, 19, 32)
 RESIDENT_SHAPE = (250000, 19, 32)  # the DLRM's at the resident phase's batch
+POD_SHAPE = (16384, 19, 32)  # the DLRM's at a pod rank's shard of the global batch 65536
 RAGGED_SHAPE = (500, 27, 16)
 # The tensor-core route of K1: the DLRM's shape, a batch ragged against its
 # 8-sample tile, (500, 27, 16) (16-sample tiles, an odd pair count), N = 64
 # and D = 128 (MLPerf DLRM's 26 tables + the dense row at width 128).
-INTERACTION_MMA_SHAPES = (MAIN_SHAPE, RESIDENT_SHAPE, (1001, 19, 32), RAGGED_SHAPE, (4096, 64, 64),
+INTERACTION_MMA_SHAPES = (MAIN_SHAPE, RESIDENT_SHAPE, POD_SHAPE, (1001, 19, 32), RAGGED_SHAPE, (4096, 64, 64),
                           (8192, 27, 128))
 # bf16: kernel and plain version both sum in fp32 and round once to bf16,
 # so a different summation order can move a result by at most one bf16
@@ -972,6 +1001,13 @@ def phase_interaction(torch, rate: float, rate_src: str) -> list:
     log(f"[kernel] interaction {RESIDENT_SHAPE} bf16 (the resident phase's): mma "
         f"{time_ms(torch, interaction_kernel, xr, 'mma')!r} ms, plain {time_ms(torch, dot_interaction_reference, xr)!r} "
         f"ms, bound {r_bound!r} ms by {r_by} ({r_bytes} B)")
+    pb, pn, pd = POD_SHAPE
+    xp = embeddings(POD_SHAPE, torch.bfloat16)
+    p_bytes, p_ops = pb * pn * pd * 2 + pb * num_pairs(pn) * 2, 2 * pb * num_pairs(pn) * pd
+    p_bound, p_by = bound(p_bytes, p_ops, rate, BF16_PEAK)
+    p_mma, p_plain = time_ms(torch, interaction_kernel, xp, "mma"), time_ms(torch, dot_interaction_reference, xp)
+    log(f"[kernel] interaction {POD_SHAPE} bf16 (a pod rank's shard): mma {p_mma!r} ms, plain {p_plain!r} ms, "
+        f"bound {p_bound!r} ms by {p_by} ({p_bytes} B)")
     return [
         {
             "name": name,
@@ -4705,6 +4741,125 @@ def phase_parity(torch, label: str, model, batch):
     return err, launches
 
 
+# The pod phase: pod.py as four gloo ranks on cuda:0, a global batch of
+# 65536 (16384 a rank) on the slices' dataset.
+POD_RANKS = 4
+POD_EPOCHS = 2
+# Step 0 against one process on the same weights and global batch: the
+# forward is the same per row, and only the mean's order of summation and
+# the matmuls' tiling at 16384 rows differ. Later steps part by Adam's
+# updates on gradients summed in another order.
+POD_STEP0_TOL = 1e-4
+POD_LOSS_TOL = 1e-2
+POD_TIMEOUT_S = 300
+
+
+def phase_pod(torch, filenames, data_dir: str, smi: str, work: str) -> dict:
+    """The pod trainer and the resident loader over processes (docstring,
+    phase 10)."""
+    import numpy as np
+
+    import ray_shuffling_data_loader_tpu_torch as port
+
+    t_phase = time.perf_counter()
+    b = 65536
+    full = NUM_ROWS // b
+    shard = b // POD_RANKS
+    # pod.py's rank 0 reuses a data directory whose manifest names this shape.
+    with open(os.path.join(data_dir, "manifest.json"), "w") as f:
+        json.dump({"shape": {"num_rows": NUM_ROWS, "num_files": 10, "row_groups": 5, "seed": 0},
+                   "files": [os.path.abspath(fn) for fn in filenames]}, f)
+    out_dir = os.path.join(work, "out")
+    cmd = [sys.executable, "-m", "ray_shuffling_data_loader_tpu_torch.pod", "--simulate-pod", str(POD_RANKS),
+           "--loader", "resident", "--backend", "gloo", "--device", "cuda", "--num-rows", str(NUM_ROWS),
+           "--num-files", "10", "--row-groups", "5", "--seed", "0", "--batch-size", str(b), "--epochs",
+           str(POD_EPOCHS), "--embed-dim", "32", "--vocab-cap", "0", "--data-dir", data_dir, "--fused-from-epoch",
+           "1", "--check-gather", "--num-workers", "2", "--out", out_dir, "--rendezvous-dir",
+           os.path.join(work, "rdv"), "--timeout", str(POD_TIMEOUT_S)]
+    env = {k: v for k, v in os.environ.items() if k != "RSDL_RUNTIME_DIR"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, timeout=POD_TIMEOUT_S + 30)
+    pod_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[pod] pod.py exited {proc.returncode}")
+    ranks = []
+    for r in range(POD_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    def joined(name):
+        parts = [np.load(os.path.join(out_dir, f"rank{r}-{name}.npy")).reshape(-1, shard) for r in range(POD_RANKS)]
+        return np.concatenate(parts, axis=1).reshape(-1)
+
+    # The one-process stream and an eager DLRM on it from the same weights.
+    key = port.KEY_COLUMN
+    columns = [c for c in port.DATA_SPEC if c != port.LABEL_COLUMN] + [key]
+    port.runtime.init(num_workers=4)
+    try:
+        ds = port.DeviceResidentShufflingDataset(filenames, POD_EPOCHS, b, columns, port.LABEL_COLUMN, seed=0,
+                                                 device="cuda")
+        torch.manual_seed(0)
+        model = port.dlrm_for_data_spec(device="cpu").to("cuda")
+        step = port.make_train_step(model, port.make_optimizer(model))
+        want_keys, ref_losses = [], []
+        for epoch in range(POD_EPOCHS):
+            ds.set_epoch(epoch)
+            keys = []
+            for feats, labels in ds:
+                keys.append(feats.pop(key))
+                ref_losses.append(step(feats, labels)["loss"])
+            want_keys.append(torch.cat(keys).cpu().numpy())
+        ref_losses = torch.stack(ref_losses).tolist()
+        ds.close()
+    finally:
+        port.runtime.shutdown()
+    for epoch in range(POD_EPOCHS):
+        got = joined(f"epoch{epoch}")
+        if got.size != full * b or np.unique(got).size != got.size:
+            raise AssertionError(f"[pod] epoch {epoch}: {got.size} keys, {np.unique(got).size} distinct; want "
+                                 f"{full * b} once each")
+        if not np.array_equal(got, want_keys[epoch]):
+            raise AssertionError(f"[pod] epoch {epoch}: the joined shards differ from the one-process stream")
+    if not np.array_equal(joined("gather-epoch0"), want_keys[0]):
+        raise AssertionError("[pod] gather schedule, epoch 0: the joined shards differ from the one-process stream")
+    if not all(res["fits_device"] for res in ranks):
+        raise AssertionError(f"[pod] fits_device (pod-consistent): {[res['fits_device'] for res in ranks]}")
+    if len({res["materialize"] for res in ranks}) != 1 or any(res["gather"]["materialize"] for res in ranks):
+        raise AssertionError(f"[pod] schedules differ across ranks: {[res['materialize'] for res in ranks]}")
+    if len({res["params_sha256"] for res in ranks}) != 1:
+        raise AssertionError("[pod] the ranks ended with different parameters")
+    losses = [x for epoch in ranks[0]["losses"] for x in epoch]
+    if any(res["losses"] != ranks[0]["losses"] for res in ranks) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[pod] the ranks logged different or non-finite losses: {[r['losses'] for r in ranks]}")
+    if len(losses) != len(ref_losses):
+        raise AssertionError(f"[pod] {len(losses)} steps, the one process {len(ref_losses)}")
+    diffs = [abs(a - w) for a, w in zip(losses, ref_losses)]
+    if not (diffs[0] <= POD_STEP0_TOL and max(diffs) <= POD_LOSS_TOL):
+        raise AssertionError(f"[pod] losses {losses} against one process's {ref_losses}: step 0 differs by "
+                             f"{diffs[0]!r} (tolerance {POD_STEP0_TOL}), the largest by {max(diffs)!r} "
+                             f"(tolerance {POD_LOSS_TOL})")
+    for res in ranks:
+        n = res["launches"]
+        if n["interaction_mma"] != POD_EPOCHS * full or n["interaction_all_routes"] != n["python_calls"]:
+            raise AssertionError(f"[pod] rank {res['rank']}: K1 launches {n}, want {POD_EPOCHS * full}, all on the "
+                                 "tensor-core route")
+    launches = sum(res["launches"]["interaction_mma"] for res in ranks)
+    wall = time.perf_counter() - t_phase
+    for res in ranks:
+        log(f"[pod] rank {res['rank']} ({res['device']}): staged {res['bytes_staged']} B ({res['span_rows']} rows) "
+            f"in {res['staging_s']!r} s; materialized exchange {res['exchange_s']['0']!r} s in epoch 0; gather "
+            f"schedule {res['gather']['exchange_s']!r} s of exchanges in its epoch 0 ({res['gather']['epoch_s']!r} s "
+            f"delivered); step median {res['step_ms_median']!r} ms (eager); eager {res['eager_ms_per_batch']!r} "
+            f"ms a batch, fused {res['fused_ms_per_batch']!r} ms a batch (collectives {res['fused_comm_share']!r} of "
+            f"it; capture {res['capture_s']!r} s); spawn to first step {res['startup_s']['first_step']!r} s; K1 "
+            f"{res['launches']}; peak device memory {res['peak_device_bytes']} B ({smi})")
+    log(f"[pod] {POD_RANKS} ranks, 2 epochs: joined shards == the one-process stream on both schedules, "
+        f"{full * b} keys once each an epoch; losses within {POD_STEP0_TOL} at step 0 ({diffs[0]!r}) and "
+        f"{POD_LOSS_TOL} after (max |pod - one process| {max(diffs)!r}); parameters bit-identical; K1 {launches} "
+        f"launches ({POD_EPOCHS * full} a rank); pod.py {pod_s:.1f} s, phase {wall:.1f} s ({smi})")
+    return {"ranks": ranks, "launches": launches, "loss_diffs": diffs, "pod_s": pod_s, "wall_s": wall}
+
+
 # The child of the resume phase: the trainer, whose train step this code
 # wraps to SIGKILL the child's process group (the trainer, its shuffle
 # workers and its queue actor) once KILL_AFTER_STEP steps have trained.
@@ -5324,6 +5479,13 @@ def main() -> int:
                 resume = timed("resume", phase_resume, torch, resume_dir, smi, filenames)
             finally:
                 shutil.rmtree(resume_dir, ignore_errors=True)
+            pod_dir = os.path.join(ROOT, "build", "pod")
+            shutil.rmtree(pod_dir, ignore_errors=True)
+            os.makedirs(pod_dir)
+            try:
+                pod = timed("pod", phase_pod, torch, filenames, data_dir, smi, pod_dir)
+            finally:
+                shutil.rmtree(pod_dir, ignore_errors=True)
         finally:
             shutil.rmtree(data_dir, ignore_errors=True)
         plan_dir = os.path.join(ROOT, "build", "plan_data")
@@ -5399,6 +5561,8 @@ def main() -> int:
                 entry["launches_service"] = service["launches_service"]
                 # and in the DLRM run over file:// URIs
                 entry["launches_uri"] = uri["launches"]["interaction_mma"]
+                # and on the four ranks of the pod trainer
+                entry["launches_pod"] = pod["launches"]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: a phase failed", file=sys.stderr)
@@ -5437,6 +5601,7 @@ def main() -> int:
                     "elastic": elastic,
                     "service": service,
                     "uri": uri,
+                    "pod": pod,
                     "parity_max_abs_diff": {label: err for label, (err, _) in parity.items()},
                 },
                 f, indent=1,

@@ -16,7 +16,12 @@ are.
   parallelism, differentiable (its backward is the inverse all-to-all);
 * :func:`all_gather`: a concatenation along one dim of every rank's
   tensor, differentiable (its backward is a reduce-scatter: the sum over
-  the group of the gradient's chunks, in group-rank order).
+  the group of the gradient's chunks, in group-rank order);
+* :func:`all_to_all_uneven`: rows of different counts to each rank, the
+  counts exchanged first (the pod's resident loader hands each data index
+  its rows of an epoch or of a batch with it);
+* :func:`all_gather_ints`, :func:`broadcast_int`: a few integers of
+  control (digests, votes, a decision) over the group.
 
 ``group=None`` stands for a group of this rank alone (no communication),
 never for the world. :func:`comm_seconds` reads the host seconds spent in
@@ -26,8 +31,9 @@ first waits for the device, so the clock holds the collective alone.
 
 from __future__ import annotations
 
+import math
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -81,6 +87,26 @@ def host_buffer(like: torch.Tensor, slot: str) -> torch.Tensor:
 
 def _staged(group, like: torch.Tensor) -> bool:
     return dist.get_backend(group) == "gloo" and like.is_cuda
+
+
+def _pinned_prefix(slot: str, numel: int, dtype: torch.dtype) -> torch.Tensor:
+    """The first ``numel`` elements of a cached pinned host buffer (one per
+    slot and dtype, grown to the largest request): collectives whose sizes
+    change from call to call reuse one buffer instead of caching one per
+    size."""
+    key = (slot, dtype)
+    buf = _PINNED.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = _PINNED[key] = torch.empty(max(1, numel), dtype=dtype, pin_memory=True)
+    return buf[:numel]
+
+
+def _control_device(group) -> torch.device:
+    """Where a small control tensor travels: this process's current CUDA
+    device under NCCL, the host under gloo."""
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
 
 
 def p2p(buffers: List[torch.Tensor], group, send_to: Optional[int], recv_from: Optional[int]):
@@ -152,6 +178,58 @@ def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
             parts = [torch.empty_like(x) for _ in range(p)]
             dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
+
+
+def all_to_all_uneven(x: torch.Tensor, send_counts: Sequence[int], group) -> Tuple[torch.Tensor, List[int]]:
+    """Uneven all-to-all along dim 0: the first ``send_counts[0]`` rows of
+    ``x`` go to group rank 0, the next ``send_counts[1]`` to rank 1, and so
+    on. The counts go first, in an all-to-all of their own, so that each
+    rank learns what it receives. Returns ``(received, recv_counts)``: the
+    rows received, concatenated in group-rank order, and how many came from
+    each rank. ``x`` keeps its other dims and its dtype."""
+    p, _ = group_size_rank(group)
+    if len(send_counts) != p or sum(send_counts) != x.shape[0]:
+        raise ValueError(f"all_to_all_uneven: send counts {list(send_counts)} for {x.shape[0]} rows over {p} ranks")
+    if p == 1:
+        return x, [x.shape[0]]
+    x = x.contiguous()
+    row = math.prod(x.shape[1:])
+    with _timed(x):
+        counts = torch.tensor(list(send_counts), dtype=torch.int64, device=_control_device(group))
+        got = torch.empty_like(counts)
+        dist.all_to_all_single(got, counts, group=group)
+        recv_counts = got.tolist()
+        shape = (sum(recv_counts), *x.shape[1:])
+        if _staged(group, x):
+            send = _pinned_prefix("a2av_send", x.numel(), x.dtype).view(x.shape).copy_(x)
+            recv = _pinned_prefix("a2av_recv", shape[0] * row, x.dtype).view(shape)
+            dist.all_to_all_single(recv, send, recv_counts, list(send_counts), group=group)
+            recv = recv.to(x.device)
+        else:
+            recv = torch.empty(shape, dtype=x.dtype, device=x.device)
+            dist.all_to_all_single(recv, x, recv_counts, list(send_counts), group=group)
+    return recv, recv_counts
+
+
+def all_gather_ints(values: Sequence[int], group) -> List[List[int]]:
+    """Every rank's ``values`` (int64s, one length on every rank), in
+    group-rank order."""
+    x = torch.tensor(list(values), dtype=torch.int64, device=_control_device(group))
+    p, _ = group_size_rank(group)
+    if p == 1:
+        return [x.tolist()]
+    parts = [torch.empty_like(x) for _ in range(p)]
+    dist.all_gather(parts, x, group=group)
+    return [part.tolist() for part in parts]
+
+
+def broadcast_int(value: int, group, src: int = 0) -> int:
+    """Group rank ``src``'s ``value`` on every rank of ``group``."""
+    if group is None:
+        return int(value)
+    x = torch.tensor([int(value)], dtype=torch.int64, device=_control_device(group))
+    dist.broadcast(x, dist.get_global_rank(group, src), group=group)
+    return int(x.item())
 
 
 class _AllToAll(torch.autograd.Function):

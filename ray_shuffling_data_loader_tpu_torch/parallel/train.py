@@ -115,7 +115,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, group=No
     ranks that hold the same rows): any other group raises ``ValueError``,
     since it would average different shards together.
 
-    The step carries its ``model`` and ``optimizer`` as attributes."""
+    The step carries its ``model``, ``optimizer`` and ``group`` as
+    attributes."""
     net: nn.Module = model
     world = 1
     mesh = model_mesh(model)
@@ -146,7 +147,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, group=No
         dist.all_reduce(total, group=group)
         return {"loss": total.div_(active)}
 
-    step.model, step.optimizer = model, optimizer
+    step.model, step.optimizer, step.group = model, optimizer, group
     return step
 
 
@@ -298,7 +299,9 @@ def make_psum_train_step(
 
     ``ranks_active`` and ``idle`` are as in :func:`make_train_step`: an idle
     rank's gradients are zeros, which the mean does not count and Adasum
-    leaves out exactly (``adasum(g, 0) == g``)."""
+    leaves out exactly (``adasum(g, 0) == g``). The step carries its
+    ``model``, ``optimizer``, ``group``, ``grad_reduce`` and ``grad_dtype``
+    as attributes."""
     if grad_reduce not in ("mean", "adasum"):
         raise ValueError(f"grad_reduce must be 'mean' or 'adasum', got {grad_reduce!r}")
     if group is None:
@@ -333,4 +336,6 @@ def make_psum_train_step(
         optimizer.step()
         return {"loss": mean_loss.div_(active)}
 
+    step.model, step.optimizer, step.group = model, optimizer, group
+    step.grad_reduce, step.grad_dtype = grad_reduce, grad_dtype
     return step

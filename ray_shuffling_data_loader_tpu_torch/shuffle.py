@@ -448,6 +448,42 @@ def _decode_narrow_to_store(filename: str, columns: Sequence[str], stage_tasks: 
     return runtime.ensure_initialized().store.put_columns(cols)
 
 
+def _decode_narrow_range_to_store(
+    filename: str, columns: Sequence[str], row_lo: int, row_hi: int, stage_tasks: int = 0
+) -> ObjectRef:
+    """Pool task of the pod's resident staging: decode only the rows
+    ``[row_lo, row_hi)`` of one file, at row-group granularity (a process
+    whose span straddles a file decodes only the groups it overlaps),
+    narrow them as :func:`_decode_narrow_to_store` does and put exactly
+    ``row_hi - row_lo`` rows in the store. Returns the ref. A range not
+    wholly inside the file raises ``ValueError`` (a slice would clamp it
+    silently to fewer rows)."""
+    pf, _, _ = _open_parquet_file(filename)
+    md = pf.metadata
+    sel: List[int] = []
+    first_row = None
+    g_start = 0
+    for gi in range(md.num_row_groups):
+        g_end = g_start + md.row_group(gi).num_rows
+        if g_end > row_lo and g_start < row_hi:
+            if first_row is None:
+                first_row = g_start
+            sel.append(gi)
+        g_start = g_end
+    # g_start is now the file's row count.
+    if first_row is None or not 0 <= row_lo < row_hi <= g_start:
+        raise ValueError(f"row range [{row_lo}, {row_hi}) outside file {filename!r} ({g_start} rows)")
+    table = pf.read_row_groups(
+        sel, columns=list(columns), use_threads=stage_tasks > 0 and arrow_decode_threads(stage_tasks)
+    )
+    a, b = row_lo - first_row, row_hi - first_row
+    cols = {}
+    for name in columns:
+        arr = table.column(name).to_numpy(zero_copy_only=False)
+        cols[name] = _narrow_column(name, np.ascontiguousarray(arr[a:b]))
+    return runtime.ensure_initialized().store.put_columns(cols)
+
+
 def narrowed_dtype(dtype) -> np.dtype:
     """The 32-bit dtype a column has after decode narrowing."""
     dtype = np.dtype(dtype)

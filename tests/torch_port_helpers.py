@@ -469,6 +469,137 @@ def sp_rank_main(spec, rank):
     return 0
 
 
+# -- the ranks of the pod tests ------------------------------------------------------
+
+POD_SCHEDULES = (("materialized", None), ("gather", False))
+
+
+def _pod_shards(ds, epoch, skip=0):
+    """Every batch this rank yields in ``epoch`` (from ``skip``), each as
+    ``[n_cols + 1, shard]`` int32 (the features, the label's bits)."""
+    import torch
+
+    ds.set_epoch(epoch, skip)
+    out = []
+    for feats, label in ds:
+        cols = [feats[c].view(torch.int32) for c in feats] + [label.view(torch.int32)]
+        out.append(torch.stack(cols).numpy().copy())
+    return out
+
+
+def _raises(fn):
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def pod_rank_main(spec, rank):
+    """Rank ``rank`` of a pod's world over gloo on the CPU, for each case
+    of ``spec["cases"]``: the shards of both schedules (``streams``), a
+    ragged batch (``ragged``), a batch the data axis does not divide
+    (``indivisible``), ``fits_device``'s votes (``fits``), the fused epoch
+    from JAX's weights (``fused``), a file list that differs on rank 1
+    (``mismatch``, last: every rank raises), or the two halves of a
+    preempted pod (``resume_a``, ``resume_b``)."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    import ray_shuffling_data_loader_tpu_torch as port
+    from ray_shuffling_data_loader_tpu_torch.checkpoint import BatchCursor, CheckpointManager
+
+    torch.set_num_threads(1)
+    world = spec["world"]
+    port.init_data_parallel(rank, world, "gloo", spec["init_method"])
+    mesh = port.make_mesh(spec["model_parallelism"])
+    port.runtime.init(num_workers=1)
+    files, batch, seed = spec["files"], spec["batch"], spec["seed"]
+    cols, label = spec["columns"], spec["label"]
+    out = {"data_index": np.asarray(mesh.data_index), "model_index": np.asarray(mesh.model_index)}
+
+    def make(columns=cols, materialize=None, files=files, batch_size=batch, **kw):
+        return port.DeviceResidentShufflingDataset(files, 2, batch_size, columns, label, seed=seed, device="cpu",
+                                                   mesh=mesh, materialize_epoch=materialize, **kw)
+
+    for case in spec["cases"]:
+        if case == "streams":
+            for name, materialize in POD_SCHEDULES:
+                ds = make(materialize=materialize)
+                out[f"{name}_materialize"] = np.asarray(ds._materialize)
+                out[f"{name}_bytes_staged"] = np.asarray(ds.stats.bytes_staged)
+                for epoch in range(2):
+                    out[f"{name}_epoch{epoch}"] = np.stack(_pod_shards(ds, epoch))
+                out[f"{name}_skip3"] = np.stack(_pod_shards(ds, 1, skip=3))
+                out[f"{name}_batches_staged"] = np.asarray(ds.stats.batches_staged)
+                ds.close()
+        elif case == "ragged":
+            for name, materialize in POD_SCHEDULES:
+                ds = make(materialize=materialize, batch_size=spec["ragged_batch"], drop_last=False)
+                shards = _pod_shards(ds, 0)
+                out[f"ragged_{name}_full"] = np.stack(shards[:-1])
+                out[f"ragged_{name}_tail"] = shards[-1]
+                ds.close()
+        elif case == "indivisible":
+            for name, materialize in POD_SCHEDULES:
+                ds = make(materialize=materialize, batch_size=spec["indivisible_batch"])
+                out[f"indivisible_{name}"] = np.asarray(_raises(lambda: _pod_shards(ds, 0)))
+                ds.close()
+        elif case == "fits":
+            n_cols = len(cols) - 1
+            out["fits_not_declared"] = np.asarray(port.fits_device(files, n_cols, device="cpu", mesh=mesh))
+            os.environ["RSDL_RESIDENT_BUDGET_GB"] = "4"
+            out["fits_all_yes"] = np.asarray(port.fits_device(files, n_cols, device="cpu", mesh=mesh,
+                                                              pod_consistent=True))
+            if rank == 1:
+                os.environ["RSDL_RESIDENT_BUDGET_GB"] = "1e-9"
+            out["fits_one_no"] = np.asarray(port.fits_device(files, n_cols, device="cpu", mesh=mesh,
+                                                             pod_consistent=True))
+            del os.environ["RSDL_RESIDENT_BUDGET_GB"]
+        elif case == "fused":
+            for name, materialize in POD_SCHEDULES:
+                model = port.dlrm_for_data_spec(**SMALL_DLRM, compute_dtype=torch.float32, device="cpu")
+                model.load_state_dict(torch.load(spec["state"]))
+                step = port.make_psum_train_step(model, port.make_optimizer(model, lr=1e-3), mesh.data_group)
+                ds = make(columns=spec["model_columns"], materialize=materialize)
+                run = port.make_fused_epoch(ds, step)
+                out[f"fused_{name}"] = np.stack([run(epoch).numpy() for epoch in range(2)])
+                out[f"fused_{name}_batches_staged"] = np.asarray(ds.stats.batches_staged)
+                ds.close()
+        elif case == "mismatch":
+            mine = files if rank == 0 else files[::-1]
+            out["mismatch"] = np.asarray(_raises(lambda: make(files=mine)))
+        elif case in ("resume_a", "resume_b"):
+            mgr = CheckpointManager(spec["ckpt"])
+            config = {"mode": "resident-pod", "seed": seed, "batch_size": batch, "num_files": len(files)}
+            ds = make()
+            if case == "resume_a":
+                ds.set_epoch(0)
+                it = iter(ds)
+                keys = [next(it)[0]["key"].numpy().copy() for _ in range(spec["stop_after"])]
+                out["epoch0"] = np.concatenate(keys)
+                # Every rank calls save; rank 0 writes.
+                mgr.save(spec["stop_after"], cursor=BatchCursor(
+                    epoch=0, batches_yielded=spec["stop_after"], step=spec["stop_after"], config=config))
+                np.savez(os.path.join(spec["out_dir"], f"rank{rank}.npz"), **out)
+                # Preempted: no close, no shutdown, no teardown.
+                os._exit(0)
+            cursor = mgr.restore_cursor()
+            cursor.validate(config)
+            out["cursor"] = np.asarray([cursor.epoch, cursor.batches_yielded])
+            ds.set_epoch(cursor.epoch, skip_batches=cursor.batches_yielded)
+            out["epoch0"] = np.concatenate([f["key"].numpy() for f, _ in ds])
+            ds.set_epoch(1)
+            out["epoch1"] = np.concatenate([f["key"].numpy() for f, _ in ds])
+            ds.close()
+    out["loaded_jax"] = np.asarray(sorted({m.split(".")[0] for m in sys.modules} & FORBIDDEN_TOP_LEVELS))
+    np.savez(os.path.join(spec["out_dir"], f"rank{rank}.npz"), **out)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    port.runtime.shutdown()
+    return 0
+
+
 # -- both packages' audited sessions (the audit and replay tests) -------------------
 
 AUDIT_KNOBS = ("RSDL_AUDIT", "RSDL_AUDIT_DIR", "RSDL_AUDIT_STRICT", "RSDL_AUDIT_KEY", "RSDL_AUDIT_SAMPLE",
@@ -663,6 +794,8 @@ if __name__ == "__main__":
         spec = json.load(f)
     if spec.get("cluster_test"):
         sys.exit(cluster_rank_main(spec) if sys.argv[2] == "rank1" else cluster_head_main(spec))
+    if spec.get("pod"):
+        sys.exit(pod_rank_main(spec, int(sys.argv[2])))
     if "sp_cases" in spec:
         sys.exit(sp_rank_main(spec, int(sys.argv[2])))
     if "model_parallelism" in spec:
