@@ -467,6 +467,25 @@ Phases, each of which fails the script (non-zero exit) on any error:
    an epoch, the step median, the fused epoch's collectives' share, its
    ms a batch against the eager loop's, spawn to first step and the
    phase's wall.
+11. tools: the port's profiling tools and the observability gate, run
+   after the resident phase as a user runs them (``python -m
+   ray_shuffling_data_loader_tpu_torch.<tool>``, no ``RSDL_*`` set; no
+   device work), under ``build/tools/``: ``shuffle_profile`` at the
+   slices' shape (10^6 rows, 10 files, 8 reducers, 2 epochs) with
+   ``--schedule mapreduce`` and with ``--schedule index``, each of which
+   must deliver 2 x 10^6 rows, run the schedules it was asked for and
+   report a phase for every stage of them (``map``, ``reduce``; and
+   ``plan``, ``gather-reduce``); ``--threads 1,2,4,8``, whose host kernels
+   must be the C++ ones; ``--decode 1,4``, whose ``block:1`` plan must
+   decode every row group once (amplification 1); ``obs_smoke`` and
+   ``obs_smoke --federation`` side by side with each other and with the
+   decode sweep, each of which must exit 0; and
+   ``summarize_sweep`` over a sweep directory holding the DLRM slice's
+   ``process_stats`` summary as ``t1_r8.json`` and its CSVs, whose row
+   must print the summary's trial seconds and rows/s. Logs the phase
+   tables, the roofline and pool lines, the sweeps' tables, the gates'
+   lines, each tool's seconds and the phase's wall, beside the card's
+   name and power limit.
 
 The heads of the cluster, faults, telemetry, obs, elastic and service
 phases start while the phase before theirs runs (Python, torch, CUDA and
@@ -499,6 +518,8 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# The slices' Quick-start dataset, reused by the resume and pod phases.
+SLICE_DATA_DIR = os.path.join(ROOT, "build", "smoke_data")
 T_PROCESS = time.perf_counter()  # the script's start, before torch's import and the card's first use
 KERNEL_SOURCES = ("interaction", "flash_fwd", "flash_bwd", "interaction_mma", "flash_fwd_mma",
                   "flash_bwd_dkv_mma", "flash_bwd_dq_mma")
@@ -1675,7 +1696,8 @@ def phase_slices(torch, data_dir: str) -> dict:
     port.runtime.init()
     try:
         t0 = time.perf_counter()
-        filenames, nbytes = port.generate_data(num_rows, 10, 5, 0.0, data_dir, seed=0)
+        # Its manifest lets the resume and pod phases' trainers reuse it.
+        filenames, nbytes = port.cached_generate_data(num_rows, 10, 5, data_dir, seed=0)
         log(f"[slice] generated {num_rows} rows ({nbytes} B) in {len(filenames)} files "
             f"in {time.perf_counter() - t0:.2f} s")
         collector = port.runtime.spawn_actor(port.TrialStatsCollector, 2, len(filenames), 8, num_rows, 65536, 1,
@@ -4677,6 +4699,122 @@ def phase_resident(torch, data_dir: str, smi: str) -> dict:
     return out
 
 
+# The tools phase: the port's profiling tools and the observability gate
+# run as a user runs them, at the slices' shape (10^6 rows, 10 files, 8
+# reducers: --gb 0.168 at DATA_SPEC's 168 bytes a row); host figures of the
+# card's machine.
+TOOLS_GB = "0.168"
+TOOLS_SHAPE = ("--gb", TOOLS_GB, "--files", "10", "--reducers", "8")
+TOOLS_STAGES = {"mapreduce": {"map", "reduce"}, "index": {"map", "reduce", "plan", "gather-reduce"}}
+SWEEP_SCRIPT = ("import sys; from ray_shuffling_data_loader_tpu_torch import summarize_sweep as s; "
+                "s.OUT = sys.argv[1]; sys.exit(s.main())")
+
+
+def _table_lines(stdout: str) -> list:
+    """A tool's printed table: its lines from the header to the first blank
+    one after it."""
+    lines = stdout.splitlines()
+    start = next(i for i, ln in enumerate(lines) if ln.strip())
+    end = next((i for i in range(start, len(lines)) if not lines[i].strip()), len(lines))
+    return lines[start:end]
+
+
+def phase_tools(smi: str, work: str, trial) -> dict:
+    """The tools phase (docstring, phase 11): ``shuffle_profile`` under
+    each forced schedule, its ``--threads`` and ``--decode`` sweeps, both
+    ``obs_smoke`` gates and ``summarize_sweep`` over the DLRM slice's
+    ``trial``, each run as ``python -m`` with no ``RSDL_*`` variable set."""
+    import ray_shuffling_data_loader_tpu_torch as port
+
+    t_phase = time.perf_counter()
+    out, secs = {}, {}
+
+    def tool(label, name, *args):
+        t0 = time.perf_counter()
+        code, stdout, stderr = run_tool(name, *args)
+        secs[label] = time.perf_counter() - t0
+        if code != 0:
+            raise AssertionError(f"[tools] {name} {' '.join(args)} exited {code}: {stderr[-3000:]}")
+        return stdout, stderr
+
+    def result(name):
+        with open(os.path.join(work, f"{name}.json")) as f:
+            return json.load(f)
+
+    for schedule in ("mapreduce", "index"):
+        stdout, stderr = tool(schedule, "shuffle_profile", *TOOLS_SHAPE, "--epochs", "2", "--schedule", schedule,
+                              "--data-dir", os.path.join(work, "profile_data"), "--out",
+                              os.path.join(work, f"{schedule}.json"))
+        res = result(schedule)
+        delivered = re.search(r"delivered [0-9.]+ GB \((\d+) rows\)", stdout)
+        stages = {r["stage"] for r in res["phases"]}
+        if (not delivered or int(delivered.group(1)) != 2 * NUM_ROWS or not TOOLS_STAGES[schedule] <= stages
+                or res["policy"]["schedules_run"] != ["mapreduce", schedule]):
+            raise AssertionError(f"[tools] shuffle_profile --schedule {schedule}: delivered "
+                                 f"{delivered and delivered.group(1)} rows (want {2 * NUM_ROWS}), stages "
+                                 f"{sorted(stages)}, schedules {res['policy']['schedules_run']}\n{stdout}")
+        pool = re.search(r"\[profile\] pool: .*", stderr).group(0)
+        for line in _table_lines(stdout) + [ln for ln in stdout.splitlines() if ln.startswith("[profile] ")]:
+            log(f"[tools] {schedule}: {line}")
+        log(f"[tools] {schedule}: {pool}; tool {secs[schedule]:.1f} s ({smi})")
+        out[schedule] = {"wall_s": res["wall_s"], "pipeline_gbps": res["pipeline_gbps"], "phases": res["phases"],
+                         "memcpy_roofline_gbps": res["memcpy_roofline_gbps"], "policy": res["policy"], "pool": pool}
+    stdout, stderr = tool("threads", "shuffle_profile", "--threads", "1,2,4,8", *TOOLS_SHAPE, "--out",
+                          os.path.join(work, "threads.json"))
+    res = result("threads")
+    if res["native"] is not True:
+        raise AssertionError(f"[tools] shuffle_profile --threads: native {res['native']}\n{stderr}")
+    for line in _table_lines(stdout):
+        log(f"[tools] threads: {line}")
+    out["threads"] = res
+    # The gates sleep through most of their runs: they go side by side with
+    # each other and with the decode sweep, which uses at most 4 of the
+    # host's cores (beside the threads sweep, whose 8 threads they
+    # disturbed, they made its figures erratic).
+    gates_pool = concurrent.futures.ThreadPoolExecutor(2)
+    gates = {label: gates_pool.submit(tool, label, "obs_smoke", *args)
+             for label, args in (("obs_smoke", ()), ("obs_smoke_federation", ("--federation",)))}
+    gates_pool.shutdown(wait=False)
+    stdout, stderr = tool("decode", "shuffle_profile", "--decode", "1,4", *TOOLS_SHAPE, "--data-dir",
+                          os.path.join(work, "decode_data"), "--out", os.path.join(work, "decode.json"))
+    res = result("decode")
+    block = {r["plan"]: r for r in res["selective_sweep"]["rows"]}["block:1"]
+    if block["amplification"] != 1.0:
+        raise AssertionError(f"[tools] shuffle_profile --decode: block:1 amplification {block['amplification']}")
+    for line in stdout.splitlines():
+        if line.strip():
+            log(f"[tools] decode: {line}")
+    out["decode"] = res
+    for label, fut in gates.items():
+        stdout, _ = fut.result()
+        log(f"[tools] {label}: {stdout.strip()[:600]}")
+        out[label] = stdout.strip()
+    # The sweep's table over the slice's trial, as the multi-trainer sweep
+    # leaves it: the summary as t1_r8.json beside its stats directory.
+    sweep = os.path.join(work, "sweep_results")
+    summary = port.process_stats([trial], stats_dir=os.path.join(sweep, "stats_t1_r8"))
+    with open(os.path.join(sweep, "t1_r8.json"), "w") as f:
+        json.dump(summary, f)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RSDL_")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", SWEEP_SCRIPT, sweep], capture_output=True, text=True, timeout=120,
+                          env=env, cwd=ROOT)
+    secs["summarize_sweep"] = time.perf_counter() - t0
+    rows = proc.stdout.strip().splitlines()
+    want = f"| 1 | 8 | {summary['duration_mean']:.0f} | {summary['row_throughput_mean']:,.0f} | "
+    if proc.returncode != 0 or len(rows) != 3 or not rows[2].startswith(want):
+        raise AssertionError(f"[tools] summarize_sweep exited {proc.returncode}: {rows}, want a row {want!r}; "
+                             f"{proc.stderr[-2000:]}")
+    for line in rows:
+        log(f"[tools] summarize_sweep: {line}")
+    out["summarize_sweep"] = rows
+    out["seconds"] = secs
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tools] phase {out['phase_s']:.1f} s; s per tool run "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + f" ({smi}; host figures of the card's machine)")
+    return out
+
+
 def phase_lm(torch) -> dict:
     import ray_shuffling_data_loader_tpu_torch as port
     import ray_shuffling_data_loader_tpu_torch.ops as ops
@@ -4765,10 +4903,7 @@ def phase_pod(torch, filenames, data_dir: str, smi: str, work: str) -> dict:
     b = 65536
     full = NUM_ROWS // b
     shard = b // POD_RANKS
-    # pod.py's rank 0 reuses a data directory whose manifest names this shape.
-    with open(os.path.join(data_dir, "manifest.json"), "w") as f:
-        json.dump({"shape": {"num_rows": NUM_ROWS, "num_files": 10, "row_groups": 5, "seed": 0},
-                   "files": [os.path.abspath(fn) for fn in filenames]}, f)
+    # pod.py's rank 0 reuses the slices' data directory through its manifest.
     out_dir = os.path.join(work, "out")
     cmd = [sys.executable, "-m", "ray_shuffling_data_loader_tpu_torch.pod", "--simulate-pod", str(POD_RANKS),
            "--loader", "resident", "--backend", "gloo", "--device", "cuda", "--num-rows", str(NUM_ROWS),
@@ -4913,7 +5048,7 @@ def resume_run(work: str, shm: str, name: str, loader: str, kill_after: int = 0,
     shutil.rmtree(record, ignore_errors=True)
     argv = [sys.executable, script, "--num-rows", str(NUM_ROWS), "--num-files", "10", "--num-row-groups-per-file",
             "5", "--batch-size", str(RESUME_BATCH), "--epochs", str(RESUME_EPOCHS), "--num-reducers", "8",
-            "--seed", "0", "--data-dir", os.path.join(work, "data"), "--loader", loader, "--device", "cuda",
+            "--seed", "0", "--data-dir", SLICE_DATA_DIR, "--loader", loader, "--device", "cuda",
             "--checkpoint-every", str(RESUME_EVERY), "--record", record, "--num-workers", str(RESUME_WORKERS)]
     if checkpoint:
         argv += ["--checkpoint-dir", os.path.join(work, f"ckpt-{loader}")]
@@ -4987,14 +5122,9 @@ def _phase_resume(torch, work: str, shm: str, smi: str, filenames) -> dict:
     # once first.
     with open(os.path.join(work, "child.py"), "w") as f:
         f.write(RESUME_CHILD)
-    # The trainers' data directory names the slices' files, which are this
-    # shape, in the manifest through which get_data reuses a dataset.
-    os.makedirs(os.path.join(work, "data"))
-    with open(os.path.join(work, "data", "manifest.json"), "w") as f:
-        json.dump({"shape": {"num_rows": NUM_ROWS, "num_files": 10, "row_groups": 5, "seed": 0},
-                   "files": [os.path.abspath(fn) for fn in filenames]}, f)
+    # The trainers reuse the slices' data directory through its manifest.
     args = parse_args(["--num-rows", str(NUM_ROWS), "--num-files", "10", "--num-row-groups-per-file", "5",
-                       "--seed", "0", "--data-dir", os.path.join(work, "data")])
+                       "--seed", "0", "--data-dir", SLICE_DATA_DIR])
     if get_data(args) != [os.path.abspath(fn) for fn in filenames]:
         raise AssertionError("[resume] the trainers would not reuse the slices' dataset")
     shms = {name: os.path.join(shm, name) for name in ("control", *loaders)}
@@ -5380,7 +5510,7 @@ def main() -> int:
     smi = smi_name_and_limit()
     log(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; start-up "
         f"{time.perf_counter() - T_PROCESS:.1f} s")
-    data_dir = os.path.join(ROOT, "build", "smoke_data")
+    data_dir = SLICE_DATA_DIR
     t_start = time.perf_counter()
     try:
         with concurrent.futures.ThreadPoolExecutor(2) as lint_pool:
@@ -5508,6 +5638,13 @@ def main() -> int:
         summary = port.process_stats(trials, stats_dir=stats_dir)
         log(trial_line("slice dlrm", trials[0]))
         log(f"[stats] wrote {', '.join(sorted(os.listdir(stats_dir)))} under build/stats/: {summary}")
+        tools_dir = os.path.join(ROOT, "build", "tools")
+        shutil.rmtree(tools_dir, ignore_errors=True)
+        os.makedirs(tools_dir)
+        try:
+            tools = timed("tools", phase_tools, smi, tools_dir, trials[0])
+        finally:
+            shutil.rmtree(tools_dir, ignore_errors=True)
         lm = timed("lm", phase_lm, torch)
         sp_dir = os.path.join(ROOT, "build", "sp")
         shutil.rmtree(sp_dir, ignore_errors=True)
@@ -5602,6 +5739,7 @@ def main() -> int:
                     "service": service,
                     "uri": uri,
                     "pod": pod,
+                    "tools": tools,
                     "parity_max_abs_diff": {label: err for label, (err, _) in parity.items()},
                 },
                 f, indent=1,

@@ -35,6 +35,7 @@ _EXPORTS = {
     "DATA_SPEC": "data_generation",
     "KEY_COLUMN": "data_generation",
     "LABEL_COLUMN": "data_generation",
+    "cached_generate_data": "data_generation",
     "generate_data": "data_generation",
     "BatchQueue": "batch_queue",
     "ProducerDiedError": "batch_queue",

@@ -5,13 +5,15 @@ writes hold the same tables: 17 int64 embedding-index columns, 2 int64
 one-hot columns, a float64 ``labels`` column and a ``key`` row-id column
 (what the exactly-once checks read), snappy-compressed, with controllable
 row groups. Files are written on the runtime's task pool, to a local
-directory or a URI.
+directory or a URI. :func:`cached_generate_data` writes a local dataset
+once and reuses it through a manifest that either package reads.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -43,6 +45,7 @@ DATA_SPEC = {
 }
 
 EMBEDDING_COLUMNS = [c for c in DATA_SPEC if c.startswith("embeddings_")]
+ONE_HOT_COLUMNS = [c for c in DATA_SPEC if c.startswith("one_hot")]
 LABEL_COLUMN = "labels"
 KEY_COLUMN = "key"
 
@@ -184,3 +187,55 @@ def generate_data(
     ]
     filenames, data_sizes = zip(*[f.result() for f in futures])
     return list(filenames), int(sum(data_sizes))
+
+
+def _manifest_key(num_rows: int, num_files: int, num_row_groups_per_file: int, seed: int) -> dict:
+    return {"num_rows": num_rows, "num_files": num_files, "num_row_groups_per_file": num_row_groups_per_file,
+            "seed": seed}
+
+
+def cached_files(
+    num_rows: int, num_files: int, num_row_groups_per_file: int, data_dir: str, seed: int = 0
+) -> Optional[Tuple[List[str], int]]:
+    """``(filenames, in-memory bytes)`` from ``data_dir``'s manifest when
+    it names this shape and seed and every file it lists exists, else
+    None. A manifest that does not parse counts as a miss."""
+    try:
+        with open(os.path.join(data_dir, "manifest.json")) as f:
+            manifest = json.load(f)
+    except (OSError, ValueError):
+        return None
+    if not isinstance(manifest, dict) or manifest.get("key") != _manifest_key(
+        num_rows, num_files, num_row_groups_per_file, seed
+    ):
+        return None
+    if not all(os.path.exists(p) for p in manifest["filenames"]):
+        return None
+    return manifest["filenames"], manifest["num_bytes"]
+
+
+def cached_generate_data(
+    num_rows: int,
+    num_files: int,
+    num_row_groups_per_file: int,
+    data_dir: str,
+    seed: int = 0,
+) -> Tuple[List[str], int]:
+    """Write the dataset (row groups of equal size) under the local
+    directory ``data_dir`` once and reuse it while the directory's
+    ``manifest.json`` names the same shape and seed and every file is
+    there (:func:`cached_files`). The manifest is the JAX package's,
+    ``{"key": {...}, "filenames": [...], "num_bytes": n}``, so a directory
+    written by either package is a hit for the other; it is published by
+    an atomic rename. Returns ``(filenames, in-memory bytes)``."""
+    hit = cached_files(num_rows, num_files, num_row_groups_per_file, data_dir, seed)
+    if hit is not None:
+        return hit
+    filenames, num_bytes = generate_data(num_rows, num_files, num_row_groups_per_file, 0.0, data_dir, seed=seed)
+    manifest_path = os.path.join(data_dir, "manifest.json")
+    tmp_path = f"{manifest_path}.{os.getpid()}.tmp"
+    with open(tmp_path, "w") as f:
+        json.dump({"key": _manifest_key(num_rows, num_files, num_row_groups_per_file, seed),
+                   "filenames": filenames, "num_bytes": num_bytes}, f)
+    os.replace(tmp_path, manifest_path)
+    return filenames, num_bytes

@@ -197,7 +197,7 @@ def train_main(args) -> int:
         address = _wait_for(addr_file, 300)
         port.runtime.init(address=address, num_workers=args.num_workers)
         with open(os.path.join(data_dir, "manifest.json")) as f:
-            filenames = json.load(f)["files"]
+            filenames = [os.path.abspath(fn) for fn in json.load(f)["filenames"]]
     # One order on every rank: the resident loader maps row offsets from it.
     filenames = sorted(filenames)
     mark("runtime")

@@ -107,29 +107,18 @@ def parse_args(argv=None) -> argparse.Namespace:
 def get_data(args) -> List[str]:
     """The dataset's files: written once, then reused while the data
     directory's manifest names the same shape and seed and every file is
-    there."""
-    from ray_shuffling_data_loader_tpu_torch.data_generation import generate_data
+    there (:func:`.data_generation.cached_generate_data`)."""
+    from ray_shuffling_data_loader_tpu_torch.data_generation import cached_files, cached_generate_data
 
-    shape = {"num_rows": args.num_rows, "num_files": args.num_files,
-             "row_groups": args.num_row_groups_per_file, "seed": args.seed}
-    manifest = os.path.join(args.data_dir, "manifest.json")
-    try:
-        with open(manifest) as f:
-            have = json.load(f)
-        if have["shape"] == shape and all(os.path.exists(fn) for fn in have["files"]):
-            print(f"reusing {len(have['files'])} files in {args.data_dir}", flush=True)
-            return list(have["files"])
-    except (OSError, ValueError, KeyError):
-        pass
+    spec = (args.num_rows, args.num_files, args.num_row_groups_per_file, args.data_dir)
+    hit = cached_files(*spec, seed=args.seed)
+    if hit is not None:
+        print(f"reusing {len(hit[0])} files in {args.data_dir}", flush=True)
+        return [os.path.abspath(fn) for fn in hit[0]]
     t0 = time.perf_counter()
-    filenames, num_bytes = generate_data(
-        args.num_rows, args.num_files, args.num_row_groups_per_file, 0.0, args.data_dir, seed=args.seed
-    )
-    filenames = [os.path.abspath(fn) for fn in filenames]
-    with open(manifest, "w") as f:
-        json.dump({"shape": shape, "files": filenames}, f)
+    filenames, num_bytes = cached_generate_data(*spec, seed=args.seed)
     print(f"generated {num_bytes / 1e9:.3f} GB in {time.perf_counter() - t0:.2f} s", flush=True)
-    return filenames
+    return [os.path.abspath(fn) for fn in filenames]
 
 
 def main(argv=None) -> int:
