@@ -6,11 +6,12 @@
 
 Phases, each of which fails the script (non-zero exit) on any error:
 
-1. build: compile the port's CUDA kernels from their seven sources in
+1. build: compile the port's CUDA kernels from their eight sources in
    ``ray_shuffling_data_loader_tpu_torch/ops/csrc/`` (``interaction.cu``,
-   ``flash_fwd.cu``, ``flash_bwd.cu`` and the tensor-core route's
+   ``flash_fwd.cu``, ``flash_bwd.cu``, the tensor-core route's
    ``interaction_mma.cu``, ``flash_fwd_mma.cu``, ``flash_bwd_dkv_mma.cu``,
-   ``flash_bwd_dq_mma.cu``; one ``nvcc`` each, all started together) into
+   ``flash_bwd_dq_mma.cu`` and the short route's ``flash_bwd_short.cu``;
+   one ``nvcc`` each, all started together) into
    ``build/kernels/`` and log each kernel's registers and spills;
    lint, beside the build's ``nvcc``: the port's static analysis
    (``python -m ray_shuffling_data_loader_tpu_torch.rsdl_lint --json``)
@@ -48,15 +49,20 @@ Phases, each of which fails the script (non-zero exit) on any error:
    8, 64]`` bf16 causal and not, ``[1, 300, 2, 8]`` fp32 causal, ``[2, 56,
    2, 8]`` fp32, shapes of every head-dim bucket of both routes (ragged
    t among them) and one bf16 shape on each side of ``T_MIN``; every case
-   the tensor-core route takes on both routes of K2, K3 and K4; and the
-   autograd Function over the packed tensor (default routes) at the same
-   shapes.
+   the tensor-core route takes on both routes of K2, K3 and K4; the
+   backward's short route (dQ, dK, dV and D in one kernel) at every case
+   it takes: the TabTransformer's, the bf16 one below ``T_MIN`` (causal,
+   hd 16) and two ragged ones, ``[3, 7, 5, 8]`` and ``[3, 17, 2, 16]``
+   causal; and the autograd Function over the packed tensor (default
+   routes) at the same shapes.
    Time every kernel beside its bound, its plain version and the PyTorch
    library call that computes the same, at the main paths' shapes (K1 also
    at the resident and the pod phases', logged), at the sp trainer's (a ring hop's
    ``[2, 128, 4, 16]``, causal and not, and Ulysses' ``[2, 512, 1, 16]``
    causal) and at ``[2, 4096, 8, 64]`` bf16, causal and not, K1 to K4 on
    both routes;
+   at the TabTransformer's shape also the short kernel against the
+   CUDA-core K3 + K4 + ``row_dot``, with its share of its bound;
    and sweep both routes of K2, K3 and K4 at ``[4, t, 4, hd]`` causal, hd
    16 and 64, t 32 to 256, where ``T_MIN`` was chosen;
 3. slices: write the README's Quick-start dataset (10^6 rows, 10 files,
@@ -69,8 +75,9 @@ Phases, each of which fails the script (non-zero exit) on any error:
    must deliver every key at most once and exactly the full batches'
    worth, every loss must be finite, and over the path the interaction
    kernel must launch once per DLRM step, all on its tensor-core route,
-   and each flash kernel twice per TabTransformer step (two layers), none
-   on a tensor-core route. The loader runs its defaults (decode cache,
+   and K2 (CUDA-core route) and the short backward each twice per
+   TabTransformer step (two layers), with no launch of the CUDA-core K3
+   and K4 and none on a tensor-core route. The loader runs its defaults (decode cache,
    the schedule policy, packed reducer outputs staged in one copy): each
    epoch must stage at least one batch direct, and each run logs its
    schedules, the resolved ``cache_decoded``, the decoded-size estimate
@@ -415,9 +422,11 @@ Phases, each of which fails the script (non-zero exit) on any error:
    Ulysses, all on the tensor-core route. Logs each rank's step median,
    the collectives' share of a step, peak device bytes and start-up;
 8. parity: one batch through each trained module on ``cuda`` (kernels;
-   in fp32 the interaction's CUDA-core route) and through the same module
-   with the same weights on the CPU (plain versions), in fp32 with TF32
-   off;
+   in fp32 the interaction's and K2's CUDA-core routes) and through the
+   same module with the same weights on the CPU (plain versions), in fp32
+   with TF32 off; for the TabTransformer also a backward, whose parameter
+   gradients must match the CPU's (in fp32 it runs the CUDA-core K3 and
+   K4, each once per encoder layer);
 9. resume: the trainer (``python -m
    ray_shuffling_data_loader_tpu_torch.train_dlrm``) preempted and
    restarted (run after the service phase), on the slices' Quick-start
@@ -522,7 +531,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SLICE_DATA_DIR = os.path.join(ROOT, "build", "smoke_data")
 T_PROCESS = time.perf_counter()  # the script's start, before torch's import and the card's first use
 KERNEL_SOURCES = ("interaction", "flash_fwd", "flash_bwd", "interaction_mma", "flash_fwd_mma",
-                  "flash_bwd_dkv_mma", "flash_bwd_dq_mma")
+                  "flash_bwd_dkv_mma", "flash_bwd_dq_mma", "flash_bwd_short")
 CSRC = "ray_shuffling_data_loader_tpu_torch/ops/csrc/"
 JAX_FLASH = "ray_shuffling_data_loader_tpu/ops/flash_attention.py"
 
@@ -545,6 +554,9 @@ FP32_TOL = dict(atol=1e-5, rtol=1e-5)
 # Parity: the same fp32 module on two devices, TF32 off; the interaction,
 # the attention and the matmuls sum in other orders (K up to 779).
 PARITY_TOL = dict(atol=1e-4, rtol=1e-4)
+# Parity of the gradients: per parameter, max |cuda - cpu| against its
+# largest gradient (fp32 sums over 8192 rows in other orders).
+PARITY_GRAD_RTOL = 1e-3
 
 # Flash attention: (name, [b, t, h, hd], dtype, causal).
 TAB_SHAPE = (65536, 19, 4, 8)
@@ -573,6 +585,10 @@ FLASH_CASES = (
     ("hd80_ragged", (1, 77, 2, 80), "bfloat16", True),
     ("hd96_ragged", (1, 100, 2, 96), "bfloat16", False),
     ("hd128_ragged", (1, 157, 2, 128), "bfloat16", True),
+    # The backward's short route: t ragged against the 8-query tiles, h
+    # odd; and t past one 16-key tile at hd 16, causal.
+    ("short_ragged", (3, 7, 5, 8), "bfloat16", False),
+    ("short_ragged_causal", (3, 17, 2, 16), "bfloat16", True),
 )
 # The route sweep that chose T_MIN: the CausalLM's batch and heads.
 SWEEP_T = (32, 64, 128, 256)
@@ -663,24 +679,28 @@ def bound(nbytes: float, ops: float, rate: float, peak: float):
 
 
 LAUNCH_COUNTED = ("interaction_kernel", "flash_fwd_kernel", "flash_bwd_dkv_kernel",
-                  "flash_bwd_dq_kernel")
+                  "flash_bwd_dq_kernel", "flash_bwd_short_kernel")
 
 
 def reset_launches(ops) -> None:
     for name in LAUNCH_COUNTED:
         fn = getattr(ops, name)
-        fn.launches = fn.mma_launches = 0
+        fn.launches = 0
+        if hasattr(fn, "mma_launches"):
+            fn.mma_launches = 0
 
 
 def read_launches(ops) -> dict:
     """Launches per kernel: ``interaction``, ``flash_fwd`` etc. count both
-    routes, ``*_mma`` the tensor-core route alone."""
+    routes, ``*_mma`` the tensor-core route alone; ``flash_bwd_short`` has
+    one route."""
     counts = {}
     for name in LAUNCH_COUNTED:
         fn = getattr(ops, name)
         key = name.removesuffix("_kernel")
         counts[key] = fn.launches
-        counts[f"{key}_mma"] = fn.mma_launches
+        if hasattr(fn, "mma_launches"):
+            counts[f"{key}_mma"] = fn.mma_launches
     return counts
 
 
@@ -1076,6 +1096,9 @@ def flash_work(shape, elem: int, causal: bool):
         "flash_fwd": (3 * tensor + tensor + 2 * row, 4 * pairs * hd),
         "flash_bwd_dkv": (4 * tensor + 3 * row + 2 * tensor, 8 * pairs * hd),
         "flash_bwd_dq": (4 * tensor + 3 * row + tensor, 6 * pairs * hd),
+        # q, k, v, dO, out, m, l in; dQ, dK, dV out. S, dP, dV, dK and dQ
+        # once each, and D = rowsum(dO * out).
+        "flash_bwd_short": (5 * tensor + 2 * row + 3 * tensor, 10 * pairs * hd + 2 * b * t * h * hd),
     }
 
 
@@ -1095,14 +1118,17 @@ def compare(torch, label: str, pairs) -> dict:
 
 def check_flash(torch, ops, case, gen) -> dict:
     """K2, K3 and K4 against the plain versions on every route that takes
-    the case (``errors[route]``), then the autograd Function on
-    the default route (``errors["function"]``)."""
+    the case (``errors[route]``); the short backward where it takes the
+    case (``errors["short"]``, from the default forward); then the autograd
+    Function on the default routes (``errors["function"]``).
+    ``errors["route"]`` is K2's default route, ``errors["bwd_route"]`` the
+    backward's."""
     name, shape, dtype_name, causal = case
     dtype = getattr(torch, dtype_name)
     qkv, dout = flash_inputs(torch, shape, dtype, gen)
     q, k, v = qkv.unbind(2)
     default = ops.flash_route(q, k, v)
-    routes = ops.ROUTES if ops.mma_supported(q, k, v) else ("simt",)
+    routes = ("mma", "simt") if ops.mma_supported(q, k, v) else ("simt",)
     out_r, m_r, l_r = ops.flash_forward_reference(q, k, v, causal)
     tol = FLASH_TOL[dtype_name]
     errs = {"route": default}
@@ -1119,8 +1145,19 @@ def check_flash(torch, ops, case, gen) -> dict:
             *((key, got, want, tol["grad"]) for key, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads_r)),
         ))
         if route == default:
-            default_grads_r = grads_r
-    # The Function as the encoder block calls it (the default route): its
+            default_grads_r, default_fwd = grads_r, (out, m, l)
+    out, m, l = default_fwd
+    bwd_route = errs["bwd_route"] = ops.flash_bwd_route(q, k, v, out, dout)
+    checked = (*routes, "short") if bwd_route == "short" else routes
+    if bwd_route == "short":
+        # dQ, dK, dV (and D) in one kernel, into one packed gradient.
+        dq, dk, dv = packed_grads(torch, qkv)
+        ops.flash_bwd_short_kernel(q, k, v, out, dout, m, l, dq, dk, dv, causal)
+        torch.cuda.synchronize()
+        errs["short"] = compare(torch, f"{name} (short)", [
+            (key, got, want, tol["grad"]) for key, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), default_grads_r)
+        ])
+    # The Function as the encoder block calls it (the default routes): its
     # packed gradient must hold the same dQ, dK, dV at the right places.
     leaf = qkv.detach().requires_grad_(True)
     fn_out = ops.flash_attention_qkv(leaf, causal)
@@ -1130,10 +1167,10 @@ def check_flash(torch, ops, case, gen) -> dict:
         ("out", fn_out, out_r, tol["out"]),
         ("dqkv", leaf.grad, torch.stack(default_grads_r, dim=2), tol["grad"]),
     ))
-    log(f"[kernel] flash {name} {list(shape)} {dtype_name} causal={causal}, route {default} "
-        f"(checked: {', '.join(routes)}): max |kernel - plain| "
+    log(f"[kernel] flash {name} {list(shape)} {dtype_name} causal={causal}, route {default}, backward "
+        f"{bwd_route} (checked: {', '.join(checked)}): max |kernel - plain| "
         + "; ".join(f"{r}: " + ", ".join(f"{k_} {e!r}" for k_, e in errs[r].items())
-                    for r in (*routes, "function"))
+                    for r in (*checked, "function"))
         + f" (out {tol['out']}, m/l {STATS_TOL}, grads {tol['grad']})")
     return errs
 
@@ -1143,7 +1180,8 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
     at ``shape``: ``{kernel: {ms, plain_ms, library_ms, bound_ms, ...}}``.
     ``flash_fwd``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` are the CUDA-core
     route; where the tensor-core route takes the shape, the ``*_mma``
-    kernels are timed beside them in the same call."""
+    kernels are timed beside them in the same call; where the short route
+    takes the backward, ``flash_bwd_short`` and ``row_dot`` too."""
     import torch.nn.functional as F
 
     qkv, dout = flash_inputs(torch, shape, torch.bfloat16, gen)
@@ -1151,7 +1189,8 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
     dq, dk, dv = packed_grads(torch, qkv)
     out, m, l = ops.flash_fwd_kernel(q, k, v, causal)
     big_d = ops.row_dot(dout, out)
-    routes = ops.ROUTES if ops.mma_supported(q, k, v) else ("simt",)
+    routes = ("mma", "simt") if ops.mma_supported(q, k, v) else ("simt",)
+    short = ops.short_supported(q, k, v, out, dout)
     fwd_ms, dkv_ms, dq_ms = {}, {}, {}
     for route in routes:
         fwd_ms[route] = time_ms(torch, ops.flash_fwd_kernel, q, k, v, causal, route)
@@ -1159,6 +1198,9 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
                                 causal, route)
         dq_ms[route] = time_ms(torch, ops.flash_bwd_dq_kernel, q, k, v, dout, m, l, big_d, dq,
                                causal, route)
+    if short:
+        short_ms = time_ms(torch, ops.flash_bwd_short_kernel, q, k, v, out, dout, m, l, dq, dk, dv, causal)
+        row_dot_ms = time_ms(torch, ops.row_dot, dout, out)
     reps = 10 if shape[1] > 1024 else 50
     plain_fwd_ms = time_ms(torch, ops.flash_forward_reference, q, k, v, causal, reps=reps)
     plain_bwd_ms = time_ms(torch, ops.flash_backward_reference, q, k, v, out, m, l, dout, causal,
@@ -1199,6 +1241,8 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
         times["flash_fwd_mma"] = (fwd_ms["mma"], plain_fwd_ms, sdpa_fwd_ms)
         times["flash_bwd_dkv_mma"] = (dkv_ms["mma"], plain_bwd_ms, sdpa_bwd_ms)
         times["flash_bwd_dq_mma"] = (dq_ms["mma"], plain_bwd_ms, sdpa_bwd_ms)
+    if short:
+        times["flash_bwd_short"] = (short_ms, plain_bwd_ms, sdpa_bwd_ms)
     result = {}
     for kname, (ms, plain_ms, lib_ms) in times.items():
         nbytes, nops = work[kname.removesuffix("_mma")]
@@ -1208,6 +1252,18 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
         log(f"[kernel] {kname} {list(shape)} bf16 causal={causal}: kernel {ms!r} ms, "
             f"plain {plain_ms!r} ms, sdpa {lib_ms!r} ms, bound {bound_ms!r} ms by {bound_by} "
             f"({nbytes} B, {nops} ops)")
+    if short:
+        # The backward it replaces on this shape: row_dot, then K3 and K4
+        # on the CUDA-core route (timed above in the same call).
+        simt_ms = dkv_ms["simt"] + dq_ms["simt"] + row_dot_ms
+        share = result["flash_bwd_short"]["bound_ms"] / short_ms
+        result["flash_bwd_short"].update(row_dot_ms=row_dot_ms, simt_backward_ms=simt_ms, bound_share=share)
+        log(f"[kernel] flash_bwd_short {list(shape)} bf16 causal={causal}: {short_ms!r} ms against the CUDA-core "
+            f"K3 {dkv_ms['simt']!r} + K4 {dq_ms['simt']!r} + row_dot {row_dot_ms!r} = {simt_ms!r} ms "
+            f"({simt_ms / short_ms!r}x); {share!r} of its bound")
+        if not short_ms < simt_ms:
+            raise AssertionError(f"flash_bwd_short {list(shape)}: {short_ms!r} ms, not faster than the "
+                                 f"CUDA-core backward's {simt_ms!r} ms")
     return result
 
 
@@ -1224,7 +1280,7 @@ def route_sweep(torch, ops, gen) -> list:
             out, m, l = ops.flash_fwd_kernel(q, k, v, True, "simt")
             big_d = ops.row_dot(dout, out)
             row = {"shape": list(shape)}
-            for route in ops.ROUTES:
+            for route in ("mma", "simt"):
                 row[f"fwd_{route}_ms"] = time_ms(torch, ops.flash_fwd_kernel, q, k, v, True, route)
                 row[f"dkv_{route}_ms"] = time_ms(torch, ops.flash_bwd_dkv_kernel, q, k, v, dout, m,
                                                  l, big_d, dk, dv, True, route)
@@ -1251,6 +1307,11 @@ def phase_flash(torch, rate: float):
                        ("at_t_min", "mma"), ("long", "mma")):
         if errs[name]["route"] != want:
             raise AssertionError(f"flash {name}: route {errs[name]['route']}, want {want}")
+    for name, want in (("tabtransformer", "short"), ("below_t_min", "short"), ("short_ragged", "short"),
+                       ("short_ragged_causal", "short"), ("causal_lm", "mma"), ("at_t_min", "mma"),
+                       ("unaligned", "simt")):
+        if errs[name]["bwd_route"] != want:
+            raise AssertionError(f"flash {name}: backward route {errs[name]['bwd_route']}, want {want}")
     timings = {
         "tabtransformer": time_flash(torch, ops, TAB_SHAPE, False, rate, gen),
         "causal_lm": time_flash(torch, ops, LM_SHAPE, True, rate, gen),
@@ -1274,13 +1335,16 @@ def phase_flash(torch, rate: float):
         ("flash_bwd_dkv_mma", 252, max(lm_err["dk"], lm_err["dv"]), "flash_bwd_dkv_mma.cu",
          "causal_lm"),
         ("flash_bwd_dq_mma", 331, lm_err["dq"], "flash_bwd_dq_mma.cu", "causal_lm"),
+        # dQ, dK and dV in one kernel: K3's and K4's TPU kernels together.
+        ("flash_bwd_short", (252, 331), max(errs["tabtransformer"]["short"].values()), "flash_bwd_short.cu",
+         "tabtransformer"),
     ):
         t = timings[cell][kname]
         entries.append({
             "name": kname,
             "route": "cuda",
             "source": CSRC + source,
-            "replaces": f"{JAX_FLASH}:{line}",
+            "replaces": ", ".join(f"{JAX_FLASH}:{n}" for n in (line if isinstance(line, tuple) else (line,))),
             "launches": None,
             "max_abs_err": err,
             "ms": t["ms"],
@@ -1722,11 +1786,13 @@ def phase_slices(torch, data_dir: str) -> dict:
         tab = train_slice(torch, port, filenames, num_rows, tab_model, "tabtransformer")
         n = tab["launches"]
         want = 2 * tab["steps"]  # two encoder layers
-        # t = 19, hd = 8: the CUDA-core route only.
+        # t = 19, hd = 8, bf16: K2 on its CUDA-core route, the backward on
+        # the short route, none of the CUDA-core K3 and K4.
         if (n["interaction"] or any(n[k] for k in n if k.endswith("_mma"))
-                or any(n[k] != want for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))):
-            raise AssertionError(f"tabtransformer: launches {n}, want {want} of each flash kernel, "
-                                 f"none on the tensor-core route")
+                or any(n[k] != want for k in ("flash_fwd", "flash_bwd_short"))
+                or n["flash_bwd_dkv"] or n["flash_bwd_dq"]):
+            raise AssertionError(f"tabtransformer: launches {n}, want {want} of flash_fwd and of flash_bwd_short, "
+                                 f"none of flash_bwd_dkv and flash_bwd_dq, none on the tensor-core route")
         return {"dlrm": dlrm, "tabtransformer": tab, "filenames": filenames}
     finally:
         port.runtime.shutdown()
@@ -4482,7 +4548,8 @@ def phase_ranks(filenames, smi: str, work: str) -> dict:
         for res in out["ranks"]:
             n = res["launches"]
             if (n["interaction"]["launches"] != res["steps"] or n["interaction"]["mma_launches"] != res["steps"]
-                    or any(n[k]["launches"] for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))):
+                    or any(n[k]["launches"] for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                                                      "flash_bwd_short"))):
                 raise AssertionError(f"[ranks] {label} rank {res['rank']}: launches {n} in {res['steps']} steps, "
                                      "want one interaction per step, all on the tensor-core route, and no flash")
             if res["sharded"] != want_sharded:
@@ -4838,7 +4905,7 @@ def phase_lm(torch) -> dict:
         raise AssertionError(f"lm: loss did not fall: {losses}")
     want = 2 * steps
     # t = 512, hd = 16, bf16: the tensor-core route only.
-    if launches["interaction"] or any(
+    if launches["interaction"] or launches["flash_bwd_short"] or any(
         launches[k] != want
         for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_mma", "flash_bwd_dkv_mma",
                   "flash_bwd_dq_mma")
@@ -4852,8 +4919,11 @@ def phase_lm(torch) -> dict:
 
 
 def phase_parity(torch, label: str, model, batch):
-    """``(max |cuda - cpu|, launches of the fp32 forward on cuda)``; the
-    interaction and the flash kernels take their CUDA-core routes there."""
+    """``(max |cuda - cpu|, launches of the fp32 forward on cuda, launches
+    of the fp32 backward on cuda or None)``; the interaction and the flash
+    kernels take their CUDA-core routes there. The TabTransformer's
+    backward is held to the CPU's too: in fp32 it runs the CUDA-core K3 and
+    K4 (the short route takes bf16 only)."""
     import ray_shuffling_data_loader_tpu_torch.ops as ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4876,7 +4946,39 @@ def phase_parity(torch, label: str, model, batch):
                              f"CUDA-core route")
     log(f"[parity] {label}: {rows} rows fp32, cuda vs cpu: max |diff| = {err!r} "
         f"(atol {PARITY_TOL['atol']}, rtol {PARITY_TOL['rtol']}); launches {launches}")
-    return err, launches
+    if label == "dlrm":
+        return err, launches, None
+    # The gradients of the mean output: sums over the rows in another order
+    # on each device, held per parameter to PARITY_GRAD_RTOL of its largest
+    # (of a thousandth of the largest of all, for one whose gradient is
+    # about 0).
+    model.zero_grad(set_to_none=True)
+    cpu_model.zero_grad(set_to_none=True)
+    reset_launches(ops)
+    model(features).float().mean().backward()
+    torch.cuda.synchronize()
+    bwd_launches = read_launches(ops)
+    cpu_model({k: v.cpu() for k, v in features.items()}).float().mean().backward()
+    grad_err = 0.0
+    largest = max(cp.grad.abs().max().item() for cp in cpu_model.parameters() if cp.grad is not None)
+    for (pname, gp), cp in zip(model.named_parameters(), cpu_model.parameters()):
+        if cp.grad is None:
+            continue
+        scale = max(cp.grad.abs().max().item(), 1e-3 * largest)
+        diff = (gp.grad.cpu() - cp.grad).abs().max().item()
+        if diff > PARITY_GRAD_RTOL * scale:
+            raise AssertionError(f"parity {label}: gradient of {pname}: max |cuda - cpu| {diff!r}, "
+                                 f"more than {PARITY_GRAD_RTOL} of its max {scale!r}")
+        grad_err = max(grad_err, diff / scale)
+    model.zero_grad(set_to_none=True)
+    # Forward and backward: K2 once, K3 and K4 once each, per encoder layer.
+    want = {"flash_fwd": 2, "flash_bwd_dkv": 2, "flash_bwd_dq": 2}
+    if any(bwd_launches[k] != want.get(k, 0) for k in bwd_launches):
+        raise AssertionError(f"parity {label} backward: launches {bwd_launches}, want {want}, all on the "
+                             f"CUDA-core route")
+    log(f"[parity] {label} backward: max |cuda - cpu| / max |cpu| over the parameters' gradients "
+        f"{grad_err!r} (limit {PARITY_GRAD_RTOL}); launches {bwd_launches}")
+    return err, launches, bwd_launches
 
 
 # The pod phase: pod.py as four gloo ranks on cuda:0, a global batch of
@@ -5420,7 +5522,7 @@ def phase_sp(torch, work: str, smi: str) -> dict:
                 want = {"flash_fwd": 2 * (res["sp_index"] + 1) * steps}
                 want["flash_fwd_mma"] = want["flash_fwd"]
             else:
-                want = {key: 2 * steps for key in n}
+                want = {key: 2 * steps for key in n if key != "flash_bwd_short"}
             if any(n[key] != want.get(key, 0) for key in n):
                 raise AssertionError(f"[sp] {attention} rank {res['rank']}: launches {n} in {steps} steps, "
                                      f"want {want} (two layers; all on the tensor-core route)")
@@ -5660,16 +5762,19 @@ def main() -> int:
         # Each kernel's launches on the path that runs it: the DLRM's bf16
         # steps (K1's tensor-core route), its fp32 parity forward (K1's
         # CUDA-core route), the CausalLM (the flash kernels' tensor-core
-        # route) and the TabTransformer (their CUDA-core route); and on the
-        # flash kernels' tensor-core route the sp runs' sums over their
-        # ranks (launches_sp_ring, launches_sp_ulysses).
+        # route), the TabTransformer (K2's CUDA-core route and the short
+        # backward) and its fp32 parity backward (K3's and K4's CUDA-core
+        # route); and on the flash kernels' tensor-core route the sp runs'
+        # sums over their ranks (launches_sp_ring, launches_sp_ulysses).
         for entry in kernels:
             kname = entry["name"]
             if kname.startswith("interaction"):
                 counts = slices["dlrm"]["launches"] if kname.endswith("_mma") else parity["dlrm"][1]
+            elif kname in ("flash_bwd_dkv", "flash_bwd_dq"):
+                counts = parity["tabtransformer"][2]
             else:
                 counts = (lm if kname.endswith("_mma") else slices["tabtransformer"])["launches"]
-            entry["launches"] = (counts[kname] if kname.endswith("_mma")
+            entry["launches"] = (counts[kname] if kname.endswith("_mma") or f"{kname}_mma" not in counts
                                  else counts[kname] - counts[f"{kname}_mma"])
             if kname.startswith("flash") and kname.endswith("_mma"):  # and over the ranks of each sp run
                 for attention in SP_ATTENTIONS:
@@ -5707,7 +5812,8 @@ def main() -> int:
     finally:
         stop_early_heads()
         shutil.rmtree(HEAD_DIR, ignore_errors=True)
-    log(f"[done] {time.perf_counter() - t_start:.1f} s; phase walls (s): "
+    log(f"[done] {time.perf_counter() - t_start:.1f} s (the script {time.perf_counter() - T_PROCESS:.1f} s); "
+        "phase walls (s): "
         + ", ".join(f"{name} {secs:.1f}" for name, secs in WALLS.items()))
     if args.out:
         with open(args.out, "w") as f:
@@ -5740,7 +5846,7 @@ def main() -> int:
                     "uri": uri,
                     "pod": pod,
                     "tools": tools,
-                    "parity_max_abs_diff": {label: err for label, (err, _) in parity.items()},
+                    "parity_max_abs_diff": {label: err for label, (err, *_) in parity.items()},
                 },
                 f, indent=1,
             )

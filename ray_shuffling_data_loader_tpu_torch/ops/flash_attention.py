@@ -11,7 +11,12 @@ call, one rule for all three: ``"mma"``, tensor-core kernels
 ``csrc/flash_bwd_dq_mma.cu``) for bf16 heads of at least :data:`T_MIN`
 tokens and a head dim that is a multiple of 16; ``"simt"``, the CUDA-core
 kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), for everything
-else. On CPU tensors the same :class:`FlashAttention` runs the two plain versions,
+else. The backward has a third route, which :func:`flash_bwd_route` picks
+before the other two: ``"short"``, one tensor-core kernel
+(``csrc/flash_bwd_short.cu``) that computes dQ, dK, dV and D together for
+bf16 heads shorter than :data:`T_MIN` with a head dim of 8 or 16, read
+from one packed projection (the TabTransformer's). On CPU tensors the
+same :class:`FlashAttention` runs the two plain versions,
 :func:`flash_forward_reference` and :func:`flash_backward_reference`, which
 compute the same quantities densely and hand over the same statistics.
 There is no fallback from one to the other: a kernel that fails to build
@@ -46,7 +51,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # was the faster at every point, t = 32 included (PERF.md), so the
 # crossover lies at or below the sweep's shortest t.
 T_MIN = 32
-ROUTES = ("mma", "simt")
+ROUTES = ("mma", "simt", "short")
+_KERNEL_ROUTES = ("mma", "simt")  # K2, K3 and K4 each; "short" is the backward's alone
+# The short route: head dims, and the widest h * hd whose batch rows a
+# block of csrc/flash_bwd_short.cu stages whole (kMaxWidth there).
+SHORT_HEAD_DIMS = (8, 16)
+SHORT_MAX_WIDTH = 128
 # The key chunk of the RSDL_FLASH_BWD=xla backward: the JAX package's
 # max(block_k, 128) at its default block_k of 128.
 FLASH_BWD_XLA_CHUNK = 128
@@ -149,13 +159,57 @@ def flash_route(*tensors: torch.Tensor) -> str:
     return "simt"
 
 
+def _rows_packed(x: torch.Tensor, shape, row_stride: int) -> bool:
+    """Whether ``x`` is a bf16 ``[b, t, h, hd]`` of ``shape`` whose token
+    rows are ``row_stride`` elements apart and whose (h, hd) are
+    contiguous, with a 16-byte aligned pointer and batch stride."""
+    _, _, h, hd = shape
+    return (x.dtype == torch.bfloat16 and x.shape == shape and x.stride()[1:] == (row_stride, hd, 1)
+            and x.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0)
+
+
+def _packed_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether q, k and v are the three views of one ``[b, t, 3, h, hd]``
+    bf16 projection whose batch rows are contiguous and 16-byte aligned."""
+    if q.dim() != 4:
+        return False
+    width = q.shape[2] * q.shape[3]
+    step = width * q.element_size()
+    return (all(_rows_packed(x, q.shape, 3 * width) and x.stride(0) == q.stride(0) for x in (q, k, v))
+            and k.data_ptr() == q.data_ptr() + step and v.data_ptr() == q.data_ptr() + 2 * step)
+
+
+def short_supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                    dout: torch.Tensor) -> bool:
+    """Whether the short route takes this backward: bf16 heads of
+    ``1 <= t <`` :data:`T_MIN` tokens, hd in :data:`SHORT_HEAD_DIMS`,
+    ``h * hd <=`` :data:`SHORT_MAX_WIDTH`; q, k and v the views of one
+    packed ``[b, t, 3, h, hd]`` whose batch rows are contiguous, out and dO
+    ``[b, t, h, hd]`` with contiguous batch rows; 16-byte aligned pointers
+    and batch strides."""
+    if q.dim() != 4:
+        return False
+    _, t, h, hd = q.shape
+    return (1 <= t < T_MIN and hd in SHORT_HEAD_DIMS and h * hd <= SHORT_MAX_WIDTH and _packed_qkv(q, k, v)
+            and all(_rows_packed(x, q.shape, h * hd) for x in (out, dout)))
+
+
+def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                    dout: torch.Tensor) -> str:
+    """The route of the backward: ``"short"`` where :func:`short_supported`
+    holds, else K3's and K4's :func:`flash_route`."""
+    if short_supported(q, k, v, out, dout):
+        return "short"
+    return flash_route(q, k, v, dout)
+
+
 def _pick_route(name: str, route, tensors: Sequence[torch.Tensor]) -> str:
     """``route`` checked against the tensors, or :func:`flash_route` when
     it is None."""
     if route is None:
         return flash_route(*tensors)
-    if route not in ROUTES:
-        raise ValueError(f"{name}: route must be None or one of {ROUTES}, got {route!r}")
+    if route not in _KERNEL_ROUTES:
+        raise ValueError(f"{name}: route must be None or one of {_KERNEL_ROUTES}, got {route!r}")
     if route == "mma" and not mma_supported(*tensors):
         shapes = ", ".join(f"{x.dtype} {tuple(x.shape)}" for x in tensors)
         raise ValueError(
@@ -322,15 +376,94 @@ def flash_bwd_dq_kernel(
     return dq
 
 
+def flash_bwd_short_kernel(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    m: torch.Tensor,
+    l: torch.Tensor,
+    dq: torch.Tensor,
+    dk: torch.Tensor,
+    dv: torch.Tensor,
+    causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the short route's kernel on the current stream: dQ, dK and dV
+    in one launch, with ``D = rowsum(dout * out)`` taken inside it, written
+    into ``dq``, ``dk`` and ``dv`` (the views of one packed gradient laid out
+    as q, k and v), and return them. Tensors :func:`short_supported` does
+    not take raise ``ValueError``, before the device check. Counts its
+    launches in ``flash_bwd_short_kernel.launches``."""
+    if not short_supported(q, k, v, out, dout) or not _packed_qkv(dq, dk, dv) or dq.shape != q.shape:
+        shapes = ", ".join(f"{x.dtype} {tuple(x.shape)} {x.stride()}" for x in (q, k, v, out, dout, dq))
+        raise ValueError(
+            f"flash_bwd_short_kernel: the short route takes bf16 [b, t < {T_MIN}, h, hd] heads, hd in "
+            f"{SHORT_HEAD_DIMS}, h * hd <= {SHORT_MAX_WIDTH}, q, k, v (and dq, dk, dv) the views of one packed "
+            f"[b, t, 3, h, hd] and out, dout with contiguous batch rows, 16-byte aligned; got {shapes}"
+        )
+    b, t, h, hd = _check_inputs("flash_bwd_short_kernel", (q, k, v, out, dout, dq, dk, dv))
+    _check_stats("flash_bwd_short_kernel", (b, h, t), q.device, (m, l))
+    lib = _build.load("flash_bwd_short")
+    fn = lib.rsdl_flash_bwd_short
+    if fn.argtypes is None:
+        # qkv, out, dout, m, l, dqkv; their batch strides; b, t, h, hd,
+        # causal; the stream
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        rc = fn(
+            q.data_ptr(), out.data_ptr(), dout.data_ptr(), m.data_ptr(), l.data_ptr(), dq.data_ptr(),
+            q.stride(0), out.stride(0), dout.stride(0), dq.stride(0), b, t, h, hd, int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _raise_on(rc, "flash short backward kernel")
+    flash_bwd_short_kernel.launches += 1
+    return dq, dk, dv
+
+
+def flash_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    m: torch.Tensor,
+    l: torch.Tensor,
+    dq: torch.Tensor,
+    dk: torch.Tensor,
+    dv: torch.Tensor,
+    causal: bool = False,
+    route=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernels' backward, written into ``dq``, ``dk`` and ``dv``:
+    ``route`` (None: :func:`flash_bwd_route`) ``"short"`` launches
+    :func:`flash_bwd_short_kernel`; ``"mma"`` or ``"simt"`` takes
+    :func:`row_dot`, then K3 and K4 on that route. A forced route the
+    tensors do not take raises ``ValueError``, before the device check."""
+    if route is None:
+        route = flash_bwd_route(q, k, v, out, dout)
+    elif route not in ROUTES:
+        raise ValueError(f"flash_backward: route must be None or one of {ROUTES}, got {route!r}")
+    if route == "short":
+        return flash_bwd_short_kernel(q, k, v, out, dout, m, l, dq, dk, dv, causal)
+    big_d = row_dot(dout, out)
+    flash_bwd_dkv_kernel(q, k, v, dout, m, l, big_d, dk, dv, causal, route)
+    flash_bwd_dq_kernel(q, k, v, dout, m, l, big_d, dq, causal, route)
+    return dq, dk, dv
+
+
 flash_fwd_kernel.launches = flash_fwd_kernel.mma_launches = 0
 flash_bwd_dkv_kernel.launches = flash_bwd_dkv_kernel.mma_launches = 0
 flash_bwd_dq_kernel.launches = flash_bwd_dq_kernel.mma_launches = 0
+flash_bwd_short_kernel.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
     """Attention over a packed ``qkv`` ``[b, t, 3, h, hd]``: K2 forward
-    saving ``(qkv, out, m, l)``; K3 then K4 backward, writing into views of
-    one packed gradient. On CPU tensors, the plain versions of the same."""
+    saving ``(qkv, out, m, l)``; :func:`flash_backward` (the short kernel,
+    or K3 then K4), writing into views of one packed gradient. On CPU
+    tensors, the plain versions of the same."""
 
     @staticmethod
     def forward(ctx, qkv, causal: bool):
@@ -361,11 +494,8 @@ class FlashAttention(torch.autograd.Function):
         # only a cotangent strided there is copied.
         if dout.stride(-1) != 1:
             dout = dout.contiguous()
-        big_d = row_dot(dout, out)
         dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
-        dq, dk, dv = dqkv.unbind(2)
-        flash_bwd_dkv_kernel(q, k, v, dout, m, l, big_d, dk, dv, ctx.causal)
-        flash_bwd_dq_kernel(q, k, v, dout, m, l, big_d, dq, ctx.causal)
+        flash_backward(q, k, v, out, dout, m, l, *dqkv.unbind(2), ctx.causal)
         return dqkv, None
 
 

@@ -2,8 +2,9 @@
 (interpret mode on the CPU) on the same numpy inputs: the plain version of
 K2 (output and softmax statistics), the plain version of K3 and K4 (the
 gradients from the same statistics), and gradients through the port's
-autograd Function; and the choice between the CUDA-core and the
-tensor-core routes of K2, K3 and K4."""
+autograd Function; the choice between the CUDA-core and the tensor-core
+routes of K2, K3 and K4; and the backward's short route (one kernel for
+dQ, dK and dV of short packed bf16 heads), its rule and its refusals."""
 
 import jax
 import jax.numpy as jnp
@@ -23,13 +24,18 @@ from ray_shuffling_data_loader_tpu_torch.ops.flash_attention import (
     T_MIN,
     attention_reference,
     flash_attention,
+    flash_attention_qkv,
+    flash_backward,
     flash_backward_reference,
     flash_bwd_dkv_kernel,
     flash_bwd_dq_kernel,
+    flash_bwd_route,
+    flash_bwd_short_kernel,
     flash_forward_reference,
     flash_fwd_kernel,
     flash_route,
     mma_supported,
+    short_supported,
 )
 
 # The shapes and blocks of tests/test_flash_attention.py's dense check.
@@ -42,6 +48,10 @@ SHAPES = [
     ((1, 200, 2, 64), (128, 128)),
     ((1, 130, 3, 32), (64, 64)),
     ((1, 72, 2, 128), (32, 32)),
+    # Shapes of the backward's short route: the TabTransformer's heads
+    # (t 19, hd 8) and the longest short head at hd 16.
+    ((3, 19, 4, 8), (16, 16)),
+    ((2, 31, 2, 16), (16, 16)),
 ]
 
 
@@ -262,3 +272,110 @@ def test_cpu_function_counts_no_launch_on_either_route():
     before = tuple(fn.mma_launches for fn in counters)
     flash_attention(*qkv.unbind(2), causal=True).float().sum().backward()
     assert tuple(fn.mma_launches for fn in counters) == before
+
+
+def _short_views(b, t, h, hd, dtype=torch.bfloat16):
+    """The backward's tensors as the encoder block hands them over: q, k, v
+    views of one packed ``[b, t, 3, h, hd]``, contiguous out and dO."""
+    q, k, v = torch.zeros((b, t, 3, h, hd), dtype=dtype).unbind(2)
+    return q, k, v, torch.zeros((b, t, h, hd), dtype=dtype), torch.zeros((b, t, h, hd), dtype=dtype)
+
+
+def _separate(b, t, h, hd):
+    """q, k and v allocated one by one: the short route takes only views of
+    one packed projection."""
+    return tuple(_bf16((b, t, h, hd)) for _ in range(5))
+
+
+def _strided_out(b, t, h, hd):
+    """dO whose token rows are not contiguous (a view of a wider tensor)."""
+    q, k, v, out, _ = _short_views(b, t, h, hd)
+    return q, k, v, out, torch.zeros((b, t, h + 1, hd), dtype=torch.bfloat16)[:, :, :h]
+
+
+BWD_ROUTE_CASES = [
+    ("tabtransformer_packed", lambda: _short_views(8, 19, 4, 8), "short"),
+    ("hd16_below_t_min", lambda: _short_views(4, T_MIN - 1, 4, 16), "short"),
+    ("one_token", lambda: _short_views(2, 1, 3, 8), "short"),
+    ("widest", lambda: _short_views(2, 19, 16, 8), "short"),
+    ("fp32", lambda: _short_views(8, 19, 4, 8, torch.float32), "simt"),
+    ("hd20", lambda: _short_views(8, 19, 4, 20), "simt"),
+    ("hd32", lambda: _short_views(8, 19, 4, 32), "simt"),
+    ("too_wide", lambda: _short_views(2, 19, 17, 8), "simt"),
+    ("separate_qkv", lambda: _separate(8, 19, 4, 8), "simt"),
+    ("strided_dout", lambda: _strided_out(8, 19, 4, 8), "simt"),
+    ("hd16_at_t_min", lambda: _short_views(4, T_MIN, 4, 16), "mma"),
+]
+
+
+@pytest.mark.parametrize("name,make,want", BWD_ROUTE_CASES, ids=[c[0] for c in BWD_ROUTE_CASES])
+def test_flash_bwd_route(name, make, want):
+    q, k, v, out, dout = make()
+    assert flash_bwd_route(q, k, v, out, dout) == want
+    assert short_supported(q, k, v, out, dout) == (want == "short")
+    # K2's route does not change: the TabTransformer's forward stays on
+    # the CUDA-core kernel.
+    if name == "tabtransformer_packed":
+        assert flash_route(q, k, v) == "simt"
+
+
+@pytest.mark.parametrize("name,make", [c[:2] for c in BWD_ROUTE_CASES if c[2] != "short"],
+                         ids=[c[0] for c in BWD_ROUTE_CASES if c[2] != "short"])
+def test_short_route_refuses_shapes_it_does_not_take(name, make):
+    """A forced short route on tensors it does not take raises before the
+    device check (the tensors here are on the CPU)."""
+    q, k, v, out, dout = make()
+    b, t, h, _ = q.shape
+    stats = torch.zeros((b, h, t))
+    grads = torch.zeros((b, t, 3) + q.shape[2:], dtype=q.dtype).unbind(2)
+    with pytest.raises(ValueError, match="short route"):
+        flash_bwd_short_kernel(q, k, v, out, dout, stats, stats, *grads)
+    with pytest.raises(ValueError, match="short route"):
+        flash_backward(q, k, v, out, dout, stats, stats, *grads, route="short")
+
+
+def test_short_route_checks_its_gradients_and_then_the_device():
+    q, k, v, out, dout = _short_views(2, 19, 4, 8)
+    stats = torch.zeros((2, 4, 19))
+    # Gradients that are not views of one packed gradient are refused.
+    with pytest.raises(ValueError, match="short route"):
+        flash_bwd_short_kernel(q, k, v, out, dout, stats, stats, *(_bf16((2, 19, 4, 8)) for _ in range(3)))
+    # Tensors the route takes pass its check and meet the CPU refusal.
+    grads = torch.zeros((2, 19, 3, 4, 8), dtype=torch.bfloat16).unbind(2)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_bwd_short_kernel(q, k, v, out, dout, stats, stats, *grads)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_backward(q, k, v, out, dout, stats, stats, *grads)
+    with pytest.raises(ValueError, match="route must be"):
+        flash_backward(q, k, v, out, dout, stats, stats, *grads, route="tensor")
+
+
+def test_short_is_the_backward_route_alone():
+    q, k, v, out, dout = _short_views(2, 19, 4, 8)
+    stats = torch.zeros((2, 4, 19))
+    with pytest.raises(ValueError, match="route must be"):
+        flash_fwd_kernel(q, k, v, route="short")
+    with pytest.raises(ValueError, match="route must be"):
+        flash_bwd_dkv_kernel(q, k, v, dout, stats, stats, stats, out.clone(), out.clone(), route="short")
+    with pytest.raises(ValueError, match="route must be"):
+        flash_bwd_dq_kernel(q, k, v, dout, stats, stats, stats, out.clone(), route="short")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_cpu_function_counts_no_launch_at_the_short_shape(causal):
+    """The TabTransformer's packed bf16 heads on the CPU: the Function runs
+    the plain versions and counts no launch on any route, and its packed
+    gradient is the plain backward's."""
+    rng = np.random.default_rng(11)
+    qkv = torch.from_numpy(rng.standard_normal((3, 19, 3, 4, 8)).astype(np.float32)).to(torch.bfloat16)
+    ct = torch.from_numpy(rng.standard_normal((3, 19, 4, 8)).astype(np.float32)).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    assert flash_bwd_route(q, k, v, torch.zeros_like(ct), ct) == "short"
+    counters = (flash_fwd_kernel, flash_bwd_dkv_kernel, flash_bwd_dq_kernel, flash_bwd_short_kernel)
+    before = tuple(fn.launches for fn in counters)
+    leaf = qkv.clone().requires_grad_(True)
+    flash_attention_qkv(leaf, causal).backward(ct)
+    assert tuple(fn.launches for fn in counters) == before
+    out, m, l = flash_forward_reference(q, k, v, causal)
+    want = torch.stack(flash_backward_reference(q, k, v, out, m, l, ct, causal), dim=2)
+    assert torch.equal(leaf.grad, want)
