@@ -52,8 +52,10 @@ Phases, each of which fails the script (non-zero exit) on any error:
    the tensor-core route takes on both routes of K2, K3 and K4; the
    backward's short route (dQ, dK, dV and D in one kernel) at every case
    it takes: the TabTransformer's, the bf16 one below ``T_MIN`` (causal,
-   hd 16) and two ragged ones, ``[3, 7, 5, 8]`` and ``[3, 17, 2, 16]``
-   causal; and the autograd Function over the packed tensor (default
+   hd 16), two ragged ones, ``[3, 7, 5, 8]`` and ``[3, 17, 2, 16]``
+   causal, and four more so that every (hd, ceil(t / 8)) it is built for
+   runs (``[9, 16, 3, 8]`` causal, ``[2, 31, 16, 8]``, ``[7, 9, 1, 16]``,
+   ``[2, 5, 2, 16]``); and the autograd Function over the packed tensor (default
    routes) at the same shapes.
    Time every kernel beside its bound, its plain version and the PyTorch
    library call that computes the same, at the main paths' shapes (K1 also
@@ -317,8 +319,9 @@ Phases, each of which fails the script (non-zero exit) on any error:
    step on its tensor-core route (``launches_elastic``), ``summary()`` show
    a scale event, one drain and evicted bytes, the gauges
    ``elastic.shm_headroom_frac`` and ``elastic.workers`` be published, the
-   capacity ledger's resident bytes by tier equal the store's at the run's
-   end and fall to 0 after the clean-up, and no segment be left in either
+   store hold nothing at the run's end (re-homed segments included) and the
+   capacity ledger's resident bytes by tier agree, 0 after the clean-up too,
+   and no segment be left in either
    host's directories. Logs the budget and the peaks, the head's residency
    over the run, the bytes and segments demoted and dropped, the drain's
    seconds, the re-homed bytes and their GB/s, and the step median,
@@ -586,9 +589,15 @@ FLASH_CASES = (
     ("hd96_ragged", (1, 100, 2, 96), "bfloat16", False),
     ("hd128_ragged", (1, 157, 2, 128), "bfloat16", True),
     # The backward's short route: t ragged against the 8-query tiles, h
-    # odd; and t past one 16-key tile at hd 16, causal.
+    # odd; and t past one 16-key tile at hd 16, causal. With the
+    # TabTransformer's and below_t_min, every (hd, ceil(t / 8)) the kernel
+    # is built for: (8, 1) (8, 2) (8, 3) (8, 4) (16, 1) (16, 2) (16, 3) (16, 4).
     ("short_ragged", (3, 7, 5, 8), "bfloat16", False),
     ("short_ragged_causal", (3, 17, 2, 16), "bfloat16", True),
+    ("short_t16_causal", (9, 16, 3, 8), "bfloat16", True),
+    ("short_t31_widest", (2, 31, 16, 8), "bfloat16", False),
+    ("short_t9_hd16", (7, 9, 1, 16), "bfloat16", False),
+    ("short_t5_hd16", (2, 5, 2, 16), "bfloat16", False),
 )
 # The route sweep that chose T_MIN: the CausalLM's batch and heads.
 SWEEP_T = (32, 64, 128, 256)
@@ -1128,7 +1137,7 @@ def check_flash(torch, ops, case, gen) -> dict:
     qkv, dout = flash_inputs(torch, shape, dtype, gen)
     q, k, v = qkv.unbind(2)
     default = ops.flash_route(q, k, v)
-    routes = ("mma", "simt") if ops.mma_supported(q, k, v) else ("simt",)
+    routes = ops.ROUTES if ops.mma_supported(q, k, v) else ("simt",)
     out_r, m_r, l_r = ops.flash_forward_reference(q, k, v, causal)
     tol = FLASH_TOL[dtype_name]
     errs = {"route": default}
@@ -1189,7 +1198,7 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
     dq, dk, dv = packed_grads(torch, qkv)
     out, m, l = ops.flash_fwd_kernel(q, k, v, causal)
     big_d = ops.row_dot(dout, out)
-    routes = ("mma", "simt") if ops.mma_supported(q, k, v) else ("simt",)
+    routes = ops.ROUTES if ops.mma_supported(q, k, v) else ("simt",)
     short = ops.short_supported(q, k, v, out, dout)
     fwd_ms, dkv_ms, dq_ms = {}, {}, {}
     for route in routes:
@@ -1280,7 +1289,7 @@ def route_sweep(torch, ops, gen) -> list:
             out, m, l = ops.flash_fwd_kernel(q, k, v, True, "simt")
             big_d = ops.row_dot(dout, out)
             row = {"shape": list(shape)}
-            for route in ("mma", "simt"):
+            for route in ops.ROUTES:
                 row[f"fwd_{route}_ms"] = time_ms(torch, ops.flash_fwd_kernel, q, k, v, True, route)
                 row[f"dkv_{route}_ms"] = time_ms(torch, ops.flash_bwd_dkv_kernel, q, k, v, dout, m,
                                                  l, big_d, dk, dv, True, route)
@@ -1307,8 +1316,8 @@ def phase_flash(torch, rate: float):
                        ("at_t_min", "mma"), ("long", "mma")):
         if errs[name]["route"] != want:
             raise AssertionError(f"flash {name}: route {errs[name]['route']}, want {want}")
-    for name, want in (("tabtransformer", "short"), ("below_t_min", "short"), ("short_ragged", "short"),
-                       ("short_ragged_causal", "short"), ("causal_lm", "mma"), ("at_t_min", "mma"),
+    short_cases = ("tabtransformer", "below_t_min", *(c[0] for c in FLASH_CASES if c[0].startswith("short_")))
+    for name, want in (*((c, "short") for c in short_cases), ("causal_lm", "mma"), ("at_t_min", "mma"),
                        ("unaligned", "simt")):
         if errs[name]["bwd_route"] != want:
             raise AssertionError(f"flash {name}: backward route {errs[name]['bwd_route']}, want {want}")
@@ -3638,9 +3647,13 @@ def phase_obs(torch, filenames, cluster: dict, work: str) -> dict:
 # cluster phase's one-host peak (store_stats, sampled by the shuffle): the
 # head's own peak was 0.40-0.50 of it (NVIDIA H100 80GB HBM3, 700.00 W;
 # PERF.md section 5), so placement fills shm to about the budget, over the
-# high watermark, and spills the rest.
+# high watermark, and spills the rest. When epoch 0 leaves the fence the
+# head holds 0.23-0.33 of it (shm and spill, by the ledger; 8 runs of the
+# phase on the card): at a share of 0.4 (high watermark 0.34) the ledger's
+# shm stayed under the watermark after the fence in one run of the eight,
+# and the loop evicted nothing there; at 0.3 the watermark is 0.255.
 ELASTIC_WORKERS = 4
-ELASTIC_BUDGET_SHARE = 0.4
+ELASTIC_BUDGET_SHARE = 0.3
 # The loop's knobs: a tick every 0.2 s (an epoch of the two-host run
 # shuffles in about a second once the cache is hot); any live verdict on a
 # shuffle stage scales up, once (the cooldown outlasts the run) and never
@@ -3655,6 +3668,25 @@ ELASTIC_ENV = {"RSDL_ELASTIC": "on", "RSDL_ELASTIC_PERIOD_S": "0.2", "RSDL_ELAST
                "RSDL_ELASTIC_DOWN_THRESHOLD": "-1", "RSDL_ELASTIC_COOLDOWN_S": "3600", "RSDL_EVICT_COOLDOWN_S": "0.5",
                "RSDL_EVICT_DROP_AGE_S": "0", "RSDL_DRAIN_DEADLINE_S": "60"}
 ELASTIC_EVICT_WAIT_REDUCERS = 1  # the operator drains once the loop evicted, or epoch 1 delivered this many
+
+
+def elastic_leftovers(store, capacity, events, t_end: float) -> str:
+    """What a failed ledger-against-store check reads: each file of the
+    store's sessions with its tier, bytes, links and age against the run's
+    end, the ledger's records naming it, and when the drain's events
+    fired, all against the run's end."""
+    rows = []
+    for directory, tier in ((store.shm_dir, "shm"), (store.spill_dir, "spill")):
+        for name, st in store._session_files(directory):
+            rows.append(f"{tier} {name} {st.st_size} B x{st.st_nlink} mtime {st.st_mtime - t_end:+.3f} s")
+    names = {r.split()[1] for r in rows}
+    recs = [f"{r['op']} {r.get('id')} {r.get('tier')} {float(r.get('ts', 0)) - t_end:+.3f} s"
+            for r in capacity.load_records() if r.get("op") != "touch"
+            and (r.get("id") in names or names & set(r.get("ids") or ()))]
+    drain = [f"{r['kind']} {float(r['ts']) - t_end:+.3f} s" for r in events.load()
+             if str(r.get("kind", "")).startswith("scale.")]
+    return (f"the store's files {rows}; the ledger's records of them {recs}; the drain's events {drain}; the "
+            f"sessions {store.session} and adopted {store.adopted_sessions()}")
 
 
 def _elastic_operator(spec: dict, ctl, other: str, hosts: dict, op: dict) -> None:
@@ -3784,6 +3816,7 @@ def elastic_head(spec: dict) -> int:
             run = cluster_run(torch, port, files, "two hosts, elastic", model, init_state, tag="elastic",
                               cache_decoded=True)
             run["launches"] = read_launches(ops)
+            t_end = time.time()
         finally:
             operator.join(timeout=120)
             stop.set()
@@ -3804,6 +3837,9 @@ def elastic_head(spec: dict) -> int:
                 last = states
             log("[elastic] the head's MB on shm (store/ledger) and spill (store/ledger), epochs' states: "
                 + "; ".join(shown))
+        log("[elastic] the drain's events against the run's end: " + ", ".join(
+            f"{r['kind']} {float(r['ts']) - t_end:+.3f} s" for r in events.load()
+            if str(r.get("kind", "")).startswith("scale.")))
         if operator.is_alive() or "error" in op:
             raise AssertionError(f"[elastic] the operator: {op}")
         # (1) The run: the one host's tensors and losses, K1 once a step.
@@ -3850,20 +3886,22 @@ def elastic_head(spec: dict) -> int:
         if (not ups or summary["scale_events"] < 1 or summary["drains"] != 1 or not summary["evicted_gb"] > 0
                 or None in gauges.values()):
             raise AssertionError(f"[elastic] scale-ups {ups}; summary {summary}; gauges {gauges}")
-        # (5) The ledger equals the store, by tier, at the run's end (the
-        # owners' deletes of frees from the other host land within a
-        # dispatch), and is 0 after the clean-up.
+        # (5) At the run's end the store holds nothing, re-homed segments
+        # included, and the ledger agrees by tier (the owners' deletes of
+        # frees from the other host land within a dispatch); 0 after the
+        # clean-up.
         t_wait = time.perf_counter()
         while True:
             st, totals = ctx.store.store_stats(), capacity.ledger()["totals"]
             ledger_tiers = (capacity.shm_resident_bytes(totals), totals["spill"]["resident_bytes"])
             store_tiers = (st.total_bytes - st.spill_bytes, st.spill_bytes)
-            if ledger_tiers == store_tiers or time.perf_counter() - t_wait > 15:
+            if ledger_tiers == store_tiers == (0, 0) or time.perf_counter() - t_wait > 15:
                 break
             time.sleep(0.1)
-        if ledger_tiers != store_tiers:
+        if ledger_tiers != store_tiers or store_tiers != (0, 0):
             raise AssertionError(f"[elastic] at the run's end the ledger holds {ledger_tiers} B (shm, spill), the "
-                                 f"store {store_tiers} B")
+                                 f"store {store_tiers} B, want 0 in both; "
+                                 f"{elastic_leftovers(ctx.store, capacity, events, t_end)}")
         ctx.store.cleanup()
         folded = capacity.ledger()
         after = (capacity.shm_resident_bytes(folded["totals"]), folded["totals"]["spill"]["resident_bytes"],
@@ -3977,7 +4015,7 @@ def phase_elastic(torch, filenames, cluster: dict, work: str) -> dict:
         f"transition records; evicted before it {dr['evicted_before']} B; epoch 1 at the drain {dr['epoch1_at_drain']}; "
         f"the host stopped {dr['joined_stopped_s']:.2f} s after its SIGINT ({smi})")
     log(f"[elastic] scale-ups {res['scale_up']}; summary {res['summary']}; gauges {res['gauges']}; the ledger "
-        f"equal to the store at the run's end {res['ledger_end']} B (shm, spill), 0 after the clean-up")
+        f"equal to the store at the run's end, {res['ledger_end']} B (shm, spill), and 0 after the clean-up")
     if two is not None:
         log(f"[elastic] step median {run['step_ms_median']!r} ms against the cluster phase's two hosts "
             f"{two['step_ms_median']!r} ms; shuffle s per epoch {run['epoch_shuffle_s']!r} against "

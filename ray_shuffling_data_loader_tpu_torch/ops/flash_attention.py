@@ -51,8 +51,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # was the faster at every point, t = 32 included (PERF.md), so the
 # crossover lies at or below the sweep's shortest t.
 T_MIN = 32
-ROUTES = ("mma", "simt", "short")
-_KERNEL_ROUTES = ("mma", "simt")  # K2, K3 and K4 each; "short" is the backward's alone
+ROUTES = ("mma", "simt")
 # The short route: head dims, and the widest h * hd whose batch rows a
 # block of csrc/flash_bwd_short.cu stages whole (kMaxWidth there).
 SHORT_HEAD_DIMS = (8, 16)
@@ -208,8 +207,8 @@ def _pick_route(name: str, route, tensors: Sequence[torch.Tensor]) -> str:
     it is None."""
     if route is None:
         return flash_route(*tensors)
-    if route not in _KERNEL_ROUTES:
-        raise ValueError(f"{name}: route must be None or one of {_KERNEL_ROUTES}, got {route!r}")
+    if route not in ROUTES:
+        raise ValueError(f"{name}: route must be None or one of {ROUTES}, got {route!r}")
     if route == "mma" and not mma_supported(*tensors):
         shapes = ", ".join(f"{x.dtype} {tuple(x.shape)}" for x in tensors)
         raise ValueError(
@@ -434,17 +433,12 @@ def flash_backward(
     dk: torch.Tensor,
     dv: torch.Tensor,
     causal: bool = False,
-    route=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernels' backward, written into ``dq``, ``dk`` and ``dv``:
-    ``route`` (None: :func:`flash_bwd_route`) ``"short"`` launches
+    """The kernels' backward, written into ``dq``, ``dk`` and ``dv``, on
+    :func:`flash_bwd_route`'s route: ``"short"`` launches
     :func:`flash_bwd_short_kernel`; ``"mma"`` or ``"simt"`` takes
-    :func:`row_dot`, then K3 and K4 on that route. A forced route the
-    tensors do not take raises ``ValueError``, before the device check."""
-    if route is None:
-        route = flash_bwd_route(q, k, v, out, dout)
-    elif route not in ROUTES:
-        raise ValueError(f"flash_backward: route must be None or one of {ROUTES}, got {route!r}")
+    :func:`row_dot`, then K3 and K4 on that route."""
+    route = flash_bwd_route(q, k, v, out, dout)
     if route == "short":
         return flash_bwd_short_kernel(q, k, v, out, dout, m, l, dq, dk, dv, causal)
     big_d = row_dot(dout, out)

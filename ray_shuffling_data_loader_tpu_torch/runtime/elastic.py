@@ -475,10 +475,15 @@ class ElasticController:
         budget and ``store_stats`` count them; a foreign ref's ``free``
         unlinks its copy here. The names of one
         segment (its windows' hardlinks) are copied once and linked again
-        here; a name already here moves nothing. Each copy notes one ledger
-        ``transition`` in the tier it lands on. A segment freed while the
-        copy runs is skipped, or its copied names unlinked. Returns the
-        bytes copied."""
+        here; a name already here moves nothing. A reader's copy of another
+        host's segment (``<session>-cache-...``) stays behind: no ref names
+        it, so nothing here would ever read or free it. Each copy notes one
+        ledger ``transition`` in the tier it lands on; where this host's
+        ledger does not know the segment (each host spools its own
+        creates), a ``fetch`` of its bytes there before the copy is
+        visible, and a ``delete`` of each name it unlinks again. A segment
+        freed while the copy runs is skipped, or its copied names unlinked.
+        Returns the bytes copied."""
         store = self._ctx.store
         sessions = [store.session]
         try:
@@ -491,7 +496,7 @@ class ElasticController:
             sessions.append(host_id.rpartition(":")[2])
         if store_handle is None:
             return 0
-        moved = 0
+        moved, known = 0, self._ledger_ids()
         for session in dict.fromkeys(s for s in sessions if s):
             try:
                 links = store_handle.call("list_segment_links", f"{session}-")
@@ -501,18 +506,20 @@ class ElasticController:
                 store.adopt_session(session)
             segments: Dict[Any, List[str]] = {}
             for name, _, inode in links:
-                segments.setdefault(inode, []).append(name)
+                if not name.startswith(f"{session}-cache-"):
+                    segments.setdefault(inode, []).append(name)
             for names in segments.values():
                 names = [n for n in names if store._find_segment(n) is None]
                 if names:
-                    moved += self._rehome_one(store, store_handle, names)
+                    moved += self._rehome_one(store, store_handle, names, known)
         if moved:
             telemetry.emit_event("scale.rehomed", nbytes=moved, agent=str(agent.address))
         return moved
 
-    def _rehome_one(self, store, store_handle, names: List[str]) -> int:
+    def _rehome_one(self, store, store_handle, names: List[str], known: set) -> int:
         """Copy one segment, named ``names`` at its owner, into ``store``;
-        returns its bytes, 0 when its owner freed it meanwhile."""
+        returns its bytes, 0 when its owner freed it meanwhile. ``known``:
+        the link ids live on this host's ledger."""
         data = None
         for name in names:
             try:
@@ -525,6 +532,11 @@ class ElasticController:
         directory = store._placement_dir(len(data))
         path = os.path.join(directory, names[0])
         tmp = f"{path}.rehome-{os.getpid()}.tmp"
+        arrived = known.isdisjoint(names)
+        if arrived:
+            # Before the copy is visible: a free that finds it notes its
+            # delete after this.
+            self._ledger_note("fetch", names[0], len(data), store.tier_of(path), ids=names)
         try:
             with open(tmp, "wb") as f:
                 f.write(data)
@@ -540,6 +552,9 @@ class ElasticController:
                     os.unlink(p)
                 except FileNotFoundError:
                     pass
+            if arrived:
+                for name in names:
+                    self._ledger_note("delete", name)
             raise
         # A name its owner freed while it was copied has no reader left.
         live = []
@@ -551,19 +566,39 @@ class ElasticController:
                     os.unlink(os.path.join(directory, name))
                 except FileNotFoundError:
                     pass
+                if arrived:
+                    self._ledger_note("delete", name)
         if not live:
             return 0
-        self._ledger_transition(live[0], len(data), store.tier_of(path))
+        self._ledger_note("transition", live[0], len(data), store.tier_of(path))
         return len(data)
 
     @staticmethod
-    def _ledger_transition(object_id: str, nbytes: int, tier: str) -> None:
+    def _ledger_ids() -> set:
+        """Every link id of a live segment on this host's ledger; empty with
+        metrics off."""
+        if not _metrics.enabled():
+            return set()
+        try:
+            from ray_shuffling_data_loader_tpu_torch.telemetry import capacity
+
+            return {i for seg in capacity.live_segments() for i in seg["ids"]}
+        except Exception:
+            return set()
+
+    @staticmethod
+    def _ledger_note(op: str, object_id: str, nbytes: int = 0, tier: Optional[str] = None,
+                     ids: Optional[List[str]] = None) -> None:
+        """One op on this host's ledger. A re-homed segment's ``fetch`` takes
+        the caller's trace context's epoch: none in the loop's thread or an
+        operator's, and the evictor never takes a segment of no known
+        epoch."""
         if not _metrics.enabled():
             return
         try:
             from ray_shuffling_data_loader_tpu_torch.telemetry import capacity
 
-            capacity.note("transition", object_id, nbytes=nbytes, tier=tier)
+            capacity.note(op, object_id, nbytes=nbytes, tier=tier, ids=ids)
         except Exception:
             pass
 

@@ -1066,9 +1066,11 @@ class ObjectStore:
         hardlink the others to it, then unlink the sources. A reader racing
         the move still maps the old inode (its mapping outlives the unlink)
         or resolves the name again through :meth:`_find_segment`, which
-        looks in both tiers. A failed link rolls the whole move back.
-        Returns the bytes moved: 0 when the segment is gone or already lies
-        in ``dst_dir``."""
+        looks in both tiers. A failed link rolls the whole move back. A name
+        whose source is gone when the move unlinks it was freed meanwhile
+        (its ``free`` found it there and noted the delete): its copy goes
+        too. Returns the bytes moved: 0 when the segment is gone or already
+        lies in ``dst_dir``, or every name was freed during the move."""
         links = self._segment_links(ids)
         if not links:
             return 0
@@ -1105,11 +1107,18 @@ class ObjectStore:
                     except FileNotFoundError:
                         pass
                 return 0
-        for path in links.values():
+        kept = []
+        for name, path in links.items():
             try:
                 os.unlink(path)
+                kept.append(name)
             except FileNotFoundError:
-                pass
+                try:
+                    os.unlink(os.path.join(dst_dir, name))
+                except FileNotFoundError:
+                    pass
+        if not kept:
+            return 0
         # The residency estimate between scans: a demotion frees budgeted
         # shm at once, a promotion fills it (else a burst of promotes inside
         # the scan window would each see the residency before the burst).
@@ -1117,7 +1126,7 @@ class ObjectStore:
             self._scan_adjust -= nbytes
         else:
             self._scan_adjust += nbytes
-        _ledger_note("transition", primary, nbytes, tier)
+        _ledger_note("transition", kept[0], nbytes, tier)
         _metrics.safe_inc("store.tier_moved_bytes_total", float(nbytes), tier=tier)
         return nbytes
 

@@ -807,6 +807,90 @@ def test_rehomed_foreign_ref_reads_locally(env, monkeypatch, tmp_path):
         reader.cleanup()
 
 
+def test_rehome_counts_arrivals_and_leaves_cache_copies(env, monkeypatch, tmp_path):
+    """A re-home onto a host whose ledger never saw the segments created
+    (each host spools its own): each copy notes a ``fetch`` of its bytes
+    before its ``transition``, so that the ledger's residency by tier equals
+    the store's through the frees. The draining host's copy of a segment of
+    this host (``<session>-cache-<id>``, which no ref names) stays behind:
+    copied, nothing would ever free it."""
+    _arm("port", env, monkeypatch)
+    store_mod, cluster = _mod("port", "runtime.store"), _mod("port", "runtime.cluster")
+    elastic, capacity = _mod("port", "runtime.elastic"), _mod("port", "telemetry.capacity")
+    owner = store_mod.ObjectStore("ownersess", shm_dir=str(tmp_path / "owner-shm"))
+    server = cluster.StoreServer(owner.shm_dir)
+    ref = owner.put_columns({"a": np.arange(5000, dtype=np.int32)})
+    pending = owner.create_columns({"a": ((100,), np.int32)})
+    windows = pending.publish_slices([(0, 40), (40, 100)])
+    capacity.reset(clear_spool=True)  # the owner's creates are another host's records
+    reader = store_mod.ObjectStore("readsess", shm_dir=str(tmp_path / "reader-shm"),
+                                   sessions_file=str(tmp_path / "adopted"))
+    mine = reader.put_columns({"a": np.arange(3000, dtype=np.int32)})
+    copy_name = f"ownersess-cache-{mine.object_id}"  # as a read of it on the owner's host names it
+    with open(reader._find_segment(mine.object_id), "rb") as src, open(os.path.join(owner.shm_dir, copy_name),
+                                                                        "wb") as dst:
+        dst.write(src.read())
+    registry = types.SimpleNamespace(call=lambda method, *a: {"ownerhost:ownersess": {
+        "agent": ["tcp", "a", 1], "store": ["tcp", "owner", 1]}})
+    handle = types.SimpleNamespace(call=lambda method, *a: getattr(server, method)(*a))
+    ctx = types.SimpleNamespace(store=reader, scheduler=None, session="readsess", runtime_dir=None,
+                                cluster=types.SimpleNamespace(registry=registry, _peer_store=lambda a: handle))
+    ctl = elastic.ElasticController(ctx)
+
+    def tiers():
+        totals, st = capacity.ledger()["totals"], reader.store_stats()
+        return ((capacity.shm_resident_bytes(totals), totals["spill"]["resident_bytes"]),
+                (st.total_bytes - st.spill_bytes, st.spill_bytes))
+
+    try:
+        moved = ctl._rehome_segments(FakeAgent("a"))
+        assert moved == ref.nbytes + windows[0].nbytes
+        assert reader._find_segment(copy_name) is None and reader.store_stats().num_objects == 4
+        ops = [(r["op"], r["id"], r.get("nbytes")) for r in capacity.load_records() if r["op"] != "create"]
+        assert [op for op, _, _ in ops] == ["fetch", "transition"] * 2
+        assert sorted(n for op, _, n in ops if op == "fetch") == sorted([ref.nbytes, windows[0].nbytes])
+        assert tiers() == ((moved + mine.nbytes, 0),) * 2
+        assert ctl._rehome_segments(FakeAgent("a")) == 0  # nothing left to hand over
+        reader.free([ref, windows[0]])
+        assert tiers() == ((windows[0].nbytes + mine.nbytes, 0),) * 2  # one link of the sliced segment left
+        reader.free([windows[1], mine])
+        assert tiers() == ((0, 0),) * 2
+    finally:
+        owner.cleanup()
+        reader.cleanup()
+
+
+@pytest.mark.parametrize("when", ["copy", "unlink"])
+def test_demote_racing_a_free_leaves_nothing(env, monkeypatch, when):
+    """A free that lands while the evictor demotes the segment (during the
+    copy, or after the copy is published and before the sources go) leaves
+    no copy behind in the spill directory, and the ledger agrees."""
+    _arm("port", env, monkeypatch)
+    store_mod, capacity = _mod("port", "runtime.store"), _mod("port", "telemetry.capacity")
+    store = store_mod.ObjectStore("racesess")
+    pending = store.create_columns({"a": ((64,), np.int32)})
+    windows = pending.publish_slices([(0, 32), (32, 64)])
+    target = "copyfileobj" if when == "copy" else "link"
+    module = __import__("shutil") if when == "copy" else os
+    real = getattr(module, target)
+
+    def racing(*args, **kwargs):
+        store.free(windows)  # the reader frees both names
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(module, target, racing)
+    try:
+        moved = store.demote([w.object_id for w in windows])
+        monkeypatch.setattr(module, target, real)
+        assert moved == 0
+        assert os.listdir(store.spill_dir) == [] and os.listdir(store.shm_dir) == []
+        assert capacity.ledger()["live_segments"] == 0
+        assert [r["op"] for r in capacity.load_records()] == ["create", "delete", "delete"]
+    finally:
+        monkeypatch.setattr(module, target, real)
+        store.cleanup()
+
+
 # -- the SLO pack over the controller's gauges ----------------------------------------------
 
 

@@ -10,9 +10,10 @@ Builds the kernels, writes the Quick-start dataset (10^6 rows, 10 files,
 deterministic DLRM slice on one host (the reference whose staged tensors
 and losses the two-host run must equal, and whose store peak sizes the
 budget), then runs :func:`chip_smoke.phase_elastic` (its head process and
-a joined host) with its spools under ``build/elastic_phase/elastic``.
-Exits non-zero if any check fails. Prints the card's name and power limit
-first.
+a joined host) with its spools under ``build/elastic_phase/elastic``,
+``--runs`` times (default 1; a failed run is reported and the next one
+runs). Exits non-zero if any check of any run fails. Prints the card's
+name and power limit first.
 """
 
 import argparse
@@ -27,7 +28,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--out", help="also write the phase's results as JSON here")
+    parser.add_argument("--out", help="also write the phase's results as JSON here (a list, one per run)")
+    parser.add_argument("--runs", type=int, default=1, help="how many times to run the phase")
     args = parser.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -53,16 +55,26 @@ def main() -> int:
         reference = cs.cluster_run(torch, port, files, "reference", model, init_state)
     finally:
         port.runtime.shutdown()
-    os.makedirs(os.path.join(work, "elastic"))
+    results, failed = [], 0
     try:
-        res = cs.phase_elastic(torch, files, {"single": reference}, os.path.join(work, "elastic"))
+        for i in range(args.runs):
+            run_dir = os.path.join(work, f"elastic{i}")
+            os.makedirs(run_dir)
+            try:
+                results.append(cs.phase_elastic(torch, files, {"single": reference}, run_dir))
+            except AssertionError as exc:
+                failed += 1
+                results.append({"error": str(exc)})
+                print(f"elastic phase run {i} failed: {exc}", flush=True)
+            finally:
+                shutil.rmtree(run_dir, ignore_errors=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(res, f)
-    print("elastic phase ok", flush=True)
-    return 0
+            json.dump(results, f)
+    print(f"elastic phase: {args.runs - failed} of {args.runs} runs ok", flush=True)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":
