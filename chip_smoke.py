@@ -6,11 +6,12 @@
 
 Phases, each of which fails the script (non-zero exit) on any error:
 
-1. build: compile the port's CUDA kernels from their eight sources in
+1. build: compile the port's CUDA kernels from their nine sources in
    ``ray_shuffling_data_loader_tpu_torch/ops/csrc/`` (``interaction.cu``,
    ``flash_fwd.cu``, ``flash_bwd.cu``, the tensor-core route's
    ``interaction_mma.cu``, ``flash_fwd_mma.cu``, ``flash_bwd_dkv_mma.cu``,
-   ``flash_bwd_dq_mma.cu`` and the short route's ``flash_bwd_short.cu``;
+   ``flash_bwd_dq_mma.cu`` and the short route's ``flash_fwd_short.cu``
+   and ``flash_bwd_short.cu``;
    one ``nvcc`` each, all started together) into
    ``build/kernels/`` and log each kernel's registers and spills;
    lint, beside the build's ``nvcc``: the port's static analysis
@@ -50,8 +51,9 @@ Phases, each of which fails the script (non-zero exit) on any error:
    2, 8]`` fp32, shapes of every head-dim bucket of both routes (ragged
    t among them) and one bf16 shape on each side of ``T_MIN``; every case
    the tensor-core route takes on both routes of K2, K3 and K4; the
-   backward's short route (dQ, dK, dV and D in one kernel) at every case
-   it takes: the TabTransformer's, the bf16 one below ``T_MIN`` (causal,
+   short route's forward (out, m and l in one kernel) and backward (dQ,
+   dK, dV and D in one kernel, fed the short forward's statistics), causal
+   and not, at every case it takes: the TabTransformer's, the bf16 one below ``T_MIN`` (causal,
    hd 16), two ragged ones, ``[3, 7, 5, 8]`` and ``[3, 17, 2, 16]``
    causal, and four more so that every (hd, ceil(t / 8)) it is built for
    runs (``[9, 16, 3, 8]`` causal, ``[2, 31, 16, 8]``, ``[7, 9, 1, 16]``,
@@ -63,8 +65,9 @@ Phases, each of which fails the script (non-zero exit) on any error:
    ``[2, 128, 4, 16]``, causal and not, and Ulysses' ``[2, 512, 1, 16]``
    causal) and at ``[2, 4096, 8, 64]`` bf16, causal and not, K1 to K4 on
    both routes;
-   at the TabTransformer's shape also the short kernel against the
-   CUDA-core K3 + K4 + ``row_dot``, with its share of its bound;
+   at the TabTransformer's shape also the short forward against the
+   CUDA-core K2 and the short backward against the CUDA-core K3 + K4 +
+   ``row_dot``, each with its share of its bound;
    and sweep both routes of K2, K3 and K4 at ``[4, t, 4, hd]`` causal, hd
    16 and 64, t 32 to 256, where ``T_MIN`` was chosen;
 3. slices: write the README's Quick-start dataset (10^6 rows, 10 files,
@@ -77,9 +80,9 @@ Phases, each of which fails the script (non-zero exit) on any error:
    must deliver every key at most once and exactly the full batches'
    worth, every loss must be finite, and over the path the interaction
    kernel must launch once per DLRM step, all on its tensor-core route,
-   and K2 (CUDA-core route) and the short backward each twice per
-   TabTransformer step (two layers), with no launch of the CUDA-core K3
-   and K4 and none on a tensor-core route. The loader runs its defaults (decode cache,
+   and the short forward and the short backward each twice per
+   TabTransformer step (two layers), with no launch of the CUDA-core K2,
+   K3 and K4 and none on a tensor-core route. The loader runs its defaults (decode cache,
    the schedule policy, packed reducer outputs staged in one copy): each
    epoch must stage at least one batch direct, and each run logs its
    schedules, the resolved ``cache_decoded``, the decoded-size estimate
@@ -534,7 +537,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SLICE_DATA_DIR = os.path.join(ROOT, "build", "smoke_data")
 T_PROCESS = time.perf_counter()  # the script's start, before torch's import and the card's first use
 KERNEL_SOURCES = ("interaction", "flash_fwd", "flash_bwd", "interaction_mma", "flash_fwd_mma",
-                  "flash_bwd_dkv_mma", "flash_bwd_dq_mma", "flash_bwd_short")
+                  "flash_bwd_dkv_mma", "flash_bwd_dq_mma", "flash_fwd_short", "flash_bwd_short")
 CSRC = "ray_shuffling_data_loader_tpu_torch/ops/csrc/"
 JAX_FLASH = "ray_shuffling_data_loader_tpu/ops/flash_attention.py"
 
@@ -588,8 +591,8 @@ FLASH_CASES = (
     ("hd80_ragged", (1, 77, 2, 80), "bfloat16", True),
     ("hd96_ragged", (1, 100, 2, 96), "bfloat16", False),
     ("hd128_ragged", (1, 157, 2, 128), "bfloat16", True),
-    # The backward's short route: t ragged against the 8-query tiles, h
-    # odd; and t past one 16-key tile at hd 16, causal. With the
+    # The short route: t ragged against the 8-query tiles, h odd; and t
+    # past one 16-key tile at hd 16, causal. With the
     # TabTransformer's and below_t_min, every (hd, ceil(t / 8)) the kernel
     # is built for: (8, 1) (8, 2) (8, 3) (8, 4) (16, 1) (16, 2) (16, 3) (16, 4).
     ("short_ragged", (3, 7, 5, 8), "bfloat16", False),
@@ -688,7 +691,7 @@ def bound(nbytes: float, ops: float, rate: float, peak: float):
 
 
 LAUNCH_COUNTED = ("interaction_kernel", "flash_fwd_kernel", "flash_bwd_dkv_kernel",
-                  "flash_bwd_dq_kernel", "flash_bwd_short_kernel")
+                  "flash_bwd_dq_kernel", "flash_fwd_short_kernel", "flash_bwd_short_kernel")
 
 
 def reset_launches(ops) -> None:
@@ -701,8 +704,8 @@ def reset_launches(ops) -> None:
 
 def read_launches(ops) -> dict:
     """Launches per kernel: ``interaction``, ``flash_fwd`` etc. count both
-    routes, ``*_mma`` the tensor-core route alone; ``flash_bwd_short`` has
-    one route."""
+    routes, ``*_mma`` the tensor-core route alone; ``flash_fwd_short`` and
+    ``flash_bwd_short`` have one route."""
     counts = {}
     for name in LAUNCH_COUNTED:
         fn = getattr(ops, name)
@@ -1103,6 +1106,7 @@ def flash_work(shape, elem: int, causal: bool):
     pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
     return {
         "flash_fwd": (3 * tensor + tensor + 2 * row, 4 * pairs * hd),
+        "flash_fwd_short": (3 * tensor + tensor + 2 * row, 4 * pairs * hd),
         "flash_bwd_dkv": (4 * tensor + 3 * row + 2 * tensor, 8 * pairs * hd),
         "flash_bwd_dq": (4 * tensor + 3 * row + tensor, 6 * pairs * hd),
         # q, k, v, dO, out, m, l in; dQ, dK, dV out. S, dP, dV, dK and dQ
@@ -1127,20 +1131,24 @@ def compare(torch, label: str, pairs) -> dict:
 
 def check_flash(torch, ops, case, gen) -> dict:
     """K2, K3 and K4 against the plain versions on every route that takes
-    the case (``errors[route]``); the short backward where it takes the
-    case (``errors["short"]``, from the default forward); then the autograd
-    Function on the default routes (``errors["function"]``).
-    ``errors["route"]`` is K2's default route, ``errors["bwd_route"]`` the
-    backward's."""
+    the case (``errors[route]``); where the short route takes the case, its
+    forward against the plain forward and its backward, fed the short
+    forward's (out, m, l), against the plain backward from them, at the
+    case's causal setting (``errors["short"]``) and the other
+    (``errors["short_flip"]``); then the autograd Function on the default
+    routes (``errors["function"]``). ``errors["route"]`` is K2's route,
+    ``errors["fwd_route"]`` and ``errors["bwd_route"]`` the forward's and
+    the backward's."""
     name, shape, dtype_name, causal = case
     dtype = getattr(torch, dtype_name)
     qkv, dout = flash_inputs(torch, shape, dtype, gen)
     q, k, v = qkv.unbind(2)
     default = ops.flash_route(q, k, v)
+    fwd_route = ops.flash_fwd_route(q, k, v)
     routes = ops.ROUTES if ops.mma_supported(q, k, v) else ("simt",)
     out_r, m_r, l_r = ops.flash_forward_reference(q, k, v, causal)
     tol = FLASH_TOL[dtype_name]
-    errs = {"route": default}
+    errs = {"route": default, "fwd_route": fwd_route}
     for route in routes:
         dq, dk, dv = packed_grads(torch, qkv)
         out, m, l = ops.flash_fwd_kernel(q, k, v, causal, route)
@@ -1155,17 +1163,26 @@ def check_flash(torch, ops, case, gen) -> dict:
         ))
         if route == default:
             default_grads_r, default_fwd = grads_r, (out, m, l)
+    checked = list(routes)
+    if fwd_route == "short":
+        # out, m and l in one kernel; dQ, dK, dV (and D) in one kernel, into
+        # one packed gradient, from the short forward's statistics.
+        for label, c in (("short", causal), ("short_flip", not causal)):
+            want = (out_r, m_r, l_r) if c == causal else ops.flash_forward_reference(q, k, v, c)
+            dq, dk, dv = packed_grads(torch, qkv)
+            out, m, l = ops.flash_fwd_short_kernel(q, k, v, c)
+            ops.flash_bwd_short_kernel(q, k, v, out, dout, m, l, dq, dk, dv, c)
+            torch.cuda.synchronize()
+            grads_r = ops.flash_backward_reference(q, k, v, out, m, l, dout, c)
+            errs[label] = compare(torch, f"{name} ({label}, causal={c})", (
+                ("out", out, want[0], tol["out"]), ("m", m, want[1], STATS_TOL), ("l", l, want[2], STATS_TOL),
+                *((key, got, w, tol["grad"]) for key, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), grads_r)),
+            ))
+            if c == causal:
+                default_grads_r, default_fwd = grads_r, (out, m, l)
+            checked.append(label)
     out, m, l = default_fwd
-    bwd_route = errs["bwd_route"] = ops.flash_bwd_route(q, k, v, out, dout)
-    checked = (*routes, "short") if bwd_route == "short" else routes
-    if bwd_route == "short":
-        # dQ, dK, dV (and D) in one kernel, into one packed gradient.
-        dq, dk, dv = packed_grads(torch, qkv)
-        ops.flash_bwd_short_kernel(q, k, v, out, dout, m, l, dq, dk, dv, causal)
-        torch.cuda.synchronize()
-        errs["short"] = compare(torch, f"{name} (short)", [
-            (key, got, want, tol["grad"]) for key, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), default_grads_r)
-        ])
+    errs["bwd_route"] = ops.flash_bwd_route(q, k, v, out, dout)
     # The Function as the encoder block calls it (the default routes): its
     # packed gradient must hold the same dQ, dK, dV at the right places.
     leaf = qkv.detach().requires_grad_(True)
@@ -1176,8 +1193,8 @@ def check_flash(torch, ops, case, gen) -> dict:
         ("out", fn_out, out_r, tol["out"]),
         ("dqkv", leaf.grad, torch.stack(default_grads_r, dim=2), tol["grad"]),
     ))
-    log(f"[kernel] flash {name} {list(shape)} {dtype_name} causal={causal}, route {default}, backward "
-        f"{bwd_route} (checked: {', '.join(checked)}): max |kernel - plain| "
+    log(f"[kernel] flash {name} {list(shape)} {dtype_name} causal={causal}, route {default}, forward "
+        f"{fwd_route}, backward {errs['bwd_route']} (checked: {', '.join(checked)}): max |kernel - plain| "
         + "; ".join(f"{r}: " + ", ".join(f"{k_} {e!r}" for k_, e in errs[r].items())
                     for r in (*checked, "function"))
         + f" (out {tol['out']}, m/l {STATS_TOL}, grads {tol['grad']})")
@@ -1190,7 +1207,8 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
     ``flash_fwd``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` are the CUDA-core
     route; where the tensor-core route takes the shape, the ``*_mma``
     kernels are timed beside them in the same call; where the short route
-    takes the backward, ``flash_bwd_short`` and ``row_dot`` too."""
+    takes the shape, ``flash_fwd_short``, ``flash_bwd_short`` and
+    ``row_dot`` too."""
     import torch.nn.functional as F
 
     qkv, dout = flash_inputs(torch, shape, torch.bfloat16, gen)
@@ -1208,6 +1226,7 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
         dq_ms[route] = time_ms(torch, ops.flash_bwd_dq_kernel, q, k, v, dout, m, l, big_d, dq,
                                causal, route)
     if short:
+        short_fwd_ms = time_ms(torch, ops.flash_fwd_short_kernel, q, k, v, causal)
         short_ms = time_ms(torch, ops.flash_bwd_short_kernel, q, k, v, out, dout, m, l, dq, dk, dv, causal)
         row_dot_ms = time_ms(torch, ops.row_dot, dout, out)
     reps = 10 if shape[1] > 1024 else 50
@@ -1251,6 +1270,7 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
         times["flash_bwd_dkv_mma"] = (dkv_ms["mma"], plain_bwd_ms, sdpa_bwd_ms)
         times["flash_bwd_dq_mma"] = (dq_ms["mma"], plain_bwd_ms, sdpa_bwd_ms)
     if short:
+        times["flash_fwd_short"] = (short_fwd_ms, plain_fwd_ms, sdpa_fwd_ms)
         times["flash_bwd_short"] = (short_ms, plain_bwd_ms, sdpa_bwd_ms)
     result = {}
     for kname, (ms, plain_ms, lib_ms) in times.items():
@@ -1262,6 +1282,15 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
             f"plain {plain_ms!r} ms, sdpa {lib_ms!r} ms, bound {bound_ms!r} ms by {bound_by} "
             f"({nbytes} B, {nops} ops)")
     if short:
+        # The forward it replaces on this shape: K2 on the CUDA-core route
+        # (timed above in the same call).
+        share = result["flash_fwd_short"]["bound_ms"] / short_fwd_ms
+        result["flash_fwd_short"].update(simt_forward_ms=fwd_ms["simt"], bound_share=share)
+        log(f"[kernel] flash_fwd_short {list(shape)} bf16 causal={causal}: {short_fwd_ms!r} ms against the "
+            f"CUDA-core K2 {fwd_ms['simt']!r} ms ({fwd_ms['simt'] / short_fwd_ms!r}x); {share!r} of its bound")
+        if not short_fwd_ms < fwd_ms["simt"]:
+            raise AssertionError(f"flash_fwd_short {list(shape)}: {short_fwd_ms!r} ms, not faster than the "
+                                 f"CUDA-core K2's {fwd_ms['simt']!r} ms")
         # The backward it replaces on this shape: row_dot, then K3 and K4
         # on the CUDA-core route (timed above in the same call).
         simt_ms = dkv_ms["simt"] + dq_ms["simt"] + row_dot_ms
@@ -1316,11 +1345,15 @@ def phase_flash(torch, rate: float):
                        ("at_t_min", "mma"), ("long", "mma")):
         if errs[name]["route"] != want:
             raise AssertionError(f"flash {name}: route {errs[name]['route']}, want {want}")
+    # Forward and backward take the short route at the same cases: all
+    # eight of its (hd, ceil(t / 8)) builds.
     short_cases = ("tabtransformer", "below_t_min", *(c[0] for c in FLASH_CASES if c[0].startswith("short_")))
     for name, want in (*((c, "short") for c in short_cases), ("causal_lm", "mma"), ("at_t_min", "mma"),
-                       ("unaligned", "simt")):
-        if errs[name]["bwd_route"] != want:
-            raise AssertionError(f"flash {name}: backward route {errs[name]['bwd_route']}, want {want}")
+                       ("long", "mma"), ("unaligned", "simt"), ("ragged", "simt"), ("short", "simt"),
+                       ("max_head_dim", "simt")):
+        for key in ("fwd_route", "bwd_route"):
+            if errs[name][key] != want:
+                raise AssertionError(f"flash {name}: {key} {errs[name][key]}, want {want}")
     timings = {
         "tabtransformer": time_flash(torch, ops, TAB_SHAPE, False, rate, gen),
         "causal_lm": time_flash(torch, ops, LM_SHAPE, True, rate, gen),
@@ -1344,9 +1377,11 @@ def phase_flash(torch, rate: float):
         ("flash_bwd_dkv_mma", 252, max(lm_err["dk"], lm_err["dv"]), "flash_bwd_dkv_mma.cu",
          "causal_lm"),
         ("flash_bwd_dq_mma", 331, lm_err["dq"], "flash_bwd_dq_mma.cu", "causal_lm"),
+        ("flash_fwd_short", 50, max(errs["tabtransformer"]["short"][k] for k in ("out", "m", "l")),
+         "flash_fwd_short.cu", "tabtransformer"),
         # dQ, dK and dV in one kernel: K3's and K4's TPU kernels together.
-        ("flash_bwd_short", (252, 331), max(errs["tabtransformer"]["short"].values()), "flash_bwd_short.cu",
-         "tabtransformer"),
+        ("flash_bwd_short", (252, 331), max(errs["tabtransformer"]["short"][k] for k in ("dq", "dk", "dv")),
+         "flash_bwd_short.cu", "tabtransformer"),
     ):
         t = timings[cell][kname]
         entries.append({
@@ -1795,13 +1830,14 @@ def phase_slices(torch, data_dir: str) -> dict:
         tab = train_slice(torch, port, filenames, num_rows, tab_model, "tabtransformer")
         n = tab["launches"]
         want = 2 * tab["steps"]  # two encoder layers
-        # t = 19, hd = 8, bf16: K2 on its CUDA-core route, the backward on
-        # the short route, none of the CUDA-core K3 and K4.
+        # t = 19, hd = 8, bf16: forward and backward on the short route,
+        # none of the CUDA-core K2, K3 and K4.
         if (n["interaction"] or any(n[k] for k in n if k.endswith("_mma"))
-                or any(n[k] != want for k in ("flash_fwd", "flash_bwd_short"))
-                or n["flash_bwd_dkv"] or n["flash_bwd_dq"]):
-            raise AssertionError(f"tabtransformer: launches {n}, want {want} of flash_fwd and of flash_bwd_short, "
-                                 f"none of flash_bwd_dkv and flash_bwd_dq, none on the tensor-core route")
+                or any(n[k] != want for k in ("flash_fwd_short", "flash_bwd_short"))
+                or n["flash_fwd"] or n["flash_bwd_dkv"] or n["flash_bwd_dq"]):
+            raise AssertionError(f"tabtransformer: launches {n}, want {want} of flash_fwd_short and of "
+                                 f"flash_bwd_short, none of flash_fwd, flash_bwd_dkv and flash_bwd_dq, none on "
+                                 f"the tensor-core route")
         return {"dlrm": dlrm, "tabtransformer": tab, "filenames": filenames}
     finally:
         port.runtime.shutdown()
@@ -4587,7 +4623,7 @@ def phase_ranks(filenames, smi: str, work: str) -> dict:
             n = res["launches"]
             if (n["interaction"]["launches"] != res["steps"] or n["interaction"]["mma_launches"] != res["steps"]
                     or any(n[k]["launches"] for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
-                                                      "flash_bwd_short"))):
+                                                      "flash_fwd_short", "flash_bwd_short"))):
                 raise AssertionError(f"[ranks] {label} rank {res['rank']}: launches {n} in {res['steps']} steps, "
                                      "want one interaction per step, all on the tensor-core route, and no flash")
             if res["sharded"] != want_sharded:
@@ -4943,7 +4979,7 @@ def phase_lm(torch) -> dict:
         raise AssertionError(f"lm: loss did not fall: {losses}")
     want = 2 * steps
     # t = 512, hd = 16, bf16: the tensor-core route only.
-    if launches["interaction"] or launches["flash_bwd_short"] or any(
+    if launches["interaction"] or launches["flash_fwd_short"] or launches["flash_bwd_short"] or any(
         launches[k] != want
         for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_mma", "flash_bwd_dkv_mma",
                   "flash_bwd_dq_mma")
@@ -5560,7 +5596,7 @@ def phase_sp(torch, work: str, smi: str) -> dict:
                 want = {"flash_fwd": 2 * (res["sp_index"] + 1) * steps}
                 want["flash_fwd_mma"] = want["flash_fwd"]
             else:
-                want = {key: 2 * steps for key in n if key != "flash_bwd_short"}
+                want = {key: 2 * steps for key in n if key not in ("flash_fwd_short", "flash_bwd_short")}
             if any(n[key] != want.get(key, 0) for key in n):
                 raise AssertionError(f"[sp] {attention} rank {res['rank']}: launches {n} in {steps} steps, "
                                      f"want {want} (two layers; all on the tensor-core route)")
@@ -5800,14 +5836,17 @@ def main() -> int:
         # Each kernel's launches on the path that runs it: the DLRM's bf16
         # steps (K1's tensor-core route), its fp32 parity forward (K1's
         # CUDA-core route), the CausalLM (the flash kernels' tensor-core
-        # route), the TabTransformer (K2's CUDA-core route and the short
-        # backward) and its fp32 parity backward (K3's and K4's CUDA-core
-        # route); and on the flash kernels' tensor-core route the sp runs'
-        # sums over their ranks (launches_sp_ring, launches_sp_ulysses).
+        # route), the TabTransformer (the short forward and backward), its
+        # fp32 parity forward (K2's CUDA-core route) and backward (K3's and
+        # K4's CUDA-core route); and on the flash kernels' tensor-core route
+        # the sp runs' sums over their ranks (launches_sp_ring,
+        # launches_sp_ulysses).
         for entry in kernels:
             kname = entry["name"]
             if kname.startswith("interaction"):
                 counts = slices["dlrm"]["launches"] if kname.endswith("_mma") else parity["dlrm"][1]
+            elif kname == "flash_fwd":
+                counts = parity["tabtransformer"][1]
             elif kname in ("flash_bwd_dkv", "flash_bwd_dq"):
                 counts = parity["tabtransformer"][2]
             else:

@@ -253,7 +253,7 @@ def run_rank(spec: dict, rank: int, spawned_at: float) -> int:
     mark("step_made")
     for fn in (ops.interaction_kernel, ops.flash_fwd_kernel, ops.flash_bwd_dkv_kernel, ops.flash_bwd_dq_kernel):
         fn.launches = fn.mma_launches = 0
-    ops.flash_bwd_short_kernel.launches = 0
+    ops.flash_fwd_short_kernel.launches = ops.flash_bwd_short_kernel.launches = 0
     losses, step_s, epochs = [], [], []
     last = None  # the last batch trained: what the group steps on once its shard is done
     for epoch in range(spec["epochs"]):
@@ -339,6 +339,7 @@ def run_rank(spec: dict, rank: int, spawned_at: float) -> int:
         for name, fn in (("interaction", ops.interaction_kernel), ("flash_fwd", ops.flash_fwd_kernel),
                          ("flash_bwd_dkv", ops.flash_bwd_dkv_kernel), ("flash_bwd_dq", ops.flash_bwd_dq_kernel))
     }
+    launches["flash_fwd_short"] = {"launches": ops.flash_fwd_short_kernel.launches}  # one route
     launches["flash_bwd_short"] = {"launches": ops.flash_bwd_short_kernel.launches}  # one route
     result = {
         "rank": rank,

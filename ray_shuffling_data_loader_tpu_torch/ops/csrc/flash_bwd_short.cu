@@ -58,20 +58,18 @@
 
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
+#include "flash_short.cuh"
 
 namespace {
 
 using namespace rsdl_flash;
 using namespace rsdl_mma;
+using namespace rsdl_short;
 using bf16 = __nv_bfloat16;
 
-constexpr int kTokens = 32;      // t padded: one warp's tiles, t < 32
-constexpr int kMaxWidth = 128;   // h * hd of the batch rows a block takes whole
 constexpr int kTargetHeads = 4;  // heads per block step: rows = max(1, 4 / h)
-constexpr int kMaxWarps = 4;     // a warp takes every kMaxWarps-th head of a step
 constexpr int kMaxStages = 4;    // block steps of input rows in flight
 constexpr int kSmemCap = 200 * 1024;  // fewer stages where 4 would not fit
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMasked = 1e30f;  // a masked row's m * log2(e): exp2 gives 0
 
 struct Params {
@@ -98,8 +96,6 @@ struct Layout {
   int warp, warp_bytes;     // per warp: q, k, v, dO tiles [32][hd], 3 x 32 statistics
   int total;
 };
-
-__host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
 
 // The stages' mbarriers come first, at offset 0.
 template <int HD>
@@ -138,50 +134,6 @@ __device__ __forceinline__ uint32_t transpose8x8(uint32_t x) {
   uint32_t y;
   asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
   return y;
-}
-
-// 2^x on the special-function unit (relative error about 2^-22); -1e30 gives 0.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void store_bf16x2(bf16* dst, float x0, float x1) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
-}
-
-// mbarriers and 1-D bulk copies (TMA) between global and shared memory.
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, int bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(src), "r"(bytes)
-               : "memory");
 }
 
 // The NQ: query n-tiles of 8, ceil(t / 8); MK: key m-tiles (and query
@@ -555,30 +507,19 @@ __global__ void __launch_bounds__(kMaxWarps * 32) flash_bwd_short_kernel(const P
 
 template <int HD, int NQ>
 int launch(Params p, int sms, cudaStream_t stream) {
-  p.rows = p.h >= kTargetHeads ? 1 : kTargetHeads / p.h;
+  p.rows = step_rows(p.h, kTargetHeads);
   p.chunks = (p.b + p.rows - 1) / p.rows;
-  const int heads = p.rows * p.h;
-  const int warps = heads < kMaxWarps ? heads : kMaxWarps;
+  const int warps = step_warps(p.rows, p.h);
   const int threads = warps * 32;
   p.stages = kMaxStages;
   while (p.stages > 2 && make_layout<HD>(p.rows, p.t, p.h, warps, p.stages).total > kSmemCap) --p.stages;
   const size_t smem = make_layout<HD>(p.rows, p.t, p.h, warps, p.stages).total;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_short_kernel<HD, NQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int per_sm = 0;
-  const cudaError_t err =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_bwd_short_kernel<HD, NQ>, threads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int grid = p.chunks < per_sm * sms ? p.chunks : per_sm * sms;
+  int grid = 0;
+  const int err = persistent_grid(flash_bwd_short_kernel<HD, NQ>, threads, smem, p.chunks, sms, &grid);
+  if (err != 0) return err;
   flash_bwd_short_kernel<HD, NQ><<<grid, threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
-
-bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
 }  // namespace
 

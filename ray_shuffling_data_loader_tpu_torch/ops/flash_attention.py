@@ -11,11 +11,13 @@ call, one rule for all three: ``"mma"``, tensor-core kernels
 ``csrc/flash_bwd_dq_mma.cu``) for bf16 heads of at least :data:`T_MIN`
 tokens and a head dim that is a multiple of 16; ``"simt"``, the CUDA-core
 kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), for everything
-else. The backward has a third route, which :func:`flash_bwd_route` picks
-before the other two: ``"short"``, one tensor-core kernel
-(``csrc/flash_bwd_short.cu``) that computes dQ, dK, dV and D together for
-bf16 heads shorter than :data:`T_MIN` with a head dim of 8 or 16, read
-from one packed projection (the TabTransformer's). On CPU tensors the
+else. Forward and backward each have a third route, which
+:func:`flash_fwd_route` and :func:`flash_bwd_route` pick before the other
+two, for bf16 heads shorter than :data:`T_MIN` with a head dim of 8 or 16,
+read from one packed projection (the TabTransformer's): ``"short"``, one
+tensor-core kernel a direction, ``csrc/flash_fwd_short.cu`` for out, m and
+l, ``csrc/flash_bwd_short.cu`` for dQ, dK, dV and D together (shared
+pieces in ``csrc/flash_short.cuh``). On CPU tensors the
 same :class:`FlashAttention` runs the two plain versions,
 :func:`flash_forward_reference` and :func:`flash_backward_reference`, which
 compute the same quantities densely and hand over the same statistics.
@@ -53,7 +55,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 T_MIN = 32
 ROUTES = ("mma", "simt")
 # The short route: head dims, and the widest h * hd whose batch rows a
-# block of csrc/flash_bwd_short.cu stages whole (kMaxWidth there).
+# block of its kernels stages whole (kMaxWidth of csrc/flash_short.cuh).
 SHORT_HEAD_DIMS = (8, 16)
 SHORT_MAX_WIDTH = 128
 # The key chunk of the RSDL_FLASH_BWD=xla backward: the JAX package's
@@ -178,19 +180,33 @@ def _packed_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
             and k.data_ptr() == q.data_ptr() + step and v.data_ptr() == q.data_ptr() + 2 * step)
 
 
-def short_supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-                    dout: torch.Tensor) -> bool:
-    """Whether the short route takes this backward: bf16 heads of
+def short_fwd_supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the short route takes this forward: bf16 heads of
     ``1 <= t <`` :data:`T_MIN` tokens, hd in :data:`SHORT_HEAD_DIMS`,
     ``h * hd <=`` :data:`SHORT_MAX_WIDTH`; q, k and v the views of one
-    packed ``[b, t, 3, h, hd]`` whose batch rows are contiguous, out and dO
-    ``[b, t, h, hd]`` with contiguous batch rows; 16-byte aligned pointers
-    and batch strides."""
+    packed ``[b, t, 3, h, hd]`` whose batch rows are contiguous, with a
+    16-byte aligned pointer and batch stride."""
     if q.dim() != 4:
         return False
     _, t, h, hd = q.shape
-    return (1 <= t < T_MIN and hd in SHORT_HEAD_DIMS and h * hd <= SHORT_MAX_WIDTH and _packed_qkv(q, k, v)
-            and all(_rows_packed(x, q.shape, h * hd) for x in (out, dout)))
+    return 1 <= t < T_MIN and hd in SHORT_HEAD_DIMS and h * hd <= SHORT_MAX_WIDTH and _packed_qkv(q, k, v)
+
+
+def short_supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                    dout: torch.Tensor) -> bool:
+    """Whether the short route takes this backward: q, k and v as
+    :func:`short_fwd_supported` takes them, out and dO ``[b, t, h, hd]``
+    with contiguous, 16-byte aligned batch rows."""
+    return short_fwd_supported(q, k, v) and all(_rows_packed(x, q.shape, q.shape[2] * q.shape[3])
+                                                for x in (out, dout))
+
+
+def flash_fwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The route of the forward: ``"short"`` where
+    :func:`short_fwd_supported` holds, else K2's :func:`flash_route`."""
+    if short_fwd_supported(q, k, v):
+        return "short"
+    return flash_route(q, k, v)
 
 
 def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
@@ -292,6 +308,41 @@ def flash_fwd_kernel(
     _raise_on(rc, f"flash forward kernel ({route})")
     flash_fwd_kernel.launches += 1
     flash_fwd_kernel.mma_launches += route == "mma"
+    return out, m, l
+
+
+def flash_fwd_short_kernel(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the short route's forward on the current stream: ``(out, m,
+    l)`` as :func:`flash_fwd_kernel` returns them, out contiguous. Tensors
+    :func:`short_fwd_supported` does not take raise ``ValueError``, before
+    the device check. Counts its launches in
+    ``flash_fwd_short_kernel.launches``."""
+    if not short_fwd_supported(q, k, v):
+        shapes = ", ".join(f"{x.dtype} {tuple(x.shape)} {x.stride()}" for x in (q, k, v))
+        raise ValueError(
+            f"flash_fwd_short_kernel: the short route takes bf16 [b, t < {T_MIN}, h, hd] heads, hd in "
+            f"{SHORT_HEAD_DIMS}, h * hd <= {SHORT_MAX_WIDTH}, q, k, v the views of one packed [b, t, 3, h, hd] "
+            f"with contiguous, 16-byte aligned batch rows; got {shapes}"
+        )
+    b, t, h, hd = _check_inputs("flash_fwd_short_kernel", (q, k, v))
+    lib = _build.load("flash_fwd_short")
+    fn = lib.rsdl_flash_fwd_short
+    if fn.argtypes is None:
+        # qkv, out, m, l; qkv's batch stride; b, t, h, hd, causal; the stream
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
+    m = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    with torch.cuda.device(q.device):
+        rc = fn(
+            q.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), q.stride(0), b, t, h, hd, int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _raise_on(rc, "flash short forward kernel")
+    flash_fwd_short_kernel.launches += 1
     return out, m, l
 
 
@@ -448,22 +499,27 @@ def flash_backward(
 
 
 flash_fwd_kernel.launches = flash_fwd_kernel.mma_launches = 0
+flash_fwd_short_kernel.launches = 0
 flash_bwd_dkv_kernel.launches = flash_bwd_dkv_kernel.mma_launches = 0
 flash_bwd_dq_kernel.launches = flash_bwd_dq_kernel.mma_launches = 0
 flash_bwd_short_kernel.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
-    """Attention over a packed ``qkv`` ``[b, t, 3, h, hd]``: K2 forward
-    saving ``(qkv, out, m, l)``; :func:`flash_backward` (the short kernel,
-    or K3 then K4), writing into views of one packed gradient. On CPU
-    tensors, the plain versions of the same."""
+    """Attention over a packed ``qkv`` ``[b, t, 3, h, hd]``: the forward on
+    :func:`flash_fwd_route`'s route (the short kernel, or K2), saving
+    ``(qkv, out, m, l)``; :func:`flash_backward` (the short kernel, or K3
+    then K4), writing into views of one packed gradient. On CPU tensors,
+    the plain versions of the same."""
 
     @staticmethod
     def forward(ctx, qkv, causal: bool):
         q, k, v = qkv.unbind(2)
         if qkv.is_cuda:
-            out, m, l = flash_fwd_kernel(q, k, v, causal)
+            if flash_fwd_route(q, k, v) == "short":
+                out, m, l = flash_fwd_short_kernel(q, k, v, causal)
+            else:
+                out, m, l = flash_fwd_kernel(q, k, v, causal)
         else:
             out, m, l = flash_forward_reference(q, k, v, causal)
         ctx.causal = causal

@@ -3,8 +3,9 @@
 K2 (output and softmax statistics), the plain version of K3 and K4 (the
 gradients from the same statistics), and gradients through the port's
 autograd Function; the choice between the CUDA-core and the tensor-core
-routes of K2, K3 and K4; and the backward's short route (one kernel for
-dQ, dK and dV of short packed bf16 heads), its rule and its refusals."""
+routes of K2, K3 and K4; and the short route of the forward (one kernel
+for out, m and l) and of the backward (one kernel for dQ, dK and dV) of
+short packed bf16 heads, its rules and its refusals."""
 
 import jax
 import jax.numpy as jnp
@@ -33,8 +34,11 @@ from ray_shuffling_data_loader_tpu_torch.ops.flash_attention import (
     flash_bwd_short_kernel,
     flash_forward_reference,
     flash_fwd_kernel,
+    flash_fwd_route,
+    flash_fwd_short_kernel,
     flash_route,
     mma_supported,
+    short_fwd_supported,
     short_supported,
 )
 
@@ -135,6 +139,26 @@ def test_bfloat16_matches_pallas():
     # differ by at most one bfloat16 step; atol is that step at max |out|.
     step = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
     np.testing.assert_allclose(got.float().numpy(), want, rtol=5e-2, atol=step)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(3, 19, 4, 8), (2, 31, 2, 16)], ids=["tabtransformer", "t31_hd16"])
+def test_bfloat16_matches_pallas_at_the_short_shapes(shape, causal):
+    """The plain forward that the short kernel is held to on the card, at
+    the kernel's dtype: out, m and l against the Pallas forward (interpret
+    mode) on the same bf16 inputs."""
+    q, k, v = _qkv(shape, seed=12)
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    want = _flash_forward(jq, jk, jv, causal, 16, 16, interpret=True, return_stats=True)
+    got = flash_forward_reference(*(x.to(torch.bfloat16) for x in _t(q, k, v)), causal)
+    out_want = np.asarray(want[0].astype(jnp.float32))
+    assert got[0].dtype == torch.bfloat16
+    # As test_bfloat16_matches_pallas: one bfloat16 step at max |out|.
+    step = 2.0 ** (np.floor(np.log2(np.abs(out_want).max())) - 7)
+    np.testing.assert_allclose(got[0].float().numpy(), out_want, rtol=5e-2, atol=step)
+    for name, g, w in zip(("m", "l"), got[1:], want[1:]):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5, rtol=0, err_msg=name)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -319,6 +343,47 @@ def test_flash_bwd_route(name, make, want):
         assert flash_route(q, k, v) == "simt"
 
 
+# The forward's route at the same tensors (it reads no out or dO), and q, k
+# and v allocated one by one below T_MIN at hd 16.
+FWD_ROUTE_CASES = [
+    (name, make, {"separate_qkv": "simt", "strided_dout": "short"}.get(name, want))
+    for name, make, want in BWD_ROUTE_CASES
+] + [("separate_qkv_hd16_below_t_min", lambda: _separate(4, T_MIN - 1, 4, 16), "simt")]
+
+
+@pytest.mark.parametrize("name,make,want", FWD_ROUTE_CASES, ids=[c[0] for c in FWD_ROUTE_CASES])
+def test_flash_fwd_route(name, make, want):
+    q, k, v, _, _ = make()
+    assert flash_fwd_route(q, k, v) == want
+    assert short_fwd_supported(q, k, v) == (want == "short")
+    # Outside the short route the forward is K2's route.
+    if want != "short":
+        assert flash_route(q, k, v) == want
+
+
+@pytest.mark.parametrize("name,make", [c[:2] for c in FWD_ROUTE_CASES if c[2] != "short"],
+                         ids=[c[0] for c in FWD_ROUTE_CASES if c[2] != "short"])
+def test_short_forward_refuses_shapes_it_does_not_take(name, make):
+    """A forced short forward on tensors it does not take raises before the
+    device check (the tensors here are on the CPU)."""
+    q, k, v, _, _ = make()
+    with pytest.raises(ValueError, match="short route"):
+        flash_fwd_short_kernel(q, k, v)
+
+
+@pytest.mark.parametrize("name,make", [c[:2] for c in FWD_ROUTE_CASES if c[2] == "short"],
+                         ids=[c[0] for c in FWD_ROUTE_CASES if c[2] == "short"])
+def test_short_forward_takes_its_shapes_and_then_checks_the_device(name, make):
+    """Tensors the short forward takes pass its check and meet the CPU
+    refusal; K2's wrapper knows no short route, so flash_fwd_short_kernel
+    is the one way to force it."""
+    q, k, v, _, _ = make()
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_fwd_short_kernel(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="route must be"):
+        flash_fwd_kernel(q, k, v, route="short")
+
+
 @pytest.mark.parametrize("name,make", [c[:2] for c in BWD_ROUTE_CASES if c[2] != "short"],
                          ids=[c[0] for c in BWD_ROUTE_CASES if c[2] != "short"])
 def test_short_route_refuses_shapes_it_does_not_take(name, make):
@@ -369,8 +434,10 @@ def test_cpu_function_counts_no_launch_at_the_short_shape(causal):
     qkv = torch.from_numpy(rng.standard_normal((3, 19, 3, 4, 8)).astype(np.float32)).to(torch.bfloat16)
     ct = torch.from_numpy(rng.standard_normal((3, 19, 4, 8)).astype(np.float32)).to(torch.bfloat16)
     q, k, v = qkv.unbind(2)
+    assert flash_fwd_route(q, k, v) == "short"
     assert flash_bwd_route(q, k, v, torch.zeros_like(ct), ct) == "short"
-    counters = (flash_fwd_kernel, flash_bwd_dkv_kernel, flash_bwd_dq_kernel, flash_bwd_short_kernel)
+    counters = (flash_fwd_kernel, flash_bwd_dkv_kernel, flash_bwd_dq_kernel, flash_fwd_short_kernel,
+                flash_bwd_short_kernel)
     before = tuple(fn.launches for fn in counters)
     leaf = qkv.clone().requires_grad_(True)
     flash_attention_qkv(leaf, causal).backward(ct)

@@ -321,6 +321,11 @@ def watch_journal():
     while True:
         time.sleep(0.01)
         for path in os.listdir(jdir):
+            if not path.endswith(".ndjson"):
+                # The run's header is written under a hidden .tmp name and
+                # renamed: opening that name can race the rename and kill
+                # this thread, and the victim would then never be killed.
+                continue
             cursors = {}
             with open(os.path.join(jdir, path)) as f:
                 for line in f:

@@ -40,6 +40,7 @@ KINDS = [
     ("flash_fwd_kernel", "flash forward kernel"),
     ("flash_bwd_dkv_kernel", "flash dK/dV kernel"),
     ("flash_bwd_dq_kernel", "flash dQ kernel"),
+    ("flash_fwd_short_kernel", "flash short forward kernel"),
     ("flash_bwd_short_kernel", "flash short backward kernel"),
     ("embedding_backward", "embedding backward"),
     ("embedding_dense", "embedding backward"),
