@@ -6,12 +6,12 @@
 
 Phases, each of which fails the script (non-zero exit) on any error:
 
-1. build: compile the port's CUDA kernels from their nine sources in
+1. build: compile the port's CUDA kernels from their ten sources in
    ``ray_shuffling_data_loader_tpu_torch/ops/csrc/`` (``interaction.cu``,
    ``flash_fwd.cu``, ``flash_bwd.cu``, the tensor-core route's
    ``interaction_mma.cu``, ``flash_fwd_mma.cu``, ``flash_bwd_dkv_mma.cu``,
-   ``flash_bwd_dq_mma.cu`` and the short route's ``flash_fwd_short.cu``
-   and ``flash_bwd_short.cu``;
+   ``flash_bwd_dq_mma.cu``, the short route's ``flash_fwd_short.cu``
+   and ``flash_bwd_short.cu``, and K2's wgmma route ``flash_fwd_wgmma.cu``;
    one ``nvcc`` each, all started together) into
    ``build/kernels/`` and log each kernel's registers and spills;
    lint, beside the build's ``nvcc``: the port's static analysis
@@ -49,8 +49,14 @@ Phases, each of which fails the script (non-zero exit) on any error:
    gradient), the CausalLM's ``[4, 512, 4, 16]`` bf16 causal, ``[2, 4096,
    8, 64]`` bf16 causal and not, ``[1, 300, 2, 8]`` fp32 causal, ``[2, 56,
    2, 8]`` fp32, shapes of every head-dim bucket of both routes (ragged
-   t among them) and one bf16 shape on each side of ``T_MIN``; every case
-   the tensor-core route takes on both routes of K2, K3 and K4; the
+   t among them), one bf16 shape on each side of ``T_MIN`` and of
+   ``T_WGMMA``, the ``[lm]`` phase's short run's ``[4, T_WGMMA // 2, 4,
+   16]`` causal (the path of K2's mma route), and for K2's wgmma route one tile ``[1, 128, 1, 64]`` and
+   t ragged against its 128-row tiles at every head dim it takes
+   (``[2, 200, 2, 16]``, ``[2, 333, 3, 32]``, ``[1, 157, 2, 128]``
+   causal); every case the tensor-core routes take on every route of K2
+   (K3 and K4 on the mma route after the wgmma forward) and on both
+   routes of K3 and K4; the
    short route's forward (out, m and l in one kernel) and backward (dQ,
    dK, dV and D in one kernel, fed the short forward's statistics), causal
    and not, at every case it takes: the TabTransformer's, the bf16 one below ``T_MIN`` (causal,
@@ -64,12 +70,18 @@ Phases, each of which fails the script (non-zero exit) on any error:
    at the resident and the pod phases', logged), at the sp trainer's (a ring hop's
    ``[2, 128, 4, 16]``, causal and not, and Ulysses' ``[2, 512, 1, 16]``
    causal) and at ``[2, 4096, 8, 64]`` bf16, causal and not, K1 to K4 on
-   both routes;
+   every route that takes the shape, K2's wgmma route with its wrapper's
+   host microseconds a call beside the mma route's, and at the short
+   ``[lm]`` run's shape, where K2's mma route runs;
    at the TabTransformer's shape also the short forward against the
    CUDA-core K2 and the short backward against the CUDA-core K3 + K4 +
-   ``row_dot``, each with its share of its bound;
-   and sweep both routes of K2, K3 and K4 at ``[4, t, 4, hd]`` causal, hd
-   16 and 64, t 32 to 256, where ``T_MIN`` was chosen;
+   ``row_dot``, each with its share of its bound; at ``[2, 4096, 8, 64]``
+   the wgmma forward must take at most half the mma forward's time;
+   and sweep K2's three routes and K3's and K4's two at ``[4, t, 4, hd]``
+   causal, hd 16 and 64, t 32 to 2048, where ``T_MIN`` and ``T_WGMMA``
+   were chosen, K2's wgmma and mma routes in ``SWEEP_ROUNDS`` alternating
+   rounds (each one's median and range, and which is faster beyond the
+   other's range);
 3. slices: write the README's Quick-start dataset (10^6 rows, 10 files,
    5 row groups each) and, for each of the full-width
    ``dlrm_for_data_spec()`` and ``transformer_for_data_spec()``, shuffle it
@@ -401,9 +413,13 @@ Phases, each of which fails the script (non-zero exit) on any error:
    hears the materialized dataset and, in ``[slice dlrm]``, the DLRM
    slice; ``process_stats`` writes their CSVs under ``build/stats/``;
 6. lm: 20 Adam (3e-3) steps of ``CausalLM(vocab 64, seq 512, embed 64, 2
-   layers, 4 heads)`` on ``synthetic_tokens(4, 512, 64)``; the loss must
-   fall and each flash kernel launch twice per step, all on the
-   tensor-core route;
+   layers, 4 heads)`` on ``synthetic_tokens(4, 512, 64)``; 10 steps of the
+   same model at the attention bench's width (seq 4096, embed 512, 8
+   heads of 64, 2 layers, batch 2); and 10 at a context of ``T_WGMMA //
+   2`` tokens (batch 4), where K2's rule picks its mma route. In each the
+   loss must fall and each flash kernel launch twice per step, K2 on the
+   route K2's rule picks at the run's shape (wgmma, wgmma, mma), K3 and
+   K4 on the mma route;
 7. sp: sequence parallelism. (a) The ops: one group of 4 ``gloo`` ranks
    on the card (this script with ``--sp-op-rank``) runs ring attention,
    causal and not, and Ulysses, causal, at the CausalLM's global ``[4,
@@ -413,7 +429,8 @@ Phases, each of which fails the script (non-zero exit) on any error:
    on the card and one process's fp32 dense attention on the whole
    sequence; rank ``me`` must launch K2 ``me + 1`` times in a causal ring
    and 4 times in a full one (no K3, K4: the ring's backward is tensor
-   code), and Ulysses one K2, K3 and K4, all on the tensor-core route; at
+   code), and Ulysses one K2, K3 and K4, K2 on the route its rule picks at
+   the hop's (Ulysses') shape, K3 and K4 on the mma route; at
    the long shape the causal ring's peak device bytes must lie below the
    dense op's (q, k, v all-gathered, dense attention on the whole
    sequence); each version's fwd+bwd ms are logged. (b) The slice:
@@ -425,7 +442,8 @@ Phases, each of which fails the script (non-zero exit) on any error:
    ``CausalLM`` on the same weights and tokens, its parameters
    bit-identical on all 8 ranks, and each rank must launch K2 2(s + 1)
    times a step in the ring (sp index s) and K2, K3, K4 twice a step in
-   Ulysses, all on the tensor-core route. Logs each rank's step median,
+   Ulysses, K2 on the route its rule picks at the hop's (Ulysses') shape,
+   K3 and K4 on the mma route. Logs each rank's step median,
    the collectives' share of a step, peak device bytes and start-up;
 8. parity: one batch through each trained module on ``cuda`` (kernels;
    in fp32 the interaction's and K2's CUDA-core routes) and through the
@@ -537,7 +555,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SLICE_DATA_DIR = os.path.join(ROOT, "build", "smoke_data")
 T_PROCESS = time.perf_counter()  # the script's start, before torch's import and the card's first use
 KERNEL_SOURCES = ("interaction", "flash_fwd", "flash_bwd", "interaction_mma", "flash_fwd_mma",
-                  "flash_bwd_dkv_mma", "flash_bwd_dq_mma", "flash_fwd_short", "flash_bwd_short")
+                  "flash_bwd_dkv_mma", "flash_bwd_dq_mma", "flash_fwd_short", "flash_bwd_short",
+                  "flash_fwd_wgmma")
 CSRC = "ray_shuffling_data_loader_tpu_torch/ops/csrc/"
 JAX_FLASH = "ray_shuffling_data_loader_tpu/ops/flash_attention.py"
 
@@ -583,10 +602,15 @@ FLASH_CASES = (
     ("wide_heads", (2, 200, 2, 64), "bfloat16", True),
     ("max_head_dim", (1, 70, 3, 120), "float32", False),
     ("unaligned", (3, 5, 2, 20), "bfloat16", False),
-    # The tensor-core route: the long shape, and head dims of 2 to 8
-    # k-steps (32, 80, 96, 128) with t ragged against the 64-row tiles.
+    # The tensor-core routes: the long shape, and head dims of 2 to 8
+    # k-steps (32, 80, 96, 128) with t ragged against the 64-row tiles;
+    # K2's wgmma route also at one tile, and at hd 16, 32 and 128 (its
+    # 32-, 64- and two 128-byte boxes a row) with t ragged against its
+    # 128-row tiles.
+    ("one_tile", (1, 128, 1, 64), "bfloat16", False),
     ("long", LONG_SHAPE, "bfloat16", False),
     ("long_causal", LONG_SHAPE, "bfloat16", True),
+    ("hd16_ragged", (2, 200, 2, 16), "bfloat16", False),
     ("hd32_ragged", (2, 333, 3, 32), "bfloat16", False),
     ("hd80_ragged", (1, 77, 2, 80), "bfloat16", True),
     ("hd96_ragged", (1, 100, 2, 96), "bfloat16", False),
@@ -602,9 +626,11 @@ FLASH_CASES = (
     ("short_t9_hd16", (7, 9, 1, 16), "bfloat16", False),
     ("short_t5_hd16", (2, 5, 2, 16), "bfloat16", False),
 )
-# The route sweep that chose T_MIN: the CausalLM's batch and heads.
-SWEEP_T = (32, 64, 128, 256)
+# The route sweep that chose T_MIN and T_WGMMA: the CausalLM's batch and
+# heads.
+SWEEP_T = (32, 64, 128, 256, 512, 1024, 2048)
 SWEEP_HD = (16, 64)
+SWEEP_ROUNDS = 7  # K2's wgmma and mma routes, timed in turn at each sweep shape
 # Flash tolerances. fp32: the order of tests/test_flash_attention.py (2e-5
 # forward, 1e-4 gradients): kernel and plain version take the same fp32
 # products and sum them in another order, and the kernel rescales its
@@ -694,26 +720,37 @@ LAUNCH_COUNTED = ("interaction_kernel", "flash_fwd_kernel", "flash_bwd_dkv_kerne
                   "flash_bwd_dq_kernel", "flash_fwd_short_kernel", "flash_bwd_short_kernel")
 
 
+ROUTE_COUNTERS = ("mma", "wgmma")  # a wrapper's <route>_launches
+
+
 def reset_launches(ops) -> None:
     for name in LAUNCH_COUNTED:
         fn = getattr(ops, name)
         fn.launches = 0
-        if hasattr(fn, "mma_launches"):
-            fn.mma_launches = 0
+        for route in ROUTE_COUNTERS:
+            if hasattr(fn, f"{route}_launches"):
+                setattr(fn, f"{route}_launches", 0)
 
 
 def read_launches(ops) -> dict:
-    """Launches per kernel: ``interaction``, ``flash_fwd`` etc. count both
-    routes, ``*_mma`` the tensor-core route alone; ``flash_fwd_short`` and
-    ``flash_bwd_short`` have one route."""
+    """Launches per kernel: ``interaction``, ``flash_fwd`` etc. count every
+    route, ``*_mma`` the mma (tensor-core) route alone, ``flash_fwd_wgmma``
+    K2's wgmma route; ``flash_fwd_short`` and ``flash_bwd_short`` have one
+    route."""
     counts = {}
     for name in LAUNCH_COUNTED:
         fn = getattr(ops, name)
         key = name.removesuffix("_kernel")
         counts[key] = fn.launches
-        if hasattr(fn, "mma_launches"):
-            counts[f"{key}_mma"] = fn.mma_launches
+        for route in ROUTE_COUNTERS:
+            if hasattr(fn, f"{route}_launches"):
+                counts[f"{key}_{route}"] = getattr(fn, f"{route}_launches")
     return counts
+
+
+def fwd_key(route: str) -> str:
+    """The launch count of K2's ``route`` in :func:`read_launches`."""
+    return "flash_fwd" if route == "simt" else f"flash_fwd_{route}"
 
 
 def phase_build():
@@ -1129,32 +1166,60 @@ def compare(torch, label: str, pairs) -> dict:
     return errs
 
 
+def fwd_routes(ops, q, k, v) -> list:
+    """K2's routes that take these tensors."""
+    return [route for route, ok in (("wgmma", ops.wgmma_supported(q, k, v)), ("mma", ops.mma_supported(q, k, v)),
+                                    ("simt", True)) if ok]
+
+
+def k2_route(torch, ops, shape) -> str:
+    """K2's route at a bf16 ``[b, t, h, hd]`` shape, its q, k and v the
+    views of one packed projection on the card."""
+    b, t, h, hd = shape
+    return ops.flash_fwd_kernel_route(*torch.empty((b, t, 3, h, hd), dtype=torch.bfloat16, device="cuda").unbind(2))
+
+
+def host_us(torch, fn, *args, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn(*args)``, the card left to run."""
+    for _ in range(3):
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def check_flash(torch, ops, case, gen) -> dict:
-    """K2, K3 and K4 against the plain versions on every route that takes
-    the case (``errors[route]``); where the short route takes the case, its
+    """K2, K3 and K4 against the plain versions on every route of K2 that
+    takes the case (``errors[route]``; K3 and K4 on that route, on the mma
+    route after the wgmma forward); where the short route takes the case, its
     forward against the plain forward and its backward, fed the short
     forward's (out, m, l), against the plain backward from them, at the
     case's causal setting (``errors["short"]``) and the other
     (``errors["short_flip"]``); then the autograd Function on the default
-    routes (``errors["function"]``). ``errors["route"]`` is K2's route,
-    ``errors["fwd_route"]`` and ``errors["bwd_route"]`` the forward's and
-    the backward's."""
+    routes (``errors["function"]``). ``errors["route"]`` is K2's route
+    (:func:`flash_fwd_kernel_route`), ``errors["fwd_route"]`` and
+    ``errors["bwd_route"]`` the forward's and the backward's."""
     name, shape, dtype_name, causal = case
     dtype = getattr(torch, dtype_name)
     qkv, dout = flash_inputs(torch, shape, dtype, gen)
     q, k, v = qkv.unbind(2)
-    default = ops.flash_route(q, k, v)
+    default = ops.flash_fwd_kernel_route(q, k, v)
     fwd_route = ops.flash_fwd_route(q, k, v)
-    routes = ops.ROUTES if ops.mma_supported(q, k, v) else ("simt",)
+    routes = fwd_routes(ops, q, k, v)
     out_r, m_r, l_r = ops.flash_forward_reference(q, k, v, causal)
     tol = FLASH_TOL[dtype_name]
     errs = {"route": default, "fwd_route": fwd_route}
     for route in routes:
+        bwd = route if route in ops.BWD_ROUTES else "mma"
         dq, dk, dv = packed_grads(torch, qkv)
         out, m, l = ops.flash_fwd_kernel(q, k, v, causal, route)
         big_d = ops.row_dot(dout, out)
-        ops.flash_bwd_dkv_kernel(q, k, v, dout, m, l, big_d, dk, dv, causal, route)
-        ops.flash_bwd_dq_kernel(q, k, v, dout, m, l, big_d, dq, causal, route)
+        ops.flash_bwd_dkv_kernel(q, k, v, dout, m, l, big_d, dk, dv, causal, bwd)
+        ops.flash_bwd_dq_kernel(q, k, v, dout, m, l, big_d, dq, causal, bwd)
         torch.cuda.synchronize()
         grads_r = ops.flash_backward_reference(q, k, v, out, m, l, dout, causal)
         errs[route] = compare(torch, f"{name} ({route})", (
@@ -1205,10 +1270,11 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
     """Each flash kernel, its plain version and the library call, in bf16
     at ``shape``: ``{kernel: {ms, plain_ms, library_ms, bound_ms, ...}}``.
     ``flash_fwd``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` are the CUDA-core
-    route; where the tensor-core route takes the shape, the ``*_mma``
-    kernels are timed beside them in the same call; where the short route
-    takes the shape, ``flash_fwd_short``, ``flash_bwd_short`` and
-    ``row_dot`` too."""
+    route; where the tensor-core routes take the shape, the ``*_mma``
+    kernels and ``flash_fwd_wgmma`` are timed beside them in the same call
+    (the wgmma forward with its wrapper's host microseconds a call beside
+    the mma forward's); where the short route takes the shape,
+    ``flash_fwd_short``, ``flash_bwd_short`` and ``row_dot`` too."""
     import torch.nn.functional as F
 
     qkv, dout = flash_inputs(torch, shape, torch.bfloat16, gen)
@@ -1216,11 +1282,12 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
     dq, dk, dv = packed_grads(torch, qkv)
     out, m, l = ops.flash_fwd_kernel(q, k, v, causal)
     big_d = ops.row_dot(dout, out)
-    routes = ops.ROUTES if ops.mma_supported(q, k, v) else ("simt",)
+    routes = [r for r in fwd_routes(ops, q, k, v) if r in ops.BWD_ROUTES]
     short = ops.short_supported(q, k, v, out, dout)
-    fwd_ms, dkv_ms, dq_ms = {}, {}, {}
+    fwd_ms = {route: time_ms(torch, ops.flash_fwd_kernel, q, k, v, causal, route)
+              for route in fwd_routes(ops, q, k, v)}
+    dkv_ms, dq_ms = {}, {}
     for route in routes:
-        fwd_ms[route] = time_ms(torch, ops.flash_fwd_kernel, q, k, v, causal, route)
         dkv_ms[route] = time_ms(torch, ops.flash_bwd_dkv_kernel, q, k, v, dout, m, l, big_d, dk, dv,
                                 causal, route)
         dq_ms[route] = time_ms(torch, ops.flash_bwd_dq_kernel, q, k, v, dout, m, l, big_d, dq,
@@ -1265,6 +1332,8 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
         "flash_bwd_dkv": (dkv_ms["simt"], plain_bwd_ms, sdpa_bwd_ms),
         "flash_bwd_dq": (dq_ms["simt"], plain_bwd_ms, sdpa_bwd_ms),
     }
+    if "wgmma" in fwd_ms:
+        times["flash_fwd_wgmma"] = (fwd_ms["wgmma"], plain_fwd_ms, sdpa_fwd_ms)
     if "mma" in routes:
         times["flash_fwd_mma"] = (fwd_ms["mma"], plain_fwd_ms, sdpa_fwd_ms)
         times["flash_bwd_dkv_mma"] = (dkv_ms["mma"], plain_bwd_ms, sdpa_bwd_ms)
@@ -1274,13 +1343,23 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
         times["flash_bwd_short"] = (short_ms, plain_bwd_ms, sdpa_bwd_ms)
     result = {}
     for kname, (ms, plain_ms, lib_ms) in times.items():
-        nbytes, nops = work[kname.removesuffix("_mma")]
+        nbytes, nops = work[kname.removesuffix("_mma").removesuffix("_wgmma")]
         bound_ms, bound_by = bound(nbytes, nops, rate, BF16_PEAK)
         result[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                              bound_by=bound_by, bytes=nbytes, ops=nops)
         log(f"[kernel] {kname} {list(shape)} bf16 causal={causal}: kernel {ms!r} ms, "
             f"plain {plain_ms!r} ms, sdpa {lib_ms!r} ms, bound {bound_ms!r} ms by {bound_by} "
             f"({nbytes} B, {nops} ops)")
+    if "wgmma" in fwd_ms:
+        # The forward it replaces on this shape: K2 on the mma route (timed
+        # above in the same call); and the wrappers' host time, which the
+        # wgmma one's tensor maps add to.
+        wg_us, mma_us = (host_us(torch, ops.flash_fwd_kernel, q, k, v, causal, r) for r in ("wgmma", "mma"))
+        result["flash_fwd_wgmma"].update(mma_ms=fwd_ms["mma"], bound_share=result["flash_fwd_wgmma"]["bound_ms"]
+                                         / fwd_ms["wgmma"], host_us=wg_us, mma_host_us=mma_us)
+        log(f"[kernel] flash_fwd_wgmma {list(shape)} bf16 causal={causal}: {fwd_ms['wgmma']!r} ms against the mma "
+            f"K2 {fwd_ms['mma']!r} ms ({fwd_ms['mma'] / fwd_ms['wgmma']!r}x) and SDPA {sdpa_fwd_ms!r} ms; "
+            f"{result['flash_fwd_wgmma']['bound_share']!r} of its bound; host {wg_us!r} us a call (mma {mma_us!r})")
     if short:
         # The forward it replaces on this shape: K2 on the CUDA-core route
         # (timed above in the same call).
@@ -1306,8 +1385,9 @@ def time_flash(torch, ops, shape, causal, rate, gen) -> dict:
 
 
 def route_sweep(torch, ops, gen) -> list:
-    """Both routes of K2, K3 and K4 at ``[4, t, 4, hd]`` bf16 causal (the
-    CausalLM's batch and heads), where ``T_MIN`` was chosen."""
+    """K2's three routes and K3's and K4's two at ``[4, t, 4, hd]`` bf16
+    causal (the CausalLM's batch and heads), where ``T_MIN`` and
+    ``T_WGMMA`` were chosen."""
     rows = []
     for hd in SWEEP_HD:
         for t in SWEEP_T:
@@ -1317,18 +1397,31 @@ def route_sweep(torch, ops, gen) -> list:
             dq, dk, dv = packed_grads(torch, qkv)
             out, m, l = ops.flash_fwd_kernel(q, k, v, True, "simt")
             big_d = ops.row_dot(dout, out)
-            row = {"shape": list(shape)}
-            for route in ops.ROUTES:
-                row[f"fwd_{route}_ms"] = time_ms(torch, ops.flash_fwd_kernel, q, k, v, True, route)
+            row = {"shape": list(shape), "fwd_simt_ms": time_ms(torch, ops.flash_fwd_kernel, q, k, v, True,
+                                                                 "simt")}
+            # K2's tensor-core routes in alternating rounds: T_WGMMA holds
+            # where one is faster than the other's every round.
+            rounds = {"wgmma": [], "mma": []}
+            for i in range(SWEEP_ROUNDS):
+                for route in ("wgmma", "mma") if i % 2 == 0 else ("mma", "wgmma"):
+                    rounds[route].append(time_ms(torch, ops.flash_fwd_kernel, q, k, v, True, route))
+            for route, ms in rounds.items():
+                row[f"fwd_{route}_ms"] = statistics.median(ms)
+                row[f"fwd_{route}_ms_range"] = [min(ms), max(ms)]
+            row["fwd_faster"] = next((a for a, b in (("wgmma", "mma"), ("mma", "wgmma"))
+                                      if max(rounds[a]) < min(rounds[b])), "neither")
+            for route in ops.BWD_ROUTES:
                 row[f"dkv_{route}_ms"] = time_ms(torch, ops.flash_bwd_dkv_kernel, q, k, v, dout, m,
                                                  l, big_d, dk, dv, True, route)
                 row[f"dq_{route}_ms"] = time_ms(torch, ops.flash_bwd_dq_kernel, q, k, v, dout, m,
                                                 l, big_d, dq, True, route)
-            log(f"[kernel] route sweep {shape} bf16 causal: K2 mma {row['fwd_mma_ms']!r} ms, "
-                f"simt {row['fwd_simt_ms']!r} ms; K3 mma {row['dkv_mma_ms']!r} ms, "
+            log(f"[kernel] route sweep {shape} bf16 causal: K2 wgmma {row['fwd_wgmma_ms']!r} ms "
+                f"({row['fwd_wgmma_ms_range']!r}), mma {row['fwd_mma_ms']!r} ms ({row['fwd_mma_ms_range']!r}; "
+                f"median of {SWEEP_ROUNDS} alternating rounds, range), faster beyond the other's range: "
+                f"{row['fwd_faster']}; simt {row['fwd_simt_ms']!r} ms; K3 mma {row['dkv_mma_ms']!r} ms, "
                 f"simt {row['dkv_simt_ms']!r} ms; K4 mma {row['dq_mma_ms']!r} ms, "
-                f"simt {row['dq_simt_ms']!r} ms (T_MIN {ops.T_MIN}: route "
-                f"{ops.flash_route(q, k, v)})")
+                f"simt {row['dq_simt_ms']!r} ms (T_MIN {ops.T_MIN}, T_WGMMA {ops.T_WGMMA}: K2 route "
+                f"{ops.flash_fwd_kernel_route(q, k, v)}, K3 and K4 {ops.flash_route(q, k, v)})")
             rows.append(row)
     return rows
 
@@ -1337,43 +1430,65 @@ def phase_flash(torch, rate: float):
     import ray_shuffling_data_loader_tpu_torch.ops as ops
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    # One bf16 shape on each side of T_MIN.
+    # One bf16 shape on each side of T_MIN and of T_WGMMA; and the short
+    # [lm] run's, the path of K2's mma route.
+    lm_short = lm_shape(ops, "lm_short")
     cases = (*FLASH_CASES, ("below_t_min", (4, ops.T_MIN - 1, 4, 16), "bfloat16", True),
-             ("at_t_min", (4, ops.T_MIN, 4, 16), "bfloat16", True))
+             ("at_t_min", (4, ops.T_MIN, 4, 16), "bfloat16", True),
+             ("below_t_wgmma", (4, ops.T_WGMMA - 1, 4, 16), "bfloat16", True),
+             ("at_t_wgmma", (4, ops.T_WGMMA, 4, 16), "bfloat16", True),
+             ("lm_short", lm_short, "bfloat16", True))
     errs = {case[0]: check_flash(torch, ops, case, gen) for case in cases}
-    for name, want in (("tabtransformer", "simt"), ("causal_lm", "mma"), ("below_t_min", "simt"),
-                       ("at_t_min", "mma"), ("long", "mma")):
+    for name, want in (("tabtransformer", "simt"), ("causal_lm", "wgmma"), ("below_t_min", "simt"),
+                       ("at_t_min", "mma"), ("long", "wgmma"), ("below_t_wgmma", "mma"), ("at_t_wgmma", "wgmma"),
+                       ("lm_short", "mma")):
         if errs[name]["route"] != want:
             raise AssertionError(f"flash {name}: route {errs[name]['route']}, want {want}")
     # Forward and backward take the short route at the same cases: all
-    # eight of its (hd, ceil(t / 8)) builds.
+    # eight of its (hd, ceil(t / 8)) builds. Elsewhere the forward is K2's
+    # route and the backward K3's and K4's.
     short_cases = ("tabtransformer", "below_t_min", *(c[0] for c in FLASH_CASES if c[0].startswith("short_")))
-    for name, want in (*((c, "short") for c in short_cases), ("causal_lm", "mma"), ("at_t_min", "mma"),
-                       ("long", "mma"), ("unaligned", "simt"), ("ragged", "simt"), ("short", "simt"),
-                       ("max_head_dim", "simt")):
-        for key in ("fwd_route", "bwd_route"):
+    for name, fwd_want, bwd_want in (
+        *((c, "short", "short") for c in short_cases), ("causal_lm", "wgmma", "mma"), ("at_t_min", "mma", "mma"),
+        ("long", "wgmma", "mma"), ("below_t_wgmma", "mma", "mma"), ("at_t_wgmma", "wgmma", "mma"),
+        ("lm_short", "mma", "mma"), ("unaligned", "simt", "simt"), ("ragged", "simt", "simt"), ("short", "simt", "simt"),
+        ("max_head_dim", "simt", "simt"),
+    ):
+        for key, want in (("fwd_route", fwd_want), ("bwd_route", bwd_want)):
             if errs[name][key] != want:
                 raise AssertionError(f"flash {name}: {key} {errs[name][key]}, want {want}")
     timings = {
         "tabtransformer": time_flash(torch, ops, TAB_SHAPE, False, rate, gen),
         "causal_lm": time_flash(torch, ops, LM_SHAPE, True, rate, gen),
+        "lm_short": time_flash(torch, ops, lm_short, True, rate, gen),
         "long": time_flash(torch, ops, LONG_SHAPE, False, rate, gen),
         "long_causal": time_flash(torch, ops, LONG_SHAPE, True, rate, gen),
         "sp_ring_hop": time_flash(torch, ops, SP_RING_HOP_SHAPE, False, rate, gen),
         "sp_ring_hop_causal": time_flash(torch, ops, SP_RING_HOP_SHAPE, True, rate, gen),
         "sp_ulysses": time_flash(torch, ops, SP_ULYSSES_SHAPE, True, rate, gen),
     }
+    # The redesign's claim: at the attention bench's shape the wgmma
+    # forward takes at most half the mma forward's time, in the same call.
+    for cell in ("long", "long_causal"):
+        t = timings[cell]["flash_fwd_wgmma"]
+        if not t["ms"] <= 0.5 * t["mma_ms"]:
+            raise AssertionError(f"flash_fwd_wgmma {cell}: {t['ms']!r} ms, more than half the mma forward's "
+                                 f"{t['mma_ms']!r} ms")
     sweep = route_sweep(torch, ops, gen)
     tab_err = errs["tabtransformer"]["simt"]
     lm_err = errs["causal_lm"]["mma"]
+    mma_fwd_err = errs["lm_short"]["mma"]  # K2's mma route runs at the short [lm] run's shape
+    long_err = errs["long_causal"]["wgmma"]
     entries = []
     for kname, line, err, source, cell in (
         ("flash_fwd", 50, max(tab_err["out"], tab_err["m"], tab_err["l"]), "flash_fwd.cu",
          "tabtransformer"),
         ("flash_bwd_dkv", 252, max(tab_err["dk"], tab_err["dv"]), "flash_bwd.cu", "tabtransformer"),
         ("flash_bwd_dq", 331, tab_err["dq"], "flash_bwd.cu", "tabtransformer"),
-        ("flash_fwd_mma", 50, max(lm_err["out"], lm_err["m"], lm_err["l"]), "flash_fwd_mma.cu",
-         "causal_lm"),
+        ("flash_fwd_mma", 50, max(mma_fwd_err["out"], mma_fwd_err["m"], mma_fwd_err["l"]), "flash_fwd_mma.cu",
+         "lm_short"),
+        ("flash_fwd_wgmma", 50, max(long_err["out"], long_err["m"], long_err["l"]), "flash_fwd_wgmma.cu",
+         "long_causal"),
         ("flash_bwd_dkv_mma", 252, max(lm_err["dk"], lm_err["dv"]), "flash_bwd_dkv_mma.cu",
          "causal_lm"),
         ("flash_bwd_dq_mma", 331, lm_err["dq"], "flash_bwd_dq_mma.cu", "causal_lm"),
@@ -1832,7 +1947,7 @@ def phase_slices(torch, data_dir: str) -> dict:
         want = 2 * tab["steps"]  # two encoder layers
         # t = 19, hd = 8, bf16: forward and backward on the short route,
         # none of the CUDA-core K2, K3 and K4.
-        if (n["interaction"] or any(n[k] for k in n if k.endswith("_mma"))
+        if (n["interaction"] or any(n[k] for k in n if k.endswith(("_mma", "_wgmma")))
                 or any(n[k] != want for k in ("flash_fwd_short", "flash_bwd_short"))
                 or n["flash_fwd"] or n["flash_bwd_dkv"] or n["flash_bwd_dq"]):
             raise AssertionError(f"tabtransformer: launches {n}, want {want} of flash_fwd_short and of "
@@ -4956,14 +5071,29 @@ def phase_tools(smi: str, work: str, trial) -> dict:
     return out
 
 
-def phase_lm(torch) -> dict:
-    import ray_shuffling_data_loader_tpu_torch as port
-    import ray_shuffling_data_loader_tpu_torch.ops as ops
+# The lm phase's CausalLM runs: (label, steps, batch, seq, embed, heads).
+# The JAX example's CausalLM; the same model at the attention bench's
+# width (benchmarks/bench_attention.py: hd 64, 4096 tokens); and at a
+# context short of T_WGMMA, where K2's rule keeps the mma forward.
+LM_RUNS = (("lm", 20, 4, 512, 64, 4), ("lm_long", 10, 2, 4096, 512, 8), ("lm_short", 10, 4, None, 64, 4))
 
-    steps = 20
-    model = port.CausalLM(vocab_size=64, max_seq_len=512, embed_dim=64, num_layers=2, num_heads=4)
+
+def lm_shape(ops, label: str) -> tuple:
+    """The attention's ``[b, t, h, hd]`` in the :data:`LM_RUNS` run
+    ``label`` (``lm_short``'s t: ``T_WGMMA // 2``)."""
+    _, _, batch, seq, embed, heads = next(run for run in LM_RUNS if run[0] == label)
+    return batch, seq or ops.T_WGMMA // 2, heads, embed // heads
+
+
+def lm_run(torch, port, ops, label: str, steps: int, batch: int, seq: int, embed: int, heads: int) -> dict:
+    """``steps`` Adam (3e-3) steps of a 2-layer ``CausalLM(vocab 64)`` on
+    ``synthetic_tokens(batch, seq, 64)``. The loss must fall and each flash
+    kernel launch twice a step: K2 on the route its rule picks at the
+    blocks' packed projection, K3 and K4 on the mma route."""
+    model = port.CausalLM(vocab_size=64, max_seq_len=seq, embed_dim=embed, num_layers=2, num_heads=heads)
     opt = port.make_optimizer(model, lr=3e-3)
-    tokens = torch.from_numpy(port.synthetic_tokens(4, 512, 64, seed=0)).to("cuda")
+    tokens = torch.from_numpy(port.synthetic_tokens(batch, seq, 64, seed=0)).to("cuda")
+    route = k2_route(torch, ops, (batch, seq, heads, embed // heads))
     reset_launches(ops)
     losses, step_s = [], []
     for _ in range(steps):
@@ -4976,20 +5106,37 @@ def phase_lm(torch) -> dict:
         step_s.append(time.perf_counter() - t0)
     launches = read_launches(ops)
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"lm: loss did not fall: {losses}")
-    want = 2 * steps
-    # t = 512, hd = 16, bf16: the tensor-core route only.
-    if launches["interaction"] or launches["flash_fwd_short"] or launches["flash_bwd_short"] or any(
-        launches[k] != want
-        for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_mma", "flash_bwd_dkv_mma",
-                  "flash_bwd_dq_mma")
-    ):
-        raise AssertionError(f"lm: launches {launches}, want {want} of each flash kernel, "
-                             f"all on the tensor-core route")
+        raise AssertionError(f"{label}: loss did not fall: {losses}")
+    want = {key: 2 * steps for key in ("flash_fwd", fwd_key(route), "flash_bwd_dkv", "flash_bwd_dkv_mma",
+                                       "flash_bwd_dq", "flash_bwd_dq_mma")}
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        raise AssertionError(f"{label}: launches {launches}, want {want}: K2 on its rule's {route} route, "
+                             f"K3 and K4 on the mma route, two a step each")
     median_ms = statistics.median(step_s[1:]) * 1e3
-    log(f"[lm] {steps} steps, loss {losses[0]!r} -> {losses[-1]!r}; step median {median_ms!r} ms "
-        f"(first {step_s[0] * 1e3!r} ms); launches {launches}")
-    return {"losses": losses, "step_ms_median": median_ms, "launches": launches}
+    log(f"[lm] {label}: {steps} steps at [{batch}, {seq}], embed {embed}, {heads} heads of {embed // heads}; "
+        f"loss {losses[0]!r} -> {losses[-1]!r}; step median {median_ms!r} ms (first {step_s[0] * 1e3!r} ms); "
+        f"K2 route {route}; launches {launches}")
+    del model, opt
+    return {"losses": losses, "step_ms_median": median_ms, "launches": launches, "k2_route": route,
+            "wall_s": sum(step_s)}
+
+
+def phase_lm(torch) -> dict:
+    """The 20-step CausalLM run's results, with ``long`` and ``short`` those
+    of the other two runs of :data:`LM_RUNS`."""
+    import ray_shuffling_data_loader_tpu_torch as port
+    import ray_shuffling_data_loader_tpu_torch.ops as ops
+
+    runs = {}
+    for label, steps, batch, _, embed, heads in LM_RUNS:
+        runs[label] = lm_run(torch, port, ops, label, steps, batch, lm_shape(ops, label)[1], embed, heads)
+    # t = 512 and 4096, hd 16 and 64: the wgmma forward; below T_WGMMA the
+    # mma forward.
+    for label, want in (("lm", "wgmma"), ("lm_long", "wgmma"), ("lm_short", "mma")):
+        if runs[label]["k2_route"] != want:
+            raise AssertionError(f"{label}: K2's rule picks {runs[label]['k2_route']}, want {want}")
+    torch.cuda.empty_cache()
+    return {**runs["lm"], "long": runs["lm_long"], "short": runs["lm_short"]}
 
 
 def phase_parity(torch, label: str, model, batch):
@@ -5485,15 +5632,15 @@ def sp_op_rank(spec: dict, rank: int) -> int:
             plain = _sp_fwd_bwd(torch, make(group, causal=causal, use_flash=False), *local)
             if any(read_launches(ops)[key] != n for key, n in launches.items()):
                 raise AssertionError(f"[sp] rank {rank} {shape_name} {label}: the plain version launched a kernel")
-            if schedule == "ring":
+            if schedule == "ring":  # K2 on each hop's [b, t / world, h, hd] blocks
                 fwd = rank + 1 if causal else world
-                want = {"flash_fwd": fwd, "flash_fwd_mma": fwd}
-            else:
-                want = {f"{kname}{suffix}": 1 for kname in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
-                        for suffix in ("", "_mma")}
+                want = {"flash_fwd": fwd, fwd_key(k2_route(torch, ops, (b, tl, h, hd))): fwd}
+            else:  # K2, K3, K4 on the whole sequence of h / world heads
+                want = {key: 1 for key in ("flash_fwd", fwd_key(k2_route(torch, ops, (b, t, h // world, hd))),
+                                           "flash_bwd_dkv", "flash_bwd_dkv_mma", "flash_bwd_dq", "flash_bwd_dq_mma")}
             if any(launches[key] != want.get(key, 0) for key in launches):
                 raise AssertionError(f"[sp] rank {rank} {shape_name} {label}: launches {launches}, want {want} "
-                                     "(all on the tensor-core route)")
+                                     "(K2 on its rule's route, K3 and K4 on the mma route)")
             if causal not in refs:  # one process's fp32 dense attention on the whole sequence
                 leaves = [x.float().requires_grad_(True) for x in (q, k, v)]
                 ref_out = ops.attention_reference(*leaves, causal=causal)
@@ -5554,6 +5701,7 @@ def phase_sp(torch, work: str, smi: str) -> dict:
     """Sequence parallelism (docstring, phase 7): the ops on 4 ranks, then
     the long-context trainer on 8."""
     import ray_shuffling_data_loader_tpu_torch as port
+    import ray_shuffling_data_loader_tpu_torch.ops as ops
     from ray_shuffling_data_loader_tpu_torch import train_long_context
 
     t_phase = time.perf_counter()
@@ -5583,6 +5731,10 @@ def phase_sp(torch, work: str, smi: str) -> dict:
     with torch.no_grad():
         one_process = port.next_token_loss(model(tokens), tokens).item()
     steps = args.steps
+    # K2's route at a ring hop's blocks and at Ulysses' whole sequence.
+    hd = args.embed_dim // args.heads
+    hop_route = k2_route(torch, ops, (args.batch // args.dp, args.seq_len // args.sp, args.heads, hd))
+    ulysses_route = k2_route(torch, ops, (args.batch // args.dp, args.seq_len, args.heads // args.sp, hd))
     runs = {}
     for i, attention in enumerate(SP_ATTENTIONS):
         first = run["ranks"][0]["runs"][i]
@@ -5594,12 +5746,14 @@ def phase_sp(torch, work: str, smi: str) -> dict:
             n = r["launches"]
             if attention == "ring":
                 want = {"flash_fwd": 2 * (res["sp_index"] + 1) * steps}
-                want["flash_fwd_mma"] = want["flash_fwd"]
+                want[fwd_key(hop_route)] = want["flash_fwd"]
             else:
-                want = {key: 2 * steps for key in n if key not in ("flash_fwd_short", "flash_bwd_short")}
+                want = {key: 2 * steps for key in ("flash_fwd", fwd_key(ulysses_route), "flash_bwd_dkv",
+                                                   "flash_bwd_dkv_mma", "flash_bwd_dq", "flash_bwd_dq_mma")}
             if any(n[key] != want.get(key, 0) for key in n):
                 raise AssertionError(f"[sp] {attention} rank {res['rank']}: launches {n} in {steps} steps, "
-                                     f"want {want} (two layers; all on the tensor-core route)")
+                                     f"want {want} (two layers; K2 on its rule's route, K3 and K4 on the mma "
+                                     "route)")
             log(f"[sp] {attention} rank {res['rank']} (data {res['data_index']}, sp {res['sp_index']}; "
                 f"{res['device']}): step median {r['step_ms_median']!r} ms (first {r['step_ms'][0]!r} ms), "
                 f"collectives {r['comm_share']!r} of a step (median); peak device {r['peak_device_bytes']} B; "
@@ -5835,12 +5989,15 @@ def main() -> int:
         }
         # Each kernel's launches on the path that runs it: the DLRM's bf16
         # steps (K1's tensor-core route), its fp32 parity forward (K1's
-        # CUDA-core route), the CausalLM (the flash kernels' tensor-core
+        # CUDA-core route), the CausalLM (K2's wgmma route, K3's and K4's
+        # mma route), the CausalLM at a context short of T_WGMMA (K2's mma
         # route), the TabTransformer (the short forward and backward), its
         # fp32 parity forward (K2's CUDA-core route) and backward (K3's and
-        # K4's CUDA-core route); and on the flash kernels' tensor-core route
-        # the sp runs' sums over their ranks (launches_sp_ring,
-        # launches_sp_ulysses).
+        # K4's CUDA-core route); on the tensor-core routes the sp runs' sums
+        # over their ranks (launches_sp_ring, launches_sp_ulysses); and K2's
+        # wgmma route in the CausalLM at the attention bench's width
+        # (launches_lm_long).
+        tensor_core = ("_mma", "_wgmma")
         for entry in kernels:
             kname = entry["name"]
             if kname.startswith("interaction"):
@@ -5849,13 +6006,17 @@ def main() -> int:
                 counts = parity["tabtransformer"][1]
             elif kname in ("flash_bwd_dkv", "flash_bwd_dq"):
                 counts = parity["tabtransformer"][2]
+            elif kname == "flash_fwd_mma":
+                counts = lm["short"]["launches"]
             else:
-                counts = (lm if kname.endswith("_mma") else slices["tabtransformer"])["launches"]
-            entry["launches"] = (counts[kname] if kname.endswith("_mma") or f"{kname}_mma" not in counts
-                                 else counts[kname] - counts[f"{kname}_mma"])
-            if kname.startswith("flash") and kname.endswith("_mma"):  # and over the ranks of each sp run
+                counts = (lm if kname.endswith(tensor_core) else slices["tabtransformer"])["launches"]
+            entry["launches"] = (counts[kname] if kname.endswith(tensor_core) or f"{kname}_mma" not in counts
+                                 else counts[kname] - sum(counts.get(kname + r, 0) for r in tensor_core))
+            if kname.startswith("flash") and kname.endswith(tensor_core):  # and over the ranks of each sp run
                 for attention in SP_ATTENTIONS:
                     entry[f"launches_sp_{attention}"] = sp["train"][attention]["launches"][kname]
+            if kname == "flash_fwd_wgmma":
+                entry["launches_lm_long"] = lm["long"]["launches"][kname]
             if kname == "interaction_mma":  # and on every rank of the vocab-sharded run
                 entry["launches_ranks_dp2_mp2"] = sum(
                     res["launches"]["interaction"]["mma_launches"] for res in ranks["dp2_mp2"]["ranks"])

@@ -11,7 +11,12 @@ call, one rule for all three: ``"mma"``, tensor-core kernels
 ``csrc/flash_bwd_dq_mma.cu``) for bf16 heads of at least :data:`T_MIN`
 tokens and a head dim that is a multiple of 16; ``"simt"``, the CUDA-core
 kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), for everything
-else. Forward and backward each have a third route, which
+else. K2 has one more, which :func:`flash_fwd_kernel_route` picks before
+those two: ``"wgmma"``, a warp-specialised kernel on Hopper's warpgroup
+tensor cores fed by TMA (``csrc/flash_fwd_wgmma.cu``, shared pieces in
+``csrc/flash_wgmma.cuh``), for bf16 heads of at least :data:`T_WGMMA`
+tokens and a head dim in :data:`WGMMA_HEAD_DIMS`. Forward and backward
+each have a short route, which
 :func:`flash_fwd_route` and :func:`flash_bwd_route` pick before the other
 two, for bf16 heads shorter than :data:`T_MIN` with a head dim of 8 or 16,
 read from one packed projection (the TabTransformer's): ``"short"``, one
@@ -53,7 +58,18 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # was the faster at every point, t = 32 included (PERF.md), so the
 # crossover lies at or below the sweep's shortest t.
 T_MIN = 32
-ROUTES = ("mma", "simt")
+# The shortest sequence that takes K2's wgmma route: chip_smoke.py's route
+# sweep times K2's three routes at [4, t, 4, hd] causal, hd 16 and 64, t 32
+# to 2048, the wgmma and mma routes in alternating rounds (PERF.md). From
+# t = 128 the wgmma forward was the faster at both head dims (1.4x and 1.5x
+# at 128, 2.6x and 3.1x at 2048). Below, the mma forward was the faster at
+# hd 16 in every call (2-7 %); at hd 64 the wgmma forward was up to 5 %
+# the faster, a cost one threshold for both head dims accepts.
+T_WGMMA = 128
+WGMMA_HEAD_DIMS = (16, 32, 64, 128)
+# K2's routes; K3 and K4 take the last two.
+ROUTES = ("wgmma", "mma", "simt")
+BWD_ROUTES = ROUTES[1:]
 # The short route: head dims, and the widest h * hd whose batch rows a
 # block of its kernels stages whole (kMaxWidth of csrc/flash_short.cuh).
 SHORT_HEAD_DIMS = (8, 16)
@@ -160,6 +176,22 @@ def flash_route(*tensors: torch.Tensor) -> str:
     return "simt"
 
 
+def wgmma_supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether K2's wgmma kernel takes these ``[b, t, h, hd]`` tensors: as
+    :func:`mma_supported` takes them, with ``hd`` in
+    :data:`WGMMA_HEAD_DIMS` (a TMA box row of 32, 64 or 128 bytes, or two
+    of 128)."""
+    return q.dim() == 4 and q.shape[3] in WGMMA_HEAD_DIMS and mma_supported(q, k, v)
+
+
+def flash_fwd_kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """K2's route: ``"wgmma"`` where :func:`wgmma_supported` holds and the
+    sequence has at least :data:`T_WGMMA` tokens, else :func:`flash_route`."""
+    if wgmma_supported(q, k, v) and q.shape[1] >= T_WGMMA:
+        return "wgmma"
+    return flash_route(q, k, v)
+
+
 def _rows_packed(x: torch.Tensor, shape, row_stride: int) -> bool:
     """Whether ``x`` is a bf16 ``[b, t, h, hd]`` of ``shape`` whose token
     rows are ``row_stride`` elements apart and whose (h, hd) are
@@ -203,10 +235,11 @@ def short_supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torc
 
 def flash_fwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The route of the forward: ``"short"`` where
-    :func:`short_fwd_supported` holds, else K2's :func:`flash_route`."""
+    :func:`short_fwd_supported` holds, else K2's
+    :func:`flash_fwd_kernel_route`."""
     if short_fwd_supported(q, k, v):
         return "short"
-    return flash_route(q, k, v)
+    return flash_fwd_kernel_route(q, k, v)
 
 
 def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
@@ -218,13 +251,19 @@ def flash_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torc
     return flash_route(q, k, v, dout)
 
 
-def _pick_route(name: str, route, tensors: Sequence[torch.Tensor]) -> str:
-    """``route`` checked against the tensors, or :func:`flash_route` when
-    it is None."""
+def _pick_route(name: str, route, tensors: Sequence[torch.Tensor], routes=BWD_ROUTES, rule=flash_route) -> str:
+    """``route``, one of the kernel's ``routes``, checked against the
+    tensors, or the kernel's ``rule`` when it is None."""
     if route is None:
-        return flash_route(*tensors)
-    if route not in ROUTES:
-        raise ValueError(f"{name}: route must be None or one of {ROUTES}, got {route!r}")
+        return rule(*tensors)
+    if route not in routes:
+        raise ValueError(f"{name}: route must be None or one of {routes}, got {route!r}")
+    if route == "wgmma" and not wgmma_supported(*tensors):
+        shapes = ", ".join(f"{x.dtype} {tuple(x.shape)}" for x in tensors)
+        raise ValueError(
+            f"{name}: the wgmma route takes bf16 [b, t, h, hd] tensors with hd in {WGMMA_HEAD_DIMS} "
+            f"and 16-byte aligned pointers and strides; got {shapes}"
+        )
     if route == "mma" and not mma_supported(*tensors):
         shapes = ", ".join(f"{x.dtype} {tuple(x.shape)}" for x in tensors)
         raise ValueError(
@@ -287,13 +326,14 @@ def flash_fwd_kernel(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False, route=None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K2 on the current stream: ``(out, m, l)``. ``route`` (None:
-    :func:`flash_route`) picks the kernel; ``"mma"`` on tensors it does not
-    take raises ``ValueError``. Counts its launches in
-    ``flash_fwd_kernel.launches``, those of the tensor-core route also in
-    ``flash_fwd_kernel.mma_launches``."""
-    route = _pick_route("flash_fwd_kernel", route, (q, k, v))
+    :func:`flash_fwd_kernel_route`) picks the kernel; ``"wgmma"`` or
+    ``"mma"`` on tensors it does not take raises ``ValueError``, before the
+    device check. Counts its launches in ``flash_fwd_kernel.launches``,
+    those of the wgmma route also in ``flash_fwd_kernel.wgmma_launches``
+    and those of the mma route in ``flash_fwd_kernel.mma_launches``."""
+    route = _pick_route("flash_fwd_kernel", route, (q, k, v), ROUTES, flash_fwd_kernel_route)
     b, t, h, hd = _check_inputs("flash_fwd_kernel", (q, k, v))
-    name = "flash_fwd_mma" if route == "mma" else "flash_fwd"
+    name = {"wgmma": "flash_fwd_wgmma", "mma": "flash_fwd_mma"}.get(route, "flash_fwd")
     fn = f"rsdl_{name}"
     lib = _library(name, fn, 6)
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
@@ -307,6 +347,7 @@ def flash_fwd_kernel(
         )
     _raise_on(rc, f"flash forward kernel ({route})")
     flash_fwd_kernel.launches += 1
+    flash_fwd_kernel.wgmma_launches += route == "wgmma"
     flash_fwd_kernel.mma_launches += route == "mma"
     return out, m, l
 
@@ -362,7 +403,9 @@ def flash_bwd_dkv_kernel(
     """Launch K3 on the current stream, writing into ``dk`` and ``dv``
     (``[b, t, h, hd]`` in q's dtype, any strides but a contiguous last dim),
     and return them. ``big_d`` is ``rowsum(dout * out)``, float32
-    ``[b, h, t]``. ``route`` as for :func:`flash_fwd_kernel`. Counts its
+    ``[b, h, t]``. ``route`` (None: :func:`flash_route`) picks the kernel,
+    ``"mma"`` or ``"simt"``; ``"mma"`` on tensors it does not take raises
+    ``ValueError``. Counts its
     launches in ``flash_bwd_dkv_kernel.launches`` and those of the
     tensor-core route also in ``flash_bwd_dkv_kernel.mma_launches``."""
     tensors = (q, k, v, dout, dk, dv)
@@ -401,7 +444,7 @@ def flash_bwd_dq_kernel(
 ) -> torch.Tensor:
     """Launch K4 on the current stream, writing into ``dq`` (as ``dk`` of
     :func:`flash_bwd_dkv_kernel`), and return it. ``route`` as for
-    :func:`flash_fwd_kernel`. Counts its launches in
+    :func:`flash_bwd_dkv_kernel`. Counts its launches in
     ``flash_bwd_dq_kernel.launches`` and those of the tensor-core route also
     in ``flash_bwd_dq_kernel.mma_launches``."""
     tensors = (q, k, v, dout, dq)
@@ -498,7 +541,7 @@ def flash_backward(
     return dq, dk, dv
 
 
-flash_fwd_kernel.launches = flash_fwd_kernel.mma_launches = 0
+flash_fwd_kernel.launches = flash_fwd_kernel.wgmma_launches = flash_fwd_kernel.mma_launches = 0
 flash_fwd_short_kernel.launches = 0
 flash_bwd_dkv_kernel.launches = flash_bwd_dkv_kernel.mma_launches = 0
 flash_bwd_dq_kernel.launches = flash_bwd_dq_kernel.mma_launches = 0
@@ -507,7 +550,8 @@ flash_bwd_short_kernel.launches = 0
 
 class FlashAttention(torch.autograd.Function):
     """Attention over a packed ``qkv`` ``[b, t, 3, h, hd]``: the forward on
-    :func:`flash_fwd_route`'s route (the short kernel, or K2), saving
+    :func:`flash_fwd_route`'s route (the short kernel, or K2 on its own
+    route), saving
     ``(qkv, out, m, l)``; :func:`flash_backward` (the short kernel, or K3
     then K4), writing into views of one packed gradient. On CPU tensors,
     the plain versions of the same."""

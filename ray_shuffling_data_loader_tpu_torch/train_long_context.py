@@ -165,6 +165,7 @@ def _launches(ops) -> Dict[str, int]:
         fn = getattr(ops, name)
         counts[name.removesuffix("_kernel")] = fn.launches
         counts[name.removesuffix("_kernel") + "_mma"] = fn.mma_launches
+    counts["flash_fwd_wgmma"] = ops.flash_fwd_kernel.wgmma_launches  # K2's third route
     counts["flash_fwd_short"] = ops.flash_fwd_short_kernel.launches  # one route
     counts["flash_bwd_short"] = ops.flash_bwd_short_kernel.launches  # one route
     return counts
@@ -200,6 +201,7 @@ def _train(spec, mesh, device, kind: str, dtype_name: str, tokens, init_state, m
     world = dist.group.WORLD
     for name in FLASH_KERNELS:
         getattr(ops, name).launches = getattr(ops, name).mma_launches = 0
+    ops.flash_fwd_kernel.wgmma_launches = 0
     ops.flash_fwd_short_kernel.launches = ops.flash_bwd_short_kernel.launches = 0
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)

@@ -3,9 +3,11 @@
 K2 (output and softmax statistics), the plain version of K3 and K4 (the
 gradients from the same statistics), and gradients through the port's
 autograd Function; the choice between the CUDA-core and the tensor-core
-routes of K2, K3 and K4; and the short route of the forward (one kernel
-for out, m and l) and of the backward (one kernel for dQ, dK and dV) of
-short packed bf16 heads, its rules and its refusals."""
+routes of K2, K3 and K4; K2's wgmma route (the long heads' forward on
+Hopper's warpgroup tensor cores), its threshold and its refusals; and the
+short route of the forward (one kernel for out, m and l) and of the
+backward (one kernel for dQ, dK and dV) of short packed bf16 heads, its
+rules and its refusals."""
 
 import jax
 import jax.numpy as jnp
@@ -20,9 +22,13 @@ from ray_shuffling_data_loader_tpu.ops.flash_attention import (
 from ray_shuffling_data_loader_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from ray_shuffling_data_loader_tpu.ops.ring_attention import attention_reference as jax_attention_reference
 from ray_shuffling_data_loader_tpu_torch.ops.flash_attention import (
+    BWD_ROUTES,
     MAX_HEAD_DIM,
     NEG_INF,
+    ROUTES,
     T_MIN,
+    T_WGMMA,
+    WGMMA_HEAD_DIMS,
     attention_reference,
     flash_attention,
     flash_attention_qkv,
@@ -34,12 +40,14 @@ from ray_shuffling_data_loader_tpu_torch.ops.flash_attention import (
     flash_bwd_short_kernel,
     flash_forward_reference,
     flash_fwd_kernel,
+    flash_fwd_kernel_route,
     flash_fwd_route,
     flash_fwd_short_kernel,
     flash_route,
     mma_supported,
     short_fwd_supported,
     short_supported,
+    wgmma_supported,
 )
 
 # The shapes and blocks of tests/test_flash_attention.py's dense check.
@@ -52,6 +60,8 @@ SHAPES = [
     ((1, 200, 2, 64), (128, 128)),
     ((1, 130, 3, 32), (64, 64)),
     ((1, 72, 2, 128), (32, 32)),
+    # K2's wgmma route at hd 16, t ragged against its 128-row tiles.
+    ((2, 200, 2, 16), (128, 128)),
     # Shapes of the backward's short route: the TabTransformer's heads
     # (t 19, hd 8) and the longest short head at hd 16.
     ((3, 19, 4, 8), (16, 16)),
@@ -343,12 +353,24 @@ def test_flash_bwd_route(name, make, want):
         assert flash_route(q, k, v) == "simt"
 
 
-# The forward's route at the same tensors (it reads no out or dO), and q, k
-# and v allocated one by one below T_MIN at hd 16.
+# The forward's route at the same tensors (it reads no out or dO), q, k and
+# v allocated one by one below T_MIN at hd 16; and K2's wgmma route: taken
+# at every head dim it takes from T_WGMMA tokens on, packed or not; below
+# T_WGMMA, at the head dims it refuses (48, 80, 96) and in fp32, K2's mma
+# or CUDA-core route.
 FWD_ROUTE_CASES = [
     (name, make, {"separate_qkv": "simt", "strided_dout": "short"}.get(name, want))
     for name, make, want in BWD_ROUTE_CASES
-] + [("separate_qkv_hd16_below_t_min", lambda: _separate(4, T_MIN - 1, 4, 16), "simt")]
+] + [("separate_qkv_hd16_below_t_min", lambda: _separate(4, T_MIN - 1, 4, 16), "simt")] + [
+    (f"wgmma_hd{hd}", lambda hd=hd: _short_views(2, T_WGMMA, 2, hd), "wgmma") for hd in WGMMA_HEAD_DIMS
+] + [
+    ("wgmma_separate_qkv", lambda: _separate(2, T_WGMMA + 77, 3, 32), "wgmma"),
+    ("causal_lm_packed", lambda: _short_views(4, 512, 4, 16), "wgmma"),
+    ("attention_bench_packed", lambda: _short_views(2, 4096, 8, 64), "wgmma"),
+    ("hd64_below_t_wgmma", lambda: _short_views(2, T_WGMMA - 1, 2, 64), "mma"),
+] + [(f"hd{hd}_refused_by_wgmma", lambda hd=hd: _short_views(2, T_WGMMA, 2, hd), "mma") for hd in (48, 80, 96)] + [
+    ("fp32_at_t_wgmma", lambda: _short_views(2, T_WGMMA, 2, 64, torch.float32), "simt"),
+]
 
 
 @pytest.mark.parametrize("name,make,want", FWD_ROUTE_CASES, ids=[c[0] for c in FWD_ROUTE_CASES])
@@ -356,9 +378,14 @@ def test_flash_fwd_route(name, make, want):
     q, k, v, _, _ = make()
     assert flash_fwd_route(q, k, v) == want
     assert short_fwd_supported(q, k, v) == (want == "short")
-    # Outside the short route the forward is K2's route.
+    # Outside the short route the forward is K2's route, and K3's and K4's
+    # rule stays flash_route's: the wgmma route is K2's alone.
     if want != "short":
-        assert flash_route(q, k, v) == want
+        assert flash_fwd_kernel_route(q, k, v) == want
+        assert flash_route(q, k, v) == ("mma" if want == "wgmma" else want)
+    # The wgmma kernel takes every t; the rule takes it from T_WGMMA on.
+    if want == "wgmma" or name == "hd64_below_t_wgmma":
+        assert wgmma_supported(q, k, v)
 
 
 @pytest.mark.parametrize("name,make", [c[:2] for c in FWD_ROUTE_CASES if c[2] != "short"],
@@ -443,5 +470,88 @@ def test_cpu_function_counts_no_launch_at_the_short_shape(causal):
     flash_attention_qkv(leaf, causal).backward(ct)
     assert tuple(fn.launches for fn in counters) == before
     out, m, l = flash_forward_reference(q, k, v, causal)
+    want = torch.stack(flash_backward_reference(q, k, v, out, m, l, ct, causal), dim=2)
+    assert torch.equal(leaf.grad, want)
+
+
+# Tensors K2's wgmma kernel does not take, whatever t.
+WGMMA_REFUSED = [
+    ("hd48", lambda: _packed((1, T_WGMMA, 2, 48))),
+    ("hd80", lambda: _packed((1, T_WGMMA, 2, 80))),
+    ("hd96", lambda: _packed((1, T_WGMMA, 2, 96))),
+    ("hd8", lambda: _packed((1, T_WGMMA, 2, 8))),
+    ("fp32", lambda: torch.zeros((1, T_WGMMA, 3, 2, 64)).unbind(2)),
+    ("unaligned_pointer", lambda: (_offset_by_one((1, T_WGMMA, 2, 64)),) * 3),
+    ("unaligned_head_stride", lambda: (_odd_head_stride((1, T_WGMMA, 2, 16)),) * 3),
+]
+
+
+@pytest.mark.parametrize("name,make", WGMMA_REFUSED, ids=[c[0] for c in WGMMA_REFUSED])
+def test_wgmma_route_refuses_tensors_it_does_not_take(name, make):
+    """A forced wgmma route on tensors it does not take raises before the
+    device check (the tensors here are on the CPU), and K2's rule passes
+    them to another route."""
+    q, k, v = make()
+    assert not wgmma_supported(q, k, v)
+    assert flash_fwd_kernel_route(q, k, v) != "wgmma"
+    with pytest.raises(ValueError, match="wgmma route"):
+        flash_fwd_kernel(q, k, v, route="wgmma")
+
+
+@pytest.mark.parametrize("hd", WGMMA_HEAD_DIMS)
+def test_wgmma_threshold(hd):
+    """K2's rule takes the wgmma route from T_WGMMA tokens on, the mma route
+    below it; a forced wgmma route below T_WGMMA passes its check (the
+    kernel takes any t) and meets the CPU refusal."""
+    below = _packed((2, T_WGMMA - 1, 2, hd))
+    at = _packed((2, T_WGMMA, 2, hd))
+    assert T_MIN < T_WGMMA
+    assert wgmma_supported(*below) and wgmma_supported(*at)
+    assert flash_fwd_kernel_route(*below) == "mma"
+    assert flash_fwd_kernel_route(*at) == "wgmma"
+    assert flash_fwd_route(*at) == "wgmma"
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_fwd_kernel(*below, route="wgmma")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_fwd_kernel(*at, causal=True)
+
+
+def test_wgmma_is_the_forward_route_alone():
+    """K2 knows three routes, K3 and K4 two: a forced wgmma route on the
+    backward kernels is an unknown route, raised before the device check."""
+    assert ROUTES == ("wgmma", "mma", "simt") and BWD_ROUTES == ("mma", "simt")
+    q, k, v = _packed((1, T_WGMMA, 2, 64))
+    stats = torch.zeros((1, 2, T_WGMMA))
+    with pytest.raises(ValueError, match="route must be"):
+        flash_bwd_dkv_kernel(q, k, v, q, stats, stats, stats, q.clone(), q.clone(), route="wgmma")
+    with pytest.raises(ValueError, match="route must be"):
+        flash_bwd_dq_kernel(q, k, v, q, stats, stats, stats, q.clone(), route="wgmma")
+    # The backward of tensors whose forward takes the wgmma route is K3's
+    # and K4's mma route.
+    out = torch.zeros(q.shape, dtype=q.dtype)
+    assert flash_bwd_route(q, k, v, out, out.clone()) == "mma"
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_cpu_function_counts_no_wgmma_launch(causal):
+    """Packed bf16 heads the wgmma route takes, on the CPU: the Function
+    runs the plain versions, counts no launch on any route, and its output
+    and packed gradient are the plain versions'."""
+    rng = np.random.default_rng(13)
+    shape = (1, T_WGMMA + 3, 2, 16)
+    b, t, h, hd = shape
+    qkv = torch.from_numpy(rng.standard_normal((b, t, 3, h, hd)).astype(np.float32)).to(torch.bfloat16)
+    ct = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    assert flash_fwd_route(q, k, v) == "wgmma"
+    counters = (flash_fwd_kernel, flash_bwd_dkv_kernel, flash_bwd_dq_kernel, flash_fwd_short_kernel,
+                flash_bwd_short_kernel)
+    before = tuple(fn.launches for fn in counters) + (flash_fwd_kernel.wgmma_launches,)
+    leaf = qkv.clone().requires_grad_(True)
+    got = flash_attention_qkv(leaf, causal)
+    got.backward(ct)
+    assert tuple(fn.launches for fn in counters) + (flash_fwd_kernel.wgmma_launches,) == before
+    out, m, l = flash_forward_reference(q, k, v, causal)
+    assert torch.equal(got.detach(), out)
     want = torch.stack(flash_backward_reference(q, k, v, out, m, l, ct, causal), dim=2)
     assert torch.equal(leaf.grad, want)
